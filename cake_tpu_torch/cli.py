@@ -8,9 +8,11 @@ Usage::
       --temperature 0
 
 Runs on the CUDA card; ``--cpu`` runs the plain PyTorch path on the CPU.
-Without a card and without ``--cpu`` it stops with an error. The other
-modes of the JAX command line (serve, gateway, workers, meshes,
-quantization) are absent until their slices of the port land.
+Without a card and without ``--cpu`` it stops with an error.
+``--quantize int8|int4|int4:gN`` quantizes the linears on load (or names
+the tier of a pre-quantized checkpoint); ``--kv-quant int8`` keeps the KV
+cache in int8. The other modes of the JAX command line (serve, gateway,
+workers, meshes) are absent until their slices of the port land.
 """
 
 from __future__ import annotations
@@ -24,6 +26,17 @@ from pathlib import Path
 log = logging.getLogger("cake_tpu_torch.cli")
 
 _DTYPES = {"bf16": "bfloat16", "f32": "float32"}
+
+
+def _quant_spec(s: str) -> str:
+    """argparse validator for --quantize (int8 | int4 | int4:gN)."""
+    from cake_tpu_torch.ops.quant import parse_quant_spec
+
+    try:
+        parse_quant_spec(s)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e))
+    return s
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,6 +62,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-seq", type=int, default=None, dest="max_seq")
     p.add_argument("--dtype", choices=sorted(_DTYPES), default="bf16",
                    help="the CUDA kernels take bf16, so f32 runs with --cpu")
+    p.add_argument("--quantize", type=_quant_spec, default=None,
+                   metavar="{int8,int4,int4:gN}",
+                   help="quantize linear weights on load (per-channel "
+                        "symmetric; int4 is packed two-per-byte; int4:gN "
+                        "uses N-row group-wise scales; the card's kernels "
+                        "take N a multiple of 64)")
+    p.add_argument("--kv-quant", choices=["int8"], default=None,
+                   dest="kv_quant",
+                   help="store the KV cache as int8 + per-slot scales")
     p.add_argument("--decode-block", type=int, default=8,
                    dest="decode_block",
                    help="decode steps per fused block (1 = one step at a "
@@ -106,11 +128,13 @@ def run(args) -> int:
     t0 = time.perf_counter()
     try:
         params = load_llama_params(args.model, config.num_hidden_layers,
-                                   dtype=config.dtype, device=device)
+                                   dtype=config.dtype, device=device,
+                                   quantize=args.quantize)
         gen = LlamaGenerator(config, params, tokenizer=tokenizer,
                              settings=settings, max_seq=args.max_seq,
-                             block_size=args.decode_block, device=device)
-    except NotImplementedError as e:
+                             block_size=args.decode_block, device=device,
+                             kv_quant=args.kv_quant)
+    except (NotImplementedError, ValueError) as e:
         sys.exit(f"error: {e}")
     log.info("model loaded in %.1fs on %s", time.perf_counter() - t0,
              device)

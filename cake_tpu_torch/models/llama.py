@@ -5,8 +5,10 @@ rms_2 -> SwiGLU -> +residual``), final RMSNorm and lm_head.
 
 The parameters keep the JAX package's tree: ``embed [V, hidden]``, the
 per-layer weights stacked under ``layers`` with a leading ``[L]`` axis,
-``norm_f`` and ``lm_head [hidden, V]``; linear weights are ``[in, out]``.
-One numpy tree (:func:`params_from_jax`) therefore feeds both packages.
+``norm_f`` and ``lm_head [hidden, V]``; linear weights are ``[in, out]``,
+plain or quantized (:class:`~cake_tpu_torch.ops.quant.QuantizedLinear`,
+:class:`~cake_tpu_torch.ops.quant.Quantized4Linear`). One numpy tree
+(:func:`params_from_jax`) therefore feeds both packages.
 The functions below mirror the JAX ones; :class:`Llama` is the
 ``nn.Module`` that holds a tree on its device and runs it, in the place of
 the JAX package's ``forward``.
@@ -30,7 +32,15 @@ from cake_tpu_torch.ops.attention import self_attention_block
 from cake_tpu_torch.ops.kvcache import KVCache
 from cake_tpu_torch.ops.mlp import swiglu
 from cake_tpu_torch.ops.norms import rms_norm
-from cake_tpu_torch.ops.quant import dense
+from cake_tpu_torch.ops.quant import (
+    Quantized4Linear,
+    QuantizedLinear,
+    dense,
+    quantize_linear,
+    quantize_linear4,
+    set_layer,
+    stack_like,
+)
 from cake_tpu_torch.ops.rope import rope_slice, rope_tables
 from cake_tpu_torch.utils.device import resolve_device
 
@@ -74,16 +84,42 @@ def init_params(config: LlamaConfig, seed: int = 0, device=None,
     ``seed``, layer by layer straight into ``dtype``: the f32 temporaries
     are one layer's size. Linear weights are ``N(0, 1/fan_in)``, norms are
     ones. The numbers differ from the JAX package's for the same seed."""
+    return _init_params(config, seed, device, dtype, None)
+
+
+def init_params_int8(config: LlamaConfig, seed: int = 0, device=None,
+                     dtype=None) -> Params:
+    """:func:`init_params` with every linear quantized to int8 as it is
+    drawn: each layer's f32 weight is quantized on ``device`` and only its
+    codes and scales are kept, so the peak memory is the quantized bytes
+    plus one layer's temporaries. The same seed draws the same f32 weights
+    as :func:`init_params`."""
+    return _init_params(config, seed, device, dtype, quantize_linear)
+
+
+def init_params_int4(config: LlamaConfig, seed: int = 0, device=None,
+                     dtype=None, group_size: int | None = None) -> Params:
+    """:func:`init_params_int8` at packed int4, per channel or with
+    ``group_size``-row groups along the in axis."""
+    return _init_params(config, seed, device, dtype,
+                        lambda w: quantize_linear4(w, group_size=group_size))
+
+
+def _init_params(config, seed, device, dtype, qfn) -> Params:
     check_family(config)
     dev = resolve_device(device)
     dt = dtype or config.torch_dtype
     L = config.num_hidden_layers
     gen = torch.Generator(device=dev).manual_seed(seed)
 
-    def dense_w(shape, fan_in):
+    def draw(shape, fan_in):
         w = torch.randn(shape, generator=gen, device=dev,
                         dtype=torch.float32)
-        return (w / math.sqrt(fan_in)).to(dt)
+        return w / math.sqrt(fan_in)
+
+    def linear(shape):
+        return draw(shape, shape[0]).to(dt) if qfn is None \
+            else qfn(draw(shape, shape[0]))
 
     layers = {}
     for name, shape_fn in LAYER_SHAPES.items():
@@ -91,17 +127,18 @@ def init_params(config: LlamaConfig, seed: int = 0, device=None,
         if name.endswith("norm"):
             layers[name] = torch.ones((L,) + shape, dtype=dt, device=dev)
             continue
-        stacked = torch.empty((L,) + shape, dtype=dt, device=dev)
-        for i in range(L):
-            stacked[i] = dense_w(shape, shape[0])
+        first = linear(shape)
+        stacked = stack_like(first, L, dev)
+        set_layer(stacked, 0, first)
+        for i in range(1, L):
+            set_layer(stacked, i, linear(shape))
         layers[name] = stacked
     return {
-        "embed": dense_w((config.vocab_size, config.hidden_size),
-                         config.hidden_size),
+        "embed": draw((config.vocab_size, config.hidden_size),
+                      config.hidden_size).to(dt),
         "layers": layers,
         "norm_f": torch.ones(config.hidden_size, dtype=dt, device=dev),
-        "lm_head": dense_w((config.hidden_size, config.vocab_size),
-                           config.hidden_size),
+        "lm_head": linear((config.hidden_size, config.vocab_size)),
     }
 
 
@@ -116,24 +153,31 @@ def _to_torch(a, device) -> torch.Tensor:
 def params_from_jax(tree: Params, device=None) -> Params:
     """The JAX package's params tree, as numpy arrays
     (``jax.tree.map(np.asarray, params)``), as the port's tree on
-    ``device``, layout unchanged."""
+    ``device``, layout unchanged. Quantized linears are recognised by their
+    fields (``q``/``qp`` and ``scale``) and keep their codes and scales."""
     dev = resolve_device(device)
 
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
+        if hasattr(node, "scale") and hasattr(node, "q"):
+            return QuantizedLinear(_to_torch(node.q, dev),
+                                   _to_torch(node.scale, dev))
+        if hasattr(node, "scale") and hasattr(node, "qp"):
+            return Quantized4Linear(_to_torch(node.qp, dev),
+                                    _to_torch(node.scale, dev))
         if not hasattr(node, "shape") or not hasattr(node, "dtype"):
             raise NotImplementedError(
-                f"{type(node).__name__} leaves (quantized linears) are not "
-                "ported yet")
+                f"{type(node).__name__} leaves are not ported")
         return _to_torch(node, dev)
 
     return conv(tree)
 
 
 def unstack_layers(layers: Params) -> list[Params]:
-    """Stacked ``[L, ...]`` weights as one dict of views per layer."""
-    n = next(iter(layers.values())).shape[0]
+    """Stacked ``[L, ...]`` weights (plain or quantized) as one dict of
+    views per layer."""
+    n = len(next(iter(layers.values())))
     return [{k: w[i] for k, w in layers.items()} for i in range(n)]
 
 
@@ -143,11 +187,11 @@ def embed_tokens(params: Params, tokens: torch.Tensor,
     return params["embed"][tokens].to(config.torch_dtype)
 
 
-def block_forward(layer: Params, x: torch.Tensor, k_cache: torch.Tensor,
-                  v_cache: torch.Tensor, cos_t: torch.Tensor,
-                  sin_t: torch.Tensor, pos, config: LlamaConfig
-                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One pre-norm decoder block; writes this layer's cache in place.
+def block_forward(layer: Params, x: torch.Tensor, k_cache, v_cache,
+                  cos_t: torch.Tensor, sin_t: torch.Tensor, pos,
+                  config: LlamaConfig):
+    """One pre-norm decoder block; writes this layer's cache (a tensor or
+    a :class:`~cake_tpu_torch.ops.kvcache.QuantizedKV`) in place.
     ``cos_t/sin_t`` are the RoPE rows of the call's positions
     (:func:`cake_tpu_torch.ops.rope.rope_slice`)."""
     h = rms_norm(x, layer["attn_norm"], config.rms_norm_eps,

@@ -1,5 +1,5 @@
 """GQA causal self-attention (port of ``cake_tpu/ops/attention.py``: ``attend``
-and the single-device, unquantized branch of ``self_attention_block``).
+and the single-device branch of ``self_attention_block``).
 
 The cache is a fixed ``max_seq`` buffer; attention reads it up to the
 causal frontier of each query row. Every prefill (T > 1, one shared
@@ -7,6 +7,13 @@ position) goes to :func:`cake_tpu_torch.ops.flash.flash_attention` and every
 decode step (T == 1) to :func:`~cake_tpu_torch.ops.flash.flash_decode`:
 their CUDA kernels on the card, their plain versions for CPU tensors. There
 is no other route and no crossover dispatch.
+
+Over the int8 cache (:class:`~cake_tpu_torch.ops.kvcache.QuantizedKV`),
+prefill goes to :func:`~cake_tpu_torch.ops.flash.flash_attention_q8`, which
+reads the int8 bytes and folds the scales in. Decode dequantizes the layer's
+buffer with plain tensor ops (about 25 MB a layer a step at S = 4096 for
+Llama-3-8B) and attends with ``flash_decode``: the JAX package leaves this
+to XLA and has no int8 decode kernel.
 """
 
 from __future__ import annotations
@@ -14,40 +21,49 @@ from __future__ import annotations
 import torch
 
 from cake_tpu_torch.ops import kvcache as kv
-from cake_tpu_torch.ops.flash import flash_attention, flash_decode
+from cake_tpu_torch.ops.flash import (
+    flash_attention,
+    flash_attention_q8,
+    flash_decode,
+)
 from cake_tpu_torch.ops.quant import dense, out_features
 from cake_tpu_torch.ops.rope import rotate
 
 
-def attend(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor, pos,
+def attend(q: torch.Tensor, k_all, v_all, pos,
            window: int | None = None) -> torch.Tensor:
-    """Masked GQA attention over a fixed-size KV buffer. Returns
+    """Masked GQA attention over a fixed-size KV buffer (tensors or
+    :class:`~cake_tpu_torch.ops.kvcache.QuantizedKV`). Returns
     ``[B, H, T, D]``. ``pos`` is shared by the rows (int or 0-d tensor) or,
     for one query row, per row (``[B]``)."""
     if q.shape[2] == 1:
-        return flash_decode(q, k_all, v_all, pos, window=window)
+        return flash_decode(q, kv.dequant_kv(k_all, q.dtype),
+                            kv.dequant_kv(v_all, q.dtype), pos, window=window)
     if isinstance(pos, torch.Tensor) and pos.dim() > 0:
         raise NotImplementedError(
             "per-row positions with T > 1 (the serving engine's chunked "
             "prefill) are not ported yet")
+    if isinstance(k_all, kv.QuantizedKV):
+        return flash_attention_q8(q, k_all.q, k_all.scale, v_all.q,
+                                  v_all.scale, int(pos), window=window)
     return flash_attention(q, k_all, v_all, int(pos), window=window)
 
 
 def self_attention_block(
     x: torch.Tensor,  # [B, T, hidden]
-    wq: torch.Tensor,  # [hidden, n_heads * D]
-    wk: torch.Tensor,  # [hidden, kv_heads * D]
-    wv: torch.Tensor,  # [hidden, kv_heads * D]
-    wo: torch.Tensor,  # [n_heads * D, hidden]
-    k_cache: torch.Tensor,  # [B, kv_heads, S, D]
-    v_cache: torch.Tensor,
+    wq,  # [hidden, n_heads * D], plain or quantized
+    wk,  # [hidden, kv_heads * D]
+    wv,  # [hidden, kv_heads * D]
+    wo,  # [n_heads * D, hidden]
+    k_cache,  # [B, kv_heads, S, D], a tensor or a QuantizedKV
+    v_cache,
     cos_t: torch.Tensor,
     sin_t: torch.Tensor,
     pos,
     num_heads: int,
     num_kv_heads: int,
     window: int | None = None,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+):
     """One attention sublayer including the cache write (in place).
 
     ``cos_t/sin_t`` are the RoPE table rows of this call's positions

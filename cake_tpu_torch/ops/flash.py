@@ -1,18 +1,23 @@
 """Flash attention on the card, and the plain versions beside it (port of
-``cake_tpu/ops/pallas/flash.py``: ``flash_attention`` and ``flash_decode``).
+``cake_tpu/ops/pallas/flash.py``: ``flash_attention``, ``flash_attention_q8``
+and ``flash_decode``).
 
-:func:`flash_attention` (prefill) and :func:`flash_decode` (one query row)
-launch the hand-written CUDA kernels of ``cake_tpu_torch/csrc/`` for a
-tensor on the card and raise for anything those kernels do not take. For a
-tensor on the CPU, and only there, they compute the same function with the
-plain versions :func:`flash_attention_ref` and :func:`flash_decode_ref`,
-which the CPU tests hold against the JAX package and ``chip_smoke.py``
-holds the kernels against on the card.
+:func:`flash_attention` (prefill), :func:`flash_attention_q8` (prefill over
+the int8 KV cache) and :func:`flash_decode` (one query row) launch the
+hand-written CUDA kernels of ``cake_tpu_torch/csrc/`` for a tensor on the
+card and raise for anything those kernels do not take. For a tensor on the
+CPU, and only there, they compute the same function with the plain
+versions :func:`flash_attention_ref`, :func:`flash_attention_q8_ref` and
+:func:`flash_decode_ref`, which the CPU tests hold against the JAX package
+and ``chip_smoke.py`` holds the kernels against on the card.
 
 Numerics of both the kernels and the plain versions: f32 scores times
 ``1/sqrt(D)``, masked entries set to ``-1e30``, the softmax kept in f32,
 probabilities rounded to V's dtype before the PV product, output in q's
-dtype. Query head ``h`` reads kv head ``h // (H / KVH)``.
+dtype. Query head ``h`` reads kv head ``h // (H / KVH)``. Over the int8
+cache the kernel folds the key scales into the score columns and the value
+scales into P before its rounding; the plain version dequantizes the live
+keys in f32 instead (the same values: code times scale, unrounded).
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import math
 import torch
 
 from cake_tpu_torch.ops.kernels import build
+from cake_tpu_torch.utils.device import sm_count
 
 NEG_INF = -1e30
 # Tile sizes of the CUDA kernels (checked against the built library when it
@@ -88,6 +94,27 @@ def flash_attention_ref(q: torch.Tensor, k_all: torch.Tensor,
                             torch.arange(lo, hi, device=dev), window)
 
 
+def flash_attention_q8_ref(q: torch.Tensor, k_q: torch.Tensor,
+                           k_scale: torch.Tensor, v_q: torch.Tensor,
+                           v_scale: torch.Tensor, pos: int,
+                           window: int | None = None) -> torch.Tensor:
+    """Plain version of :func:`flash_attention_q8`: dequantizes the live
+    block range of the int8 cache in f32 and attends as
+    :func:`flash_attention_ref` does."""
+    t, s = q.shape[2], k_q.shape[2]
+    pos = int(pos)
+    lo_kb, hi_kb = kv_block_bounds(pos, 0, t, BLOCK_K, window)
+    lo, hi = lo_kb * BLOCK_K, min((hi_kb + 1) * BLOCK_K, s)
+
+    def deq(x, scale):
+        return x[:, :, lo:hi].float() * scale[:, :, lo:hi, None]
+
+    dev = q.device
+    qpos = (pos + torch.arange(t, device=dev))[None]
+    return _plain_attention(q, deq(k_q, k_scale), deq(v_q, v_scale), qpos,
+                            torch.arange(lo, hi, device=dev), window)
+
+
 def flash_decode_ref(q: torch.Tensor, k_all: torch.Tensor,
                      v_all: torch.Tensor, pos,
                      window: int | None = None) -> torch.Tensor:
@@ -120,25 +147,39 @@ def _row_positions(pos, b: int, device) -> torch.Tensor:
         b).contiguous()
 
 
-def _check_operands(name: str, q, k_all, v_all) -> None:
-    """What the CUDA kernels take; raises on anything else."""
-    for t in (q, k_all, v_all):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the CUDA kernel takes bfloat16, got "
-                            f"{t.dtype}")
-    if q.dim() != 4 or k_all.dim() != 4 or k_all.shape != v_all.shape:
-        raise ValueError(f"{name}: want q [B, H, T, D] and k/v "
-                         f"[B, KVH, S, D], got {tuple(q.shape)}, "
-                         f"{tuple(k_all.shape)}, {tuple(v_all.shape)}")
+def _check_operands(name: str, q, k_all, v_all, groups=None,
+                    scales=()) -> None:
+    """What the CUDA kernels take; raises on anything else. ``groups``: the
+    GQA group sizes built (any if None). ``scales``: the f32 per-token
+    scales ``[B, KVH, S]`` of an int8 ``k_all``/``v_all``."""
+    kv_dtype = torch.int8 if scales else torch.bfloat16
+    if (q.dtype != torch.bfloat16 or k_all.dtype != kv_dtype
+            or v_all.dtype != kv_dtype
+            or any(t.dtype != torch.float32 for t in scales)):
+        raise TypeError(
+            f"{name}: the CUDA kernel takes bfloat16 q and {kv_dtype} k/v"
+            f"{' with float32 scales' if scales else ''}, got {q.dtype}, "
+            f"{k_all.dtype}, {v_all.dtype}, "
+            f"{[t.dtype for t in scales]}")
+    if (q.dim() != 4 or k_all.dim() != 4 or k_all.shape != v_all.shape
+            or any(t.shape != k_all.shape[:3] for t in scales)):
+        raise ValueError(f"{name}: want q [B, H, T, D], k/v [B, KVH, S, D] "
+                         f"(and scales [B, KVH, S]), got {tuple(q.shape)}, "
+                         f"{tuple(k_all.shape)}, {tuple(v_all.shape)}, "
+                         f"{[tuple(t.shape) for t in scales]}")
     b, h, _, d = q.shape
     kb, kvh, _, kd = k_all.shape
     if kb != b or kd != d or h % kvh:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not fit k/v "
                          f"{tuple(k_all.shape)}")
+    if groups and h // kvh not in groups:
+        raise ValueError(f"{name}: GQA group {h // kvh} is not built "
+                         f"{groups}")
     if d not in (64, 128):
         raise ValueError(f"{name}: head_dim {d} is not built (64 or 128)")
-    if not (k_all.is_contiguous() and v_all.is_contiguous()):
-        raise ValueError(f"{name}: k and v must be contiguous")
+    if not all(t.is_contiguous() for t in (k_all, v_all, *scales)):
+        raise ValueError(f"{name}: k and v (and their scales) must be "
+                         "contiguous")
     # rows are read as 16-byte vectors
     if (q.stride(3) != 1 or any(st % 8 for st in q.stride()[:3])
             or q.data_ptr() % 16 or k_all.data_ptr() % 16
@@ -146,7 +187,7 @@ def _check_operands(name: str, q, k_all, v_all) -> None:
         raise ValueError(f"{name}: q rows must be contiguous and 16-byte "
                          "aligned")
     if q.device.type != "cuda" or any(t.device != q.device
-                                      for t in (k_all, v_all)):
+                                      for t in (k_all, v_all, *scales)):
         raise ValueError(f"{name}: q, k and v must lie on one CUDA device "
                          f"(got {q.device}, {k_all.device}, {v_all.device}); "
                          "the CPU runs the plain version")
@@ -170,21 +211,14 @@ _VP, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 
 @functools.cache
 def _entry(name: str, argtypes: tuple):
-    lib = build.library(name)
-    for sym, want in (("block_k", BLOCK_K), ("block_q", BLOCK_Q)):
-        fn = getattr(lib, f"{name}_{sym}", None)  # decode has no block_q
-        if fn is not None:
-            fn.restype = _I
-            if fn() != want:
-                raise RuntimeError(f"{name}: the library's {sym} {fn()} "
-                                   f"differs from the wrapper's {want}")
-    fn = getattr(lib, f"{name}_bf16")
-    fn.argtypes = list(argtypes)
-    fn.restype = _I
-    return lib, fn
+    consts = {"block_k": BLOCK_K}
+    if name != "flash_decode":  # decode has one query row, no q tile
+        consts["block_q"] = BLOCK_Q
+    return build.entry(name, argtypes, consts)
 
 
 _PREFILL_ARGS = (_VP,) * 6 + (_I,) * 6 + (_LL,) * 6 + (_I, _I, _F, _VP)
+_PREFILL_Q8_ARGS = (_VP,) * 8 + (_I,) * 6 + (_LL,) * 6 + (_I, _I, _F, _VP)
 _DECODE_ARGS = (_VP,) * 9 + (_I,) * 6 + (_LL,) * 4 + (_I, _F, _VP)
 
 
@@ -222,15 +256,44 @@ def flash_attention(q: torch.Tensor, k_all: torch.Tensor,
     return out
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def flash_attention_q8(q: torch.Tensor, k_q: torch.Tensor,
+                       k_scale: torch.Tensor, v_q: torch.Tensor,
+                       v_scale: torch.Tensor, pos: int, *,
+                       window: int | None = None) -> torch.Tensor:
+    """Causal flash attention of ``q [B, H, T, D]`` (roped, at offset
+    ``pos``) over the int8 cache ``k_q/v_q [B, KVH, S, D]`` with per-token
+    scales ``k_scale/v_scale [B, KVH, S]``. Returns ``[B, H, T, D]``. Only
+    the live KV tiles are read, as in :func:`flash_attention`."""
+    if q.device.type == "cpu":
+        return flash_attention_q8_ref(q, k_q, k_scale, v_q, v_scale, pos,
+                                      window=window)
+    _check_operands("flash_attention_q8", q, k_q, v_q,
+                    scales=(k_scale, v_scale))
+    b, h, t, d = q.shape
+    kvh, s = k_q.shape[1], k_q.shape[2]
+    pos = int(pos)
+    if pos < 0 or pos + t > s:
+        raise ValueError(f"flash_attention_q8: rows {pos}..{pos + t} run "
+                         f"past the KV buffer ({s})")
+    qb = torch.arange(-(-t // BLOCK_Q), dtype=torch.int32, device=q.device)
+    kb_lo, kb_hi = kv_block_bounds(pos, qb, BLOCK_Q, BLOCK_K, window)
+    out = _bthd_output(q)
+    lib, fn = _entry("flash_prefill_q8", _PREFILL_Q8_ARGS)
+    err = fn(q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(),
+             v_q.data_ptr(), v_scale.data_ptr(), out.data_ptr(), _ptr(kb_lo),
+             kb_hi.data_ptr(), b, h, kvh, t, s, d, *q.stride()[:3],
+             *out.stride()[:3], pos, -1 if window is None else window,
+             _LOG2E / math.sqrt(d),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, lib, "flash_prefill_q8")
+    build.count_launch("flash_prefill_q8")
+    return out
 
 
 def num_splits(b: int, kvh: int, s: int, device) -> int:
     """KV splits of :func:`flash_decode`: enough CTAs for about two per SM
     on the card, never more splits than KV tiles."""
-    want = -(-2 * _sm_count(torch.device(device).index or 0) // (b * kvh))
+    want = -(-2 * sm_count(device) // (b * kvh))
     return max(1, min(-(-s // BLOCK_K), want))
 
 
@@ -245,14 +308,11 @@ def flash_decode(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
     before each row's frontier (and inside its window) are read."""
     if q.device.type == "cpu":
         return flash_decode_ref(q, k_all, v_all, pos, window=window)
-    _check_operands("flash_decode", q, k_all, v_all)
+    _check_operands("flash_decode", q, k_all, v_all, groups=(1, 2, 4, 8))
     b, h, t, d = q.shape
     kvh, s = k_all.shape[1], k_all.shape[2]
     if t != 1:
         raise ValueError(f"flash_decode takes one query row, got T={t}")
-    if h // kvh not in (1, 2, 4, 8):
-        raise ValueError(f"flash_decode: GQA group {h // kvh} is not built "
-                         "(1, 2, 4 or 8)")
     pos_t = _row_positions(pos, b, q.device)
     kb_lo, kb_hi = kv_block_bounds(pos_t, 0, 1, BLOCK_K, window)
     nsplit = num_splits(b, kvh, s, q.device)

@@ -34,6 +34,9 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = {
     "flash_prefill": "flash_prefill.cu",
     "flash_decode": "flash_decode.cu",
+    "flash_prefill_q8": "flash_prefill_q8.cu",
+    "quant_matmul": "quant_matmul.cu",
+    "quant4_matmul": "quant4_matmul.cu",
 }
 
 NVCC_FLAGS = (
@@ -128,6 +131,24 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _LIBS[name] = lib
         return lib
+
+
+def entry(name: str, argtypes, consts: dict[str, int]):
+    """``(lib, fn)``: the library of kernel ``name`` and its C entry
+    ``{name}_bf16`` with ``argtypes`` set. Each ``consts`` item is a tile
+    size the wrapper computes with; the library's ``{name}_{key}()`` must
+    return the same value, or this raises."""
+    lib = library(name)
+    for key, want in consts.items():
+        fn = getattr(lib, f"{name}_{key}")
+        fn.restype = ctypes.c_int
+        if fn() != want:
+            raise RuntimeError(f"{name}: the library's {key} {fn()} differs "
+                               f"from the wrapper's {want}")
+    fn = getattr(lib, f"{name}_bf16")
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return lib, fn
 
 
 def check(err: int, lib: ctypes.CDLL, name: str) -> None:

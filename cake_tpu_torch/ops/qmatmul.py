@@ -1,0 +1,159 @@
+"""Quantized-weight matmuls on the card (port of
+``cake_tpu/ops/pallas/quant.py``: ``quant_matmul_pallas`` and
+``quant4_matmul_pallas``).
+
+:func:`quant_matmul` (int8) and :func:`quant4_matmul` (packed int4, per
+channel or grouped) launch the hand-written CUDA kernels
+``csrc/quant_matmul.cu`` and ``csrc/quant4_matmul.cu`` for tensors on the
+card, and raise for anything those kernels do not take. For tensors on the
+CPU, and only there, they compute the same function with the plain versions
+:func:`~cake_tpu_torch.ops.quant.quant_matmul_ref` and
+:func:`~cake_tpu_torch.ops.quant.quant4_matmul_ref`.
+
+What the kernels take: ``x [..., K]`` bf16 (leading axes are flattened to
+M rows, which must then be contiguous), the weight ``[K, N]`` int8 or
+``[K/2, N]`` packed int4, contiguous, with K a multiple of the 64-row K
+tile and N a multiple of 16; f32 scales ``[N]``, or ``[K/g, N]`` for int4
+with g a multiple of 64. Every pointer is 16-byte aligned, all on one card.
+
+Work split: a CTA computes a ``BLOCK_M x 128`` output tile over a range of
+K tiles; ``BLOCK_M`` is 16 for M <= 16 (decode, the head) and 64 above.
+When the output tiles alone would leave the card's SMs short of work (M = 1
+on wk/wv gives 8 CTAs for 132 SMs), K is split over CTAs: each writes an
+f32 partial and a second kernel sums them in a fixed order, so a greedy
+stream never changes from run to run.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from cake_tpu_torch.ops import quant
+from cake_tpu_torch.ops.kernels import build
+from cake_tpu_torch.utils.device import sm_count
+
+# Tile sizes of the CUDA kernels (checked against the built libraries).
+BLOCK_K = 64
+BLOCK_N = 128
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+_ARGS = {
+    # x, w, scale, y, part, M, N, K, block_m, splits, k tiles a split, stream
+    "quant_matmul": (_VP,) * 5 + (_I,) * 6 + (_VP,),
+    # the same with the group size (0: per channel) after K
+    "quant4_matmul": (_VP,) * 5 + (_I,) * 7 + (_VP,),
+}
+
+
+@functools.cache
+def _entry(name: str):
+    return build.entry(name, _ARGS[name],
+                       {"block_k": BLOCK_K, "block_n": BLOCK_N})
+
+
+def block_m(m: int) -> int:
+    return 16 if m <= 16 else 64
+
+
+def split_k(m: int, n: int, k: int, device) -> tuple[int, int]:
+    """``(splits, k tiles a split)``: enough CTAs for about four per SM,
+    never more splits than K tiles."""
+    tiles = -(-m // block_m(m)) * -(-n // BLOCK_N)
+    k_tiles = k // BLOCK_K
+    want = -(-4 * sm_count(device) // tiles)
+    per = -(-k_tiles // max(1, min(k_tiles, want)))
+    return -(-k_tiles // per), per
+
+
+def _check(name: str, x, w, scale, k: int, n: int) -> torch.Tensor:
+    """What the kernels take; raises on anything else. Returns ``x`` as
+    ``[M, K]``."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the CUDA kernel takes bfloat16 "
+                        f"activations, got {x.dtype}")
+    if w.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"{name}: want int8 weights and float32 scales, got "
+                        f"{w.dtype} and {scale.dtype}")
+    if x.shape[-1] != k:
+        raise ValueError(f"{name}: x {tuple(x.shape)} does not fit the "
+                         f"weight's in-dim {k}")
+    if k % BLOCK_K or n % 16:
+        raise ValueError(f"{name}: in-dim {k} must be a multiple of "
+                         f"{BLOCK_K} and out-dim {n} of 16")
+    x2 = x.reshape(-1, k)
+    if not (x2.is_contiguous() and w.is_contiguous()
+            and scale.is_contiguous()):
+        raise ValueError(f"{name}: x rows, the weight and the scales must be "
+                         "contiguous")
+    if x2.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError(f"{name}: x and the weight must be 16-byte aligned")
+    if x.device.type != "cuda" or any(t.device != x.device
+                                      for t in (w, scale)):
+        raise ValueError(f"{name}: x, the weight and the scales must lie on "
+                         f"one CUDA device (got {x.device}, {w.device}, "
+                         f"{scale.device}); the CPU runs the plain version")
+    return x2
+
+
+def _launch(name: str, x2, w, scale, n: int, extra: tuple) -> torch.Tensor:
+    m, k = x2.shape
+    y = torch.empty(m, n, dtype=torch.bfloat16, device=x2.device)
+    if m == 0:
+        return y
+    splits, per = split_k(m, n, k, x2.device)
+    part = (torch.empty(splits * m * n, dtype=torch.float32,
+                        device=x2.device) if splits > 1 else None)
+    lib, fn = _entry(name)
+    err = fn(x2.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(),
+             None if part is None else part.data_ptr(), m, n, k, *extra,
+             block_m(m), splits, per,
+             torch.cuda.current_stream(x2.device).cuda_stream)
+    build.check(err, lib, name)
+    build.count_launch(name)
+    return y
+
+
+def quant_matmul(x: torch.Tensor, q: torch.Tensor,
+                 scale: torch.Tensor) -> torch.Tensor:
+    """``(x @ q) * scale`` in ``x``'s dtype: ``x [..., K]``, ``q [K, N]``
+    int8, ``scale [N]`` f32."""
+    if x.device.type == "cpu":
+        return quant.quant_matmul_ref(x, q, scale)
+    if q.dim() != 2 or scale.shape != q.shape[1:]:
+        raise ValueError(f"quant_matmul: want q [K, N] and scale [N], got "
+                         f"{tuple(q.shape)} and {tuple(scale.shape)}")
+    k, n = q.shape
+    x2 = _check("quant_matmul", x, q, scale, k, n)
+    return _launch("quant_matmul", x2, q, scale, n, ()).reshape(
+        *x.shape[:-1], n)
+
+
+def quant4_matmul(x: torch.Tensor, qp: torch.Tensor,
+                  scale: torch.Tensor) -> torch.Tensor:
+    """Packed-int4 product in ``x``'s dtype: ``x [..., K]``,
+    ``qp [K/2, N]``, ``scale [N]`` (per channel) or ``[K/g, N]``
+    (grouped)."""
+    if x.device.type == "cpu":
+        return quant.quant4_matmul_ref(x, qp, scale)
+    if qp.dim() != 2 or scale.dim() not in (1, 2) \
+            or scale.shape[-1] != qp.shape[1]:
+        raise ValueError(f"quant4_matmul: want qp [K/2, N] and scale [N] or "
+                         f"[K/g, N], got {tuple(qp.shape)} and "
+                         f"{tuple(scale.shape)}")
+    k, n = 2 * qp.shape[0], qp.shape[1]
+    group = 0
+    if scale.dim() == 2:
+        if k % scale.shape[0]:
+            raise ValueError(f"quant4_matmul: {scale.shape[0]} groups do not "
+                             f"divide in-dim {k}")
+        group = k // scale.shape[0]
+        if group % BLOCK_K:
+            raise ValueError(
+                f"quant4_matmul: group size {group} is not built: the CUDA "
+                f"kernel takes group sizes that are a multiple of its "
+                f"{BLOCK_K}-row K tile (64, 128, ...)")
+    x2 = _check("quant4_matmul", x, qp, scale, k, n)
+    return _launch("quant4_matmul", x2, qp, scale, n, (group,)).reshape(
+        *x.shape[:-1], n)

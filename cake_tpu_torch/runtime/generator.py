@@ -102,9 +102,13 @@ class LlamaGenerator:
     def __init__(self, config: LlamaConfig, params, tokenizer=None,
                  settings: SamplerSettings | None = None,
                  max_seq: int | None = None, block_size: int = 1,
-                 device=None):
+                 device=None, kv_quant: str | None = None):
         """``block_size > 1`` runs that many decode steps per block with the
-        tokens kept on the device, and streams them one at a time."""
+        tokens kept on the device, and streams them one at a time.
+
+        ``kv_quant="int8"`` stores the KV cache as int8 with one scale per
+        token and head (half the cache bytes; quantized as it is
+        written)."""
         self.config = config
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
@@ -120,7 +124,7 @@ class LlamaGenerator:
         self.model = Llama(config, params)
         self.block_size = max(1, block_size)
         self.cache = init_cache(config, batch=1, max_seq=self.max_seq,
-                                device=self.device)
+                                device=self.device, quant=kv_quant)
         self._noise_gen = torch.Generator(device=self.device)
         self._history, self._hist_slot = sampling.init_history(
             self.settings.repeat_last_n, self.device)

@@ -7,6 +7,8 @@ CPU on its own.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -20,3 +22,13 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of the CUDA card ``device``."""
+    return _sm_count(torch.device(device).index or 0)

@@ -8,21 +8,26 @@ Phases, each fatal on failure:
 1. the card (``nvidia-smi`` name and power limit), torch, CUDA and nvcc
    versions; the kernels are built from ``cake_tpu_torch/csrc``;
 2. each kernel against its plain PyTorch version at the main path's
-   shapes (Llama-3-8B: H=32, KVH=8, D=128, bf16, S=4096), element by
-   element and query row by query row; two planted faults (a decode one
-   tile short) must fail the same check;
+   shapes (Llama-3-8B: H=32, KVH=8, D=128, bf16, S=4096; the linears'
+   (K, N) at M = 1 and M = 2048), element by element and row by row;
+   planted faults (a decode, a matmul and an int8-cache prefill one tile
+   short) must fail the same check;
 3. kernel timings (CUDA events, L2 flushed before each call) beside the
-   card's bound, the plain version and PyTorch's own attention as a
-   yardstick, printed as one JSON line at the end;
+   card's bound, the plain version and one PyTorch call as a yardstick,
+   printed as one JSON line at the end;
 4. the model at full Llama-3-8B width and 2 layers, on the card (kernels)
-   against the CPU (plain path), from the same weights;
-5. the main path: ``LlamaGenerator`` over the full 32-layer bf16
-   Llama-3-8B with random weights, a 2,000-token prompt and 64 tokens,
-   greedy and sampled, with the kernels' launch counts checked against the
-   model calls; then a profiler trace of one prefill and one decode block
-   for the card's kernel time;
+   against the CPU (plain path), from the same weights: bf16, int8 weights
+   with the int8 cache, int4 g128 weights; and codes quantized on the card
+   against codes quantized on the CPU;
+5. the main paths: ``LlamaGenerator`` over the full 32-layer Llama-3-8B
+   with random weights, a 2,000-token prompt and 64 tokens, block 8: (a)
+   bf16, greedy and sampled; (b) int8 weights with the int8 KV cache; (c)
+   int4 g128 weights; each with the kernels' launch counts checked against
+   the model calls, then a profiler trace of one prefill and one decode
+   block for the card's kernel time;
 6. the command line (``python -m cake_tpu_torch.cli``) on a tiny
-   checkpoint written by the port's own writer.
+   checkpoint written by the port's own writer: bf16, ``--quantize int8
+   --kv-quant int8`` and ``--quantize int4:g64``.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the ``cake_tpu_torch`` package beside this file, it exits with
@@ -51,6 +56,10 @@ ATOL = RTOL = 2e-2
 # of the output, max abs error at most 3.9e-3); the planted faults, one
 # dropped tile, read 0.33 (pos 2047) and 0.18 (pos 4095): a dropped tile
 # moves its rows by ~8/sqrt(n) at n live keys.
+# The quantized matmuls are held to the same two checks, a row being one
+# output row (N values): the right kernels differ from the plain versions
+# by the bf16 rounding of the output (~2^-9 an element); one dropped 64-row
+# K tile of K = 4096 moves a row by ~sqrt(64 / 4096) = 0.125.
 ROW_REL_L2 = 1e-2
 # a bf16 chain through two full-width layers and the head, on two devices
 MODEL_REL_L2 = 2e-2
@@ -58,6 +67,12 @@ MODEL_REL_L2 = 2e-2
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 H, KVH, D, S = 32, 8, 128, 4096
+# the linears' (K, N) of Llama-3-8B: gate/up, down, k/v; and the head
+LINEARS = ((4096, 14336), (14336, 4096), (4096, 1024))
+HEAD = (4096, 128256)
+# (wrapper, group size) of each weight tier: int8, int4, int4 g128
+TIERS = (("quant_matmul", None), ("quant4_matmul", None),
+         ("quant4_matmul", 128))
 
 
 def fail(msg: str) -> None:
@@ -108,6 +123,35 @@ def phase_toolchain(torch, build) -> str:
 # --------------------------------------------------------------------------
 
 
+def verdict(torch, out, ref):
+    """(max abs error, worst row's relative L2 error, within both)"""
+    torch.cuda.synchronize()
+    o, r = out.float(), ref.float()
+    err = (o - r).abs().max().item()
+    rel = ((o - r).norm(dim=-1) / r.norm(dim=-1)).max().item()
+    close = torch.isclose(o, r, atol=ATOL, rtol=RTOL).all().item()
+    return err, rel, close and rel < ROW_REL_L2
+
+
+def compare(torch, label, out, ref):
+    err, rel, ok = verdict(torch, out, ref)
+    say(f"[2] {label}: max_abs_err {err:.3e}, worst row rel L2 "
+        f"{rel:.3e}")
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
+    if not ok:
+        fail(f"{label}: worst row relative L2 {rel} >= {ROW_REL_L2}")
+    return err
+
+
+def planted(torch, label, bad, ref):
+    """A planted fault: the check must refuse ``bad``."""
+    err, rel, ok = verdict(torch, bad, ref)
+    say(f"[2] planted fault, {label}: max_abs_err {err:.3e}, worst row rel "
+        f"L2 {rel:.3e}")
+    if ok:
+        fail(f"the kernel check passes {label}")
+
+
 def phase_kernels(torch, flash) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
@@ -115,37 +159,22 @@ def phase_kernels(torch, flash) -> dict:
         return torch.randn(shape, generator=gen, device="cuda").to(
             torch.bfloat16)
 
-    def verdict(out, ref):
-        """(max abs error, worst row's relative L2 error, within both)"""
-        torch.cuda.synchronize()
-        o, r = out.float(), ref.float()
-        err = (o - r).abs().max().item()
-        rel = ((o - r).norm(dim=-1) / r.norm(dim=-1)).max().item()
-        close = torch.isclose(o, r, atol=ATOL, rtol=RTOL).all().item()
-        return err, rel, close and rel < ROW_REL_L2
-
-    def compare(label, out, ref):
-        err, rel, ok = verdict(out, ref)
-        say(f"[2] {label}: max_abs_err {err:.3e}, worst row rel L2 "
-            f"{rel:.3e}")
-        torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
-        if not ok:
-            fail(f"{label}: worst row relative L2 {rel} >= {ROW_REL_L2}")
-        return err
+    def compare_(label, out, ref):
+        return compare(torch, label, out, ref)
 
     errs = {}
     k1, v1 = rnd(1, KVH, S, D), rnd(1, KVH, S, D)
     for t, pos, window in ((2048, 0, None), (256, 1000, None),
                            (512, 1000, 300)):
         q = rnd(1, H, t, D)
-        errs[("prefill", t, pos, window)] = compare(
+        errs[("prefill", t, pos, window)] = compare_(
             f"flash_prefill T={t} pos={pos} window={window}",
             flash.flash_attention(q, k1, v1, pos, window=window),
             flash.flash_attention_ref(q, k1, v1, pos, window=window))
     q1 = rnd(1, H, 1, D)
     for pos in (0, 1, 127, 2047, 4095):
         p = torch.tensor([pos], dtype=torch.int32, device="cuda")
-        errs[("decode", 1, pos, None)] = compare(
+        errs[("decode", 1, pos, None)] = compare_(
             f"flash_decode B=1 pos={pos}",
             flash.flash_decode(q1, k1, v1, p),
             flash.flash_decode_ref(q1, k1, v1, p))
@@ -158,17 +187,13 @@ def phase_kernels(torch, flash) -> dict:
             ("first tile dropped", 4095, 4095, 4096 - 64)):
         p, bp = (torch.tensor([x], dtype=torch.int32, device="cuda")
                  for x in (pos, bad_pos))
-        bad = flash.flash_decode(q1, k1, v1, bp, window=window)
-        err, rel, ok = verdict(bad, flash.flash_decode_ref(q1, k1, v1, p))
-        say(f"[2] planted fault, flash_decode pos={pos} {label}: "
-            f"max_abs_err {err:.3e}, worst row rel L2 {rel:.3e}")
-        if ok:
-            fail(f"the kernel check passes a decode at pos {pos} with the "
-                 f"{label}")
+        planted(torch, f"flash_decode pos={pos} {label}",
+                flash.flash_decode(q1, k1, v1, bp, window=window),
+                flash.flash_decode_ref(q1, k1, v1, p))
     k4, v4, q4 =rnd(4, KVH, S, D), rnd(4, KVH, S, D), rnd(4, H, 1, D)
     p4 = torch.tensor([3, 700, 2048, 4095], dtype=torch.int32, device="cuda")
     for window in (None, 1000):
-        errs[("decode", 4, "rows", window)] = compare(
+        errs[("decode", 4, "rows", window)] = compare_(
             f"flash_decode B=4 pos={p4.tolist()} window={window}",
             flash.flash_decode(q4, k4, v4, p4, window=window),
             flash.flash_decode_ref(q4, k4, v4, p4, window=window))
@@ -177,12 +202,104 @@ def phase_kernels(torch, flash) -> dict:
     ks, vs = rnd(2, 2, 100, 64), rnd(2, 2, 100, 64)
     qs, qd = rnd(2, 4, 40, 64), rnd(2, 4, 1, 64)
     pd = torch.tensor([0, 99], dtype=torch.int32, device="cuda")
-    compare("flash_prefill D=64 G=2 S=100 T=40 pos=30",
+    compare_("flash_prefill D=64 G=2 S=100 T=40 pos=30",
             flash.flash_attention(qs, ks, vs, 30),
             flash.flash_attention_ref(qs, ks, vs, 30))
-    compare("flash_decode D=64 G=2 S=100 pos=[0, 99]",
+    compare_("flash_decode D=64 G=2 S=100 pos=[0, 99]",
             flash.flash_decode(qd, ks, vs, pd),
             flash.flash_decode_ref(qd, ks, vs, pd))
+    return errs
+
+
+def quantized(quant, w, tier):
+    """``w [K, N]`` f32 on the card as ``(wrapper name, weight, scale)`` of
+    a weight tier."""
+    name, group = tier
+    if name == "quant_matmul":
+        ql = quant.quantize_linear(w)
+        return name, ql.q, ql.scale
+    ql = quant.quantize_linear4(w, group_size=group)
+    return name, ql.qp, ql.scale
+
+
+def tier_label(tier) -> str:
+    name, group = tier
+    return {"quant_matmul": "int8"}.get(name, "int4") + (
+        f" g{group}" if group else "")
+
+
+def phase_quant_kernels(torch, flash, qmatmul, quant, kvcache) -> dict:
+    """The three kernels of the quantized path against their plain
+    versions, with a planted fault each."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    plain = {"quant_matmul": quant.quant_matmul_ref,
+             "quant4_matmul": quant.quant4_matmul_ref}
+    errs = {}
+    # the linears at decode and prefill, the head at decode, and a ragged
+    # shape (M off the 16-row tile, N off the 128-column tile)
+    shapes = [(kn, (1, 2048)) for kn in LINEARS] + [(HEAD, (1,)),
+                                                     ((256, 1040), (5,))]
+    for (k, n), ms in shapes:
+        w = torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
+        for tier in TIERS:
+            name, wq, scale = quantized(quant, w, tier)
+            for m in ms:
+                x = torch.randn(m, k, generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                label = f"{name} {tier_label(tier)} M={m} K={k} N={n}"
+                errs[(name, tier[1], m, k, n)] = compare(
+                    torch, label, getattr(qmatmul, name)(x, wq, scale),
+                    plain[name](x, wq, scale))
+                if (k, n) == LINEARS[0] and m == 1:
+                    # the kernel run one 64-row K tile short
+                    k2 = k - qmatmul.BLOCK_K
+                    int4 = name == "quant4_matmul"
+                    planted(torch, f"{label} one K tile short",
+                            qmatmul._launch(
+                                name, x[:, :k2], wq[:k2 // 2 if int4 else k2],
+                                scale, n, (tier[1] or 0,) if int4 else ()),
+                            plain[name](x, wq, scale))
+            del wq, scale
+        del w
+    torch.cuda.empty_cache()
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    def cache(b, kvh, s, d):
+        kq, vq = (kvcache.quant_kv(rnd(b, kvh, s, d)) for _ in range(2))
+        return kq.q, kq.scale, vq.q, vq.scale
+
+    kv8 = cache(1, KVH, S, D)
+    for t, pos, window in ((2048, 0, None), (256, 1000, None),
+                           (512, 1000, 300)):
+        q = rnd(1, H, t, D)
+        errs[("prefill_q8", t, pos, window)] = compare(
+            torch, f"flash_prefill_q8 T={t} pos={pos} window={window}",
+            flash.flash_attention_q8(q, *kv8, pos, window=window),
+            flash.flash_attention_q8_ref(q, *kv8, pos, window=window))
+    # planted fault: the loop over KV tiles one tile short (every q tile's
+    # last live tile dropped, as a loop ending at max_kb - 1 would)
+    q = rnd(1, H, 256, D)
+    real = flash.kv_block_bounds
+
+    def short(*args):
+        lo, hi = real(*args)
+        return lo, hi - 1
+
+    flash.kv_block_bounds = short
+    try:
+        bad = flash.flash_attention_q8(q, *kv8, 1000)
+    finally:
+        flash.kv_block_bounds = real
+    planted(torch, "flash_prefill_q8 T=256 pos=1000 last tile dropped", bad,
+            flash.flash_attention_q8_ref(q, *kv8, 1000))
+    small = cache(2, 2, 100, 64)
+    qs = rnd(2, 4, 40, 64)
+    compare(torch, "flash_prefill_q8 D=64 G=2 S=100 T=40 pos=30",
+            flash.flash_attention_q8(qs, *small, 30),
+            flash.flash_attention_q8_ref(qs, *small, 30))
     return errs
 
 
@@ -284,39 +401,167 @@ def phase_timing(torch, flash, errs) -> list:
     return rows
 
 
+def matmul_case(torch, quant, qmatmul, tier, m, k, n, gen) -> dict:
+    """Card times of one quantized linear: the kernel, its plain version,
+    and ``torch.matmul`` over the weight dequantized to bf16 beforehand
+    (the same function up to the weight's rounding, at 2x or 4x the
+    weight bytes), beside the bound."""
+    w = torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
+    name, wq, scale = quantized(quant, w, tier)
+    del w
+    if name == "quant_matmul":
+        w_bf16 = quant.dequantize_linear(quant.QuantizedLinear(wq, scale))
+        plain = quant.quant_matmul_ref
+    else:
+        w_bf16 = quant.dequantize_linear4(quant.Quantized4Linear(wq, scale))
+        plain = quant.quant4_matmul_ref
+    x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    kernel = getattr(qmatmul, name)
+    # each input read once, the output written once
+    nbytes = (x.numel() * 2 + wq.numel() + scale.numel() * 4 + m * n * 2)
+    b_ms, b_by = bound(nbytes, 2 * m * k * n)
+    case = {"tier": tier_label(tier), "shape": f"x [{m},{k}] w [{k},{n}]",
+            "ms": time_ms(torch, lambda: kernel(x, wq, scale)),
+            "plain_ms": time_ms(torch, lambda: plain(x, wq, scale), n=5),
+            "library_ms": time_ms(torch, lambda: x @ w_bf16),
+            "bound_ms": b_ms, "bound_by": b_by}
+    del wq, scale, w_bf16
+    torch.cuda.empty_cache()
+    return case
+
+
+def phase_quant_timing(torch, flash, qmatmul, quant, kvcache, errs) -> list:
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rows = []
+    # headline shape first: w_gate at decode, then prefill, the head, wk/wv
+    shapes = ((1,) + LINEARS[0], (2048,) + LINEARS[0], (1,) + HEAD,
+              (1,) + LINEARS[2])
+    for name, tiers, replaces in (
+            ("quant_matmul", TIERS[:1], "cake_tpu/ops/pallas/quant.py:33"),
+            ("quant4_matmul", (TIERS[2], TIERS[1]),
+             "cake_tpu/ops/pallas/quant.py:96")):
+        cases = [matmul_case(torch, quant, qmatmul, tier, *shape, gen)
+                 for tier in tiers for shape in shapes]
+        head = cases[0]
+        m, k, n = shapes[0]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"cake_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+            "shape": f"{head['tier']} {head['shape']}",
+            "max_abs_err": errs[(name, tiers[0][1], m, k, n)],
+            **{key: head[key] for key in ("ms", "plain_ms", "library_ms",
+                                          "bound_ms", "bound_by")},
+            "cases": cases,
+        })
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    kq, vq = (kvcache.quant_kv(rnd(1, KVH, S, D)) for _ in range(2))
+    t = 2048
+    q = rnd(1, H, t, D)
+    live = t  # keys 0..T-1 at pos 0
+    k_live, v_live = (kvcache.dequant_kv(kvcache.QuantizedKV(
+        c.q[:, :, :live], c.scale[:, :, :live]), torch.bfloat16)
+        for c in (kq, vq))
+    nbytes = 2 * q.numel() * 2 + 2 * KVH * live * (D + 4)
+    b_ms, b_by = bound(nbytes, 4 * H * D * (t * (t + 1) // 2))
+    args = (q, kq.q, kq.scale, vq.q, vq.scale, 0)
+    rows.append({
+        "name": "flash_prefill_q8", "route": "cuda",
+        "source": "cake_tpu_torch/csrc/flash_prefill_q8.cu",
+        "replaces": "cake_tpu/ops/pallas/flash.py:235",
+        "shape": f"q [1,{H},{t},{D}] int8 k/v [1,{KVH},{S},{D}] pos 0",
+        "max_abs_err": errs[("prefill_q8", t, 0, None)],
+        "ms": time_ms(torch, lambda: flash.flash_attention_q8(*args)),
+        "plain_ms": time_ms(torch,
+                            lambda: flash.flash_attention_q8_ref(*args)),
+        # over K/V dequantized beforehand: SDPA reads 2x the cache bytes
+        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k_live, v_live, is_causal=True, enable_gqa=True)),
+        "bound_ms": b_ms, "bound_by": b_by,
+    })
+    for r in rows:
+        r["kernel_ms"] = r["ms"]
+        say(f"[3] {r['name']} {r['shape']}: {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+            f"{r['bound_ms']:.4f} by {r['bound_by']})")
+        for c in r.get("cases", [])[1:]:
+            say(f"    {c['tier']} {c['shape']}: {c['ms']:.4f} ms (plain "
+                f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f}, bound "
+                f"{c['bound_ms']:.4f} by {c['bound_by']})")
+    return rows
+
+
 # --------------------------------------------------------------------------
 # phase 4
 # --------------------------------------------------------------------------
 
 
+def to_device(tree, device):
+    """A params tree (dicts of tensors and quantized linears) on
+    ``device``."""
+    import dataclasses
+
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree):
+        return type(tree)(*(getattr(tree, f.name).to(device)
+                            for f in dataclasses.fields(tree)))
+    return tree.to(device)
+
+
 def phase_model(torch) -> None:
+    from cake_tpu_torch.models import llama
     from cake_tpu_torch.models.config import llama3_8b
-    from cake_tpu_torch.models.llama import Llama, init_params
+    from cake_tpu_torch.ops import quant
     from cake_tpu_torch.ops.kvcache import init_cache
 
     cfg = llama3_8b(num_hidden_layers=2, max_seq_len=128)
-    params = init_params(cfg, seed=SEED, device="cuda")
-    params_cpu = {k: ({n: w.cpu() for n, w in v.items()}
-                      if isinstance(v, dict) else v.cpu())
-                  for k, v in params.items()}
     tokens = torch.randint(0, cfg.vocab_size, (1, 64),
                            generator=torch.Generator().manual_seed(SEED))
-    with torch.inference_mode():
-        got = Llama(cfg, params)(tokens.cuda(),
-                                 init_cache(cfg, 1, 128, device="cuda"), 0)
-        want = Llama(cfg, params_cpu)(tokens,
-                                      init_cache(cfg, 1, 128, device="cpu"),
-                                      0)
-    got = got.cpu()
-    if got.shape != (1, cfg.vocab_size) or not torch.isfinite(got).all():
-        fail(f"2-layer logits: shape {tuple(got.shape)} or not finite")
-    rel = ((got - want).norm() / want.norm()).item()
-    say(f"[4] 2-layer llama3_8b width, T=64 prefill, cuda vs cpu: "
-        f"relative L2 {rel:.3e} (limit {MODEL_REL_L2})")
-    if not rel < MODEL_REL_L2:
-        fail(f"2-layer model: relative L2 {rel} >= {MODEL_REL_L2}")
-    del params, params_cpu
-    torch.cuda.empty_cache()
+    for label, init, kv_quant in (
+            ("bf16", llama.init_params, None),
+            ("int8 weights, int8 cache", llama.init_params_int8, "int8"),
+            ("int4 g128 weights", lambda c, **kw: llama.init_params_int4(
+                c, group_size=128, **kw), None)):
+        params = init(cfg, seed=SEED, device="cuda")
+        params_cpu = to_device(params, "cpu")
+        with torch.inference_mode():
+            got = llama.Llama(cfg, params)(
+                tokens.cuda(), init_cache(cfg, 1, 128, device="cuda",
+                                          quant=kv_quant), 0)
+            want = llama.Llama(cfg, params_cpu)(
+                tokens, init_cache(cfg, 1, 128, device="cpu",
+                                   quant=kv_quant), 0)
+        got = got.cpu()
+        if got.shape != (1, cfg.vocab_size) or not torch.isfinite(got).all():
+            fail(f"2-layer logits ({label}): shape {tuple(got.shape)} or not "
+                 "finite")
+        rel = ((got - want).norm() / want.norm()).item()
+        say(f"[4] 2-layer llama3_8b width, {label}, T=64 prefill, cuda vs "
+            f"cpu: relative L2 {rel:.3e} (limit {MODEL_REL_L2})")
+        if not rel < MODEL_REL_L2:
+            fail(f"2-layer model ({label}): relative L2 {rel} >= "
+                 f"{MODEL_REL_L2}")
+        del params, params_cpu
+        torch.cuda.empty_cache()
+    # codes quantized on the card are the codes the CPU makes
+    w = torch.randn(4096, 14336, generator=torch.Generator().manual_seed(
+        SEED)) / 64.0
+    for fn in (quant.quantize_linear,
+               lambda t: quant.quantize_linear4(t, group_size=128)):
+        on_card, on_cpu = fn(w.cuda()), fn(w)
+        for f in ("q", "qp", "scale"):
+            if hasattr(on_cpu, f) and not torch.equal(
+                    getattr(on_card, f).cpu(), getattr(on_cpu, f)):
+                fail(f"{type(on_cpu).__name__}.{f} quantized on the card "
+                     "differs from the CPU's")
+    say("[4] int8 and int4 g128 codes and scales of a [4096, 14336] weight: "
+        "card == cpu")
 
 
 # --------------------------------------------------------------------------
@@ -324,29 +569,37 @@ def phase_model(torch) -> None:
 # --------------------------------------------------------------------------
 
 
-def phase_main_path(torch, build) -> dict:
-    from cake_tpu_torch.models.config import llama3_8b
-    from cake_tpu_torch.models.llama import init_params
-    from cake_tpu_torch.ops.sampling import SamplerSettings
+def expected_launches(cfg, weights: str, kv_quant, prefill_calls: int,
+                      decode_steps: int) -> dict:
+    """Launches of each kernel in a generation: every linear of every
+    forward (7 a layer and the head) goes to the weights' matmul kernel,
+    each layer's prefill to the cache's prefill kernel, each layer's decode
+    step to flash_decode."""
+    L = cfg.num_hidden_layers
+    counts = dict.fromkeys(("flash_prefill", "flash_decode",
+                            "flash_prefill_q8", "quant_matmul",
+                            "quant4_matmul"), 0)
+    counts["flash_prefill_q8" if kv_quant else "flash_prefill"] = (
+        L * prefill_calls)
+    counts["flash_decode"] = L * decode_steps
+    if weights != "bf16":
+        counts[weights] = (7 * L + 1) * (prefill_calls + decode_steps)
+    return counts
+
+
+def run_path(torch, build, cfg, params, prompt, label, runs, weights,
+             kv_quant=None) -> dict:
+    """Warm up, then drive ``LlamaGenerator`` once per sampler of ``runs``
+    with the launch counts set to 0 just before and read just after; fail
+    unless every kernel launched exactly as the model calls say."""
     from cake_tpu_torch.runtime.generator import LlamaGenerator
 
-    cfg = llama3_8b(max_seq_len=4096)
-    t0 = time.perf_counter()
-    params = init_params(cfg, seed=SEED, device="cuda")
-    torch.cuda.synchronize()
-    say(f"[5] llama3_8b bf16 weights drawn on the card in "
-        f"{time.perf_counter() - t0:.1f} s")
-    prompt = torch.randint(0, cfg.vocab_size, (2000,),
-                           generator=torch.Generator().manual_seed(SEED)
-                           ).tolist()
     n_new = 64
-
-    runs = (("greedy", SamplerSettings(temperature=0)),
-            ("sampled", SamplerSettings(temperature=0.8, top_k=40)))
-    # warm-up of both samplers (cuBLAS handles and heuristics, first
+    # warm-up of each sampler (cuBLAS handles and heuristics, first
     # launches of each op): neither timed nor counted
     for _, settings in runs:
-        warm = LlamaGenerator(cfg, params, settings=settings, block_size=8)
+        warm = LlamaGenerator(cfg, params, settings=settings, block_size=8,
+                              kv_quant=kv_quant)
         warm.set_prompt(prompt)
         for i in range(9):
             warm.next_token(i)
@@ -355,10 +608,11 @@ def phase_main_path(torch, build) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     build.reset_launches()
-    result = {"runs": []}
+    result = {"path": label, "runs": []}
     prefill_calls = decode_steps = 0
-    for label, settings in runs:
-        gen = LlamaGenerator(cfg, params, settings=settings, block_size=8)
+    for name, settings in runs:
+        gen = LlamaGenerator(cfg, params, settings=settings, block_size=8,
+                             kv_quant=kv_quant)
         gen.set_prompt(prompt)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -370,12 +624,13 @@ def phase_main_path(torch, build) -> dict:
         decode_steps += gen.decode_steps
         if len(ids) != n_new or not all(0 <= i < cfg.vocab_size
                                         for i in ids):
-            fail(f"{label} stream is not {n_new} ids in the vocabulary")
-        run = {"label": label, "prefill_ms": (t1 - t0) * 1e3,
+            fail(f"{label} {name} stream is not {n_new} ids in the "
+                 "vocabulary")
+        run = {"label": name, "prefill_ms": (t1 - t0) * 1e3,
                "decode_tokens_per_s": (n_new - 1) / (t2 - t1),
                "first_ids": ids[:8]}
         result["runs"].append(run)
-        say(f"[5] {label}: prefill_ms {run['prefill_ms']:.2f} "
+        say(f"[5] {label} {name}: prefill_ms {run['prefill_ms']:.2f} "
             f"(2000 tokens, bucket 2048), decode tokens_per_s "
             f"{run['decode_tokens_per_s']:.2f} ({n_new - 1} tokens, "
             f"block 8), ids {ids[:8]}...")
@@ -383,19 +638,57 @@ def phase_main_path(torch, build) -> dict:
     counts = build.launches()
     result["launches"] = counts
     result["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    L = cfg.num_hidden_layers
-    say(f"[5] launches {counts}; prefill calls {prefill_calls}, decode "
-        f"steps {decode_steps}; peak memory {result['peak_gb']:.2f} GB")
-    if counts["flash_prefill"] != L * prefill_calls or prefill_calls == 0:
-        fail(f"flash_prefill launched {counts['flash_prefill']} times, "
-             f"want {L} x {prefill_calls}")
-    if counts["flash_decode"] != L * decode_steps or decode_steps == 0:
-        fail(f"flash_decode launched {counts['flash_decode']} times, "
-             f"want {L} x {decode_steps}")
-    result["profile"] = profile_main_path(torch, cfg, params, prompt)
-    del params
-    torch.cuda.empty_cache()
+    say(f"[5] {label} launches {counts}; prefill calls {prefill_calls}, "
+        f"decode steps {decode_steps}; peak memory {result['peak_gb']:.2f} "
+        "GB")
+    want = expected_launches(cfg, weights, kv_quant, prefill_calls,
+                             decode_steps)
+    if counts != want or prefill_calls == 0 or decode_steps == 0:
+        fail(f"{label}: kernels launched {counts}, want {want}")
     return result
+
+
+def phase_main_path(torch, build) -> list:
+    from cake_tpu_torch.models import llama
+    from cake_tpu_torch.models.config import llama3_8b
+    from cake_tpu_torch.ops.sampling import SamplerSettings
+
+    cfg = llama3_8b(max_seq_len=4096)
+    prompt = torch.randint(0, cfg.vocab_size, (2000,),
+                           generator=torch.Generator().manual_seed(SEED)
+                           ).tolist()
+    greedy = ("greedy", SamplerSettings(temperature=0))
+    paths = (
+        ("(a) bf16", lambda: llama.init_params(cfg, seed=SEED),
+         (greedy, ("sampled", SamplerSettings(temperature=0.8, top_k=40))),
+         "bf16", None),
+        ("(b) int8 weights, int8 cache",
+         lambda: llama.init_params_int8(cfg, seed=SEED), (greedy,),
+         "quant_matmul", "int8"),
+        ("(c) int4 g128 weights",
+         lambda: llama.init_params_int4(cfg, seed=SEED, group_size=128),
+         (greedy,), "quant4_matmul", None),
+    )
+    results = []
+    for label, init, runs, weights, kv_quant in paths:
+        t0 = time.perf_counter()
+        params = init()  # the previous path's weights are freed
+        torch.cuda.synchronize()
+        say(f"[5] {label}: llama3_8b weights drawn on the card in "
+            f"{time.perf_counter() - t0:.1f} s")
+        results.append(run_path(torch, build, cfg, params, prompt, label,
+                                runs, weights, kv_quant))
+        del params
+        torch.cuda.empty_cache()
+    # profiled after every timed run: a profiler session slows the host
+    # for the rest of the process
+    for result, (label, init, _, _, kv_quant) in zip(results, paths):
+        params = init()
+        result["profile"] = profile_main_path(torch, cfg, params, prompt,
+                                              label, kv_quant)
+        del params
+        torch.cuda.empty_cache()
+    return results
 
 
 def device_profile(torch, fn) -> dict:
@@ -421,22 +714,23 @@ def device_profile(torch, fn) -> dict:
     }
 
 
-def profile_main_path(torch, cfg, params, prompt) -> dict:
+def profile_main_path(torch, cfg, params, prompt, label, kv_quant) -> dict:
     """Card time of one prefill and of one decode block (8 steps), from a
-    profiler trace; the unprofiled wall times of phase 4 stand beside them
-    to give the card's busy share."""
+    profiler trace; the unprofiled wall times stand beside them to give the
+    card's busy share."""
     from cake_tpu_torch.ops.sampling import SamplerSettings
     from cake_tpu_torch.runtime.generator import LlamaGenerator
 
     gen = LlamaGenerator(cfg, params, settings=SamplerSettings(
-        temperature=0), block_size=8)
+        temperature=0), block_size=8, kv_quant=kv_quant)
     gen.set_prompt(prompt)
     out = {"prefill": device_profile(torch, lambda: gen.next_token(0)),
            "decode_block_8": device_profile(torch,
                                             lambda: gen.next_token(1))}
     for name, prof in out.items():
-        say(f"[5] profile {name}: card kernel time {prof['device_ms']:.3f} "
-            f"ms over {prof['kernel_launches']} launches; top {prof['top']}")
+        say(f"[5] {label} profile {name}: card kernel time "
+            f"{prof['device_ms']:.3f} ms over {prof['kernel_launches']} "
+            f"launches; top {prof['top']}")
     return out
 
 
@@ -454,25 +748,30 @@ def phase_cli(torch, build) -> None:
                num_attention_heads=4, num_key_value_heads=2,
                dtype="bfloat16")  # head_dim 64: the kernels' other width
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as d:
         save_llama_params(init_params(cfg, seed=SEED, device="cuda"), d)
         (Path(d) / "config.json").write_text(json.dumps(cfg.to_hf_dict()))
-        env = dict(os.environ, PYTHONPATH=str(REPO))
-        r = subprocess.run(
-            [sys.executable, "-m", "cake_tpu_torch.cli", "--model", d,
-             "--prompt-ids", "3,5,7,9", "-n", "8", "--temperature", "0",
-             "--max-seq", "128"],
-            capture_output=True, text=True, timeout=300, env=env, cwd=REPO)
-    if r.returncode != 0:
-        fail(f"cli exit {r.returncode}: {r.stderr[-2000:]}")
-    last = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
-    try:
-        ids = [int(x) for x in last.split(",")]
-    except ValueError:
-        ids = []
-    if len(ids) != 8 or not all(0 <= i < cfg.vocab_size for i in ids):
-        fail(f"cli printed {last!r}, want 8 token ids")
-    say(f"[6] cli: {last}")
+        for flags in ([], ["--quantize", "int8", "--kv-quant", "int8"],
+                      ["--quantize", "int4:g64"]):
+            r = subprocess.run(
+                [sys.executable, "-m", "cake_tpu_torch.cli", "--model", d,
+                 "--prompt-ids", "3,5,7,9", "-n", "8", "--temperature", "0",
+                 "--max-seq", "128", *flags],
+                capture_output=True, text=True, timeout=300, env=env,
+                cwd=REPO)
+            if r.returncode != 0:
+                fail(f"cli {flags} exit {r.returncode}: {r.stderr[-2000:]}")
+            last = (r.stdout.strip().splitlines()[-1] if r.stdout.strip()
+                    else "")
+            try:
+                ids = [int(x) for x in last.split(",")]
+            except ValueError:
+                ids = []
+            if len(ids) != 8 or not all(0 <= i < cfg.vocab_size
+                                        for i in ids):
+                fail(f"cli {flags} printed {last!r}, want 8 token ids")
+            say(f"[6] cli {' '.join(flags) or 'bf16'}: {last}")
 
 
 def main() -> int:
@@ -482,7 +781,7 @@ def main() -> int:
         fail("no CUDA device is available")
     sys.path.insert(0, str(REPO))
     try:
-        from cake_tpu_torch.ops import flash
+        from cake_tpu_torch.ops import flash, kvcache, qmatmul, quant
         from cake_tpu_torch.ops.kernels import build
     except ImportError as e:
         fail(f"the cake_tpu_torch package is not beside this script ({e})")
@@ -490,14 +789,16 @@ def main() -> int:
 
     card = phase_toolchain(torch, build)
     errs = phase_kernels(torch, flash)
+    errs.update(phase_quant_kernels(torch, flash, qmatmul, quant, kvcache))
     # timed before the profiled main path: a profiler session slows the
     # host for the rest of the process
     rows = phase_timing(torch, flash, errs)
+    rows += phase_quant_timing(torch, flash, qmatmul, quant, kvcache, errs)
     phase_model(torch)
     main_path = phase_main_path(torch, build)
     phase_cli(torch, build)
-    for r in rows:
-        r["launches"] = main_path["launches"][r["name"]]
+    for r in rows:  # over the three paths (a), (b) and (c)
+        r["launches"] = sum(p["launches"][r["name"]] for p in main_path)
     say(json.dumps({"card": card, "main_path": main_path}))
     say(json.dumps({"kernels": rows}))
     say(card)

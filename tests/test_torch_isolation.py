@@ -12,7 +12,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from cake_tpu_torch.ops import flash
+from cake_tpu_torch.ops import flash, qmatmul, quant
 from cake_tpu_torch.ops.kernels import build
 
 REPO = Path(__file__).resolve().parents[1]
@@ -45,7 +45,8 @@ def test_no_jax_or_cake_tpu_import(path):
 
 def test_import_leaves_jax_and_triton_out():
     code = ("import sys, cake_tpu_torch, cake_tpu_torch.cli, "
-            "cake_tpu_torch.runtime.generator, cake_tpu_torch.ops.flash\n"
+            "cake_tpu_torch.runtime.generator, cake_tpu_torch.ops.flash, "
+            "cake_tpu_torch.ops.qmatmul\n"
             "print(sorted(m for m in ('jax', 'triton', 'cake_tpu') "
             "if m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -60,13 +61,19 @@ def test_entry_points_raise_without_a_card():
         pytest.skip("a CUDA card is present: the default device exists")
     from cake_tpu_torch import cli
     from cake_tpu_torch.models.config import tiny
-    from cake_tpu_torch.models.llama import init_params, params_from_jax
+    from cake_tpu_torch.models.llama import (
+        init_params,
+        init_params_int4,
+        init_params_int8,
+        params_from_jax,
+    )
     from cake_tpu_torch.runtime.generator import LlamaGenerator
     from cake_tpu_torch.utils.weights import load_llama_params
 
     cfg = tiny()
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        init_params(cfg)
+    for init in (init_params, init_params_int8, init_params_int4):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         params_from_jax({})
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -93,20 +100,30 @@ def test_cpu_tensors_take_the_plain_versions():
                        flash.flash_attention_ref(q, k, v, 3))
     assert torch.equal(flash.flash_decode(q[:, :, :1], k, v, 9),
                        flash.flash_decode_ref(q[:, :, :1], k, v, 9))
-    assert build.launches() == {"flash_prefill": 0, "flash_decode": 0}
+    kq, ks = _q8(k)
+    vq, vs = _q8(v)
+    assert torch.equal(flash.flash_attention_q8(q, kq, ks, vq, vs, 3),
+                       flash.flash_attention_q8_ref(q, kq, ks, vq, vs, 3))
+    x, w = q.reshape(-1, 64), k[0, 0]
+    q8 = quant.quantize_linear(w)
+    q4 = quant.quantize_linear4(w, group_size=32)
+    assert torch.equal(qmatmul.quant_matmul(x, q8.q, q8.scale),
+                       quant.quant_matmul_ref(x, q8.q, q8.scale))
+    assert torch.equal(qmatmul.quant4_matmul(x, q4.qp, q4.scale),
+                       quant.quant4_matmul_ref(x, q4.qp, q4.scale))
+    assert build.launches() == {"flash_prefill": 0, "flash_decode": 0,
+                                "flash_prefill_q8": 0, "quant_matmul": 0,
+                                "quant4_matmul": 0}
 
 
-@pytest.mark.parametrize("wrapper", ["flash_attention", "flash_decode"])
-@pytest.mark.parametrize("case,err", [
-    ("dtype", TypeError),
-    ("head_dim", ValueError),
-    ("shape", ValueError),
-    ("contiguity", ValueError),
-    ("device", ValueError),
-])
-def test_wrappers_refuse_what_the_kernels_do_not_take(wrapper, case, err):
-    """Checked on ``meta`` tensors: any tensor off the CPU goes to the
-    kernel or raises, and never to the plain version."""
+def _q8(x):
+    q = torch.zeros(x.shape, dtype=torch.int8, device=x.device)
+    return q, torch.ones(x.shape[:3], dtype=torch.float32, device=x.device)
+
+
+def _attention_operands(wrapper, case):
+    """Arguments of a flash wrapper on ``meta`` tensors, spoiled by
+    ``case``; ``group`` asks for a GQA grouping the kernel does not take."""
     kw = {}
     if case == "dtype":
         kw["dtype"] = torch.float32
@@ -117,9 +134,56 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(wrapper, case, err):
         v = v[:, :1]
     if case == "contiguity":
         k = k.transpose(2, 3).contiguous().transpose(2, 3)
-    fn = getattr(flash, wrapper)
+    if case == "group":  # 5 query heads over 2 kv heads; decode: 6 (G 3)
+        q = torch.empty(1, 6 if wrapper == "flash_decode" else 5, 1, 64,
+                        dtype=q.dtype, device="meta")
+    if wrapper == "flash_attention_q8":
+        (kq, ks), (vq, vs) = _q8(k), _q8(v)
+        if case == "contiguity":
+            kq = kq.transpose(2, 3).contiguous().transpose(2, 3)
+        return q, kq, ks, vq, vs, 0
+    return q, k, v, 0
+
+
+def _matmul_operands(wrapper, case):
+    """Arguments of a matmul wrapper on ``meta`` tensors, spoiled by
+    ``case``: ``head_dim`` is an in-dim off the 64-row K tile, ``group``
+    a scale grouping the kernel does not build."""
+    k, n = (96 if case == "head_dim" else 128), 256
+    dt = torch.float32 if case == "dtype" else torch.bfloat16
+    x = torch.empty(3, k, dtype=dt, device="meta")
+    rows = k if wrapper == "quant_matmul" else k // 2
+    w = torch.empty(rows, n, dtype=torch.int8, device="meta")
+    scale = torch.empty(n, device="meta")
+    if case == "shape":
+        scale = torch.empty(n - 16, device="meta")
+    if case == "contiguity":
+        w = torch.empty(n, rows, dtype=torch.int8, device="meta").t()
+    if case == "group":  # int8 takes no groups; int4 no 32-row groups
+        scale = torch.empty(k // 32, n, device="meta")
+    return x, w, scale
+
+
+@pytest.mark.parametrize("wrapper", ["flash_attention", "flash_decode",
+                                     "flash_attention_q8", "quant_matmul",
+                                     "quant4_matmul"])
+@pytest.mark.parametrize("case,err", [
+    ("dtype", TypeError),
+    ("head_dim", ValueError),
+    ("shape", ValueError),
+    ("contiguity", ValueError),
+    ("device", ValueError),
+    ("group", ValueError),
+])
+def test_wrappers_refuse_what_the_kernels_do_not_take(wrapper, case, err):
+    """Checked on ``meta`` tensors: any tensor off the CPU goes to the
+    kernel or raises, and never to the plain version."""
+    if wrapper.startswith("flash"):
+        args, fn = _attention_operands(wrapper, case), getattr(flash, wrapper)
+    else:
+        args, fn = _matmul_operands(wrapper, case), getattr(qmatmul, wrapper)
     with pytest.raises(err):
-        fn(q, k, v, 0)
+        fn(*args)
 
 
 def test_decode_pos_shapes():
