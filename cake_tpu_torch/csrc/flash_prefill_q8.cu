@@ -21,252 +21,241 @@
 // the H100's ~295 operations per byte: bound by tensor-core operations, as
 // the bf16 kernel is. The int8 cache halves the KV bytes it reads.
 //
-// What the design does about that: the tiles, warps and mma.sync fragments
-// of csrc/flash_prefill.cu (one CTA of 4 warps per 64-row q tile of one
-// (b, h), 64-key tiles, Q fragments, scores and output accumulator in
-// registers). K and V tiles are read as int8 with 16-byte loads and
-// converted to bf16 on their way into shared memory (exact: |q| <= 127);
-// the tile's 64 key and 64 value scales sit beside them in shared memory.
-// The loop runs only over the live KV tiles [kb_lo, kb_hi] from
-// `kv_block_bounds` (cake_tpu_torch/ops/flash.py). Loads are synchronous and
-// single-buffered; pipelining and wgmma are later work.
+// What the design does about that: the consumer warpgroups are those of
+// csrc/flash_prefill.cu (csrc/flash_prefill_sm90.cuh: wgmma products, P in
+// registers, masks only on edge tiles, longest q tiles first), with the
+// two scale hooks on. The producer warpgroup differs: TMA brings each int8
+// K and V tile (half the bf16 bytes) into a staging buffer, and its 128
+// threads convert the codes to bf16 (exact: |q| <= 127) into the same
+// swizzled 2-stage ring the consumers read, beside the tile's 128 key and
+// 128 value scales, then arrive on the stage's "full" barrier. The next
+// int8 tile is in flight while the consumers work on the current one.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_prefill_sm90.cuh"
+
+using namespace fp90;
 
 namespace {
 
-constexpr int BQ = 64;      // q rows per CTA
-constexpr int BK = 64;       // keys per KV tile
-constexpr int THREADS = 128; // 4 warps x 16 q rows
-constexpr float NEG_INF = -1e30f;
+// the producer's threads convert tiles, so they keep more registers
+constexpr int PRODUCER_REGS = 56;
+constexpr int CONSUMER_REGS = consumer_regs(PRODUCER_REGS);
+static_assert(BK == 128, "one key (and its two scales) per producer thread");
 
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4],
-                                               const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// Two int8 codes (bytes `sel & 0xF` and `(sel >> 8) & 0xF` of `w`,
+// selector 0x414n) as a packed bf16 pair, exactly, in four instructions:
+// each code byte goes under the byte 0x43, which makes the bf16 128 + low7
+// once bit 7 is cleared; bit 7 (the sign's weight, -128) picks the addend
+// -128 (0xC300) or -256 (0xC380), and the bf16 sum is the code itself
+// (every integer in [-128, 127] is a bf16).
+__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t w, uint32_t sel) {
+  const uint32_t t = __byte_perm(w, 0x43434343u, sel);
+  const uint32_t a = t & 0xFF7FFF7Fu, c = (t & 0x00800080u) | 0xC300C300u;
+  const __nv_bfloat162 sum =
+      __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+              *reinterpret_cast<const __nv_bfloat162*>(&c));
+  return *reinterpret_cast<const uint32_t*>(&sum);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Four int8 codes to four bf16 values, two packed pairs.
+__device__ __forceinline__ void i8x4_to_bf16x4(uint32_t w, uint32_t& lo,
+                                               uint32_t& hi) {
+  lo = i8x2_to_bf16x2(w, 0x4140);
+  hi = i8x2_to_bf16x2(w, 0x4342);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(__nv_bfloat16 lo,
-                                             __nv_bfloat16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// TMA stages the codes in quarter tiles (K rows 0-63, K rows 64-127, V rows
+// 0-63, V rows 64-127 of a tile) in a ring of NBUF buffers, two tiles ahead
+// of the conversion. Each producer warp converts its own SLICE rows of every
+// quarter and marks the buffer read (a "freed" mbarrier counting the four
+// warps); thread 0 refills a buffer a step later, so the warps never wait
+// for each other.
+constexpr int HALF = BK / 2;
+constexpr int SLICE = HALF / 4;
+constexpr int NBUF = 8;
 
-// Copies `rows` rows of D bf16 (row stride `stride` elements in global
-// memory) into a padded shared tile; rows at or past `limit` are zeroed.
-template <int D, int STR>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long stride, int row0,
-                                          int limit, int rows) {
-  constexpr int CH = D / 8;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < rows * CH; i += THREADS) {
-    const int r = i / CH, c = (i % CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      val = *reinterpret_cast<const uint4*>(src + (row0 + r) * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * STR + c) = val;
+template <int D>
+using Q8Plan = Plan<D, 2, NBUF * HALF * D>;
+
+// Where the producer is in its sequence of quarters: K of tile j (parts 0
+// and 1), then V of tile j - 1 (parts 2 and 3), for j = 0..n. A consumer
+// needs K_j with V_{j-1}, and K_j's slot is free half an iteration before
+// V_{j-1}'s.
+struct Quarters {
+  int j = 0, part = 0;
+  __device__ __forceinline__ bool valid(int n) const { return j <= n; }
+  __device__ __forceinline__ int tile() const { return part < 2 ? j : j - 1; }
+  __device__ __forceinline__ void next(int n) {
+    do {
+      if (++part == 4) {
+        part = 0;
+        ++j;
+      }
+    } while (j <= n && (part < 2 ? j == n : j == 0));
   }
-}
+};
 
-__device__ __forceinline__ float byte_at(uint32_t w, int i) {
-  return static_cast<float>(static_cast<signed char>(w >> (8 * i)));
-}
+// One warp's SLICE rows of a staged quarter into a bf16 tile of the ring,
+// in two steps so that the staging buffer is free before the conversion:
+// the codes into registers, then to bf16 in the layout TMA's 128-byte
+// swizzle gives the bf16 kernel (64-column blocks of BK rows of 128 bytes,
+// 16-byte chunk c of row r at chunk c ^ (r % 8)). Lane l takes the 8-code
+// units l, l + 32, ...: eight neighbouring lanes read 64 neighbouring bytes
+// and write the eight chunks of one 128-byte row, so neither side has bank
+// conflicts.
+template <int D>
+struct Codes {
+  static constexpr int PER_ROW = D / 8;  // 8-code units a row
+  static constexpr int N = SLICE * PER_ROW / 32;
+  uint2 w[N];
 
-// Copies `rows` rows of D int8 (contiguous rows) into a padded bf16 shared
-// tile; rows at or past `limit` are zeroed.
-template <int D, int STR>
-__device__ __forceinline__ void load_tile_i8(__nv_bfloat16* dst,
-                                             const int8_t* src, int row0,
-                                             int limit, int rows) {
-  constexpr int CH = D / 16;  // 16-byte chunks per row
-  for (int i = threadIdx.x; i < rows * CH; i += THREADS) {
-    const int r = i / CH, c = (i % CH) * 16;
-    uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit)
-      raw = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * D +
-                                            c);
-    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
-    uint32_t o[8];
+  __device__ __forceinline__ void load(const unsigned char* src, int lane) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      o[j] = pack_bf16(byte_at(w[j / 2], (j % 2) * 2),
-                       byte_at(w[j / 2], (j % 2) * 2 + 1));
-    uint4* out = reinterpret_cast<uint4*>(dst + r * STR + c);
-    out[0] = make_uint4(o[0], o[1], o[2], o[3]);
-    out[1] = make_uint4(o[4], o[5], o[6], o[7]);
+    for (int m = 0; m < N; ++m)
+      w[m] = *reinterpret_cast<const uint2*>(src + (lane + m * 32) * 8);
   }
+
+  __device__ __forceinline__ void store_bf16(unsigned char* dst, int row0,
+                                             int lane) const {
+#pragma unroll
+    for (int m = 0; m < N; ++m) {
+      const int u = lane + m * 32;
+      const int r = row0 + u / PER_ROW, c8 = u % PER_ROW;
+      uint4 b;
+      i8x4_to_bf16x4(w[m].x, b.x, b.y);
+      i8x4_to_bf16x4(w[m].y, b.z, b.w);
+      *reinterpret_cast<uint4*>(dst + (c8 / 8) * BK * 128 + r * 128 +
+                                (((c8 % 8) ^ (r & 7)) << 4)) = b;
+    }
+  }
+};
+
+// One thread: TMA of the quarter at `at` into staging buffer `buf`.
+template <int D>
+__device__ __forceinline__ void stage_quarter(uint32_t staging,
+                                              const CUtensorMap* tm_k,
+                                              const CUtensorMap* tm_v,
+                                              uint64_t* bar, int buf,
+                                              Quarters at, int lo, int hk,
+                                              int b) {
+  mbar_expect_tx(bar, HALF * D);
+  tma_load_4d(staging + buf * HALF * D, at.part < 2 ? tm_k : tm_v, bar, 0,
+              (lo + at.tile()) * BK + (at.part & 1) * HALF, hk, b);
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS)
-flash_prefill_q8_kernel(const __nv_bfloat16* __restrict__ q,
-                        const int8_t* __restrict__ k,
+__global__ void __launch_bounds__(THREADS, 1)
+flash_prefill_q8_kernel(const __grid_constant__ CUtensorMap tm_q,
+                        const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v,
                         const float* __restrict__ k_scale,
-                        const int8_t* __restrict__ v,
                         const float* __restrict__ v_scale,
                         __nv_bfloat16* __restrict__ o,
                         const int* __restrict__ kb_lo,
                         const int* __restrict__ kb_hi, int H, int KVH, int T,
-                        int S, long long q_sb, long long q_sh, long long q_st,
-                        long long o_sb, long long o_sh, long long o_st,
+                        int S, long long o_sb, long long o_sh, long long o_st,
                         int pos, int window, float scale_log2) {
-  constexpr int STR = D + 8;  // padded smem row (halves): spreads banks
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sK = sQ + BQ * STR;
-  __nv_bfloat16* sV = sK + BK * STR;
-  __shared__ float sKs[BK], sVs[BK];  // the tile's key and value scales
+  using P = Q8Plan<D>;
+  constexpr int ST = P::STAGES;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[4 * ST + 1 + 2 * NBUF];
+  const Ring ring{bars, bars + ST, bars + 2 * ST, bars + 3 * ST};
+  uint64_t* qbar = bars + 4 * ST;
+  uint64_t* staged = bars + 4 * ST + 1;  // a staging buffer is loaded
+  uint64_t* freed = staged + NBUF;       // ... and read by the four warps
+  const uint32_t smem = aligned_smem(smem_raw);
+  unsigned char* base = smem_raw;
+  float* scales = reinterpret_cast<float*>(base + P::SCALES);
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (H / KVH);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;
+  const Tile tile = tile_of_block();
+  const int hk = tile.h / (H / KVH);
+  const int lo = kb_lo ? kb_lo[tile.qt] : 0;
+  const int hi = min(kb_hi[tile.qt], (S - 1) / BK);
+  if (lo > hi) return;  // no live tile: never so for a valid call
 
-  const __nv_bfloat16* qbase = q + b * q_sb + h * q_sh;
-  const long long head = (long long)b * KVH + hk;
-  const int8_t* kbase = k + head * S * D;
-  const int8_t* vbase = v + head * S * D;
-  const float* ksbase = k_scale + head * S;
-  const float* vsbase = v_scale + head * S;
-
-  load_tile<D, STR>(sQ, qbase, q_st, qt * BQ, T, BQ);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      // every producer thread converts a share of a tile
+      mbar_init(&ring.full_k[s], 128);
+      mbar_init(&ring.empty_k[s], CONSUMER_THREADS);
+      mbar_init(&ring.full_v[s], 128);
+      mbar_init(&ring.empty_v[s], CONSUMER_THREADS);
+    }
+    mbar_init(qbar, 1);
+    for (int q = 0; q < NBUF; ++q) {
+      mbar_init(&staged[q], 1);
+      mbar_init(&freed[q], 4);
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
 
-  // Q fragments (A operand) of this warp's 16 rows, all of D.
-  uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* r0 = sQ + (warp * 16 + g) * STR + kk * 16 + tq * 2;
-    const __nv_bfloat16* r1 = r0 + 8 * STR;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(r0);
-    qf[kk][1] = *reinterpret_cast<const uint32_t*>(r1);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(r0 + 8);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(r1 + 8);
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  // running max (log2 domain) of rows g and g+8; per-thread partial sums
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  const int qpos0 = pos + qt * BQ + warp * 16 + g;  // row g; row g+8 is +8
-  const int lo = kb_lo ? kb_lo[qt] : 0;
-  const int hi = min(kb_hi[qt], (S - 1) / BK);
-
-  for (int kb = lo; kb <= hi; ++kb) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile_i8<D, STR>(sK, kbase, kb * BK, S, BK);
-    load_tile_i8<D, STR>(sV, vbase, kb * BK, S, BK);
-    if (threadIdx.x < BK) {
-      const int key = kb * BK + threadIdx.x;
-      sKs[threadIdx.x] = key < S ? ksbase[key] : 0.f;
-      sVs[threadIdx.x] = key < S ? vsbase[key] : 0.f;
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+    const int n = hi - lo + 1;
+    Quarters ahead, at;  // thread 0's next quarter to stage; this one
+    if (t == 0) {
+      prefetch_tensor_map(&tm_q);
+      prefetch_tensor_map(&tm_k);
+      prefetch_tensor_map(&tm_v);
+      mbar_expect_tx(qbar, P::Q_BYTES);
+      for (int w = 0; w < 2; ++w)
+        for (int cb = 0; cb < D / 64; ++cb)
+          tma_load_4d(smem + w * 64 * D * 2 + cb * 64 * 128, &tm_q, qbar,
+                      cb * 64, tile.qt * BQ + w * 64, tile.h, tile.b);
+      for (int buf = 0; buf < NBUF && ahead.valid(n); ++buf, ahead.next(n))
+        stage_quarter<D>(smem + P::STAGING, &tm_k, &tm_v, &staged[buf], buf,
+                         ahead, lo, hk, tile.b);
     }
-    __syncthreads();
-
-    float s[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        // B = K^T: column n*8+g of B is key n*8+g, rows are d
-        const __nv_bfloat16* kr = sK + (n * 8 + g) * STR + kk * 16 + tq * 2;
-        mma_bf16_16816(s[n], qf[kk], *reinterpret_cast<const uint32_t*>(kr),
-                       *reinterpret_cast<const uint32_t*>(kr + 8));
+    const long long head = (long long)tile.b * KVH + hk;
+    const float* ks_src = k_scale + head * S;
+    const float* vs_src = v_scale + head * S;
+    float ks = 0.f, vs = 0.f;
+    for (int seq = 0; at.valid(n); ++seq, at.next(n)) {
+      const int buf = seq % NBUF, i = at.tile(), st = i % ST;
+      const bool is_v = at.part >= 2;
+      if (at.part == 0) {  // this K tile's scales, read early
+        const int key = (lo + i) * BK + t;
+        ks = key < S ? ks_src[key] : 0.f;
+        vs = key < S ? vs_src[key] : 0.f;
+      }
+      Codes<D> codes;
+      mbar_wait(&staged[buf], (seq / NBUF) & 1);
+      codes.load(base + P::STAGING + buf * HALF * D + warp * SLICE * D,
+                 lane);
+      // this warp's rows are read, and ordered before the next TMA writes
+      // into the buffer
+      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&freed[buf]);
+      if (t == 0 && seq > 0 && ahead.valid(n)) {
+        // refill the previous step's buffer once every warp has read it
+        const int prev = (seq - 1) % NBUF;
+        mbar_wait(&freed[prev], ((seq - 1) / NBUF) & 1);
+        stage_quarter<D>(smem + P::STAGING, &tm_k, &tm_v, &staged[prev],
+                         prev, ahead, lo, hk, tile.b);
+        ahead.next(n);
+      }
+      if ((at.part & 1) == 0 && i >= ST)
+        mbar_wait(is_v ? &ring.empty_v[st] : &ring.empty_k[st],
+                  (i / ST - 1) & 1);
+      codes.store_bf16(base + (is_v ? P::v_slot(st) : P::k_slot(st)),
+                       (at.part & 1) * HALF + warp * SLICE, lane);
+      if (at.part == 1) {  // both scales beside the K tile
+        scales[st * 2 * BK + t] = ks;
+        scales[st * 2 * BK + BK + t] = vs;
+      }
+      if (at.part & 1) {  // this warp's rows of the tile are in place
+        fence_proxy_async();  // wgmma reads shared memory by async proxy
+        mbar_arrive(is_v ? &ring.full_v[st] : &ring.full_k[st]);
       }
     }
-
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = kb * BK + n * 8 + tq * 2 + (i & 1);
-        const int qp = qpos0 + ((i & 2) ? 8 : 0);
-        const bool ok = key <= qp && (window < 0 || key > qp - window);
-        // the key's scale folds into its score column
-        s[n][i] = ok ? s[n][i] * sKs[key - kb * BK] * scale_log2 : NEG_INF;
-      }
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
-    }
-    // full-row max over the 4 threads that share a row
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float a0 = exp2f(m0 - mx0), a1 = exp2f(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-
-    // P = exp(s - m): summed in f32 as it is; times the value's scale
-    // before it is rounded to bf16 for the PV product
-    uint32_t pf[BK / 16][4];
-    float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-      const float p0 = exp2f(s[n][0] - mx0), p1 = exp2f(s[n][1] - mx0);
-      const float p2 = exp2f(s[n][2] - mx1), p3 = exp2f(s[n][3] - mx1);
-      rs0 += p0 + p1;
-      rs1 += p2 + p3;
-      const float vs0 = sVs[n * 8 + tq * 2], vs1 = sVs[n * 8 + tq * 2 + 1];
-      pf[n / 2][(n & 1) * 2 + 0] = pack_bf16(p0 * vs0, p1 * vs1);
-      pf[n / 2][(n & 1) * 2 + 1] = pack_bf16(p2 * vs0, p3 * vs1);
-    }
-    l0 = l0 * a0 + rs0;
-    l1 = l1 * a1 + rs1;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= a0;
-      acc[n][1] *= a0;
-      acc[n][2] *= a1;
-      acc[n][3] *= a1;
-    }
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        // B = V: rows are keys j*16 + tq*2 (+1, +8, +9), column d = n*8+g
-        const __nv_bfloat16* vr = sV + (j * 16 + tq * 2) * STR + n * 8 + g;
-        mma_bf16_16816(acc[n], pf[j], pack_raw(vr[0], vr[STR]),
-                       pack_raw(vr[8 * STR], vr[9 * STR]));
-      }
-    }
-  }
-
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  const int r0 = qt * BQ + warp * 16 + g;
-  __nv_bfloat16* obase = o + b * o_sb + h * o_sh;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int d = n * 8 + tq * 2;
-    if (r0 < T)
-      *reinterpret_cast<__nv_bfloat162*>(obase + r0 * o_st + d) =
-          __floats2bfloat162_rn(acc[n][0] * inv0, acc[n][1] * inv0);
-    if (r0 + 8 < T)
-      *reinterpret_cast<__nv_bfloat162*>(obase + (r0 + 8) * o_st + d) =
-          __floats2bfloat162_rn(acc[n][2] * inv1, acc[n][3] * inv1);
+  } else {
+    setmaxnreg_inc<CONSUMER_REGS>();
+    consume<D, P>(smem, SlotScales{scales}, ring, qbar,
+                  threadIdx.x / 128 - 1, tile.qt, lo, hi, T, pos, window,
+                  scale_log2, o + tile.b * o_sb + tile.h * o_sh, o_st);
   }
 }
 
@@ -277,19 +266,22 @@ int launch(const void* q, const void* k, const void* ks, const void* v,
            long long q_sh, long long q_st, long long o_sb, long long o_sh,
            long long o_st, int pos, int window, float scale_log2,
            cudaStream_t stream) {
-  constexpr int smem = (BQ + 2 * BK) * (D + 8) * 2;
+  CUtensorMap tm_q, tm_k, tm_v;
+  int err = q_tensor_map(&tm_q, q, B, H, T, D, q_sb, q_sh, q_st);
+  if (!err) err = kv_tensor_map(&tm_k, k, B, KVH, S, D, true, HALF);
+  if (!err) err = kv_tensor_map(&tm_v, v, B, KVH, S, D, true, HALF);
+  if (err) return err;
+  constexpr int smem = Q8Plan<D>::SMEM;
   // above 48 KB a kernel must opt in to dynamic shared memory
-  cudaError_t err = cudaFuncSetAttribute(
+  cudaError_t cerr = cudaFuncSetAttribute(
       flash_prefill_q8_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + BQ - 1) / BQ, H, B);
+  if (cerr != cudaSuccess) return (int)cerr;
+  dim3 grid(H, (T + BQ - 1) / BQ, B);
   flash_prefill_q8_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(k),
-      static_cast<const float*>(ks), static_cast<const int8_t*>(v),
-      static_cast<const float*>(vs), static_cast<__nv_bfloat16*>(o),
-      kb_lo, kb_hi, H, KVH, T, S, q_sb, q_sh, q_st, o_sb, o_sh, o_st, pos,
-      window, scale_log2);
+      tm_q, tm_k, tm_v, static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<__nv_bfloat16*>(o), kb_lo,
+      kb_hi, H, KVH, T, S, o_sb, o_sh, o_st, pos, window, scale_log2);
   return (int)cudaGetLastError();
 }
 
@@ -301,7 +293,13 @@ extern "C" {
 int flash_prefill_q8_block_q() { return BQ; }
 int flash_prefill_q8_block_k() { return BK; }
 
-// Returns 0 or a cudaError_t. `kb_lo` may be null (no window: 0).
+// Dynamic shared memory of one CTA at head width D (0 if D is not built).
+int flash_prefill_q8_smem_bytes(int D) {
+  return D == 64 ? Q8Plan<64>::SMEM : D == 128 ? Q8Plan<128>::SMEM : 0;
+}
+
+// Returns 0, a cudaError_t or ERR_TENSOR_MAP. `kb_lo` may be null (no
+// window: 0).
 int flash_prefill_q8_bf16(const void* q, const void* k, const void* ks,
                           const void* v, const void* vs, void* o,
                           const int* kb_lo, const int* kb_hi, int B, int H,
@@ -325,7 +323,7 @@ int flash_prefill_q8_bf16(const void* q, const void* k, const void* ks,
 }
 
 const char* flash_prefill_q8_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return error_string(err);
 }
 
 }  // extern "C"

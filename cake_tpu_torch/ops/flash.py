@@ -32,10 +32,13 @@ from cake_tpu_torch.ops.kernels import build
 from cake_tpu_torch.utils.device import sm_count
 
 NEG_INF = -1e30
-# Tile sizes of the CUDA kernels (checked against the built library when it
-# loads); kv_block_bounds counts in these units on both sides.
-BLOCK_Q = 64
-BLOCK_K = 64
+# Tile sizes of the CUDA kernels (checked against the built libraries when
+# they load); kv_block_bounds counts in these units on both sides. The two
+# prefill kernels take 128 q rows (two wgmma warpgroups of 64) over 128-key
+# tiles; decode splits its keys in 64-key tiles.
+PREFILL_BLOCK_Q = 128
+PREFILL_BLOCK_K = 128
+DECODE_BLOCK_K = 64
 _LOG2E = 1.4426950408889634
 
 
@@ -86,8 +89,8 @@ def flash_attention_ref(q: torch.Tensor, k_all: torch.Tensor,
     block range of the whole query block and masks inside it."""
     t, s = q.shape[2], k_all.shape[2]
     pos = int(pos)
-    lo_kb, hi_kb = kv_block_bounds(pos, 0, t, BLOCK_K, window)
-    lo, hi = lo_kb * BLOCK_K, min((hi_kb + 1) * BLOCK_K, s)
+    lo_kb, hi_kb = kv_block_bounds(pos, 0, t, PREFILL_BLOCK_K, window)
+    lo, hi = lo_kb * PREFILL_BLOCK_K, min((hi_kb + 1) * PREFILL_BLOCK_K, s)
     dev = q.device
     qpos = (pos + torch.arange(t, device=dev))[None]
     return _plain_attention(q, k_all[:, :, lo:hi], v_all[:, :, lo:hi], qpos,
@@ -103,8 +106,8 @@ def flash_attention_q8_ref(q: torch.Tensor, k_q: torch.Tensor,
     :func:`flash_attention_ref` does."""
     t, s = q.shape[2], k_q.shape[2]
     pos = int(pos)
-    lo_kb, hi_kb = kv_block_bounds(pos, 0, t, BLOCK_K, window)
-    lo, hi = lo_kb * BLOCK_K, min((hi_kb + 1) * BLOCK_K, s)
+    lo_kb, hi_kb = kv_block_bounds(pos, 0, t, PREFILL_BLOCK_K, window)
+    lo, hi = lo_kb * PREFILL_BLOCK_K, min((hi_kb + 1) * PREFILL_BLOCK_K, s)
 
     def deq(x, scale):
         return x[:, :, lo:hi].float() * scale[:, :, lo:hi, None]
@@ -123,9 +126,9 @@ def flash_decode_ref(q: torch.Tensor, k_all: torch.Tensor,
     masks each row inside it."""
     b, s = q.shape[0], k_all.shape[2]
     pos_t = _row_positions(pos, b, q.device).long()
-    lo_kb, hi_kb = kv_block_bounds(pos_t, 0, 1, BLOCK_K, window)
-    lo = 0 if isinstance(lo_kb, int) else int(lo_kb.min()) * BLOCK_K
-    hi = min((int(hi_kb.max()) + 1) * BLOCK_K, s)
+    lo_kb, hi_kb = kv_block_bounds(pos_t, 0, 1, DECODE_BLOCK_K, window)
+    lo = 0 if isinstance(lo_kb, int) else int(lo_kb.min()) * DECODE_BLOCK_K
+    hi = min((int(hi_kb.max()) + 1) * DECODE_BLOCK_K, s)
     return _plain_attention(q, k_all[:, :, lo:hi], v_all[:, :, lo:hi],
                             pos_t[:, None],
                             torch.arange(lo, hi, device=q.device), window)
@@ -211,10 +214,18 @@ _VP, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 
 @functools.cache
 def _entry(name: str, argtypes: tuple):
-    consts = {"block_k": BLOCK_K}
-    if name != "flash_decode":  # decode has one query row, no q tile
-        consts["block_q"] = BLOCK_Q
+    if name == "flash_decode":  # one query row, no q tile
+        consts = {"block_k": DECODE_BLOCK_K}
+    else:
+        consts = {"block_q": PREFILL_BLOCK_Q, "block_k": PREFILL_BLOCK_K}
     return build.entry(name, argtypes, consts)
+
+
+def _prefill_bounds(t: int, pos: int, window, device):
+    """Each prefill q tile's live KV-tile range, as the kernels read it."""
+    qb = torch.arange(-(-t // PREFILL_BLOCK_Q), dtype=torch.int32,
+                      device=device)
+    return kv_block_bounds(pos, qb, PREFILL_BLOCK_Q, PREFILL_BLOCK_K, window)
 
 
 _PREFILL_ARGS = (_VP,) * 6 + (_I,) * 6 + (_LL,) * 6 + (_I, _I, _F, _VP)
@@ -241,8 +252,7 @@ def flash_attention(q: torch.Tensor, k_all: torch.Tensor,
     if pos < 0 or pos + t > s:
         raise ValueError(f"flash_attention: rows {pos}..{pos + t} run past "
                          f"the KV buffer ({s})")
-    qb = torch.arange(-(-t // BLOCK_Q), dtype=torch.int32, device=q.device)
-    kb_lo, kb_hi = kv_block_bounds(pos, qb, BLOCK_Q, BLOCK_K, window)
+    kb_lo, kb_hi = _prefill_bounds(t, pos, window, q.device)
     out = _bthd_output(q)
     lib, fn = _entry("flash_prefill", _PREFILL_ARGS)
     err = fn(q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
@@ -275,8 +285,7 @@ def flash_attention_q8(q: torch.Tensor, k_q: torch.Tensor,
     if pos < 0 or pos + t > s:
         raise ValueError(f"flash_attention_q8: rows {pos}..{pos + t} run "
                          f"past the KV buffer ({s})")
-    qb = torch.arange(-(-t // BLOCK_Q), dtype=torch.int32, device=q.device)
-    kb_lo, kb_hi = kv_block_bounds(pos, qb, BLOCK_Q, BLOCK_K, window)
+    kb_lo, kb_hi = _prefill_bounds(t, pos, window, q.device)
     out = _bthd_output(q)
     lib, fn = _entry("flash_prefill_q8", _PREFILL_Q8_ARGS)
     err = fn(q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(),
@@ -294,7 +303,7 @@ def num_splits(b: int, kvh: int, s: int, device) -> int:
     """KV splits of :func:`flash_decode`: enough CTAs for about two per SM
     on the card, never more splits than KV tiles."""
     want = -(-2 * sm_count(device) // (b * kvh))
-    return max(1, min(-(-s // BLOCK_K), want))
+    return max(1, min(-(-s // DECODE_BLOCK_K), want))
 
 
 def flash_decode(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
@@ -314,7 +323,7 @@ def flash_decode(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
     if t != 1:
         raise ValueError(f"flash_decode takes one query row, got T={t}")
     pos_t = _row_positions(pos, b, q.device)
-    kb_lo, kb_hi = kv_block_bounds(pos_t, 0, 1, BLOCK_K, window)
+    kb_lo, kb_hi = kv_block_bounds(pos_t, 0, 1, DECODE_BLOCK_K, window)
     nsplit = num_splits(b, kvh, s, q.device)
     # per (b, kv head, split, group row): unnormalized output, max and sum
     part_o = torch.empty(b * h * nsplit * d, dtype=torch.float32,

@@ -4,8 +4,9 @@ Each source under ``cake_tpu_torch/csrc/`` is compiled on its own by
 ``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
 loaded with :mod:`ctypes`. The build happens at first use, into
 ``cake_tpu_torch/_build/`` (listed in ``.gitignore``), under a name that
-carries the hash of the source and the flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. :func:`build_all` starts
+carries the hash of the source, of the ``csrc/`` headers it includes and
+of the flags, so an edited source or header is rebuilt and an unchanged
+one is loaded as it is. :func:`build_all` starts
 one ``nvcc`` per missing library, all at once.
 
 No PyTorch header is compiled: a source that includes them takes minutes
@@ -21,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -75,10 +77,27 @@ def nvcc_path() -> str:
         "kernels are built from source at first use")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: dict[Path, bytes]) -> dict[Path, bytes]:
+    """``path`` and every file under ``csrc/`` it includes with quotes,
+    transitively, each with its bytes."""
+    if path not in seen:
+        seen[path] = path.read_bytes()
+        for inc in _LOCAL_INCLUDE.findall(seen[path]):
+            dep = path.parent / inc.decode()
+            if dep.exists():
+                _sources(dep, seen)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256()
+    for src in _sources(CSRC / SOURCES[name], {}).values():
+        h.update(src)
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_log(name: str) -> str:

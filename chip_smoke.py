@@ -8,13 +8,15 @@ Phases, each fatal on failure:
 1. the card (``nvidia-smi`` name and power limit), torch, CUDA and nvcc
    versions; the kernels are built from ``cake_tpu_torch/csrc``;
 2. each kernel against its plain PyTorch version at the main path's
-   shapes (Llama-3-8B: H=32, KVH=8, D=128, bf16, S=4096; the linears'
-   (K, N) at M = 1 and M = 2048), element by element and row by row;
-   planted faults (a decode, a matmul and an int8-cache prefill one tile
-   short) must fail the same check;
+   shapes (Llama-3-8B: H=32, KVH=8, D=128, bf16, S=4096; prefill at
+   T = 2048 and at the 2,000-token prompt; the linears' (K, N) at M = 1
+   and M = 2048), element by element and row by row; planted faults (a
+   decode, a matmul, and both prefills one tile short) must fail the same
+   check;
 3. kernel timings (CUDA events, L2 flushed before each call) beside the
    card's bound, the plain version and one PyTorch call as a yardstick,
-   printed as one JSON line at the end;
+   with the prefill kernels' TFLOP/s, registers and shared memory, printed
+   as one JSON line at the end;
 4. the model at full Llama-3-8B width and 2 layers, on the card (kernels)
    against the CPU (plain path), from the same weights: bf16, int8 weights
    with the int8 cache, int4 g128 weights; and codes quantized on the card
@@ -36,8 +38,10 @@ an error and prints no result. It imports no JAX.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -52,10 +56,11 @@ ATOL = RTOL = 2e-2
 # (~sqrt(e/n) at n live keys, ~0.036 at n = 2048), so a kernel that drops
 # a whole 64-key tile passes it. Each case is also held to the relative L2
 # error of its worst query row (one head's D values). On an H100 the right
-# kernels read at most 4.4e-3 there over every case below (bf16 rounding
-# of the output, max abs error at most 3.9e-3); the planted faults, one
-# dropped tile, read 0.33 (pos 2047) and 0.18 (pos 4095): a dropped tile
-# moves its rows by ~8/sqrt(n) at n live keys.
+# kernels read at most 4.7e-3 there over every case below (bf16 rounding
+# of the output, max abs error at most 1.6e-2 over the int8 cache); the
+# planted faults, one dropped tile, read 0.23-0.38 in decode and 0.81-0.93
+# in prefill: a dropped tile of k keys moves its rows by ~sqrt(k/n) at n
+# live keys.
 # The quantized matmuls are held to the same two checks, a row being one
 # output row (N values): the right kernels differ from the plain versions
 # by the bf16 rounding of the output (~2^-9 an element); one dropped 64-row
@@ -67,6 +72,11 @@ MODEL_REL_L2 = 2e-2
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 H, KVH, D, S = 32, 8, 128, 4096
+# prefill (T, pos, window) at full width: the timed shape, the main path's
+# 2,000-token prompt (not a whole number of 128-row q tiles), a later chunk
+# and a window whose lower edge falls inside KV tiles
+PREFILL_CASES = ((2048, 0, None), (2000, 0, None), (256, 1000, None),
+                 (512, 1000, 300))
 # the linears' (K, N) of Llama-3-8B: gate/up, down, k/v; and the head
 LINEARS = ((4096, 14336), (14336, 4096), (4096, 1024))
 HEAD = (4096, 128256)
@@ -152,7 +162,36 @@ def planted(torch, label, bad, ref):
         fail(f"the kernel check passes {label}")
 
 
+def window_edge_inside_tile(flash, t, pos, window) -> bool:
+    """Whether some q row's lowest visible key (pos + row - window + 1)
+    falls strictly inside a KV tile, so that the prefill kernels take the
+    window's edge-mask path and not only whole tiles."""
+    return any((pos + r - window + 1) % flash.PREFILL_BLOCK_K
+               for r in range(t) if pos + r - window + 1 > 0)
+
+
+def tile_short(flash, fn):
+    """``fn()`` with every prefill q tile's last live KV tile dropped, as a
+    kernel loop ending at max_kb - 1 would: a planted fault."""
+    real = flash.kv_block_bounds
+
+    def short(*args):
+        lo, hi = real(*args)
+        return lo, hi - 1
+
+    flash.kv_block_bounds = short
+    try:
+        return fn()
+    finally:
+        flash.kv_block_bounds = real
+
+
 def phase_kernels(torch, flash) -> dict:
+    for t, pos, window in PREFILL_CASES:
+        if window is not None and not window_edge_inside_tile(
+                flash, t, pos, window):
+            fail(f"prefill case T={t} pos={pos} window={window} never "
+                 "masks inside a tile")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def rnd(*shape):
@@ -164,13 +203,16 @@ def phase_kernels(torch, flash) -> dict:
 
     errs = {}
     k1, v1 = rnd(1, KVH, S, D), rnd(1, KVH, S, D)
-    for t, pos, window in ((2048, 0, None), (256, 1000, None),
-                           (512, 1000, 300)):
+    for t, pos, window in PREFILL_CASES:
         q = rnd(1, H, t, D)
         errs[("prefill", t, pos, window)] = compare_(
             f"flash_prefill T={t} pos={pos} window={window}",
             flash.flash_attention(q, k1, v1, pos, window=window),
             flash.flash_attention_ref(q, k1, v1, pos, window=window))
+    q = rnd(1, H, 256, D)
+    planted(torch, "flash_prefill T=256 pos=1000 last tile dropped",
+            tile_short(flash, lambda: flash.flash_attention(q, k1, v1, 1000)),
+            flash.flash_attention_ref(q, k1, v1, 1000))
     q1 = rnd(1, H, 1, D)
     for pos in (0, 1, 127, 2047, 4095):
         p = torch.tensor([pos], dtype=torch.int32, device="cuda")
@@ -272,28 +314,16 @@ def phase_quant_kernels(torch, flash, qmatmul, quant, kvcache) -> dict:
         return kq.q, kq.scale, vq.q, vq.scale
 
     kv8 = cache(1, KVH, S, D)
-    for t, pos, window in ((2048, 0, None), (256, 1000, None),
-                           (512, 1000, 300)):
+    for t, pos, window in PREFILL_CASES:
         q = rnd(1, H, t, D)
         errs[("prefill_q8", t, pos, window)] = compare(
             torch, f"flash_prefill_q8 T={t} pos={pos} window={window}",
             flash.flash_attention_q8(q, *kv8, pos, window=window),
             flash.flash_attention_q8_ref(q, *kv8, pos, window=window))
-    # planted fault: the loop over KV tiles one tile short (every q tile's
-    # last live tile dropped, as a loop ending at max_kb - 1 would)
     q = rnd(1, H, 256, D)
-    real = flash.kv_block_bounds
-
-    def short(*args):
-        lo, hi = real(*args)
-        return lo, hi - 1
-
-    flash.kv_block_bounds = short
-    try:
-        bad = flash.flash_attention_q8(q, *kv8, 1000)
-    finally:
-        flash.kv_block_bounds = real
-    planted(torch, "flash_prefill_q8 T=256 pos=1000 last tile dropped", bad,
+    planted(torch, "flash_prefill_q8 T=256 pos=1000 last tile dropped",
+            tile_short(flash, lambda: flash.flash_attention_q8(q, *kv8,
+                                                               1000)),
             flash.flash_attention_q8_ref(q, *kv8, 1000))
     small = cache(2, 2, 100, 64)
     qs = rnd(2, 4, 40, 64)
@@ -361,6 +391,7 @@ def phase_timing(torch, flash, errs) -> list:
         "source": "cake_tpu_torch/csrc/flash_prefill.cu",
         "replaces": "cake_tpu/ops/pallas/flash.py:74",
         "shape": f"q [1,{H},{t},{D}] k/v [1,{KVH},{S},{D}] bf16 pos 0",
+        "flops": flops,
         "max_abs_err": errs[("prefill", t, 0, None)],
         "ms": time_ms(torch, lambda: flash.flash_attention(q, k, v, 0)),
         "plain_ms": time_ms(torch,
@@ -468,13 +499,15 @@ def phase_quant_timing(torch, flash, qmatmul, quant, kvcache, errs) -> list:
         c.q[:, :, :live], c.scale[:, :, :live]), torch.bfloat16)
         for c in (kq, vq))
     nbytes = 2 * q.numel() * 2 + 2 * KVH * live * (D + 4)
-    b_ms, b_by = bound(nbytes, 4 * H * D * (t * (t + 1) // 2))
+    flops = 4 * H * D * (t * (t + 1) // 2)
+    b_ms, b_by = bound(nbytes, flops)
     args = (q, kq.q, kq.scale, vq.q, vq.scale, 0)
     rows.append({
         "name": "flash_prefill_q8", "route": "cuda",
         "source": "cake_tpu_torch/csrc/flash_prefill_q8.cu",
         "replaces": "cake_tpu/ops/pallas/flash.py:235",
         "shape": f"q [1,{H},{t},{D}] int8 k/v [1,{KVH},{S},{D}] pos 0",
+        "flops": flops,
         "max_abs_err": errs[("prefill_q8", t, 0, None)],
         "ms": time_ms(torch, lambda: flash.flash_attention_q8(*args)),
         "plain_ms": time_ms(torch,
@@ -494,6 +527,42 @@ def phase_quant_timing(torch, flash, qmatmul, quant, kvcache, errs) -> list:
                 f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f}, bound "
                 f"{c['bound_ms']:.4f} by {c['bound_by']})")
     return rows
+
+
+def kernel_build_info(build, name: str, d: int = D) -> dict:
+    """Registers, static shared memory and spill stores of the head-width
+    ``d`` instance of kernel ``name`` (``ptxas -v`` in its build log), and
+    the dynamic shared memory it launches with."""
+    info, entry = {}, ""
+    for ln in build.build_log(name).splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            entry = m.group(1)
+            continue
+        if f"Li{d}E" not in entry:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("static_smem_bytes", r"(\d+) bytes smem"),
+                         ("spill_store_bytes", r"(\d+) bytes spill stores")):
+            m = re.search(pat, ln)
+            if m:
+                info[key] = int(m.group(1))
+    fn = getattr(build.library(name), f"{name}_smem_bytes")
+    fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
+    info["dynamic_smem_bytes"] = fn(d)
+    return info
+
+
+def prefill_rows(build, rows) -> None:
+    """Adds the prefill kernels' rate and build figures to their rows."""
+    for r in rows:
+        if "flops" in r:
+            r["tflops"] = r.pop("flops") / r["ms"] / 1e9
+            r.update(kernel_build_info(build, r["name"]))
+            say(f"[3] {r['name']}: {r['tflops']:.1f} TFLOP/s, "
+                f"{r.get('registers')} registers, "
+                f"{r['dynamic_smem_bytes']} bytes of dynamic shared memory, "
+                f"{r.get('spill_store_bytes')} bytes of spill stores")
 
 
 # --------------------------------------------------------------------------
@@ -587,6 +656,25 @@ def expected_launches(cfg, weights: str, kv_quant, prefill_calls: int,
     return counts
 
 
+def greedy_margins(torch, cfg, params, prompt, ids, kv_quant) -> list:
+    """Top-1 minus top-2 logit at each step of a greedy stream, from one
+    forward pass over the prompt and the stream: how near each choice came
+    to a tie. A stream that another summation order in a kernel changes
+    turns at a step with a small margin."""
+    from cake_tpu_torch.models.llama import Llama
+    from cake_tpu_torch.ops.kvcache import init_cache
+
+    n = len(prompt)
+    tokens = torch.tensor([prompt + ids[:-1]], device="cuda")
+    model = Llama(cfg, params)
+    with torch.inference_mode():
+        x = model.hidden(tokens, init_cache(cfg, 1, cfg.max_seq_len,
+                                            device="cuda", quant=kv_quant),
+                         0)
+        top = model.logits(x[0, n - 1:]).float().topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]).tolist()
+
+
 def run_path(torch, build, cfg, params, prompt, label, runs, weights,
              kv_quant=None) -> dict:
     """Warm up, then drive ``LlamaGenerator`` once per sampler of ``runs``
@@ -628,7 +716,7 @@ def run_path(torch, build, cfg, params, prompt, label, runs, weights,
                  "vocabulary")
         run = {"label": name, "prefill_ms": (t1 - t0) * 1e3,
                "decode_tokens_per_s": (n_new - 1) / (t2 - t1),
-               "first_ids": ids[:8]}
+               "first_ids": ids[:8], "ids": ids}
         result["runs"].append(run)
         say(f"[5] {label} {name}: prefill_ms {run['prefill_ms']:.2f} "
             f"(2000 tokens, bucket 2048), decode tokens_per_s "
@@ -645,6 +733,15 @@ def run_path(torch, build, cfg, params, prompt, label, runs, weights,
                              decode_steps)
     if counts != want or prefill_calls == 0 or decode_steps == 0:
         fail(f"{label}: kernels launched {counts}, want {want}")
+    for run in result["runs"]:
+        ids = run.pop("ids")
+        if run["label"] == "greedy":
+            m = greedy_margins(torch, cfg, params, prompt, ids, kv_quant)
+            run["margins_first8"] = [round(x, 4) for x in m[:8]]
+            run["min_margin"] = min(m)
+            say(f"[5] {label} greedy: top-1 minus top-2 logit at steps "
+                f"0-7 {run['margins_first8']}, least over {len(m)} steps "
+                f"{run['min_margin']:.4f} at step {m.index(min(m))}")
     return result
 
 
@@ -794,6 +891,7 @@ def main() -> int:
     # host for the rest of the process
     rows = phase_timing(torch, flash, errs)
     rows += phase_quant_timing(torch, flash, qmatmul, quant, kvcache, errs)
+    prefill_rows(build, rows)
     phase_model(torch)
     main_path = phase_main_path(torch, build)
     phase_cli(torch, build)

@@ -75,25 +75,33 @@ def test_refs_ignore_kv_past_the_frontier():
                        tflash.flash_decode_ref(q[:, :, :1], k2, v2, pos))
 
 
-@pytest.mark.parametrize("window", [None, 1, 40, 200])
-def test_kv_block_bounds_matches_jax(window):
-    for pos in (0, 1, 63, 64, 100, 1000):
-        for qb, bq in ((0, 1), (0, 64), (3, 64), (2, 16)):
-            want = jflash._kv_block_bounds(jnp.int32(pos), qb, bq, 64,
+# (window, q tile, KV tile): the decode tiles (64 keys; the first four
+# cases, under their old ids) and the prefill kernels' 128 x 128 tiles
+_BOUNDS_CASES = [pytest.param(w, 64, 64, id=str(w))
+                 for w in (None, 1, 40, 200)] + [
+    pytest.param(w, tflash.PREFILL_BLOCK_Q, tflash.PREFILL_BLOCK_K,
+                 id=f"prefill-{w}") for w in (None, 1, 40, 200, 300)]
+
+
+@pytest.mark.parametrize("window,bq,bk", _BOUNDS_CASES)
+def test_kv_block_bounds_matches_jax(window, bq, bk):
+    for pos in (0, 1, 63, 64, 100, 127, 128, 1000, 2047):
+        for qb, q_rows in ((0, 1), (0, bq), (3, bq), (2, 16)):
+            want = jflash._kv_block_bounds(jnp.int32(pos), qb, q_rows, bk,
                                            window)
-            got = tflash.kv_block_bounds(pos, qb, bq, 64, window)
+            got = tflash.kv_block_bounds(pos, qb, q_rows, bk, window)
             assert tuple(int(x) for x in got) == tuple(int(x) for x in want)
     # the kernels' host side passes tensors of rows or of query blocks
     rows = torch.tensor([0, 63, 64, 1000], dtype=torch.int32)
-    lo, hi = tflash.kv_block_bounds(rows, 0, 1, 64, window)
+    lo, hi = tflash.kv_block_bounds(rows, 0, 1, bk, window)
     for i, p in enumerate(rows.tolist()):
-        want_lo, want_hi = tflash.kv_block_bounds(p, 0, 1, 64, window)
+        want_lo, want_hi = tflash.kv_block_bounds(p, 0, 1, bk, window)
         assert int(hi[i]) == want_hi
         assert (lo if isinstance(lo, int) else int(lo[i])) == want_lo
     qbs = torch.arange(4, dtype=torch.int32)
-    lo, hi = tflash.kv_block_bounds(100, qbs, 64, 64, window)
+    lo, hi = tflash.kv_block_bounds(100, qbs, bq, bk, window)
     for qb in range(4):
-        want_lo, want_hi = tflash.kv_block_bounds(100, qb, 64, 64, window)
+        want_lo, want_hi = tflash.kv_block_bounds(100, qb, bq, bk, window)
         assert int(hi[qb]) == want_hi
         assert (lo if isinstance(lo, int) else int(lo[qb])) == want_lo
 
