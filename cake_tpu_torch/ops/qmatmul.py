@@ -16,17 +16,20 @@ M rows, which must then be contiguous), the weight ``[K, N]`` int8 or
 tile and N a multiple of 16; f32 scales ``[N]``, or ``[K/g, N]`` for int4
 with g a multiple of 64. Every pointer is 16-byte aligned, all on one card.
 
-Work split: a CTA computes a ``BLOCK_M x 128`` output tile over a range of
-K tiles; ``BLOCK_M`` is 16 for M <= 16 (decode, the head) and 64 above.
-When the output tiles alone would leave the card's SMs short of work (M = 1
-on wk/wv gives 8 CTAs for 132 SMs), K is split over CTAs: each writes an
-f32 partial and a second kernel sums them in a fixed order, so a greedy
-stream never changes from run to run.
+Work split (:func:`plan`): M > 16 is the prefill regime, a CTA per
+``BM x 128`` output tile over all of K (BM 256, grouped int4 192, where
+those tiles fill the card, else 128). M <= 16 is the decode regime, a CTA per
+128-column strip over a range of K slots; when the strips alone would leave
+the card short of work (M = 1 on wk/wv gives 8 strips for 132 SMs), K is
+split over CTAs, each writes an f32 partial, and the last CTA of a strip
+to finish sums them in split order in the same launch, so a greedy stream
+never changes from run to run.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -38,33 +41,86 @@ from cake_tpu_torch.utils.device import sm_count
 # Tile sizes of the CUDA kernels (checked against the built libraries).
 BLOCK_K = 64
 BLOCK_N = 128
+# the largest M of the decode regime
+DECODE_M = 16
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _ARGS = {
-    # x, w, scale, y, part, M, N, K, block_m, splits, k tiles a split, stream
-    "quant_matmul": (_VP,) * 5 + (_I,) * 6 + (_VP,),
+    # x, w, scale, y, part, counters, M, N, K, block_m, splits, K steps a
+    # split, stream
+    "quant_matmul": (_VP,) * 6 + (_I,) * 6 + (_VP,),
     # the same with the group size (0: per channel) after K
-    "quant4_matmul": (_VP,) * 5 + (_I,) * 7 + (_VP,),
+    "quant4_matmul": (_VP,) * 6 + (_I,) * 7 + (_VP,),
 }
+
+
+def decode_block_k(bits: int) -> int:
+    """K rows of a decode ring slot: 8 KB of weight, 64 int8 or 128 int4
+    rows."""
+    return BLOCK_K * 8 // bits
 
 
 @functools.cache
 def _entry(name: str):
+    bits = 8 if name == "quant_matmul" else 4
     return build.entry(name, _ARGS[name],
-                       {"block_k": BLOCK_K, "block_n": BLOCK_N})
+                       {"block_k": BLOCK_K, "block_n": BLOCK_N,
+                        "decode_block_k": decode_block_k(bits)})
 
 
-def block_m(m: int) -> int:
-    return 16 if m <= 16 else 64
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one call runs: ``regime`` "prefill" (M > 16) or "decode";
+    ``block_m`` rows of a CTA (256, 192 or 128, or 16 for decode); ``block_k``
+    K rows of a k step (prefill) or of a ring slot (decode); K is cut into
+    ``splits`` ranges of ``per_split`` such steps (the last one may be
+    shorter, none is empty); ``grid`` the CTAs (tiles or strips, splits)."""
+
+    regime: str
+    block_m: int
+    block_k: int
+    splits: int
+    per_split: int
+    grid: tuple[int, int]
 
 
-def split_k(m: int, n: int, k: int, device) -> tuple[int, int]:
-    """``(splits, k tiles a split)``: enough CTAs for about four per SM,
-    never more splits than K tiles."""
-    tiles = -(-m // block_m(m)) * -(-n // BLOCK_N)
-    k_tiles = k // BLOCK_K
-    want = -(-4 * sm_count(device) // tiles)
-    per = -(-k_tiles // max(1, min(k_tiles, want)))
-    return -(-k_tiles // per), per
+def plan(m: int, n: int, k: int, sms: int, bits: int = 8,
+         group: int | None = None) -> Plan:
+    """The plan of a call with ``M = m`` rows, out-dim ``n``, in-dim ``k``
+    (> 0, a multiple of 64) on a card of ``sms`` SMs: a pure function of
+    its arguments. ``bits`` 8 or 4; ``group`` the int4 group size (None:
+    per channel)."""
+    strips = -(-n // BLOCK_N)
+    if m > DECODE_M:
+        # BM 256 pays the conversion of each code once for 256 rows; a
+        # grouped partial beside the sum fits only BM 192; BM 128 where the
+        # larger tiles would leave SMs idle
+        big = 192 if group else 256
+        bm = big if -(-m // big) * strips >= sms else 128
+        return Plan("prefill", bm, BLOCK_K, 1, k // BLOCK_K,
+                    (-(-m // bm) * strips, 1))
+    bk = decode_block_k(bits)
+    slots = -(-k // bk)
+    # about a CTA a SM, in one wave: one CTA keeps 40-48 KB of weight in
+    # flight, enough for an SM, and each further split costs its partial
+    # and a share of the fold (more CTAs measured slower)
+    want = sms // strips
+    per = -(-slots // max(1, min(slots, want)))
+    splits = -(-slots // per)
+    return Plan("decode", DECODE_M, bk, splits, per, (strips, splits))
+
+
+# per card: one int a 128-column strip, 0 between calls (the last CTA of a
+# strip resets its own)
+_COUNTERS: dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(device, strips: int) -> torch.Tensor:
+    have = _COUNTERS.get(device)
+    if have is None or have.numel() < strips:
+        have = torch.zeros(max(strips, 1024), dtype=torch.int32,
+                           device=device)
+        _COUNTERS[device] = have
+    return have
 
 
 def _check(name: str, x, w, scale, k: int, n: int) -> torch.Tensor:
@@ -102,13 +158,21 @@ def _launch(name: str, x2, w, scale, n: int, extra: tuple) -> torch.Tensor:
     y = torch.empty(m, n, dtype=torch.bfloat16, device=x2.device)
     if m == 0:
         return y
-    splits, per = split_k(m, n, k, x2.device)
-    part = (torch.empty(splits * m * n, dtype=torch.float32,
-                        device=x2.device) if splits > 1 else None)
+    if k == 0:
+        return y.zero_()
+    group = extra[0] if extra else 0
+    p = plan(m, n, k, sm_count(x2.device), 8 if not extra else 4,
+             group or None)
+    part = counters = None
+    if p.splits > 1:
+        part = torch.empty(p.splits * m * n, dtype=torch.float32,
+                           device=x2.device)
+        counters = _counters(x2.device, p.grid[0])
     lib, fn = _entry(name)
     err = fn(x2.data_ptr(), w.data_ptr(), scale.data_ptr(), y.data_ptr(),
-             None if part is None else part.data_ptr(), m, n, k, *extra,
-             block_m(m), splits, per,
+             None if part is None else part.data_ptr(),
+             None if counters is None else counters.data_ptr(), m, n, k,
+             *extra, p.block_m, p.splits, p.per_split,
              torch.cuda.current_stream(x2.device).cuda_stream)
     build.check(err, lib, name)
     build.count_launch(name)

@@ -2,6 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (``cake_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --matmuls DIR   # the matmuls' times of DIR's
+                                          # package only (a same-call
+                                          # comparison with another tree)
 
 Phases, each fatal on failure:
 
@@ -10,13 +13,15 @@ Phases, each fatal on failure:
 2. each kernel against its plain PyTorch version at the main path's
    shapes (Llama-3-8B: H=32, KVH=8, D=128, bf16, S=4096; prefill at
    T = 2048 and at the 2,000-token prompt; the linears' (K, N) at M = 1
-   and M = 2048), element by element and row by row; planted faults (a
-   decode, a matmul, and both prefills one tile short) must fail the same
-   check;
+   and M = 2048, ragged shapes in both matmul regimes), element by element
+   and row by row; planted faults (a decode, the matmuls at M = 1 and
+   2048, and both prefills one tile short) must fail the same check; each
+   matmul run twice on the same inputs gives the same bits;
 3. kernel timings (CUDA events, L2 flushed before each call) beside the
    card's bound, the plain version and one PyTorch call as a yardstick,
-   with the prefill kernels' TFLOP/s, registers and shared memory, printed
-   as one JSON line at the end;
+   with the prefill kernels' and each matmul case's TFLOP/s, registers and
+   shared memory (the matmuls at every linear, M = 1 and 2048), printed as
+   one JSON line at the end;
 4. the model at full Llama-3-8B width and 2 layers, on the card (kernels)
    against the CPU (plain path), from the same weights: bf16, int8 weights
    with the int8 cache, int4 g128 weights; and codes quantized on the card
@@ -26,7 +31,7 @@ Phases, each fatal on failure:
    bf16, greedy and sampled; (b) int8 weights with the int8 KV cache; (c)
    int4 g128 weights; each with the kernels' launch counts checked against
    the model calls, then a profiler trace of one prefill and one decode
-   block for the card's kernel time;
+   block for the card's kernel time and launches a decode step;
 6. the command line (``python -m cake_tpu_torch.cli``) on a tiny
    checkpoint written by the port's own writer: bf16, ``--quantize int8
    --kv-quant int8`` and ``--quantize int4:g64``.
@@ -77,8 +82,8 @@ H, KVH, D, S = 32, 8, 128, 4096
 # and a window whose lower edge falls inside KV tiles
 PREFILL_CASES = ((2048, 0, None), (2000, 0, None), (256, 1000, None),
                  (512, 1000, 300))
-# the linears' (K, N) of Llama-3-8B: gate/up, down, k/v; and the head
-LINEARS = ((4096, 14336), (14336, 4096), (4096, 1024))
+# the linears' (K, N) of Llama-3-8B: gate/up, down, k/v, q/o; and the head
+LINEARS = ((4096, 14336), (14336, 4096), (4096, 1024), (4096, 4096))
 HEAD = (4096, 128256)
 # (wrapper, group size) of each weight tier: int8, int4, int4 g128
 TIERS = (("quant_matmul", None), ("quant4_matmul", None),
@@ -272,37 +277,49 @@ def tier_label(tier) -> str:
 
 def phase_quant_kernels(torch, flash, qmatmul, quant, kvcache) -> dict:
     """The three kernels of the quantized path against their plain
-    versions, with a planted fault each."""
+    versions, with planted faults; the matmuls also run twice on the same
+    inputs and must give the same bits (no sum depends on timing)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     plain = {"quant_matmul": quant.quant_matmul_ref,
              "quant4_matmul": quant.quant4_matmul_ref}
     errs = {}
-    # the linears at decode and prefill, the head at decode, and a ragged
-    # shape (M off the 16-row tile, N off the 128-column tile)
-    shapes = [(kn, (1, 2048)) for kn in LINEARS] + [(HEAD, (1,)),
-                                                     ((256, 1040), (5,))]
-    for (k, n), ms in shapes:
+    # the linears at decode and prefill, the head at decode, and ragged
+    # shapes in both regimes (M off the 16-row decode and 128/256-row
+    # prefill tiles, N off the 128-column tile, K off the 128-row int4
+    # decode slot), the ragged prefill also with 64-row int4 groups
+    shapes = [(kn, (1, 2048), TIERS) for kn in LINEARS] + [
+        (HEAD, (1,), TIERS), ((256, 1040), (5,), TIERS),
+        ((256, 1040), (300,), TIERS + (("quant4_matmul", 64),)),
+        ((192, 272), (5, 130), TIERS[:2] + (("quant4_matmul", 64),))]
+    for (k, n), ms, tiers in shapes:
         w = torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
-        for tier in TIERS:
+        for tier in tiers:
             name, wq, scale = quantized(quant, w, tier)
             for m in ms:
                 x = torch.randn(m, k, generator=gen, device="cuda").to(
                     torch.bfloat16)
                 label = f"{name} {tier_label(tier)} M={m} K={k} N={n}"
+                out = getattr(qmatmul, name)(x, wq, scale)
                 errs[(name, tier[1], m, k, n)] = compare(
-                    torch, label, getattr(qmatmul, name)(x, wq, scale),
-                    plain[name](x, wq, scale))
-                if (k, n) == LINEARS[0] and m == 1:
+                    torch, label, out, plain[name](x, wq, scale))
+                if (k, n) in LINEARS and not torch.equal(
+                        out, getattr(qmatmul, name)(x, wq, scale)):
+                    fail(f"{label}: a second call on the same inputs gives "
+                         "other bits")
+                if (k, n) == LINEARS[0]:
                     # the kernel run one 64-row K tile short
                     k2 = k - qmatmul.BLOCK_K
                     int4 = name == "quant4_matmul"
                     planted(torch, f"{label} one K tile short",
                             qmatmul._launch(
-                                name, x[:, :k2], wq[:k2 // 2 if int4 else k2],
-                                scale, n, (tier[1] or 0,) if int4 else ()),
+                                name, x[:, :k2].contiguous(),
+                                wq[:k2 // 2 if int4 else k2], scale, n,
+                                (tier[1] or 0,) if int4 else ()),
                             plain[name](x, wq, scale))
             del wq, scale
         del w
+    say("[2] the matmuls at every linear, M = 1 and 2048: two calls give the "
+        "same bits")
     torch.cuda.empty_cache()
 
     def rnd(*shape):
@@ -339,17 +356,19 @@ def phase_quant_kernels(torch, flash, qmatmul, quant, kvcache) -> dict:
 
 
 def time_ms(torch, fn, n: int = 20, warm: int = 3) -> float:
-    """Median card ms of ``fn`` over ``n`` calls, each after the 50 MB L2
-    has been overwritten (the main path reaches each layer's attention with
-    a cold cache). A spin kernel keeps the card busy while the host
+    """Median card ms of ``fn`` over ``n`` calls, each after a 256 MB read
+    has evicted the 50 MB L2 (the main path reaches each layer's attention
+    and linears with a cold cache). A spin kernel keeps the card busy while the host
     enqueues the start event and ``fn``, so the events bracket the card's
     work and not the host's launch time."""
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    flush = torch.ones(64 << 20, dtype=torch.float32, device="cuda")
     for _ in range(warm):
         fn()
     pairs = []
     for _ in range(n):
-        flush.zero_()
+        # read, not written: a write would leave ~50 MB of dirty lines
+        # whose write-back the timed call would pay
+        flush.sum()
         torch.cuda._sleep(2_000_000)  # ~1 ms of cycles
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
@@ -432,11 +451,12 @@ def phase_timing(torch, flash, errs) -> list:
     return rows
 
 
-def matmul_case(torch, quant, qmatmul, tier, m, k, n, gen) -> dict:
+def matmul_case(torch, quant, qmatmul, build, tier, m, k, n, gen) -> dict:
     """Card times of one quantized linear: the kernel, its plain version,
     and ``torch.matmul`` over the weight dequantized to bf16 beforehand
     (the same function up to the weight's rounding, at 2x or 4x the
-    weight bytes), beside the bound."""
+    weight bytes), beside the bound; the kernel's rate, plan and build
+    figures."""
     w = torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
     name, wq, scale = quantized(quant, w, tier)
     del w
@@ -456,24 +476,35 @@ def matmul_case(torch, quant, qmatmul, tier, m, k, n, gen) -> dict:
             "plain_ms": time_ms(torch, lambda: plain(x, wq, scale), n=5),
             "library_ms": time_ms(torch, lambda: x @ w_bf16),
             "bound_ms": b_ms, "bound_by": b_by}
+    case["pct_of_bound"] = 100 * b_ms / case["ms"]
+    case["tflops"] = 2 * m * k * n / case["ms"] / 1e9
+    p = qmatmul.plan(m, n, k, torch.cuda.get_device_properties(
+        0).multi_processor_count, 8 if name == "quant_matmul" else 4,
+        tier[1])
+    case["plan"] = (f"{p.regime} block_m {p.block_m} splits {p.splits} "
+                    f"grid {p.grid}")
+    case.update(matmul_build_info(build, name, p, tier[1], m))
     del wq, scale, w_bf16
     torch.cuda.empty_cache()
     return case
 
 
-def phase_quant_timing(torch, flash, qmatmul, quant, kvcache, errs) -> list:
+def phase_quant_timing(torch, flash, qmatmul, quant, kvcache, build,
+                       errs) -> list:
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     rows = []
-    # headline shape first: w_gate at decode, then prefill, the head, wk/wv
-    shapes = ((1,) + LINEARS[0], (2048,) + LINEARS[0], (1,) + HEAD,
-              (1,) + LINEARS[2])
+    # headline shape first: w_gate at decode, then prefill; each linear at
+    # M = 1 and 2048, the head at M = 1
+    shapes = [(m,) + kn for kn in LINEARS for m in (1, 2048)] + [
+        (1,) + HEAD]
     for name, tiers, replaces in (
             ("quant_matmul", TIERS[:1], "cake_tpu/ops/pallas/quant.py:33"),
             ("quant4_matmul", (TIERS[2], TIERS[1]),
              "cake_tpu/ops/pallas/quant.py:96")):
-        cases = [matmul_case(torch, quant, qmatmul, tier, *shape, gen)
+        cases = [matmul_case(torch, quant, qmatmul, build, tier, *shape,
+                             gen)
                  for tier in tiers for shape in shapes]
         head = cases[0]
         m, k, n = shapes[0]
@@ -483,7 +514,8 @@ def phase_quant_timing(torch, flash, qmatmul, quant, kvcache, errs) -> list:
             "shape": f"{head['tier']} {head['shape']}",
             "max_abs_err": errs[(name, tiers[0][1], m, k, n)],
             **{key: head[key] for key in ("ms", "plain_ms", "library_ms",
-                                          "bound_ms", "bound_by")},
+                                          "bound_ms", "bound_by", "tflops",
+                                          "registers")},
             "cases": cases,
         })
 
@@ -522,24 +554,31 @@ def phase_quant_timing(torch, flash, qmatmul, quant, kvcache, errs) -> list:
         say(f"[3] {r['name']} {r['shape']}: {r['ms']:.4f} ms (plain "
             f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
             f"{r['bound_ms']:.4f} by {r['bound_by']})")
-        for c in r.get("cases", [])[1:]:
-            say(f"    {c['tier']} {c['shape']}: {c['ms']:.4f} ms (plain "
-                f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f}, bound "
-                f"{c['bound_ms']:.4f} by {c['bound_by']})")
+        for c in r.get("cases", []):
+            say(f"    {c['tier']} {c['shape']}: {c['ms']:.4f} ms, "
+                f"{c['pct_of_bound']:.1f}% of bound {c['bound_ms']:.4f} by "
+                f"{c['bound_by']}, {c['tflops']:.1f} TFLOP/s (plain "
+                f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f}); "
+                f"{c['plan']}; {c.get('registers')} registers, "
+                f"{c['dynamic_smem_bytes']} + {c.get('static_smem_bytes')} "
+                f"bytes of shared memory, {c.get('spill_store_bytes')} bytes "
+                "of spill stores")
     return rows
 
 
-def kernel_build_info(build, name: str, d: int = D) -> dict:
-    """Registers, static shared memory and spill stores of the head-width
-    ``d`` instance of kernel ``name`` (``ptxas -v`` in its build log), and
-    the dynamic shared memory it launches with."""
+def entry_build_info(build, name: str, match) -> dict:
+    """Registers, static shared memory and spill stores of the first kernel
+    of library ``name`` whose mangled name satisfies ``match``
+    (``ptxas -v`` in its build log)."""
     info, entry = {}, ""
     for ln in build.build_log(name).splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
+            if info:
+                break
             entry = m.group(1)
             continue
-        if f"Li{d}E" not in entry:
+        if not match(entry):
             continue
         for key, pat in (("registers", r"Used (\d+) registers"),
                          ("static_smem_bytes", r"(\d+) bytes smem"),
@@ -547,9 +586,34 @@ def kernel_build_info(build, name: str, d: int = D) -> dict:
             m = re.search(pat, ln)
             if m:
                 info[key] = int(m.group(1))
+    return info
+
+
+def kernel_build_info(build, name: str, d: int = D) -> dict:
+    """The build figures of the head-width ``d`` instance of prefill kernel
+    ``name``, and the dynamic shared memory it launches with."""
+    info = entry_build_info(build, name, lambda e: f"Li{d}E" in e)
     fn = getattr(build.library(name), f"{name}_smem_bytes")
     fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
     info["dynamic_smem_bytes"] = fn(d)
+    return info
+
+
+def matmul_build_info(build, name: str, plan, group, m: int) -> dict:
+    """The build figures of the matmul instance a call with ``plan`` runs
+    (format, regime, and BM or the x rows it pads to), and its dynamic
+    shared memory."""
+    fmt = "Int8W" if name == "quant_matmul" else f"Int4WILb{int(bool(group))}E"
+    if plan.regime == "prefill":
+        kern, inst = "prefill_kernel", f"Li{plan.block_m}E"
+    else:
+        kern, inst = "decode_kernel", f"Li{1 if m <= 8 else 2}E"
+    info = entry_build_info(build, name,
+                            lambda e: kern in e and fmt in e and inst in e)
+    fn = getattr(build.library(name), f"{name}_smem_bytes")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    info["dynamic_smem_bytes"] = fn(plan.block_m, int(bool(group)))
     return info
 
 
@@ -821,13 +885,21 @@ def profile_main_path(torch, cfg, params, prompt, label, kv_quant) -> dict:
     gen = LlamaGenerator(cfg, params, settings=SamplerSettings(
         temperature=0), block_size=8, kv_quant=kv_quant)
     gen.set_prompt(prompt)
-    out = {"prefill": device_profile(torch, lambda: gen.next_token(0)),
-           "decode_block_8": device_profile(torch,
-                                            lambda: gen.next_token(1))}
+    out = {"prefill": device_profile(torch, lambda: gen.next_token(0))}
+    steps = gen.decode_steps
+    out["decode_block_8"] = device_profile(torch, lambda: gen.next_token(1))
+    steps = gen.decode_steps - steps
     for name, prof in out.items():
         say(f"[5] {label} profile {name}: card kernel time "
             f"{prof['device_ms']:.3f} ms over {prof['kernel_launches']} "
             f"launches; top {prof['top']}")
+    dec = out["decode_block_8"]
+    dec["steps"] = steps
+    dec["device_ms_per_step"] = dec["device_ms"] / steps
+    dec["kernel_launches_per_step"] = dec["kernel_launches"] / steps
+    say(f"[5] {label} decode: {dec['device_ms_per_step']:.3f} ms of card "
+        f"kernel time and {dec['kernel_launches_per_step']:.1f} kernel "
+        f"launches a step ({steps} steps profiled)")
     return out
 
 
@@ -871,12 +943,39 @@ def phase_cli(torch, build) -> None:
             say(f"[6] cli {' '.join(flags) or 'bf16'}: {last}")
 
 
+def matmul_times(torch, qmatmul, quant) -> dict:
+    """Card ms of the two matmul wrappers of whichever package was imported
+    at phase 3's shapes and tiers (``--matmuls DIR``: a same-call
+    comparison with another tree, such as the parent commit unpacked)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    shapes = [(m,) + kn for kn in LINEARS for m in (1, 2048)] + [
+        (1,) + HEAD]
+    times = {}
+    for tier in TIERS:
+        for m, k, n in shapes:
+            w = torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
+            name, wq, scale = quantized(quant, w, tier)
+            x = torch.randn(m, k, generator=gen, device="cuda").to(
+                torch.bfloat16)
+            fn = getattr(qmatmul, name)
+            times[f"{tier_label(tier)} x [{m},{k}] w [{k},{n}]"] = time_ms(
+                torch, lambda: fn(x, wq, scale))
+            del w, wq, scale
+        torch.cuda.empty_cache()
+    return times
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
-    sys.path.insert(0, str(REPO))
+    other = None
+    if len(sys.argv) == 3 and sys.argv[1] == "--matmuls":
+        other = Path(sys.argv[2]).resolve()
+    elif len(sys.argv) > 1:
+        fail(f"usage: {sys.argv[0]} [--matmuls DIR]")
+    sys.path.insert(0, str(other or REPO))
     try:
         from cake_tpu_torch.ops import flash, kvcache, qmatmul, quant
         from cake_tpu_torch.ops.kernels import build
@@ -884,13 +983,20 @@ def main() -> int:
         fail(f"the cake_tpu_torch package is not beside this script ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    if other is not None:
+        say(card_line())
+        build.build_all(["quant_matmul", "quant4_matmul"])
+        say(json.dumps({"package": str(other),
+                        "matmul_ms": matmul_times(torch, qmatmul, quant)}))
+        return 0
     card = phase_toolchain(torch, build)
     errs = phase_kernels(torch, flash)
     errs.update(phase_quant_kernels(torch, flash, qmatmul, quant, kvcache))
     # timed before the profiled main path: a profiler session slows the
     # host for the rest of the process
     rows = phase_timing(torch, flash, errs)
-    rows += phase_quant_timing(torch, flash, qmatmul, quant, kvcache, errs)
+    rows += phase_quant_timing(torch, flash, qmatmul, quant, kvcache, build,
+                               errs)
     prefill_rows(build, rows)
     phase_model(torch)
     main_path = phase_main_path(torch, build)

@@ -186,6 +186,31 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(wrapper, case, err):
         fn(*args)
 
 
+@pytest.mark.parametrize("wrapper,n,group,accepted", [
+    ("quant_matmul", 264, None, False),
+    ("quant4_matmul", 264, None, False),
+    ("quant4_matmul", 264, 64, False),
+    ("quant4_matmul", 256, 64, True),
+    ("quant4_matmul", 256, 128, True),
+])
+def test_matmul_wrappers_keep_the_shapes_they_take(wrapper, n, group,
+                                                    accepted):
+    """An out-dim off 16 is refused by name; int4 groups of 64 and 128 pass
+    every shape check and stop only at the device check (``meta`` tensors
+    are not on a card)."""
+    k = 256
+    x = torch.empty(3, k, dtype=torch.bfloat16, device="meta")
+    rows = k if wrapper == "quant_matmul" else k // 2
+    w = torch.empty(rows, n, dtype=torch.int8, device="meta")
+    scale = torch.empty(*((k // group,) if group else ()), n, device="meta")
+    with pytest.raises(ValueError) as err:
+        getattr(qmatmul, wrapper)(x, w, scale)
+    if accepted:
+        assert "one CUDA device" in str(err.value)
+    else:
+        assert f"out-dim {n} of 16" in str(err.value)
+
+
 def test_decode_pos_shapes():
     assert flash._row_positions(5, 3, "cpu").tolist() == [5, 5, 5]
     assert flash._row_positions(torch.tensor(2), 2, "cpu").tolist() == [2, 2]

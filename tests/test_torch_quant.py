@@ -22,6 +22,10 @@ from cake_tpu_torch.ops import quant as tq
 from cake_tpu_torch.ops.kernels import build
 
 TOL = dict(atol=1e-5, rtol=1e-5)
+# K of 192 and 256: the frameworks' f32 sums of twice the products, in
+# other orders, differ by up to ~1.5e-5 on an output near 0 (1 element in
+# 312,000 at M 300, K 192, N 1040); the dequantized product's bound
+TOL_WIDE = dict(atol=1e-4, rtol=1e-4)
 
 
 def _f32(seed, *shape):
@@ -90,33 +94,47 @@ def test_parse_quant_spec_matches_jax():
             jq.parse_quant_spec(bad)
 
 
-@pytest.mark.parametrize("m", [1, 8])
-def test_quant_matmul_ref(m):
-    x, w = _f32(3, m, 128), _f32(4, 128, 96)
+# the shapes the card's kernels are held to across their new tiles: M off
+# the 16-row decode and 128/256-row prefill tiles, K off the 128-row int4
+# decode slot, N off the 128-column tile
+CROSS_TILES = [(m, k, n) for m in (5, 130, 300) for k in (192, 256)
+               for n in (272, 1040)]
+
+
+@pytest.mark.parametrize("m,k,n", [pytest.param(1, 128, 96, id="1"),
+                                   pytest.param(8, 128, 96, id="8")]
+                         + CROSS_TILES)
+def test_quant_matmul_ref(m, k, n):
+    x, w = _f32(3, m, k), _f32(4, k, n)
     ql = jq.quantize_linear(jnp.asarray(w))
     got = tq.quant_matmul_ref(torch.from_numpy(x), torch.from_numpy(
         np.array(ql.q)), torch.from_numpy(np.array(ql.scale)))
     jx = jnp.asarray(x)
+    blocks = (dict(block_m=4, block_n=32, block_k=32) if k == 128 else {})
+    tol = TOL if k == 128 else TOL_WIDE
     np.testing.assert_allclose(got.numpy(), np.asarray(quant_matmul_pallas(
-        jx, ql.q, ql.scale, block_m=4, block_n=32, block_k=32,
-        interpret=True)), **TOL)
+        jx, ql.q, ql.scale, interpret=True, **blocks)), **tol)
     np.testing.assert_allclose(got.numpy(), np.asarray(
-        jq.quant_matmul_xla(jx, ql.q, ql.scale)), **TOL)
+        jq.quant_matmul_xla(jx, ql.q, ql.scale)), **tol)
 
 
-@pytest.mark.parametrize("group_size", [None, 16, 32])
-@pytest.mark.parametrize("m", [1, 8])
-def test_quant4_matmul_ref(m, group_size):
-    x, w = _f32(5, m, 128), _f32(6, 128, 96)
+@pytest.mark.parametrize("m,group_size,k,n", [
+    pytest.param(m, g, 128, 96, id=f"{m}-{g}")
+    for m in (1, 8) for g in (None, 16, 32)] + [
+    (m, g, k, n) for m, k, n in CROSS_TILES for g in (64, 128)
+    if k % g == 0])
+def test_quant4_matmul_ref(m, group_size, k, n):
+    x, w = _f32(5, m, k), _f32(6, k, n)
     ql = jq.quantize_linear4(jnp.asarray(w), group_size=group_size)
     qp, scale = (torch.from_numpy(np.array(a)) for a in (ql.qp, ql.scale))
     got = tq.quant4_matmul_ref(torch.from_numpy(x), qp, scale)
     jx = jnp.asarray(x)
+    blocks = (dict(block_m=4, block_n=32, block_k=8) if k == 128 else {})
+    tol = TOL if k == 128 else TOL_WIDE
     np.testing.assert_allclose(got.numpy(), np.asarray(quant4_matmul_pallas(
-        jx, ql.qp, ql.scale, block_m=4, block_n=32, block_k=8,
-        interpret=True)), **TOL)
+        jx, ql.qp, ql.scale, interpret=True, **blocks)), **tol)
     np.testing.assert_allclose(got.numpy(), np.asarray(
-        jq.quant4_matmul_xla(jx, ql.qp, ql.scale)), **TOL)
+        jq.quant4_matmul_xla(jx, ql.qp, ql.scale)), **tol)
     # the same function as the dequantized weight's product
     deq = tq.dequantize_linear4(tq.Quantized4Linear(qp, scale), torch.float32)
     np.testing.assert_allclose(got.numpy(), x @ deq.numpy(), atol=1e-4,
@@ -199,12 +217,61 @@ def test_cpu_tensors_take_the_plain_versions():
     assert build.launches()["quant4_matmul"] == 0
 
 
-def test_split_k_keeps_every_split_busy(monkeypatch):
-    monkeypatch.setattr(qmatmul, "sm_count", lambda device: 132)
-    # decode on wk/wv: 8 output tiles, K = 4096 in 64 tiles
-    assert qmatmul.split_k(1, 1024, 4096, "cuda") == (64, 1)
-    # w_gate at decode: 112 tiles; prefill needs no split
-    splits, per = qmatmul.split_k(1, 14336, 4096, "cuda")
+# every linear of Llama-3-8B (K, N): wq/wo, wk/wv, gate/up, down, the head
+LLAMA3_8B_LINEARS = ((4096, 4096), (4096, 1024), (4096, 14336),
+                     (14336, 4096), (4096, 128256))
+TIERS = ((8, None), (4, None), (4, 128))
+
+
+def test_split_k_keeps_every_split_busy():
+    # decode on wk/wv: 8 strips of 128 columns, K = 4096 in 64 int8 slots,
+    # split until the card holds about a CTA a SM, in one wave
+    p = qmatmul.plan(1, 1024, 4096, 132)
+    assert p.regime == "decode" and p.block_m == 16 and p.block_k == 64
+    assert p.grid == (8, p.splits) and 64 <= 8 * p.splits <= 132
+    # wq/wo at decode: 32 strips, a few splits, none empty; prefill needs
+    # none
+    splits, per = (qmatmul.plan(1, 4096, 4096, 132).splits,
+                   qmatmul.plan(1, 4096, 4096, 132).per_split)
     assert splits > 1 and (splits - 1) * per < 64 <= splits * per
-    assert qmatmul.split_k(2048, 14336, 4096, "cuda") == (1, 64)
-    assert qmatmul.block_m(1) == 16 and qmatmul.block_m(17) == 64
+    p = qmatmul.plan(2048, 14336, 4096, 132)
+    assert (p.regime, p.block_m, p.splits, p.per_split) == ("prefill", 256,
+                                                            1, 64)
+    assert p.grid == (8 * 112, 1)
+    # the regimes meet at M = 16
+    assert qmatmul.plan(16, 4096, 4096, 132).regime == "decode"
+    assert qmatmul.plan(17, 4096, 4096, 132).regime == "prefill"
+    # w_gate and the head fill the card with strips alone
+    assert qmatmul.plan(1, 14336, 4096, 132).splits == 1
+    assert qmatmul.plan(1, 128256, 4096, 132).splits == 1
+
+
+@pytest.mark.parametrize("bits,group", TIERS)
+@pytest.mark.parametrize("m", [1, 2048])
+@pytest.mark.parametrize("k,n", LLAMA3_8B_LINEARS)
+def test_plan_of_every_llama3_8b_linear(k, n, m, bits, group):
+    p = qmatmul.plan(m, n, k, 132, bits, group)
+    # a pure function of its arguments
+    assert p == qmatmul.plan(m, n, k, 132, bits, group)
+    assert p.regime == ("prefill" if m > 16 else "decode")
+    steps = -(-k // p.block_k)
+    assert (steps - 1) * p.block_k < k <= steps * p.block_k
+    # the splits cover K exactly, and none is empty
+    assert (p.splits - 1) * p.per_split < steps <= p.splits * p.per_split
+    strips = -(-n // qmatmul.BLOCK_N)
+    if p.regime == "prefill":
+        assert p.splits == 1 and p.block_k == qmatmul.BLOCK_K
+        assert p.grid == (-(-m // p.block_m) * strips, 1)
+        # the f32 accumulators a consumer thread holds (BM / 2; grouped
+        # keeps the group's partial beside the sum), its two sets of A
+        # fragments (32) and room for addresses (16) fit the 240 registers
+        # setmaxnreg gives a consumer
+        assert p.block_m // 2 * (2 if group else 1) + 32 + 16 <= 240
+        assert p.block_m == (192 if group else 256) or n <= 1024
+    else:
+        assert p.block_m == 16 and p.block_k == 64 * 8 // bits
+        assert p.grid == (strips, p.splits)
+        # one wave: no more CTAs than SMs unless the strips alone are more,
+        # and a split wherever half the SMs would idle and K has slots
+        assert strips * p.splits <= max(132, strips)
+        assert p.splits > 1 or 2 * strips > 132 or steps == 1
