@@ -42,21 +42,6 @@ constexpr int PRODUCER_REGS = 56;
 constexpr int CONSUMER_REGS = consumer_regs(PRODUCER_REGS);
 static_assert(BK == 128, "one key (and its two scales) per producer thread");
 
-// Two int8 codes (bytes `sel & 0xF` and `(sel >> 8) & 0xF` of `w`,
-// selector 0x414n) as a packed bf16 pair, exactly, in four instructions:
-// each code byte goes under the byte 0x43, which makes the bf16 128 + low7
-// once bit 7 is cleared; bit 7 (the sign's weight, -128) picks the addend
-// -128 (0xC300) or -256 (0xC380), and the bf16 sum is the code itself
-// (every integer in [-128, 127] is a bf16).
-__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t w, uint32_t sel) {
-  const uint32_t t = __byte_perm(w, 0x43434343u, sel);
-  const uint32_t a = t & 0xFF7FFF7Fu, c = (t & 0x00800080u) | 0xC300C300u;
-  const __nv_bfloat162 sum =
-      __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&a),
-              *reinterpret_cast<const __nv_bfloat162*>(&c));
-  return *reinterpret_cast<const uint32_t*>(&sum);
-}
-
 // Four int8 codes to four bf16 values, two packed pairs.
 __device__ __forceinline__ void i8x4_to_bf16x4(uint32_t w, uint32_t& lo,
                                                uint32_t& hi) {

@@ -377,19 +377,6 @@ prefill_kernel(const __grid_constant__ CUtensorMap tm_x,
 // Decode regime
 // --------------------------------------------------------------------------
 
-// d = a * b + c, m16n8k16, bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_16816(float (&d)[4],
-                                          const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1,
-                                          const float (&c)[4]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
-}
-
 // acc = a * b (`fresh`) or acc += a * b.
 __device__ __forceinline__ void mma_step(float (&acc)[4],
                                          const uint32_t (&a)[4],

@@ -2,8 +2,10 @@
 // wrappers for shared-memory addresses, mbarriers, TMA tile loads, wgmma
 // and its fences, named barriers and setmaxnreg; and the host side's TMA
 // descriptor encoder
-// (cuTensorMapEncodeTiled, found through the runtime). Included by
-// csrc/flash_prefill_sm90.cuh and csrc/qmatmul_sm90.cuh.
+// (cuTensorMapEncodeTiled, found through the runtime); 1-d bulk copies,
+// mma.sync, ldmatrix and the exact int8-to-bf16 conversion. Included by
+// csrc/flash_prefill_sm90.cuh, csrc/qmatmul_sm90.cuh and
+// csrc/flash_decode_sm90.cuh.
 
 #pragma once
 
@@ -123,6 +125,58 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1)
       : "memory");
+}
+
+// One 1-d bulk copy of `bytes` bytes from global to shared memory,
+// completing on `bar`: no tensor map. `dst`, `src` and `bytes` must be
+// multiples of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// d = a * b + c, m16n8k16, bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          uint32_t b0, uint32_t b1,
+                                          const float (&c)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%11,%12,%13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory, transposed: lanes 8i..8i+7
+// give the 16-byte rows of matrix i, and lane t receives elements
+// (2 (t % 4), t / 4) and (2 (t % 4) + 1, t / 4) of each, as mma.sync's B
+// fragment of a [k][n] matrix stored n-contiguous.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// Two int8 codes (bytes `sel & 0xF` and `(sel >> 8) & 0xF` of `w`,
+// selector 0x414n) as a packed bf16 pair, exactly, in four instructions:
+// each code byte goes under the byte 0x43, which makes the bf16 128 + low7
+// once bit 7 is cleared; bit 7 (the sign's weight, -128) picks the addend
+// -128 (0xC300) or -256 (0xC380), and the bf16 sum is the code itself
+// (every integer in [-128, 127] is a bf16).
+__device__ __forceinline__ uint32_t i8x2_to_bf16x2(uint32_t w, uint32_t sel) {
+  const uint32_t t = __byte_perm(w, 0x43434343u, sel);
+  const uint32_t a = t & 0xFF7FFF7Fu, c = (t & 0x00800080u) | 0xC300C300u;
+  const __nv_bfloat162 sum =
+      __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+              *reinterpret_cast<const __nv_bfloat162*>(&c));
+  return *reinterpret_cast<const uint32_t*>(&sum);
 }
 
 __device__ __forceinline__ void wg_fence() {

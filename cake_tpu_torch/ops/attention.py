@@ -9,11 +9,12 @@ their CUDA kernels on the card, their plain versions for CPU tensors. There
 is no other route and no crossover dispatch.
 
 Over the int8 cache (:class:`~cake_tpu_torch.ops.kvcache.QuantizedKV`),
-prefill goes to :func:`~cake_tpu_torch.ops.flash.flash_attention_q8`, which
-reads the int8 bytes and folds the scales in. Decode dequantizes the layer's
-buffer with plain tensor ops (about 25 MB a layer a step at S = 4096 for
-Llama-3-8B) and attends with ``flash_decode``: the JAX package leaves this
-to XLA and has no int8 decode kernel.
+prefill goes to :func:`~cake_tpu_torch.ops.flash.flash_attention_q8` and
+decode to :func:`~cake_tpu_torch.ops.flash.flash_decode_q8`; both read the
+int8 bytes and fold the scales in, so no dequantized copy of the cache is
+made. (The JAX package's decode dequantizes at trace level, where XLA fuses
+the conversion into the attention's operand read; ``flash_decode_q8`` is
+the port's counterpart of that fusion.)
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from cake_tpu_torch.ops.flash import (
     flash_attention,
     flash_attention_q8,
     flash_decode,
+    flash_decode_q8,
 )
 from cake_tpu_torch.ops.quant import dense, out_features
 from cake_tpu_torch.ops.rope import rotate
@@ -37,8 +39,10 @@ def attend(q: torch.Tensor, k_all, v_all, pos,
     ``[B, H, T, D]``. ``pos`` is shared by the rows (int or 0-d tensor) or,
     for one query row, per row (``[B]``)."""
     if q.shape[2] == 1:
-        return flash_decode(q, kv.dequant_kv(k_all, q.dtype),
-                            kv.dequant_kv(v_all, q.dtype), pos, window=window)
+        if isinstance(k_all, kv.QuantizedKV):
+            return flash_decode_q8(q, k_all.q, k_all.scale, v_all.q,
+                                   v_all.scale, pos, window=window)
+        return flash_decode(q, k_all, v_all, pos, window=window)
     if isinstance(pos, torch.Tensor) and pos.dim() > 0:
         raise NotImplementedError(
             "per-row positions with T > 1 (the serving engine's chunked "

@@ -1,23 +1,29 @@
 """Flash attention on the card, and the plain versions beside it (port of
 ``cake_tpu/ops/pallas/flash.py``: ``flash_attention``, ``flash_attention_q8``
-and ``flash_decode``).
+and ``flash_decode``; and of the XLA decode over the int8 cache,
+``cake_tpu/ops/attention.py:419-421``).
 
 :func:`flash_attention` (prefill), :func:`flash_attention_q8` (prefill over
-the int8 KV cache) and :func:`flash_decode` (one query row) launch the
+the int8 KV cache), :func:`flash_decode` (one query row) and
+:func:`flash_decode_q8` (one query row over the int8 cache) launch the
 hand-written CUDA kernels of ``cake_tpu_torch/csrc/`` for a tensor on the
 card and raise for anything those kernels do not take. For a tensor on the
 CPU, and only there, they compute the same function with the plain
-versions :func:`flash_attention_ref`, :func:`flash_attention_q8_ref` and
-:func:`flash_decode_ref`, which the CPU tests hold against the JAX package
-and ``chip_smoke.py`` holds the kernels against on the card.
+versions :func:`flash_attention_ref`, :func:`flash_attention_q8_ref`,
+:func:`flash_decode_ref` and :func:`flash_decode_q8_ref`, which the CPU
+tests hold against the JAX package and ``chip_smoke.py`` holds the kernels
+against on the card.
 
 Numerics of both the kernels and the plain versions: f32 scores times
 ``1/sqrt(D)``, masked entries set to ``-1e30``, the softmax kept in f32,
 probabilities rounded to V's dtype before the PV product, output in q's
 dtype. Query head ``h`` reads kv head ``h // (H / KVH)``. Over the int8
-cache the kernel folds the key scales into the score columns and the value
-scales into P before its rounding; the plain version dequantizes the live
-keys in f32 instead (the same values: code times scale, unrounded).
+cache the kernels fold the key scales into the score columns and the value
+scales into P before its rounding. The plain prefill version dequantizes
+the live keys in f32 (the same values: code times scale, unrounded); the
+plain decode version dequantizes the buffer to q's dtype, as the JAX
+package's decode does, so the decode kernel differs from it by the bf16
+rounding of the dequantized K and V.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import math
 
 import torch
 
+from cake_tpu_torch.ops import kvcache as kv
 from cake_tpu_torch.ops.kernels import build
 from cake_tpu_torch.utils.device import sm_count
 
@@ -35,10 +42,12 @@ NEG_INF = -1e30
 # Tile sizes of the CUDA kernels (checked against the built libraries when
 # they load); kv_block_bounds counts in these units on both sides. The two
 # prefill kernels take 128 q rows (two wgmma warpgroups of 64) over 128-key
-# tiles; decode splits its keys in 64-key tiles.
+# tiles; decode splits its keys in 64-key tiles and folds a GQA group of up
+# to 16 query heads into one mma.sync tile.
 PREFILL_BLOCK_Q = 128
 PREFILL_BLOCK_K = 128
 DECODE_BLOCK_K = 64
+DECODE_MAX_GROUP = 16
 _LOG2E = 1.4426950408889634
 
 
@@ -134,6 +143,19 @@ def flash_decode_ref(q: torch.Tensor, k_all: torch.Tensor,
                             torch.arange(lo, hi, device=q.device), window)
 
 
+def flash_decode_q8_ref(q: torch.Tensor, k_q: torch.Tensor,
+                        k_scale: torch.Tensor, v_q: torch.Tensor,
+                        v_scale: torch.Tensor, pos,
+                        window: int | None = None) -> torch.Tensor:
+    """Plain version of :func:`flash_decode_q8`: the int8 cache dequantized
+    to q's dtype (``dequant_kv``), then :func:`flash_decode_ref`, which is
+    what the JAX package computes at decode over the int8 cache."""
+    return flash_decode_ref(
+        q, kv.dequant_kv(kv.QuantizedKV(k_q, k_scale), q.dtype),
+        kv.dequant_kv(kv.QuantizedKV(v_q, v_scale), q.dtype), pos,
+        window=window)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -150,11 +172,11 @@ def _row_positions(pos, b: int, device) -> torch.Tensor:
         b).contiguous()
 
 
-def _check_operands(name: str, q, k_all, v_all, groups=None,
+def _check_operands(name: str, q, k_all, v_all, max_group=None,
                     scales=()) -> None:
-    """What the CUDA kernels take; raises on anything else. ``groups``: the
-    GQA group sizes built (any if None). ``scales``: the f32 per-token
-    scales ``[B, KVH, S]`` of an int8 ``k_all``/``v_all``."""
+    """What the CUDA kernels take; raises on anything else. ``max_group``:
+    the largest GQA group built (any if None). ``scales``: the f32
+    per-token scales ``[B, KVH, S]`` of an int8 ``k_all``/``v_all``."""
     kv_dtype = torch.int8 if scales else torch.bfloat16
     if (q.dtype != torch.bfloat16 or k_all.dtype != kv_dtype
             or v_all.dtype != kv_dtype
@@ -175,9 +197,9 @@ def _check_operands(name: str, q, k_all, v_all, groups=None,
     if kb != b or kd != d or h % kvh:
         raise ValueError(f"{name}: q {tuple(q.shape)} does not fit k/v "
                          f"{tuple(k_all.shape)}")
-    if groups and h // kvh not in groups:
-        raise ValueError(f"{name}: GQA group {h // kvh} is not built "
-                         f"{groups}")
+    if max_group and h // kvh > max_group:
+        raise ValueError(f"{name}: GQA group {h // kvh} is not built (1 to "
+                         f"{max_group})")
     if d not in (64, 128):
         raise ValueError(f"{name}: head_dim {d} is not built (64 or 128)")
     if not all(t.is_contiguous() for t in (k_all, v_all, *scales)):
@@ -205,7 +227,9 @@ def _bthd_output(q: torch.Tensor) -> torch.Tensor:
 
 
 def _ptr(t) -> int | None:
-    return None if isinstance(t, int) else t.data_ptr()
+    """A tensor's address; None for an absent operand (None, or the int 0
+    of an unwindowed lower bound)."""
+    return None if t is None or isinstance(t, int) else t.data_ptr()
 
 
 _VP, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -214,7 +238,7 @@ _VP, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 
 @functools.cache
 def _entry(name: str, argtypes: tuple):
-    if name == "flash_decode":  # one query row, no q tile
+    if name.startswith("flash_decode"):  # one query row, no q tile
         consts = {"block_k": DECODE_BLOCK_K}
     else:
         consts = {"block_q": PREFILL_BLOCK_Q, "block_k": PREFILL_BLOCK_K}
@@ -230,7 +254,10 @@ def _prefill_bounds(t: int, pos: int, window, device):
 
 _PREFILL_ARGS = (_VP,) * 6 + (_I,) * 6 + (_LL,) * 6 + (_I, _I, _F, _VP)
 _PREFILL_Q8_ARGS = (_VP,) * 8 + (_I,) * 6 + (_LL,) * 6 + (_I, _I, _F, _VP)
-_DECODE_ARGS = (_VP,) * 9 + (_I,) * 6 + (_LL,) * 4 + (_I, _F, _VP)
+# q, k[, k_scale], v[, v_scale], pos, o, part_o, part_ml, counters; B, H,
+# KVH, S, D, nsplit; q and o strides; window, scale, stream
+_DECODE_ARGS = (_VP,) * 8 + (_I,) * 6 + (_LL,) * 4 + (_I, _F, _VP)
+_DECODE_Q8_ARGS = (_VP,) * 10 + (_I,) * 6 + (_LL,) * 4 + (_I, _F, _VP)
 
 
 def flash_attention(q: torch.Tensor, k_all: torch.Tensor,
@@ -300,10 +327,54 @@ def flash_attention_q8(q: torch.Tensor, k_q: torch.Tensor,
 
 
 def num_splits(b: int, kvh: int, s: int, device) -> int:
-    """KV splits of :func:`flash_decode`: enough CTAs for about two per SM
-    on the card, never more splits than KV tiles."""
-    want = -(-2 * sm_count(device) // (b * kvh))
-    return max(1, min(-(-s // DECODE_BLOCK_K), want))
+    """KV splits of the decode kernels, from the shapes alone (never from
+    ``pos``): about one CTA an SM, fewer and longer CTAs than two an SM,
+    never more splits than the buffer's KV tiles. Each CTA takes its share
+    of its row's live tiles on the card."""
+    return max(1, min(-(-s // DECODE_BLOCK_K), sm_count(device) // (b * kvh)))
+
+
+# per card: one int a (b, kv head), 0 between calls (the last CTA of a
+# (b, kv head) resets its own)
+_COUNTERS: dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(device, n: int) -> torch.Tensor:
+    have = _COUNTERS.get(device)
+    if have is None or have.numel() < n:
+        have = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device] = have
+    return have
+
+
+def _decode(name: str, argtypes, q: torch.Tensor, kv_ptrs: tuple, s: int,
+            kvh: int, pos, window) -> torch.Tensor:
+    """One launch of decode kernel ``name`` over the cache pointers
+    ``kv_ptrs``; partials, counters and the output allocated here, no
+    tensor op on ``pos``."""
+    b, h, t, d = q.shape
+    if t != 1:
+        raise ValueError(f"{name} takes one query row, got T={t}")
+    pos_t = _row_positions(pos, b, q.device)
+    nsplit = num_splits(b, kvh, s, q.device)
+    part_o = part_ml = counters = None
+    if nsplit > 1:
+        # per (b, kv head, split, group row): unnormalized output, max, sum
+        part_o = torch.empty(b * h * nsplit * d, dtype=torch.float32,
+                             device=q.device)
+        part_ml = torch.empty(b * h * nsplit * 2, dtype=torch.float32,
+                              device=q.device)
+        counters = _counters(q.device, b * kvh)
+    out = _bthd_output(q)
+    lib, fn = _entry(name, argtypes)
+    err = fn(q.data_ptr(), *kv_ptrs, pos_t.data_ptr(), out.data_ptr(),
+             _ptr(part_o), _ptr(part_ml), _ptr(counters), b, h, kvh, s, d,
+             nsplit, q.stride(0), q.stride(1), out.stride(0), out.stride(1),
+             -1 if window is None else window, _LOG2E / math.sqrt(d),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, lib, name)
+    build.count_launch(name)
+    return out
 
 
 def flash_decode(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
@@ -313,31 +384,32 @@ def flash_decode(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
 
     ``pos`` is shared (int or 0-d tensor) or per row (``[B]``, the
     multi-stream frontier); an int32 ``[B]`` tensor on the card is read by
-    the kernel where it lies, with no host sync. Only the KV tiles at or
-    before each row's frontier (and inside its window) are read."""
+    the kernel where it lies, which then makes the call exactly one launch
+    with no host sync. Only the KV tiles at or before each row's frontier
+    (and inside its window) are read."""
     if q.device.type == "cpu":
         return flash_decode_ref(q, k_all, v_all, pos, window=window)
-    _check_operands("flash_decode", q, k_all, v_all, groups=(1, 2, 4, 8))
-    b, h, t, d = q.shape
-    kvh, s = k_all.shape[1], k_all.shape[2]
-    if t != 1:
-        raise ValueError(f"flash_decode takes one query row, got T={t}")
-    pos_t = _row_positions(pos, b, q.device)
-    kb_lo, kb_hi = kv_block_bounds(pos_t, 0, 1, DECODE_BLOCK_K, window)
-    nsplit = num_splits(b, kvh, s, q.device)
-    # per (b, kv head, split, group row): unnormalized output, max and sum
-    part_o = torch.empty(b * h * nsplit * d, dtype=torch.float32,
-                         device=q.device)
-    part_ml = torch.empty(b * h * nsplit * 2, dtype=torch.float32,
-                          device=q.device)
-    out = _bthd_output(q)
-    lib, fn = _entry("flash_decode", _DECODE_ARGS)
-    err = fn(q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
-             pos_t.data_ptr(), _ptr(kb_lo), kb_hi.data_ptr(), out.data_ptr(),
-             part_o.data_ptr(), part_ml.data_ptr(), b, h, kvh, s, d, nsplit,
-             q.stride(0), q.stride(1), out.stride(0), out.stride(1),
-             -1 if window is None else window, _LOG2E / math.sqrt(d),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, lib, "flash_decode")
-    build.count_launch("flash_decode")
-    return out
+    _check_operands("flash_decode", q, k_all, v_all,
+                    max_group=DECODE_MAX_GROUP)
+    return _decode("flash_decode", _DECODE_ARGS, q,
+                   (k_all.data_ptr(), v_all.data_ptr()), k_all.shape[2],
+                   k_all.shape[1], pos, window)
+
+
+def flash_decode_q8(q: torch.Tensor, k_q: torch.Tensor,
+                    k_scale: torch.Tensor, v_q: torch.Tensor,
+                    v_scale: torch.Tensor, pos, *,
+                    window: int | None = None) -> torch.Tensor:
+    """:func:`flash_decode` over the int8 cache ``k_q/v_q [B, KVH, S, D]``
+    with per-token scales ``k_scale/v_scale [B, KVH, S]``, read where they
+    lie: no dequantized copy of the cache is made. Returns
+    ``[B, H, 1, D]``."""
+    if q.device.type == "cpu":
+        return flash_decode_q8_ref(q, k_q, k_scale, v_q, v_scale, pos,
+                                   window=window)
+    _check_operands("flash_decode_q8", q, k_q, v_q,
+                    max_group=DECODE_MAX_GROUP, scales=(k_scale, v_scale))
+    return _decode("flash_decode_q8", _DECODE_Q8_ARGS, q,
+                   (k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
+                    v_scale.data_ptr()), k_q.shape[2], k_q.shape[1], pos,
+                   window)

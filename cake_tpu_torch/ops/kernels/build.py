@@ -37,6 +37,7 @@ SOURCES = {
     "flash_prefill": "flash_prefill.cu",
     "flash_decode": "flash_decode.cu",
     "flash_prefill_q8": "flash_prefill_q8.cu",
+    "flash_decode_q8": "flash_decode_q8.cu",
     "quant_matmul": "quant_matmul.cu",
     "quant4_matmul": "quant4_matmul.cu",
 }

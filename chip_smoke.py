@@ -2,9 +2,10 @@
 """Smoke run of the PyTorch/CUDA port (``cake_tpu_torch``) on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --matmuls DIR   # the matmuls' times of DIR's
-                                          # package only (a same-call
-                                          # comparison with another tree)
+    python3 chip_smoke.py --kernels DIR   # the matmuls' and flash_decode's
+                                          # times of DIR's package only (a
+                                          # same-call comparison with
+                                          # another tree)
 
 Phases, each fatal on failure:
 
@@ -12,16 +13,19 @@ Phases, each fatal on failure:
    versions; the kernels are built from ``cake_tpu_torch/csrc``;
 2. each kernel against its plain PyTorch version at the main path's
    shapes (Llama-3-8B: H=32, KVH=8, D=128, bf16, S=4096; prefill at
-   T = 2048 and at the 2,000-token prompt; the linears' (K, N) at M = 1
-   and M = 2048, ragged shapes in both matmul regimes), element by element
-   and row by row; planted faults (a decode, the matmuls at M = 1 and
-   2048, and both prefills one tile short) must fail the same check; each
-   matmul run twice on the same inputs gives the same bits;
+   T = 2048 and at the 2,000-token prompt; decode from pos 0 to 4095, per
+   row, windowed with edges inside a tile and on its boundary, at GQA
+   groups 2, 4, 6 and 7; the linears' (K, N) at M = 1 and M = 2048, ragged
+   shapes in both matmul regimes), element by element and row by row;
+   planted faults (both decodes one tile short at either end, the matmuls
+   at M = 1 and 2048, and both prefills one tile short) must fail the same
+   check; each matmul and each decode run twice on the same inputs gives
+   the same bits;
 3. kernel timings (CUDA events, L2 flushed before each call) beside the
    card's bound, the plain version and one PyTorch call as a yardstick,
    with the prefill kernels' and each matmul case's TFLOP/s, registers and
-   shared memory (the matmuls at every linear, M = 1 and 2048), printed as
-   one JSON line at the end;
+   shared memory (the matmuls at every linear, M = 1 and 2048; the decodes
+   at pos 2047, 4095 and four rows), printed as one JSON line at the end;
 4. the model at full Llama-3-8B width and 2 layers, on the card (kernels)
    against the CPU (plain path), from the same weights: bf16, int8 weights
    with the int8 cache, int4 g128 weights; and codes quantized on the card
@@ -31,7 +35,9 @@ Phases, each fatal on failure:
    bf16, greedy and sampled; (b) int8 weights with the int8 KV cache; (c)
    int4 g128 weights; each with the kernels' launch counts checked against
    the model calls, then a profiler trace of one prefill and one decode
-   block for the card's kernel time and launches a decode step;
+   block for the card's kernel time and launches a decode step (and, over
+   the int8 cache, no dequantizing kernel); a trace of one call of each
+   decode wrapper shows one kernel launch;
 6. the command line (``python -m cake_tpu_torch.cli``) on a tiny
    checkpoint written by the port's own writer: bf16, ``--quantize int8
    --kv-quant int8`` and ``--quantize int4:g64``.
@@ -66,6 +72,11 @@ ATOL = RTOL = 2e-2
 # planted faults, one dropped tile, read 0.23-0.38 in decode and 0.81-0.93
 # in prefill: a dropped tile of k keys moves its rows by ~sqrt(k/n) at n
 # live keys.
+# flash_decode_q8 is held to its plain version, which rounds the
+# dequantized K and V to bf16 (as the JAX package's decode does) where the
+# kernel folds the unrounded scales into the scores and into P: at one live
+# key the output is that V row, off by up to |v| 2^-8 (~0.016 at |v| ~ 4),
+# inside ATOL; its worst rows read ~6e-3, inside ROW_REL_L2.
 # The quantized matmuls are held to the same two checks, a row being one
 # output row (N values): the right kernels differ from the plain versions
 # by the bf16 rounding of the output (~2^-9 an element); one dropped 64-row
@@ -191,6 +202,70 @@ def tile_short(flash, fn):
         flash.kv_block_bounds = real
 
 
+# (label, B, KVH, G, D, S, pos, window) of the decode checks: the main
+# path's shape at frontiers 0 to the buffer's end, windows whose lower edge
+# falls inside a 64-key tile (key 1048) and on a tile boundary (key 1024),
+# per-row frontiers with and without a window, GQA groups 6 and 7 (Qwen2),
+# and the other head width over a buffer that is not a whole number of
+# tiles (a --max-seq of 100)
+DECODE_CASES = tuple(
+    (f"B=1 pos={p}", 1, KVH, H // KVH, D, S, [p], None)
+    for p in (0, 1, 127, 2047, 4095)) + (
+    ("B=1 pos=2047 window=1000", 1, KVH, H // KVH, D, S, [2047], 1000),
+    ("B=1 pos=2047 window=1024", 1, KVH, H // KVH, D, S, [2047], 1024),
+    ("B=4 pos=[3, 700, 2048, 4095]", 4, KVH, H // KVH, D, S,
+     [3, 700, 2048, 4095], None),
+    ("B=4 pos=[3, 700, 2048, 4095] window=1000", 4, KVH, H // KVH, D, S,
+     [3, 700, 2048, 4095], 1000),
+    ("G=6 B=2 pos=[1000, 4095]", 2, 4, 6, D, S, [1000, 4095], None),
+    ("G=7 B=2 pos=[1000, 4095] window=1000", 2, 4, 7, D, S, [1000, 4095],
+     1000),
+    ("D=64 G=2 S=100 pos=[0, 99]", 2, 2, 2, 64, 100, [0, 99], None),
+)
+
+
+def decode_checks(torch, flash, name, rnd, make_kv) -> dict:
+    """Decode kernel ``name`` (``flash_decode`` or ``flash_decode_q8``)
+    against its plain version on every case of DECODE_CASES, twice on the
+    same inputs for the same bits, and with two planted faults: a frontier
+    one tile lower (the row's last tile dropped, as a loop ending at
+    max_kb - 1 would) and a window one tile late (keys 0..63 dropped, as a
+    loop starting at min_kb + 1 would). ``make_kv(b, kvh, s, d)`` gives the
+    cache operands."""
+    kernel, plain = getattr(flash, name), getattr(flash, f"{name}_ref")
+    on_boundary = {(c[6][0] - c[7] + 1) % flash.DECODE_BLOCK_K == 0
+                   for c in DECODE_CASES if c[1] == 1 and c[7]}
+    if on_boundary != {False, True}:
+        fail("the decode cases need a window edge inside a tile and one on "
+             "a tile boundary")
+    errs, seen = {}, {}
+    for label, b, kvh, g, d, s, pos, window in DECODE_CASES:
+        key = (b, kvh, d, s)
+        if key not in seen:
+            seen[key] = make_kv(b, kvh, s, d)
+        kv = seen[key]
+        q = rnd(b, kvh * g, 1, d)
+        p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        out = kernel(q, *kv, p, window=window)
+        err = compare(torch, f"{name} {label}", out,
+                      plain(q, *kv, p, window=window))
+        if b == 1 and window is None and g == H // KVH:
+            errs[(name, 1, pos[0], None)] = err
+        if not torch.equal(out, kernel(q, *kv, p, window=window)):
+            fail(f"{name} {label}: a second call on the same inputs gives "
+                 "other bits")
+    say(f"[2] {name}: two calls give the same bits in every case")
+    kv, q1 = seen[(1, KVH, D, S)], rnd(1, H, 1, D)
+    for label, pos, bad_pos, window in (
+            ("last tile dropped", 2047, 2047 - 64, None),
+            ("first tile dropped", 4095, 4095, 4096 - 64)):
+        p, bp = (torch.tensor([x], dtype=torch.int32, device="cuda")
+                 for x in (pos, bad_pos))
+        planted(torch, f"{name} pos={pos} {label}",
+                kernel(q1, *kv, bp, window=window), plain(q1, *kv, p))
+    return errs
+
+
 def phase_kernels(torch, flash) -> dict:
     for t, pos, window in PREFILL_CASES:
         if window is not None and not window_edge_inside_tile(
@@ -218,43 +293,16 @@ def phase_kernels(torch, flash) -> dict:
     planted(torch, "flash_prefill T=256 pos=1000 last tile dropped",
             tile_short(flash, lambda: flash.flash_attention(q, k1, v1, 1000)),
             flash.flash_attention_ref(q, k1, v1, 1000))
-    q1 = rnd(1, H, 1, D)
-    for pos in (0, 1, 127, 2047, 4095):
-        p = torch.tensor([pos], dtype=torch.int32, device="cuda")
-        errs[("decode", 1, pos, None)] = compare_(
-            f"flash_decode B=1 pos={pos}",
-            flash.flash_decode(q1, k1, v1, p),
-            flash.flash_decode_ref(q1, k1, v1, p))
-    # planted faults: the decode kernel one tile short, at a frontier one
-    # tile lower (pos 2047 loses its last tile, as a loop ending at
-    # max_kb - 1 would) and with a window one tile late (pos 4095 loses
-    # keys 0..63, as a loop starting at min_kb + 1 would); both must fail
-    for label, pos, bad_pos, window in (
-            ("last tile dropped", 2047, 2047 - 64, None),
-            ("first tile dropped", 4095, 4095, 4096 - 64)):
-        p, bp = (torch.tensor([x], dtype=torch.int32, device="cuda")
-                 for x in (pos, bad_pos))
-        planted(torch, f"flash_decode pos={pos} {label}",
-                flash.flash_decode(q1, k1, v1, bp, window=window),
-                flash.flash_decode_ref(q1, k1, v1, p))
-    k4, v4, q4 =rnd(4, KVH, S, D), rnd(4, KVH, S, D), rnd(4, H, 1, D)
-    p4 = torch.tensor([3, 700, 2048, 4095], dtype=torch.int32, device="cuda")
-    for window in (None, 1000):
-        errs[("decode", 4, "rows", window)] = compare_(
-            f"flash_decode B=4 pos={p4.tolist()} window={window}",
-            flash.flash_decode(q4, k4, v4, p4, window=window),
-            flash.flash_decode_ref(q4, k4, v4, p4, window=window))
     # the other built head width and group size, over a buffer that is not
     # a whole number of tiles (a --max-seq of 100)
     ks, vs = rnd(2, 2, 100, 64), rnd(2, 2, 100, 64)
-    qs, qd = rnd(2, 4, 40, 64), rnd(2, 4, 1, 64)
-    pd = torch.tensor([0, 99], dtype=torch.int32, device="cuda")
+    qs = rnd(2, 4, 40, 64)
     compare_("flash_prefill D=64 G=2 S=100 T=40 pos=30",
             flash.flash_attention(qs, ks, vs, 30),
             flash.flash_attention_ref(qs, ks, vs, 30))
-    compare_("flash_decode D=64 G=2 S=100 pos=[0, 99]",
-            flash.flash_decode(qd, ks, vs, pd),
-            flash.flash_decode_ref(qd, ks, vs, pd))
+    errs.update(decode_checks(
+        torch, flash, "flash_decode", rnd, lambda b, kvh, s, d: (
+            rnd(b, kvh, s, d), rnd(b, kvh, s, d))))
     return errs
 
 
@@ -276,9 +324,10 @@ def tier_label(tier) -> str:
 
 
 def phase_quant_kernels(torch, flash, qmatmul, quant, kvcache) -> dict:
-    """The three kernels of the quantized path against their plain
-    versions, with planted faults; the matmuls also run twice on the same
-    inputs and must give the same bits (no sum depends on timing)."""
+    """The four kernels of the quantized path against their plain
+    versions, with planted faults; the matmuls and flash_decode_q8 also run
+    twice on the same inputs and must give the same bits (no sum depends
+    on timing)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     plain = {"quant_matmul": quant.quant_matmul_ref,
              "quant4_matmul": quant.quant4_matmul_ref}
@@ -342,6 +391,7 @@ def phase_quant_kernels(torch, flash, qmatmul, quant, kvcache) -> dict:
             tile_short(flash, lambda: flash.flash_attention_q8(q, *kv8,
                                                                1000)),
             flash.flash_attention_q8_ref(q, *kv8, 1000))
+    errs.update(decode_checks(torch, flash, "flash_decode_q8", rnd, cache))
     small = cache(2, 2, 100, 64)
     qs = rnd(2, 4, 40, 64)
     compare(torch, "flash_prefill_q8 D=64 G=2 S=100 T=40 pos=30",
@@ -387,7 +437,75 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_timing(torch, flash, errs) -> list:
+# (B, frontier of each row) of the timed decode calls: the headline (one
+# stream at 2,048 keys), the buffer's end, and four streams at per-row
+# frontiers
+DECODE_TIMED = ((1, (2047,)), (1, (4095,)), (4, (3, 700, 2048, 4095)))
+
+
+def decode_inputs(torch, kvcache, name, b, rnd):
+    """``(kernel's cache operands, the bf16 K and V a library call reads)``
+    of decode kernel ``name`` at the main path's widths, batch ``b``."""
+    k, v = rnd(b, KVH, S, D), rnd(b, KVH, S, D)
+    if name == "flash_decode":
+        return (k, v), (k, v)
+    kq, vq = kvcache.quant_kv(k), kvcache.quant_kv(v)
+    # the library reads keys dequantized before the timed call
+    return (kq.q, kq.scale, vq.q, vq.scale), tuple(
+        kvcache.dequant_kv(c, torch.bfloat16) for c in (kq, vq))
+
+
+def decode_case(torch, flash, kvcache, name, b, pos, rnd) -> dict:
+    """Card times of one decode call: the kernel, its plain version and
+    SDPA over the live keys (a boolean mask for per-row frontiers), beside
+    the bound: q, the output, and each row's live keys read once (bf16 K
+    and V, or int8 codes and their f32 scales)."""
+    import torch.nn.functional as F
+
+    kv, lib_kv = decode_inputs(torch, kvcache, name, b, rnd)
+    q = rnd(b, H, 1, D)
+    p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    live = [x + 1 for x in pos]
+    per_key = 2 * D * 2 if name == "flash_decode" else 2 * (D + 4)
+    nbytes = 2 * q.numel() * 2 + KVH * sum(live) * per_key
+    b_ms, b_by = bound(nbytes, 4 * H * D * sum(live))
+    n = max(live)
+    lk, lv = (t[:, :, :n] for t in lib_kv)
+    mask = None
+    if b > 1:
+        mask = (torch.arange(n, device="cuda")[None] < torch.tensor(
+            live, device="cuda")[:, None])[:, None, None]
+    kernel, plain = getattr(flash, name), getattr(flash, f"{name}_ref")
+    return {"shape": f"q [{b},{H},1,{D}] "
+                     f"{'bf16' if name == 'flash_decode' else 'int8'} k/v "
+                     f"[{b},{KVH},{S},{D}] pos {list(pos)}",
+            "ms": time_ms(torch, lambda: kernel(q, *kv, p)),
+            "plain_ms": time_ms(torch, lambda: plain(q, *kv, p)),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, lk, lv, attn_mask=mask, enable_gqa=True)),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def decode_row(torch, flash, kvcache, build, name, replaces, errs,
+               rnd) -> dict:
+    """The kernel-table row of decode kernel ``name``: the headline shape
+    (one stream at pos 2047) and the other timed cases."""
+    cases = [decode_case(torch, flash, kvcache, name, b, pos, rnd)
+             for b, pos in DECODE_TIMED]
+    row = {"name": name, "route": "cuda",
+           "source": f"cake_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+           "max_abs_err": errs[(name, 1, DECODE_TIMED[0][1][0], None)],
+           **cases[0], "cases": cases[1:]}
+    row.update(kernel_build_info(build, name))
+    for c in cases:
+        say(f"    {name} {c['shape']}: {c['ms']:.4f} ms, "
+            f"{100 * c['bound_ms'] / c['ms']:.1f}% of bound "
+            f"{c['bound_ms']:.4f} by {c['bound_by']} (plain "
+            f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f})")
+    return row
+
+
+def phase_timing(torch, flash, kvcache, build, errs) -> list:
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -421,28 +539,8 @@ def phase_timing(torch, flash, errs) -> list:
         "bound_ms": b_ms, "bound_by": b_by,
     })
 
-    pos = 2047
-    q = rnd(1, H, 1, D)
-    p = torch.tensor([pos], dtype=torch.int32, device="cuda")
-    live = pos + 1
-    nbytes = 2 * q.numel() * 2 + 2 * KVH * live * D * 2
-    flops = 4 * H * D * live
-    b_ms, b_by = bound(nbytes, flops)
-    rows.append({
-        "name": "flash_decode", "route": "cuda",
-        "source": "cake_tpu_torch/csrc/flash_decode.cu",
-        "replaces": "cake_tpu/ops/pallas/flash.py:417",
-        "shape": f"q [1,{H},1,{D}] k/v [1,{KVH},{S},{D}] bf16 pos {pos}",
-        "max_abs_err": errs[("decode", 1, pos, None)],
-        "ms": time_ms(torch, lambda: flash.flash_decode(q, k, v, p)),
-        "plain_ms": time_ms(torch,
-                            lambda: flash.flash_decode_ref(q, k, v, p)),
-        # one query row over its live keys: no mask needed
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q, k[:, :, :live], v[:, :, :live], is_causal=False,
-            enable_gqa=True)),
-        "bound_ms": b_ms, "bound_by": b_by,
-    })
+    rows.append(decode_row(torch, flash, kvcache, build, "flash_decode",
+                           "cake_tpu/ops/pallas/flash.py:417", errs, rnd))
     for r in rows:
         r["kernel_ms"] = r["ms"]
         say(f"[3] {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
@@ -549,12 +647,16 @@ def phase_quant_timing(torch, flash, qmatmul, quant, kvcache, build,
             q, k_live, v_live, is_causal=True, enable_gqa=True)),
         "bound_ms": b_ms, "bound_by": b_by,
     })
+    # the int8-cache decode: the JAX package leaves it to XLA, which fuses
+    # the dequantization into the attention's operand read
+    rows.append(decode_row(torch, flash, kvcache, build, "flash_decode_q8",
+                           "cake_tpu/ops/attention.py:419", errs, rnd))
     for r in rows:
         r["kernel_ms"] = r["ms"]
         say(f"[3] {r['name']} {r['shape']}: {r['ms']:.4f} ms (plain "
             f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
             f"{r['bound_ms']:.4f} by {r['bound_by']})")
-        for c in r.get("cases", []):
+        for c in r["cases"] if r["name"].endswith("matmul") else ():
             say(f"    {c['tier']} {c['shape']}: {c['ms']:.4f} ms, "
                 f"{c['pct_of_bound']:.1f}% of bound {c['bound_ms']:.4f} by "
                 f"{c['bound_by']}, {c['tflops']:.1f} TFLOP/s (plain "
@@ -590,8 +692,8 @@ def entry_build_info(build, name: str, match) -> dict:
 
 
 def kernel_build_info(build, name: str, d: int = D) -> dict:
-    """The build figures of the head-width ``d`` instance of prefill kernel
-    ``name``, and the dynamic shared memory it launches with."""
+    """The build figures of the head-width ``d`` instance of attention
+    kernel ``name``, and the dynamic shared memory it launches with."""
     info = entry_build_info(build, name, lambda e: f"Li{d}E" in e)
     fn = getattr(build.library(name), f"{name}_smem_bytes")
     fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_int]
@@ -706,15 +808,16 @@ def expected_launches(cfg, weights: str, kv_quant, prefill_calls: int,
                       decode_steps: int) -> dict:
     """Launches of each kernel in a generation: every linear of every
     forward (7 a layer and the head) goes to the weights' matmul kernel,
-    each layer's prefill to the cache's prefill kernel, each layer's decode
-    step to flash_decode."""
+    each layer's prefill and each layer's decode step to the cache's
+    attention kernels (int8: flash_prefill_q8 and flash_decode_q8)."""
     L = cfg.num_hidden_layers
     counts = dict.fromkeys(("flash_prefill", "flash_decode",
-                            "flash_prefill_q8", "quant_matmul",
-                            "quant4_matmul"), 0)
+                            "flash_prefill_q8", "flash_decode_q8",
+                            "quant_matmul", "quant4_matmul"), 0)
     counts["flash_prefill_q8" if kv_quant else "flash_prefill"] = (
         L * prefill_calls)
-    counts["flash_decode"] = L * decode_steps
+    counts["flash_decode_q8" if kv_quant else "flash_decode"] = (
+        L * decode_steps)
     if weights != "bf16":
         counts[weights] = (7 * L + 1) * (prefill_calls + decode_steps)
     return counts
@@ -809,7 +912,7 @@ def run_path(torch, build, cfg, params, prompt, label, runs, weights,
     return result
 
 
-def phase_main_path(torch, build) -> list:
+def phase_main_path(torch, build, flash, kvcache) -> list:
     from cake_tpu_torch.models import llama
     from cake_tpu_torch.models.config import llama3_8b
     from cake_tpu_torch.ops.sampling import SamplerSettings
@@ -830,6 +933,30 @@ def phase_main_path(torch, build) -> list:
          lambda: llama.init_params_int4(cfg, seed=SEED, group_size=128),
          (greedy,), "quant4_matmul", None),
     )
+    # the int8-cache decode reads the int8 bytes: nothing on the card path
+    # makes a dequantized copy of the cache
+    dequant_calls = []
+    real_dequant = kvcache.dequant_kv
+
+    def counted_dequant(*args, **kwargs):
+        dequant_calls.append(1)
+        return real_dequant(*args, **kwargs)
+
+    kvcache.dequant_kv = counted_dequant
+    try:
+        results = main_path_runs(torch, build, flash, kvcache, cfg, prompt,
+                                 paths)
+    finally:
+        kvcache.dequant_kv = real_dequant
+    say(f"[5] dequant_kv calls over the three paths: {len(dequant_calls)}")
+    if dequant_calls:
+        fail("the card's main path dequantized the int8 cache")
+    return results
+
+
+def main_path_runs(torch, build, flash, kvcache, cfg, prompt, paths) -> list:
+    """Each path's timed runs, then the one-call traces, then each path's
+    profile."""
     results = []
     for label, init, runs, weights, kv_quant in paths:
         t0 = time.perf_counter()
@@ -842,7 +969,9 @@ def phase_main_path(torch, build) -> list:
         del params
         torch.cuda.empty_cache()
     # profiled after every timed run: a profiler session slows the host
-    # for the rest of the process
+    # for the rest of the process (and the one-call traces first: after
+    # several profiler runs a trace of one ctypes launch came back empty)
+    phase_one_launch(torch, flash, kvcache)
     for result, (label, init, _, _, kv_quant) in zip(results, paths):
         params = init()
         result["profile"] = profile_main_path(torch, cfg, params, prompt,
@@ -850,6 +979,29 @@ def phase_main_path(torch, build) -> list:
         del params
         torch.cuda.empty_cache()
     return results
+
+
+def phase_one_launch(torch, flash, kvcache) -> None:
+    """A profiler trace of one call of each decode wrapper, with an int32
+    ``pos [B]`` already on the card as the main path passes it, holds
+    exactly one kernel: no elementwise kernel on ``pos``, no combine."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    k, v, q = (torch.randn(shape, generator=gen, device="cuda").to(
+        torch.bfloat16) for shape in ((1, KVH, S, D), (1, KVH, S, D),
+                                      (1, H, 1, D)))
+    kq, vq = kvcache.quant_kv(k), kvcache.quant_kv(v)
+    p = torch.tensor([2047], dtype=torch.int32, device="cuda")
+    for name, call in (
+            ("flash_decode", lambda: flash.flash_decode(q, k, v, p)),
+            ("flash_decode_q8", lambda: flash.flash_decode_q8(
+                q, kq.q, kq.scale, vq.q, vq.scale, p))):
+        call()  # built and loaded before the trace
+        prof = device_profile(torch, call)
+        say(f"[5] one {name} call: {prof['kernel_launches']} kernel "
+            f"launch(es) on the card: {[n[:80] for n, _ in prof['kernels']]}")
+        if prof["kernel_launches"] != 1:
+            fail(f"one {name} call launched {prof['kernel_launches']} "
+                 "kernels, want 1")
 
 
 def device_profile(torch, fn) -> dict:
@@ -872,6 +1024,7 @@ def device_profile(torch, fn) -> dict:
         "kernel_launches": sum(e.count for e in kernels),
         "top": [(e.key[:60], round(e.self_device_time_total / 1e3, 3),
                  e.count) for e in kernels[:6]],
+        "kernels": [(e.key, e.count) for e in kernels],
     }
 
 
@@ -894,6 +1047,11 @@ def profile_main_path(torch, cfg, params, prompt, label, kv_quant) -> dict:
             f"{prof['device_ms']:.3f} ms over {prof['kernel_launches']} "
             f"launches; top {prof['top']}")
     dec = out["decode_block_8"]
+    names = dec.pop("kernels")
+    out["prefill"].pop("kernels")
+    if kv_quant:
+        say(f"[5] {label} decode trace, top kernels by card time: "
+            f"{[(n[:100], c) for n, c in names[:10]]}")
     dec["steps"] = steps
     dec["device_ms_per_step"] = dec["device_ms"] / steps
     dec["kernel_launches_per_step"] = dec["kernel_launches"] / steps
@@ -943,10 +1101,11 @@ def phase_cli(torch, build) -> None:
             say(f"[6] cli {' '.join(flags) or 'bf16'}: {last}")
 
 
-def matmul_times(torch, qmatmul, quant) -> dict:
-    """Card ms of the two matmul wrappers of whichever package was imported
-    at phase 3's shapes and tiers (``--matmuls DIR``: a same-call
-    comparison with another tree, such as the parent commit unpacked)."""
+def kernel_times(torch, flash, qmatmul, quant) -> dict:
+    """Card ms of the two matmul wrappers and of ``flash_decode`` of
+    whichever package was imported, at phase 3's shapes and tiers
+    (``--kernels DIR``: a same-call comparison with another tree, such as
+    the parent commit unpacked)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     shapes = [(m,) + kn for kn in LINEARS for m in (1, 2048)] + [
         (1,) + HEAD]
@@ -962,7 +1121,18 @@ def matmul_times(torch, qmatmul, quant) -> dict:
                 torch, lambda: fn(x, wq, scale))
             del w, wq, scale
         torch.cuda.empty_cache()
-    return times
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    decode = {}
+    for b, pos in DECODE_TIMED:
+        k, v, q = rnd(b, KVH, S, D), rnd(b, KVH, S, D), rnd(b, H, 1, D)
+        p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        decode[f"q [{b},{H},1,{D}] pos {list(pos)}"] = time_ms(
+            torch, lambda: flash.flash_decode(q, k, v, p))
+    return {"matmul_ms": times, "flash_decode_ms": decode}
 
 
 def main() -> int:
@@ -971,10 +1141,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
     other = None
-    if len(sys.argv) == 3 and sys.argv[1] == "--matmuls":
+    if len(sys.argv) == 3 and sys.argv[1] == "--kernels":
         other = Path(sys.argv[2]).resolve()
     elif len(sys.argv) > 1:
-        fail(f"usage: {sys.argv[0]} [--matmuls DIR]")
+        fail(f"usage: {sys.argv[0]} [--kernels DIR]")
     sys.path.insert(0, str(other or REPO))
     try:
         from cake_tpu_torch.ops import flash, kvcache, qmatmul, quant
@@ -985,21 +1155,21 @@ def main() -> int:
 
     if other is not None:
         say(card_line())
-        build.build_all(["quant_matmul", "quant4_matmul"])
+        build.build_all(["quant_matmul", "quant4_matmul", "flash_decode"])
         say(json.dumps({"package": str(other),
-                        "matmul_ms": matmul_times(torch, qmatmul, quant)}))
+                        **kernel_times(torch, flash, qmatmul, quant)}))
         return 0
     card = phase_toolchain(torch, build)
     errs = phase_kernels(torch, flash)
     errs.update(phase_quant_kernels(torch, flash, qmatmul, quant, kvcache))
     # timed before the profiled main path: a profiler session slows the
     # host for the rest of the process
-    rows = phase_timing(torch, flash, errs)
+    rows = phase_timing(torch, flash, kvcache, build, errs)
     rows += phase_quant_timing(torch, flash, qmatmul, quant, kvcache, build,
                                errs)
     prefill_rows(build, rows)
     phase_model(torch)
-    main_path = phase_main_path(torch, build)
+    main_path = phase_main_path(torch, build, flash, kvcache)
     phase_cli(torch, build)
     for r in rows:  # over the three paths (a), (b) and (c)
         r["launches"] = sum(p["launches"][r["name"]] for p in main_path)

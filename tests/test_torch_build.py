@@ -9,6 +9,7 @@ import pytest
 from cake_tpu_torch.ops.kernels import build
 
 FLASH = {"flash_prefill", "flash_prefill_q8"}
+DECODE = {"flash_decode", "flash_decode_q8"}
 MATMUL = {"quant_matmul", "quant4_matmul"}
 
 
@@ -25,8 +26,9 @@ def _includers(header):
 
 @pytest.mark.parametrize("header,includers", [
     ("flash_prefill_sm90.cuh", FLASH),
+    ("flash_decode_sm90.cuh", DECODE),
     ("qmatmul_sm90.cuh", MATMUL),
-    ("sm90.cuh", FLASH | MATMUL),
+    ("sm90.cuh", FLASH | DECODE | MATMUL),
 ])
 def test_header_edit_changes_the_including_kernels_paths(tmp_path,
                                                          monkeypatch,
@@ -53,14 +55,24 @@ def test_header_edit_changes_the_including_kernels_paths(tmp_path,
     assert {n for n in again if again[n] != after[n]} == {"flash_decode"}
 
 
-def test_kernel_without_includes_keeps_its_source_and_flags_hash():
+def test_kernel_without_includes_keeps_its_source_and_flags_hash(
+        tmp_path, monkeypatch):
     """A source that includes no header hashes as the source and the flags
-    alone, so its library survives a header-only change elsewhere."""
+    alone, so its library survives a header-only change elsewhere. (Every
+    kernel of the package includes a header, so the source is made here.)"""
     import hashlib
 
-    name = "flash_decode"
-    src = (build.CSRC / build.SOURCES[name]).read_bytes()
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    name = "plain_kernel"
+    src = b"#include <cuda_runtime.h>\nextern \"C\" int plain() { return 0; }\n"
+    (csrc / "plain_kernel.cu").write_bytes(src)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    monkeypatch.setitem(build.SOURCES, name, "plain_kernel.cu")
     assert b'#include "' not in src
     digest = hashlib.sha256(src + " ".join(build.NVCC_FLAGS).encode())
-    assert build.library_path(name).name == (
-        f"{name}-{digest.hexdigest()[:16]}.so")
+    before = build.library_path(name)
+    assert before.name == f"{name}-{digest.hexdigest()[:16]}.so"
+    with open(csrc / "sm90.cuh", "a") as f:
+        f.write("\n// an edit\n")
+    assert build.library_path(name) == before

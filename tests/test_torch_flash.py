@@ -44,7 +44,9 @@ def test_flash_attention_ref(group, pos, window):
     _close(got, _attend_xla(jq, jk, jv, pos, window=window))
 
 
-@pytest.mark.parametrize("group", [1, 2])
+# groups 6 and 7 are Qwen2's, which the decode kernels take since their
+# GQA group became a runtime row count
+@pytest.mark.parametrize("group", [1, 2, 6, 7])
 @pytest.mark.parametrize("pos,window", [(0, None), (77, None), (191, None),
                                         ("rows", None), ("rows", 30)])
 def test_flash_decode_ref(group, pos, window):

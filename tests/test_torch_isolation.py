@@ -104,6 +104,9 @@ def test_cpu_tensors_take_the_plain_versions():
     vq, vs = _q8(v)
     assert torch.equal(flash.flash_attention_q8(q, kq, ks, vq, vs, 3),
                        flash.flash_attention_q8_ref(q, kq, ks, vq, vs, 3))
+    assert torch.equal(
+        flash.flash_decode_q8(q[:, :, :1], kq, ks, vq, vs, 9),
+        flash.flash_decode_q8_ref(q[:, :, :1], kq, ks, vq, vs, 9))
     x, w = q.reshape(-1, 64), k[0, 0]
     q8 = quant.quantize_linear(w)
     q4 = quant.quantize_linear4(w, group_size=32)
@@ -112,8 +115,8 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(qmatmul.quant4_matmul(x, q4.qp, q4.scale),
                        quant.quant4_matmul_ref(x, q4.qp, q4.scale))
     assert build.launches() == {"flash_prefill": 0, "flash_decode": 0,
-                                "flash_prefill_q8": 0, "quant_matmul": 0,
-                                "quant4_matmul": 0}
+                                "flash_prefill_q8": 0, "flash_decode_q8": 0,
+                                "quant_matmul": 0, "quant4_matmul": 0}
 
 
 def _q8(x):
@@ -134,10 +137,10 @@ def _attention_operands(wrapper, case):
         v = v[:, :1]
     if case == "contiguity":
         k = k.transpose(2, 3).contiguous().transpose(2, 3)
-    if case == "group":  # 5 query heads over 2 kv heads; decode: 6 (G 3)
-        q = torch.empty(1, 6 if wrapper == "flash_decode" else 5, 1, 64,
-                        dtype=q.dtype, device="meta")
-    if wrapper == "flash_attention_q8":
+    if case == "group":  # 5 query heads over 2 kv heads; decode: 34 (G 17)
+        q = torch.empty(1, 34 if wrapper.startswith("flash_decode") else 5,
+                        1, 64, dtype=q.dtype, device="meta")
+    if wrapper.endswith("_q8"):
         (kq, ks), (vq, vs) = _q8(k), _q8(v)
         if case == "contiguity":
             kq = kq.transpose(2, 3).contiguous().transpose(2, 3)
@@ -165,8 +168,8 @@ def _matmul_operands(wrapper, case):
 
 
 @pytest.mark.parametrize("wrapper", ["flash_attention", "flash_decode",
-                                     "flash_attention_q8", "quant_matmul",
-                                     "quant4_matmul"])
+                                     "flash_attention_q8", "flash_decode_q8",
+                                     "quant_matmul", "quant4_matmul"])
 @pytest.mark.parametrize("case,err", [
     ("dtype", TypeError),
     ("head_dim", ValueError),
@@ -209,6 +212,28 @@ def test_matmul_wrappers_keep_the_shapes_they_take(wrapper, n, group,
         assert "one CUDA device" in str(err.value)
     else:
         assert f"out-dim {n} of 16" in str(err.value)
+
+
+@pytest.mark.parametrize("wrapper", ["flash_decode", "flash_decode_q8"])
+@pytest.mark.parametrize("group,accepted", [(1, True), (6, True), (7, True),
+                                            (16, True), (17, False)])
+def test_decode_wrappers_take_every_group_to_16(wrapper, group, accepted):
+    """Any GQA group from 1 to 16 passes every shape check and stops only at
+    the device check (``meta`` tensors are not on a card); 17 is refused by
+    name."""
+    q = torch.empty(1, 2 * group, 1, 128, dtype=torch.bfloat16,
+                    device="meta")
+    k = torch.empty(1, 2, 100, 128, dtype=torch.bfloat16, device="meta")
+    args = (q, k, k, 0)
+    if wrapper == "flash_decode_q8":
+        (kq, ks) = _q8(k)
+        args = (q, kq, ks, kq, ks, 0)
+    with pytest.raises(ValueError) as err:
+        getattr(flash, wrapper)(*args)
+    if accepted:
+        assert "one CUDA device" in str(err.value)
+    else:
+        assert f"GQA group {group} is not built" in str(err.value)
 
 
 def test_decode_pos_shapes():

@@ -156,6 +156,77 @@ def test_flash_attention_q8_ref_bf16():
                                                   vq.scale)), 9), got)
 
 
+# S = 80 is off the kernels' 64-key tile
+@pytest.mark.parametrize("group", [1, 2, 7])
+@pytest.mark.parametrize("pos,window", [(0, None), (77, None), (79, 30),
+                                        ("rows", None), ("rows", 30)])
+def test_flash_decode_q8_ref(group, pos, window):
+    """The plain int8-cache decode against the JAX package's decode over
+    the dequantized cache: its Pallas kernel in interpret mode and the XLA
+    path it takes on the int8 cache (``cake_tpu/ops/attention.py:419``)."""
+    b, kvh, s, d = 3, 2, 80, 16
+    q, kq, vq = _q8_inputs(group * 10 + len(str(pos)), b, kvh * group, kvh,
+                           1, s, d)
+    if pos == "rows":
+        p = np.array([2, 64, 79], np.int32)
+        jp, tp = jnp.asarray(p), torch.from_numpy(p)
+    else:
+        jp, tp = pos, pos
+    got = tflash.flash_decode_q8_ref(
+        torch.from_numpy(q), *(torch.from_numpy(np.array(a)) for a in (
+            kq.q, kq.scale, vq.q, vq.scale)), tp, window=window)
+    jqq = jnp.asarray(q)
+    jk, jv = (jkv.dequant_kv(c, jnp.float32) for c in (kq, vq))
+    np.testing.assert_allclose(got.numpy(), np.asarray(
+        jflash.flash_decode(jqq, jk, jv, jp, block_k=16, window=window,
+                            interpret=True)), **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(_attend_xla(
+        jqq, jk, jv, jp, window=window)), **TOL)
+    # the CPU wrapper is the plain version
+    assert torch.equal(tflash.flash_decode_q8(
+        torch.from_numpy(q), *(torch.from_numpy(np.array(a)) for a in (
+            kq.q, kq.scale, vq.q, vq.scale)), tp, window=window), got)
+
+
+def test_decode_over_the_int8_cache_reads_the_int8_buffers(monkeypatch):
+    """At T == 1, ``attend`` hands a QuantizedKV's int8 codes and scales to
+    flash_decode_q8 as they lie, and never dequantizes the cache nor calls
+    the bf16 decode; a bf16 cache goes to flash_decode."""
+    from cake_tpu_torch.ops import attention
+
+    calls = []
+
+    def fake_q8(q, k_q, k_scale, v_q, v_scale, pos, *, window=None):
+        calls.append(("q8", k_q, k_scale, v_q, v_scale, pos, window))
+        return q
+
+    def fake_bf16(q, k_all, v_all, pos, *, window=None):
+        calls.append(("bf16", k_all, v_all, pos, window))
+        return q
+
+    def no_dequant(*args, **kwargs):
+        raise AssertionError("the decode dequantized the cache")
+
+    monkeypatch.setattr(attention, "flash_decode_q8", fake_q8)
+    monkeypatch.setattr(attention, "flash_decode", fake_bf16)
+    monkeypatch.setattr(tkv, "dequant_kv", no_dequant)
+    cfg = tiny(num_key_value_heads=2, max_seq_len=32)
+    cache = tkv.init_cache(cfg, batch=2, device="cpu", quant="int8")
+    k, v = cache.k[0], cache.v[0]
+    q = torch.zeros(2, 4, 1, cfg.head_dim)
+    pos = torch.tensor([3, 9], dtype=torch.int32)
+    assert attention.attend(q, k, v, pos, window=5) is q
+    (name, *args), = calls
+    assert name == "q8" and args[-1] == 5 and args[-2] is pos
+    for got, want in zip(args[:4], (k.q, k.scale, v.q, v.scale)):
+        assert got.dtype == want.dtype and got.data_ptr() == want.data_ptr()
+    assert args[0].dtype == torch.int8
+    plain = tkv.init_cache(cfg, batch=2, device="cpu")
+    calls.clear()
+    attention.attend(q, plain.k[0], plain.v[0], pos)
+    assert [c[0] for c in calls] == ["bf16"]
+
+
 @pytest.fixture(scope="module")
 def jax_params():
     return jllama.init_params(jtiny(), jax.random.PRNGKey(0))
