@@ -1,0 +1,254 @@
+"""Span tracer with Chrome trace-event JSON export and cluster merge.
+
+Context-manager spans (``with span("decode.segment", seg=i):``) record
+complete ``"ph": "X"`` events — name, start, duration, pid/tid, args — into
+a bounded in-memory buffer, exported as Chrome trace-event JSON that
+Perfetto / ``chrome://tracing`` load directly (the Dapper-style timeline
+view of a decode step: local scan vs wire serialize vs remote round-trip vs
+sampling). Per-thread span stacks give each event its enclosing span's name
+as ``args.parent``, so nested timelines stay legible even when events from
+many threads interleave.
+
+Cluster stitching (Dapper-style, Sigelman et al. 2010): every started
+tracer owns a ``trace_id`` and every live span an id
+(:func:`current_span_id`), which the master propagates to workers on the
+wire so their spans join the same causal timeline. Worker span digests come
+back in replies; :meth:`Tracer.record_remote` lands them — already rebased
+onto the master clock via :mod:`cake_tpu_torch.obs.clock` — under a per-source
+synthetic pid, so ``to_chrome_trace`` emits ONE multi-process trace with a
+named track per worker next to the master's own.
+
+Disabled (the default), ``span()`` returns a shared no-op context manager —
+one attribute check per call site, nothing recorded. Enable with
+``tracer().start()`` (the CLI's ``--trace PATH`` does this and writes the
+file on exit). ``start(xla_annotations=True)`` additionally wraps every span
+in ``torch.profiler.record_function`` so the same names appear inside
+``torch.profiler`` traces.
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import os
+import threading
+import time
+
+_local = threading.local()
+
+
+def _stack() -> list:
+    """Per-thread stack of live (name, span_id) pairs."""
+    s = getattr(_local, "stack", None)
+    if s is None:
+        s = _local.stack = []
+    return s
+
+
+def current_span_id() -> int:
+    """Id of this thread's innermost live span (0 = no span / disabled) —
+    what the master sends as ``parent_span_id`` on a remote hop."""
+    s = getattr(_local, "stack", None)
+    return s[-1][1] if s else 0
+
+
+class Tracer:
+    """Process-global span recorder (thread-safe; bounded)."""
+
+    def __init__(self):
+        self.enabled = False
+        self.xla_annotations = False
+        self.dropped = 0
+        self.trace_id = ""
+        self._max_events = 1_000_000
+        # (name, ts_us, dur_us, tid, args, source); source None = this
+        # process, else the remote identity the event was stitched in from
+        self._events: list[tuple] = []
+        self._sources: list[str] = []  # remote sources in arrival order
+        self._ids = itertools.count(1)
+        self._lock = threading.Lock()
+        self._t0 = time.perf_counter()
+
+    def start(self, max_events: int = 1_000_000,
+              xla_annotations: bool = False) -> None:
+        with self._lock:
+            self._events = []
+            self._sources = []
+            self.dropped = 0
+            self._max_events = max_events
+            self._t0 = time.perf_counter()
+            self.xla_annotations = xla_annotations
+            self.trace_id = os.urandom(8).hex()
+            self._ids = itertools.count(1)
+            self.enabled = True
+
+    def stop(self) -> None:
+        self.enabled = False
+        self.xla_annotations = False
+
+    def next_span_id(self) -> int:
+        return next(self._ids)
+
+    def record(self, name: str, t_start: float, dur: float, args: dict) -> None:
+        ev = (
+            name,
+            (t_start - self._t0) * 1e6,
+            dur * 1e6,
+            threading.get_ident(),
+            args,
+            None,
+        )
+        with self._lock:
+            if len(self._events) >= self._max_events:
+                self.dropped += 1
+                return
+            self._events.append(ev)
+
+    def record_remote(self, source: str, name: str, t_start: float,
+                      dur: float, args: dict, tid: int = 1) -> None:
+        """Land one remote span on the merged timeline. ``t_start`` must
+        already be rebased onto THIS process's ``perf_counter`` timebase
+        (clock.ClockSync.to_master); ``source`` names the remote process
+        ('w1@host:port') and becomes its own pid/track in the export."""
+        ev = (
+            name,
+            (t_start - self._t0) * 1e6,
+            dur * 1e6,
+            tid,
+            args,
+            source,
+        )
+        with self._lock:
+            if len(self._events) >= self._max_events:
+                self.dropped += 1
+                return
+            if source not in self._sources:
+                self._sources.append(source)
+            self._events.append(ev)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._events = []
+            self._sources = []
+            self.dropped = 0
+
+    def to_chrome_trace(self) -> dict:
+        """Trace-event JSON object: complete ``X`` events sorted by ``ts``
+        plus process/thread-name metadata, loadable in Perfetto. Remote
+        events (``record_remote``) are emitted under a distinct synthetic
+        pid per source with a ``process_name`` row, so a stitched cluster
+        run renders as one multi-process timeline."""
+        pid = os.getpid()
+        with self._lock:
+            events = sorted(self._events, key=lambda e: e[1])
+            sources = list(self._sources)
+        # synthetic pids must collide with neither the real pid nor each
+        # other; the trace file is self-contained so any distinct ints do
+        src_pid = {s: pid + 1 + i for i, s in enumerate(sources)}
+        names = {t.ident: t.name for t in threading.enumerate()}
+        tids = sorted({e[3] for e in events if e[5] is None})
+        out = [
+            {
+                "name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+                "args": {"name": f"master/{os.uname().nodename}"
+                         if hasattr(os, "uname") else "master"},
+            }
+        ]
+        out += [
+            {
+                "name": "process_name", "ph": "M", "pid": src_pid[s],
+                "tid": 0, "args": {"name": s},
+            }
+            for s in sources
+        ]
+        out += [
+            {
+                "name": "thread_name", "ph": "M", "pid": pid, "tid": tid,
+                "args": {"name": names.get(tid, f"thread-{tid}")},
+            }
+            for tid in tids
+        ]
+        for name, ts, dur, tid, args, source in events:
+            ev = {
+                "name": name, "cat": "cake", "ph": "X",
+                "ts": round(ts, 3), "dur": round(dur, 3),
+                "pid": pid if source is None else src_pid[source],
+                "tid": tid,
+            }
+            if args:
+                ev["args"] = args
+            out.append(ev)
+        doc = {"traceEvents": out, "displayTimeUnit": "ms"}
+        if self.dropped:
+            # surfaced in the file itself so a truncated timeline can
+            # never be read as complete (Perfetto ignores extra keys)
+            doc["otherData"] = {"dropped_events": self.dropped}
+        return doc
+
+    def write_chrome_trace(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump(self.to_chrome_trace(), f)
+            f.write("\n")
+
+
+_TRACER = Tracer()
+
+
+def tracer() -> Tracer:
+    return _TRACER
+
+
+class _NullSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    __slots__ = ("_name", "_args", "_t0", "_ann", "_id")
+
+    def __init__(self, name: str, args: dict):
+        self._name = name
+        self._args = args
+        self._ann = None
+
+    def __enter__(self):
+        stack = _stack()
+        if stack:
+            self._args = dict(self._args, parent=stack[-1][0])
+        self._id = _TRACER.next_span_id()
+        stack.append((self._name, self._id))
+        if _TRACER.xla_annotations:
+            try:
+                from torch.profiler import record_function
+
+                self._ann = record_function(self._name)
+                self._ann.__enter__()
+            except Exception:
+                self._ann = None
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dur = time.perf_counter() - self._t0
+        if self._ann is not None:
+            self._ann.__exit__(*exc)
+        stack = _stack()
+        if stack and stack[-1][1] == self._id:
+            stack.pop()
+        _TRACER.record(self._name, self._t0, dur, self._args)
+        return False
+
+
+def span(name: str, **args):
+    """A timed span; no-op unless the tracer is started."""
+    if not _TRACER.enabled:
+        return _NULL_SPAN
+    return _Span(name, args)

@@ -98,33 +98,47 @@ def update_layer(k_cache, v_cache, k_new: torch.Tensor,
 
     ``pos`` is shared by every row (an int or a 0-d tensor) or per row
     (``[batch]``). A host-side ``pos`` whose slots run past the buffer is
-    refused (JAX would clamp the start and overwrite the wrong slots); a
-    device-side one past the end fails the index check on the device."""
+    refused. A tensor ``pos`` is clamped into ``[0, S - T]`` row by row, as
+    JAX's ``dynamic_update_slice`` clamps its start: the batch engine keeps
+    advancing a finished stream's row, and at the window's edge its write
+    lands on the row's last slots, inside its own row, where the next
+    admission overwrites it."""
     t = k_new.shape[2]
+    s = (k_cache.q if isinstance(k_cache, QuantizedKV) else k_cache).shape[2]
+    at = _slots(pos, t, s, k_new.shape[0])
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):
         if isinstance(cache, QuantizedKV):
             qn = quant_kv(new)  # quantize-on-write
-            _write(cache.q, qn.q, pos, t)
-            _write(cache.scale, qn.scale, pos, t)
+            _write(cache.q, qn.q, at)
+            _write(cache.scale, qn.scale, at)
         else:
-            _write(cache, new, pos, t)
+            _write(cache, new, at)
     return k_cache, v_cache
 
 
-def _write(buf: torch.Tensor, new: torch.Tensor, pos, t: int) -> None:
-    """``new [B, KVH, T, ...]`` into ``buf [B, KVH, S, ...]`` at ``pos``."""
-    s = buf.shape[2]
+def _slots(pos, t: int, s: int, b: int):
+    """Where a write of ``T`` slots at ``pos`` lands in a buffer of ``S``
+    slots: a slice for a host ``pos`` (refused past the end), else the
+    ``(rows [B, 1], slots [B or 1, T])`` index of every row, clamped into
+    ``[0, S - T]``; computed once for all of a layer's buffers."""
     if isinstance(pos, int):
         if pos < 0 or pos + t > s:
             raise ValueError(
                 f"KV write of slots {pos}..{pos + t} runs past the cache "
                 f"({s} slots)")
-        buf[:, :, pos:pos + t].copy_(new)
-        return
-    idx = pos.reshape(-1, 1).long()
+        return slice(pos, pos + t)
+    idx = pos.reshape(-1, 1).long().clamp(0, s - t)
     if t > 1:
         idx = idx + torch.arange(t, device=idx.device)
     # rows [B, 1] broadcasts against idx [B or 1, T]
-    rows = torch.arange(buf.shape[0], device=idx.device)[:, None]
+    return torch.arange(b, device=idx.device)[:, None], idx
+
+
+def _write(buf: torch.Tensor, new: torch.Tensor, at) -> None:
+    """``new [B, KVH, T, ...]`` into ``buf [B, KVH, S, ...]`` at ``at``
+    (:func:`_slots`)."""
+    if isinstance(at, slice):
+        buf[:, :, at].copy_(new)
+        return
     # [B, S, KVH, ...] views: index_put_ writes through to the cache storage
-    buf.transpose(1, 2)[rows, idx] = new.transpose(1, 2).to(buf.dtype)
+    buf.transpose(1, 2)[at] = new.transpose(1, 2).to(buf.dtype)

@@ -6,7 +6,9 @@ two halves and rotate ``(x1, x2) -> (x1*cos - x2*sin, x1*sin + x2*cos)``.
 JAX slices the tables with ``dynamic_slice``, which clamps a start index
 that runs past the end; torch indexing does not clamp. :func:`rope_slice`
 therefore refuses a host-side position whose rows run past the table, and
-a device-side position past the end fails the index check on the device.
+clamps a tensor position into the table as ``dynamic_slice`` does (a
+finished stream's row in the batch engine keeps advancing past the
+window; its outputs are discarded).
 """
 
 from __future__ import annotations
@@ -65,7 +67,7 @@ def rope_slice(cos: torch.Tensor, sin: torch.Tensor, pos, t: int
                 f"rope positions {pos}..{pos + t} run past the table "
                 f"({cos.shape[0]} rows)")
         return cos[None, None, pos:pos + t], sin[None, None, pos:pos + t]
-    idx = pos.reshape(-1, 1)
+    idx = pos.reshape(-1, 1).clamp(0, cos.shape[0] - t)
     if t > 1:
         idx = idx + torch.arange(t, device=pos.device, dtype=pos.dtype)
     return cos[idx].unsqueeze(1), sin[idx].unsqueeze(1)

@@ -42,12 +42,14 @@ _MASK64 = (1 << 64) - 1
 
 @dataclasses.dataclass
 class Token:
-    """One generated token: its id, the text it completes (or None) and
-    whether it ends the stream."""
+    """One generated token: its id, the text it completes (or None),
+    whether it ends the stream and, where the serving engine reports
+    them, the top-k ``(id, logprob)`` pairs of its step."""
 
     id: int
     text: str | None
     is_end_of_stream: bool
+    logprobs: list[tuple[int, float]] | None = None
 
 
 def encode_prompt(prompt, tokenizer, config, max_seq: int) -> list[int]:

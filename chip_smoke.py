@@ -40,7 +40,23 @@ Phases, each fatal on failure:
    decode wrapper shows one kernel launch;
 6. the command line (``python -m cake_tpu_torch.cli``) on a tiny
    checkpoint written by the port's own writer: bf16, ``--quantize int8
-   --kv-quant int8`` and ``--quantize int4:g64``.
+   --kv-quant int8`` and ``--quantize int4:g64``;
+7. the serving engine (``BatchGenerator``) over the full 32-layer
+   Llama-3-8B at 8 slots: (a) bf16, (b) int8 weights with the int8 KV
+   cache; ragged prompts of 2,000 to 5 ids (three sharing a 128-id
+   prefix), a quota per stream, three arrivals admitted with ``enqueue``
+   once two streams finish (the third a prefix hit); launches checked
+   against the model calls, every stream identical at blocks 8 and 1 and
+   equal to its single-stream run up to its first near-tie (penalized
+   top-1 minus top-2 logit < MARGIN_TIE), host-clock tokens/s, arrivals'
+   TTFT, and a profile of the 8-slot decode step (card ms, busy share); a
+   1,024-slot window whose longest stream runs to the edge; phases 2 and
+   3 also hold and time the kernels at these shapes (decode at B = 8 with
+   ragged ``pos``, a row at S - 1 and one past it; ``flash_prefill`` at
+   B = 8; the matmuls at M = 8);
+8. the HTTP server (``cake_tpu_torch.serve``) in this process over (a):
+   four concurrent SSE requests and an arrival while they run, whose ids
+   must equal the engine's own; then a drain with a stream in flight.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the ``cake_tpu_torch`` package beside this file, it exits with
@@ -823,11 +839,9 @@ def expected_launches(cfg, weights: str, kv_quant, prefill_calls: int,
     return counts
 
 
-def greedy_margins(torch, cfg, params, prompt, ids, kv_quant) -> list:
-    """Top-1 minus top-2 logit at each step of a greedy stream, from one
-    forward pass over the prompt and the stream: how near each choice came
-    to a tie. A stream that another summation order in a kernel changes
-    turns at a step with a small margin."""
+def stream_logits(torch, cfg, params, prompt, ids, kv_quant):
+    """f32 logits of each step of a stream (the ones its ``ids`` were
+    chosen from), from one forward pass over the prompt and the stream."""
     from cake_tpu_torch.models.llama import Llama
     from cake_tpu_torch.ops.kvcache import init_cache
 
@@ -838,8 +852,20 @@ def greedy_margins(torch, cfg, params, prompt, ids, kv_quant) -> list:
         x = model.hidden(tokens, init_cache(cfg, 1, cfg.max_seq_len,
                                             device="cuda", quant=kv_quant),
                          0)
-        top = model.logits(x[0, n - 1:]).float().topk(2, dim=-1).values
+        return model.logits(x[0, n - 1:]).float()
+
+
+def top2_gaps(logits) -> list:
+    top = logits.topk(2, dim=-1).values
     return (top[:, 0] - top[:, 1]).tolist()
+
+
+def greedy_margins(torch, cfg, params, prompt, ids, kv_quant) -> list:
+    """Top-1 minus top-2 logit at each step of a greedy stream: how near
+    each choice came to a tie. A stream that another summation order in a
+    kernel changes turns at a step with a small margin."""
+    return top2_gaps(stream_logits(torch, cfg, params, prompt, ids,
+                                   kv_quant))
 
 
 def run_path(torch, build, cfg, params, prompt, label, runs, weights,
@@ -1101,6 +1127,645 @@ def phase_cli(torch, build) -> None:
             say(f"[6] cli {' '.join(flags) or 'bf16'}: {last}")
 
 
+# --------------------------------------------------------------------------
+# phases 2 and 3 at the serving engine's shapes
+# --------------------------------------------------------------------------
+
+# the batch engine's decode at 8 slots: ragged frontiers, a row at the
+# buffer's last slot and a finished row past the window (its KV writes
+# clamp inside its own row; it attends every key, as in JAX)
+BATCH_POS = (S - 1, 2047, 1100, 517, 260, 64, 33, S + 4)
+# the timed batch decode: the same rows, the finished one at S - 1
+BATCH_POS_TIMED = (S - 1, 2047, 1100, 517, 260, 64, 33, 5)
+BATCH = len(BATCH_POS)
+
+
+def phase_batch_kernels(torch, flash, qmatmul, quant, kvcache) -> dict:
+    """Phase 2's checks at the serving engine's shapes: both decodes at
+    B = 8 with ragged ``pos``, ``flash_prefill`` at B = 8 (the batched
+    prompt pass, bucket 2048), and both matmuls at M = 8 over every linear
+    and the head; each with a planted fault that the check must refuse."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    errs = {}
+    k, v, q = rnd(BATCH, KVH, S, D), rnd(BATCH, KVH, S, D), rnd(BATCH, H, 1,
+                                                                D)
+    kq, vq = kvcache.quant_kv(k), kvcache.quant_kv(v)
+    p = torch.tensor(BATCH_POS, dtype=torch.int32, device="cuda")
+    # one row's last live tile dropped, as a loop ending at max_kb - 1
+    bad = p.clone()
+    bad[1] -= flash.DECODE_BLOCK_K
+    for name, kv in (("flash_decode", (k, v)),
+                     ("flash_decode_q8", (kq.q, kq.scale, vq.q, vq.scale))):
+        kernel, plain = getattr(flash, name), getattr(flash, f"{name}_ref")
+        label = f"{name} B={BATCH} pos={list(BATCH_POS)}"
+        out = kernel(q, *kv, p)
+        errs[(name, BATCH)] = compare(torch, label, out, plain(q, *kv, p))
+        if not torch.equal(out, kernel(q, *kv, p)):
+            fail(f"{label}: a second call on the same inputs gives other "
+                 "bits")
+        planted(torch, f"{label}, row 1's last tile dropped",
+                kernel(q, *kv, bad), plain(q, *kv, p))
+    qp = rnd(BATCH, H, 2048, D)
+    label = f"flash_prefill B={BATCH} T=2048 pos=0"
+    errs[("prefill", BATCH)] = compare(
+        torch, label, flash.flash_attention(qp, k, v, 0),
+        flash.flash_attention_ref(qp, k, v, 0))
+    planted(torch, f"{label}, last tile dropped",
+            tile_short(flash, lambda: flash.flash_attention(qp, k, v, 0)),
+            flash.flash_attention_ref(qp, k, v, 0))
+    del k, v, q, kq, vq, qp
+    torch.cuda.empty_cache()
+    plain = {"quant_matmul": quant.quant_matmul_ref,
+             "quant4_matmul": quant.quant4_matmul_ref}
+    for kn in LINEARS + (HEAD,):
+        k_, n = kn
+        w = torch.randn(k_, n, generator=gen, device="cuda") / k_ ** 0.5
+        x = torch.randn(BATCH, k_, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        for tier in TIERS:
+            name, wq, scale = quantized(quant, w, tier)
+            label = f"{name} {tier_label(tier)} M={BATCH} K={k_} N={n}"
+            out = getattr(qmatmul, name)(x, wq, scale)
+            errs[(name, tier[1], BATCH, k_, n)] = compare(
+                torch, label, out, plain[name](x, wq, scale))
+            if kn == LINEARS[0]:
+                k2 = k_ - qmatmul.BLOCK_K
+                int4 = name == "quant4_matmul"
+                planted(torch, f"{label} one K tile short",
+                        qmatmul._launch(name, x[:, :k2].contiguous(),
+                                        wq[:k2 // 2 if int4 else k2], scale,
+                                        n, (tier[1] or 0,) if int4 else ()),
+                        plain[name](x, wq, scale))
+            del wq, scale
+        del w
+        torch.cuda.empty_cache()
+    return errs
+
+
+def batch_timing(torch, flash, qmatmul, quant, kvcache, build,
+                 rows) -> None:
+    """Phase 3's timings at the serving engine's shapes, added to each
+    kernel's row as cases: both decodes at B = 8 (ragged frontiers), both
+    matmuls at M = 8 over every linear and the head (the decode step of an
+    8-slot batch), each beside its bound, plain version and library
+    call."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    by_name = {r["name"]: r for r in rows}
+    for name in ("flash_decode", "flash_decode_q8"):
+        c = decode_case(torch, flash, kvcache, name, BATCH, BATCH_POS_TIMED,
+                        rnd)
+        by_name[name]["cases"].append(c)
+        say(f"[3] {name} {c['shape']}: {c['ms']:.4f} ms, "
+            f"{100 * c['bound_ms'] / c['ms']:.1f}% of bound "
+            f"{c['bound_ms']:.4f} by {c['bound_by']} (plain "
+            f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f})")
+    for name, tiers in (("quant_matmul", TIERS[:1]),
+                        ("quant4_matmul", (TIERS[2], TIERS[1]))):
+        for tier in tiers:
+            for k_, n in LINEARS + (HEAD,):
+                c = matmul_case(torch, quant, qmatmul, build, tier, BATCH,
+                                k_, n, gen)
+                by_name[name]["cases"].append(c)
+                say(f"[3] {name} {c['tier']} {c['shape']}: {c['ms']:.4f} "
+                    f"ms, {c['pct_of_bound']:.1f}% of bound "
+                    f"{c['bound_ms']:.4f} by {c['bound_by']} (plain "
+                    f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f}); "
+                    f"{c['plan']}")
+
+
+# --------------------------------------------------------------------------
+# phase 7
+# --------------------------------------------------------------------------
+
+# a greedy stream of the batch engine and the same prompt's single-stream
+# run must agree up to the first step whose top-1 minus top-2 logit
+# (after the repeat penalty) is below this: two bf16 steps of a logit in
+# [4, 8). The logits are the head's bf16 outputs, so margins come in such
+# steps; bf16 rows at M = 8 and M = 1 round differently, which can turn a
+# near-tie and nothing wider (on an H100 the 22 streams of this phase part
+# from their single-stream runs at margins of 0 to 2 such steps, each after
+# an earlier near-tie)
+MARGIN_TIE = 0.0625
+# The ids say nothing past a stream's first near-tie, so the engine's
+# top-k logprobs (block 1, logprobs on) are held too, at every step of
+# every stream: against log_softmax of the same stream's teacher-forced
+# logits (one batch-1 forward pass over the prompt and the delivered
+# ids), at the engine's ids. A step is a row, held to its relative L2
+# error. On an H100 the sound runs' worst rows read 4.9e-3 to 5.1e-3 (bf16
+# logits round by up to 1/64 in [4, 8), against logprobs near -8 to -12);
+# the planted splice faults, after which an arrival's first token is still
+# right, read 6.3e-2 (decode one position late) and 1.2e-1 (the previous
+# occupant's key scales).
+LP_K = 5
+LP_ROW_REL_L2 = 0.02
+# prompt lengths of the 8 slots, which all open with one 128-id prefix
+# (prefilled once and broadcast into every row), and each stream's quota
+# of new tokens
+BATCH_LENS = (2000, 1100, 517, 260, 200, 161, 140, 131)
+BATCH_QUOTAS = (64, 12, 40, 20, 64, 32, 48, 24)
+ARRIVAL_QUOTAS = (32, 24, 24)
+# prompt passes of a batch run: the shared prefix, the batch's
+# remainders, one for each arrival
+BATCH_PASSES = 2 + len(ARRIVAL_QUOTAS)
+
+
+def batch_prompts(torch, cfg):
+    """The 8 slots' prompts and the three arrivals: the first arrival
+    opens with the slots' shared prefix, which set_prompts stored (a
+    prefix hit); the third opens with the first arrival's stored prefix
+    (another)."""
+    g = torch.Generator().manual_seed(SEED + 7)
+
+    def ids(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+
+    shared = ids(128)
+    prompts = [shared + ids(n - 128) for n in BATCH_LENS]
+    a1 = shared + ids(300)
+    arrivals = [a1, ids(700), a1[:384] + ids(50)]
+    return prompts, arrivals
+
+
+def penalized_margins(torch, logits, prompt, ids, settings) -> list:
+    """:func:`greedy_margins` after the repeat penalty of each step (over
+    the last ``repeat_last_n`` ids before it), what the greedy choice
+    compares; ``logits`` are the stream's :func:`stream_logits`."""
+    from cake_tpu_torch.ops import sampling
+
+    n, nh, seq = len(prompt), settings.repeat_last_n, prompt + ids
+    hist = torch.full((len(ids), nh), -1, dtype=torch.int32)
+    for j in range(len(ids)):
+        tail = seq[max(0, n + j - nh):n + j]
+        hist[j, :len(tail)] = torch.tensor(tail, dtype=torch.int32)
+    return top2_gaps(sampling.apply_repeat_penalty(
+        logits, hist.cuda(), settings.repeat_penalty))
+
+
+def logprob_errors(torch, logits, lps) -> list:
+    """Relative L2 error of each step's top-k logprobs (the engine's (id,
+    value) pairs) against log_softmax of the teacher-forced ``logits`` at
+    the same ids."""
+    ref = torch.log_softmax(logits, dim=-1)
+    out = []
+    for j, row in enumerate(lps):
+        ids = torch.tensor([i for i, _ in row], device=ref.device)
+        got = torch.tensor([v for _, v in row], device=ref.device)
+        want = ref[j, ids]
+        out.append(float((got - want).norm() / want.norm()))
+    return out
+
+
+def plant_splice_fault(g, kind: str) -> None:
+    """A fault in the splice of every arrival into its slot, after which
+    its first token (sampled from the staged row) is still right: "pos"
+    starts the slot's decode one position late; "scales" leaves the
+    slot's int8 key scales at the previous occupant's."""
+    real = g._finish_admission
+
+    def faulty(logits):
+        slot = g._staging["slot"]
+        old = g.cache.k.scale[:, slot].clone() if kind == "scales" else None
+        real(logits)
+        if kind == "pos":
+            g._pos[slot] += 1
+        else:
+            g.cache.k.scale[:, slot].copy_(old)
+
+    g._finish_admission = faulty
+
+
+def drive_batch(torch, g, prompts, quotas, arrivals=(), after=2):
+    """Run the serving engine ``g`` the way the serve scheduler does: the
+    prompts in slots 0..7, each emitted row delivered to the stream in its
+    slot, each stream retired at its quota; ``arrivals`` (prompt, quota)
+    enqueued once ``after`` streams have ended. Returns each stream's
+    delivered ids by stream id, the arrivals' host-clock TTFT (enqueue to
+    first delivered token) in ms, the host seconds and tokens of the run
+    after the first step, and each stream's delivered top-k logprobs
+    (when the engine reports them)."""
+    g.set_prompts(prompts, stream_ids=list(range(len(prompts))))
+    quota = dict(enumerate(quotas))
+    got = {sid: [] for sid in quota}
+    lps = {sid: [] for sid in quota}
+    ended, ttft, t_enq = set(), {}, None
+    pending = list(arrivals)
+    t0 = n0 = None
+    for step in range(4000):
+        row = g.step()
+        if step == 0:
+            torch.cuda.synchronize()
+            t0, n0 = time.perf_counter(), 0
+        for slot, tok in enumerate(row):
+            sid = g.streams[slot].stream_id
+            if tok is None or sid in ended:
+                continue
+            got[sid].append(tok.id)
+            if tok.logprobs is not None:
+                lps[sid].append(tok.logprobs)
+            if step:
+                n0 += 1
+            if sid in ttft and ttft[sid] is None:
+                ttft[sid] = (time.perf_counter() - t_enq) * 1e3
+            if tok.is_end_of_stream or len(got[sid]) >= quota[sid]:
+                g.finish(sid)
+                ended.add(sid)
+        if pending and len(ended) >= after:
+            t_enq = time.perf_counter()
+            for i, (prompt, q) in enumerate(pending):
+                sid = len(prompts) + i
+                quota[sid], got[sid], ttft[sid] = q, [], None
+                lps[sid] = []
+                g.enqueue(prompt, sid)
+            pending = []
+        if not pending and len(ended) == len(quota):
+            break
+    else:
+        fail("the batch run did not finish")
+    return got, ttft, time.perf_counter() - t0, n0, lps
+
+
+def single_stream(torch, cfg, params, prompt, n, settings, kv_quant):
+    from cake_tpu_torch.runtime.generator import LlamaGenerator
+
+    gen = LlamaGenerator(cfg, params, settings=settings, block_size=8,
+                         kv_quant=kv_quant)
+    gen.set_prompt(prompt)
+    out = []
+    for i in range(n):
+        tok = gen.next_token(i)
+        out.append(tok.id)
+        if tok.is_end_of_stream:
+            break
+    return out
+
+
+def check_planted(torch, cfg, params, label, prompts, streams, lps,
+                  kv_quant) -> float:
+    """The worst row relative L2 error of the top-k logprobs of the
+    arrivals of a run with a planted splice fault, at the steps after
+    their first token (which the staged row gives right); fails unless it
+    exceeds LP_ROW_REL_L2."""
+    worst = 0.0
+    for sid in range(len(BATCH_LENS), len(prompts)):
+        logits = stream_logits(torch, cfg, params, prompts[sid],
+                               streams[sid], kv_quant)
+        worst = max([worst] + logprob_errors(torch, logits, lps[sid])[1:])
+    say(f"[7] {label} planted splice fault: the arrivals' worst logprob "
+        f"row reads {worst:.3e} (bound {LP_ROW_REL_L2})")
+    if worst <= LP_ROW_REL_L2:
+        fail(f"{label}: the logprob check does not see a planted splice "
+             f"fault ({worst:.3e} <= {LP_ROW_REL_L2})")
+    return worst
+
+
+def check_against_single(torch, cfg, params, label, prompts, streams,
+                         lps, settings, kv_quant) -> list:
+    """Each stream's ids against its prompt's single-stream run, up to the
+    first step whose penalized margin falls below MARGIN_TIE; fails on a
+    difference before it. ``lps`` are the streams' top-k logprobs of a run
+    with the same ids, held to LP_ROW_REL_L2 at every step."""
+    out = []
+    for sid, ids in streams.items():
+        ref = single_stream(torch, cfg, params, prompts[sid], len(ids),
+                            settings, kv_quant)
+        logits = stream_logits(torch, cfg, params, prompts[sid], ids,
+                               kv_quant)
+        m = penalized_margins(torch, logits, prompts[sid], ids, settings)
+        lp_err = logprob_errors(torch, logits, lps[sid])
+        tie = next((j for j, x in enumerate(m) if x < MARGIN_TIE), len(ids))
+        diff = next((j for j, (a, b) in enumerate(zip(ids, ref)) if a != b),
+                    None)
+        say(f"[7] {label} stream {sid} ({len(prompts[sid])} ids, "
+            f"{len(ids)} new): first difference from the single-stream "
+            f"run at step {diff} (margin there "
+            f"{'-' if diff is None else round(m[diff], 4)}), first margin "
+            f"< {MARGIN_TIE} at step {tie}; margins 0-7 "
+            f"{[round(x, 4) for x in m[:8]]}, least {min(m):.4f}; top-"
+            f"{LP_K} logprobs: worst row relative L2 {max(lp_err):.3e}")
+        if diff is not None and diff < tie:
+            fail(f"{label} stream {sid} differs from its single-stream run "
+                 f"at step {diff}, before any near-tie (margin "
+                 f"{m[diff]:.4f} there)")
+        if max(lp_err) > LP_ROW_REL_L2:
+            fail(f"{label} stream {sid}: top-{LP_K} logprobs off by a row "
+                 f"relative L2 of {max(lp_err):.3e} > {LP_ROW_REL_L2}")
+        out.append({"stream": sid, "first_difference": diff,
+                    "first_near_tie": tie, "min_margin": min(m),
+                    "lp_row_rel_l2": max(lp_err)})
+    return out
+
+
+def phase_batch(torch, build) -> list:
+    """The serving engine over the full 32-layer Llama-3-8B at 8 slots:
+    (a) bf16, (b) int8 weights with the int8 KV cache; then a small
+    window (1,024) whose longest stream runs to the edge."""
+    from cake_tpu_torch.models import llama
+    from cake_tpu_torch.models.config import llama3_8b
+    from cake_tpu_torch.ops.sampling import SamplerSettings
+    from cake_tpu_torch.runtime.batch_generator import BatchGenerator
+
+    cfg = llama3_8b(max_seq_len=4096)
+    prompts, arrivals = batch_prompts(torch, cfg)
+    every = prompts + arrivals
+    settings = SamplerSettings(temperature=0)
+    results = []
+    for label, init, weights, kv_quant in (
+            ("(a) bf16", lambda: llama.init_params(cfg, seed=SEED), "bf16",
+             None),
+            ("(b) int8 weights, int8 cache",
+             lambda: llama.init_params_int8(cfg, seed=SEED), "quant_matmul",
+             "int8")):
+        params = init()
+        runs = {}
+        # block 1 reports logprobs (held to the teacher-forced logits);
+        # block 8 is the timed and profiled run
+        for block in (8, 1):
+            g = BatchGenerator(cfg, params, settings=settings,
+                               block_size=block, kv_quant=kv_quant,
+                               logprobs=LP_K if block == 1 else 0)
+            g.warm_admission(64)  # kernels built, cuBLAS warm
+            torch.cuda.synchronize()
+            build.reset_launches()
+            p0, d0 = g.prefill_calls, g.decode_steps
+            streams, ttft, wall, tokens, lps = drive_batch(
+                torch, g, prompts, BATCH_QUOTAS,
+                list(zip(arrivals, ARRIVAL_QUOTAS)))
+            torch.cuda.synchronize()
+            counts = build.launches()
+            want = expected_launches(cfg, weights, kv_quant,
+                                     g.prefill_calls - p0,
+                                     g.decode_steps - d0)
+            st = g.stats()
+            say(f"[7] {label} block {block}: {tokens} tokens in "
+                f"{wall:.3f} s after the first step, {tokens / wall:.2f} "
+                f"tokens/s aggregate (host clock, 8 slots); arrivals' TTFT "
+                f"ms {[round(t, 2) for t in ttft.values()]}; "
+                f"{g.prefill_calls - p0} prompt passes, "
+                f"{g.decode_steps - d0} decode steps; prefix hits "
+                f"{st['prefix_hits']}; launches {counts}")
+            if counts != want:
+                fail(f"{label} block {block}: kernels launched {counts}, "
+                     f"want {want}")
+            if g.prefill_calls - p0 != BATCH_PASSES:
+                fail(f"{label} block {block}: {g.prefill_calls - p0} prompt "
+                     f"passes, want {BATCH_PASSES} (the shared prefix once, "
+                     "the remainders, one an arrival)")
+            if st["prefix_hits"] != 2:
+                fail(f"{label}: the first and third arrivals did not both "
+                     f"hit a stored prefix ({st['prefix_hits']} hits)")
+            want_n = list(BATCH_QUOTAS) + list(ARRIVAL_QUOTAS)
+            for sid, ids in streams.items():
+                if len(ids) != want_n[sid] and not (
+                        ids and ids[-1] in cfg.eos_ids()):
+                    fail(f"{label} stream {sid}: {len(ids)} ids, quota "
+                         f"{want_n[sid]}")
+                if not all(0 <= i < cfg.vocab_size for i in ids):
+                    fail(f"{label} stream {sid}: ids out of the vocabulary")
+            runs[block] = {"streams": streams, "ttft_ms": ttft,
+                           "tokens_per_s": tokens / wall, "wall_s": wall,
+                           "tokens": tokens, "launches": counts,
+                           "lps": lps, "generator": g}
+        if runs[8]["streams"] != runs[1]["streams"]:
+            diff = [sid for sid in runs[8]["streams"]
+                    if runs[8]["streams"][sid] != runs[1]["streams"][sid]]
+            fail(f"{label}: streams {diff} differ between blocks 8 and 1")
+        say(f"[7] {label}: all 11 streams identical at blocks 8 and 1")
+        result = {"path": f"batch {label}", "launches": runs[8]["launches"],
+                  "tokens_per_s": runs[8]["tokens_per_s"],
+                  "tokens_per_s_block_1": runs[1]["tokens_per_s"],
+                  "arrival_ttft_ms": list(runs[8]["ttft_ms"].values())}
+        result["vs_single_stream"] = check_against_single(
+            torch, cfg, params, label, every, runs[1]["streams"],
+            runs[1]["lps"], settings, kv_quant)
+        # the same run with a planted fault in every arrival's splice
+        g = BatchGenerator(cfg, params, settings=settings, block_size=1,
+                           kv_quant=kv_quant, logprobs=LP_K)
+        plant_splice_fault(g, "scales" if kv_quant else "pos")
+        streams, _, _, _, lps = drive_batch(
+            torch, g, prompts, BATCH_QUOTAS,
+            list(zip(arrivals, ARRIVAL_QUOTAS)))
+        del g
+        result["planted_lp_row_rel_l2"] = check_planted(
+            torch, cfg, params, label, every, streams, lps, kv_quant)
+        result["profile"] = profile_batch(torch, runs[8]["generator"],
+                                          prompts, label)
+        for r in runs.values():
+            r.pop("generator")
+        if weights == "bf16":
+            result["window_edge"] = window_edge_run(torch, cfg, params,
+                                                    settings)
+        results.append(result)
+        del params, runs
+        torch.cuda.empty_cache()
+    return results
+
+
+def profile_batch(torch, g, prompts, label) -> dict:
+    """Card time of one decode block (8 steps) of the 8-slot batch from a
+    profiler trace, beside the host clock's time for an unprofiled block:
+    the card's busy share of a step."""
+    g.set_prompts(prompts)
+    g.step()
+    for _ in range(8):  # one unprofiled block, timed
+        g.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(8):
+        g.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 8
+    d0 = g.decode_steps
+    prof = device_profile(torch, lambda: [g.step() for _ in range(8)])
+    steps = g.decode_steps - d0
+    prof.pop("kernels")
+    prof["steps"] = steps
+    prof["device_ms_per_step"] = prof["device_ms"] / steps
+    prof["wall_ms_per_step"] = wall_ms
+    prof["busy_share"] = prof["device_ms_per_step"] / wall_ms
+    say(f"[7] {label} 8-slot decode: {prof['device_ms_per_step']:.3f} ms of "
+        f"card kernel time a step over {prof['kernel_launches'] / steps:.1f}"
+        f" launches, {wall_ms:.3f} ms a step on the host clock: card busy "
+        f"{100 * prof['busy_share']:.1f}%; top {prof['top']}")
+    return prof
+
+
+def window_edge_run(torch, cfg, params, settings) -> dict:
+    """A 1,024-slot window: the 1,000-id stream fills it after 24 tokens
+    while a fused block of 8 runs its row past the edge (clamped writes
+    inside its own row); every stream equals its block-1 run."""
+    from cake_tpu_torch.runtime.batch_generator import BatchGenerator
+
+    g = torch.Generator().manual_seed(SEED + 8)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in (1000, 300, 77, 9)]
+    out = {}
+    for block in (8, 1):
+        gen = BatchGenerator(cfg, params, settings=settings,
+                             block_size=block, max_seq=1024)
+        out[block] = drive_batch(torch, gen, prompts, (64, 64, 40, 48))[0]
+        edge = gen.streams[0]
+        if len(out[block][0]) != 24 or edge.end_reason != "length":
+            fail(f"window edge, block {block}: the 1,000-id stream emitted "
+                 f"{len(out[block][0])} ids ({edge.end_reason}), want 24 "
+                 "to the window's end")
+    if out[8] != out[1]:
+        fail("window edge: streams differ between blocks 8 and 1")
+    say("[7] window 1024: the 1,000-id stream filled the window (24 ids, "
+        "'length'); all 4 streams identical at blocks 8 and 1")
+    return {"streams": {k: len(v) for k, v in out[8].items()}}
+
+
+# --------------------------------------------------------------------------
+# phase 8
+# --------------------------------------------------------------------------
+
+
+def sse(port: int, body: dict, on_token=None) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/completions",
+        data=json.dumps(dict(body, stream=True)).encode(),
+        headers={"Content-Type": "application/json"})
+    ids, done = [], None
+    with urllib.request.urlopen(req, timeout=300) as r:
+        for raw in r:
+            raw = raw.strip()
+            if not raw.startswith(b"data: ") or raw == b"data: [DONE]":
+                continue
+            ev = json.loads(raw[6:])
+            if "token" in ev:
+                ids.append(ev["token"])
+                if on_token:
+                    on_token()
+            elif ev.get("done"):
+                done = ev
+            elif "error" in ev:
+                fail(f"serve: SSE error {ev}")
+    return {"ids": ids, "done": done}
+
+
+def phase_serve(torch) -> dict:
+    """The port's HTTP server in this process on 127.0.0.1 (an ephemeral
+    port) over path (a)'s engine, 8 slots: four concurrent SSE requests
+    and one arrival while they run; their ids must equal the engine's own
+    for the same prompts, admitted the same way. Then a drain: the
+    in-flight stream finishes, a new request is refused with 503."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from cake_tpu_torch.models import llama
+    from cake_tpu_torch.models.config import llama3_8b
+    from cake_tpu_torch.ops.sampling import SamplerSettings
+    from cake_tpu_torch.runtime.batch_generator import BatchGenerator
+    from cake_tpu_torch.serve.api import start_api_server
+    from cake_tpu_torch.serve.scheduler import Scheduler
+
+    cfg = llama3_8b(max_seq_len=4096)
+    g = torch.Generator().manual_seed(SEED + 9)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in (900, 300, 120, 40, 600)]
+    quotas = (32, 24, 40, 16, 24)
+    params = llama.init_params(cfg, seed=SEED)
+    settings = SamplerSettings(temperature=0)
+    # the engine's own ids: 8 slots, each request admitted with enqueue
+    # as the server admits it
+    ref = BatchGenerator(cfg, params, settings=settings, block_size=8)
+    streams = drive_batch(torch, ref, [[cfg.bos_token_id]] * 8, [1] * 8,
+                          list(zip(prompts, quotas)), after=8)[0]
+    want = [streams[8 + i] for i in range(len(prompts))]
+    del ref
+    torch.cuda.empty_cache()
+
+    engine = BatchGenerator(cfg, params, settings=settings, block_size=8)
+    sched = Scheduler(engine, queue_depth=8, request_timeout_s=300)
+    sched.start(max_concurrent=8, warm_prompt_len=64)
+    server = start_api_server(sched, bind="127.0.0.1", port=0)
+    port = server.port
+    got, started = {}, threading.Event()
+    counts = [0] * 4
+
+    def client(i):
+        def on_token():
+            counts[i] += 1
+            if all(c >= 2 for c in counts):
+                started.set()
+        got[i] = sse(port, {"prompt_ids": prompts[i],
+                            "max_tokens": quotas[i]}, on_token)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    if not started.wait(timeout=300):
+        fail("serve: the four streams never started")
+    got[4] = sse(port, {"prompt_ids": prompts[4], "max_tokens": quotas[4]})
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    for i in range(5):
+        if got.get(i) is None or got[i]["ids"] != want[i]:
+            fail(f"serve: request {i}'s SSE ids differ from the engine's: "
+                 f"{(got.get(i) or {}).get('ids')} vs {want[i]}")
+    ttft = [got[i]["done"]["usage"]["ttft_ms"] for i in range(5)]
+    n_tok = sum(len(got[i]["ids"]) for i in range(5))
+    say(f"[8] serve: 5 SSE streams equal the engine's ids; {n_tok} tokens "
+        f"in {wall:.3f} s; TTFT ms (server usage) {ttft}, the mid-run "
+        f"arrival's {ttft[4]}")
+    # drain while a stream is in flight: it finishes; a new request is
+    # refused with 503 until the listener closes
+    live = threading.Event()
+    tail = {}
+
+    def long_client():
+        tail["r"] = sse(port, {"prompt_ids": prompts[1], "max_tokens": 48},
+                        on_token=live.set)
+
+    t = threading.Thread(target=long_client)
+    t.start()
+    if not live.wait(timeout=300):
+        fail("serve: the drain's in-flight stream never started")
+    drainer = threading.Thread(target=server.drain,
+                               kwargs={"timeout_s": 300})
+    drainer.start()
+    deadline = time.time() + 30
+    refused = None
+    while refused is None and time.time() < deadline:
+        try:
+            urllib.request.urlopen(urllib.request.Request(
+                f"http://127.0.0.1:{port}/v1/completions",
+                data=json.dumps({"prompt_ids": [1, 2],
+                                 "max_tokens": 2}).encode()), timeout=30)
+        except urllib.error.HTTPError as e:
+            refused = e.code
+        except urllib.error.URLError as e:  # the listener already closed
+            refused = str(e)
+        time.sleep(0.01)
+    t.join(timeout=300)
+    drainer.join(timeout=300)
+    sched.close()
+    if refused != 503:
+        fail(f"serve: a request during the drain got {refused}, want 503")
+    if len(tail.get("r", {}).get("ids", [])) != 48:
+        fail("serve: the in-flight stream did not finish during the drain")
+    say("[8] serve drain: the in-flight stream finished (48 ids), a new "
+        "request got 503, the listener closed")
+    del engine, params
+    torch.cuda.empty_cache()
+    return {"ttft_ms": ttft, "tokens": n_tok, "wall_s": wall}
+
+
 def kernel_times(torch, flash, qmatmul, quant) -> dict:
     """Card ms of the two matmul wrappers and of ``flash_decode`` of
     whichever package was imported, at phase 3's shapes and tiers
@@ -1162,18 +1827,24 @@ def main() -> int:
     card = phase_toolchain(torch, build)
     errs = phase_kernels(torch, flash)
     errs.update(phase_quant_kernels(torch, flash, qmatmul, quant, kvcache))
+    errs.update(phase_batch_kernels(torch, flash, qmatmul, quant, kvcache))
     # timed before the profiled main path: a profiler session slows the
     # host for the rest of the process
     rows = phase_timing(torch, flash, kvcache, build, errs)
     rows += phase_quant_timing(torch, flash, qmatmul, quant, kvcache, build,
                                errs)
+    batch_timing(torch, flash, qmatmul, quant, kvcache, build, rows)
     prefill_rows(build, rows)
     phase_model(torch)
     main_path = phase_main_path(torch, build, flash, kvcache)
     phase_cli(torch, build)
-    for r in rows:  # over the three paths (a), (b) and (c)
-        r["launches"] = sum(p["launches"][r["name"]] for p in main_path)
-    say(json.dumps({"card": card, "main_path": main_path}))
+    batch = phase_batch(torch, build)
+    serve = phase_serve(torch)
+    for r in rows:  # over the paths (a), (b), (c) and the batch runs
+        r["launches"] = sum(p["launches"][r["name"]]
+                            for p in main_path + batch)
+    say(json.dumps({"card": card, "main_path": main_path, "batch": batch,
+                    "serve": serve}))
     say(json.dumps({"kernels": rows}))
     say(card)
     say(json.dumps({"ok": True, "device": {

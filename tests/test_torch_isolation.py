@@ -46,7 +46,11 @@ def test_no_jax_or_cake_tpu_import(path):
 def test_import_leaves_jax_and_triton_out():
     code = ("import sys, cake_tpu_torch, cake_tpu_torch.cli, "
             "cake_tpu_torch.runtime.generator, cake_tpu_torch.ops.flash, "
-            "cake_tpu_torch.ops.qmatmul\n"
+            "cake_tpu_torch.ops.qmatmul, "
+            "cake_tpu_torch.runtime.batch_generator, "
+            "cake_tpu_torch.parallel.pipeline, cake_tpu_torch.serve.api, "
+            "cake_tpu_torch.serve.scheduler, cake_tpu_torch.obs.prof, "
+            "cake_tpu_torch.obs.statusd, cake_tpu_torch.utils.memory\n"
             "print(sorted(m for m in ('jax', 'triton', 'cake_tpu') "
             "if m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -67,6 +71,7 @@ def test_entry_points_raise_without_a_card():
         init_params_int8,
         params_from_jax,
     )
+    from cake_tpu_torch.runtime.batch_generator import BatchGenerator
     from cake_tpu_torch.runtime.generator import LlamaGenerator
     from cake_tpu_torch.utils.weights import load_llama_params
 
@@ -81,9 +86,17 @@ def test_entry_points_raise_without_a_card():
     params = init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LlamaGenerator(cfg, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchGenerator(cfg, params)
     with pytest.raises(SystemExit, match="no CUDA device"):
         cli.run(cli.build_parser().parse_args(
             ["--model", "unused", "--prompt-ids", "1"]))
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        cli.run_serve(cli.build_parser().parse_args(
+            ["--model", "unused", "--prompts-file", "unused"]))
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        cli.run_http_serve(cli.build_parser().parse_args(
+            ["--model", "unused", "--mode", "serve"]))
 
 
 def _qkv(dtype=torch.bfloat16, device="cpu", t=4, d=64):
