@@ -14,15 +14,24 @@ Usage::
   # an HTTP API (POST /v1/completions, SSE) over the continuous-batching
   # engine; SIGTERM drains and ends with "drained; bye"
   python -m cake_tpu_torch.cli --model DIR --mode serve --serve-port 8080
+  # the cross-host path: each worker serves its topology-assigned layers,
+  # the master holds embed, norm, head and sampler and walks the segments
+  python -m cake_tpu_torch.cli --mode worker --name w1 --model DIR \
+      --topology t.yml --address 0.0.0.0:10128
+  python -m cake_tpu_torch.cli --model DIR --topology t.yml --prompt "..."
 
 Runs on the CUDA card; ``--cpu`` runs the plain PyTorch path on the CPU.
 Without a card and without ``--cpu`` it stops with an error.
 ``--quantize int8|int4|int4:gN`` quantizes the linears on load (or names
 the tier of a pre-quantized checkpoint); ``--kv-quant int8`` keeps the KV
-cache in int8. The JAX command line's gateway and worker modes, meshes
-(``--stages/--tp/--dp/--sp/--ep`` above 1), the paged KV layout,
-speculation, lookahead and disaggregated roles are refused with an error
-until their slices of the port land.
+cache in int8 (a worker's; a topology master refuses it, as the JAX
+package does: workers own their caches). Workers and masters of either
+package speak one wire. The JAX command line's gateway mode, meshes
+(``--stages/--tp/--dp/--sp/--ep`` above 1, and topologies with mesh
+``device:`` nodes), the paged KV layout, speculation, lookahead,
+disaggregated roles, fault injection (``--chaos``) and the cluster views
+(``--cluster-report``, ``--top``) are refused with an error until their
+slices of the port land.
 """
 
 from __future__ import annotations
@@ -59,12 +68,61 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mode", choices=["master", "worker", "serve",
                                       "gateway"], default="master",
                    help="master: one-shot generation (default; with "
-                        "--prompts-file, N streams in one batch); serve: an "
-                        "HTTP API (POST /v1/completions with SSE, "
-                        "/v1/models, /healthz, / and /metrics) over the "
-                        "continuous-batching engine, with admission "
-                        "queueing, backpressure, cancellation and SIGTERM "
-                        "drain; worker and gateway are not ported yet")
+                        "--prompts-file, N streams in one batch; with "
+                        "--topology, over the topology's workers); worker: "
+                        "serve topology-assigned layers over the wire; "
+                        "serve: an HTTP API (POST /v1/completions with "
+                        "SSE, /v1/models, /healthz, / and /metrics) over "
+                        "the continuous-batching engine (or, with "
+                        "--topology, the wire master in one slot), with "
+                        "admission queueing, backpressure, cancellation "
+                        "and SIGTERM drain; gateway is not ported yet")
+    p.add_argument("--name", default=None,
+                   help="--mode worker: this worker's name in the topology")
+    p.add_argument("--address", default="127.0.0.1:10128",
+                   help="--mode worker: bind address host:port")
+    p.add_argument("--topology", default=None,
+                   help="topology file (YAML; JSON also loads, and is what "
+                        "loads without PyYAML): worker name -> host, "
+                        "layers")
+    p.add_argument("--status-port", type=int, default=None,
+                   dest="status_port", metavar="PORT",
+                   help="serve a live status page over HTTP (0 = "
+                        "ephemeral): JSON on / and Prometheus text on "
+                        "/metrics")
+    p.add_argument("--status-bind", default="127.0.0.1", dest="status_bind",
+                   metavar="ADDR",
+                   help="interface for --status-port (default 127.0.0.1: "
+                        "the page shows identity, layers and traffic)")
+    p.add_argument("--wire-codec", choices=["none", "bf16", "int8"],
+                   default=None, dest="wire_codec",
+                   help="activation encoding of cross-host hops "
+                        "(negotiated at handshake). Master: the codec of "
+                        "every remote segment (default none). Worker: "
+                        "restrict what it accepts (default: all)")
+    p.add_argument("--op-timeout", type=float, default=None,
+                   dest="op_timeout", metavar="S",
+                   help="topology master: per-op recv deadline in seconds "
+                        "(default 120 + 2 a layer); a wedged worker then "
+                        "faults into reconnect and replay")
+    p.add_argument("--connect-retries", type=int, default=0,
+                   dest="connect_retries", metavar="N",
+                   help="topology master: retry each worker's first "
+                        "handshake up to N times with backoff (the master "
+                        "may start before its workers)")
+    p.add_argument("--recover-deadline", type=float, default=None,
+                   dest="recover_deadline", metavar="S",
+                   help="topology master: per-replica budget in seconds "
+                        "(default 30) of a mid-stream reconnect; past it "
+                        "the segment fails over to its next replica")
+    p.add_argument("--chaos", default=None, metavar="SPEC",
+                   help="fault injection on the worker links: not ported "
+                        "yet")
+    p.add_argument("--cluster-report", default=None, dest="cluster_report",
+                   metavar="PATH",
+                   help="end-of-run cluster report: not ported yet")
+    p.add_argument("--top", action="store_true",
+                   help="live cluster panel: not ported yet")
     p.add_argument("--prompt", default="Why is the sky blue?")
     p.add_argument("--prompt-ids", default=None, dest="prompt_ids",
                    help="comma-separated token ids (bypasses the tokenizer)")
@@ -97,10 +155,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--kv-quant", choices=["int8"], default=None,
                    dest="kv_quant",
                    help="store the KV cache as int8 + per-slot scales")
-    p.add_argument("--decode-block", type=int, default=8,
+    p.add_argument("--decode-block", type=int, default=None,
                    dest="decode_block",
-                   help="decode steps per fused block (1 = one step at a "
-                        "time)")
+                   help="decode steps per fused block (default 8; 1 = one "
+                        "step at a time; a topology master steps one token "
+                        "at a time)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (plain PyTorch attention) instead "
                         "of the CUDA card")
@@ -225,16 +284,105 @@ def _load_params(args, config, device):
                              quantize=args.quantize)
 
 
+def _decode_block(args) -> int:
+    return args.decode_block if args.decode_block is not None else 8
+
+
 def _engine_kwargs(args) -> dict:
     """BatchGenerator arguments of the serving paths; the engine refuses
     what is not ported (meshes, paged KV, speculation, lookahead)."""
-    return dict(max_seq=args.max_seq, block_size=args.decode_block,
+    return dict(max_seq=args.max_seq, block_size=_decode_block(args),
                 kv_quant=args.kv_quant, num_stages=args.stages, tp=args.tp,
                 dp=args.dp, sp=args.sp, ep=args.ep, kv_layout=args.kv_layout,
                 spec_k=args.speculate, lookahead=args.lookahead)
 
 
-def run(args) -> int:
+def _load_topology(args):
+    """The ``--topology`` file; mesh ``device:`` nodes are refused."""
+    from cake_tpu_torch.parallel.topology import Topology
+
+    try:
+        topology = Topology.from_path(args.topology)
+    except (OSError, ValueError) as e:
+        sys.exit(f"error: --topology {args.topology}: {e}")
+    mesh = [n.name for n in topology if n.device is not None]
+    if mesh:
+        sys.exit(f"error: topology nodes with mesh `device:` indices "
+                 f"({mesh}) drive the single-program mesh pipeline, which "
+                 "is not ported yet (multi-GPU parallelism); give them "
+                 "`host:` addresses for the cross-host path")
+    return topology
+
+
+def _link_flags(args) -> list[str]:
+    """The worker-link flags the user set: they mean something only on a
+    topology master."""
+    return [flag for flag, set_ in (
+        ("--wire-codec", args.wire_codec not in (None, "none")),
+        ("--op-timeout", args.op_timeout is not None),
+        ("--connect-retries", bool(args.connect_retries)),
+        ("--recover-deadline", args.recover_deadline is not None),
+    ) if set_]
+
+
+def _build_distributed_gen(args, config, topology, tokenizer, settings,
+                           device):
+    """The cross-host master over a host-addressed topology (the one-shot
+    master's and ``--mode serve``'s): head params, local segments'
+    loaders, runner handshakes with the failure-domain knobs."""
+    from cake_tpu_torch.runtime import wire
+    from cake_tpu_torch.runtime.master import (
+        DistributedGenerator,
+        build_runners,
+    )
+    from cake_tpu_torch.utils.weights import load_llama_params
+
+    if args.kv_quant:
+        sys.exit("error: --kv-quant on the master applies to the local "
+                 "path; pass it to each worker process instead (workers "
+                 "own their layers' caches)")
+    L = config.num_hidden_layers
+    try:
+        head = load_llama_params(args.model, L, dtype=config.dtype,
+                                 device=device, quantize=args.quantize,
+                                 layer_range=(0, 0))
+
+        def loader(lo, hi):
+            return load_llama_params(
+                args.model, L, dtype=config.dtype, device=device,
+                quantize=args.quantize, layer_range=(lo, hi),
+                layers_only=True)["layers"]
+
+        runners = build_runners(config, topology, loader,
+                                max_seq=args.max_seq,
+                                wire_codec=args.wire_codec or "none",
+                                op_timeout_s=args.op_timeout,
+                                connect_retries=args.connect_retries,
+                                recover_deadline_s=args.recover_deadline)
+        return DistributedGenerator(config, head, runners,
+                                    tokenizer=tokenizer, settings=settings,
+                                    max_seq=args.max_seq, device=device)
+    except (NotImplementedError, ValueError, RuntimeError, OSError,
+            wire.WireError) as e:  # e.g. a worker refuses the codec
+        sys.exit(f"error: {e}")
+
+
+def _status_server(args, status_fn, what: str):
+    """``--status-port``: ``status_fn`` as JSON on / (and /metrics)."""
+    if args.status_port is None:
+        return None
+    from cake_tpu_torch.obs import statusd
+
+    httpd, bound = statusd.start_status_server(
+        status_fn, bind=args.status_bind, port=args.status_port)
+    log.info("%s status page on http://%s:%d/", what, args.status_bind,
+             bound)
+    return httpd
+
+
+def run(args, topology=None) -> int:
+    from cake_tpu_torch import __version__
+    from cake_tpu_torch.obs import metrics as obs_metrics
     from cake_tpu_torch.runtime.generator import LlamaGenerator
 
     device = _device(args)
@@ -242,16 +390,30 @@ def run(args) -> int:
     tokenizer = _load_tokenizer(args.model)
     settings = _settings(args)
     t0 = time.perf_counter()
-    try:
-        params = _load_params(args, config, device)
-        gen = LlamaGenerator(config, params, tokenizer=tokenizer,
-                             settings=settings, max_seq=args.max_seq,
-                             block_size=args.decode_block, device=device,
-                             kv_quant=args.kv_quant)
-    except (NotImplementedError, ValueError) as e:
-        sys.exit(f"error: {e}")
+    if topology is not None:
+        gen = _build_distributed_gen(args, config, topology, tokenizer,
+                                     settings, device)
+    else:
+        try:
+            params = _load_params(args, config, device)
+            gen = LlamaGenerator(config, params, tokenizer=tokenizer,
+                                 settings=settings, max_seq=args.max_seq,
+                                 block_size=_decode_block(args),
+                                 device=device, kv_quant=args.kv_quant)
+        except (NotImplementedError, ValueError) as e:
+            sys.exit(f"error: {e}")
     log.info("model loaded in %.1fs on %s", time.perf_counter() - t0,
              device)
+
+    def master_status():
+        st = {"role": "master", "version": __version__,
+              "model": str(args.model),
+              "metrics": obs_metrics.registry().snapshot()}
+        if hasattr(gen, "runner_stats"):
+            st["segments"] = gen.runner_stats()
+        return st
+
+    status_httpd = _status_server(args, master_status, "master")
 
     if args.prompt_ids:
         gen.set_prompt([int(t) for t in args.prompt_ids.split(",")])
@@ -290,9 +452,85 @@ def run(args) -> int:
         dt = time.perf_counter() - t_warm
         log.info("%d tokens, %.2f tok/s (excl. prefill; TTFT %.2fs)",
                  n_tokens, (n_tokens - 1) / dt, t_warm - t_gen0)
+    if topology is not None:
+        _log_segments(gen.runner_stats())
+    if status_httpd is not None:
+        status_httpd.shutdown()
+        status_httpd.server_close()
+    gen.close()
     if gen_error is not None:
         log.error("generation ended early: %r", gen_error)
         return 1
+    return 0
+
+
+def _log_segments(stats: list[dict]) -> None:
+    """One line a segment of a topology master's run, as the JAX command
+    line logs them."""
+    for s in stats:
+        # each link field is optional: a local segment has none
+        extra = "".join(
+            f", {label} {s[key]} ms"
+            for key, label in (("handshake_ms", "handshake"),
+                               ("rtt_ms", "rtt"),
+                               ("clock_offset_ms", "clock offset"))
+            if key in s)
+        log.info("segment %s @ %s: %d calls, %.2f ms avg "
+                 "(p50 %.2f / p99 %.2f)%s",
+                 s["layers"], s["ident"], s["calls"], s["avg_ms"],
+                 s.get("p50_ms", 0.0), s.get("p99_ms", 0.0), extra)
+
+
+def run_worker(args) -> int:
+    """--mode worker: load this worker's layers (only their tensors are
+    read) on the card and serve them to masters of either package until
+    killed."""
+    from cake_tpu_torch.parallel.pipeline import check_single_device
+    from cake_tpu_torch.runtime.worker import Worker
+    from cake_tpu_torch.utils.memory import memory_report
+    from cake_tpu_torch.utils.weights import load_llama_params
+
+    if not args.name:
+        sys.exit("error: --mode worker requires --name")
+    if not args.topology:
+        sys.exit("error: --mode worker requires --topology")
+    flags = [f for f in _link_flags(args) if f != "--wire-codec"]
+    if flags:
+        sys.exit(f"error: {'/'.join(flags)} drive the master's side of the "
+                 "worker links; pass them to the master process (they "
+                 "would otherwise be silently ignored in worker mode)")
+    if args.prompts_file or args.prompt_ids:
+        sys.exit("error: a worker takes its inputs from masters over the "
+                 "wire; --prompts-file/--prompt-ids belong to the master")
+    try:
+        check_single_device(dp=args.dp, tp=args.tp, stages=args.stages,
+                            sp=args.sp, ep=args.ep)
+    except ValueError as e:
+        sys.exit(f"error: {e}")
+    device = _device(args)
+    config = _load_config(args)
+    topology = _load_topology(args)
+
+    def loader(lo, hi):
+        return load_llama_params(
+            args.model, config.num_hidden_layers, dtype=config.dtype,
+            device=device, quantize=args.quantize, layer_range=(lo, hi),
+            layers_only=True)["layers"]
+
+    try:
+        worker = Worker(args.name, config, topology, loader,
+                        address=args.address, max_seq=args.max_seq,
+                        kv_quant=args.kv_quant, wire_codec=args.wire_codec,
+                        device=device)
+    except (NotImplementedError, ValueError, OSError) as e:
+        sys.exit(f"error: {e}")
+    if args.status_port is not None:
+        worker.start_status_server(args.status_port, bind=args.status_bind)
+    log.info("worker ready (%s)", memory_report())
+    try:
+        worker.serve_forever()
+    except KeyboardInterrupt:
+        worker.shutdown()
     return 0
 
 
@@ -376,11 +614,12 @@ _SERVE_FLAGS = (
 )
 
 
-def run_http_serve(args) -> int:
+def run_http_serve(args, topology=None) -> int:
     """--mode serve: the HTTP API and the SLO-aware scheduler over the
-    continuous-batching engine on one card. SIGTERM/SIGINT (or a drain
-    request) stop admission; in-flight streams finish; the log ends with
-    "drained; bye"."""
+    continuous-batching engine on one card, or over the wire master of a
+    host-addressed ``topology`` in one slot (requests serialize).
+    SIGTERM/SIGINT (or a drain request) stop admission; in-flight streams
+    finish; the log ends with "drained; bye"."""
     import signal
     import threading
 
@@ -410,6 +649,23 @@ def run_http_serve(args) -> int:
         sys.exit("error: --mode serve takes prompts over HTTP "
                  "(POST /v1/completions); --prompts-file/--prompt-ids "
                  "belong to the one-shot paths")
+    if topology is not None:
+        refused = [flag for flag, set_ in (
+            ("--decode-block", args.decode_block is not None),
+            ("--serve-logprobs", bool(args.serve_logprobs)),
+            ("--kv-layout paged", args.kv_layout == "paged"),
+            ("--speculate", bool(args.speculate)),
+            ("--lookahead", args.lookahead)) if set_]
+        if refused:
+            sys.exit(f"error: {'/'.join(refused)} need the batch engine; "
+                     "a host-addressed --topology serves over the "
+                     "single-stream wire master (one token a step, no "
+                     "logprob outputs)")
+        if max_concurrent > 1:
+            log.warning("--max-concurrent %d: a host-addressed --topology "
+                        "serves over the single-stream wire master; "
+                        "requests serialize through 1 slot",
+                        max_concurrent)
     device = _device(args)
     config = _load_config(args)
     tokenizer = _load_tokenizer(args.model)
@@ -421,11 +677,17 @@ def run_http_serve(args) -> int:
         slo = SloTracker(SloPolicy(ttft_ms=args.slo_ttft_ms,
                                    tpot_ms=args.slo_tpot_ms))
     try:
-        params = _load_params(args, config, device)
-        engine = BatchGenerator(config, params, tokenizer=tokenizer,
-                                settings=_settings(args), device=device,
-                                logprobs=args.serve_logprobs,
-                                **_engine_kwargs(args))
+        if topology is not None:
+            from cake_tpu_torch.serve.engine import SingleStreamEngine
+
+            engine = SingleStreamEngine(_build_distributed_gen(
+                args, config, topology, tokenizer, _settings(args), device))
+        else:
+            params = _load_params(args, config, device)
+            engine = BatchGenerator(config, params, tokenizer=tokenizer,
+                                    settings=_settings(args), device=device,
+                                    logprobs=args.serve_logprobs,
+                                    **_engine_kwargs(args))
         scheduler = Scheduler(engine, queue_depth=queue_depth,
                               request_timeout_s=request_timeout,
                               role=args.role, slo=slo,
@@ -447,6 +709,7 @@ def run_http_serve(args) -> int:
             "metrics": obs_metrics.registry().snapshot(),
         }
 
+    status_httpd = _status_server(args, serve_status, "serve")
     stop = threading.Event()
     server = start_api_server(scheduler, status_fn=serve_status,
                               bind=serve_bind, port=serve_port,
@@ -471,6 +734,9 @@ def run_http_serve(args) -> int:
     finally:
         server.drain(timeout_s=request_timeout)
         scheduler.close()
+        if status_httpd is not None:
+            status_httpd.shutdown()
+            status_httpd.server_close()
         obs.flush_artifacts()
         log.info("drained; bye")
     return 0
@@ -481,8 +747,16 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
-    if args.mode in ("worker", "gateway"):
-        sys.exit(f"error: --mode {args.mode} is not ported yet")
+    if args.mode == "gateway":
+        sys.exit("error: --mode gateway is not ported yet")
+    if args.chaos:
+        sys.exit("error: --chaos (fault injection on the worker links, the "
+                 "JAX package's testing/chaos.py) is not ported yet")
+    if args.cluster_report or args.top:
+        sys.exit("error: --cluster-report/--top (the cluster views, the JAX "
+                 "package's obs/cluster.py and obs/top.py) are not ported "
+                 "yet; the master logs each segment's stats at the end of "
+                 "a run")
     if args.spill_mb is not None:
         sys.exit("error: --spill-mb: preempting and spilling streams needs "
                  "the paged KV layout, which is not ported yet")
@@ -491,9 +765,29 @@ def main(argv=None) -> int:
         if used:
             sys.exit(f"error: {'/'.join(used)} configure the request "
                      "server; they apply only with --mode serve")
+    if args.op_timeout is not None and args.op_timeout <= 0:
+        sys.exit("error: --op-timeout must exceed 0 (omit the flag for the "
+                 "segment-scaled default)")
+    if args.recover_deadline is not None and args.recover_deadline <= 0:
+        sys.exit("error: --recover-deadline must exceed 0")
+    if args.mode == "worker":
+        return run_worker(args)
+    topology = _load_topology(args) if args.topology else None
+    if topology is None and _link_flags(args):
+        sys.exit(f"error: {'/'.join(_link_flags(args))} drive cross-host "
+                 "worker links; they need a host-addressed --topology "
+                 "(they would otherwise be silently ignored)")
+    if topology is not None and args.speculate:
+        sys.exit("error: --speculate runs the local or mesh (stages/tp) "
+                 "paths; it is not supported with --sp or --topology (it "
+                 "would otherwise be silently ignored)")
     if args.mode == "serve":
-        return run_http_serve(args)
+        return run_http_serve(args, topology)
     if args.prompts_file:
+        if topology is not None:
+            sys.exit("error: --prompts-file serving runs the batch engine; "
+                     "--topology (cross-host workers) is not supported "
+                     "here")
         return run_serve(args)
     unported = [f for f, v in (("--kv-layout paged", args.kv_layout ==
                                 "paged"), ("--speculate", args.speculate),
@@ -507,7 +801,7 @@ def main(argv=None) -> int:
                             sp=args.sp, ep=args.ep)
     except ValueError as e:
         sys.exit(f"error: {e}")
-    return run(args)
+    return run(args, topology)
 
 
 if __name__ == "__main__":

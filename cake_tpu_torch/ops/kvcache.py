@@ -31,7 +31,8 @@ class QuantizedKV:
     scale: torch.Tensor
 
     def __getitem__(self, i) -> "QuantizedKV":
-        """One layer (views: writes go through to the cache)."""
+        """One layer, or a slice of layers (views: writes go through to the
+        cache)."""
         return QuantizedKV(self.q[i], self.scale[i])
 
 
@@ -65,15 +66,22 @@ class KVCache:
         k = self.k.q if isinstance(self.k, QuantizedKV) else self.k
         return k.shape[3]
 
+    def layers(self, lo: int, hi: int) -> "KVCache":
+        """Layers ``lo..hi-1`` as views: a forward over them writes only
+        their rows of this cache (codes and scales alike)."""
+        return KVCache(k=self.k[lo:hi], v=self.v[lo:hi])
+
 
 def init_cache(config: LlamaConfig, batch: int = 1,
                max_seq: int | None = None, device=None,
-               quant: str | None = None) -> KVCache:
-    """Allocate a zeroed cache for every layer of ``config``, in the
-    model's dtype, or int8 with per-slot scales (``quant="int8"``)."""
+               quant: str | None = None,
+               num_layers: int | None = None) -> KVCache:
+    """Allocate a zeroed cache for every layer of ``config`` (or for
+    ``num_layers``: a segment's own), in the model's dtype, or int8 with
+    per-slot scales (``quant="int8"``)."""
     if quant not in (None, "int8"):
         raise ValueError(f"unsupported kv quant={quant!r}")
-    L = config.num_hidden_layers
+    L = config.num_hidden_layers if num_layers is None else num_layers
     S = max_seq or config.max_seq_len
     shape = (L, batch, config.num_key_value_heads, S, config.head_dim)
     if quant == "int8":

@@ -94,39 +94,30 @@ def noise_seed(seed: int, index: int) -> int:
     return x ^ (x >> 29)
 
 
-class LlamaGenerator:
-    """Single-stream generator over a model held on one device (the card
-    unless ``device="cpu"`` is asked for; ``params`` must already lie
-    there): prompt validation and per-stream reset, the repeat-penalty
-    history, token bookkeeping, EOS detection and streaming
-    detokenization around the model's prefill and decode steps."""
+class GeneratorBase:
+    """The single-stream generators' shared state machine (the JAX
+    package's ``GeneratorBase``): prompt intake and per-stream reset, the
+    repeat-penalty history, token bookkeeping, EOS detection, streaming
+    detokenization, and the sampler with its per-token noise (the noise of
+    token ``index`` depends only on ``(seed, index)``, so a sampled stream
+    draws the same noise on the local and the distributed path). The
+    history and the noise live on ``device`` (the card unless ``"cpu"`` is
+    asked for); subclasses run the model in ``next_token``."""
 
-    def __init__(self, config: LlamaConfig, params, tokenizer=None,
+    # constrained decoding (guides) is not ported yet
+    supports_guide = False
+
+    def __init__(self, config: LlamaConfig, tokenizer=None,
                  settings: SamplerSettings | None = None,
-                 max_seq: int | None = None, block_size: int = 1,
-                 device=None, kv_quant: str | None = None):
-        """``block_size > 1`` runs that many decode steps per block with the
-        tokens kept on the device, and streams them one at a time.
-
-        ``kv_quant="int8"`` stores the KV cache as int8 with one scale per
-        token and head (half the cache bytes; quantized as it is
-        written)."""
+                 max_seq: int | None = None, device=None):
         self.config = config
         self.device = resolve_device(device)
-        if params["embed"].device.type != self.device.type:
-            raise ValueError(
-                f"params lie on {params['embed'].device}, the generator "
-                f"runs on {self.device}")
         self.settings = settings or SamplerSettings()
         sampling.validate_logit_bias(self.settings, config.vocab_size)
         self.max_seq = max_seq or config.max_seq_len
         self.tokenizer = tokenizer
         self.stream = (TokenOutputStream(tokenizer)
                        if tokenizer is not None else None)
-        self.model = Llama(config, params)
-        self.block_size = max(1, block_size)
-        self.cache = init_cache(config, batch=1, max_seq=self.max_seq,
-                                device=self.device, quant=kv_quant)
         self._noise_gen = torch.Generator(device=self.device)
         self._history, self._hist_slot = sampling.init_history(
             self.settings.repeat_last_n, self.device)
@@ -135,10 +126,6 @@ class LlamaGenerator:
         self._pos = 0
         self._last_token: int | None = None
         self._eos_ids = set(config.eos_ids())
-        self._block_buf: deque[int] = deque()
-        # counts of model calls, for callers that check kernel launches
-        self.prefill_calls = 0
-        self.decode_steps = 0
 
     def set_prompt(self, prompt: str | list[int]) -> None:
         ids = encode_prompt(prompt, self.tokenizer, self.config,
@@ -159,26 +146,32 @@ class LlamaGenerator:
         if tail:
             self._history[:len(tail)] = torch.tensor(tail, dtype=torch.int32)
             self._hist_slot = len(tail)
-        self._block_buf = deque()
+        self._on_new_prompt()
 
-    def next_token(self, index: int) -> Token:
-        """Index 0 runs the prefill; a later index pops the current block,
-        else runs a block of ``block_size`` steps, else one step (block
-        size 1, or the tail of the window where a whole block would write
-        past it)."""
-        if index == 0:
-            if not self._prompt_tokens:
-                raise RuntimeError("set_prompt first")
-            return self._finish_token(self._prefill())
-        if not self._block_buf:
-            if self._pos >= self.max_seq:
-                raise RuntimeError(
-                    f"KV cache exhausted: position {self._pos} >= max_seq "
-                    f"{self.max_seq} (raise max_seq or shorten the stream)")
-            steps = (self.block_size
-                     if self._pos + self.block_size <= self.max_seq else 1)
-            self._block_buf.extend(self._steps(index, steps))
-        return self._finish_token(self._block_buf.popleft())
+    def _on_new_prompt(self) -> None:
+        """Hook: per-stream state of a subclass (block buffers, remote
+        caches)."""
+
+    @property
+    def eos_ids(self) -> frozenset:
+        return frozenset(self._eos_ids)
+
+    def set_guide(self, guide) -> None:
+        """Constrained decoding is not ported: only ``None`` is taken."""
+        if guide is not None:
+            raise ValueError(
+                f"{type(self).__name__} does not support constrained "
+                "decoding (guides are not ported yet)")
+
+    def _require_prompt(self) -> None:
+        if not self._prompt_tokens:
+            raise RuntimeError("set_prompt first")
+
+    def _check_capacity(self) -> None:
+        if self._pos >= self.max_seq:
+            raise RuntimeError(
+                f"KV cache exhausted: position {self._pos} >= max_seq "
+                f"{self.max_seq} (raise max_seq or shorten the stream)")
 
     def _finish_token(self, tok_id: int) -> Token:
         self._last_token = tok_id
@@ -200,6 +193,73 @@ class LlamaGenerator:
         self._hist_slot = sampling.push_history(self._history,
                                                 self._hist_slot, tok)
         return tok
+
+    def next_token(self, index: int) -> Token:  # pragma: no cover
+        raise NotImplementedError
+
+    def last(self) -> str | None:
+        """Flush residual detokenizer text."""
+        return self.stream.decode_rest() if self.stream else None
+
+    def generated_tokens(self) -> int:
+        return len(self._generated)
+
+    @property
+    def generated_ids(self) -> list[int]:
+        return list(self._generated)
+
+    def close(self) -> None:
+        pass
+
+
+class LlamaGenerator(GeneratorBase):
+    """Single-stream generator over a model held on one device (the card
+    unless ``device="cpu"`` is asked for; ``params`` must already lie
+    there): the model's prefill and decode steps under
+    :class:`GeneratorBase`'s bookkeeping."""
+
+    def __init__(self, config: LlamaConfig, params, tokenizer=None,
+                 settings: SamplerSettings | None = None,
+                 max_seq: int | None = None, block_size: int = 1,
+                 device=None, kv_quant: str | None = None):
+        """``block_size > 1`` runs that many decode steps per block with the
+        tokens kept on the device, and streams them one at a time.
+
+        ``kv_quant="int8"`` stores the KV cache as int8 with one scale per
+        token and head (half the cache bytes; quantized as it is
+        written)."""
+        dev = resolve_device(device)
+        if params["embed"].device.type != dev.type:
+            raise ValueError(
+                f"params lie on {params['embed'].device}, the generator "
+                f"runs on {dev}")
+        super().__init__(config, tokenizer, settings, max_seq, dev)
+        self.model = Llama(config, params)
+        self.block_size = max(1, block_size)
+        self.cache = init_cache(config, batch=1, max_seq=self.max_seq,
+                                device=self.device, quant=kv_quant)
+        self._block_buf: deque[int] = deque()
+        # counts of model calls, for callers that check kernel launches
+        self.prefill_calls = 0
+        self.decode_steps = 0
+
+    def _on_new_prompt(self) -> None:
+        self._block_buf = deque()
+
+    def next_token(self, index: int) -> Token:
+        """Index 0 runs the prefill; a later index pops the current block,
+        else runs a block of ``block_size`` steps, else one step (block
+        size 1, or the tail of the window where a whole block would write
+        past it)."""
+        if index == 0:
+            self._require_prompt()
+            return self._finish_token(self._prefill())
+        if not self._block_buf:
+            self._check_capacity()
+            steps = (self.block_size
+                     if self._pos + self.block_size <= self.max_seq else 1)
+            self._block_buf.extend(self._steps(index, steps))
+        return self._finish_token(self._block_buf.popleft())
 
     @torch.inference_mode()
     def _prefill(self) -> int:
@@ -232,14 +292,3 @@ class LlamaGenerator:
         self._pos += steps
         self.decode_steps += steps
         return torch.stack(toks).tolist()
-
-    def last(self) -> str | None:
-        """Flush residual detokenizer text."""
-        return self.stream.decode_rest() if self.stream else None
-
-    def generated_tokens(self) -> int:
-        return len(self._generated)
-
-    @property
-    def generated_ids(self) -> list[int]:
-        return list(self._generated)

@@ -62,10 +62,17 @@ def params_from_hf_tensors(get: Callable[[str], torch.Tensor],
                            num_layers: int, dtype="bfloat16",
                            tie_word_embeddings: bool = False,
                            device=None, quantize: str | None = None,
-                           prequantized: bool = False) -> dict:
+                           prequantized: bool = False,
+                           layer_range: tuple[int, int] | None = None,
+                           layers_only: bool = False) -> dict:
     """Build the params tree on ``device`` from a lookup ``get(hf_name)``.
     Each stacked tensor is allocated on the device once and filled layer by
     layer, so the host holds one layer's tensor at a time.
+
+    ``layer_range=(lo, hi)`` reads only blocks ``lo..hi-1``, stacked from 0
+    (a worker's own layers; ``(0, 0)``, no layer at all: ``layers`` is
+    empty). ``layers_only=True`` reads no embedding, final norm or head: the
+    tree has ``layers`` alone.
 
     ``quantize`` (``"int8"``, ``"int4"``, ``"int4:gN"``) quantizes every
     linear on the host as it streams in; norms and the embedding stay in
@@ -80,10 +87,16 @@ def params_from_hf_tensors(get: Callable[[str], torch.Tensor],
         raise ValueError(
             "prequantized=True requires quantize='int8' or 'int4'")
 
+    lo, hi = layer_range or (0, num_layers)
+    if not 0 <= lo <= hi <= num_layers:
+        raise ValueError(
+            f"layer_range {layer_range} is not inside 0..{num_layers}")
+
     def stored_group() -> int | None:
         """The group size a pre-quantized int4 checkpoint was written at
-        (None: per channel), read off a stored scale's shape."""
-        name = "model.layers.0.self_attn.q_proj.weight"
+        (None: per channel), read off a stored scale's shape (of the first
+        layer loaded)."""
+        name = f"model.layers.{lo if lo < hi else 0}.self_attn.q_proj.weight"
         try:
             s = get(f"{name}.scale")
         except KeyError:
@@ -126,7 +139,7 @@ def params_from_hf_tensors(get: Callable[[str], torch.Tensor],
     layers = {}
     for ours, (suffix, transpose) in _LAYER_MAP.items():
         stacked = None
-        for i in range(num_layers):
+        for i in range(lo, hi):
             name = f"model.layers.{i}.{suffix}"
             if tier is not None and ours in LAYER_LINEARS:
                 w = qcls(*get_quant(name))
@@ -134,22 +147,23 @@ def params_from_hf_tensors(get: Callable[[str], torch.Tensor],
                 w = to_dev(get(name))
                 w = w.t() if transpose else w
             if stacked is None:
-                stacked = stack_like(w, num_layers, dev)
-            set_layer(stacked, i, w)
-        layers[ours] = stacked
-    head = "model.embed_tokens.weight" if tie_word_embeddings \
-        else "lm_head.weight"
-    if tier is not None:
-        q, s = get_quant(head)
-        lm_head = qcls(q.to(dev).contiguous(), s.to(dev).contiguous())
-    else:
-        lm_head = to_dev(get(head)).t().contiguous()
-    return {
-        "embed": to_dev(get("model.embed_tokens.weight")),
-        "layers": layers,
-        "norm_f": to_dev(get("model.norm.weight")),
-        "lm_head": lm_head,
-    }
+                stacked = stack_like(w, hi - lo, dev)
+            set_layer(stacked, i - lo, w)
+        if stacked is not None:
+            layers[ours] = stacked
+    params = {"layers": layers}
+    if not layers_only:
+        params["embed"] = to_dev(get("model.embed_tokens.weight"))
+        head = "model.embed_tokens.weight" if tie_word_embeddings \
+            else "lm_head.weight"
+        if tier is not None:
+            q, s = get_quant(head)
+            params["lm_head"] = qcls(q.to(dev).contiguous(),
+                                     s.to(dev).contiguous())
+        else:
+            params["lm_head"] = to_dev(get(head)).t().contiguous()
+        params["norm_f"] = to_dev(get("model.norm.weight"))
+    return params
 
 
 def load_safetensors_index(model_dir: str | Path) -> dict[str, Path]:
@@ -214,15 +228,22 @@ def check_prequantized(name_to_file: dict, quantize: str | None) -> bool:
 
 def load_llama_params(model_dir: str | Path, num_layers: int,
                       dtype="bfloat16", device=None,
-                      quantize: str | None = None) -> dict:
+                      quantize: str | None = None,
+                      layer_range: tuple[int, int] | None = None,
+                      layers_only: bool = False) -> dict:
     """Load a checkpoint directory into the params tree on ``device`` (the
     card unless the CPU is asked for). A checkpoint without a stored
     ``lm_head.weight`` loads with a tied head. ``quantize`` quantizes the
-    linears on load, or names the tier of a pre-quantized checkpoint."""
+    linears on load, or names the tier of a pre-quantized checkpoint.
+
+    Only the tensors asked for are read from the files: a worker's
+    ``layer_range`` with ``layers_only=True`` reads its own blocks, a
+    master's ``layer_range=(0, 0)`` the embedding, the final norm and the
+    head."""
     dev = resolve_device(device)
     name_to_file = load_safetensors_index(model_dir)
     check_supported(name_to_file)
-    tied = detect_tied_head(name_to_file, model_dir)
+    tied = not layers_only and detect_tied_head(name_to_file, model_dir)
     files: dict[Path, SafetensorsFile] = {}
 
     def get(name: str) -> torch.Tensor:
@@ -234,7 +255,8 @@ def load_llama_params(model_dir: str | Path, num_layers: int,
     return params_from_hf_tensors(
         get, num_layers, dtype=dtype, tie_word_embeddings=tied, device=dev,
         quantize=quantize,
-        prequantized=check_prequantized(name_to_file, quantize))
+        prequantized=check_prequantized(name_to_file, quantize),
+        layer_range=layer_range, layers_only=layers_only)
 
 
 def save_llama_params(params: dict, model_dir: str | Path) -> Path:

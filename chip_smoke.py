@@ -56,7 +56,22 @@ Phases, each fatal on failure:
    B = 8; the matmuls at M = 8);
 8. the HTTP server (``cake_tpu_torch.serve``) in this process over (a):
    four concurrent SSE requests and an arrival while they run, whose ids
-   must equal the engine's own; then a drain with a stream in flight.
+   must equal the engine's own; then a drain with a stream in flight;
+9. the cross-host path (topology, wire, ``Worker``, ``build_runners``,
+   ``DistributedGenerator``) over loopback on this card, phase 5's
+   weights and prompt, 64 greedy tokens: (a) bf16 over two worker
+   threads serving layers 0-19 and 20-31 (the reference's deployment of
+   record), the master holding embed, norm and head; (b) int8 weights
+   and the int8 cache, the master running layers 0-7 over one worker
+   serving 8-31. Every step's logits equal the single-device generator's
+   bit for bit (the activations cross the wire as exact bf16 into the
+   same kernels at the same shapes), the ids equal, the launches of
+   master and workers together match the model calls, and a worker
+   decoding one position late fails the check; TTFT, decode tokens/s,
+   each segment's ms, wire bytes a token, serialize/deserialize ms and
+   the card's busy share print beside phase 5's. Then phase 6's three
+   runs over two ``--mode worker`` processes and a ``--topology``
+   master: their ids must equal phase 6's.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the ``cake_tpu_torch`` package beside this file, it exits with
@@ -1092,39 +1107,68 @@ def profile_main_path(torch, cfg, params, prompt, label, kv_quant) -> dict:
 # --------------------------------------------------------------------------
 
 
-def phase_cli(torch, build) -> None:
+# phase 6's tiny checkpoint: head_dim 64, the kernels' other width
+CLI_CFG = dict(hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+               num_attention_heads=4, num_key_value_heads=2,
+               dtype="bfloat16")
+CLI_RUN = ["--prompt-ids", "3,5,7,9", "-n", "8", "--temperature", "0",
+           "--max-seq", "128"]
+# (label, flags, topology master's flags) of phase 6's three runs: the
+# flags go to the local run and to phase 9's workers; a topology master
+# refuses --kv-quant (the workers own the caches)
+CLI_FLAGS = (
+    ("bf16", [], []),
+    ("int8", ["--quantize", "int8", "--kv-quant", "int8"],
+     ["--quantize", "int8"]),
+    ("int4:g64", ["--quantize", "int4:g64"], ["--quantize", "int4:g64"]),
+)
+
+
+def write_cli_checkpoint(torch, build, d) -> object:
+    """Phase 6's tiny bf16 checkpoint (seed 0, drawn on the card) in
+    ``d``; returns its config."""
     from cake_tpu_torch.models.config import tiny
     from cake_tpu_torch.models.llama import init_params
     from cake_tpu_torch.utils.weights import save_llama_params
 
-    cfg = tiny(hidden_size=256, intermediate_size=512, num_hidden_layers=2,
-               num_attention_heads=4, num_key_value_heads=2,
-               dtype="bfloat16")  # head_dim 64: the kernels' other width
+    cfg = tiny(**CLI_CFG)
+    save_llama_params(init_params(cfg, seed=SEED, device="cuda"), d)
+    (Path(d) / "config.json").write_text(json.dumps(cfg.to_hf_dict()))
+    return cfg
+
+
+def cli_ids(r, cfg, what: str) -> list:
+    """The 8 ids a finished command-line run printed on its last line."""
+    if r.returncode != 0:
+        fail(f"{what} exit {r.returncode}: {r.stderr[-2000:]}")
+    last = r.stdout.strip().splitlines()[-1] if r.stdout.strip() else ""
+    try:
+        ids = [int(x) for x in last.split(",")]
+    except ValueError:
+        ids = []
+    if len(ids) != 8 or not all(0 <= i < cfg.vocab_size for i in ids):
+        fail(f"{what} printed {last!r}, want 8 token ids")
+    return ids
+
+
+def phase_cli(torch, build) -> dict:
+    """Phase 6's three runs of the local command line; returns each
+    label's ids."""
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = {}
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as d:
-        save_llama_params(init_params(cfg, seed=SEED, device="cuda"), d)
-        (Path(d) / "config.json").write_text(json.dumps(cfg.to_hf_dict()))
-        for flags in ([], ["--quantize", "int8", "--kv-quant", "int8"],
-                      ["--quantize", "int4:g64"]):
+        cfg = write_cli_checkpoint(torch, build, d)
+        for label, flags, _ in CLI_FLAGS:
             r = subprocess.run(
                 [sys.executable, "-m", "cake_tpu_torch.cli", "--model", d,
-                 "--prompt-ids", "3,5,7,9", "-n", "8", "--temperature", "0",
-                 "--max-seq", "128", *flags],
+                 *CLI_RUN, *flags],
                 capture_output=True, text=True, timeout=300, env=env,
                 cwd=REPO)
-            if r.returncode != 0:
-                fail(f"cli {flags} exit {r.returncode}: {r.stderr[-2000:]}")
-            last = (r.stdout.strip().splitlines()[-1] if r.stdout.strip()
-                    else "")
-            try:
-                ids = [int(x) for x in last.split(",")]
-            except ValueError:
-                ids = []
-            if len(ids) != 8 or not all(0 <= i < cfg.vocab_size
-                                        for i in ids):
-                fail(f"cli {flags} printed {last!r}, want 8 token ids")
-            say(f"[6] cli {' '.join(flags) or 'bf16'}: {last}")
+            out[label] = cli_ids(r, cfg, f"cli {flags}")
+            say(f"[6] cli {' '.join(flags) or 'bf16'}: "
+                f"{','.join(map(str, out[label]))}")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1766,6 +1810,462 @@ def phase_serve(torch) -> dict:
     return {"ttft_ms": ttft, "tokens": n_tok, "wall_s": wall}
 
 
+# --------------------------------------------------------------------------
+# phase 9
+# --------------------------------------------------------------------------
+
+# the reference's deployment of record (examples/topology.yaml): two
+# workers, layers 0-19 and 20-31; then the master running 0-7 itself over
+# one int8-cache worker serving 8-31
+CROSS_HOST_PATHS = (
+    ("(a) bf16, w1 0-19 + w2 20-31", "bf16", None, {"w1": (0, 20),
+                                                    "w2": (20, 32)}),
+    ("(b) int8 weights, master 0-7 (bf16 cache) + w1 8-31 (int8 cache)",
+     "quant_matmul", "int8", {"w1": (8, 32)}),
+)
+
+
+def served_layers(nodes: dict) -> set:
+    return {i for lo, hi in nodes.values() for i in range(lo, hi)}
+
+
+def deployment_cache(cfg, nodes: dict, kv_quant):
+    """The single-device generator's cache laid out as the deployment's:
+    the workers' layers in ``kv_quant``'s cache, the master's in the
+    model's dtype (a master's local segments keep no int8 cache)."""
+    from types import SimpleNamespace
+
+    from cake_tpu_torch.ops.kvcache import init_cache
+
+    plain = init_cache(cfg, device="cuda")
+    if kv_quant is None:
+        return plain
+    quant = init_cache(cfg, device="cuda", quant=kv_quant)
+    remote = served_layers(nodes)
+    pick = [quant if i in remote else plain
+            for i in range(cfg.num_hidden_layers)]
+    return SimpleNamespace(k=[c.k[i] for i, c in enumerate(pick)],
+                           v=[c.v[i] for i, c in enumerate(pick)],
+                           max_seq=plain.max_seq)
+
+
+def deployment_launches(cfg, weights, kv_quant, nodes, prefill_calls,
+                        decode_steps) -> dict:
+    """``expected_launches`` with the attention of the workers' layers on
+    ``kv_quant``'s kernels and the master's on the model dtype's."""
+    counts = expected_launches(cfg, weights, None, prefill_calls,
+                               decode_steps)
+    q8 = len(served_layers(nodes)) if kv_quant else 0
+    for kind, n in (("prefill", prefill_calls), ("decode", decode_steps)):
+        counts[f"flash_{kind}"] -= q8 * n
+        counts[f"flash_{kind}_q8"] += q8 * n
+    return counts
+
+
+def start_workers(cfg, params, nodes: dict, kv_quant):
+    """One ``Worker`` a node, each in a background thread on an ephemeral
+    loopback port, serving views of ``params``' stacked layers (nothing is
+    copied); returns the workers and the master's topology over them."""
+    from cake_tpu_torch.parallel.topology import Topology
+    from cake_tpu_torch.runtime.worker import Worker
+
+    def names(lo, hi):
+        return [f"model.layers.{i}" for i in range(lo, hi)]
+
+    topo = Topology.from_dict({n: {"layers": names(*r)}
+                               for n, r in nodes.items()})
+
+    def loader(lo, hi):
+        return {k: v[lo:hi] for k, v in params["layers"].items()}
+
+    workers = {}
+    for name in nodes:
+        workers[name] = Worker(name, cfg, topo, loader,
+                               address="127.0.0.1:0", kv_quant=kv_quant)
+        workers[name].serve_in_background()
+    master_topo = Topology.from_dict({
+        n: {"host": f"127.0.0.1:{w.port}", "layers": names(*nodes[n])}
+        for n, w in workers.items()})
+    return workers, master_topo, loader
+
+
+def keep_logits(gen) -> list:
+    """Every step's f32 logits of ``gen`` (both generators sample through
+    ``_sample``), copied to the host."""
+    out, real = [], gen._sample
+
+    def keep(logits, index):
+        out.append(logits.float().cpu())
+        return real(logits, index)
+
+    gen._sample = keep
+    return out
+
+
+def logits_diff(torch, got: list, want: list) -> dict:
+    """Steps whose logits differ in any bit, the largest absolute
+    difference, and the worst step's relative L2 (a row is one step's
+    logits)."""
+    n = min(len(got), len(want))
+    rel = [((got[i] - want[i]).norm() / want[i].norm()).item()
+           for i in range(n)]
+    return {"steps": n,
+            "unequal_steps": sum(not torch.equal(got[i], want[i])
+                                 for i in range(n)),
+            "max_abs": max((got[i] - want[i]).abs().max().item()
+                           for i in range(n)),
+            "worst_row_rel_l2": max(rel)}
+
+
+def drive_stream(torch, gen, prompt, n_new) -> dict:
+    """Set ``prompt`` and draw ``n_new`` tokens: ids, host-clock TTFT
+    (``next_token(0)`` with its prefill) and decode tokens/s."""
+    gen.set_prompt(prompt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = [gen.next_token(0).id]
+    t1 = time.perf_counter()
+    ids += [gen.next_token(i).id for i in range(1, n_new)]
+    t2 = time.perf_counter()
+    return {"ids": ids, "ttft_ms": (t1 - t0) * 1e3,
+            "decode_tokens_per_s": (n_new - 1) / (t2 - t1)}
+
+
+def cross_host_path(torch, build, cfg, params, prompt, label, weights,
+                    kv_quant, nodes) -> dict:
+    """One deployment on this card: the single-device ``LlamaGenerator``
+    (block 1, its cache laid out as the deployment's) for the reference
+    stream and logits, then the master over its workers through the
+    library the command line uses. Fails unless
+    every step's logits are the reference's bit for bit, the ids equal,
+    and each kernel launched as the model calls say; then a planted fault
+    (a worker decoding one position late) must fail the same check."""
+    from cake_tpu_torch import obs
+    from cake_tpu_torch.ops.sampling import SamplerSettings
+    from cake_tpu_torch.runtime.generator import LlamaGenerator
+    from cake_tpu_torch.runtime.master import (
+        DistributedGenerator,
+        build_runners,
+    )
+
+    n_new = 64
+    greedy = SamplerSettings(temperature=0)
+    ref_gen = LlamaGenerator(cfg, params, settings=greedy, block_size=1)
+    ref_gen.cache = deployment_cache(cfg, nodes, kv_quant)
+    drive_stream(torch, ref_gen, prompt, 4)  # warm: neither timed nor kept
+    ref_logits = keep_logits(ref_gen)
+    ref = drive_stream(torch, ref_gen, prompt, n_new)
+    del ref_gen
+    workers, topo, loader = start_workers(cfg, params, nodes, kv_quant)
+    head = {k: params[k] for k in ("embed", "norm_f", "lm_head")}
+
+    def master():
+        return DistributedGenerator(
+            cfg, head, build_runners(cfg, topo, loader,
+                                     max_seq=cfg.max_seq_len),
+            settings=greedy)
+
+    gen = None
+    try:
+        gen = master()  # a warm-up master: neither timed nor counted
+        drive_stream(torch, gen, prompt, 4)
+        gen.close()
+        gen = master()
+        transport = {r.ident(): "native" if r.conn.is_native else "python"
+                     for r in gen.runners if r.ident() != "local"}
+        logits = keep_logits(gen)
+        rec = obs.flight.recorder()
+        rec.enable()
+        rec.clear()
+        p0, d0 = gen.prefill_calls, gen.decode_steps
+        torch.cuda.synchronize()
+        build.reset_launches()
+        run = drive_stream(torch, gen, prompt, n_new)
+        torch.cuda.synchronize()
+        counts = build.launches()
+        records = rec.records()
+        rec.disable()
+        want = deployment_launches(cfg, weights, kv_quant, nodes,
+                                   gen.prefill_calls - p0,
+                                   gen.decode_steps - d0)
+        diff = logits_diff(torch, logits, ref_logits)
+        say(f"[9] {label}: transport {transport}; launches {counts} "
+            f"(master and workers); logits against the single-device "
+            f"generator over {diff['steps']} steps: {diff['unequal_steps']} "
+            f"steps differ, max abs {diff['max_abs']:.3e}, worst row "
+            f"relative L2 {diff['worst_row_rel_l2']:.3e}")
+        if counts != want or gen.prefill_calls - p0 != 1:
+            fail(f"{label}: kernels launched {counts}, want {want}")
+        if diff["steps"] != n_new or diff["unequal_steps"]:
+            fail(f"{label}: logits differ from the single-device "
+                 f"generator's at {diff['unequal_steps']} of "
+                 f"{diff['steps']} steps (worst row relative L2 "
+                 f"{diff['worst_row_rel_l2']:.3e})")
+        if run["ids"] != ref["ids"]:
+            fail(f"{label}: greedy ids differ from the single-device "
+                 f"stream: {run['ids']} vs {ref['ids']}")
+        segs = gen.runner_stats()
+        dec = [r for r in records if r["kind"] == "decode"]
+        pre = [r for r in records if r["kind"] == "prefill"]
+
+        def mean(key, recs):
+            return sum(r[key] for r in recs) / len(recs)
+
+        result = {
+            "path": f"cross-host {label}", "launches": counts,
+            "transport": transport, "logits": diff,
+            "ttft_ms": run["ttft_ms"],
+            "decode_tokens_per_s": run["decode_tokens_per_s"],
+            "single_device_block_1": {
+                "ttft_ms": ref["ttft_ms"],
+                "decode_tokens_per_s": ref["decode_tokens_per_s"]},
+            "segments": [{k: seg[k] for k in ("ident", "layers", "calls",
+                                              "avg_ms", "p50_ms", "p99_ms",
+                                              "warmup_ms")}
+                         for seg in segs],
+            "decode_wire_bytes_per_token": mean("wire_bytes_out", dec)
+            + mean("wire_bytes_in", dec),
+            "prefill_wire_bytes": pre[0]["wire_bytes_out"]
+            + pre[0]["wire_bytes_in"],
+            "decode_serialize_ms": mean("serialize_ms", dec),
+            "decode_deserialize_ms": mean("deserialize_ms", dec),
+            "prefill_serialize_ms": pre[0]["serialize_ms"],
+            "prefill_deserialize_ms": pre[0]["deserialize_ms"],
+        }
+        say(f"[9] {label}: TTFT {run['ttft_ms']:.2f} ms, decode "
+            f"{run['decode_tokens_per_s']:.2f} tokens/s (host clock; the "
+            f"single-device generator at block 1 in this phase: "
+            f"{ref['ttft_ms']:.2f} ms, {ref['decode_tokens_per_s']:.2f} "
+            f"tokens/s); wire bytes a decode token "
+            f"{result['decode_wire_bytes_per_token']:.0f} (prefill "
+            f"{result['prefill_wire_bytes']}); serialize / deserialize ms "
+            f"a decode token {result['decode_serialize_ms']:.3f} / "
+            f"{result['decode_deserialize_ms']:.3f} (prefill "
+            f"{result['prefill_serialize_ms']:.3f} / "
+            f"{result['prefill_deserialize_ms']:.3f})")
+        for seg in result["segments"]:
+            say(f"[9] {label} segment {seg['layers']} @ {seg['ident']}: "
+                f"{seg['calls']} steady calls, {seg['avg_ms']:.3f} ms avg "
+                f"(p50 {seg['p50_ms']:.3f}, p99 {seg['p99_ms']:.3f}), "
+                f"prefill {seg['warmup_ms']:.2f} ms")
+        result["prefill_breakdown"] = prefill_breakdown(torch, gen, prompt,
+                                                        label)
+        result["profile"] = profile_cross_host(torch, gen, n_new, label)
+        result["planted"] = planted_late_position(
+            torch, gen, workers, prompt, ref_logits, label)
+        return result
+    finally:
+        if gen is not None:
+            gen.close()
+        for w in workers.values():
+            w.shutdown()
+
+
+def prefill_breakdown(torch, gen, prompt, label) -> list:
+    """One traced prefill (the master's spans and the workers' span
+    digests): for each segment its wall ms on the master and, for a
+    remote one, the master's send of the request, the worker's handling
+    (decode, forward with its host copies, encode) and the rest of the
+    round trip (the worker's receive, the reply's transfer, the master's
+    receive)."""
+    from cake_tpu_torch.obs import trace as obs_trace
+
+    tr = obs_trace.tracer()
+    tr.start()
+    try:
+        gen.set_prompt(prompt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen.next_token(0)
+        ttft = (time.perf_counter() - t0) * 1e3
+    finally:
+        tr.stop()
+    pid = os.getpid()
+    xs = [e for e in tr.to_chrome_trace()["traceEvents"] if e["ph"] == "X"]
+
+    def spans(name, remote=False):
+        return [e["dur"] / 1e3 for e in xs if e["name"] == name
+                and (e["pid"] != pid) == remote]
+
+    segs = spans("decode.segment")
+    rtt, send = spans("segment.remote_rtt"), spans("wire.send")
+    handle = {n: spans(f"ops.{n}", remote=True)
+              for n in ("handle", "decode", "forward", "encode")}
+    hops = [{"rtt_ms": rtt[i], "send_ms": send[i],
+             "worker_decode_ms": handle["decode"][i],
+             "worker_forward_ms": handle["forward"][i],
+             "worker_encode_ms": handle["encode"][i],
+             "rest_ms": rtt[i] - send[i] - handle["handle"][i]}
+            for i in range(len(rtt))]
+    say(f"[9] {label} traced prefill: TTFT {ttft:.2f} ms; segments ms "
+        f"{[round(x, 2) for x in segs]}; remote hops "
+        f"{[{k: round(v, 2) for k, v in h.items()} for h in hops]}")
+    return {"ttft_ms": ttft, "segments_ms": segs, "hops": hops}
+
+
+def profile_cross_host(torch, gen, index0, label) -> dict:
+    """Card time of 8 decode steps from a profiler trace, beside the host
+    clock's time for 8 unprofiled steps: the card's busy share a step."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(index0, index0 + 8):
+        gen.next_token(i)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 8
+    prof = device_profile(torch, lambda: [
+        gen.next_token(i) for i in range(index0 + 8, index0 + 16)])
+    prof.pop("kernels")
+    prof["device_ms_per_step"] = prof["device_ms"] / 8
+    prof["wall_ms_per_step"] = wall_ms
+    prof["busy_share"] = prof["device_ms_per_step"] / wall_ms
+    say(f"[9] {label} decode step: {prof['device_ms_per_step']:.3f} ms of "
+        f"card kernel time over {prof['kernel_launches'] / 8:.1f} launches,"
+        f" {wall_ms:.3f} ms on the host clock: card busy "
+        f"{100 * prof['busy_share']:.1f}%; top {prof['top']}")
+    return prof
+
+
+def planted_late_position(torch, gen, workers, prompt, ref_logits,
+                          label) -> dict:
+    """The last worker decodes every token one position late; the logits
+    check must fail on it."""
+    w = list(workers.values())[-1]
+    real = w._run_ops
+
+    def late(x, ops, caches):
+        if x.shape[1] == 1:
+            ops = [(name, pos + 1) for name, pos in ops]
+        return real(x, ops, caches)
+
+    w._run_ops = late
+    try:
+        logits = keep_logits(gen)
+        drive_stream(torch, gen, prompt, 8)
+    finally:
+        w._run_ops = real
+    diff = logits_diff(torch, logits, ref_logits[:8])
+    say(f"[9] {label} planted fault ({w.name} decodes one position late): "
+        f"{diff['unequal_steps']} of {diff['steps']} steps differ, worst "
+        f"row relative L2 {diff['worst_row_rel_l2']:.3e}")
+    if not diff["unequal_steps"]:
+        fail(f"{label}: a worker decoding one position late passed the "
+             "logits check")
+    return diff
+
+
+def phase_cross_host(torch, build, main_path) -> list:
+    """The master over loopback workers at full Llama-3-8B width and depth
+    (phase 5's seed-0 weights and 2,000-id prompt), 64 greedy tokens a
+    path, beside phase 5's numbers of the same weights."""
+    from cake_tpu_torch.models import llama
+    from cake_tpu_torch.models.config import llama3_8b
+
+    cfg = llama3_8b(max_seq_len=4096)
+    prompt = torch.randint(0, cfg.vocab_size, (2000,),
+                           generator=torch.Generator().manual_seed(SEED)
+                           ).tolist()
+    inits = {"bf16": lambda: llama.init_params(cfg, seed=SEED),
+             "quant_matmul": lambda: llama.init_params_int8(cfg, seed=SEED)}
+    results = []
+    for (label, weights, kv_quant, nodes), p5 in zip(CROSS_HOST_PATHS,
+                                                      main_path):
+        params = inits[weights]()
+        r = cross_host_path(torch, build, cfg, params, prompt, label,
+                            weights, kv_quant, nodes)
+        greedy5 = p5["runs"][0]
+        r["phase5"] = {"path": p5["path"],
+                       "prefill_ms": greedy5["prefill_ms"],
+                       "decode_tokens_per_s": greedy5["decode_tokens_per_s"],
+                       "decode_device_ms_per_step":
+                           p5["profile"]["decode_block_8"][
+                               "device_ms_per_step"]}
+        say(f"[9] {label} beside phase 5 {p5['path']} (block 8, one "
+            f"process, no wire): TTFT {r['ttft_ms']:.2f} vs "
+            f"{greedy5['prefill_ms']:.2f} ms; decode "
+            f"{r['decode_tokens_per_s']:.2f} vs "
+            f"{greedy5['decode_tokens_per_s']:.2f} tokens/s; card ms a "
+            f"decode step {r['profile']['device_ms_per_step']:.3f} vs "
+            f"{r['phase5']['decode_device_ms_per_step']:.3f}")
+        results.append(r)
+        del params
+        torch.cuda.empty_cache()
+    return results
+
+
+def worker_port(proc, log: Path) -> int:
+    """The port a ``--mode worker`` process bound itself (``--address
+    127.0.0.1:0``), from its "listening on port N" log line."""
+    deadline = time.time() + 300
+    while time.time() < deadline:
+        m = re.search(r"listening on port (\d+)", log.read_text())
+        if m:
+            return int(m.group(1))
+        if proc.poll() is not None:
+            fail(f"a --mode worker exited with {proc.returncode}: "
+                 f"{log.read_text()[-2000:]}")
+        time.sleep(0.2)
+    fail(f"a --mode worker named no port in 300 s: "
+         f"{log.read_text()[-2000:]}")
+
+
+def phase_cli_topology(torch, build, local_ids: dict) -> dict:
+    """Phase 6's runs again over the cross-host path: two ``--mode
+    worker`` processes on the card (layers 0 and 1 of the tiny checkpoint,
+    each on the port it bound itself) and the master command line with a
+    JSON ``--topology`` naming those ports; its ids must equal phase 6's."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = {}
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as d:
+        cfg = write_cli_checkpoint(torch, build, d)
+        layers = {f"w{i}": [f"model.layers.{i}"] for i in range(2)}
+        own = Path(d) / "workers.json"
+        own.write_text(json.dumps({n: {"layers": ls}
+                                   for n, ls in layers.items()}))
+        for label, flags, master_flags in CLI_FLAGS:
+            logs = {n: Path(d) / f"{n}.log" for n in layers}
+            procs = {}
+            try:
+                for n in layers:
+                    with open(logs[n], "w") as log:
+                        procs[n] = subprocess.Popen(
+                            [sys.executable, "-m", "cake_tpu_torch.cli",
+                             "--mode", "worker", "--name", n, "--model", d,
+                             "--topology", str(own), "--address",
+                             "127.0.0.1:0", "--max-seq", "128", *flags],
+                            stdout=subprocess.DEVNULL, stderr=log, env=env,
+                            cwd=REPO)
+                topo = Path(d) / "topology.json"
+                topo.write_text(json.dumps({
+                    n: {"host": f"127.0.0.1:{worker_port(procs[n], logs[n])}",
+                        "layers": ls} for n, ls in layers.items()}))
+                r = subprocess.run(
+                    [sys.executable, "-m", "cake_tpu_torch.cli", "--model",
+                     d, *CLI_RUN, "--topology", str(topo),
+                     "--connect-retries", "100", *master_flags],
+                    capture_output=True, text=True, timeout=300, env=env,
+                    cwd=REPO)
+            finally:
+                for proc in procs.values():
+                    proc.terminate()
+                for proc in procs.values():
+                    try:
+                        proc.wait(timeout=60)
+                    except subprocess.TimeoutExpired:
+                        proc.kill()
+                        proc.wait()
+            what = (f"topology master {master_flags} over workers "
+                    f"{flags}")
+            out[label] = cli_ids(r, cfg, what)
+            segs = [ln.split("cake_tpu_torch.cli: ")[-1]
+                    for ln in r.stderr.splitlines() if "segment " in ln]
+            say(f"[9] cli {what}: {','.join(map(str, out[label]))}; "
+                f"{segs}")
+            if out[label] != local_ids[label]:
+                fail(f"{what} printed {out[label]}, phase 6's local run "
+                     f"{local_ids[label]}")
+    return out
+
+
 def kernel_times(torch, flash, qmatmul, quant) -> dict:
     """Card ms of the two matmul wrappers and of ``flash_decode`` of
     whichever package was imported, at phase 3's shapes and tiers
@@ -1837,14 +2337,18 @@ def main() -> int:
     prefill_rows(build, rows)
     phase_model(torch)
     main_path = phase_main_path(torch, build, flash, kvcache)
-    phase_cli(torch, build)
+    cli = phase_cli(torch, build)
     batch = phase_batch(torch, build)
     serve = phase_serve(torch)
-    for r in rows:  # over the paths (a), (b), (c) and the batch runs
+    cross_host = phase_cross_host(torch, build, main_path)
+    cross_host_cli = phase_cli_topology(torch, build, cli)
+    # over the paths (a), (b), (c), the batch runs and the cross-host runs
+    for r in rows:
         r["launches"] = sum(p["launches"][r["name"]]
-                            for p in main_path + batch)
+                            for p in main_path + batch + cross_host)
     say(json.dumps({"card": card, "main_path": main_path, "batch": batch,
-                    "serve": serve}))
+                    "serve": serve, "cross_host": cross_host,
+                    "cross_host_cli": cross_host_cli}))
     say(json.dumps({"kernels": rows}))
     say(card)
     say(json.dumps({"ok": True, "device": {

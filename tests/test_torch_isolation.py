@@ -50,9 +50,14 @@ def test_import_leaves_jax_and_triton_out():
             "cake_tpu_torch.runtime.batch_generator, "
             "cake_tpu_torch.parallel.pipeline, cake_tpu_torch.serve.api, "
             "cake_tpu_torch.serve.scheduler, cake_tpu_torch.obs.prof, "
-            "cake_tpu_torch.obs.statusd, cake_tpu_torch.utils.memory\n"
-            "print(sorted(m for m in ('jax', 'triton', 'cake_tpu') "
-            "if m in sys.modules))")
+            "cake_tpu_torch.obs.statusd, cake_tpu_torch.utils.memory, "
+            "cake_tpu_torch.runtime.wire, cake_tpu_torch.runtime.protocol, "
+            "cake_tpu_torch.runtime.worker, cake_tpu_torch.runtime.master, "
+            "cake_tpu_torch.parallel.runner, "
+            "cake_tpu_torch.parallel.topology, "
+            "cake_tpu_torch.serve.engine\n"
+            "print(sorted(m for m in ('jax', 'triton', 'cake_tpu', "
+            "'ml_dtypes') if m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120, env=env, cwd=REPO)
@@ -97,6 +102,58 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(SystemExit, match="no CUDA device"):
         cli.run_http_serve(cli.build_parser().parse_args(
             ["--model", "unused", "--mode", "serve"]))
+
+
+def test_cross_host_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device exists")
+    from cake_tpu_torch import cli
+    from cake_tpu_torch.models.config import tiny
+    from cake_tpu_torch.models.llama import init_params
+    from cake_tpu_torch.parallel.topology import Topology
+    from cake_tpu_torch.runtime.master import DistributedGenerator
+    from cake_tpu_torch.runtime.worker import Worker
+
+    cfg = tiny()
+    params = init_params(cfg, device="cpu")
+    topo = Topology.from_dict({"w": {"layers": ["model.layers.0-1"]}})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Worker("w", cfg, topo, lambda lo, hi: params["layers"],
+               address="127.0.0.1:0")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DistributedGenerator(cfg, params, [])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        cli.run_worker(cli.build_parser().parse_args(
+            ["--model", "unused", "--mode", "worker", "--name", "w",
+             "--topology", "unused"]))
+
+
+def test_wire_build_writes_under_the_port_build_dir_only(monkeypatch):
+    """The port builds ``native/cake_wire.cc`` into
+    ``cake_tpu_torch/_build/`` and never writes under ``native/`` (the
+    JAX package's own build lives there, and both run in one test run):
+    the compiler's only output is a file of this process's own under the
+    build directory, renamed into place."""
+    import subprocess as sp
+
+    from cake_tpu_torch.runtime import wire
+
+    calls = []
+    real = sp.run
+
+    def spy(cmd, *args, **kwargs):
+        calls.append(list(cmd))
+        return real(cmd, *args, **kwargs)
+
+    monkeypatch.setattr(wire.subprocess, "run", spy)
+    so = wire.library_path()
+    assert so.parent == build.BUILD_DIR == wire.BUILD_DIR
+    assert wire._build_native(so), "g++ build of cake_wire.cc failed"
+    assert len(calls) == 1 and calls[0][0] == "g++"
+    out = Path(calls[0][calls[0].index("-o") + 1])
+    assert out.parent == build.BUILD_DIR and out.name.startswith(so.name)
+    assert (REPO / "native") not in out.parents
+    assert so.exists() and not out.exists()
 
 
 def _qkv(dtype=torch.bfloat16, device="cpu", t=4, d=64):

@@ -130,6 +130,38 @@ def _ids_of(events) -> list[int]:
             if isinstance(e, dict) and "token" in e]
 
 
+class _Hold:
+    """Holds the serving engine's thread at its next step once
+    ``n_streams`` streams have each been handed ``n_tokens`` tokens (the
+    rows its steps returned since the hold was made), until
+    :meth:`release`: the test's client-side moves (a queued request, a
+    disconnect, a refused request) then happen while no stream can advance
+    or finish, however loaded the box is."""
+
+    def __init__(self, engine, n_streams: int, n_tokens: int):
+        self._engine = engine
+        self._n_streams, self._n_tokens = n_streams, n_tokens
+        self._handed: dict[int, int] = {}
+        self._go = threading.Event()
+        self._real = engine.step
+        engine.step = self._step
+
+    def _step(self):
+        full = sum(n >= self._n_tokens for n in self._handed.values())
+        if full >= self._n_streams:
+            self._go.wait(timeout=120)
+        row = self._real()
+        for slot, tok in enumerate(row):
+            if tok is not None:
+                sid = self._engine.streams[slot].stream_id
+                self._handed[sid] = self._handed.get(sid, 0) + 1
+        return row
+
+    def release(self):
+        self._go.set()
+        del self._engine.step  # the class's own step again
+
+
 def _concurrent_run(srv) -> dict:
     """Four concurrent SSE streams, then an arrival while two of them are
     still running: every stream's ids."""
@@ -202,6 +234,9 @@ def test_healthz_and_metrics_match_the_jax_server(servers):
 def test_saturation_yields_429_with_retry_after(servers):
     port, _ = servers
     rejected0 = serve_session.REJECTED.value
+    # the four streams stand still from their first tokens until the 429:
+    # no slot frees before the queue fills and the next submit is refused
+    hold = _Hold(port.scheduler.engine, 4, 1)
     live = threading.Event()
     seen = [0] * 4
     results: list = [None] * 6
@@ -240,6 +275,7 @@ def test_saturation_yields_429_with_retry_after(servers):
     assert exc.value.code == 429
     assert int(exc.value.headers["Retry-After"]) >= 1
     assert serve_session.REJECTED.value > rejected0
+    hold.release()
     for t in threads + qthreads:
         t.join(timeout=180)
     assert all(len(r) == 48 for r in results[:4])
@@ -249,6 +285,9 @@ def test_saturation_yields_429_with_retry_after(servers):
 def test_disconnected_client_frees_slot(servers):
     port, _ = servers
     cancelled0 = serve_session.CANCELLED.value
+    # the stream stands still from its second token until the client is
+    # gone: it cannot finish before the disconnect
+    hold = _Hold(port.scheduler.engine, 1, 2)
     body = json.dumps({"prompt": "abcd", "max_tokens": 56,
                        "stream": True}).encode()
     s = socket.create_connection(("127.0.0.1", port.port), timeout=30)
@@ -262,6 +301,7 @@ def test_disconnected_client_frees_slot(servers):
         assert chunk, "server closed early"
         buf += chunk
     s.close()
+    hold.release()
     deadline = time.time() + 30
     eng = {}
     while time.time() < deadline:
@@ -297,12 +337,12 @@ def test_drain_finishes_in_flight_and_refuses_new(jparams):
     to its end, answers a new request 503, then closes the listener."""
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams),
                               device="cpu")
-    # one decode step a token and a long stream: the drain outlasts the
-    # refused request
-    sched, srv = _serve(BatchGenerator(tiny(**CFG), tparams,
-                                       settings=SamplerSettings(**GREEDY),
-                                       device="cpu"),
-                        Scheduler, start_api_server)
+    engine = BatchGenerator(tiny(**CFG), tparams,
+                            settings=SamplerSettings(**GREEDY), device="cpu")
+    sched, srv = _serve(engine, Scheduler, start_api_server)
+    # the stream stands still from its first token until the refused
+    # request: the drain cannot end (and close the listener) before it
+    hold = _Hold(engine, 1, 1)
     live, out = threading.Event(), {}
 
     def client():
@@ -321,6 +361,7 @@ def test_drain_finishes_in_flight_and_refuses_new(jparams):
     with pytest.raises(urllib.error.HTTPError) as exc:
         _post(srv, {"prompt_ids": [1, 2], "max_tokens": 2})
     assert exc.value.code == 503
+    hold.release()
     t.join(timeout=60)
     drainer.join(timeout=60)
     sched.close()
