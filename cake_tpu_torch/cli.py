@@ -26,18 +26,25 @@ Without a card and without ``--cpu`` it stops with an error.
 the tier of a pre-quantized checkpoint); ``--kv-quant int8`` keeps the KV
 cache in int8 (a worker's; a topology master refuses it, as the JAX
 package does: workers own their caches). Workers and masters of either
-package speak one wire. The JAX command line's gateway mode, meshes
-(``--stages/--tp/--dp/--sp/--ep`` above 1, and topologies with mesh
-``device:`` nodes), the paged KV layout, speculation, lookahead,
-disaggregated roles, fault injection (``--chaos``) and the cluster views
-(``--cluster-report``, ``--top``) are refused with an error until their
-slices of the port land.
+package speak one wire. ``--lookahead`` pipelines fused decode blocks
+(local generation and the batch engine); ``--window`` overrides the
+attention window; ``--logit-bias`` compiles static biases into the
+sampler; ``--device N`` picks the CUDA card; ``--profile DIR`` writes a
+``torch.profiler`` Chrome trace of generation; ``--trace``,
+``--metrics-out``, ``--flight-log`` and ``--prof-sample`` drive the
+observability planes as in the JAX command line. The JAX command line's
+gateway mode, meshes (``--stages/--tp/--dp/--sp/--ep`` above 1, and
+topologies with mesh ``device:`` nodes), the paged KV layout,
+speculation, disaggregated roles, fault injection (``--chaos``) and the
+cluster views (``--cluster-report``, ``--top``) are refused with an error
+until their slices of the port land.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 import time
 from pathlib import Path
@@ -144,6 +151,44 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--repeat-last-n", type=int, default=128,
                    dest="repeat_last_n")
     p.add_argument("--max-seq", type=int, default=None, dest="max_seq")
+    p.add_argument("--window", type=int, default=None,
+                   help="override the attention sliding window (tokens): "
+                        "narrow a Mistral-family window, give any model "
+                        "one, or 0 to disable the checkpoint's window")
+    p.add_argument("--logit-bias", default=None, dest="logit_bias",
+                   metavar="ID:BIAS[,ID:BIAS...]",
+                   help="static token-id logit biases compiled into the "
+                        "sampler (all modes; serve requests passing "
+                        "logit_bias must match these values exactly)")
+    p.add_argument("--device", type=int, default=None,
+                   help="CUDA card ordinal (an index into the CUDA "
+                        "devices; not with --cpu)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace (CPU and CUDA "
+                        "activity, Chrome trace JSON) of generation to DIR")
+    # -- observability (cake_tpu_torch/obs): spans, metrics, flight records
+    p.add_argument("--trace", default=None, metavar="PATH",
+                   help="record runtime spans (prefill, decode.step, "
+                        "decode.block, decode.segment, wire.send/recv, ...) "
+                        "and write a Chrome trace-event JSON on exit; with "
+                        "--profile the spans also pass through to the "
+                        "profiler trace as record_function ranges")
+    p.add_argument("--metrics-out", default=None, dest="metrics_out",
+                   metavar="PATH",
+                   help="dump the metrics registry (counters, gauges, "
+                        "latency histograms with p50/p99) as JSON on exit")
+    p.add_argument("--flight-log", default=None, dest="flight_log",
+                   metavar="PATH",
+                   help="append flight-recorder JSON lines to PATH: one per "
+                        "token on the per-token paths, one per dispatch on "
+                        "fused-block/batched paths (with steps/batch "
+                        "fields)")
+    p.add_argument("--prof-sample", type=int, default=None,
+                   dest="prof_sample", metavar="N",
+                   help="engine profiling plane: stamp a full per-phase "
+                        "step breakdown every Nth engine step (default 64 "
+                        "via CAKE_PROF_SAMPLE; 0 disables sampling, 1 "
+                        "stamps every step)")
     p.add_argument("--dtype", choices=sorted(_DTYPES), default="bf16",
                    help="the CUDA kernels take bf16, so f32 runs with --cpu")
     p.add_argument("--quantize", type=_quant_spec, default=None,
@@ -175,7 +220,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--speculate", type=int, default=0, metavar="K",
                    help="n-gram speculation: not ported yet")
     p.add_argument("--lookahead", action="store_true",
-                   help="lookahead dispatch: not ported yet")
+                   help="launch decode block N+1 from the card's last token "
+                        "before block N's ids reach the host (local "
+                        "generation and the batch engine; needs "
+                        "--decode-block > 1)")
     # -- request serving (--mode serve) --------------------------------------
     p.add_argument("--serve-port", type=int, default=None, dest="serve_port",
                    metavar="PORT",
@@ -238,6 +286,9 @@ def _load_config(args):
     overrides = {"dtype": _DTYPES[args.dtype]}
     if args.max_seq:
         overrides["max_seq_len"] = args.max_seq
+    if args.window is not None:
+        # 0 disables the checkpoint's window; N narrows (or grants) one
+        overrides["sliding_window"] = args.window or None
     return LlamaConfig.from_hf_json(cfg_path, **overrides)
 
 
@@ -257,23 +308,45 @@ def _load_tokenizer(model_dir: str):
 
 
 def _device(args) -> str:
+    """``cpu`` with ``--cpu``, else the CUDA card (``--device N`` makes
+    card N the current one, so every ``cuda`` tensor lands there)."""
     import torch
 
+    if args.device is not None:
+        if args.cpu:
+            sys.exit("error: --device picks a CUDA card; it does not apply "
+                     "with --cpu")
+        n = torch.cuda.device_count()
+        if not 0 <= args.device < n:
+            sys.exit(f"error: --device {args.device} out of range (have "
+                     f"{n} devices)")
     if args.cpu:
         return "cpu"
     if not torch.cuda.is_available():
         sys.exit("error: no CUDA device is available; pass --cpu to run on "
                  "the CPU")
+    if args.device is not None:
+        torch.cuda.set_device(args.device)
     return "cuda"
 
 
 def _settings(args):
     from cake_tpu_torch.ops.sampling import SamplerSettings
 
+    bias: tuple = ()
+    if args.logit_bias:
+        try:
+            bias = tuple(sorted(
+                (int(tok), float(b))
+                for tok, _, b in (pair.partition(":")
+                                  for pair in args.logit_bias.split(","))))
+        except ValueError:
+            sys.exit("error: --logit-bias wants ID:BIAS[,ID:BIAS...] "
+                     f"(got {args.logit_bias!r})")
     return SamplerSettings(
         temperature=args.temperature, top_k=args.top_k, top_p=args.top_p,
         repeat_penalty=args.repeat_penalty,
-        repeat_last_n=args.repeat_last_n, seed=args.seed)
+        repeat_last_n=args.repeat_last_n, seed=args.seed, logit_bias=bias)
 
 
 def _load_params(args, config, device):
@@ -290,7 +363,7 @@ def _decode_block(args) -> int:
 
 def _engine_kwargs(args) -> dict:
     """BatchGenerator arguments of the serving paths; the engine refuses
-    what is not ported (meshes, paged KV, speculation, lookahead)."""
+    what is not ported (meshes, paged KV, speculation)."""
     return dict(max_seq=args.max_seq, block_size=_decode_block(args),
                 kv_quant=args.kv_quant, num_stages=args.stages, tp=args.tp,
                 dp=args.dp, sp=args.sp, ep=args.ep, kv_layout=args.kv_layout,
@@ -399,7 +472,8 @@ def run(args, topology=None) -> int:
             gen = LlamaGenerator(config, params, tokenizer=tokenizer,
                                  settings=settings, max_seq=args.max_seq,
                                  block_size=_decode_block(args),
-                                 device=device, kv_quant=args.kv_quant)
+                                 device=device, kv_quant=args.kv_quant,
+                                 lookahead=args.lookahead)
         except (NotImplementedError, ValueError) as e:
             sys.exit(f"error: {e}")
     log.info("model loaded in %.1fs on %s", time.perf_counter() - t0,
@@ -428,20 +502,25 @@ def run(args, topology=None) -> int:
     n_tokens = 0
     gen_error = None
     gen_ids: list[int] = []
-    for i in range(args.sample_len):
-        try:
-            tok = gen.next_token(i)
-        except Exception as e:  # end the run with a clean line, then fail
-            gen_error = e
-            break
-        n_tokens += 1
-        gen_ids.append(tok.id)
-        if tok.text:
-            print(tok.text, end="", flush=True)
-        if i == 0:
-            t_warm = time.perf_counter()  # tok/s excludes the prefill
-        if tok.is_end_of_stream:
-            break
+    profiler = _start_profiler(args, device)
+    try:
+        for i in range(args.sample_len):
+            try:
+                tok = gen.next_token(i)
+            except Exception as e:  # end the run with a clean line, fail
+                gen_error = e
+                break
+            n_tokens += 1
+            gen_ids.append(tok.id)
+            if tok.text:
+                print(tok.text, end="", flush=True)
+            if i == 0:
+                t_warm = time.perf_counter()  # tok/s excludes the prefill
+            if tok.is_end_of_stream:
+                break
+    finally:
+        if profiler is not None:
+            _stop_profiler(profiler, args.profile)
     rest = gen.last()
     if rest:
         print(rest, end="")
@@ -462,6 +541,29 @@ def run(args, topology=None) -> int:
         log.error("generation ended early: %r", gen_error)
         return 1
     return 0
+
+
+def _start_profiler(args, device: str):
+    """``--profile``: a ``torch.profiler`` session over generation, with
+    the card's activity unless the run is on the CPU."""
+    if not args.profile:
+        return None
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device != "cpu":
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profiler(prof, out_dir: str) -> None:
+    prof.stop()
+    Path(out_dir).mkdir(parents=True, exist_ok=True)
+    path = Path(out_dir) / f"cake_tpu_torch.{os.getpid()}.pt.trace.json"
+    prof.export_chrome_trace(str(path))
+    log.info("profiler trace written to %s", path)
 
 
 def _log_segments(stats: list[dict]) -> None:
@@ -565,6 +667,10 @@ def run_serve(args) -> int:
     from cake_tpu_torch.runtime.batch_generator import BatchGenerator
     from cake_tpu_torch.utils.memory import memory_report
 
+    if args.lookahead and args.decode_block == 1:
+        sys.exit("error: --lookahead needs fused blocks to pipeline; it "
+                 "requires --decode-block > 1 (it would otherwise be "
+                 "silently ignored)")
     device = _device(args)
     config = _load_config(args)
     tokenizer = _load_tokenizer(args.model)
@@ -666,6 +772,9 @@ def run_http_serve(args, topology=None) -> int:
                         "serves over the single-stream wire master; "
                         "requests serialize through 1 slot",
                         max_concurrent)
+    elif args.lookahead and args.decode_block == 1:
+        sys.exit("error: --lookahead needs fused blocks to pipeline; it "
+                 "requires --decode-block > 1")
     device = _device(args)
     config = _load_config(args)
     tokenizer = _load_tokenizer(args.model)
@@ -696,9 +805,11 @@ def run_http_serve(args, topology=None) -> int:
     except (NotImplementedError, ValueError) as e:
         sys.exit(f"error: {e}")
     # the kernels are built, and the admission path and a decode step at
-    # the batch's width run once, before the first request
+    # the batch's width (and, with a tokenizer to compile grammars
+    # against, the masked step) run once, before the first request
     scheduler.start(max_concurrent=max_concurrent,
-                    warm_prompt_len=min(64, engine.max_seq // 2))
+                    warm_prompt_len=min(64, engine.max_seq // 2),
+                    warm_constrain=tokenizer is not None)
 
     def serve_status():
         return {
@@ -747,6 +858,64 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, stream=sys.stderr,
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
+    _start_obs(args)
+    try:
+        return _main(args)
+    finally:
+        _write_obs(args)
+
+
+def _start_obs(args) -> None:
+    """The observability flags, wired as the JAX command line wires them:
+    spans (``--trace``; through ``record_function`` into the profiler
+    trace too with ``--profile``), the engine profiler's sampling, the
+    flight log, and artifact flushing on SIGTERM/SIGINT and at exit."""
+    from cake_tpu_torch import obs
+
+    if args.trace:
+        obs.tracer().start(xla_annotations=bool(args.profile))
+    if args.prof_sample is not None:
+        from cake_tpu_torch.obs import prof as obs_prof
+
+        obs_prof.profiler().set_sample(args.prof_sample)
+    if args.flight_log:
+        try:
+            obs.flight.recorder().enable(path=args.flight_log)
+        except OSError as e:
+            # fail before loading the model, not after a full run
+            sys.exit(f"error: cannot open --flight-log {args.flight_log}: {e}")
+    if args.flight_log or args.metrics_out:
+        obs.install_flush_handlers(metrics_out=args.metrics_out)
+
+
+def _write_obs(args) -> None:
+    """The artifacts land even after an early error; a failing write never
+    masks the run's own outcome or the other artifacts."""
+    from cake_tpu_torch import obs
+
+    if args.trace:
+        obs.tracer().stop()
+        try:
+            obs.tracer().write_chrome_trace(args.trace)
+            log.info("chrome trace written to %s", args.trace)
+            if obs.tracer().dropped:
+                log.warning("trace buffer filled: %d span(s) dropped; the "
+                            "timeline in %s is truncated",
+                            obs.tracer().dropped, args.trace)
+        except OSError as e:
+            log.error("could not write trace to %s: %s", args.trace, e)
+    if args.metrics_out:
+        try:
+            obs.registry().dump_json(args.metrics_out)
+            log.info("metrics snapshot written to %s", args.metrics_out)
+        except OSError as e:
+            log.error("could not write metrics to %s: %s", args.metrics_out,
+                      e)
+    if args.flight_log:
+        obs.flight.recorder().close()
+
+
+def _main(args) -> int:
     if args.mode == "gateway":
         sys.exit("error: --mode gateway is not ported yet")
     if args.chaos:
@@ -789,9 +958,23 @@ def main(argv=None) -> int:
                      "--topology (cross-host workers) is not supported "
                      "here")
         return run_serve(args)
+    if args.lookahead:
+        # lookahead needs the local fused-block path; combinations that
+        # would silently ignore it are refused
+        if args.speculate:
+            sys.exit("error: --lookahead does not compose with --speculate "
+                     "(the spec plane needs the host between dispatches)")
+        if topology is not None or max(args.stages, args.tp, args.sp) > 1:
+            sys.exit("error: --lookahead runs the all-local fused-block "
+                     "path (or --prompts-file serving); it is not "
+                     "supported with --stages/--tp/--sp or --topology")
+        if args.decode_block == 1:
+            sys.exit("error: --lookahead needs fused blocks to pipeline; "
+                     "it requires --decode-block > 1 (it would otherwise "
+                     "be silently ignored)")
     unported = [f for f, v in (("--kv-layout paged", args.kv_layout ==
-                                "paged"), ("--speculate", args.speculate),
-                               ("--lookahead", args.lookahead)) if v]
+                                "paged"), ("--speculate", args.speculate))
+                if v]
     if unported:
         sys.exit(f"error: {'/'.join(unported)} is not ported yet")
     try:

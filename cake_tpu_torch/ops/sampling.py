@@ -1,5 +1,5 @@
 """Seeded token sampling (port of ``cake_tpu/ops/sampling.py``): logit bias,
-repeat penalty, temperature, top-k, top-p.
+constraint mask, repeat penalty, temperature, top-k, top-p.
 
 The whole sampler is tensor code on the logits' device, so a decode step
 samples without copying logits to the host. The repeat-penalty history is
@@ -92,25 +92,35 @@ def _mask_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
     return torch.where(logits < threshold, NEG_INF, logits)
 
 
-def _bias(logits: torch.Tensor, settings: SamplerSettings) -> torch.Tensor:
-    if not settings.logit_bias:
-        return logits
-    ids = torch.tensor([int(i) for i, _ in settings.logit_bias],
-                       device=logits.device)
-    vals = torch.tensor([float(b) for _, b in settings.logit_bias],
-                        dtype=logits.dtype, device=logits.device)
-    return logits.index_add(logits.dim() - 1, ids,
-                            vals.expand(logits.shape[:-1] + vals.shape))
+def _bias_and_mask(logits: torch.Tensor, settings: SamplerSettings,
+                   mask: torch.Tensor | None) -> torch.Tensor:
+    """Logit bias, then the constraint mask (``mask [..., vocab]`` bool,
+    True = allowed), both on the raw logits before the penalty and the
+    nucleus, so the nucleus is computed over the allowed distribution.
+    Unset, each is a no-op, and an all-true mask leaves the logits
+    bit-identical."""
+    if settings.logit_bias:
+        ids = torch.tensor([int(i) for i, _ in settings.logit_bias],
+                           device=logits.device)
+        vals = torch.tensor([float(b) for _, b in settings.logit_bias],
+                            dtype=logits.dtype, device=logits.device)
+        logits = logits.index_add(logits.dim() - 1, ids,
+                                  vals.expand(logits.shape[:-1] + vals.shape))
+    if mask is not None:
+        logits = torch.where(mask, logits, NEG_INF)
+    return logits
 
 
 def processed_logits(logits: torch.Tensor, history: torch.Tensor,
-                     settings: SamplerSettings) -> torch.Tensor:
-    """The sampled path's transform: logit bias -> repeat penalty ->
-    temperature -> top-k -> top-p. Requires ``temperature > 0``. Works on
-    ``[vocab]`` or row by row on ``[B, vocab]`` (with ``history [B, N]``)."""
+                     settings: SamplerSettings,
+                     mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The sampled path's transform: logit bias -> constraint mask ->
+    repeat penalty -> temperature -> top-k -> top-p. Requires
+    ``temperature > 0``. Works on ``[vocab]`` or row by row on ``[B,
+    vocab]`` (with ``history [B, N]`` and ``mask [B, vocab]``)."""
     if settings.greedy:
         raise ValueError("processed_logits is the sampled-path transform")
-    logits = _bias(logits, settings)
+    logits = _bias_and_mask(logits, settings, mask)
     if settings.repeat_penalty != 1.0:
         logits = apply_repeat_penalty(logits, history, settings.repeat_penalty)
     logits = logits / settings.temperature
@@ -121,39 +131,58 @@ def processed_logits(logits: torch.Tensor, history: torch.Tensor,
     return logits
 
 
+def _greedy(logits: torch.Tensor, history: torch.Tensor,
+            settings: SamplerSettings,
+            mask: torch.Tensor | None) -> torch.Tensor:
+    logits = _bias_and_mask(logits, settings, mask)
+    if settings.repeat_penalty != 1.0:
+        logits = apply_repeat_penalty(logits, history,
+                                      settings.repeat_penalty)
+    return torch.argmax(logits, dim=-1)
+
+
 def sample_token(logits: torch.Tensor, history: torch.Tensor,
                  settings: SamplerSettings,
-                 noise: torch.Tensor | None) -> torch.Tensor:
+                 noise: torch.Tensor | None,
+                 mask: torch.Tensor | None = None) -> torch.Tensor:
     """One token (0-d int64 tensor on the logits' device) from ``logits
-    [vocab]`` f32. Greedy settings take the argmax of the biased, penalized
-    logits and ignore ``noise``; otherwise ``noise [vocab]`` is Gumbel
-    noise and the token is ``argmax(processed_logits + noise)``."""
+    [vocab]`` f32. Greedy settings take the argmax of the biased, masked,
+    penalized logits and ignore ``noise``; otherwise ``noise [vocab]`` is
+    Gumbel noise and the token is ``argmax(processed_logits + noise)``.
+    ``mask [vocab]`` bool (True = allowed) is the constrained-decoding
+    operand: a disallowed token is never picked, greedy or sampled."""
     if settings.greedy:
-        logits = _bias(logits, settings)
-        if settings.repeat_penalty != 1.0:
-            logits = apply_repeat_penalty(logits, history,
-                                          settings.repeat_penalty)
-        return torch.argmax(logits)
-    return torch.argmax(processed_logits(logits, history, settings) + noise)
+        return _greedy(logits, history, settings, mask)
+    return torch.argmax(processed_logits(logits, history, settings, mask)
+                        + noise)
 
 
 def sample_tokens_keyed(logits: torch.Tensor, history: torch.Tensor,
                         settings: SamplerSettings,
-                        noise: torch.Tensor | None) -> torch.Tensor:
+                        noise: torch.Tensor | None,
+                        mask: torch.Tensor | None = None) -> torch.Tensor:
     """Batched :func:`sample_token`: ``logits [B, vocab]`` f32, one
-    repeat-penalty ring a row (``history [B, N]``) and, sampled, one noise
-    row a stream (``noise [B, vocab]``). Row ``b`` picks what
-    :func:`sample_token` picks from row ``b`` alone: fed the Gumbel noise
-    JAX draws from each row's key, the ids of the JAX package's
-    ``sample_tokens_keyed``. Returns ``[B]`` int64 on the logits' device."""
+    repeat-penalty ring a row (``history [B, N]``), sampled, one noise
+    row a stream (``noise [B, vocab]``) and, constrained, one mask row a
+    stream (``mask [B, vocab]``, all true for a free stream). Row ``b``
+    picks what :func:`sample_token` picks from row ``b`` alone: fed the
+    Gumbel noise JAX draws from each row's key, the ids of the JAX
+    package's ``sample_tokens_keyed``. Returns ``[B]`` int64 on the
+    logits' device."""
     if settings.greedy:
-        logits = _bias(logits, settings)
-        if settings.repeat_penalty != 1.0:
-            logits = apply_repeat_penalty(logits, history,
-                                          settings.repeat_penalty)
-        return torch.argmax(logits, dim=-1)
-    return torch.argmax(processed_logits(logits, history, settings) + noise,
-                        dim=-1)
+        return _greedy(logits, history, settings, mask)
+    return torch.argmax(processed_logits(logits, history, settings, mask)
+                        + noise, dim=-1)
+
+
+def unpack_mask_bits(bits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """``[..., ceil(V/8)] uint8`` little-endian packed masks -> ``[..., V]``
+    bool: ``np.unpackbits(..., bitorder="little")`` on the tensor's
+    device (the twin of the JAX package's ``unpack_mask_bits``)."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=bits.device)
+    b = (bits[..., :, None] >> shifts) & 1
+    flat = b.reshape(bits.shape[:-1] + (bits.shape[-1] * 8,))
+    return flat[..., :vocab].bool()
 
 
 def topk_logprobs(logits: torch.Tensor, k: int

@@ -70,7 +70,7 @@ def build_admit_prefill(model: Llama):
 
 
 def build_sharded_decode(model: Llama, settings: SamplerSettings,
-                         logprobs_k: int = 0):
+                         logprobs_k: int = 0, masked: bool = False):
     """The per-row fused decode block: ``(token [B], cache, pos [B],
     stream_ids [B], history [B, N], hist_slot [B], index0 [B], steps) ->
     (tokens [steps, B], logprobs)``.
@@ -85,32 +85,60 @@ def build_sharded_decode(model: Llama, settings: SamplerSettings,
     copies the ids once. ``logprobs`` is None, or the ``(values [steps, B,
     k], ids [steps, B, k])`` top-k log-softmax of the raw logits of each
     step. A row past the window (a finished stream, whose outputs are
-    discarded) writes its clamped K/V inside its own cache row."""
+    discarded) writes its clamped K/V inside its own cache row.
+
+    ``masked=True`` builds the constrained single step instead: ``(token,
+    cache, pos, stream_ids, history, hist_slot, index0, mask_table [M,
+    ceil(V/8)] uint8, mask_row [B] int32) -> (tokens [1, B], logprobs)``.
+    Row ``b`` samples under the packed mask ``mask_table[mask_row[b]]``,
+    gathered and unpacked on the device (row 0 of the table is all ones:
+    a free stream's row)."""
     vocab = model.config.vocab_size
+
+    def step(token, cache, pos, stream_ids, history, hist_slot, index,
+             mask, lp):
+        logits = model(token[:, None], cache, pos)
+        if logprobs_k:
+            v, i = sampling.topk_logprobs(logits, logprobs_k)
+            lp[0].append(v)
+            lp[1].append(i)
+        noise = (None if settings.greedy else
+                 sampling.keyed_gumbel_noise(settings.seed, stream_ids,
+                                             index, vocab))
+        token = sampling.sample_tokens_keyed(logits, history, settings,
+                                             noise, mask=mask)
+        sampling.push_history_batched(history, hist_slot, token)
+        return token
+
+    def stacked(lp):
+        return (torch.stack(lp[0]), torch.stack(lp[1])) if logprobs_k \
+            else None
+
+    if masked:
+        def decode_masked(token, cache, pos, stream_ids, history, hist_slot,
+                          index0, mask_table, mask_row):
+            mask = sampling.unpack_mask_bits(mask_table[mask_row.long()],
+                                             vocab)
+            lp = ([], [])
+            tok = step(token, cache, pos.to(torch.int32), stream_ids,
+                       history, hist_slot, index0, mask, lp)
+            return tok[None], stacked(lp)
+
+        return decode_masked
 
     def decode(token: torch.Tensor, cache: KVCache, pos: torch.Tensor,
                stream_ids: torch.Tensor, history: torch.Tensor,
                hist_slot: torch.Tensor, index0: torch.Tensor, steps: int):
         pos = pos.to(torch.int32).clone()
         index = index0.clone()
-        toks, lpv, lpi = [], [], []
+        toks, lp = [], ([], [])
         for _ in range(steps):
-            logits = model(token[:, None], cache, pos)
-            if logprobs_k:
-                v, i = sampling.topk_logprobs(logits, logprobs_k)
-                lpv.append(v)
-                lpi.append(i)
-            noise = (None if settings.greedy else
-                     sampling.keyed_gumbel_noise(settings.seed, stream_ids,
-                                                 index, vocab))
-            token = sampling.sample_tokens_keyed(logits, history, settings,
-                                                 noise)
-            sampling.push_history_batched(history, hist_slot, token)
+            token = step(token, cache, pos, stream_ids, history, hist_slot,
+                         index, None, lp)
             toks.append(token)
             # in place: the kernels queued above read the old values first
             pos += 1
             index += 1
-        lp = (torch.stack(lpv), torch.stack(lpi)) if logprobs_k else None
-        return torch.stack(toks), lp
+        return torch.stack(toks), stacked(lp)
 
     return decode

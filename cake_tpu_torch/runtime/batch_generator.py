@@ -33,12 +33,24 @@ every decode step through ``flash_decode``/``flash_decode_q8`` at B =
 slots, the quantized linears through ``quant_matmul``/``quant4_matmul``);
 for CPU tensors through their plain versions. There is no other route.
 
-Not ported yet, and refused with an error: the paged KV layout, batched
-speculation, lookahead dispatch, the interleaved pipeline schedules and
-every mesh axis above 1 (in the constructor), and guides (structured
-output, in ``set_prompts`` and ``enqueue``). The disaggregated
-export/import methods are absent, so the serve scheduler neither spills
-nor moves streams.
+Guides (structured output): each constrained stream's DFA cursor advances
+on the host as its tokens are emitted; the guides' packed mask rows lie
+concatenated in one uint8 table on the device (row 0 all ones, for free
+streams), re-packed only when a guide attaches, with its row capacity
+doubling. While a constrained stream is live, the whole batch takes masked
+single steps (``build_sharded_decode(masked=True)``: a gather of each
+slot's row and one ``where``); fused blocks resume when the last one
+retires.
+
+Lookahead: with no arrival waiting, none staging and no live guide, the
+next block is launched from the device-side last tokens before this
+block's ids are copied to the host; its copy is queued, with an event,
+before the next block's launches (``utils.device.HostCopy``).
+
+Not ported yet, and refused with an error in the constructor: the paged
+KV layout, batched speculation, the interleaved pipeline schedules and
+every mesh axis above 1. The disaggregated export/import methods are
+absent, so the serve scheduler neither spills nor moves streams.
 """
 
 from __future__ import annotations
@@ -68,7 +80,7 @@ from cake_tpu_torch.parallel.pipeline import (
 )
 from cake_tpu_torch.runtime import threadcheck
 from cake_tpu_torch.runtime.generator import Token, _bucket, encode_prompt
-from cake_tpu_torch.utils.device import resolve_device
+from cake_tpu_torch.utils.device import HostCopy, resolve_device
 from cake_tpu_torch.utils.token_stream import TokenOutputStream
 
 
@@ -79,9 +91,14 @@ class _Stream:
     generated: list[int] = dataclasses.field(default_factory=list)
     done: bool = False
     detok: TokenOutputStream | None = None
-    # why the stream ended: "eos" | "length" (window full); the serve
-    # scheduler's finish_reason source
+    # why the stream ended: "eos" | "length" (window full) | "constraint"
+    # (grammar dead end); the serve scheduler's finish_reason source
     end_reason: str | None = None
+
+
+# initial row capacity of the device mask table; it doubles as guides
+# attach
+_MASK_CAP0 = 64
 
 
 def _unported(what: str) -> ValueError:
@@ -149,8 +166,6 @@ class BatchGenerator:
                 f"kv_layout must be 'slot' or 'paged', got {kv_layout!r}")
         if spec_k:
             raise _unported("batched speculation (spec_k)")
-        if lookahead:
-            raise _unported("lookahead dispatch")
         if interleave:
             raise _unported("the interleaved pipeline schedule")
         self.config = config
@@ -175,6 +190,16 @@ class BatchGenerator:
         self._admit_prefill = build_admit_prefill(self.model)
         self._decode = build_sharded_decode(self.model, self.settings,
                                             self.logprobs_k)
+        self._decode_masked = build_sharded_decode(
+            self.model, self.settings, self.logprobs_k, masked=True)
+        self._lookahead = bool(lookahead)
+        # a launched block not yet emitted: (steps, ids' host copy, the
+        # logprobs' host copies or None)
+        self._inflight: tuple | None = None
+        # guides: slot -> Guide, slot -> its first row in the mask table
+        self._guides: dict[int, object] = {}
+        self._guide_rows: dict[int, int] = {}
+        self._mask_table: torch.Tensor | None = None
         self.streams: list[_Stream] = []
         self.cache: KVCache | None = None
         self._eos_ids = set(config.eos_ids())
@@ -219,7 +244,128 @@ class BatchGenerator:
                           device=self.device, quant=self.kv_quant)
 
     def _ids(self, ids) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(ids), device=self.device)
+        """A host array on the engine's device. To the card through pinned
+        memory without a wait: a plain copy from pageable memory waits for
+        every launch queued before it, a block in flight included."""
+        t = torch.as_tensor(np.asarray(ids))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    # -- constrained decoding -----------------------------------------------
+    def _check_guide_ok(self, guide) -> None:
+        """Refuse, where a caller can turn it into a client error
+        (``enqueue``, ``set_prompts``), a guide whose mask does not cover
+        this engine's vocabulary: its rows would gather the wrong bits."""
+        if guide is None:
+            return
+        v8 = (self.config.vocab_size + 7) // 8
+        if guide.dfa.mask_bits.shape[1] != v8:
+            raise ValueError(
+                f"the guide's mask covers {guide.dfa.mask_bits.shape[1] * 8}"
+                f" token ids; this engine's vocabulary has "
+                f"{self.config.vocab_size}")
+
+    def _attach_guide(self, slot: int, guide, rebuild: bool = True) -> None:
+        """Bind a guide to a slot and (by default) re-pack the mask table;
+        a batch attaches all its guides, then re-packs once."""
+        guide.reset()
+        self._guides[slot] = guide
+        if rebuild:
+            self._rebuild_mask_table()
+
+    def _drop_guide(self, slot: int) -> None:
+        # its table rows are never referenced again; the table re-packs at
+        # the next attach
+        self._guides.pop(slot, None)
+        self._guide_rows.pop(slot, None)
+
+    def _rebuild_mask_table(self) -> None:
+        """Pack every attached guide's mask rows into one device table,
+        ``[row 0 = all ones] + each guide's block``: one upload an attach,
+        never one a token; the row capacity doubles."""
+        v8 = (self.config.vocab_size + 7) // 8
+        blocks = [np.full((1, v8), 0xFF, np.uint8)]
+        base = 1
+        self._guide_rows = {}
+        for slot in sorted(self._guides):
+            bits = self._guides[slot].dfa.mask_bits
+            self._guide_rows[slot] = base
+            blocks.append(bits)
+            base += bits.shape[0]
+        cap = _MASK_CAP0
+        while cap < base:
+            cap *= 2
+        table = np.zeros((cap, v8), np.uint8)
+        table[:base] = np.concatenate(blocks)
+        self._mask_table = self._ids(table)
+
+    def _guides_live(self) -> bool:
+        return any(not self.streams[i].done for i in self._guides)
+
+    def _mask_rows_np(self) -> np.ndarray:
+        """Each slot's mask-table row for the next step: row 0 (all ones)
+        for free and finished streams, the guide's current state's row
+        otherwise."""
+        rows = np.zeros((len(self.streams),), np.int32)
+        for slot, g in self._guides.items():
+            if not self.streams[slot].done:
+                rows[slot] = self._guide_rows[slot] + g.state
+        return rows
+
+    def _first_mask(self, b: int) -> torch.Tensor | None:
+        """``[b, vocab]`` bool mask of the first tokens after a batched
+        prefill, or None when no stream is constrained."""
+        if not self._guides:
+            return None
+        mask = np.ones((b, self.config.vocab_size), bool)
+        for slot, g in self._guides.items():
+            mask[slot] = g.mask_bool()
+        return self._ids(mask)
+
+    def _advance_guide(self, slot: int, s: _Stream, tok_id: int) -> None:
+        """Advance a constrained stream's DFA on its emitted token; a dead
+        end (no emittable token, not even EOS) retires the stream with
+        end reason "constraint"."""
+        g = self._guides.get(slot)
+        if g is None:
+            return
+        with self._prof.phase("guide"):
+            if s.done:
+                self._drop_guide(slot)
+                return
+            if not g.advance(tok_id) or g.dead_end:
+                from cake_tpu_torch.constrain.guide import DEAD_ENDS
+
+                s.done = True
+                s.end_reason = "constraint"
+                self._drop_guide(slot)
+                DEAD_ENDS.inc()
+
+    @torch.inference_mode()
+    def warm_constrain(self) -> None:
+        """Run the masked step once at the live batch's width outside the
+        serving window, so the first constrained request finds it warm:
+        a scratch cache of a few slots, copies of the sampler state,
+        every row unmasked. Nothing live is touched."""
+        if not self.streams:
+            raise RuntimeError("set_prompts first")
+        table = self._mask_table
+        if table is None:
+            v8 = (self.config.vocab_size + 7) // 8
+            t = np.zeros((_MASK_CAP0, v8), np.uint8)
+            t[0] = 0xFF
+            table = self._mask_table = self._ids(t)
+        b = len(self.streams)
+        scratch = init_cache(self.config, batch=b, max_seq=64,
+                             device=self.device, quant=self.kv_quant)
+        zeros = torch.zeros(b, dtype=torch.int64, device=self.device)
+        toks, _ = self._decode_masked(
+            zeros, scratch, zeros, zeros, self._history.clone(),
+            self._hist_slot.clone(), zeros, table,
+            torch.zeros(b, dtype=torch.int32, device=self.device))
+        self.decode_steps += 1
+        toks.cpu()  # synchronize
 
     # -- prompt intake -------------------------------------------------------
     def _encode(self, p) -> list[int]:
@@ -255,17 +401,25 @@ class BatchGenerator:
                     guides: list | None = None) -> None:
         """Start a batch of prompts. ``stream_ids`` pin each stream's
         sampling identity (default: its index), the handle that makes a
-        stream reproducible in any batch composition."""
+        stream reproducible in any batch composition. ``guides`` (aligned
+        with ``prompts``, None for a free stream) constrain each stream's
+        tokens, this call's first ones included."""
         self._domain_stamp.check("BatchGenerator.set_prompts")
         if not prompts:
             raise ValueError("empty batch")
-        if guides is not None and any(g is not None for g in guides):
-            raise _unported("guides (structured output)")
         ids_list = [self._encode(p) for p in prompts]
         if stream_ids is None:
             stream_ids = list(range(len(ids_list)))
         if len(stream_ids) != len(ids_list):
             raise ValueError("stream_ids/prompts length mismatch")
+        if guides is not None:
+            if len(guides) != len(ids_list):
+                raise ValueError("guides/prompts length mismatch")
+            for g in guides:
+                self._check_guide_ok(g)
+        self._guides = {}
+        self._guide_rows = {}
+        self._inflight = None  # a block of the old batch
         self.streams = [
             _Stream(stream_id=sid, prompt=ids,
                     detok=TokenOutputStream(self.tokenizer)
@@ -273,6 +427,12 @@ class BatchGenerator:
             for sid, ids in zip(stream_ids, ids_list)
         ]
         b = len(self.streams)
+        if guides is not None:
+            for i, g in enumerate(guides):
+                if g is not None:
+                    self._attach_guide(i, g, rebuild=False)
+            if self._guides:
+                self._rebuild_mask_table()  # one re-pack a batch
         # a prefix every prompt opens with is prefilled once and broadcast
         # into every row; only the remainders go through the batched
         # prefill, at offset lcp (capped one short of the shortest prompt,
@@ -326,7 +486,7 @@ class BatchGenerator:
         index0 = torch.zeros(b, dtype=torch.int64, device=self.device)
         toks = sampling.sample_tokens_keyed(
             logits, self._history, self.settings,
-            self._noise(self._sids, index0))
+            self._noise(self._sids, index0), mask=self._first_mask(b))
         self._first_lp = None
         if self.logprobs_k:
             lpv, lpi = sampling.topk_logprobs(logits, self.logprobs_k)
@@ -372,11 +532,11 @@ class BatchGenerator:
         decode; when the prefill completes, the stream's first token is
         emitted in that step's row and the stream joins the batch. Its
         output is that of the same (seed, stream_id, prompt) in any other
-        batch or admission timing."""
+        batch or admission timing. ``guide`` (a ``constrain.Guide``)
+        constrains the stream from its first sampled token on."""
         self._domain_stamp.check("BatchGenerator.enqueue")
-        if guide is not None:
-            raise _unported("guides (structured output)")
-        self._arrivals.append((self._encode(prompt), stream_id))
+        self._check_guide_ok(guide)
+        self._arrivals.append((self._encode(prompt), stream_id, guide))
 
     def pending_admissions(self) -> int:
         """Arrivals not yet fully admitted (queued + in flight)."""
@@ -425,7 +585,7 @@ class BatchGenerator:
             if not self._arrivals or self._free_slot() is None:
                 return
             slot = self._free_slot()
-            ids, sid = self._arrivals.pop(0)
+            ids, sid, guide = self._arrivals.pop(0)
             # prefix reuse: an arrival opening with a stored prefix starts
             # from a copy of that row and prefills only its remainder
             # (from scratch when the remainder's bucket would not fit
@@ -449,7 +609,7 @@ class BatchGenerator:
                     dst.copy_(src)
             self._staging = {"ids": ids, "sid": sid, "slot": slot,
                              "tokens": tokens, "pos": 0, "chunk": chunk,
-                             "base": base, "cache": cache}
+                             "base": base, "cache": cache, "guide": guide}
         st = self._staging
         pos, chunk, base = st["pos"], st["chunk"], st["base"]
         final = pos + chunk >= st["tokens"].shape[1]
@@ -477,9 +637,15 @@ class BatchGenerator:
         record the first token, and queue its emission row."""
         st, self._staging = self._staging, None
         slot, ids, stream_id = st["slot"], st["ids"], st["sid"]
-        # buffered block rows belong to the pre-admission state: record
-        # them before the slot's column changes meaning
+        guide = st["guide"]
+        # buffered block rows and a block in flight belong to the
+        # pre-admission state: record them before the slot's column
+        # changes meaning
         self._drain_buffered_rows()
+        # the slot's previous stream is gone, and its guide with it
+        self._drop_guide(slot)
+        if guide is not None:
+            self._attach_guide(slot, guide)
         n_hist = self.settings.repeat_last_n
         hist_row = np.full((n_hist,), -1, np.int32)
         tail = ids[-n_hist:] if n_hist else []
@@ -487,7 +653,9 @@ class BatchGenerator:
         sid = torch.tensor([stream_id], dtype=torch.int64, device=self.device)
         tok = sampling.sample_tokens_keyed(
             logits, self._ids(hist_row[None]), self.settings,
-            self._noise(sid, torch.zeros_like(sid)))
+            self._noise(sid, torch.zeros_like(sid)),
+            mask=(self._ids(guide.mask_bool()[None]) if guide is not None
+                  else None))
         tok_id = int(tok[0])
         if n_hist:
             hist_row[len(tail) % n_hist] = tok_id
@@ -519,6 +687,7 @@ class BatchGenerator:
         s.done = is_eos or window_full
         if s.done:
             s.end_reason = "eos" if is_eos else "length"
+        self._advance_guide(slot, s, tok_id)
         text = (s.detok.next_token(tok_id)
                 if s.detok is not None and not is_eos else None)
         self._n_emitted += 1
@@ -546,6 +715,7 @@ class BatchGenerator:
         for i, s in enumerate(self.streams):
             if not s.done and s.stream_id == stream_id:
                 s.done = True
+                self._drop_guide(i)
                 # rows already emitted but not yet handed out (drained at
                 # an admission) may hold this stream's later tokens; once
                 # the slot is spliced to the next arrival they would read
@@ -569,7 +739,7 @@ class BatchGenerator:
         if not self.streams:
             raise RuntimeError("set_prompts first")
         ids = self._encode(prompt)
-        self._arrivals.append((ids, stream_id))
+        self._arrivals.append((ids, stream_id, None))
         # drain until OUR arrival (tracked by list identity: FIFO order
         # admits anything queued ahead of it first) is admitted
         while (any(a[0] is ids for a in self._arrivals)
@@ -607,6 +777,7 @@ class BatchGenerator:
                 s.done = is_eos or window_full
                 if s.done:
                     s.end_reason = "eos" if is_eos else "length"
+                self._advance_guide(i, s, tok_id)
                 # the EOS id is an end marker, not text
                 text = (s.detok.next_token(tok_id)
                         if s.detok is not None and not is_eos else None)
@@ -650,14 +821,64 @@ class BatchGenerator:
         finally:
             prof.step_end()
 
+    def drain(self) -> None:
+        """Emit everything already launched, buffered block rows first,
+        then a block in flight, without launching more: the rows land in
+        the pending queue for a caller still stepping."""
+        self._domain_stamp.check("BatchGenerator.drain")
+        self._drain_buffered_rows()
+
     def _drain_buffered_rows(self) -> None:
         while self._block_buf:
             self._pending_rows.append(self._emit_buffered())
+        if self._inflight is not None:
+            t0 = time.perf_counter()
+            block, self._inflight = self._inflight, None
+            self._buffer(block)
+            self._busy_s += time.perf_counter() - t0
+            while self._block_buf:
+                self._pending_rows.append(self._emit_buffered())
 
     def _emit_buffered(self) -> list[Token | None]:
         """Emit the oldest buffered block row: ``(row [B], lp or None)``."""
         row, lp = self._block_buf.popleft()
         return self._emit(row, lp=lp)
+
+    def _dispatch(self, size: int, masked: bool = False) -> tuple:
+        """Launch one decode block of ``size`` steps (``masked``: one
+        constrained step) and queue its copy to the host; advances the
+        positions and indices and keeps the last tokens on the device.
+        Returns ``(size, ids' host copy, logprobs' host copies or
+        None)``."""
+        with span("decode.dispatch", steps=size, batch=len(self.streams)), \
+                self._prof.phase("dispatch"), self._sentinel.decode_phase():
+            args = (self._last_tokens, self.cache, self._ids(self._pos),
+                    self._sids, self._history, self._hist_slot,
+                    self._ids(self._index))
+            if masked:
+                toks, lp = self._decode_masked(
+                    *args, self._mask_table, self._ids(self._mask_rows_np()))
+            else:
+                toks, lp = self._decode(*args, size)
+            host = HostCopy(toks)
+            lp_host = (HostCopy(lp[0]), HostCopy(lp[1])) if lp else None
+        self._n_decode_dispatches += 1
+        self.decode_steps += size
+        self._pos = self._pos + size
+        self._index = self._index + size
+        self._last_tokens = toks[-1]
+        return size, host, lp_host
+
+    def _buffer(self, block: tuple) -> None:
+        """Wait for a launched block's host copy and buffer its rows."""
+        size, host, lp_host = block
+        with self._prof.phase("sync"):
+            rows = host.numpy()  # [steps, B]
+            lp_h = ((lp_host[0].numpy(), lp_host[1].numpy())
+                    if lp_host is not None else None)
+        self._block_buf = deque(
+            (rows[i], (lp_h[0][i], lp_h[1][i]) if lp_h is not None else None)
+            for i in range(size))
 
     def _step_decode(self):
         if self._block_buf:
@@ -669,36 +890,33 @@ class BatchGenerator:
                 if not s.done]
         if not live:
             return [None] * len(self.streams)
-        if int(max(live)) >= self.max_seq:  # unreachable: _emit marks
-            raise RuntimeError("KV cache exhausted")  # full streams done
-        size = self.block_size
+        # a live guide pins the whole batch to masked single steps: its
+        # DFA advances on the host between steps, so tokens 2..K of a
+        # block would sample against a stale row
+        constrained = self._guides_live()
         t0 = time.perf_counter()
-        with span("decode.dispatch", steps=size, batch=len(self.streams)), \
-                self._prof.phase("dispatch"), self._sentinel.decode_phase():
-            toks, lp = self._decode(
-                self._last_tokens, self.cache, self._ids(self._pos),
-                self._sids, self._history, self._hist_slot,
-                self._ids(self._index), size)
-        self._n_decode_dispatches += 1
-        self.decode_steps += size
-        self._pos = self._pos + size
-        self._index = self._index + size
-        self._last_tokens = toks[-1]
-        with self._prof.phase("sync"):
-            rows = toks.cpu().numpy()  # [steps, B]: the block's one copy
-            lp_h = ((lp[0].cpu().numpy(), lp[1].cpu().numpy())
-                    if lp is not None else None)
+        if self._inflight is not None:
+            block, self._inflight = self._inflight, None
+        else:
+            if int(max(live)) >= self.max_seq:  # unreachable: _emit marks
+                raise RuntimeError("KV cache exhausted")  # full streams done
+            block = self._dispatch(1 if constrained else self.block_size,
+                                   masked=constrained)
+        if (self._lookahead and self.block_size > 1 and not constrained
+                and not self._arrivals and self._staging is None):
+            # the next block goes out before this one's host copy is
+            # waited for; rows past a stream's end are discarded at
+            # emission like any other overrun
+            self._inflight = self._dispatch(self.block_size)
+        self._buffer(block)
         dt = time.perf_counter() - t0
         self._busy_s += dt
         # per-token ms, comparable across block sizes
-        self._dispatch_hist.observe(dt * 1e3 / size)
+        self._dispatch_hist.observe(dt * 1e3 / block[0])
         rec = obs_flight.recorder()
         if rec.enabled:
             rec.record(kind="decode", total_ms=round(dt * 1e3, 3),
-                       steps=size, batch=len(self.streams))
-        self._block_buf = deque(
-            (rows[i], (lp_h[0][i], lp_h[1][i]) if lp_h is not None else None)
-            for i in range(size))
+                       steps=block[0], batch=len(self.streams))
         return self._emit_buffered()
 
     def stats(self) -> dict:
@@ -711,6 +929,8 @@ class BatchGenerator:
             "streams_live": sum(1 for s in self.streams if not s.done),
             "streams_done": sum(1 for s in self.streams if s.done),
             "pending_admissions": self.pending_admissions(),
+            "constrained_live": sum(1 for i in self._guides
+                                    if not self.streams[i].done),
             "tokens_emitted": self._n_emitted,
             "decode_dispatches": self._n_decode_dispatches,
             "admit_dispatches": self._n_admit_dispatches,

@@ -17,24 +17,37 @@ prompt, every later index one decode step, or pops from a fused block of
   ``(seed, index)``: a device ``torch.Generator`` is reseeded from both for
   every token, so a seed gives the same stream at every block size (the
   JAX package's contract; its bits differ from the port's).
-
-Guides (constrained decoding), lookahead and the observability hooks of the
-JAX generator are not ported yet.
+- **Lookahead.** Block N+1 is launched from the device-side last token of
+  block N before block N's ids reach the host. Block N's copy to the host
+  is queued, with an event, before block N+1's launches, and only that
+  event is waited for (``utils.device.HostCopy``): ``tolist()`` on block
+  N would wait for block N+1 as well. The stream is bit-identical to the
+  one without lookahead.
+- **Guides** (constrained decoding, ``set_guide``): every sampled token
+  is masked to the grammar's allowed set, and the DFA cursor advances on
+  the host between steps. ``LlamaGenerator`` uploads the guide's packed
+  mask table to the device once; each step gathers its state's row there.
+  A live guide forces single steps (tokens 2..K of a block would sample
+  against a stale row).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 
 import torch
 
 from cake_tpu_torch.models.config import LlamaConfig
 from cake_tpu_torch.models.llama import Llama
+from cake_tpu_torch.obs import flight as obs_flight
+from cake_tpu_torch.obs import metrics as obs_metrics
+from cake_tpu_torch.obs.trace import span
 from cake_tpu_torch.ops import sampling
 from cake_tpu_torch.ops.kvcache import init_cache
 from cake_tpu_torch.ops.sampling import SamplerSettings
-from cake_tpu_torch.utils.device import resolve_device
+from cake_tpu_torch.utils.device import HostCopy, resolve_device
 from cake_tpu_torch.utils.token_stream import TokenOutputStream
 
 _MASK64 = (1 << 64) - 1
@@ -98,13 +111,15 @@ class GeneratorBase:
     """The single-stream generators' shared state machine (the JAX
     package's ``GeneratorBase``): prompt intake and per-stream reset, the
     repeat-penalty history, token bookkeeping, EOS detection, streaming
-    detokenization, and the sampler with its per-token noise (the noise of
-    token ``index`` depends only on ``(seed, index)``, so a sampled stream
-    draws the same noise on the local and the distributed path). The
-    history and the noise live on ``device`` (the card unless ``"cpu"`` is
-    asked for); subclasses run the model in ``next_token``."""
+    detokenization, guides, the block-decode control flow, and the sampler
+    with its per-token noise (the noise of token ``index`` depends only on
+    ``(seed, index)``, so a sampled stream draws the same noise on the
+    local and the distributed path). The history and the noise live on
+    ``device`` (the card unless ``"cpu"`` is asked for); subclasses run the
+    model in ``next_token``."""
 
-    # constrained decoding (guides) is not ported yet
+    # subclasses that can apply a guide's mask flip this; the base refuses
+    # a guide, so no caller's constraint is ever silently ignored
     supports_guide = False
 
     def __init__(self, config: LlamaConfig, tokenizer=None,
@@ -126,6 +141,11 @@ class GeneratorBase:
         self._pos = 0
         self._last_token: int | None = None
         self._eos_ids = set(config.eos_ids())
+        self.guide = None
+        self.guide_dead = False  # a DFA dead end ended the stream
+        # fused block decode (subclasses with block_size > 1)
+        self.block_size = 1
+        self._block_buf: deque[int] = deque()
 
     def set_prompt(self, prompt: str | list[int]) -> None:
         ids = encode_prompt(prompt, self.tokenizer, self.config,
@@ -146,23 +166,45 @@ class GeneratorBase:
         if tail:
             self._history[:len(tail)] = torch.tensor(tail, dtype=torch.int32)
             self._hist_slot = len(tail)
+        self._block_buf = deque()
+        self.guide = None  # guides are per prompt: set_guide again
+        self.guide_dead = False
         self._on_new_prompt()
 
     def _on_new_prompt(self) -> None:
-        """Hook: per-stream state of a subclass (block buffers, remote
+        """Hook: per-stream state of a subclass (an in-flight block, remote
         caches)."""
 
     @property
     def eos_ids(self) -> frozenset:
         return frozenset(self._eos_ids)
 
+    # -- constrained decoding -----------------------------------------------
     def set_guide(self, guide) -> None:
-        """Constrained decoding is not ported: only ``None`` is taken."""
-        if guide is not None:
+        """Attach (or clear, with None) a ``constrain.Guide`` for the current
+        prompt: after ``set_prompt``, before ``next_token(0)``. Every
+        sampled token is then masked to the grammar's allowed set and
+        advances the guide's DFA cursor."""
+        if guide is not None and not self.supports_guide:
             raise ValueError(
                 f"{type(self).__name__} does not support constrained "
-                "decoding (guides are not ported yet)")
+                "decoding (no masked sampling path)")
+        if guide is not None:
+            guide.reset()
+        self.guide = guide
+        self.guide_dead = False
+        self._on_guide()
 
+    def _on_guide(self) -> None:
+        """Hook: refresh device-side mask state for ``self.guide``."""
+
+    def _guide_mask(self) -> torch.Tensor:
+        """``[vocab]`` bool mask of the guide's current state on the
+        device: uploaded from the host each token (a subclass gathers it
+        from a table already on the device)."""
+        return torch.from_numpy(self.guide.mask_bool()).to(self.device)
+
+    # -- shared bookkeeping --------------------------------------------------
     def _require_prompt(self) -> None:
         if not self._prompt_tokens:
             raise RuntimeError("set_prompt first")
@@ -177,9 +219,43 @@ class GeneratorBase:
         self._last_token = tok_id
         self._generated.append(tok_id)
         is_eos = tok_id in self._eos_ids
+        if self.guide is not None and not is_eos:
+            # the DFA advances on the host between steps; a dead end (no
+            # emittable token at the new state) ends the stream
+            if not self.guide.advance(tok_id) or self.guide.dead_end:
+                from cake_tpu_torch.constrain.guide import DEAD_ENDS
+
+                self.guide_dead = True
+                DEAD_ENDS.inc()
         text = (self.stream.next_token(tok_id)
                 if self.stream is not None and not is_eos else None)
-        return Token(id=tok_id, text=text, is_end_of_stream=is_eos)
+        return Token(id=tok_id, text=text,
+                     is_end_of_stream=is_eos or self.guide_dead)
+
+    def _decode_next(self, index: int, run_block, run_single) -> Token:
+        """The block-decode control flow: pop the buffer, else collect an
+        in-flight lookahead block, else run a ``block_size`` block
+        (``run_block(index) -> list[int]``), else one step
+        (``run_single(index) -> int``): block size 1, a live guide, or the
+        tail of the window. The in-flight block is collected before the
+        capacity check: one launched up to the window's edge has already
+        moved ``_pos`` to ``max_seq``, and its tokens still go out."""
+        if self._block_buf:
+            return self._finish_token(self._block_buf.popleft())
+        toks = self._take_inflight(index)
+        if toks is not None:
+            self._block_buf.extend(toks)
+            return self._finish_token(self._block_buf.popleft())
+        self._check_capacity()
+        if (self.block_size > 1 and self.guide is None
+                and self._pos + self.block_size <= self.max_seq):
+            self._block_buf.extend(run_block(index))
+            return self._finish_token(self._block_buf.popleft())
+        return self._finish_token(run_single(index))
+
+    def _take_inflight(self, index: int) -> list[int] | None:
+        """Hook: the tokens of a lookahead block already launched."""
+        return None
 
     def _noise(self, index: int) -> torch.Tensor | None:
         if self.settings.greedy:
@@ -188,8 +264,9 @@ class GeneratorBase:
         return sampling.gumbel_noise(self.config.vocab_size, self._noise_gen)
 
     def _sample(self, logits: torch.Tensor, index: int) -> torch.Tensor:
+        mask = self._guide_mask() if self.guide is not None else None
         tok = sampling.sample_token(logits, self._history, self.settings,
-                                    self._noise(index))
+                                    self._noise(index), mask=mask)
         self._hist_slot = sampling.push_history(self._history,
                                                 self._hist_slot, tok)
         return tok
@@ -216,14 +293,27 @@ class LlamaGenerator(GeneratorBase):
     """Single-stream generator over a model held on one device (the card
     unless ``device="cpu"`` is asked for; ``params`` must already lie
     there): the model's prefill and decode steps under
-    :class:`GeneratorBase`'s bookkeeping."""
+    :class:`GeneratorBase`'s bookkeeping.
+
+    Guides: ``set_guide`` uploads the guide's packed mask table to the
+    device once (rows padded to a power of two), and each guided step
+    gathers its state's row there: the only per-token input is the row
+    index."""
+
+    supports_guide = True
 
     def __init__(self, config: LlamaConfig, params, tokenizer=None,
                  settings: SamplerSettings | None = None,
                  max_seq: int | None = None, block_size: int = 1,
-                 device=None, kv_quant: str | None = None):
+                 device=None, kv_quant: str | None = None,
+                 lookahead: bool = False):
         """``block_size > 1`` runs that many decode steps per block with the
         tokens kept on the device, and streams them one at a time.
+
+        ``lookahead`` (needs ``block_size > 1``) launches block N+1 from
+        the device-side last token of block N before block N's ids reach
+        the host, so the card computes the next block while the host
+        waits for, detokenizes and emits this one.
 
         ``kv_quant="int8"`` stores the KV cache as int8 with one scale per
         token and head (half the cache bytes; quantized as it is
@@ -236,59 +326,136 @@ class LlamaGenerator(GeneratorBase):
         super().__init__(config, tokenizer, settings, max_seq, dev)
         self.model = Llama(config, params)
         self.block_size = max(1, block_size)
+        self._lookahead = bool(lookahead) and self.block_size > 1
+        # a launched block's device ids and their queued host copy
+        self._inflight: tuple[torch.Tensor, HostCopy] | None = None
+        self._guide_table: torch.Tensor | None = None
         self.cache = init_cache(config, batch=1, max_seq=self.max_seq,
                                 device=self.device, quant=kv_quant)
-        self._block_buf: deque[int] = deque()
+        # per-token decode latency (a block records ms a token, so the
+        # series compares across block sizes) and prompt-pass ms
+        self._decode_hist = obs_metrics.Histogram("generator.decode_ms")
+        self._prefill_hist = obs_metrics.Histogram("generator.prefill_ms")
+        obs_metrics.registry().publish(self._decode_hist, self._prefill_hist)
         # counts of model calls, for callers that check kernel launches
         self.prefill_calls = 0
         self.decode_steps = 0
 
     def _on_new_prompt(self) -> None:
-        self._block_buf = deque()
+        # a block in flight belongs to the previous stream; the new
+        # prompt's prefill is queued behind it and overwrites its KV
+        self._inflight = None
+
+    def _on_guide(self) -> None:
+        if self.guide is None:
+            self._guide_table = None
+            return
+        bits = self.guide.dfa.mask_bits
+        cap = 64
+        while cap < bits.shape[0]:
+            cap *= 2
+        table = torch.zeros((cap, bits.shape[1]), dtype=torch.uint8,
+                            device=self.device)
+        table[:bits.shape[0]] = torch.from_numpy(bits)
+        self._guide_table = table
+
+    def _guide_mask(self) -> torch.Tensor:
+        return sampling.unpack_mask_bits(self._guide_table[self.guide.state],
+                                         self.config.vocab_size)
 
     def next_token(self, index: int) -> Token:
         """Index 0 runs the prefill; a later index pops the current block,
-        else runs a block of ``block_size`` steps, else one step (block
-        size 1, or the tail of the window where a whole block would write
-        past it)."""
+        collects a block in flight, runs a block of ``block_size`` steps,
+        or one step (``GeneratorBase._decode_next``)."""
         if index == 0:
             self._require_prompt()
             return self._finish_token(self._prefill())
-        if not self._block_buf:
-            self._check_capacity()
-            steps = (self.block_size
-                     if self._pos + self.block_size <= self.max_seq else 1)
-            self._block_buf.extend(self._steps(index, steps))
-        return self._finish_token(self._block_buf.popleft())
+        return self._decode_next(index, self._run_block, self._run_single)
 
     @torch.inference_mode()
     def _prefill(self) -> int:
         n = len(self._prompt_tokens)
-        t_pad = _bucket(n, self.max_seq)
-        tokens = torch.tensor([self._prompt_tokens + [0] * (t_pad - n)],
-                              device=self.device)
-        x = self.model.hidden(tokens, self.cache, 0)
-        tok = self._sample(self.model.logits(x[:, n - 1])[0], 0)
-        self._pos = n
-        self.prefill_calls += 1
-        return int(tok)
+        t0 = time.perf_counter()
+        with span("prefill", tokens=n):
+            t_pad = _bucket(n, self.max_seq)
+            tokens = torch.tensor([self._prompt_tokens + [0] * (t_pad - n)],
+                                  device=self.device)
+            x = self.model.hidden(tokens, self.cache, 0)
+            tok = int(self._sample(self.model.logits(x[:, n - 1])[0], 0))
+            self._pos = n
+            self.prefill_calls += 1
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        self._prefill_hist.observe(dt_ms)
+        rec = obs_flight.recorder()
+        if rec.enabled:
+            rec.record(index=0, kind="prefill", total_ms=round(dt_ms, 3),
+                       tokens=n)
+        return tok
 
-    @torch.inference_mode()
-    def _steps(self, index: int, steps: int) -> list[int]:
-        """``steps`` decode steps from the last token; the tokens, the
-        position and the history stay on the device until the one copy of
-        the block's ids at the end."""
-        token = torch.tensor([[self._last_token]], device=self.device)
+    def _launch(self, token: torch.Tensor, index0: int,
+                steps: int) -> torch.Tensor:
+        """Launch ``steps`` decode steps from ``token [1, 1]`` on the
+        device; the fed-back token, the position and the history stay
+        there. Returns the ``[steps]`` ids on the device, not yet copied,
+        and moves ``_pos`` past them."""
         pos = torch.full((1,), self._pos, dtype=torch.int32,
                          device=self.device)
         toks = []
         for i in range(steps):
             tok = self._sample(self.model(token, self.cache, pos)[0],
-                               index + i)
+                               index0 + i)
             toks.append(tok)
             token = tok.view(1, 1)
             # in place: the kernels queued above read the old value first
             pos += 1
         self._pos += steps
         self.decode_steps += steps
-        return torch.stack(toks).tolist()
+        return torch.stack(toks)
+
+    def _last_token_tensor(self) -> torch.Tensor:
+        return torch.tensor([[self._last_token]], device=self.device)
+
+    @torch.inference_mode()
+    def _run_block(self, index: int) -> list[int]:
+        t0 = time.perf_counter()
+        with span("decode.block", index=index, steps=self.block_size):
+            if self._inflight is not None:
+                toks, host = self._inflight
+                self._inflight = None
+            else:
+                toks = self._launch(self._last_token_tensor(), index,
+                                    self.block_size)
+                host = HostCopy(toks)
+            if self._lookahead and self._pos + self.block_size <= self.max_seq:
+                # block N+1 from the device's last token, queued behind
+                # block N's host copy
+                nxt = self._launch(toks[-1].view(1, 1),
+                                   index + self.block_size, self.block_size)
+                self._inflight = (nxt, HostCopy(nxt))
+            out = host.numpy().tolist()
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        self._decode_hist.observe(dt_ms / self.block_size)
+        rec = obs_flight.recorder()
+        if rec.enabled:
+            rec.record(index=index, kind="decode", total_ms=round(dt_ms, 3),
+                       steps=self.block_size, lookahead=self._lookahead)
+        return out
+
+    def _take_inflight(self, index: int) -> list[int] | None:
+        if self._inflight is None:
+            return None
+        return self._run_block(index)
+
+    @torch.inference_mode()
+    def _run_single(self, index: int) -> int:
+        """One step; a live guide's mask row is gathered on the device."""
+        t0 = time.perf_counter()
+        with span("decode.step", index=index):
+            tok = int(self._launch(self._last_token_tensor(), index, 1)[0])
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        self._decode_hist.observe(dt_ms)
+        rec = obs_flight.recorder()
+        if rec.enabled:
+            rec.record(index=index, kind="decode", total_ms=round(dt_ms, 3),
+                       steps=1)
+        return tok

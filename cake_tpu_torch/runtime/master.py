@@ -11,7 +11,9 @@ stays a device tensor across local segments and becomes host bytes only
 at a remote hop. Tokens/sec excludes the first token (the prefill).
 
 Sampling is :class:`~cake_tpu_torch.runtime.generator.GeneratorBase`'s,
-so a seeded stream draws the same noise as the local generator's.
+so a seeded stream draws the same noise as the local generator's. A guide
+(constrained decoding) masks the sample on the master: workers only ever
+see activations, so the wire is unchanged.
 """
 
 from __future__ import annotations
@@ -94,6 +96,10 @@ class DistributedGenerator(GeneratorBase):
     device, the runner walk, then the head and the shared sampler."""
 
     MAX_CONSEC_RECOVERIES = 3
+    # the mask applies to the master's sample only; its [vocab] bool row
+    # goes up to the device each token (the host's per-token walk over
+    # the runners sets the rate here)
+    supports_guide = True
 
     def __init__(
         self,

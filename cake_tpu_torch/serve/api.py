@@ -14,12 +14,15 @@ scheduler:
   detokenized by the engine's ``TokenOutputStream``), final event
   carrying the usage stats; ``stream: false`` answers one JSON object.
 
-  ``stop: [str]`` ends the stream at the first stop-string match with
-  SSE holdback (a potential match is withheld until resolved, so stop
-  text never reaches the client; finish_reason ``"stop"``, distinct from
-  ``"eos"``); ``logprobs: N`` adds top-N logprobs to every token event
-  and the final usage block (server capacity set by
-  ``--serve-logprobs``). Structured output (``response_format``) and the
+  Structured generation: ``response_format: {"type": "json_schema",
+  "schema": {...}}`` or ``{"type": "regex", "pattern": "..."}``
+  constrains decoding to the grammar (device-side masking; finish_reason
+  ``"constraint"`` marks a grammar dead end); ``stop: [str]`` ends the
+  stream at the first stop-string match with SSE holdback (a potential
+  match is withheld until resolved, so stop text never reaches the
+  client; finish_reason ``"stop"``, distinct from ``"eos"``);
+  ``logprobs: N`` adds top-N logprobs to every token event and the final
+  usage block (server capacity set by ``--serve-logprobs``). The
   disaggregated prefill/decode fields (``_disagg``, ``_resume``) are not
   ported yet and answer ``400``.
 - ``POST /v1/batch`` — N prompts in, one JSON result set out, resumable
@@ -118,13 +121,21 @@ def _parse_logit_bias(body: dict, engine) -> None:
             "the server's value")
 
 
+def _parse_guide(body: dict, engine):
+    rf = body.get("response_format")
+    if rf is None:
+        return None
+    from cake_tpu_torch.constrain import RegexError, guide_for
+
+    try:
+        return guide_for(rf, engine.tokenizer, engine.config)
+    except RegexError as e:
+        raise ValueError(f"bad response_format: {e}")
+
+
 def _refuse_unported(body: dict) -> None:
-    """Structured output and the disaggregated prefill/decode fields need
-    modules that are not ported yet: a clear 400, never a silent
-    unconstrained or local run."""
-    if body.get("response_format") is not None:
-        raise ValueError("'response_format': structured output is not "
-                         "ported yet")
+    """The disaggregated prefill/decode fields need modules that are not
+    ported yet: a clear 400, never a silent local run."""
     for field in ("_disagg", "_resume"):
         if body.get(field) is not None:
             raise ValueError(f"'{field}': disaggregated prefill/decode is "
@@ -179,6 +190,7 @@ def _parse_request(body: dict, scheduler) -> Session:
             "'logprobs' is not enabled on this server (start it with "
             "--serve-logprobs N)")
     stop = _parse_stop(body, engine)
+    guide = _parse_guide(body, engine)
     timeout = body.get("timeout_s", scheduler.request_timeout_s)
     if timeout is not None and (
         not isinstance(timeout, (int, float)) or timeout <= 0
@@ -198,7 +210,7 @@ def _parse_request(body: dict, scheduler) -> Session:
                          "(at most 64 chars)")
     return Session(ids, max_tokens=max_tokens, stream=stream,
                    timeout_s=timeout, stop=stop, logprobs=logprobs,
-                   cls=cls, tenant=tenant)
+                   guide=guide, cls=cls, tenant=tenant)
 
 
 class ApiServer:

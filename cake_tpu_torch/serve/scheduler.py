@@ -223,7 +223,8 @@ class Scheduler:
 
     # -- lifecycle ------------------------------------------------------------
     def start(self, max_concurrent: int = 4,
-              warm_prompt_len: int | None = None) -> None:
+              warm_prompt_len: int | None = None,
+              warm_constrain: bool = False) -> None:
         """Prime the engine with ``max_concurrent`` retired slots and start
         the engine thread. A batch engine needs a live batch before
         ``enqueue`` can splice arrivals into it, so priming runs one
@@ -231,7 +232,9 @@ class Scheduler:
         real request then rides the continuous-admission path. With
         ``warm_prompt_len``, the admission path runs once here, outside
         the serving window (``warm_admission``: kernels built, cuBLAS
-        warm)."""
+        warm); ``warm_constrain`` also runs the masked decode step once
+        (``warm_constrain``), so the first ``response_format`` request
+        finds it warm."""
         if self._thread is not None:
             raise RuntimeError("scheduler already started")
         if max_concurrent < 1:
@@ -248,6 +251,8 @@ class Scheduler:
         self._next_sid = self.max_concurrent  # clear of the priming ids
         if warm_prompt_len and hasattr(self.engine, "warm_admission"):
             self.engine.warm_admission(warm_prompt_len)
+        if warm_constrain and hasattr(self.engine, "warm_constrain"):
+            self.engine.warm_constrain()
         # seed the handler-facing snapshot happens-before the engine
         # thread exists; from here on only that thread refreshes it
         self._refresh_engine_stats()
@@ -515,7 +520,13 @@ class Scheduler:
                       if ctx is not None else contextlib.nullcontext())
         try:
             with admit_span:
-                self.engine.enqueue(sess.prompt_ids, sid)
+                # guide= only when constrained: an unconstrained admission
+                # keeps the bare call every engine speaks
+                if sess.guide is not None:
+                    self.engine.enqueue(sess.prompt_ids, sid,
+                                        guide=sess.guide)
+                else:
+                    self.engine.enqueue(sess.prompt_ids, sid)
         except ValueError as e:  # encode raced the window, etc.
             sess.fail(400, str(e))
             return

@@ -1,4 +1,4 @@
-"""Per-request serving state: encode, stream, measure.
+"""Per-request serving state: encode, stream, measure, constrain.
 
 A :class:`Session` is one HTTP request's life in the serving plane — its
 prompt (text through the engine's tokenizer, or a ``prompt_ids`` escape
@@ -6,9 +6,10 @@ hatch mirroring the CLI's ``--prompt-ids``), its token budget and arrival
 deadline, the queue the scheduler fans its tokens into, and its own
 latency record (TTFT = submit to first token, TPOT = inter-token gap).
 
-Output controls live here too (structured output, a grammar guide, is
-not ported yet):
+Output controls live here too:
 
+- ``guide`` — the ``constrain.Guide`` the scheduler hands to the engine at
+  admission (grammar-constrained decoding, ``response_format``);
 - ``stop`` — server-side stop strings, matched on the *emitted text
   stream* with holdback: token events whose text could still be the
   prefix of a stop string are withheld from the event queue until the
@@ -85,7 +86,7 @@ class Session:
                  stream: bool = True, timeout_s: float | None = None,
                  request_id: str | None = None,
                  stop: list[str] | None = None, logprobs: int = 0,
-                 cls: str = "interactive",
+                 guide=None, cls: str = "interactive",
                  tenant: str | None = None):
         self.id = request_id or uuid.uuid4().hex[:12]
         self.prompt_ids = list(prompt_ids)
@@ -100,6 +101,7 @@ class Session:
         self.cls = cls if cls in CLASSES else "interactive"
         self.tenant = tenant or self.cls
         # structured generation
+        self.guide = guide
         self.stop = list(stop or [])
         self.logprobs = max(0, int(logprobs))
         self.stop_hit = False

@@ -6,6 +6,8 @@
                                           # times of DIR's package only (a
                                           # same-call comparison with
                                           # another tree)
+    python3 chip_smoke.py --phase 10      # phases 1, 6 and 10 only; no
+                                          # result line
 
 Phases, each fatal on failure:
 
@@ -71,7 +73,24 @@ Phases, each fatal on failure:
    each segment's ms, wire bytes a token, serialize/deserialize ms and
    the card's busy share print beside phase 5's. Then phase 6's three
    runs over two ``--mode worker`` processes and a ``--topology``
-   master: their ids must equal phase 6's.
+   master: their ids must equal phase 6's;
+10. structured output and lookahead on phase 5's weights and prompt, with
+   a tokenizer whose id i decodes to ``chr(32 + i % 95)`` over all
+   128,256 ids (EOS 128001): the regex ``[0-9]{1,6};`` and a two-field
+   JSON schema compiled to token DFAs (timed); (i) ``LlamaGenerator``
+   greedy under each guide, every token allowed at its DFA state and the
+   argmax of that step's masked logits, the text matching, launches
+   exact, ms a token beside an unguided stream stepping one token at a
+   time; (ii) the batch engine at 8 slots, two streams guided: the six
+   plain streams equal an unguided run (past a tie only, printed), masked
+   single steps while a guide is live and fused blocks after; (iii)
+   lookahead at block 8 on bf16 and on int8 weights with the int8 cache,
+   three runs each way, bit-identical streams, tokens/s with its spread
+   and the card's busy share; (iv) a ``json_schema`` and a ``regex``
+   ``response_format`` request to the in-process server; (v) the command
+   line's ``--lookahead`` (phase 6's ids), ``--window 8`` (an in-process
+   generator's ids with that window), ``--logit-bias 7:100`` and the
+   observability flags with ``--profile``.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the ``cake_tpu_torch`` package beside this file, it exits with
@@ -2266,6 +2285,546 @@ def phase_cli_topology(torch, build, local_ids: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 10
+# --------------------------------------------------------------------------
+
+
+class AsciiTok:
+    """Phase 10's tokenizer: id ``i`` decodes to one printable ASCII
+    character, ``chr(32 + i % 95)``, over all 128,256 ids of Llama-3-8B
+    (many ids a character, like merged BPE entries)."""
+
+    def decode(self, ids):
+        return "".join(chr(32 + (i % 95)) for i in ids)
+
+    def encode(self, text):
+        return [ord(c) - 32 for c in text]
+
+
+GUIDE_REGEX = "[0-9]{1,6};"
+GUIDE_SCHEMA = {"type": "object",
+                "properties": {"a": {"type": "integer"},
+                               "ok": {"type": "boolean"}},
+                "required": ["a", "ok"]}
+# a guided stream's token cap: the schema's longest stream is 30 tokens and
+# EOS, the regex's 7 and EOS
+GUIDED_MAX = 48
+# the plain streams' tokens beside the guided ones at 8 slots
+GUIDED_BATCH_NEW = 40
+# the lookahead runs: tokens a run, runs a mode
+LOOKAHEAD_NEW = 64
+LOOKAHEAD_RUNS = 3
+
+
+def compile_guides(cfg) -> dict:
+    """The regex and the schema as token DFAs over the 128,256 ids, each
+    compiled (not loaded: the cache directory is new): ``name ->
+    (pattern, dfa, compile ms)``."""
+    from cake_tpu_torch.constrain import fsm
+
+    t0 = time.perf_counter()
+    vocab = fsm.token_strings(AsciiTok(), cfg.vocab_size)
+    say(f"[10] vocab strings of {cfg.vocab_size} ids in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    out = {}
+    for name, pattern in (("regex", GUIDE_REGEX),
+                          ("schema", fsm.json_schema_to_regex(GUIDE_SCHEMA))):
+        t0 = time.perf_counter()
+        dfa = fsm.compile_constraint(pattern, vocab, eos_ids=cfg.eos_ids())
+        ms = (time.perf_counter() - t0) * 1e3
+        out[name] = (pattern, dfa, ms)
+        say(f"[10] grammar {name} {pattern!r}: compiled over "
+            f"{cfg.vocab_size} ids in {ms:.1f} ms; {dfa.mask_bits.shape[0]} "
+            f"states, mask table {dfa.mask_bits.nbytes} bytes")
+    return out
+
+
+def check_guided(torch, what, pattern, dfa, ids, eos, logits=None) -> str:
+    """Replay a guided stream through its DFA: every token allowed at its
+    state (and, given each step's logits, the argmax of the masked
+    logits); the text fullmatches the pattern when EOS ends the stream,
+    else the last state is a dead end. Returns the end reason."""
+    state = dfa.start
+    for j, t in enumerate(ids):
+        if not (int(dfa.mask_bits[state, t >> 3]) >> (t & 7)) & 1:
+            fail(f"{what}: token {j} ({t}) is not allowed at DFA state "
+                 f"{state}")
+        if logits is not None:
+            mask = torch.from_numpy(dfa.mask_bool(state))
+            best = int(torch.where(mask, logits[j], -torch.inf).argmax())
+            if best != t:
+                fail(f"{what}: token {j} is {t}, the argmax of the masked "
+                     f"logits is {best}")
+        if t in eos:
+            if j != len(ids) - 1:
+                fail(f"{what}: tokens after EOS")
+            break
+        state = int(dfa.trans[state, t])
+    text = AsciiTok().decode([t for t in ids if t not in eos])
+    if ids[-1] in eos:
+        if not re.fullmatch(pattern, text):
+            fail(f"{what}: {text!r} does not fullmatch {pattern!r}")
+        return "eos"
+    if dfa.mask_bits[state].any():
+        fail(f"{what}: {len(ids)} tokens and no end ({text!r})")
+    return "constraint"
+
+
+def guided_stream(torch, gen, prompt, dfa, n_max=GUIDED_MAX) -> dict:
+    """One guided stream to its end (or ``n_max`` tokens): ids, prefill ms
+    and decode ms a token on the host clock."""
+    from cake_tpu_torch.constrain import Guide
+
+    gen.set_prompt(prompt)
+    gen.set_guide(None if dfa is None else Guide(dfa))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tok = gen.next_token(0)
+    ids = [tok.id]
+    t1 = time.perf_counter()
+    while not tok.is_end_of_stream and len(ids) < n_max:
+        tok = gen.next_token(len(ids))
+        ids.append(tok.id)
+    t2 = time.perf_counter()
+    return {"ids": ids, "prefill_ms": (t1 - t0) * 1e3,
+            "decode_ms_per_token": (t2 - t1) * 1e3 / max(1, len(ids) - 1)}
+
+
+def guided_single(torch, build, cfg, params, prompt, guides) -> dict:
+    """(i) ``LlamaGenerator`` greedy under each guide: allowed tokens, the
+    argmax of the masked logits at every step (a second, logit-keeping run
+    of the same stream), the end; launches exact; host ms a token beside an
+    unguided stream of as many tokens stepping one token at a time, run
+    just after it."""
+    from cake_tpu_torch.ops.sampling import SamplerSettings
+    from cake_tpu_torch.runtime.generator import LlamaGenerator
+
+    # penalty 1: the greedy choice is the argmax of the masked logits
+    settings = SamplerSettings(temperature=0, repeat_penalty=1.0)
+    eos = set(cfg.eos_ids())
+
+    def new(block):
+        return LlamaGenerator(cfg, params, tokenizer=AsciiTok(),
+                              settings=settings, block_size=block)
+
+    for dfa in (guides["regex"][1], None):  # warm-up, not counted
+        guided_stream(torch, new(1), prompt, dfa)
+    build.reset_launches()
+    calls = [0, 0]
+    out = {"path": "(i) guided single stream", "streams": {}}
+    for name, (pattern, dfa, compile_ms) in guides.items():
+        gen = new(8)
+        run = guided_stream(torch, gen, prompt, dfa)
+        free = new(1)
+        plain = guided_stream(torch, free, prompt, None, len(run["ids"]))
+        run["unguided_block1_ms_per_token"] = plain["decode_ms_per_token"]
+        kept = new(8)
+        logits = keep_logits(kept)
+        again = guided_stream(torch, kept, prompt, dfa)["ids"]
+        for g in (gen, free, kept):
+            calls[0] += g.prefill_calls
+            calls[1] += g.decode_steps
+        if again != run["ids"]:
+            fail(f"[10] guided {name}: two runs differ")
+        end = check_guided(torch, f"[10] guided {name}", pattern, dfa,
+                           run["ids"], eos, logits)
+        if gen.decode_steps != len(run["ids"]) - 1:
+            fail(f"[10] guided {name}: {gen.decode_steps} decode steps for "
+                 f"{len(run['ids'])} tokens: a block ran under a guide")
+        run.update(end=end, compile_ms=compile_ms,
+                   text=AsciiTok().decode([t for t in run["ids"]
+                                           if t not in eos]))
+        out["streams"][name] = run
+        say(f"[10] (i) guided {name}: {len(run['ids'])} tokens, end {end}, "
+            f"text {run['text']!r}; every token allowed and the argmax of "
+            f"the masked logits; prefill {run['prefill_ms']:.2f} ms, decode "
+            f"{run['decode_ms_per_token']:.3f} ms a token (unguided, one "
+            f"token a step, as many tokens just after: "
+            f"{plain['decode_ms_per_token']:.3f})")
+    counts = build.launches()
+    want = expected_launches(cfg, "bf16", None, *calls)
+    say(f"[10] (i) launches {counts}; prefill calls {calls[0]}, decode "
+        f"steps {calls[1]}")
+    if counts != want:
+        fail(f"[10] (i): kernels launched {counts}, want {want}")
+    out["launches"] = counts
+    # one masked step and one unguided single step under the profiler,
+    # after the counted runs: card ms and launches a step
+    for key, dfa in (("guided_step", guides["schema"][1]),
+                     ("unguided_step", None)):
+        gen = new(1)
+        guided_stream(torch, gen, prompt, dfa, 2)
+        prof = device_profile(torch, lambda: gen.next_token(2))
+        prof.pop("kernels")
+        out[key] = prof
+        say(f"[10] (i) profile of one {key.replace('_', ' ')}: "
+            f"{prof['device_ms']:.3f} ms of card kernel time over "
+            f"{prof['kernel_launches']} launches")
+    return out
+
+
+def guided_batch(torch, build, cfg, params, guides) -> dict:
+    """(ii) The batch engine at 8 slots (phase 7's prompts), greedy, the
+    regex guiding slot 2 and the schema slot 5: the six plain streams'
+    ids equal an unguided run of the same engine (a difference is allowed
+    only after a top-1/top-2 tie, and printed); the guided streams'
+    tokens are allowed and end their grammars; while a guide is live the
+    batch takes masked single steps, and fused blocks resume once the
+    last one retires; launches exact."""
+    from cake_tpu_torch.constrain import Guide
+    from cake_tpu_torch.ops.sampling import SamplerSettings
+    from cake_tpu_torch.runtime.batch_generator import BatchGenerator
+
+    prompts, _ = batch_prompts(torch, cfg)
+    settings = SamplerSettings(temperature=0)
+    eos = set(cfg.eos_ids())
+    guided = {2: "regex", 5: "schema"}
+
+    def new():
+        return BatchGenerator(cfg, params, tokenizer=AsciiTok(),
+                              settings=settings, block_size=8)
+
+    ref = new()
+    ref.set_prompts(prompts)
+    want = ref.generate(GUIDED_BATCH_NEW)
+    ref.warm_constrain()  # the masked step, built and run once
+    del ref
+    torch.cuda.empty_cache()
+
+    g = new()
+    sizes, real = [], g._dispatch
+
+    def dispatch(size, masked=False):
+        sizes.append((size, masked, g._guides_live()))
+        return real(size, masked)
+
+    g._dispatch = dispatch
+    build.reset_launches()
+    g.set_prompts(prompts, guides=[Guide(guides[guided[i]][1])
+                                   if i in guided else None
+                                   for i in range(len(prompts))])
+    g.step()  # the prefill's tokens
+    masked_ms, prof = [], None
+    while g._guides_live():
+        if len(masked_ms) == 2 and prof is None:  # the third masked step
+            prof = device_profile(torch, g.step)
+            continue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g.step()
+        masked_ms.append((time.perf_counter() - t0) * 1e3)
+    while any(not s.done and len(s.generated) < GUIDED_BATCH_NEW
+              for s in g.streams):
+        g.step()
+    counts = build.launches()
+    calls = (g.prefill_calls, g.decode_steps)
+    if counts != expected_launches(cfg, "bf16", None, *calls):
+        fail(f"[10] (ii): kernels launched {counts} for {calls}")
+    if any(size != 1 or not masked for size, masked, live in sizes if live):
+        fail(f"[10] (ii): a live guide's batch took a block: {sizes}")
+    after = [size for size, _, live in sizes if not live]
+    if not after or after[0] != 8:
+        fail(f"[10] (ii): no fused block after the guides retired: {sizes}")
+    prof.pop("kernels")
+    out = {"path": "(ii) guided batch", "launches": counts,
+           "masked_steps": sum(1 for _, m, _ in sizes if m),
+           "blocks_after": len(after),
+           "masked_step_ms": sorted(masked_ms)[len(masked_ms) // 2],
+           "masked_step_profile": prof, "streams": {}}
+    for slot, name in guided.items():
+        pattern, dfa, _ = guides[name]
+        ids = g.streams[slot].generated
+        end = check_guided(torch, f"[10] (ii) slot {slot} {name}", pattern,
+                           dfa, ids, eos)
+        if g.streams[slot].end_reason != end:
+            fail(f"[10] (ii) slot {slot}: end reason "
+                 f"{g.streams[slot].end_reason}, want {end}")
+        out["streams"][name] = {"ids": len(ids), "end": end,
+                                "text": AsciiTok().decode(
+                                    [t for t in ids if t not in eos])}
+    equal, turned = 0, []
+    for slot in range(len(prompts)):
+        if slot in guided:
+            continue
+        got = g.streams[slot].generated[:GUIDED_BATCH_NEW]
+        if got == want[slot]:
+            equal += 1
+            continue
+        j = next(i for i, (a, b) in enumerate(zip(got, want[slot]))
+                 if a != b)
+        margin = penalized_margins(torch, stream_logits(
+            torch, cfg, params, prompts[slot], want[slot], None),
+            prompts[slot], want[slot], settings)[j]
+        turned.append((slot, j, round(margin, 4)))
+        if margin >= MARGIN_TIE:
+            fail(f"[10] (ii) plain slot {slot} differs from the unguided "
+                 f"run at step {j}, margin {margin:.4f} there")
+    out["plain_equal"], out["plain_turned_at_tie"] = equal, turned
+    say(f"[10] (ii) 8 slots: guided {out['streams']}; {out['masked_steps']} "
+        f"masked single steps ({out['masked_step_ms']:.3f} ms a step, "
+        f"median host clock; one profiled: {prof['device_ms']:.3f} ms of "
+        f"card over {prof['kernel_launches']} launches), then "
+        f"{len(after)} fused blocks; plain streams "
+        f"equal to the unguided run: {equal} of 6, turned at a tie "
+        f"(slot, step, margin): {turned}; launches {counts}")
+    del g
+    torch.cuda.empty_cache()
+    return out
+
+
+def guided_serve(torch, build, cfg, params, prompt, guides) -> dict:
+    """(iv) The HTTP server in this process over a bf16 engine at 8 slots
+    with the ASCII tokenizer: a ``json_schema`` and a ``regex``
+    ``response_format`` request; the body parses as the schema's JSON (or
+    ends at a dead end with finish reason ``constraint``), the regex
+    text fullmatches; launches exact."""
+    import urllib.request
+
+    from cake_tpu_torch.ops.sampling import SamplerSettings
+    from cake_tpu_torch.runtime.batch_generator import BatchGenerator
+    from cake_tpu_torch.serve.api import start_api_server
+    from cake_tpu_torch.serve.scheduler import Scheduler
+
+    build.reset_launches()
+    engine = BatchGenerator(cfg, params, tokenizer=AsciiTok(),
+                            settings=SamplerSettings(temperature=0),
+                            block_size=8)
+    sched = Scheduler(engine, queue_depth=8, request_timeout_s=300)
+    sched.start(max_concurrent=8, warm_prompt_len=64, warm_constrain=True)
+    server = start_api_server(sched, bind="127.0.0.1", port=0)
+    out = {"path": "(iv) guided serve"}
+    try:
+        for name, rf in (("json_schema", {"type": "json_schema",
+                                          "schema": GUIDE_SCHEMA}),
+                         ("regex", {"type": "regex",
+                                    "pattern": GUIDE_REGEX})):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{server.port}/v1/completions",
+                data=json.dumps({"prompt_ids": prompt[:300],
+                                 "max_tokens": GUIDED_MAX,
+                                 "response_format": rf}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                body = json.loads(r.read())
+            reason, text = body["finish_reason"], body["text"]
+            if reason == "eos" and name == "json_schema":
+                obj = json.loads(text)
+                if not (isinstance(obj.get("a"), int)
+                        and isinstance(obj.get("ok"), bool)):
+                    fail(f"[10] (iv) {name}: {text!r} is not the schema's")
+            elif reason == "eos":
+                if not re.fullmatch(GUIDE_REGEX, text):
+                    fail(f"[10] (iv) {name}: {text!r} does not match")
+            elif reason != "constraint":
+                fail(f"[10] (iv) {name}: finish reason {reason}")
+            out[name] = {"text": text, "finish_reason": reason,
+                         "tokens": len(body["token_ids"]),
+                         "ttft_ms": body["usage"].get("ttft_ms")}
+            say(f"[10] (iv) serve {name}: {text!r}, finish reason {reason}, "
+                f"{len(body['token_ids'])} tokens, server TTFT "
+                f"{out[name]['ttft_ms']} ms")
+    finally:
+        server.drain(timeout_s=60)
+        sched.close()
+    counts = build.launches()
+    calls = (engine.prefill_calls, engine.decode_steps)
+    if counts != expected_launches(cfg, "bf16", None, *calls):
+        fail(f"[10] (iv): kernels launched {counts} for {calls}")
+    out["launches"] = counts
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def lookahead_path(torch, build, cfg, params, prompt, label, weights,
+                   kv_quant) -> dict:
+    """(iii) ``LlamaGenerator`` at block 8, greedy, with and without
+    lookahead, LOOKAHEAD_RUNS runs each in turns: every stream
+    bit-identical, launches exact; decode tokens/s of each run, and the
+    card's busy share a step (profiler card time over the host clock's
+    time a token)."""
+    from cake_tpu_torch.ops.sampling import SamplerSettings
+    from cake_tpu_torch.runtime.generator import LlamaGenerator
+
+    settings = SamplerSettings(temperature=0)
+
+    def new(look):
+        return LlamaGenerator(cfg, params, settings=settings, block_size=8,
+                              kv_quant=kv_quant, lookahead=look)
+
+    for look in (False, True):  # warm-up, not counted
+        drive_stream(torch, new(look), prompt, 17)
+    build.reset_launches()
+    calls, rates, ref = [0, 0], {False: [], True: []}, None
+    for r in range(LOOKAHEAD_RUNS):
+        for look in ((False, True) if r % 2 == 0 else (True, False)):
+            gen = new(look)
+            run = drive_stream(torch, gen, prompt, LOOKAHEAD_NEW)
+            torch.cuda.synchronize()  # a block may still be in flight
+            calls[0] += gen.prefill_calls
+            calls[1] += gen.decode_steps
+            ref = ref or run["ids"]
+            if run["ids"] != ref:
+                fail(f"[10] (iii) {label} lookahead={look}: the stream "
+                     "differs")
+            rates[look].append(run["decode_tokens_per_s"])
+            del gen
+    counts = build.launches()
+    if counts != expected_launches(cfg, weights, kv_quant, *calls):
+        fail(f"[10] (iii) {label}: kernels launched {counts} for {calls}")
+    out = {"path": f"(iii) lookahead {label}", "launches": counts,
+           "tokens_per_s": {"plain": rates[False], "lookahead": rates[True]}}
+    for look in (False, True):
+        gen = new(look)
+        gen.set_prompt(prompt)
+        gen.next_token(0)
+        d0 = gen.decode_steps
+        prof = device_profile(torch, lambda: [gen.next_token(i)
+                                              for i in range(1, 17)])
+        steps = gen.decode_steps - d0
+        card = prof["device_ms"] / steps
+        host = 1e3 / (sum(rates[look]) / len(rates[look]))
+        out["lookahead" if look else "plain"] = {
+            "card_ms_per_step": card, "host_ms_per_token": host,
+            "busy_share": card / host, "steps_profiled": steps}
+        del gen
+    for key, look in (("plain", False), ("lookahead", True)):
+        r, o = rates[look], out[key]
+        say(f"[10] (iii) {label} {key}: decode tokens/s "
+            f"{[round(x, 2) for x in r]} (spread {max(r) - min(r):.2f}); "
+            f"card {o['card_ms_per_step']:.3f} ms a step, host "
+            f"{o['host_ms_per_token']:.3f} ms a token: busy "
+            f"{100 * o['busy_share']:.1f}%")
+    say(f"[10] (iii) {label}: {2 * LOOKAHEAD_RUNS} streams bit-identical "
+        f"({LOOKAHEAD_NEW} tokens); launches {counts}")
+    return out
+
+
+def guided_cli(torch, build, local_ids: dict) -> dict:
+    """(v) The command line over phase 6's tiny checkpoint: ``--lookahead``
+    prints phase 6's bf16 ids; ``--window 8`` over a 12-id prompt prints
+    the ids of an in-process ``LlamaGenerator`` with the window set to 8
+    (and not those of the full context); ``--logit-bias 7:100`` prints only
+    7; ``--trace``, ``--metrics-out``, ``--flight-log`` and ``--profile``
+    write files that parse and hold the JAX command line's span and metric
+    names, and the card's kernels in the profile."""
+    from cake_tpu_torch.models.config import tiny
+    from cake_tpu_torch.ops.sampling import SamplerSettings
+    from cake_tpu_torch.runtime.generator import LlamaGenerator
+    from cake_tpu_torch.utils.weights import load_llama_params
+
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    long_prompt = list(range(3, 27, 2))
+    out = {}
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as d:
+        cfg = write_cli_checkpoint(torch, build, d)
+
+        def run(extra, prompt=None):
+            args = list(CLI_RUN)
+            if prompt is not None:
+                args[1] = ",".join(map(str, prompt))
+            r = subprocess.run(
+                [sys.executable, "-m", "cake_tpu_torch.cli", "--model", d,
+                 *args, *extra], capture_output=True, text=True,
+                timeout=300, env=env, cwd=REPO)
+            return cli_ids(r, cfg, f"cli {' '.join(extra)}")
+
+        out["lookahead"] = run(["--lookahead"])
+        if out["lookahead"] != local_ids["bf16"]:
+            fail(f"[10] (v) --lookahead printed {out['lookahead']}, phase "
+                 f"6's bf16 run {local_ids['bf16']}")
+        out["window"] = run(["--window", "8"], long_prompt)
+        full = run([], long_prompt)
+        wcfg = tiny(**CLI_CFG, sliding_window=8)
+        gen = LlamaGenerator(wcfg, load_llama_params(
+            d, wcfg.num_hidden_layers, dtype=wcfg.dtype, device="cuda"),
+            settings=SamplerSettings(temperature=0), max_seq=128,
+            block_size=8)
+        gen.set_prompt(long_prompt)
+        want = [gen.next_token(i).id for i in range(8)]
+        if out["window"] != want or want == full:
+            fail(f"[10] (v) --window 8 printed {out['window']}; the "
+                 f"generator with window 8 {want}, the full context {full}")
+        out["logit_bias"] = run(["--logit-bias", "7:100"])
+        if set(out["logit_bias"]) != {7}:
+            fail(f"[10] (v) --logit-bias 7:100 printed {out['logit_bias']}")
+        obs = Path(d) / "obs"
+        files = {"trace": obs / "t.json", "metrics": obs / "m.json",
+                 "flight": obs / "f.jsonl", "profile": obs / "prof"}
+        obs.mkdir()
+        out["obs"] = run(["--trace", str(files["trace"]), "--metrics-out",
+                          str(files["metrics"]), "--flight-log",
+                          str(files["flight"]), "--profile",
+                          str(files["profile"])])
+        spans = {e["name"] for e in json.loads(files["trace"].read_text())[
+            "traceEvents"] if e.get("ph") == "X"}
+        metrics = json.loads(files["metrics"].read_text())
+        kinds = [json.loads(ln)["kind"]
+                 for ln in files["flight"].read_text().splitlines()]
+        profiles = list(files["profile"].glob("*.pt.trace.json"))
+        prof_events = (json.loads(profiles[0].read_text())["traceEvents"]
+                       if len(profiles) == 1 else [])
+        kernels = sum(1 for e in prof_events if e.get("cat") == "kernel")
+        ranges = {e.get("name") for e in prof_events} & {"prefill",
+                                                         "decode.block"}
+        if (out["obs"] != local_ids["bf16"]
+                or spans != {"prefill", "decode.block"}
+                or not {"generator.decode_ms", "generator.prefill_ms"}
+                <= set(metrics)
+                or metrics["generator.prefill_ms"]["count"] != 1
+                or kinds != ["prefill"] + ["decode"] * (len(kinds) - 1)
+                or len(kinds) < 2 or not kernels
+                or ranges != {"prefill", "decode.block"}):
+            fail(f"[10] (v) obs flags: ids {out['obs']}, spans {spans}, "
+                 f"metrics {sorted(metrics)}, flight kinds {kinds}, "
+                 f"profiles {profiles} with {kernels} kernel events and "
+                 f"ranges {ranges}")
+    say(f"[10] (v) cli --lookahead {out['lookahead']} (phase 6's bf16 ids); "
+        f"--window 8 {out['window']} (the generator's; full context "
+        f"{full}); --logit-bias 7:100 {out['logit_bias']}; obs flags: spans "
+        f"{sorted(spans)}, metrics {sorted(metrics)}, flight {kinds}, "
+        f"profile {kernels} kernel events with ranges {sorted(ranges)}")
+    return out
+
+
+def phase_guided(torch, build, local_ids: dict) -> tuple[list, dict]:
+    """Phase 10 over phase 5's Llama-3-8B params (seed 0) and 2,000-id
+    prompt: (i) guided single streams, (ii) the guided batch, (iv) the
+    HTTP plane's ``response_format`` on bf16; (iii) lookahead on bf16
+    and on int8 weights with the int8 cache; (v) the command line."""
+    from cake_tpu_torch.models import llama
+    from cake_tpu_torch.models.config import llama3_8b
+
+    cfg = llama3_8b(max_seq_len=4096)
+    prompt = torch.randint(0, cfg.vocab_size, (2000,),
+                           generator=torch.Generator().manual_seed(SEED)
+                           ).tolist()
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as cache:
+        # a new DFA cache: the compiles are timed, not loaded
+        os.environ["CAKE_FSM_CACHE_DIR"] = cache
+        guides = compile_guides(cfg)
+        params = llama.init_params(cfg, seed=SEED)
+        paths = [guided_single(torch, build, cfg, params, prompt, guides),
+                 guided_batch(torch, build, cfg, params, guides),
+                 guided_serve(torch, build, cfg, params, prompt, guides)]
+        del os.environ["CAKE_FSM_CACHE_DIR"]
+    paths.append(lookahead_path(torch, build, cfg, params, prompt,
+                                "(a) bf16", "bf16", None))
+    del params
+    torch.cuda.empty_cache()
+    params = llama.init_params_int8(cfg, seed=SEED)
+    paths.append(lookahead_path(torch, build, cfg, params, prompt,
+                                "(b) int8 weights, int8 cache",
+                                "quant_matmul", "int8"))
+    del params
+    torch.cuda.empty_cache()
+    paths[0]["compile_ms"] = {k: v[2] for k, v in guides.items()}
+    cli = guided_cli(torch, build, local_ids)
+    return paths, cli
+
+
 def kernel_times(torch, flash, qmatmul, quant) -> dict:
     """Card ms of the two matmul wrappers and of ``flash_decode`` of
     whichever package was imported, at phase 3's shapes and tiers
@@ -2306,10 +2865,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
     other = None
+    only_guided = sys.argv[1:] == ["--phase", "10"]
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels":
         other = Path(sys.argv[2]).resolve()
-    elif len(sys.argv) > 1:
-        fail(f"usage: {sys.argv[0]} [--kernels DIR]")
+    elif len(sys.argv) > 1 and not only_guided:
+        fail(f"usage: {sys.argv[0]} [--kernels DIR | --phase 10]")
     sys.path.insert(0, str(other or REPO))
     try:
         from cake_tpu_torch.ops import flash, kvcache, qmatmul, quant
@@ -2325,6 +2885,13 @@ def main() -> int:
                         **kernel_times(torch, flash, qmatmul, quant)}))
         return 0
     card = phase_toolchain(torch, build)
+    if only_guided:
+        guided, guided_cli_ids = phase_guided(torch, build,
+                                              phase_cli(torch, build))
+        say(json.dumps({"card": card, "guided": guided,
+                        "guided_cli": guided_cli_ids}))
+        say(card)
+        return 0
     errs = phase_kernels(torch, flash)
     errs.update(phase_quant_kernels(torch, flash, qmatmul, quant, kvcache))
     errs.update(phase_batch_kernels(torch, flash, qmatmul, quant, kvcache))
@@ -2342,13 +2909,16 @@ def main() -> int:
     serve = phase_serve(torch)
     cross_host = phase_cross_host(torch, build, main_path)
     cross_host_cli = phase_cli_topology(torch, build, cli)
-    # over the paths (a), (b), (c), the batch runs and the cross-host runs
+    guided, guided_cli_ids = phase_guided(torch, build, cli)
+    # over the paths (a), (b), (c), the batch runs, the cross-host runs and
+    # phase 10's guided and lookahead runs
     for r in rows:
         r["launches"] = sum(p["launches"][r["name"]]
-                            for p in main_path + batch + cross_host)
+                            for p in main_path + batch + cross_host + guided)
     say(json.dumps({"card": card, "main_path": main_path, "batch": batch,
                     "serve": serve, "cross_host": cross_host,
-                    "cross_host_cli": cross_host_cli}))
+                    "cross_host_cli": cross_host_cli, "guided": guided,
+                    "guided_cli": guided_cli_ids}))
     say(json.dumps({"kernels": rows}))
     say(card)
     say(json.dumps({"ok": True, "device": {

@@ -224,7 +224,7 @@ def test_warm_admission_leaves_the_batch_alone(tiers):
 @pytest.mark.parametrize("kwargs,match", [
     (dict(kv_layout="paged"), "paged.*not ported"),
     (dict(spec_k=4), "speculation.*not ported"),
-    (dict(lookahead=True), "lookahead.*not ported"),
+    (dict(kv_layout="ring"), "must be 'slot' or 'paged'"),
     (dict(interleave=True), "interleaved.*not ported"),
     (dict(dp=2), "dp=2.*not ported"),
     (dict(tp=2), "tp=2.*not ported"),
@@ -238,11 +238,17 @@ def test_unported_options_are_refused(tiers, kwargs, match):
 
 
 def test_guides_are_refused(tiers):
+    """A guide whose mask does not cover the engine's vocabulary (here one
+    compiled over a two-token vocab) is refused where a server turns it
+    into a client error."""
+    from cake_tpu_torch.constrain import Guide, build_token_dfa
+
     g, _ = _port(tiers["f32"][1], [[5, 9, 2]], 1, SamplerSettings(**GREEDY))
-    with pytest.raises(ValueError, match="guides.*not ported"):
-        g.enqueue([3, 4], 7, guide=object())
-    with pytest.raises(ValueError, match="guides.*not ported"):
-        g.set_prompts([[3, 4]], guides=[object()])
+    other = Guide(build_token_dfa("a+", ["a", "b"]))
+    with pytest.raises(ValueError, match="covers 8 token ids.*has 256"):
+        g.enqueue([3, 4], 7, guide=other)
+    with pytest.raises(ValueError, match="covers 8 token ids.*has 256"):
+        g.set_prompts([[3, 4]], guides=[other])
 
 
 def _deliver(g, quotas, arrivals, after):

@@ -55,7 +55,8 @@ def test_import_leaves_jax_and_triton_out():
             "cake_tpu_torch.runtime.worker, cake_tpu_torch.runtime.master, "
             "cake_tpu_torch.parallel.runner, "
             "cake_tpu_torch.parallel.topology, "
-            "cake_tpu_torch.serve.engine\n"
+            "cake_tpu_torch.serve.engine, cake_tpu_torch.constrain, "
+            "cake_tpu_torch.constrain.fsm, cake_tpu_torch.constrain.guide\n"
             "print(sorted(m for m in ('jax', 'triton', 'cake_tpu', "
             "'ml_dtypes') if m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -102,6 +103,44 @@ def test_entry_points_raise_without_a_card():
     with pytest.raises(SystemExit, match="no CUDA device"):
         cli.run_http_serve(cli.build_parser().parse_args(
             ["--model", "unused", "--mode", "serve"]))
+
+
+def test_guided_and_lookahead_entry_points_raise_without_a_card():
+    """A guide, lookahead or the new command-line flags never move a run
+    onto the CPU: without a card each entry point raises unless the CPU
+    is asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device exists")
+    from cake_tpu_torch import cli
+    from cake_tpu_torch.constrain import Guide, build_token_dfa
+    from cake_tpu_torch.models.config import tiny
+    from cake_tpu_torch.models.llama import init_params
+    from cake_tpu_torch.runtime.batch_generator import BatchGenerator
+    from cake_tpu_torch.runtime.generator import LlamaGenerator
+
+    cfg = tiny()
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LlamaGenerator(cfg, params, block_size=4, lookahead=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchGenerator(cfg, params, block_size=4, lookahead=True)
+    for extra in (["--lookahead"], ["--window", "8"],
+                  ["--logit-bias", "3:1"], ["--profile", "unused"]):
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            cli.run(cli.build_parser().parse_args(
+                ["--model", "unused", "--prompt-ids", "1", *extra]))
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        cli.run_serve(cli.build_parser().parse_args(
+            ["--model", "unused", "--prompts-file", "unused",
+             "--lookahead"]))
+    # asked for, the CPU runs them, and a guide stays on the CPU too
+    gen = LlamaGenerator(cfg, params, block_size=4, lookahead=True,
+                         device="cpu")
+    gen.set_prompt([5, 6])
+    vocab = ["".join(chr(48 + i % 10)) for i in range(cfg.vocab_size)]
+    gen.set_guide(Guide(build_token_dfa("[0-9]{3}", vocab, eos_ids=(2,))))
+    assert gen._guide_table.device.type == "cpu"
+    assert gen.next_token(0).id != 2
 
 
 def test_cross_host_entry_points_raise_without_a_card():

@@ -7,7 +7,8 @@ exact), each with 4 slots and a 2-deep queue. Given the same request
 bodies they must stream the same token ids over SSE, expose the same
 ``/healthz`` load fields and the same ``serve.*`` metric series. The
 port's server alone answers 429 on saturation, frees a disconnected
-client's slot, refuses the unported request fields with 400, and its
+client's slot, refuses the unported and malformed request fields with 400,
+and its
 command line drains on SIGTERM ("drained; bye") and prints the JAX
 command line's ``--prompts-file`` lines.
 """
@@ -317,8 +318,8 @@ def test_disconnected_client_frees_slot(servers):
 
 
 @pytest.mark.parametrize("field,value,match", [
-    ("response_format", {"type": "regex", "pattern": "a+"},
-     "structured output is not ported yet"),
+    ("response_format", {"type": "regex", "pattern": "(a"},
+     "bad response_format"),
     ("_disagg", {"target": "127.0.0.1:1"}, "not ported yet"),
     ("_resume", {"xfer_id": "x"}, "not ported yet"),
     ("temperature", 0.9, "temperature"),
