@@ -14,6 +14,10 @@ Usage::
   # an HTTP API (POST /v1/completions, SSE) over the continuous-batching
   # engine; SIGTERM drains and ends with "drained; bye"
   python -m cake_tpu_torch.cli --model DIR --mode serve --serve-port 8080
+  # the same over the paged KV layout, with preemption spilling up to
+  # 64 MB of batch-class streams to host RAM for interactive arrivals
+  python -m cake_tpu_torch.cli --model DIR --mode serve --kv-layout paged \
+      --spill-mb 64
   # the cross-host path: each worker serves its topology-assigned layers,
   # the master holds embed, norm, head and sampler and walks the segments
   python -m cake_tpu_torch.cli --mode worker --name w1 --model DIR \
@@ -32,12 +36,15 @@ attention window; ``--logit-bias`` compiles static biases into the
 sampler; ``--device N`` picks the CUDA card; ``--profile DIR`` writes a
 ``torch.profiler`` Chrome trace of generation; ``--trace``,
 ``--metrics-out``, ``--flight-log`` and ``--prof-sample`` drive the
-observability planes as in the JAX command line. The JAX command line's
-gateway mode, meshes (``--stages/--tp/--dp/--sp/--ep`` above 1, and
-topologies with mesh ``device:`` nodes), the paged KV layout,
-speculation, disaggregated roles, fault injection (``--chaos``) and the
-cluster views (``--cluster-report``, ``--top``) are refused with an error
-until their slices of the port land.
+observability planes as in the JAX command line. ``--kv-layout paged``
+(with ``--kv-page-size``, ``--kv-pool-pages``) serves ``--prompts-file``
+and ``--mode serve`` over pooled KV pages, and ``--spill-mb`` bounds the
+host RAM that ``--mode serve`` spills preempted streams into. The JAX
+command line's gateway mode, meshes (``--stages/--tp/--dp/--sp/--ep``
+above 1, and topologies with mesh ``device:`` nodes), speculation,
+disaggregated roles, fault injection (``--chaos``) and the cluster views
+(``--cluster-report``, ``--top``) are refused with an error until their
+slices of the port land.
 """
 
 from __future__ import annotations
@@ -215,8 +222,22 @@ def build_parser() -> argparse.ArgumentParser:
                        help="mesh axis: only 1 is ported (one card)")
     p.add_argument("--kv-layout", choices=["slot", "paged"], default="slot",
                    dest="kv_layout",
-                   help="KV layout of the serving engine: slot (per-stream "
-                        "contiguous rows); paged is not ported yet")
+                   help="KV cache layout for the batched serving engine: "
+                        "'slot' (per-stream contiguous rows; default) or "
+                        "'paged' (pooled fixed-size pages addressed through "
+                        "per-stream page tables, with copy-on-write "
+                        "shared-prefix pages; admission and retirement "
+                        "touch page tables, not cache tensors). --mode "
+                        "serve and --prompts-file batch runs")
+    p.add_argument("--kv-page-size", type=int, default=None,
+                   dest="kv_page_size", metavar="N",
+                   help="--kv-layout paged: tokens per KV page (must divide "
+                        "the window; default 16)")
+    p.add_argument("--kv-pool-pages", type=int, default=None,
+                   dest="kv_pool_pages", metavar="N",
+                   help="--kv-layout paged: total pool pages (power of two, "
+                        ">= batch x window/page_size + 1; default sized "
+                        "from the batch plus prefix-tree headroom)")
     p.add_argument("--speculate", type=int, default=0, metavar="K",
                    help="n-gram speculation: not ported yet")
     p.add_argument("--lookahead", action="store_true",
@@ -256,12 +277,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sched-policy", choices=["slo", "fifo"],
                    default="slo", dest="sched_policy",
                    help="--mode serve: admission policy: slo (priority "
-                        "classes, per-tenant fairness) or fifo")
-    p.add_argument("--spill-mb", type=float, default=None,
+                        "classes, preemption with host-RAM KV spill, "
+                        "per-tenant fairness) or fifo (strict arrival "
+                        "order, no preemption)")
+    p.add_argument("--spill-mb", type=float, default=64.0,
                    dest="spill_mb", metavar="MB",
                    help="--mode serve: host-RAM budget for preempted "
-                        "streams: not ported yet (preemption spills the "
-                        "paged layout's KV pages)")
+                        "stream snapshots (default 64; 0 disables "
+                        "preemption; class ordering still applies). "
+                        "Spilling needs the paged engine "
+                        "(--kv-layout paged)")
     p.add_argument("--fairness-factor", type=float, default=2.0,
                    dest="fairness_factor", metavar="X",
                    help="--mode serve: a tenant is over budget past X "
@@ -361,13 +386,24 @@ def _decode_block(args) -> int:
     return args.decode_block if args.decode_block is not None else 8
 
 
+def _kv_layout_kwargs(args) -> dict:
+    """BatchGenerator arguments of the --kv-layout flags (the engine's own
+    defaults stay where the user set none)."""
+    kw = {"kv_layout": args.kv_layout}
+    if args.kv_page_size is not None:
+        kw["kv_page_size"] = args.kv_page_size
+    if args.kv_pool_pages is not None:
+        kw["kv_pool_pages"] = args.kv_pool_pages
+    return kw
+
+
 def _engine_kwargs(args) -> dict:
     """BatchGenerator arguments of the serving paths; the engine refuses
-    what is not ported (meshes, paged KV, speculation)."""
+    what is not ported (meshes, speculation)."""
     return dict(max_seq=args.max_seq, block_size=_decode_block(args),
                 kv_quant=args.kv_quant, num_stages=args.stages, tp=args.tp,
-                dp=args.dp, sp=args.sp, ep=args.ep, kv_layout=args.kv_layout,
-                spec_k=args.speculate, lookahead=args.lookahead)
+                dp=args.dp, sp=args.sp, ep=args.ep, spec_k=args.speculate,
+                lookahead=args.lookahead, **_kv_layout_kwargs(args))
 
 
 def _load_topology(args):
@@ -716,6 +752,7 @@ _SERVE_FLAGS = (
     ("--slo-ttft-ms", lambda a: a.slo_ttft_ms is not None),
     ("--slo-tpot-ms", lambda a: a.slo_tpot_ms is not None),
     ("--sched-policy", lambda a: a.sched_policy != "slo"),
+    ("--spill-mb", lambda a: a.spill_mb != 64.0),
     ("--fairness-factor", lambda a: a.fairness_factor != 2.0),
 )
 
@@ -756,10 +793,13 @@ def run_http_serve(args, topology=None) -> int:
                  "(POST /v1/completions); --prompts-file/--prompt-ids "
                  "belong to the one-shot paths")
     if topology is not None:
+        if args.kv_layout == "paged":
+            sys.exit("error: --kv-layout paged rides the batched mesh "
+                     "engine; a host-addressed --topology serve runs "
+                     "the single-stream wire master")
         refused = [flag for flag, set_ in (
             ("--decode-block", args.decode_block is not None),
             ("--serve-logprobs", bool(args.serve_logprobs)),
-            ("--kv-layout paged", args.kv_layout == "paged"),
             ("--speculate", bool(args.speculate)),
             ("--lookahead", args.lookahead)) if set_]
         if refused:
@@ -801,6 +841,7 @@ def run_http_serve(args, topology=None) -> int:
                               request_timeout_s=request_timeout,
                               role=args.role, slo=slo,
                               sched_policy=args.sched_policy,
+                              spill_mb=args.spill_mb,
                               fairness_factor=args.fairness_factor)
     except (NotImplementedError, ValueError) as e:
         sys.exit(f"error: {e}")
@@ -926,9 +967,16 @@ def _main(args) -> int:
                  "package's obs/cluster.py and obs/top.py) are not ported "
                  "yet; the master logs each segment's stats at the end of "
                  "a run")
-    if args.spill_mb is not None:
-        sys.exit("error: --spill-mb: preempting and spilling streams needs "
-                 "the paged KV layout, which is not ported yet")
+    if args.kv_layout != "paged" and (args.kv_page_size is not None
+                                      or args.kv_pool_pages is not None):
+        sys.exit("error: --kv-page-size/--kv-pool-pages configure the "
+                 "paged KV pool; they require --kv-layout paged")
+    if args.kv_layout == "paged" and (
+            args.mode in ("worker", "gateway")
+            or (args.mode == "master" and not args.prompts_file)):
+        sys.exit("error: --kv-layout paged applies to the batched serving "
+                 "engine; it requires --mode serve or a --prompts-file "
+                 "batch run (it would otherwise be silently ignored)")
     if args.mode != "serve":
         used = [flag for flag, set_ in _SERVE_FLAGS if set_(args)]
         if used:
@@ -972,11 +1020,8 @@ def _main(args) -> int:
             sys.exit("error: --lookahead needs fused blocks to pipeline; "
                      "it requires --decode-block > 1 (it would otherwise "
                      "be silently ignored)")
-    unported = [f for f, v in (("--kv-layout paged", args.kv_layout ==
-                                "paged"), ("--speculate", args.speculate))
-                if v]
-    if unported:
-        sys.exit(f"error: {'/'.join(unported)} is not ported yet")
+    if args.speculate:
+        sys.exit("error: --speculate is not ported yet")
     try:
         from cake_tpu_torch.parallel.pipeline import check_single_device
 

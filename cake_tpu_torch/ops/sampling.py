@@ -235,6 +235,49 @@ def keyed_gumbel_noise(seed: int, stream_ids: torch.Tensor,
     return -torch.log(-torch.log(u))
 
 
+def _fmix32_int(x: int) -> int:
+    """:func:`_fmix32` on one host integer in ``[0, 2^32)``."""
+    x ^= x >> 16
+    x = (x * 0x85EBCA6B) & _M32
+    x ^= x >> 13
+    x = (x * 0xC2B2AE35) & _M32
+    return x ^ (x >> 16)
+
+
+def _unfmix32_int(x: int) -> int:
+    """The inverse of :func:`_fmix32_int` (each of its steps is a
+    bijection of 32-bit words)."""
+    x ^= x >> 16
+    x = (x * pow(0xC2B2AE35, -1, 1 << 32)) & _M32
+    x ^= (x >> 13) ^ (x >> 26)
+    x = (x * pow(0x85EBCA6B, -1, 1 << 32)) & _M32
+    return x ^ (x >> 16)
+
+
+def _seed_state(seed: int) -> int:
+    k = _fmix32_int((seed & _M32) ^ 0x9E3779B9)
+    return _fmix32_int(k ^ (((seed >> 32) & _M32) ^ 0x7F4A7C15))
+
+
+def stream_key(seed: int, stream_id: int) -> list[int]:
+    """A stream's sampling key as two u32 words: the state of
+    :func:`keyed_gumbel_noise`'s hash after mixing ``seed``, and after
+    mixing ``stream_id`` too. The second word alone decides the stream's
+    noise at every index; a snapshot carries both (the shape of the JAX
+    package's raw PRNG key)."""
+    k0 = _seed_state(seed)
+    return [k0, _fmix32_int(k0 ^ ((stream_id & _M32) * 0x9E3779B9 & _M32))]
+
+
+def stream_id_for_key(seed: int, key_word: int) -> int:
+    """The stream id whose :func:`stream_key` under ``seed`` has second word
+    ``key_word``: the hash's steps are bijections of 32-bit words, so a
+    stream resumed in an engine of any seed, under any id, samples from
+    the key it was exported with by decoding under this id."""
+    x = _unfmix32_int(int(key_word) & _M32) ^ _seed_state(seed)
+    return (x * pow(0x9E3779B9, -1, 1 << 32)) & _M32
+
+
 def gumbel_noise(vocab: int, generator: torch.Generator) -> torch.Tensor:
     """Standard Gumbel noise ``[vocab]`` f32 on the generator's device."""
     u = torch.rand(vocab, generator=generator, device=generator.device)

@@ -10,12 +10,18 @@ quantized linears are the CUDA kernels on the card and their plain
 versions on the CPU. The caches are written in place. Mesh axes (``dp``,
 ``tp``, ``stages``, ``sp``, ``ep``) above 1 are refused
 (:func:`check_single_device`).
+
+The decode's ``paged=True`` form runs the same body over the paged KV
+layout (:mod:`cake_tpu_torch.kvpool`): it gathers every stream's pages
+into the contiguous view once a dispatch, runs the body over the view,
+and writes back only the pages the dispatch wrote.
 """
 
 from __future__ import annotations
 
 import torch
 
+from cake_tpu_torch.kvpool import pool as kvpool
 from cake_tpu_torch.models.llama import Llama
 from cake_tpu_torch.ops import sampling
 from cake_tpu_torch.ops.kvcache import KVCache
@@ -70,7 +76,8 @@ def build_admit_prefill(model: Llama):
 
 
 def build_sharded_decode(model: Llama, settings: SamplerSettings,
-                         logprobs_k: int = 0, masked: bool = False):
+                         logprobs_k: int = 0, masked: bool = False,
+                         paged: bool = False):
     """The per-row fused decode block: ``(token [B], cache, pos [B],
     stream_ids [B], history [B, N], hist_slot [B], index0 [B], steps) ->
     (tokens [steps, B], logprobs)``.
@@ -92,7 +99,19 @@ def build_sharded_decode(model: Llama, settings: SamplerSettings,
     ceil(V/8)] uint8, mask_row [B] int32) -> (tokens [1, B], logprobs)``.
     Row ``b`` samples under the packed mask ``mask_table[mask_row[b]]``,
     gathered and unpacked on the device (row 0 of the table is all ones:
-    a free stream's row)."""
+    a free stream's row).
+
+    ``paged=True`` (either form): ``cache`` is the page pool ``[L, P, KH,
+    page_size(, D)]`` and the signature gains two trailing int32 operands,
+    ``page_map [B, pages_per_stream]`` (each stream's logical -> physical
+    pages, sink-padded past its frontier) and ``scatter_ids [B, W]`` (the
+    pages receiving this dispatch's KV writes; the sink for retired rows).
+    The pages are gathered into the contiguous view
+    (:func:`~cake_tpu_torch.kvpool.pool.gather_view`), the body above runs
+    over it unchanged, and the ``W`` pages from ``min(pos // page_size,
+    pages_per_stream - W)`` of each row go back to the pool
+    (:func:`~cake_tpu_torch.kvpool.pool.scatter_back`): the view holds the
+    slot cache's contents, so the ids are the slot layout's."""
     vocab = model.config.vocab_size
 
     def step(token, cache, pos, stream_ids, history, hist_slot, index,
@@ -124,8 +143,6 @@ def build_sharded_decode(model: Llama, settings: SamplerSettings,
                        history, hist_slot, index0, mask, lp)
             return tok[None], stacked(lp)
 
-        return decode_masked
-
     def decode(token: torch.Tensor, cache: KVCache, pos: torch.Tensor,
                stream_ids: torch.Tensor, history: torch.Tensor,
                hist_slot: torch.Tensor, index0: torch.Tensor, steps: int):
@@ -141,4 +158,22 @@ def build_sharded_decode(model: Llama, settings: SamplerSettings,
             index += 1
         return torch.stack(toks), stacked(lp)
 
-    return decode
+    body = decode_masked if masked else decode
+    return _over_pages(body) if paged else body
+
+
+def _over_pages(body):
+    """``body`` (a decode form over a contiguous cache) over the page pool:
+    two trailing operands, ``page_map`` and ``scatter_ids``."""
+
+    def paged(token, pool, pos, *rest):
+        *args, page_map, scatter_ids = rest
+        ps = kvpool.page_size_of(pool)
+        first_page = torch.clamp(
+            pos.long() // ps, max=page_map.shape[1] - scatter_ids.shape[1])
+        view = kvpool.gather_view(pool, page_map)
+        out = body(token, view, pos, *args)
+        kvpool.scatter_back(pool, view, first_page, scatter_ids)
+        return out
+
+    return paged

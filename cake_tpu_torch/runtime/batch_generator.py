@@ -1,5 +1,5 @@
 """Multi-stream serving on one card: N prompts decode concurrently in one
-batch (port of ``cake_tpu/runtime/batch_generator.py``, slot layout).
+batch (port of ``cake_tpu/runtime/batch_generator.py``).
 
 Every decode launch advances all streams by one token (or one
 ``block_size`` block); each stream keeps its own state:
@@ -47,22 +47,45 @@ next block is launched from the device-side last tokens before this
 block's ids are copied to the host; its copy is queued, with an event,
 before the next block's launches (``utils.device.HostCopy``).
 
-Not ported yet, and refused with an error in the constructor: the paged
-KV layout, batched speculation, the interleaved pipeline schedules and
-every mesh axis above 1. The disaggregated export/import methods are
-absent, so the serve scheduler neither spills nor moves streams.
+Paged KV (``kv_layout="paged"``, :mod:`cake_tpu_torch.kvpool`): the
+per-slot contiguous cache becomes a pool of fixed-size pages addressed
+through per-stream page tables. Each decode dispatch gathers the streams'
+pages into the contiguous view, runs the same decode body over it and
+writes back only the pages it wrote
+(``build_sharded_decode(paged=True)``), so the ids are the slot layout's.
+Admission and retirement are host-side page-table edits; the full pages
+of a prompt go into a shared-prefix tree whose hits share physical pages
+(copy-on-write at the unaligned boundary page), evicted LRU under pool
+pressure; an arrival whose pages cannot be found even by eviction waits
+at the head of the FIFO. ``export_stream``/``import_stream`` (and the
+queued ``import_begin``/``import_attach``) move one stream's pages and
+sampler state as a snapshot (:mod:`cake_tpu_torch.disagg.snapshot`):
+the serve scheduler's preemption spill and the engine's suspend/resume.
+
+Not ported yet, and refused with an error in the constructor: batched
+speculation, the interleaved pipeline schedules and every mesh axis above
+1.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
+import uuid
 from collections import deque
 
 import numpy as np
 import torch
 
-from cake_tpu_torch.kvpool import PrefixLRU
+from cake_tpu_torch.kvpool import (
+    SINK,
+    PagePool,
+    PoolExhausted,
+    PrefixLRU,
+    PrefixTree,
+)
+from cake_tpu_torch.kvpool import pool as kvpool_pool
+from cake_tpu_torch.kvpool.pool import halves
 from cake_tpu_torch.models.config import LlamaConfig
 from cake_tpu_torch.models.llama import Llama
 from cake_tpu_torch.obs import flight as obs_flight
@@ -70,7 +93,7 @@ from cake_tpu_torch.obs import metrics as obs_metrics
 from cake_tpu_torch.obs import prof as obs_prof
 from cake_tpu_torch.obs.trace import span
 from cake_tpu_torch.ops import sampling
-from cake_tpu_torch.ops.kvcache import KVCache, QuantizedKV, init_cache
+from cake_tpu_torch.ops.kvcache import KVCache, init_cache
 from cake_tpu_torch.ops.sampling import SamplerSettings
 from cake_tpu_torch.parallel.pipeline import (
     build_admit_prefill,
@@ -94,25 +117,32 @@ class _Stream:
     # why the stream ended: "eos" | "length" (window full) | "constraint"
     # (grammar dead end); the serve scheduler's finish_reason source
     end_reason: str | None = None
+    # the id its sampling noise is keyed by: its stream id, or for an
+    # imported stream the id that reproduces its snapshot's key
+    # (ops/sampling.stream_id_for_key)
+    noise_id: int = 0
 
 
 # initial row capacity of the device mask table; it doubles as guides
 # attach
 _MASK_CAP0 = 64
 
+# KV-page snapshots leaving and entering this engine's pool
+_EXPORTS = obs_metrics.counter("disagg.exports")
+_IMPORTS = obs_metrics.counter("disagg.imports")
+_RESUMES = obs_metrics.counter("disagg.resumes")
+_IMPORT_ABORTS = obs_metrics.counter("disagg.import_aborts")
+
+# arrival-queue entry kinds (4th tuple field): None marks a prompt; imports
+# ride the same FIFO, so pool-pressure deferral stays FIFO-fair between
+# admissions and KV-page imports
+_ARR_IMPORT = "import"  # (xfer_id, None, None, _ARR_IMPORT)
+_ARR_ATTACH = "attach"  # (xfer_id, sid, None, _ARR_ATTACH)
+
 
 def _unported(what: str) -> ValueError:
     return ValueError(f"{what} is not ported yet (the port's BatchGenerator "
                       "serves the slot layout)")
-
-
-def _halves(cache: KVCache) -> list[torch.Tensor]:
-    """Every tensor of a cache (k and v, codes and scales)."""
-    out = []
-    for half in (cache.k, cache.v):
-        out += [half.q, half.scale] if isinstance(half, QuantizedKV) \
-            else [half]
-    return out
 
 
 class BatchGenerator:
@@ -157,17 +187,56 @@ class BatchGenerator:
         spec_k: int = 0,
         logprobs: int = 0,
         kv_layout: str = "slot",
+        kv_page_size: int = 16,
+        kv_pool_pages: int | None = None,
     ):
-        check_single_device(dp=dp, tp=tp, stages=num_stages, sp=sp, ep=ep)
-        if kv_layout == "paged":
-            raise _unported("kv_layout='paged' (pooled KV pages)")
-        if kv_layout != "slot":
+        if kv_layout not in ("slot", "paged"):
             raise ValueError(
                 f"kv_layout must be 'slot' or 'paged', got {kv_layout!r}")
+        self._paged = kv_layout == "paged"
+        if self._paged and (dp != 1 or sp != 1):
+            raise ValueError(
+                "kv_layout='paged' requires dp == 1 and sp == 1 (the "
+                "page axis is unsharded; batch/sequence sharding of "
+                "pooled pages is future work)")
+        check_single_device(dp=dp, tp=tp, stages=num_stages, sp=sp, ep=ep)
+        if self._paged and spec_k:
+            raise ValueError(
+                "kv_layout='paged' does not compose with batched "
+                "speculation (spec_k): the fused verify rounds write "
+                "K+1 slots per row outside the page write-back plan")
         if spec_k:
             raise _unported("batched speculation (spec_k)")
         if interleave:
             raise _unported("the interleaved pipeline schedule")
+        self.max_seq = max_seq or config.max_seq_len
+        self._page_size = int(kv_page_size)
+        self._pool_pages_req = kv_pool_pages
+        if self._paged:
+            if self._page_size < 1 or self.max_seq % self._page_size:
+                raise ValueError(
+                    f"kv_page_size {self._page_size} must be a positive "
+                    f"divisor of max_seq {self.max_seq}")
+            if kv_pool_pages is not None and (
+                    kv_pool_pages < 2
+                    or kv_pool_pages & (kv_pool_pages - 1)):
+                raise ValueError(
+                    f"kv_pool_pages must be a power of two >= 2, got "
+                    f"{kv_pool_pages}")
+            self._ppp = self.max_seq // self._page_size  # pages per stream
+        self._pagepool: PagePool | None = None  # host free list, refcounts
+        self._prefix_tree: PrefixTree | None = None
+        self._tables: list[list[int]] = []  # each slot's physical pages
+        # KV-page imports: xfer_id -> record. The pages of a begun but
+        # unattached import are PINNED in the pool (a claim outside stream
+        # tables and the prefix tree), so no eviction can free them
+        # before the attach or the abort.
+        self._imports: dict[str, dict] = {}
+        self._attach_failures: list[int] = []  # sids whose attach missed
+        self._page_map_dev = None  # the page map on the device, until a
+        #                            table changes
+        self._staged_prefix = None  # set_prompts' staged prefix row
+        self._admit_deferred = False  # last tick deferred on pool pressure
         self.config = config
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
@@ -181,7 +250,6 @@ class BatchGenerator:
         # outputs of the decode block; the sampled streams are the same
         # with it on or off
         self.logprobs_k = max(0, int(logprobs))
-        self.max_seq = max_seq or config.max_seq_len
         self.tokenizer = tokenizer
         self.block_size = max(1, block_size)
         self.kv_quant = kv_quant
@@ -189,9 +257,11 @@ class BatchGenerator:
         self._prefill = build_sharded_prefill(self.model)
         self._admit_prefill = build_admit_prefill(self.model)
         self._decode = build_sharded_decode(self.model, self.settings,
-                                            self.logprobs_k)
+                                            self.logprobs_k,
+                                            paged=self._paged)
         self._decode_masked = build_sharded_decode(
-            self.model, self.settings, self.logprobs_k, masked=True)
+            self.model, self.settings, self.logprobs_k, masked=True,
+            paged=self._paged)
         self._lookahead = bool(lookahead)
         # a launched block not yet emitted: (steps, ids' host copy, the
         # logprobs' host copies or None)
@@ -204,7 +274,9 @@ class BatchGenerator:
         self.cache: KVCache | None = None
         self._eos_ids = set(config.eos_ids())
         self._first_lp = None
-        self._arrivals: list[tuple[list[int], int]] = []
+        # (ids, stream id, guide, kind): kind None for a prompt, else an
+        # import's begin or attach (_ARR_IMPORT, _ARR_ATTACH)
+        self._arrivals: list[tuple] = []
         self._staging: dict | None = None
         # staged batch-1 KV rows keyed by their token prefix: the
         # set_prompts shared prefix and every completed admission's prefix
@@ -342,12 +414,22 @@ class BatchGenerator:
                 self._drop_guide(slot)
                 DEAD_ENDS.inc()
 
+    def _warm_cache(self) -> tuple:
+        """The cache a warm-up decode step runs over, and its trailing
+        operands: a scratch cache of a few slots; paged, the pool itself
+        with every write-back on the sink (the view is a copy, so no live
+        page is written)."""
+        if self._paged:
+            return self.cache, self._paged_args_warm(1)
+        return init_cache(self.config, batch=len(self.streams), max_seq=64,
+                          device=self.device, quant=self.kv_quant), ()
+
     @torch.inference_mode()
     def warm_constrain(self) -> None:
         """Run the masked step once at the live batch's width outside the
         serving window, so the first constrained request finds it warm:
-        a scratch cache of a few slots, copies of the sampler state,
-        every row unmasked. Nothing live is touched."""
+        a scratch cache, copies of the sampler state, every row unmasked.
+        Nothing live is touched."""
         if not self.streams:
             raise RuntimeError("set_prompts first")
         table = self._mask_table
@@ -357,13 +439,12 @@ class BatchGenerator:
             t[0] = 0xFF
             table = self._mask_table = self._ids(t)
         b = len(self.streams)
-        scratch = init_cache(self.config, batch=b, max_seq=64,
-                             device=self.device, quant=self.kv_quant)
+        cache, extra = self._warm_cache()
         zeros = torch.zeros(b, dtype=torch.int64, device=self.device)
         toks, _ = self._decode_masked(
-            zeros, scratch, zeros, zeros, self._history.clone(),
+            zeros, cache, zeros, zeros, self._history.clone(),
             self._hist_slot.clone(), zeros, table,
-            torch.zeros(b, dtype=torch.int32, device=self.device))
+            torch.zeros(b, dtype=torch.int32, device=self.device), *extra)
         self.decode_steps += 1
         toks.cpu()  # synchronize
 
@@ -417,13 +498,20 @@ class BatchGenerator:
                 raise ValueError("guides/prompts length mismatch")
             for g in guides:
                 self._check_guide_ok(g)
+        if self._paged:
+            self._pool_size(len(ids_list))  # refuse a short pool up front
+            # the pool is rebuilt below: pending KV imports reference
+            # pages of the old one and cannot survive
+            for xid in list(self._imports):
+                self.import_abort(xid)
         self._guides = {}
         self._guide_rows = {}
         self._inflight = None  # a block of the old batch
         self.streams = [
             _Stream(stream_id=sid, prompt=ids,
                     detok=TokenOutputStream(self.tokenizer)
-                    if self.tokenizer else None)
+                    if self.tokenizer else None,
+                    noise_id=max(sid, 0))
             for sid, ids in zip(stream_ids, ids_list)
         ]
         b = len(self.streams)
@@ -465,7 +553,7 @@ class BatchGenerator:
             tail = s.prompt[-n_hist:] if n_hist else []
             hist[i, :len(tail)] = tail
             slots[i] = len(tail)
-        self._sids = self._ids([max(s.stream_id, 0) for s in self.streams])
+        self._sids = self._ids([s.noise_id for s in self.streams])
         self._history = self._ids(hist)
         self._hist_slot = self._ids(slots)
 
@@ -501,6 +589,13 @@ class BatchGenerator:
         # emission rows recorded (admit() flushing the block buffer) but
         # not yet handed to a step() caller
         self._pending_rows: list[list[Token | None]] = []
+        if self._paged:
+            # the freshly prefilled contiguous cache moves into the pool:
+            # from here on self.cache is the page array, addressed
+            # through the page tables
+            contiguous, self.cache = self.cache, None
+            self._pageify_batch(contiguous, lcp,
+                                self.streams[0].prompt[:lcp])
 
     def _noise(self, sids: torch.Tensor, index: torch.Tensor):
         if self.settings.greedy:
@@ -517,9 +612,14 @@ class BatchGenerator:
         self._n_admit_dispatches += -(-len(prefix)
                                       // self._admission_chunk_for(
                                           len(prefix)))
-        self._store_prefix(list(prefix), staging)
+        if self._paged:
+            # its full pages become shared pool pages at pageification
+            # (_pageify_batch): the row is kept until then
+            self._staged_prefix = (list(prefix), staging)
+        else:
+            self._store_prefix(list(prefix), staging)
         cache = self._new_cache(b)
-        for dst, src in zip(_halves(cache), _halves(staging)):
+        for dst, src in zip(halves(cache), halves(staging)):
             dst.copy_(src.expand_as(dst))
         return cache
 
@@ -536,7 +636,13 @@ class BatchGenerator:
         constrains the stream from its first sampled token on."""
         self._domain_stamp.check("BatchGenerator.enqueue")
         self._check_guide_ok(guide)
-        self._arrivals.append((self._encode(prompt), stream_id, guide))
+        self._arrivals.append((self._encode(prompt), stream_id, guide, None))
+
+    @property
+    def paged(self) -> bool:
+        """Paged KV layout: streams export and import as pool pages (the
+        serve scheduler's spill gate)."""
+        return self._paged
 
     def pending_admissions(self) -> int:
         """Arrivals not yet fully admitted (queued + in flight)."""
@@ -549,6 +655,534 @@ class BatchGenerator:
                 or len(ids) < self.PREFIX_SHARE_MIN):
             return
         self._prefix_store.put(tuple(ids), row)
+
+    # -- paged KV layout -----------------------------------------------------
+    def _pool_size(self, b: int) -> int:
+        """Pages of the pool for a ``b``-row batch: ``kv_pool_pages``, or
+        the batch's need plus two streams' worth for the prefix tree,
+        rounded up to a power of two. With ``pages >= b *
+        pages_per_stream + 1`` (the sink included) the live streams can
+        all fill their windows; every other claim but a transfer pin is
+        evictable, so no allocation fails mid-decode."""
+        need = b * self._ppp + 1
+        pages = self._pool_pages_req
+        if pages is None:
+            want = need + 2 * self._ppp  # headroom: tree-held prefixes
+            pages = 1 << (want - 1).bit_length()
+        if pages < need:
+            raise ValueError(
+                f"kv_pool_pages {pages} < {need} required for batch {b} x "
+                f"{self._ppp} pages/stream + sink: a live batch could "
+                "exhaust the pool mid-decode")
+        return pages
+
+    def _init_pool(self, b: int) -> None:
+        """(Re)build the page pool for a ``b``-row batch: the device page
+        array, the host free list and refcounts, and a fresh prefix
+        tree."""
+        pages = self._pool_size(b)
+        self._pagepool = PagePool(pages, self._page_size)
+        # page claims are engine-thread mutations wherever they happen
+        self._pagepool._domain_stamp = self._domain_stamp
+        self._prefix_tree = PrefixTree(self._pagepool)
+        self._tables = [[] for _ in range(b)]
+        self._page_map_dev = None
+        self.cache = kvpool_pool.init_pool(
+            self.config, pages, self._page_size, self.kv_quant,
+            device=self.device)
+
+    def _alloc_page(self) -> int:
+        """One free page, evicting prefix-tree claims under pressure (the
+        tree is a cache; live streams are not)."""
+        try:
+            return self._pagepool.alloc()
+        except PoolExhausted:
+            if self._prefix_tree.evict_until_free(1):
+                return self._pagepool.alloc()
+            raise
+
+    def _release_pages(self, slot: int) -> None:
+        """Retire a slot's page claims: the whole KV free is this loop over
+        a host list (pages shared with the tree or other streams live on
+        until their last reference drops)."""
+        if not self._paged or slot >= len(self._tables):
+            return
+        if self._tables[slot]:
+            self._page_map_dev = None
+        for pid in self._tables[slot]:
+            self._pagepool.unref(pid)
+        self._tables[slot] = []
+
+    def _ensure_pages(self, size: int) -> None:
+        """Grow each live stream's table over the ``size`` positions this
+        dispatch writes: the one allocation point of the decode path."""
+        ps = self._page_size
+        for i, s in enumerate(self.streams):
+            if s.done:
+                continue
+            t = self._tables[i]
+            last = min(int(self._pos[i]) + size - 1, self.max_seq - 1) // ps
+            while len(t) <= last:
+                t.append(self._alloc_page())
+                self._page_map_dev = None
+
+    def _page_map_np(self) -> np.ndarray:
+        """``[B, pages_per_stream]`` logical -> physical map, sink-padded
+        past each stream's allocated frontier."""
+        m = np.full((len(self.streams), self._ppp), SINK, np.int32)
+        for i, t in enumerate(self._tables):
+            if t:
+                m[i, :len(t)] = t
+        return m
+
+    def _scatter_ids_np(self, size: int) -> np.ndarray:
+        """``[B, W]`` physical pages receiving this dispatch's KV writes:
+        the pages covering ``[pos, pos + size)`` of each live row; the sink
+        for finished rows and in-page overruns (their writes are discarded
+        either way, as the slot layout's clamped overrun writes are)."""
+        ps = self._page_size
+        w = kvpool_pool.writeback_width(size, ps, self._ppp)
+        ids = np.full((len(self.streams), w), SINK, np.int32)
+        for i, s in enumerate(self.streams):
+            if s.done:
+                continue
+            t = self._tables[i]
+            pos = int(self._pos[i])
+            first = min(pos // ps, self._ppp - w)
+            last = min(pos + size - 1, self.max_seq - 1) // ps
+            for j in range(w):
+                p = first + j
+                if p <= last and p < len(t):
+                    ids[i, j] = t[p]
+        return ids
+
+    def _paged_args(self, size: int) -> tuple:
+        """The two trailing decode operands of the paged layout (none for
+        the slot layout), after allocating the pages the dispatch writes.
+        The page map goes up again only when a table changed; the scatter
+        ids go up every dispatch."""
+        if not self._paged:
+            return ()
+        with self._prof.phase("pages"):
+            self._ensure_pages(size)
+            if self._page_map_dev is None:
+                self._page_map_dev = self._ids(self._page_map_np())
+            return (self._page_map_dev,
+                    self._ids(self._scatter_ids_np(size)))
+
+    def _paged_args_warm(self, size: int) -> tuple:
+        """Warm-up operands: the current page map, every write-back on the
+        sink (a warm step allocates no page and writes no live one)."""
+        w = kvpool_pool.writeback_width(size, self._page_size, self._ppp)
+        return (self._ids(self._page_map_np()),
+                torch.zeros((len(self.streams), w), dtype=torch.int32,
+                            device=self.device))
+
+    def _pageify_batch(self, contiguous: KVCache, lcp: int,
+                       prefix_ids: list[int]) -> None:
+        """Move a freshly prefilled contiguous batch cache into pool pages
+        (set_prompts only; later admissions write pages directly). The
+        full pages of a shared prefix become one physical copy referenced
+        by every stream and the prefix tree; each stream's unaligned
+        boundary page (prefix tail and its own remainder) is a private
+        copy-on-write materialization."""
+        ps = self._page_size
+        b = len(self.streams)
+        self._init_pool(b)
+        n_full = lcp // ps
+        shared: list[int] = []
+        if n_full:
+            _, staging = self._staged_prefix
+            shared = [self._pagepool.alloc() for _ in range(n_full)]
+            # held only by this local until the tables take their refs
+            # below: released on the error path
+            try:
+                ids_vec = np.zeros((self._ppp,), np.int64)
+                ids_vec[:n_full] = shared
+                kvpool_pool.row_scatter(self.cache, staging, ids_vec)
+                if self.PREFIX_CACHE_ENTRIES > 0:
+                    # registered for admission reuse only with the prefix
+                    # cache on; the batch shares the pages either way
+                    self._prefix_tree.insert(prefix_ids[:n_full * ps],
+                                             shared)
+            except BaseException:
+                for pid in shared:
+                    self._pagepool.unref(pid)
+                raise
+        self._staged_prefix = None
+        ids = np.zeros((b * self._ppp,), np.int64)
+        cow = 0
+        for i, s in enumerate(self.streams):
+            for pid in shared:
+                self._pagepool.ref(pid)
+            t = list(shared)
+            last_page = (len(s.prompt) - 1) // ps
+            for p in range(n_full, last_page + 1):
+                pid = self._alloc_page()
+                t.append(pid)
+                ids[i * self._ppp + p] = pid
+            if lcp % ps and last_page >= n_full:
+                cow += 1  # boundary page: a private copy of the shared tail
+            self._tables[i] = t
+        for pid in shared:
+            self._pagepool.unref(pid)  # the alloc claim handed off
+        if cow:
+            self._pagepool.count_cow(cow)
+        kvpool_pool.batch_scatter(self.cache, contiguous, ids)
+
+    # -- KV-page export/import -----------------------------------------------
+    def _disagg_fingerprint(self) -> dict:
+        """Geometry a snapshot must match to land in this engine's pool.
+        ``dtype`` is the config's dtype name, as the JAX engine writes
+        it."""
+        cfg = self.config
+        return {
+            "layers": cfg.num_hidden_layers,
+            "kv_heads": cfg.num_key_value_heads,
+            "head_dim": cfg.head_dim,
+            "dtype": str(cfg.dtype),
+            "kv_quant": self.kv_quant,
+            "page_size": self._page_size,
+            "max_seq": self.max_seq,
+            "vocab": cfg.vocab_size,
+            "repeat_last_n": self.settings.repeat_last_n,
+        }
+
+    def _require_paged(self, what: str) -> None:
+        if not self._paged:
+            raise ValueError(
+                f"{what} needs kv_layout='paged': KV moves between "
+                "engines as pool pages (construct with kv_layout='paged' "
+                "/ --kv-layout paged)")
+
+    def _page_keys(self) -> tuple[str, ...]:
+        """The tensors of one page, in the pool's half order."""
+        return (("kq", "ks", "vq", "vs") if self.kv_quant == "int8"
+                else ("k", "v"))
+
+    def _page_shapes(self) -> dict:
+        """Expected ``(shape, dtype)`` of each page tensor for this
+        geometry."""
+        cfg = self.config
+        L, KH, D = (cfg.num_hidden_layers, cfg.num_key_value_heads,
+                    cfg.head_dim)
+        ps = self._page_size
+        if self.kv_quant == "int8":
+            return {"kq": ((L, KH, ps, D), torch.int8),
+                    "ks": ((L, KH, ps), torch.float32),
+                    "vq": ((L, KH, ps, D), torch.int8),
+                    "vs": ((L, KH, ps), torch.float32)}
+        dt = cfg.torch_dtype
+        return {"k": ((L, KH, ps, D), dt), "v": ((L, KH, ps, D), dt)}
+
+    @torch.inference_mode()
+    def export_stream(self, stream_id: int, codec: str = "none",
+                      trace: dict | None = None) -> bytes:
+        """Snapshot a live stream's KV pages and sampler/cursor state
+        into versioned, self-describing bytes
+        (:mod:`cake_tpu_torch.disagg.snapshot`): the suspend half of
+        suspend/resume and what the serve scheduler spills. Buffered
+        rows are emitted first (the snapshot is the emitted state); the
+        stream keeps running, and a caller handing it off calls
+        ``finish(stream_id)`` after. The pages are pinned while they are
+        read. ``codec`` carries each page through the wire activation
+        codec; ``trace`` (an ``obs.reqtrace`` wire dict) rides the
+        header."""
+        from cake_tpu_torch.disagg import snapshot as _snapshot
+
+        self._domain_stamp.check("BatchGenerator.export_stream")
+        self._require_paged("export_stream")
+        self._drain_buffered_rows()
+        slot = next((i for i, s in enumerate(self.streams)
+                     if not s.done and s.stream_id == stream_id), None)
+        if slot is None:
+            raise ValueError(f"no live stream with id {stream_id}")
+        s = self.streams[slot]
+        n_kv = int(self._pos[slot])
+        n_pages = (n_kv - 1) // self._page_size + 1
+        table = self._tables[slot][:n_pages]
+        guide = self._guides.get(slot)
+        guide_spec = getattr(guide, "spec", None) if guide else None
+        if guide is not None and guide_spec is None:
+            raise ValueError(
+                "cannot export a constrained stream whose Guide carries "
+                "no grammar spec (build it via constrain.guide_for, or "
+                "Guide(dfa, spec=...)): the importer must recompile "
+                "the DFA to resume the cursor")
+        for pid in table:
+            self._pagepool.pin(pid)
+        try:
+            ids = torch.as_tensor(table, dtype=torch.int64,
+                                  device=self.device)
+            host = [buf.index_select(1, ids).cpu()
+                    for buf in halves(self.cache)]
+        finally:
+            for pid in table:
+                self._pagepool.unpin(pid)
+        keys = self._page_keys()
+        pages = [{k: t[:, j] for k, t in zip(keys, host)}
+                 for j in range(n_pages)]
+        data = _snapshot.encode_snapshot(
+            xfer_id=uuid.uuid4().hex,
+            fingerprint=self._disagg_fingerprint(),
+            codec=codec,
+            stream_id=s.stream_id,
+            prompt=s.prompt,
+            generated=s.generated,
+            pos=n_kv,
+            index=int(self._index[slot]),
+            last_token=int(self._last_tokens[slot]),
+            key=sampling.stream_key(self.settings.seed, s.noise_id),
+            history=self._history[slot].cpu().numpy(),
+            hist_slot=int(self._hist_slot[slot]),
+            guide_spec=guide_spec,
+            guide_state=guide.state if guide is not None else 0,
+            pages=pages,
+            trace=trace,
+        )
+        _EXPORTS.inc()
+        return data
+
+    def import_begin(self, data) -> dict:
+        """Parse and register an inbound snapshot. Validation (magic,
+        version, layout, the model fingerprint) happens here; the pool
+        work queues as an arrival in the same FIFO as prompt admissions,
+        so pool pressure defers it FIFO-fair. Idempotent by transfer id: a
+        duplicate returns the existing registration. Returns the resume
+        metadata ``{"xfer_id", "stream_id", "prompt", "generated",
+        "texts", "n_kv"}`` (``texts``: the incremental detokenization of
+        the generated ids, what a serve session replays)."""
+        from cake_tpu_torch.disagg import snapshot as _snapshot
+
+        self._domain_stamp.check("BatchGenerator.import_begin")
+        self._require_paged("import_begin")
+        if not self.streams:
+            raise RuntimeError("set_prompts first")
+        snap = _snapshot.decode_snapshot(data)
+        if snap.xfer_id in self._imports:
+            return self._imports[snap.xfer_id]["meta"]
+        snap.check_fingerprint(self._disagg_fingerprint())
+        ps = self._page_size
+        if snap.n_pages != (snap.pos - 1) // ps + 1:
+            raise _snapshot.SnapshotError(
+                f"snapshot carries {snap.n_pages} pages for pos "
+                f"{snap.pos} at page_size {ps}")
+        if not 0 < snap.pos < self.max_seq:
+            raise _snapshot.SnapshotError(
+                f"snapshot pos {snap.pos} outside (0, {self.max_seq}): "
+                "only live streams export")
+        shapes = self._page_shapes()
+        for page in snap.pages:
+            for k, want in shapes.items():
+                got = page.get(k)
+                if got is None or tuple(got.shape) != want[0] \
+                        or got.dtype != want[1]:
+                    raise _snapshot.SnapshotError(
+                        f"page tensor {k!r} is "
+                        f"{None if got is None else (got.shape, got.dtype)}"
+                        f", expected {want}")
+        if snap.guide_spec is not None and self.tokenizer is None:
+            raise _snapshot.SnapshotError(
+                "snapshot carries a constrained-decoding cursor but this "
+                "engine has no tokenizer to recompile its grammar")
+        detok = TokenOutputStream(self.tokenizer) if self.tokenizer \
+            else None
+        texts = [detok.next_token(t) if detok is not None else None
+                 for t in snap.generated]
+        meta = {
+            "xfer_id": snap.xfer_id,
+            "stream_id": snap.stream_id,
+            "prompt": list(snap.prompt),
+            "generated": list(snap.generated),
+            "texts": texts,
+            "n_kv": snap.pos,
+        }
+        if snap.trace:
+            meta["trace"] = snap.trace
+        self._imports[snap.xfer_id] = {
+            "snap": snap, "pages": None, "detok": detok, "meta": meta,
+            "deferred": False, "t": time.monotonic(),
+        }
+        self._arrivals.append((snap.xfer_id, None, None, _ARR_IMPORT))
+        return meta
+
+    def _import_begin_tick(self) -> None:
+        """Head-of-queue import: land its pages in the pool, or defer
+        FIFO-fair under pool pressure (it stays at the head, priced again
+        next tick, as a prompt admission does)."""
+        xid = self._arrivals[0][0]
+        rec = self._imports.get(xid)
+        if rec is None:  # aborted while queued
+            self._arrivals.pop(0)
+            return
+        snap = rec["snap"]
+        need = snap.n_pages
+        if (self._pagepool.free_count < need
+                and not self._prefix_tree.evict_until_free(need)):
+            if not rec["deferred"]:
+                rec["deferred"] = True
+                self._pagepool.count_defer()
+            self._admit_deferred = True
+            return
+        self._admit_deferred = False
+        self._arrivals.pop(0)
+        pages = []
+        for _ in range(need):
+            pid = self._alloc_page()
+            # the alloc claim becomes a transfer pin: until a stream
+            # attaches (or the import aborts) no table or tree holds
+            # these pages, and they must survive any eviction
+            self._pagepool.pin(pid)
+            self._pagepool.unref(pid)
+            pages.append(pid)
+        # the record owns the pins from here: an abort can release them
+        # if the write below raises
+        rec["pages"] = pages
+        keys = self._page_keys()
+        kvpool_pool.write_pages(self.cache, pages,
+                                [[page[k] for k in keys]
+                                 for page in snap.pages])
+        _IMPORTS.inc()
+
+    def import_attach(self, xfer_id: str, stream_id: int) -> None:
+        """Queue the attach of a begun import: when it reaches the FIFO
+        head with a free slot, the imported pages become the stream's table
+        (ref, then unpin: no cache tensor moves) and its sampler and
+        cursor state splice in. Decode then continues as the exporting
+        engine's next step would."""
+        self._domain_stamp.check("BatchGenerator.import_attach")
+        self._require_paged("import_attach")
+        if xfer_id not in self._imports:
+            raise KeyError(f"unknown or expired transfer {xfer_id!r}")
+        self._arrivals.append((xfer_id, stream_id, None, _ARR_ATTACH))
+
+    def _import_attach_tick(self) -> None:
+        xid, sid, _, _ = self._arrivals.pop(0)
+        rec = self._imports.pop(xid, None)
+        if rec is None or rec["pages"] is None:
+            # aborted or expired between queue and tick
+            if rec is not None:
+                _IMPORT_ABORTS.inc()
+            self._attach_failures.append(sid)
+            return
+        snap, pages = rec["snap"], rec["pages"]
+        slot = self._free_slot()
+        self._release_pages(slot)
+        # rows computed under the slot's previous meaning are recorded
+        # before the attach changes it
+        self._drain_buffered_rows()
+        for pid in pages:
+            self._pagepool.ref(pid)    # the stream table's claim...
+            self._pagepool.unpin(pid)  # ...replaces the transfer pin
+        self._tables[slot] = list(pages)
+        self._page_map_dev = None
+        noise_id = sampling.stream_id_for_key(self.settings.seed,
+                                              int(snap.key[-1]))
+        self._sids[slot] = noise_id
+        self._history[slot] = self._ids(snap.history.astype(np.int32))
+        self._hist_slot[slot] = snap.hist_slot
+        self._last_tokens[slot] = snap.last_token
+        self._pos = self._pos.copy()
+        self._pos[slot] = snap.pos
+        self._index = self._index.copy()
+        self._index[slot] = snap.index
+        s = _Stream(stream_id=sid, prompt=list(snap.prompt),
+                    detok=rec["detok"], noise_id=noise_id)
+        s.generated = list(snap.generated)
+        self.streams[slot] = s
+        self._drop_guide(slot)
+        if snap.guide_spec is not None:
+            from cake_tpu_torch.constrain.guide import guide_for
+
+            g = guide_for(snap.guide_spec, self.tokenizer, self.config)
+            self._attach_guide(slot, g)  # resets the cursor...
+            g.state = snap.guide_state   # ...then resumes mid-grammar
+        _RESUMES.inc()
+
+    def import_abort(self, xfer_id: str) -> bool:
+        """Drop a begun import and release its page pins (the resume never
+        came). Returns False when the id is unknown (already attached or
+        aborted)."""
+        self._domain_stamp.check("BatchGenerator.import_abort")
+        rec = self._imports.pop(xfer_id, None)
+        if rec is None:
+            return False
+        if rec["pages"] is not None:
+            for pid in rec["pages"]:
+                self._pagepool.unpin(pid)
+        else:
+            self._arrivals = [a for a in self._arrivals
+                              if not (a[3] == _ARR_IMPORT
+                                      and a[0] == xfer_id)]
+        _IMPORT_ABORTS.inc()
+        return True
+
+    def expire_imports(self, ttl_s: float) -> int:
+        """Abort begun but unattached imports older than ``ttl_s``, so an
+        orphaned transfer cannot pin pool pages forever. Returns the
+        number aborted."""
+        self._domain_stamp.check("BatchGenerator.expire_imports")
+        if not self._imports:
+            return 0
+        now = time.monotonic()
+        expired = [xid for xid, rec in self._imports.items()
+                   if now - rec["t"] > ttl_s]
+        for xid in expired:
+            self.import_abort(xid)
+        return len(expired)
+
+    def take_attach_failures(self) -> list[int]:
+        """Stream ids whose attach found its import gone (aborted or
+        expired): the serve scheduler fails those sessions."""
+        out, self._attach_failures = self._attach_failures, []
+        return out
+
+    def imports_pending(self) -> int:
+        """Begun but unattached imports (pages pinned or queued)."""
+        return len(self._imports)
+
+    @torch.inference_mode()
+    def import_stream(self, data, stream_id: int | None = None
+                      ) -> tuple[int, str]:
+        """Synchronous import: begin, attach and admission ticks to the end
+        (the ``admit()`` of snapshots: single-process suspend/resume).
+        Returns ``(slot, xfer_id)``. Raises when the attach cannot complete
+        without outside help (no free slot, pool exhausted with nothing
+        evictable)."""
+        meta = self.import_begin(data)
+        xid = meta["xfer_id"]
+        sid = meta["stream_id"] if stream_id is None else stream_id
+        self.import_attach(xid, sid)
+
+        def ours_pending() -> bool:
+            return any(a[3] in (_ARR_IMPORT, _ARR_ATTACH) and a[0] == xid
+                       for a in self._arrivals)
+
+        while ours_pending():
+            head = self._arrivals[0]
+            # admit()'s no-busy-loop rule, FIFO-wide: a head that needs a
+            # slot to start blocks the queue while every stream is live
+            if (head[3] != _ARR_IMPORT and self._staging is None
+                    and self._free_slot() is None):
+                self.import_abort(xid)
+                raise RuntimeError(
+                    "no free slot: every stream is still live")
+            self._admission_tick()
+            # a pool-deferred head can only unblock through retirements,
+            # which never happen inside this loop
+            if self._staging is None and self._admit_deferred:
+                self.import_abort(xid)
+                raise RuntimeError(
+                    "kv page pool exhausted: import deferred (retire "
+                    "streams, or grow kv_pool_pages)")
+        if sid in self._attach_failures:
+            self._attach_failures.remove(sid)
+            raise RuntimeError(f"import {xid} was aborted before attach")
+        slot = next(i for i, s in enumerate(self.streams)
+                    if not s.done and s.stream_id == sid
+                    and s.generated[:len(meta["generated"])]
+                    == meta["generated"])
+        return slot, xid
 
     @torch.inference_mode()
     def warm_admission(self, prompt_len: int) -> None:
@@ -566,50 +1200,103 @@ class BatchGenerator:
                                device=self.device),
             self.settings, self._noise(sids, sids))
         if self.streams:
-            # and one decode step at the live batch's width, over a
-            # scratch cache of a few slots
+            # and one decode step at the live batch's width
             b = len(self.streams)
-            scratch = init_cache(self.config, batch=b, max_seq=64,
-                                 device=self.device, quant=self.kv_quant)
+            cache, extra = self._warm_cache()
             zeros = torch.zeros(b, dtype=torch.int64, device=self.device)
-            self._decode(zeros, scratch, zeros, zeros,
+            self._decode(zeros, cache, zeros, zeros,
                          self._history.clone(), self._hist_slot.clone(),
-                         zeros, 1)
+                         zeros, 1, *extra)
             self.decode_steps += 1
+            if self._paged:
+                # and the admission's page moves, on the sink alone
+                sink = np.zeros((self._ppp,), np.int64)
+                kvpool_pool.row_gather(self.cache, sink)
         tok.cpu()  # synchronize
 
     def _admission_tick(self) -> None:
         """Advance the in-flight admission by one chunk (or start the next
-        queued arrival if a slot is free)."""
+        queued arrival if a slot is free). KV-page imports ride the same
+        FIFO: a begin lands the pages in the pool (deferring under pool
+        pressure as a prompt does), an attach installs the resumed stream
+        into a free slot; each takes one tick and no prefill."""
         if self._staging is None:
-            if not self._arrivals or self._free_slot() is None:
+            if not self._arrivals:
+                return
+            kind = self._arrivals[0][3]
+            if kind == _ARR_IMPORT:
+                self._import_begin_tick()
+                return
+            if kind == _ARR_ATTACH:
+                if self._free_slot() is not None:
+                    self._import_attach_tick()
+                return
+            if self._free_slot() is None:
                 return
             slot = self._free_slot()
-            ids, sid, guide = self._arrivals.pop(0)
-            # prefix reuse: an arrival opening with a stored prefix starts
-            # from a copy of that row and prefills only its remainder
-            # (from scratch when the remainder's bucket would not fit
-            # above the prefix)
-            base, row = self._prefix_store.match(ids)
+            # the slot's previous stream (retired by any path) frees its
+            # page claims before the arrival's needs are priced
+            self._release_pages(slot)
+            ids, sid, guide, _ = self._arrivals.pop(0)
+            # prefix reuse: an arrival opening with a stored prefix (a
+            # staged row in the slot layout, a page chain in the paged
+            # one) starts from it and prefills only its remainder (from
+            # scratch when the remainder's bucket would not fit above the
+            # prefix)
+            row, shared = None, []
+            if self._paged:
+                base = 0
+                if self.PREFIX_CACHE_ENTRIES > 0:
+                    base, shared = self._prefix_tree.match(ids)
+            else:
+                base, row = self._prefix_store.match(ids)
             rem = len(ids) - base
             chunk = self._admission_chunk_for(rem)
             t_pad = -(-rem // chunk) * chunk
             if base and base + t_pad > self.max_seq:
-                base, row = 0, None
+                base, row, shared = 0, None, []
                 rem = len(ids)
                 chunk = self._admission_chunk_for(rem)
                 t_pad = -(-rem // chunk) * chunk
+            if self._paged:
+                # hold the matched pages before any eviction can touch
+                # them, then price the remainder; when its pages cannot be
+                # found even by evicting cached prefixes, the arrival
+                # waits at the FIFO head until retirements free pages
+                for pid in shared:
+                    self._pagepool.ref(pid)
+                need = (len(ids) - 1) // self._page_size + 1 - len(shared)
+                if (self._pagepool.free_count < need
+                        and not self._prefix_tree.evict_until_free(need)):
+                    for pid in shared:
+                        self._pagepool.unref(pid)
+                    if not self._admit_deferred:
+                        # deferred admissions, not re-priced ticks
+                        self._pagepool.count_defer()
+                    self._admit_deferred = True
+                    self._arrivals.insert(0, (ids, sid, guide, None))
+                    return
+                self._admit_deferred = False
             tokens = np.zeros((1, t_pad), np.int64)
             tokens[0, :rem] = ids[base:]
-            cache = self._new_cache(1)
-            if base:
+            if base and self._paged:
                 self._prefix_hits += 1
-                # a copy: the stored row must survive for later hits
-                for dst, src in zip(_halves(cache), _halves(row)):
-                    dst.copy_(src)
+                # the staging starts as a gather of the shared pages (the
+                # prefix KV the remainder attends); the pages stay shared
+                ids_vec = np.zeros((self._ppp,), np.int64)
+                ids_vec[:len(shared)] = shared
+                cache = kvpool_pool.row_gather(self.cache, ids_vec)
+            else:
+                cache = self._new_cache(1)
+                if base:
+                    self._prefix_hits += 1
+                    # a copy: the stored row must survive for later hits
+                    for dst, src in zip(halves(cache), halves(row)):
+                        dst.copy_(src)
             self._staging = {"ids": ids, "sid": sid, "slot": slot,
                              "tokens": tokens, "pos": 0, "chunk": chunk,
-                             "base": base, "cache": cache, "guide": guide}
+                             "base": base, "cache": cache, "guide": guide,
+                             "shared": shared}
         st = self._staging
         pos, chunk, base = st["pos"], st["chunk"], st["base"]
         final = pos + chunk >= st["tokens"].shape[1]
@@ -664,10 +1351,35 @@ class BatchGenerator:
             lpv0, lpi0 = sampling.topk_logprobs(logits[0], self.logprobs_k)
             lp_row = [(int(i), float(v))
                       for v, i in zip(lpv0.tolist(), lpi0.tolist())]
-        # the splice: the staged row into slot `slot` of every layer, and
+        if self._paged:
+            # the paged "splice": the staged row's new pages go into the
+            # pool (the shared prefix pages are there already: their
+            # entries stay sink, so a shared page is never rewritten) and
+            # the table is installed
+            shared = st["shared"]
+            last_page = (len(ids) - 1) // self._page_size
+            ids_vec = np.zeros((self._ppp,), np.int64)
+            # held only by this local until the table install: released
+            # on the error path (an import landing since the admission
+            # was priced can have pinned pages past it)
+            new_pages: list[int] = []
+            try:
+                for _ in range(last_page + 1 - len(shared)):
+                    new_pages.append(self._alloc_page())
+                ids_vec[len(shared):last_page + 1] = new_pages
+                kvpool_pool.row_scatter(self.cache, st["cache"], ids_vec)
+            except BaseException:
+                for pid in new_pages:
+                    self._pagepool.unref(pid)
+                raise
+            self._release_pages(slot)  # idempotent (freed at the claim)
+            self._tables[slot] = shared + new_pages
+            self._page_map_dev = None
+        else:
+            # the splice: the staged row into slot `slot` of every layer
+            for dst, src in zip(halves(self.cache), halves(st["cache"])):
+                dst[:, slot].copy_(src[:, 0])
         # the stream's sampler state into row `slot`
-        for dst, src in zip(_halves(self.cache), _halves(st["cache"])):
-            dst[:, slot].copy_(src[:, 0])
         self._sids[slot] = stream_id
         self._history[slot] = self._ids(hist_row)
         self._hist_slot[slot] = len(tail) + 1
@@ -679,7 +1391,7 @@ class BatchGenerator:
 
         s = _Stream(stream_id=stream_id, prompt=ids,
                     detok=TokenOutputStream(self.tokenizer)
-                    if self.tokenizer else None)
+                    if self.tokenizer else None, noise_id=stream_id)
         self.streams[slot] = s
         s.generated.append(tok_id)
         window_full = len(ids) + 1 >= self.max_seq
@@ -696,12 +1408,26 @@ class BatchGenerator:
         row[slot] = Token(id=tok_id, text=text, is_end_of_stream=s.done,
                           logprobs=lp_row)
         self._pending_rows.append(row)
-        # this arrival's prefix, cut to a PREFIX_BLOCK boundary, becomes
-        # reusable by later arrivals with the same opening (the splice
-        # above copied the values out, so keeping the row costs no copy)
-        base_new = ((len(ids) - 1) // self.PREFIX_BLOCK) * self.PREFIX_BLOCK
-        if base_new >= max(1, self.PREFIX_SHARE_MIN):
-            self._store_prefix(ids[:base_new], st["cache"])
+        # this arrival's prefix becomes reusable by later arrivals with
+        # the same opening. Paged: the full prompt pages go into the
+        # prefix tree (it takes references, no copy). Slot: the staged
+        # row, cut to a PREFIX_BLOCK boundary (the splice above copied
+        # the values out, so keeping the row costs no copy).
+        if self._paged:
+            n_full = len(ids) // self._page_size
+            if (self.PREFIX_CACHE_ENTRIES > 0 and n_full
+                    and n_full * self._page_size
+                    >= max(1, self.PREFIX_SHARE_MIN)):
+                self._prefix_tree.insert(ids, self._tables[slot][:n_full])
+            if s.done:
+                # the first token ended the stream: its claims go now,
+                # after the tree took its references
+                self._release_pages(slot)
+        else:
+            base_new = ((len(ids) - 1) // self.PREFIX_BLOCK) \
+                * self.PREFIX_BLOCK
+            if base_new >= max(1, self.PREFIX_SHARE_MIN):
+                self._store_prefix(ids[:base_new], st["cache"])
 
     def finish(self, stream_id: int) -> bool:
         """Retire the stream with this ``stream_id`` at any point of its
@@ -722,12 +1448,23 @@ class BatchGenerator:
                 # as that arrival's: they go with the stream
                 for row in self._pending_rows:
                     row[i] = None
+                # paged: retirement is the KV free, a host-side unref loop
+                # over the slot's pages
+                self._release_pages(i)
                 return True
         if self._staging is not None and self._staging["sid"] == stream_id:
+            for pid in self._staging["shared"]:
+                self._pagepool.unref(pid)
             self._staging = None  # the staged KV row is dropped with it
             return True
         n0 = len(self._arrivals)
+        # a cancelled resume drops its queued attach and aborts the import
+        # behind it (its pinned pages must not wait out the TTL)
+        drop_xfers = [a[0] for a in self._arrivals
+                      if a[1] == stream_id and a[3] == _ARR_ATTACH]
         self._arrivals = [a for a in self._arrivals if a[1] != stream_id]
+        for xid in drop_xfers:
+            self.import_abort(xid)
         return len(self._arrivals) != n0
 
     @torch.inference_mode()
@@ -739,7 +1476,7 @@ class BatchGenerator:
         if not self.streams:
             raise RuntimeError("set_prompts first")
         ids = self._encode(prompt)
-        self._arrivals.append((ids, stream_id, None))
+        self._arrivals.append((ids, stream_id, None, None))
         # drain until OUR arrival (tracked by list identity: FIFO order
         # admits anything queued ahead of it first) is admitted
         while (any(a[0] is ids for a in self._arrivals)
@@ -750,6 +1487,14 @@ class BatchGenerator:
                                   if a[0] is not ids]
                 raise RuntimeError("no free slot: every stream is still live")
             self._admission_tick()
+            if self._staging is None and self._admit_deferred:
+                # pool pressure: nothing inside a synchronous admit()
+                # retires streams and frees pages
+                self._arrivals = [a for a in self._arrivals
+                                  if a[0] is not ids]
+                raise RuntimeError(
+                    "kv page pool exhausted: admission deferred (retire "
+                    "streams via step()/finish(), or grow kv_pool_pages)")
         # the emission row just queued duplicates the returned Token
         row = self._pending_rows.pop()
         slot = next(i for i, t in enumerate(row) if t is not None)
@@ -778,6 +1523,10 @@ class BatchGenerator:
                 if s.done:
                     s.end_reason = "eos" if is_eos else "length"
                 self._advance_guide(i, s, tok_id)
+                if s.done:
+                    # paged: the slot's pages free the moment its last row
+                    # is emitted
+                    self._release_pages(i)
                 # the EOS id is an end marker, not text
                 text = (s.detok.next_token(tok_id)
                         if s.detok is not None and not is_eos else None)
@@ -857,9 +1606,11 @@ class BatchGenerator:
                     self._ids(self._index))
             if masked:
                 toks, lp = self._decode_masked(
-                    *args, self._mask_table, self._ids(self._mask_rows_np()))
+                    *args, self._mask_table, self._ids(self._mask_rows_np()),
+                    *self._paged_args(1))
             else:
-                toks, lp = self._decode(*args, size)
+                toks, lp = self._decode(*args, size,
+                                        *self._paged_args(size))
             host = HostCopy(toks)
             lp_host = (HostCopy(lp[0]), HostCopy(lp[1])) if lp else None
         self._n_decode_dispatches += 1
@@ -935,8 +1686,13 @@ class BatchGenerator:
             "decode_dispatches": self._n_decode_dispatches,
             "admit_dispatches": self._n_admit_dispatches,
             "prefix_hits": self._prefix_hits,
-            "prefix_entries": len(self._prefix_store),
-            "kv_layout": "slot",
+            "prefix_entries": (len(self._prefix_tree) if self._paged
+                               and self._prefix_tree is not None
+                               else len(self._prefix_store)),
+            "kv_layout": "paged" if self._paged else "slot",
+            **({"kvpool": self._pagepool.stats(),
+                "imports_pending": self.imports_pending()}
+               if self._paged and self._pagepool is not None else {}),
             "tokens_per_dispatch": (
                 round(self._n_emitted / dispatches, 2) if dispatches
                 else None),

@@ -315,13 +315,21 @@ def _make_handler(server: ApiServer):
                     "max_concurrent": st["max_concurrent"],
                     "tok_s_ema": st["observed_tok_s"],
                     "role": st["role"],
-                    # the JAX server's load fields for KV transfers,
-                    # spilled streams and preemptions: the slot layout
-                    # does none of these, so they read 0
-                    "kv_transfers_inflight": 0,
-                    "spilled": 0,
-                    "preemptions": 0,
+                    # KV transfers between replicas (not ported: 0), and
+                    # the spill pressure: victims parked in host RAM are
+                    # latent load that will resume here
+                    "kv_transfers_inflight": st.get(
+                        "kv_transfers_inflight", 0),
+                    "spilled": st.get("spilled", 0),
+                    "preemptions": st.get("preemptions", 0),
                 }
+                eng_st = st.get("engine")
+                kv = (eng_st.get("kvpool")
+                      if isinstance(eng_st, dict) else None)
+                if kv:
+                    # paged-KV pressure: a pool out of free pages defers
+                    # admissions even when slots look open
+                    body["kv_pages_free"] = kv["pages_free"]
                 if st.get("slo"):
                     # SLO burn state (--slo-ttft-ms/--slo-tpot-ms) rides
                     # the same probe body dashboards already poll

@@ -29,15 +29,22 @@ SLO-aware scheduling, ``sched_policy="slo"`` (the default;
 - **Priority classes** — each session carries a class
   (``session.CLASSES``, highest first): interactive arrivals jump batch
   arrivals in the admission queue (FIFO within a class).
+- **Preemption with host-RAM KV spill** — over the paged engine, an
+  interactive arrival that finds every slot held by batch streams picks a
+  victim (lowest class, over-budget tenants preferred, most recently
+  admitted), exports its stream through the snapshot path into the
+  bounded :class:`~cake_tpu_torch.serve.spill.SpillStore`, and takes the
+  slot and pages. The victim resumes bit-identically through the engine's
+  import path when pressure drops; device rows the export captured past
+  what the client saw replay into the session first, so the client's
+  stream is byte-identical to an unpreempted run.
 - **Per-tenant fairness** — a decaying token-rate accountant keyed by
   the session's ``tenant`` (defaults to its class): over-budget tenants
-  queue behind in-budget arrivals of the same class
-  (``serve.tenant_throttled``).
+  queue behind in-budget arrivals of the same class and are preferred
+  preemption victims (``serve.tenant_throttled``).
 
-This is the JAX package's scheduler over the slot-layout engine, the only
-layout the port has. What needs the paged layout's stream export is not
-ported yet: preemption with host-RAM spill, the disaggregated
-prefill/decode roles and KV transfers, and drain migration to a sibling.
+The JAX package's disaggregated prefill/decode roles, KV transfers
+between replicas and drain migration to a sibling are not ported yet.
 """
 
 from __future__ import annotations
@@ -54,26 +61,27 @@ from cake_tpu_torch.obs import prof as obs_prof
 from cake_tpu_torch.obs import reqtrace as obs_reqtrace
 from cake_tpu_torch.serve import session as _session
 from cake_tpu_torch.serve.session import CLASSES, Session
+from cake_tpu_torch.serve.spill import SpillFull, SpillStore
 
 log = logging.getLogger("cake_tpu_torch.serve.scheduler")
 
-# admission policies: "slo" = class priority + tenant fairness (the
-# production mix); "fifo" = strict arrival order (the single-tenant
-# baseline)
+# admission policies: "slo" = class priority + preemption + tenant
+# fairness (the production mix); "fifo" = strict arrival order, no
+# preemption (the single-tenant baseline)
 SCHED_POLICIES = ("slo", "fifo")
 
-# admissions where an over-budget tenant was queued behind in-budget
-# arrivals
+# batch victims spilled to host RAM for an interactive arrival, how long
+# their resume took (import begin through attach queued, replay
+# included), and admissions where an over-budget tenant was queued behind
+# in-budget arrivals
+PREEMPTIONS = obs_metrics.counter("serve.preemptions")
+RESUME_MS = obs_metrics.histogram("serve.resume_ms")
 THROTTLED = obs_metrics.counter("serve.tenant_throttled")
 
-# The JAX server's series for preemption, spill and drain migration. They
-# need the paged layout's stream export; they are declared so that
-# /metrics lists the same serve.* series as the JAX server, and read 0.
-for _name in ("serve.preemptions", "serve.migrated_sessions"):
-    obs_metrics.counter(_name)
-for _name in ("serve.spill_bytes", "serve.spill_pages"):
-    obs_metrics.gauge(_name)
-obs_metrics.histogram("serve.resume_ms")
+# The JAX server's drain-migration series: migration to a sibling is not
+# ported; it is declared so that /metrics lists the same serve.* series as
+# the JAX server, and reads 0.
+obs_metrics.counter("serve.migrated_sessions")
 
 
 class TenantAccounts:
@@ -157,6 +165,7 @@ class Scheduler:
         "_draining": "_cond",
         "_stopping": "_cond",
         "_engine_stats": "_cond",
+        "_spilled": "_cond",
     }
 
     # Thread domains, machine-checked by the thread-domain contract: the class
@@ -171,6 +180,10 @@ class Scheduler:
     # asserts membership in the engine's annotated mutators.
     _THREAD_DOMAIN = "engine"
     _THREAD_OF = {"start": "engine"}
+    # the wire activation codec a spilled snapshot's pages ride: "none" is
+    # lossless for every cache (the JAX scheduler's --transfer-codec,
+    # which comes with the KV transfer plane, defaults to it)
+    transfer_codec = "none"
     _THREAD_SAFE = (
         "submit", "cancel", "stop", "close", "encode_prompt",
         "retry_after_s", "stats", "begin_drain",
@@ -180,7 +193,7 @@ class Scheduler:
                  request_timeout_s: float | None = None,
                  role: str = "mixed",
                  slo: obs_reqtrace.SloTracker | None = None,
-                 sched_policy: str = "slo",
+                 sched_policy: str = "slo", spill_mb: float = 64.0,
                  fairness_factor: float = 2.0):
         if queue_depth < 1:
             raise ValueError(f"queue_depth must be >= 1, got {queue_depth}")
@@ -190,8 +203,9 @@ class Scheduler:
         if role != "mixed":
             # the prefill and decode roles hand streams between replicas
             raise ValueError(
-                f"role {role!r} needs a disagg-capable engine (the paged "
-                "KV layout, not ported yet); the port serves 'mixed'")
+                f"role {role!r} needs a disagg-capable engine and the KV "
+                "transfer plane between replicas, not ported yet; the "
+                "port serves 'mixed'")
         self.engine = engine
         self.queue_depth = queue_depth
         self.request_timeout_s = request_timeout_s
@@ -200,10 +214,24 @@ class Scheduler:
         # themselves against this tracker at finish (obs/reqtrace)
         self.slo = slo
         self.sched_policy = sched_policy
+        # the spill store exists only when the engine exports pages (the
+        # paged layout); a slot-layout engine keeps class ordering
+        # without preemption
+        can_spill = bool(hasattr(engine, "export_stream")
+                         and getattr(engine, "paged", False))
+        self._spill: SpillStore | None = (
+            SpillStore(max_bytes=int(spill_mb * (1 << 20)))
+            if can_spill and spill_mb > 0 else None)
+        # spilled victims awaiting resume: {"sess": Session, "t": float}
+        self._spilled: list[dict] = []
         # token-rate fairness accountant — engine-thread-only (fed by
-        # _deliver, read by admission ordering), so it stays out of
-        # _GUARDED_BY like the throughput EMA
+        # _deliver, read by admission and victim ordering), so it stays
+        # out of _GUARDED_BY like the throughput EMA
         self._tenants = TenantAccounts(factor=fairness_factor)
+        self._n_preempt = 0  # engine-thread writes, atomic healthz reads
+        # testing/chaos.SpillChaos hook, consulted on the engine thread at
+        # the preempt/resume protocol points (tests arm it directly)
+        self.spill_chaos = None
         self.max_concurrent = 0  # set by start()
         self._queue: deque[Session] = deque()
         self._by_sid: dict[int, Session] = {}
@@ -360,6 +388,7 @@ class Scheduler:
         with self._cond:
             queued = len(self._queue)
             running = len(self._by_sid)
+            spilled = len(self._spilled)
             draining = self._draining
             # the engine block is the ENGINE THREAD's own snapshot
             # (refreshed every loop pass) — handler threads must not
@@ -375,6 +404,14 @@ class Scheduler:
             "observed_tok_s": round(self._tok_s, 2),
             "role": self.role,
             "sched_policy": self.sched_policy,
+            # spill pressure: victims parked in host RAM (latent load that
+            # will resume here) and the preemption count
+            "spilled": spilled,
+            "preemptions": self._n_preempt,
+            **({"spill": self._spill.stats()}
+               if self._spill is not None else {}),
+            # KV transfers between replicas are not ported: none in flight
+            "kv_transfers_inflight": 0,
             **({"slo": self.slo.snapshot()}
                if self.slo is not None else {}),
             "engine": engine_stats,
@@ -382,7 +419,7 @@ class Scheduler:
 
     # -- engine thread --------------------------------------------------------
     def _has_work_locked(self) -> bool:
-        return bool(self._queue or self._by_sid
+        return bool(self._queue or self._by_sid or self._spilled
                     or self.engine.pending_admissions())
 
     def _run(self) -> None:
@@ -430,6 +467,8 @@ class Scheduler:
                     obs_prof.sentinel().mark_steady()
                 self._deliver(row)
                 self._retire()
+                self._sweep_spilled()
+                self._fail_lost_attaches()
                 self._refresh_engine_stats()
             except Exception as e:  # engine fault: fail every session
                 log.exception("engine thread fault: %s", e)
@@ -471,30 +510,60 @@ class Scheduler:
     def _admit(self) -> None:
         """Move queued sessions into the engine while slots are spoken
         for < max_concurrent (the engine interleaves each arrival's
-        prefill with decode), in ``_pick_next_locked`` order."""
+        prefill with decode). Under ``sched_policy="slo"`` the pick is
+        class-ordered: spilled resumes and queued arrivals merge, and a
+        saturated engine preempts a batch victim for a waiting
+        higher-class arrival (``_maybe_preempt``); ``"fifo"`` keeps strict
+        arrival order with no preemption."""
+        self._maybe_resume_storm()
         while True:
-            with self._cond:
-                sess = (self._pick_next_locked()
-                        if len(self._by_sid) < self.max_concurrent
-                        else None)
-            if sess is None:
+            while True:
+                with self._cond:
+                    pick = (self._pick_next_locked()
+                            if len(self._by_sid) < self.max_concurrent
+                            else None)
+                if pick is None:
+                    break
+                kind, item = pick
+                if kind == "resume":
+                    self._resume_one(item)
+                else:
+                    self._admit_one(item)
+            if not self._maybe_preempt():
                 return
-            self._admit_one(sess)
 
-    def _pick_next_locked(self) -> Session | None:
-        """Pop and return the next queued arrival to admit, None when the
-        queue is empty. Ordering under "slo": higher class first; within
-        a class, in-budget tenants before over-budget ones, FIFO last.
-        "fifo" is strict arrival order."""
-        if not self._queue:
-            return None
+    def _pick_next_locked(self):
+        """Pop and return the next admission candidate: ``("resume",
+        entry)`` for a spilled victim, ``("admit", session)`` for a queued
+        arrival, None when nothing is eligible. Ordering under "slo":
+        higher class first; within a class, in-budget tenants before
+        over-budget ones, resumes before fresh arrivals (they are strictly
+        older), FIFO last. "fifo" is strict arrival order."""
         if self.sched_policy == "fifo":
+            if self._spilled:
+                return ("resume", self._spilled.pop(0))
+            if not self._queue:
+                return None
             sess = self._queue.popleft()
             _session.QUEUE_DEPTH.set(len(self._queue))
-            return sess
-        idx = min(range(len(self._queue)), key=lambda i: (
-            CLASSES.index(self._queue[i].cls),
-            self._tenants.over_budget(self._queue[i].tenant), i))
+            return ("admit", sess)
+        best_key, best = None, None
+        for j, ent in enumerate(self._spilled):
+            s = ent["sess"]
+            key = (CLASSES.index(s.cls),
+                   self._tenants.over_budget(s.tenant), 0, j)
+            if best_key is None or key < best_key:
+                best_key, best = key, ("resume", j)
+        for i, s in enumerate(self._queue):
+            key = (CLASSES.index(s.cls),
+                   self._tenants.over_budget(s.tenant), 1, i)
+            if best_key is None or key < best_key:
+                best_key, best = key, ("admit", i)
+        if best is None:
+            return None
+        kind, idx = best
+        if kind == "resume":
+            return ("resume", self._spilled.pop(idx))
         sess = self._queue[idx]
         if any(CLASSES.index(q.cls) == CLASSES.index(sess.cls)
                for q in list(self._queue)[:idx]):
@@ -503,7 +572,7 @@ class Scheduler:
             THROTTLED.inc()
         del self._queue[idx]
         _session.QUEUE_DEPTH.set(len(self._queue))
-        return sess
+        return ("admit", sess)
 
     def _admit_one(self, sess: Session) -> None:
         """Hand one queued session to the engine (``enqueue``)."""
@@ -534,6 +603,212 @@ class Scheduler:
         sess.stream_id = sid
         with self._cond:
             self._by_sid[sid] = sess
+
+    # -- preemption + spill --------------------------------------------------
+    def _chaos_fire(self, kind: str) -> bool:
+        chaos = self.spill_chaos
+        return bool(chaos is not None and chaos.fire(kind))
+
+    def _maybe_resume_storm(self) -> None:
+        """Chaos hook: a "resume_storm" fault resumes every spilled victim
+        at once, whatever the capacity: the attaches queue FIFO-fair at
+        the engine and their page demand drives the pool's deferral path
+        (``kvpool.admit_defers``) under pressure."""
+        if self._spill is None:
+            return
+        with self._cond:
+            if not self._spilled:
+                return
+        if not self._chaos_fire("resume_storm"):
+            return
+        with self._cond:
+            storm, self._spilled = self._spilled, []
+        log.warning("chaos: resume storm over %d spilled streams",
+                    len(storm))
+        for ent in storm:
+            self._resume_one(ent)
+
+    def _resume_one(self, ent: dict) -> None:
+        """Bring a spilled victim back: pop its payload from the store,
+        import it through the engine's snapshot path, replay the tokens
+        the export captured past what the client saw (buffered device rows
+        drain into the snapshot, and ``finish`` discarded their
+        emission), and attach it to a fresh slot. The replay makes the
+        client's stream byte-identical to an unpreempted run; the engine
+        emits only new tokens after the attach."""
+        sess: Session = ent["sess"]
+        if sess.cancelled.is_set():
+            _session.CANCELLED.inc()
+            self._spill.discard(sess.id)
+            sess.finish("cancelled")
+            return
+        t0 = time.perf_counter()
+        t0_unix = time.time()
+        payload = self._spill.take(sess.id)
+        if payload is None:
+            sess.fail(503, "spilled stream lost; retry")
+            return
+        try:
+            meta = self.engine.import_begin(payload)
+        except Exception as e:
+            log.exception("resume import of %s failed", sess.id)
+            sess.fail(500, f"spill resume failed: {e}")
+            return
+        xid = meta["xfer_id"]
+        # replay the suffix the client never saw; the session's stop
+        # holdback and max_tokens clamp apply as if the tokens had
+        # streamed live
+        n_seen = len(sess.generated)
+        for tid, txt in zip(meta["generated"][n_seen:],
+                            meta["texts"][n_seen:]):
+            sess.on_token(tid, txt)
+            if sess.stop_hit or len(sess.generated) >= sess.max_tokens:
+                break
+        if sess.stop_hit or len(sess.generated) >= sess.max_tokens:
+            # the replay alone finished the request: no slot needed
+            self.engine.import_abort(xid)
+            sess.finish("stop" if sess.stop_hit else "length")
+            return
+        with self._cond:
+            sid = self._next_sid
+            self._next_sid += 1
+        try:
+            self.engine.import_attach(xid, sid)
+        except KeyError as e:
+            sess.fail(409, str(e))
+            return
+        sess.stream_id = sid
+        with self._cond:
+            self._by_sid[sid] = sess
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        RESUME_MS.observe(dt_ms)
+        if sess.reqtrace is not None:
+            sess.reqtrace.add_span("serve.resume", t0_unix, dt_ms,
+                                   request=sess.id)
+
+    def _pages_of(self, sess: Session) -> int:
+        """KV pages a live stream holds (its token count over the pool's
+        page size, rounded up): bookkeeping for the spill gauges."""
+        with self._cond:
+            ps = (self._engine_stats.get("kvpool") or {}).get("page_size", 0)
+        n = len(sess.prompt_ids) + len(sess.generated)
+        return (n - 1) // ps + 1 if ps and n else 0
+
+    def _maybe_preempt(self) -> bool:
+        """A waiting arrival outranks a running stream: spill the worst
+        victim (lowest class, over-budget tenant preferred, most recently
+        admitted) to host RAM and free its slot and pages. Returns True
+        when a preemption landed (the admit loop then picks again). The
+        export touches nothing until ``finish``, so every refusal path
+        (store full, victim raced retirement, a chaos fault) leaves the
+        victim decoding untouched."""
+        if self._spill is None or self.sched_policy != "slo":
+            return False
+        with self._cond:
+            if self._draining or len(self._by_sid) < self.max_concurrent:
+                return False
+            waiting = [ent["sess"] for ent in self._spilled]
+            waiting += list(self._queue)
+            if not waiting:
+                return False
+            want = min(CLASSES.index(s.cls) for s in waiting)
+            cands = [
+                (sid, sess) for sid, sess in self._by_sid.items()
+                if CLASSES.index(sess.cls) > want
+                and sess.logprobs == 0
+                and sess.finish_reason is None
+                and not sess.cancelled.is_set()
+            ]
+        if not cands:
+            return False
+        cands.sort(key=lambda it: (
+            -CLASSES.index(it[1].cls),
+            not self._tenants.over_budget(it[1].tenant),
+            -(it[1].t_admit_unix or 0.0),
+        ))
+        for sid, sess in cands:
+            slot = self._slot_of(sid)
+            if slot is None or self.engine.streams[slot].done:
+                continue  # finished since the locked snapshot
+            if self._chaos_fire("victim_finish"):
+                # injected selection race: the victim "finished" between
+                # pick and export; bail out, nothing was touched
+                log.warning("chaos: victim %d finished during spill", sid)
+                return False
+            try:
+                if self._chaos_fire("spill_full"):
+                    raise SpillFull("chaos: spill store at capacity")
+                payload = self.engine.export_stream(
+                    sid, codec=self.transfer_codec)
+                claim = self._spill.spill_begin(
+                    sess.id, len(payload), pages=self._pages_of(sess))
+            except SpillFull as e:
+                log.info("preemption skipped: %s", e)
+                return False  # payload dropped; the victim keeps decoding
+            except ValueError:
+                continue  # the stream raced retirement / already spilled
+            except Exception:
+                log.exception("export of victim %d failed", sid)
+                return False
+            try:
+                self.engine.finish(sid)  # frees the slot and pages
+                with self._cond:
+                    self._by_sid.pop(sid, None)
+                    self._spilled.append(
+                        {"sess": sess, "t": time.monotonic()})
+                self._spill.spill_commit(claim, payload)
+            except Exception:
+                self._spill.spill_abort(claim)
+                raise
+            self._n_preempt += 1
+            PREEMPTIONS.inc()
+            if sess.reqtrace is not None:
+                sess.reqtrace.add_span("serve.preempt", time.time(), 0.0,
+                                       request=sess.id)
+            log.info("preempted stream %d (%s/%s) for a higher-class "
+                     "arrival", sid, sess.cls, sess.tenant)
+            return True
+        return False
+
+    def _sweep_spilled(self) -> None:
+        """Spilled victims still own a deadline and a client: close out the
+        ones that cancelled or expired while parked, and drop their
+        payloads (they will never resume here)."""
+        if self._spill is None:
+            return
+        with self._cond:
+            ents = list(self._spilled)
+        if not ents:
+            return
+        now = time.perf_counter()
+        for ent in ents:
+            sess = ent["sess"]
+            reason = None
+            if sess.cancelled.is_set():
+                _session.CANCELLED.inc()
+                reason = "cancelled"
+            elif sess.deadline is not None and now > sess.deadline:
+                _session.TIMEOUTS.inc()
+                reason = "timeout"
+            if reason is None:
+                continue
+            self._spill.discard(sess.id)
+            with self._cond:
+                if ent in self._spilled:
+                    self._spilled.remove(ent)
+            sess.finish(reason)
+
+    def _fail_lost_attaches(self) -> None:
+        """Sessions whose resume attach found its import gone fail with a
+        retryable status instead of hanging until their deadline."""
+        if not hasattr(self.engine, "take_attach_failures"):
+            return
+        for sid in self.engine.take_attach_failures():
+            with self._cond:
+                sess = self._by_sid.pop(sid, None)
+            if sess is not None and sess.finish_reason is None:
+                sess.fail(409, "kv import expired before the resume "
+                               "attached; retry")
 
     def _deliver(self, row) -> None:
         """Fan one emitted row out to its sessions' event queues."""
@@ -623,7 +898,12 @@ class Scheduler:
             self._queue.clear()
             running = list(self._by_sid.values())
             self._by_sid.clear()
+            spilled = [ent["sess"] for ent in self._spilled]
+            self._spilled.clear()
             _session.QUEUE_DEPTH.set(0)
-        for s in queued + running:
+        for s in spilled:
+            if self._spill is not None:
+                self._spill.discard(s.id)
+        for s in queued + running + spilled:
             if s.finish_reason is None:
                 s.fail(503, message)

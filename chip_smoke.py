@@ -8,6 +8,8 @@
                                           # another tree)
     python3 chip_smoke.py --phase 10      # phases 1, 6 and 10 only; no
                                           # result line
+    python3 chip_smoke.py --phase 11      # phases 1 and 11 only; no
+                                          # result line
 
 Phases, each fatal on failure:
 
@@ -90,7 +92,25 @@ Phases, each fatal on failure:
    ``response_format`` request to the in-process server; (v) the command
    line's ``--lookahead`` (phase 6's ids), ``--window 8`` (an in-process
    generator's ids with that window), ``--logit-bias 7:100`` and the
-   observability flags with ``--profile``.
+   observability flags with ``--profile``;
+11. the paged KV layout (``BatchGenerator(kv_layout="paged")``, page size
+   16), run at the end of each of phase 7's paths over its weights once
+   its engines are freed: phase 7's scenario on the slot engine and on the
+   paged one, (a) three timed runs of each, (b) one, every stream of every
+   run equal to phase 7's ids, at blocks 8 and 1, launches exact, pages
+   shared under the prefix and all back at retirement but the prefix
+   tree's; a planted fault (stream 0's page map shifted by one page) must
+   change the ids; the card ms and launches of a decode step (profiler)
+   beside the slot engine's, the gather and write-back ms of a dispatch,
+   tokens/s, TTFT and peak memory; a minimum pool (window 1,024) under
+   pressure: an arrival defers behind pinned imports, the prefix tree
+   evicts, every stream equal to the slot engine's; stream 0 exported
+   mid-decode (codec none, and bf16 on (a) / int8 on (b)), finished,
+   imported under another id and continued, greedy and sampled, equal to
+   the uninterrupted run; on (a), the in-process server with
+   ``--spill-mb 256``: eight batch requests hold the slots, an
+   interactive one preempts a victim, which is spilled and resumed, and
+   every stream equals the engine's own ids.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the ``cake_tpu_torch`` package beside this file, it exits with
@@ -100,6 +120,7 @@ an error and prints no result. It imports no JAX.
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import os
 import re
@@ -1407,15 +1428,17 @@ def plant_splice_fault(g, kind: str) -> None:
     g._finish_admission = faulty
 
 
-def drive_batch(torch, g, prompts, quotas, arrivals=(), after=2):
+def drive_batch(torch, g, prompts, quotas, arrivals=(), after=2,
+                probe=None):
     """Run the serving engine ``g`` the way the serve scheduler does: the
     prompts in slots 0..7, each emitted row delivered to the stream in its
     slot, each stream retired at its quota; ``arrivals`` (prompt, quota)
-    enqueued once ``after`` streams have ended. Returns each stream's
-    delivered ids by stream id, the arrivals' host-clock TTFT (enqueue to
-    first delivered token) in ms, the host seconds and tokens of the run
-    after the first step, and each stream's delivered top-k logprobs
-    (when the engine reports them)."""
+    enqueued once ``after`` streams have ended; ``probe(step)``, when
+    given, runs after each step. Returns each stream's delivered ids by
+    stream id, the arrivals' host-clock TTFT (enqueue to first delivered
+    token) in ms, the host seconds and tokens of the run after the first
+    step, and each stream's delivered top-k logprobs (when the engine
+    reports them)."""
     g.set_prompts(prompts, stream_ids=list(range(len(prompts))))
     quota = dict(enumerate(quotas))
     got = {sid: [] for sid in quota}
@@ -1442,6 +1465,8 @@ def drive_batch(torch, g, prompts, quotas, arrivals=(), after=2):
             if tok.is_end_of_stream or len(got[sid]) >= quota[sid]:
                 g.finish(sid)
                 ended.add(sid)
+        if probe is not None:
+            probe(step)
         if pending and len(ended) >= after:
             t_enq = time.perf_counter()
             for i, (prompt, q) in enumerate(pending):
@@ -1528,10 +1553,13 @@ def check_against_single(torch, cfg, params, label, prompts, streams,
     return out
 
 
-def phase_batch(torch, build) -> list:
+def phase_batch(torch, build, after=None) -> list:
     """The serving engine over the full 32-layer Llama-3-8B at 8 slots:
     (a) bf16, (b) int8 weights with the int8 KV cache; then a small
-    window (1,024) whose longest stream runs to the edge."""
+    window (1,024) whose longest stream runs to the edge. ``after(label,
+    cfg, params, weights, kv_quant, prompts, arrivals, streams)`` runs at
+    the end of each path, over its weights, once its engines are freed
+    (phase 11)."""
     from cake_tpu_torch.models import llama
     from cake_tpu_torch.models.config import llama3_8b
     from cake_tpu_torch.ops.sampling import SamplerSettings
@@ -1628,12 +1656,18 @@ def phase_batch(torch, build) -> list:
             result["window_edge"] = window_edge_run(torch, cfg, params,
                                                     settings)
         results.append(result)
-        del params, runs
+        streams8 = runs[8]["streams"]
+        del runs
+        torch.cuda.empty_cache()
+        if after is not None:
+            after(label, cfg, params, weights, kv_quant, prompts, arrivals,
+                  streams8)
+        del params
         torch.cuda.empty_cache()
     return results
 
 
-def profile_batch(torch, g, prompts, label) -> dict:
+def profile_batch(torch, g, prompts, label, tag="[7]") -> dict:
     """Card time of one decode block (8 steps) of the 8-slot batch from a
     profiler trace, beside the host clock's time for an unprofiled block:
     the card's busy share of a step."""
@@ -1655,7 +1689,7 @@ def profile_batch(torch, g, prompts, label) -> dict:
     prof["device_ms_per_step"] = prof["device_ms"] / steps
     prof["wall_ms_per_step"] = wall_ms
     prof["busy_share"] = prof["device_ms_per_step"] / wall_ms
-    say(f"[7] {label} 8-slot decode: {prof['device_ms_per_step']:.3f} ms of "
+    say(f"{tag} {label} 8-slot decode: {prof['device_ms_per_step']:.3f} ms of "
         f"card kernel time a step over {prof['kernel_launches'] / steps:.1f}"
         f" launches, {wall_ms:.3f} ms a step on the host clock: card busy "
         f"{100 * prof['busy_share']:.1f}%; top {prof['top']}")
@@ -2859,6 +2893,508 @@ def kernel_times(torch, flash, qmatmul, quant) -> dict:
     return {"matmul_ms": times, "flash_decode_ms": decode}
 
 
+# --------------------------------------------------------------------------
+# phase 11
+# --------------------------------------------------------------------------
+
+PAGE = 16  # tokens a KV page
+# the pool-pressure scenario's window (a minimum pool of 1,024 pages: 8
+# streams x 64 pages + the sink, rounded up to a power of two), its 8
+# prompts and quotas, and 12 distinct 880-id arrivals (55 full pages each
+# into the prefix tree), 8 tokens each
+PRESSURE_WINDOW = 1024
+PRESSURE_LENS = (900, 700, 500, 300, 200, 100, 40, 9)
+PRESSURE_QUOTAS = (40, 40, 40, 40, 40, 40, 40, 1)
+PRESSURE_ARRIVALS = 12
+# the export/import scenario: stream 0 (2,000 ids) exported after 20
+# tokens, finished, imported under stream id 100 and run on to 40
+EXPORT_AT, EXPORT_QUOTA = 20, 40
+SPILL_MB = 256
+
+
+def paged_engine(torch, cfg, params, kv_quant, block, **kw):
+    from cake_tpu_torch.runtime.batch_generator import BatchGenerator
+
+    return BatchGenerator(cfg, params, block_size=block, kv_quant=kv_quant,
+                          kv_layout="paged", kv_page_size=PAGE, **kw)
+
+
+def timed_runs(torch, build, make, prompts, arrivals, n, label, layout,
+               cfg, weights, kv_quant, want=None):
+    """``n`` timed runs of phase 7's scenario at block 8, each on a new
+    engine (``make()``: the slot layout's prefix store outlives
+    set_prompts, and a row stored by an earlier run would change an
+    arrival's prefix hit), the first with its launches checked against
+    the model calls; every run's streams must equal ``want`` (the first
+    run's when None). Returns the first run's streams, launches and
+    counters, the tokens/s of every run, the arrivals' TTFT, the peak of
+    allocated card memory and the last engine."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"tokens_per_s": [], "ttft_ms": []}
+    g = None
+    for i in range(n):
+        g = None  # the previous run's engine goes before the next one
+        g = make()
+        g.warm_admission(64)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        p0, d0 = g.prefill_calls, g.decode_steps
+        shared = []
+        probe = (lambda step: shared.append(
+            g.stats()["kvpool"]["pages_shared"])) if layout == "paged" \
+            else None
+        streams, ttft, wall, tokens, _ = drive_batch(
+            torch, g, prompts, BATCH_QUOTAS,
+            list(zip(arrivals, ARRIVAL_QUOTAS)), probe=probe)
+        torch.cuda.synchronize()
+        counts = build.launches()
+        if i == 0:
+            exp = expected_launches(cfg, weights, kv_quant,
+                                    g.prefill_calls - p0,
+                                    g.decode_steps - d0)
+            if counts != exp:
+                fail(f"[11] {label} {layout}: kernels launched {counts}, "
+                     f"want {exp}")
+            out.update(streams=streams, launches=counts,
+                       prefill_calls=g.prefill_calls - p0,
+                       decode_steps=g.decode_steps - d0,
+                       pages_shared_max=max(shared) if shared else None,
+                       stats=g.stats())
+            if want is None:
+                want = streams
+        if streams != want:
+            diff = [sid for sid in want if streams.get(sid) != want[sid]]
+            fail(f"[11] {label} {layout} run {i}: streams {diff} differ "
+                 "from the slot layout's")
+        out["tokens_per_s"].append(tokens / wall)
+        out["ttft_ms"].append(list(ttft.values()))
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["engine"] = g
+    tps = out["tokens_per_s"]
+    say(f"[11] {label} {layout} block 8: tokens/s (host clock) "
+        f"{[round(t, 2) for t in tps]} (spread {max(tps) - min(tps):.2f}); "
+        f"arrivals' TTFT ms {[round(t, 2) for t in out['ttft_ms'][0]]}; "
+        f"peak {out['peak_gb']:.2f} GB; launches {out['launches']}")
+    return out
+
+
+def page_moves_ms(torch, g) -> dict:
+    """Card ms of one decode dispatch's gather of the live batch's pages
+    into the contiguous view and of its write-back of 2 pages a row (block
+    8), at the engine's live state (CUDA events, L2 flushed)."""
+    from cake_tpu_torch.kvpool import pool as kvpool
+
+    with torch.inference_mode():  # the engine's tensors
+        page_map = g._ids(g._page_map_np())
+        w = kvpool.writeback_width(8, PAGE, g._ppp)
+        ids = g._ids(g._scatter_ids_np(8))
+        first = torch.clamp(g._ids(g._pos).long() // PAGE, max=g._ppp - w)
+        view = kvpool.gather_view(g.cache, page_map)
+        gather = time_ms(torch, lambda: kvpool.gather_view(g.cache,
+                                                           page_map), n=10)
+        scatter = time_ms(torch, lambda: kvpool.scatter_back(
+            g.cache, view, first, ids), n=10)
+    nbytes = sum(t.numel() * t.element_size() for t in kvpool.halves(view))
+    del view
+    return {"gather_ms": gather, "scatter_ms": scatter,
+            "view_gb": nbytes / 1e9,
+            "gather_bound_ms": 2 * nbytes / PEAK_BYTES_PER_S * 1e3}
+
+
+def plant_page_shift(g) -> None:
+    """The planted fault: stream 0's page map shifted by one page (its
+    logical page j read from physical page j + 1)."""
+    real = g._page_map_np
+
+    def shifted():
+        m = real()
+        m[0, :-1] = m[0, 1:].copy()
+        return m
+
+    g._page_map_np = shifted
+
+
+def pressure_drive(torch, g, prompts, quotas, arrivals, hold=None):
+    """The pressure scenario's loop, for both layouts: the prompts in
+    slots 0..7, each stream retired at its quota, the arrivals enqueued one
+    at a time, each once no admission is pending; ``hold(step)``, when
+    given, runs after each step and holds the next arrival back while it
+    returns True. Returns each stream's ids by stream id."""
+    g.set_prompts(prompts, stream_ids=list(range(len(prompts))))
+    quota = dict(enumerate(quotas))
+    got = {sid: [] for sid in quota}
+    ended, queue = set(), list(arrivals)
+    for step in range(6000):
+        row = g.step()
+        for slot, tok in enumerate(row):
+            sid = g.streams[slot].stream_id
+            if tok is None or sid in ended:
+                continue
+            got[sid].append(tok.id)
+            if tok.is_end_of_stream or len(got[sid]) >= quota[sid]:
+                g.finish(sid)
+                ended.add(sid)
+        held = hold(step) if hold is not None else False
+        if queue and not held and not g.pending_admissions():
+            sid = len(quota)
+            prompt, quota[sid] = queue.pop(0)
+            got[sid] = []
+            g.enqueue(prompt, sid)
+        if not queue and len(ended) == len(quota):
+            return got
+    fail("[11] the pool-pressure run did not finish")
+
+
+def pressure_run(torch, cfg, params, kv_quant, label) -> dict:
+    """The minimum pool under pressure, window 1,024. Snapshots of two
+    live streams are begun as imports (pages pinned outside every table and
+    the tree) until fewer pages are free than the first 880-id arrival
+    needs: it defers, exactly once. Then all but eight of the 900-id
+    stream's imports abort, and the twelve arrivals' prefix pages outgrow
+    what is left, so the tree evicts. Every stream equals the slot
+    engine's on the same scenario."""
+    from cake_tpu_torch.runtime.batch_generator import BatchGenerator
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+
+    def ids(n):
+        return torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+
+    prompts = [ids(n) for n in PRESSURE_LENS]
+    arrivals = [(ids(880), 8) for _ in range(PRESSURE_ARRIVALS)]
+    slot = BatchGenerator(cfg, params, block_size=8, kv_quant=kv_quant,
+                          max_seq=PRESSURE_WINDOW)
+    want = pressure_drive(torch, slot, prompts, PRESSURE_QUOTAS, arrivals)
+    del slot
+    torch.cuda.empty_cache()
+    need = len(prompts) * (PRESSURE_WINDOW // PAGE) + 1
+    pages = 1 << (need - 1).bit_length()
+    g = paged_engine(torch, cfg, params, kv_quant, 8,
+                     max_seq=PRESSURE_WINDOW, kv_pool_pages=pages)
+    st = {"stage": "pin", "big": [], "small": [], "pinned": 0}
+
+    def landed():
+        return not any(a[3] for a in g._arrivals)
+
+    def hold(step):
+        pool = g._pagepool
+        if st["stage"] == "pin":
+            # one import at a time, each landing before the next is
+            # priced: 57 pages of stream 0 while that leaves room for a
+            # stream's growth, then 7 of stream 5
+            if step >= 1 and landed():
+                free = pool.free_count
+                n0, n5 = ((int(g._pos[i]) - 1) // PAGE + 1 for i in (0, 5))
+                # room for one page of growth of each live stream
+                src = 0 if free >= n0 + 8 else 5 if free >= n5 + 8 else None
+                if src is None:
+                    st["stage"] = "defer"
+                    st["pinned"] = pool.pinned_count
+                    st["defers0"] = pool._defer_ctr.value
+                else:
+                    meta = g.import_begin(g.export_stream(src))
+                    st["big" if src == 0 else "small"].append(
+                        meta["xfer_id"])
+            return st["stage"] == "pin"
+        if st["stage"] == "defer":
+            if pool._defer_ctr.value > st["defers0"]:
+                st["stage"], st["at"] = "deferred", step
+            return False
+        if st["stage"] == "deferred" and step >= st["at"] + 2:
+            for x in st["small"] + st["big"][8:]:
+                g.import_abort(x)
+            st["stage"] = "flow"
+            st["kept"] = pool.pinned_count
+        return False
+
+    got = pressure_drive(torch, g, prompts, PRESSURE_QUOTAS, arrivals, hold)
+    for x in st["big"][:8]:
+        g.import_abort(x)
+    s = g.stats()
+    out = {"pool_pages": pages, "evictions": g._pagepool._evict_ctr.value,
+           "admit_defers": g._pagepool._defer_ctr.value,
+           "pinned_at_defer": st["pinned"], "pinned_kept": st.get("kept"),
+           "kvpool": s["kvpool"]}
+    say(f"[11] {label} pool pressure (window {PRESSURE_WINDOW}, {pages} "
+        f"pages): {out['admit_defers']} deferred admission(s) behind "
+        f"{st['pinned']} pinned pages, then {out['evictions']} prefix-tree "
+        f"evictions with {st.get('kept')} pages still pinned; pool "
+        f"{s['kvpool']}")
+    if got != want:
+        diff = [sid for sid in want if got.get(sid) != want[sid]]
+        fail(f"[11] {label} pool pressure: streams {diff} differ from the "
+             "slot engine's")
+    if out["admit_defers"] != 1 or not out["evictions"]:
+        fail(f"[11] {label} pool pressure: {out['admit_defers']} deferrals "
+             f"(want 1), {out['evictions']} evictions (want > 0)")
+    if s["imports_pending"] or s["kvpool"]["pages_pinned"]:
+        fail(f"[11] {label} pool pressure: pins left behind {s}")
+    del g
+    torch.cuda.empty_cache()
+    return out
+
+
+def export_import_run(torch, g, prompts, codec, label, want=None) -> dict:
+    """Stream 0 of phase 7's batch on engine ``g`` exported after EXPORT_AT
+    tokens (codecs "none" and ``codec``, whose pages must be the same
+    bits), finished, imported under stream id 100 and run on to
+    EXPORT_QUOTA tokens: its ids must equal ``want`` (an uninterrupted
+    run's; run here when None)."""
+    from cake_tpu_torch.disagg import snapshot
+
+    def tokens(sid):
+        return next((list(s.generated) for s in g.streams
+                     if s.stream_id == sid and not s.done), None)
+
+    def run_to(sid, n):
+        for _ in range(4 * n + 64):
+            got = tokens(sid)
+            if got is not None and len(got) >= n \
+                    and not g.pending_admissions():
+                return got[:n]
+            g.step()
+        fail(f"[11] {label}: stream {sid} stalled")
+
+    if want is None:
+        g.set_prompts(prompts, stream_ids=list(range(len(prompts))))
+        want = run_to(0, EXPORT_QUOTA)
+    g.set_prompts(prompts, stream_ids=list(range(len(prompts))))
+    run_to(0, EXPORT_AT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    data = g.export_stream(0, codec="none")
+    export_ms = (time.perf_counter() - t0) * 1e3
+    data_c = g.export_stream(0, codec=codec)
+    a, b = snapshot.decode_snapshot(data), snapshot.decode_snapshot(data_c)
+    if any(not torch.equal(pa[k], pb[k]) for pa, pb in zip(a.pages, b.pages)
+           for k in pa):
+        fail(f"[11] {label}: the {codec} snapshot's pages differ from the "
+             "lossless one's")
+    g.finish(0)
+    t0 = time.perf_counter()
+    g.import_stream(data_c, stream_id=100)
+    torch.cuda.synchronize()
+    import_ms = (time.perf_counter() - t0) * 1e3
+    got = run_to(100, EXPORT_QUOTA)
+    if got != want:
+        fail(f"[11] {label}: the imported stream's ids differ from the "
+             f"uninterrupted run's: {got} vs {want}")
+    return {"bytes": len(data), "bytes_codec": len(data_c), "codec": codec,
+            "pages": a.n_pages, "export_ms": export_ms,
+            "import_ms": import_ms}
+
+
+def spill_over_http(torch, cfg, params) -> dict:
+    """(a)'s paged engine behind the in-process server with --spill-mb 256:
+    eight batch-class requests hold every slot, then an interactive one
+    arrives; a victim is spilled and resumed, and every stream equals the
+    engine's own ids for its prompt."""
+    import threading
+    import urllib.request
+
+    from cake_tpu_torch.obs import metrics as obs_metrics
+    from cake_tpu_torch.ops.sampling import SamplerSettings
+    from cake_tpu_torch.serve.api import start_api_server
+    from cake_tpu_torch.serve.scheduler import Scheduler
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in (400, 350, 300, 250, 200, 150, 100, 60, 220)]
+    quotas = [48] * 8 + [16]
+    settings = SamplerSettings(temperature=0)
+    ref = paged_engine(torch, cfg, params, None, 8, settings=settings)
+    streams = drive_batch(torch, ref, [[cfg.bos_token_id]] * 8, [1] * 8,
+                          list(zip(prompts, quotas)), after=8)[0]
+    want = [streams[8 + i] for i in range(len(prompts))]
+    del ref
+    torch.cuda.empty_cache()
+    engine = paged_engine(torch, cfg, params, None, 8, settings=settings)
+    sched = Scheduler(engine, queue_depth=16, request_timeout_s=300,
+                      spill_mb=SPILL_MB)
+    spilled = []
+    commit = sched._spill.spill_commit
+
+    def record(claim, payload):
+        spilled.append(len(payload))
+        commit(claim, payload)
+
+    sched._spill.spill_commit = record
+    sched.start(max_concurrent=8, warm_prompt_len=64)
+    server = start_api_server(sched, bind="127.0.0.1", port=0)
+    port = server.port
+    got, counts, started = {}, [0] * 8, threading.Event()
+
+    def client(i):
+        def on_token():
+            counts[i] += 1
+            if all(c >= 2 for c in counts):
+                started.set()
+        got[i] = sse(port, {"prompt_ids": prompts[i], "max_tokens": quotas[i],
+                            "class": "batch"}, on_token)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    if not started.wait(timeout=300):
+        fail("[11] spill: the eight batch streams never started")
+    got[8] = sse(port, {"prompt_ids": prompts[8], "max_tokens": quotas[8],
+                        "class": "interactive"})
+    for t in threads:
+        t.join(timeout=300)
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                timeout=30) as r:
+        health = json.loads(r.read())
+    st = sched.stats()
+    resume = obs_metrics.registry().snapshot().get("serve.resume_ms", {})
+    server.close()
+    sched.close()
+    for i in range(len(prompts)):
+        if got.get(i) is None or got[i]["ids"] != want[i]:
+            fail(f"[11] spill: request {i}'s ids differ from the engine's "
+                 f"own: {(got.get(i) or {}).get('ids')} vs {want[i]}")
+    if health["preemptions"] < 1 or not spilled or st["spilled"]:
+        fail(f"[11] spill: no victim spilled and resumed (healthz "
+             f"{health}, spilled payloads {spilled})")
+    out = {"preemptions": health["preemptions"], "spill_bytes": spilled,
+           "resume_ms": resume, "healthz": health}
+    say(f"[11] spill over HTTP (--spill-mb {SPILL_MB}): {len(prompts)} "
+        f"streams equal the engine's ids; /healthz preemptions "
+        f"{health['preemptions']}, spilled {health['spilled']}, "
+        f"kv_pages_free {health.get('kv_pages_free')}; serve.spill_bytes "
+        f"of each spill {spilled}; serve.resume_ms {resume}")
+    del engine, sched, server
+    gc.collect()  # the server's threads leave reference cycles behind
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_paged(torch, build, label, cfg, params, weights, kv_quant,
+                prompts, arrivals, slot_streams=None) -> dict:
+    """Phase 11 over one path's weights: the paged engine (page size 16)
+    against the slot engine on phase 7's scenario, a planted page-map
+    fault, the pool under pressure, export/import, and (bf16) preemption
+    with spill over HTTP."""
+    from cake_tpu_torch.ops.sampling import SamplerSettings
+    from cake_tpu_torch.runtime.batch_generator import BatchGenerator
+
+    settings = SamplerSettings(temperature=0)
+    n_runs = 3 if weights == "bf16" else 1
+    t_phase = time.perf_counter()
+    slot = timed_runs(
+        torch, build, lambda: BatchGenerator(
+            cfg, params, settings=settings, block_size=8,
+            kv_quant=kv_quant), prompts, arrivals, n_runs, label, "slot",
+        cfg, weights, kv_quant, want=slot_streams)
+    g = slot.pop("engine")
+    slot["profile"] = profile_batch(torch, g, prompts, f"{label} slot",
+                                    tag="[11]")
+    del g
+    torch.cuda.empty_cache()
+    want = slot["streams"]
+    paged = timed_runs(
+        torch, build, lambda: paged_engine(torch, cfg, params, kv_quant, 8,
+                                           settings=settings),
+        prompts, arrivals, n_runs, label, "paged", cfg, weights, kv_quant,
+        want=want)
+    g = paged.pop("engine")
+    st = paged["stats"]
+    if not paged["pages_shared_max"]:
+        fail(f"[11] {label}: no page shared while the prefix sharers lived")
+    kp = st["kvpool"]
+    if kp["pages_used"] != st["prefix_entries"] or kp["pages_pinned"]:
+        fail(f"[11] {label}: after every stream retired, {kp['pages_used']} "
+             f"pages are held, the prefix tree holds {st['prefix_entries']}")
+    if st["prefix_hits"] != 2:
+        fail(f"[11] {label}: {st['prefix_hits']} prefix hits, want 2")
+    say(f"[11] {label} paged block 8: every stream equals the slot "
+        f"layout's; up to {paged['pages_shared_max']} pages shared; after "
+        f"retirement {kp['pages_used']} pages held, all by the prefix tree "
+        f"({st['prefix_entries']} nodes); pool {kp}")
+    paged["profile"] = profile_batch(torch, g, prompts, f"{label} paged",
+                                     tag="[11]")
+    paged["page_moves"] = page_moves_ms(torch, g)
+    pm = paged["page_moves"]
+    share = (pm["gather_ms"] + pm["scatter_ms"]) / (
+        8 * paged["profile"]["device_ms_per_step"])
+    say(f"[11] {label} page moves a dispatch: gather "
+        f"{pm['gather_ms']:.3f} ms of a {pm['view_gb']:.2f} GB view (bound "
+        f"{pm['gather_bound_ms']:.3f} ms), write-back "
+        f"{pm['scatter_ms']:.3f} ms: {100 * share:.1f}% of a block-8 "
+        "dispatch's card time")
+    # block 1, and the planted fault at block 8
+    g1 = paged_engine(torch, cfg, params, kv_quant, 1, settings=settings)
+    streams1 = drive_batch(torch, g1, prompts, BATCH_QUOTAS,
+                           list(zip(arrivals, ARRIVAL_QUOTAS)))[0]
+    del g1
+    if streams1 != want:
+        fail(f"[11] {label} paged block 1: streams differ from the slot "
+             "layout's")
+    say(f"[11] {label} paged block 1: every stream equals the slot layout's")
+    plant_page_shift(g)
+    bad = drive_batch(torch, g, prompts, BATCH_QUOTAS,
+                      list(zip(arrivals, ARRIVAL_QUOTAS)))[0]
+    if bad == want:
+        fail(f"[11] {label}: the check does not see stream 0's page map "
+             "shifted by one page")
+    say(f"[11] {label} planted fault (stream 0's page map shifted by one "
+        f"page): streams {[s for s in want if bad[s] != want[s]]} differ "
+        "from the slot layout's, as they must")
+    del g.__dict__["_page_map_np"]
+    codec = "int8" if kv_quant else "bf16"
+    xfer = {"greedy": export_import_run(torch, g, prompts, codec, label,
+                                        want=want[0][:EXPORT_QUOTA])}
+    del g
+    torch.cuda.empty_cache()
+    g = paged_engine(torch, cfg, params, kv_quant, 8, settings=SamplerSettings(
+        temperature=0.8, top_k=40))
+    xfer["sampled"] = export_import_run(torch, g, prompts, codec, label)
+    for kind, r in xfer.items():
+        say(f"[11] {label} export/import {kind}: stream 0 after "
+            f"{EXPORT_AT} tokens, {r['pages']} pages, snapshot "
+            f"{r['bytes']} bytes (none) / {r['bytes_codec']} ({codec}); "
+            f"export {r['export_ms']:.1f} ms, import {r['import_ms']:.1f} "
+            f"ms; the continuation equals the uninterrupted run's "
+            f"{EXPORT_QUOTA} ids")
+    del g
+    torch.cuda.empty_cache()
+    out = {"path": f"paged {label}", "launches": paged["launches"],
+           "slot": {k: v for k, v in slot.items()
+                    if k not in ("streams", "stats")},
+           "paged": {k: v for k, v in paged.items()
+                     if k not in ("streams", "stats")},
+           "export_import": xfer,
+           "pressure": pressure_run(torch, cfg, params, kv_quant, label)}
+    if weights == "bf16":
+        out["spill"] = spill_over_http(torch, cfg, params)
+    out["phase_s"] = time.perf_counter() - t_phase
+    say(f"[11] {label}: {out['phase_s']:.1f} s")
+    return out
+
+
+def phase_paged_only(torch, build) -> list:
+    """``--phase 11``: phase 11 alone, over freshly drawn weights (seed 0)
+    and phase 7's prompts; the slot engine gives the reference ids."""
+    from cake_tpu_torch.models import llama
+    from cake_tpu_torch.models.config import llama3_8b
+
+    cfg = llama3_8b(max_seq_len=4096)
+    prompts, arrivals = batch_prompts(torch, cfg)
+    out = []
+    for label, init, weights, kv_quant in (
+            ("(a) bf16", lambda: llama.init_params(cfg, seed=SEED), "bf16",
+             None),
+            ("(b) int8 weights, int8 cache",
+             lambda: llama.init_params_int8(cfg, seed=SEED), "quant_matmul",
+             "int8")):
+        params = init()
+        out.append(phase_paged(torch, build, label, cfg, params, weights,
+                               kv_quant, prompts, arrivals))
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2866,10 +3402,12 @@ def main() -> int:
         fail("no CUDA device is available")
     other = None
     only_guided = sys.argv[1:] == ["--phase", "10"]
+    only_paged = sys.argv[1:] == ["--phase", "11"]
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels":
         other = Path(sys.argv[2]).resolve()
-    elif len(sys.argv) > 1 and not only_guided:
-        fail(f"usage: {sys.argv[0]} [--kernels DIR | --phase 10]")
+    elif len(sys.argv) > 1 and not (only_guided or only_paged):
+        fail(f"usage: {sys.argv[0]} [--kernels DIR | --phase 10 | "
+             "--phase 11]")
     sys.path.insert(0, str(other or REPO))
     try:
         from cake_tpu_torch.ops import flash, kvcache, qmatmul, quant
@@ -2892,6 +3430,11 @@ def main() -> int:
                         "guided_cli": guided_cli_ids}))
         say(card)
         return 0
+    if only_paged:
+        say(json.dumps({"card": card,
+                        "paged": phase_paged_only(torch, build)}))
+        say(card)
+        return 0
     errs = phase_kernels(torch, flash)
     errs.update(phase_quant_kernels(torch, flash, qmatmul, quant, kvcache))
     errs.update(phase_batch_kernels(torch, flash, qmatmul, quant, kvcache))
@@ -2905,20 +3448,24 @@ def main() -> int:
     phase_model(torch)
     main_path = phase_main_path(torch, build, flash, kvcache)
     cli = phase_cli(torch, build)
-    batch = phase_batch(torch, build)
+    # phase 11 runs at the end of each of phase 7's paths, over its weights
+    paged = []
+    batch = phase_batch(torch, build, after=lambda *a: paged.append(
+        phase_paged(torch, build, *a)))
     serve = phase_serve(torch)
     cross_host = phase_cross_host(torch, build, main_path)
     cross_host_cli = phase_cli_topology(torch, build, cli)
     guided, guided_cli_ids = phase_guided(torch, build, cli)
-    # over the paths (a), (b), (c), the batch runs, the cross-host runs and
-    # phase 10's guided and lookahead runs
+    # over the paths (a), (b), (c), the batch runs, the cross-host runs,
+    # phase 10's guided and lookahead runs and phase 11's paged runs
     for r in rows:
         r["launches"] = sum(p["launches"][r["name"]]
-                            for p in main_path + batch + cross_host + guided)
+                            for p in main_path + batch + cross_host + guided
+                            + paged)
     say(json.dumps({"card": card, "main_path": main_path, "batch": batch,
                     "serve": serve, "cross_host": cross_host,
                     "cross_host_cli": cross_host_cli, "guided": guided,
-                    "guided_cli": guided_cli_ids}))
+                    "guided_cli": guided_cli_ids, "paged": paged}))
     say(json.dumps({"kernels": rows}))
     say(card)
     say(json.dumps({"ok": True, "device": {

@@ -222,7 +222,8 @@ def test_warm_admission_leaves_the_batch_alone(tiers):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(kv_layout="paged"), "paged.*not ported"),
+    (dict(kv_layout="paged", spec_k=4),
+     "paged' does not compose with batched speculation"),
     (dict(spec_k=4), "speculation.*not ported"),
     (dict(kv_layout="ring"), "must be 'slot' or 'paged'"),
     (dict(interleave=True), "interleaved.*not ported"),

@@ -56,7 +56,10 @@ def test_import_leaves_jax_and_triton_out():
             "cake_tpu_torch.parallel.runner, "
             "cake_tpu_torch.parallel.topology, "
             "cake_tpu_torch.serve.engine, cake_tpu_torch.constrain, "
-            "cake_tpu_torch.constrain.fsm, cake_tpu_torch.constrain.guide\n"
+            "cake_tpu_torch.constrain.fsm, cake_tpu_torch.constrain.guide, "
+            "cake_tpu_torch.kvpool, cake_tpu_torch.kvpool.pool, "
+            "cake_tpu_torch.disagg, cake_tpu_torch.disagg.snapshot, "
+            "cake_tpu_torch.serve.spill, cake_tpu_torch.testing.chaos\n"
             "print(sorted(m for m in ('jax', 'triton', 'cake_tpu', "
             "'ml_dtypes') if m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -141,6 +144,36 @@ def test_guided_and_lookahead_entry_points_raise_without_a_card():
     gen.set_guide(Guide(build_token_dfa("[0-9]{3}", vocab, eos_ids=(2,))))
     assert gen._guide_table.device.type == "cpu"
     assert gen.next_token(0).id != 2
+
+
+def test_paged_and_spill_entry_points_raise_without_a_card():
+    """The paged layout and the spill path never move a run onto the CPU:
+    without a card each entry point raises unless the CPU is asked for,
+    and asked for, the pool lies there."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device exists")
+    from cake_tpu_torch import cli
+    from cake_tpu_torch.models.config import tiny
+    from cake_tpu_torch.models.llama import init_params
+    from cake_tpu_torch.runtime.batch_generator import BatchGenerator
+
+    cfg = tiny(max_seq_len=64)
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchGenerator(cfg, params, kv_layout="paged")
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        cli.run_serve(cli.build_parser().parse_args(
+            ["--model", "unused", "--prompts-file", "unused",
+             "--kv-layout", "paged", "--kv-page-size", "8"]))
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        cli.run_http_serve(cli.build_parser().parse_args(
+            ["--model", "unused", "--mode", "serve", "--kv-layout",
+             "paged", "--spill-mb", "32"]))
+    g = BatchGenerator(cfg, params, kv_layout="paged", device="cpu")
+    g.set_prompts([[5, 6, 7]])
+    assert g.cache.k.device.type == "cpu"
+    snap = g.export_stream(0)
+    assert g.import_begin(snap)["n_kv"] == 3
 
 
 def test_cross_host_entry_points_raise_without_a_card():

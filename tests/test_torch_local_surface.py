@@ -355,7 +355,8 @@ def test_cli_obs_flags_write_the_jax_names(checkpoint, tmp_path):
     (["--lookahead", "--decode-block", "1"], "requires --decode-block > 1"),
     (["--lookahead", "--speculate", "2"], "does not compose with --speculate"),
     (["--lookahead", "--stages", "2"], "not supported with --stages"),
-    (["--kv-layout", "paged"], "paged.*not ported"),
+    (["--kv-layout", "paged"], "--kv-layout paged applies to the batched "
+     "serving engine"),
     (["--speculate", "4"], "--speculate.*not ported"),
 ])
 def test_cli_refusals(checkpoint, extra, match):

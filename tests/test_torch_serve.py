@@ -416,10 +416,13 @@ def test_prompts_file_prints_the_jax_cli_lines(checkpoint, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--kv-layout", "paged"], "paged.*not ported"),
+    (["--kv-page-size", "8"],
+     "--kv-page-size/--kv-pool-pages configure the paged KV pool; they "
+     "require --kv-layout paged"),
     (["--speculate", "4"], "speculation.*not ported"),
     (["--dp", "2"], "dp=2"),
-    (["--spill-mb", "64"], "spill-mb.*paged KV layout.*not ported"),
+    (["--spill-mb", "32"], "--spill-mb configure the request server; "
+     "they apply only with --mode serve"),
 ])
 def test_prompts_file_refuses_unported_options(checkpoint, tmp_path, extra,
                                                match):
