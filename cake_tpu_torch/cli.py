@@ -41,8 +41,7 @@ observability planes as in the JAX command line. ``--kv-layout paged``
 and ``--mode serve`` over pooled KV pages, and ``--spill-mb`` bounds the
 host RAM that ``--mode serve`` spills preempted streams into. The JAX
 command line's gateway mode, meshes (``--stages/--tp/--dp/--sp/--ep``
-above 1, and topologies with mesh ``device:`` nodes), speculation,
-disaggregated roles, fault injection (``--chaos``) and the cluster views
+above 1, and topologies with mesh ``device:`` nodes), disaggregated roles, fault injection (``--chaos``) and the cluster views
 (``--cluster-report``, ``--top``) are refused with an error until their
 slices of the port land.
 """
@@ -239,7 +238,18 @@ def build_parser() -> argparse.ArgumentParser:
                         ">= batch x window/page_size + 1; default sized "
                         "from the batch plus prefix-tree headroom)")
     p.add_argument("--speculate", type=int, default=0, metavar="K",
-                   help="n-gram speculation: not ported yet")
+                   help="n-gram speculative decoding: propose K tokens per "
+                        "round from the context's own n-grams and verify "
+                        "them in one dispatch (greedy streams bit-exact; "
+                        "sampled streams distribution-exact via rejection "
+                        "sampling; local and --prompts-file / --mode serve "
+                        "serving paths — serving verifies every stream's "
+                        "proposals per-row in one batched pass. NOTE: with "
+                        "temperature > 0 serving rounds always run the "
+                        "K+1-wide verify (skipping on other streams' "
+                        "proposals would break per-stream reproducibility), "
+                        "so sampled speculation only pays off on "
+                        "repetitive/structured streams)")
     p.add_argument("--lookahead", action="store_true",
                    help="launch decode block N+1 from the card's last token "
                         "before block N's ids reach the host (local "
@@ -399,7 +409,8 @@ def _kv_layout_kwargs(args) -> dict:
 
 def _engine_kwargs(args) -> dict:
     """BatchGenerator arguments of the serving paths; the engine refuses
-    what is not ported (meshes, speculation)."""
+    what is not ported (meshes) and what does not compose with speculation
+    (lookahead, paged KV, logprobs, guides)."""
     return dict(max_seq=args.max_seq, block_size=_decode_block(args),
                 kv_quant=args.kv_quant, num_stages=args.stages, tp=args.tp,
                 dp=args.dp, sp=args.sp, ep=args.ep, spec_k=args.speculate,
@@ -493,6 +504,7 @@ def run(args, topology=None) -> int:
     from cake_tpu_torch import __version__
     from cake_tpu_torch.obs import metrics as obs_metrics
     from cake_tpu_torch.runtime.generator import LlamaGenerator
+    from cake_tpu_torch.runtime.speculative import SpeculativeGenerator
 
     device = _device(args)
     config = _load_config(args)
@@ -505,11 +517,17 @@ def run(args, topology=None) -> int:
     else:
         try:
             params = _load_params(args, config, device)
-            gen = LlamaGenerator(config, params, tokenizer=tokenizer,
-                                 settings=settings, max_seq=args.max_seq,
-                                 block_size=_decode_block(args),
-                                 device=device, kv_quant=args.kv_quant,
-                                 lookahead=args.lookahead)
+            if args.speculate:
+                gen = SpeculativeGenerator(
+                    config, params, tokenizer=tokenizer, settings=settings,
+                    max_seq=args.max_seq, device=device,
+                    kv_quant=args.kv_quant, spec_k=args.speculate)
+            else:
+                gen = LlamaGenerator(config, params, tokenizer=tokenizer,
+                                     settings=settings, max_seq=args.max_seq,
+                                     block_size=_decode_block(args),
+                                     device=device, kv_quant=args.kv_quant,
+                                     lookahead=args.lookahead)
         except (NotImplementedError, ValueError) as e:
             sys.exit(f"error: {e}")
     log.info("model loaded in %.1fs on %s", time.perf_counter() - t0,
@@ -1006,6 +1024,10 @@ def _main(args) -> int:
                      "--topology (cross-host workers) is not supported "
                      "here")
         return run_serve(args)
+    if args.speculate and args.decode_block is not None:
+        sys.exit("error: --decode-block does not compose with --speculate "
+                 "(speculative rounds replace fused-block dispatches; the "
+                 "flag would otherwise be silently ignored)")
     if args.lookahead:
         # lookahead needs the local fused-block path; combinations that
         # would silently ignore it are refused
@@ -1020,8 +1042,6 @@ def _main(args) -> int:
             sys.exit("error: --lookahead needs fused blocks to pipeline; "
                      "it requires --decode-block > 1 (it would otherwise "
                      "be silently ignored)")
-    if args.speculate:
-        sys.exit("error: --speculate is not ported yet")
     try:
         from cake_tpu_torch.parallel.pipeline import check_single_device
 

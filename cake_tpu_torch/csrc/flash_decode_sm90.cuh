@@ -1,34 +1,43 @@
 // The Hopper decode attention shared by csrc/flash_decode.cu (bf16 cache)
-// and csrc/flash_decode_q8.cu (int8 cache with f32 per-token scales): one
-// query row per stream, the GQA group of G = H / KVH query heads (any G
-// from 1 to 16) folded into the rows of one kv head. The two kernels
-// differ only in the KV format (`Bf16KV`, `Int8KV`): how a K row becomes
-// mma.sync B fragments, how V does, and the two scale hooks.
+// and csrc/flash_decode_q8.cu (int8 cache with f32 per-token scales): T
+// query positions per stream (T = 1 for a decode step, K + 1 for a
+// speculative verify), the G = H / KVH query heads of a GQA group (any G
+// from 1 to 16) and the T positions folded into the G * T rows of one kv
+// head, row R being head R % G of the group at position pos + R / G. The
+// rows go in m16 tiles (`MAX_G`), one CTA per tile: the tiles of one
+// (stream, kv head, split) are neighbours in the grid, so the K/V tiles
+// the first reads from HBM the others find in L2. At T = 1 (G <= 16) there
+// is one m-tile and the kernel is the single-row one it always was. The
+// two kernels differ only in the KV format (`Bf16KV`, `Int8KV`): how a K
+// row becomes mma.sync B fragments, how V does, and the two scale hooks.
 //
 // What bounds it on this card: 2 multiply-adds per K/V element per query
-// row, ~2G operations a byte of bf16 (4G of int8), far below the H100's
-// ~295: bound by the bytes of K and V it reads; at one stream, 8 MB at
-// 2,048 keys, as much by latencies (pos, then the first tile, then the
-// split-K fold's round trips through L2).
+// row, ~2GT operations a byte of bf16 (4GT of int8), far below the H100's
+// ~295 at the verify's GT = 36: bound by the bytes of K and V it reads; at
+// one stream, 8 MB at 2,048 keys, as much by latencies (pos, then the
+// first tile, then the split-K fold's round trips through L2).
 //
 // One launch does everything a call needs:
 // - Bounds in the kernel. Each CTA reads `pos[b]` and `window` and works
-//   out its row's live tile range [lo, hi] itself:
-//     hi = min(pos / BK, (S - 1) / BK)
+//   out its stream's live tile range [lo, hi] itself, the union of its T
+//   positions' ranges:
+//     hi = min((pos + T - 1) / BK, (S - 1) / BK)
 //     lo = window >= 0 ? max(pos - window + 1, 0) / BK : 0
 //   This device copy of the formula MUST match `kv_block_bounds` of
-//   cake_tpu_torch/ops/flash.py (qb = 0, block_q = 1, block_k = BK);
+//   cake_tpu_torch/ops/flash.py (qb = 0, block_q = T, block_k = BK);
 //   chip_smoke.py's window cases (edges inside a tile and on its boundary)
 //   hold the kernels against the plain versions, which use that function.
-// - Split K. The grid is (nsplit, B * KVH); the host picks nsplit from the
-//   shapes alone (about one CTA an SM), and a split takes at least
-//   MIN_TILES tiles, so a short live range goes to fewer CTAs. A CTA takes
+//   Inside the range each row masks its own keys: key <= pos + t, and
+//   key > pos + t - window.
+// - Split K. The grid is (nsplit * m-tiles, B * KVH); the host picks
+//   nsplit from the shapes alone (about one CTA an SM), and a split takes
+//   at least MIN_TILES tiles, so a short live range goes to fewer CTAs. A CTA takes
 //   a contiguous share of its row's live tiles, so the splits follow the
 //   live range and not the buffer: the `used` splits that get tiles work,
 //   the others leave at once. One used split writes the output itself.
 //   Otherwise each writes its f32 partial (max, sum, unnormalized output),
-//   and the last of a (b, kv head) to finish, picked by a per-(b, kv head)
-//   counter that it resets, sums the partials in split order and writes
+//   and the last of a (b, kv head, m-tile) to finish, picked by a counter
+//   of its own that it resets, sums the partials in split order and writes
 //   the bf16 output. No sum depends on timing: two calls give the same
 //   bits.
 // - K/V by asynchronous bulk copies. Warp 4 (the producer) keeps a ring
@@ -41,8 +50,8 @@
 //   copy where they are 16-byte aligned, else by ordinary loads: every S,
 //   B, window and pos is taken.
 // - Scores and P.V on the tensor cores (mma.sync m16n8k16, f32
-//   accumulation), with no shuffle per key: the G query rows, padded to
-//   16, are the A operand (loaded once); each of warps 0-3 takes 16 keys of
+//   accumulation), with no shuffle per key: the CTA's query rows, padded
+//   to 16, are the A operand (loaded once); each of warps 0-3 takes 16 keys of
 //   every tile (keys 8n + 2w + j, n = 0..7, j = 0, 1, for warp w: one row
 //   of each 8-row group), K from shared memory as B. The score
 //   accumulators are, in registers, the A operand of P.V. A warp keeps
@@ -67,7 +76,7 @@ using namespace sm90;
 constexpr int BK = 64;          // keys per KV tile (unit of kv_block_bounds)
 constexpr int CONSUMERS = 4;    // warps; each takes 16 keys of every tile
 constexpr int THREADS = 32 * (CONSUMERS + 1);  // and the producer warp
-constexpr int MAX_G = 16;       // query rows of a kv head: one m16 A tile
+constexpr int MAX_G = 16;       // query rows of a CTA: one m16 A tile
 constexpr int STAGES = 4;
 // the least number of KV tiles a split takes (1 and 4 measured no faster)
 constexpr int MIN_TILES = 2;
@@ -129,14 +138,25 @@ struct Args {
   const float* vs;
   const int* pos;  // [B]
   __nv_bfloat16* o;
-  float* part_o;   // [B * KVH, nsplit, G, D] (nsplit > 1)
-  float* part_ml;  // [B * KVH, nsplit, G, 2]
-  int* counters;   // [B * KVH], 0 between calls
-  int KVH, G, S, nsplit;
-  long long q_sb, q_sh, o_sb, o_sh;
+  float* part_o;   // [B * KVH, nsplit, G * T, D] (nsplit > 1)
+  float* part_ml;  // [B * KVH, nsplit, G * T, 2]
+  int* counters;   // [B * KVH * MT], 0 between calls
+  int KVH, G, S, T, nsplit;
+  int MT;  // m16 tiles of the G * T rows
+  long long q_sb, q_sh, q_st, o_sb, o_sh, o_st;
   int window;
   float scale_log2;
 };
+
+// Row R of kv head hk of stream b: head hk * G + R % G at position R / G.
+__device__ __forceinline__ long long q_off(const Args& a, int b, int hk,
+                                           int r) {
+  return b * a.q_sb + (hk * a.G + r % a.G) * a.q_sh + (r / a.G) * a.q_st;
+}
+__device__ __forceinline__ long long o_off(const Args& a, int b, int hk,
+                                           int r) {
+  return b * a.o_sb + (hk * a.G + r % a.G) * a.o_sh + (r / a.G) * a.o_st;
+}
 
 __device__ __forceinline__ void mma(float (&acc)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
@@ -149,24 +169,26 @@ __device__ __forceinline__ uint32_t i8_pair(uint32_t lo, uint32_t hi, int i) {
   return i8x2_to_bf16x2(__byte_perm(lo, hi, i | ((4 + i) << 4)), 0x4140);
 }
 
-// The A fragments of the query rows (rows >= G are zero). The k slots of a
+// The A fragments of the CTA's query rows row0 .. row0 + nr - 1 (rows from
+// nr on are zero). The k slots of a
 // 32-column chunk c are permuted so that a lane's loads are wide: lane tq
 // holds d = 32c + 8tq .. +7, slots (2tq, 2tq+1, 2tq+8, 2tq+9) of k16 step
 // 2c being d + 0..3 and of step 2c + 1 d + 4..7. K's B fragments take the
 // same d in the same slots (`scores`).
 template <int D>
 __device__ __forceinline__ void load_q(uint32_t (&qa)[D / 16][4],
-                                       const Args& a, int b, int hk, int g,
-                                       int tq) {
+                                       const Args& a, int b, int hk,
+                                       int row0, int nr, int g, int tq) {
   const uint4 zero = make_uint4(0, 0, 0, 0);
-  const __nv_bfloat16* q0 = a.q + b * a.q_sb + (hk * a.G + g) * a.q_sh;
-  const __nv_bfloat16* q8 = q0 + 8 * a.q_sh;
+  const __nv_bfloat16* q0 = a.q + (g < nr ? q_off(a, b, hk, row0 + g) : 0);
+  const __nv_bfloat16* q8 =
+      a.q + (g + 8 < nr ? q_off(a, b, hk, row0 + g + 8) : 0);
 #pragma unroll
   for (int c = 0; c < D / 32; ++c) {
     const int d = 32 * c + 8 * tq;
-    const uint4 r0 = g < a.G ? *reinterpret_cast<const uint4*>(q0 + d) : zero;
+    const uint4 r0 = g < nr ? *reinterpret_cast<const uint4*>(q0 + d) : zero;
     const uint4 r8 =
-        g + 8 < a.G ? *reinterpret_cast<const uint4*>(q8 + d) : zero;
+        g + 8 < nr ? *reinterpret_cast<const uint4*>(q8 + d) : zero;
     qa[2 * c][0] = r0.x;
     qa[2 * c][1] = r8.x;
     qa[2 * c][2] = r0.y;
@@ -340,8 +362,8 @@ __device__ __forceinline__ void produce(const Args& a, unsigned char* smem,
   }
 }
 
-// Grid (nsplit, B * KVH): split blockIdx.x of the live tiles of
-// (b, kv head) = blockIdx.y.
+// Grid (nsplit * MT, B * KVH): m-tile blockIdx.x % MT of split
+// blockIdx.x / MT of the live tiles of (b, kv head) = blockIdx.y.
 template <int D, class F>
 __global__ void __launch_bounds__(THREADS)
 decode_kernel(const Args a) {
@@ -353,14 +375,16 @@ decode_kernel(const Args a) {
   uint64_t* full = bars;
   uint64_t* empty = bars + STAGES;
 
-  const int split = blockIdx.x, bh = blockIdx.y;
+  const int split = blockIdx.x / a.MT, mt = blockIdx.x % a.MT;
+  const int bh = blockIdx.y;
   const int b = bh / a.KVH, hk = bh % a.KVH;
-  __nv_bfloat16* out = a.o + b * a.o_sb + hk * a.G * a.o_sh;
+  const int rows = a.G * a.T;  // of this (b, kv head)
+  const int row0 = mt * MAX_G, nr = min(MAX_G, rows - row0);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  // this row's live tiles (kv_block_bounds), and this split's share
+  // this stream's live tiles (kv_block_bounds), and this split's share
   const int p = a.pos[b];
-  const int hi = min(p / BK, (a.S - 1) / BK);
+  const int hi = min((p + a.T - 1) / BK, (a.S - 1) / BK);
   const int lo = a.window >= 0 ? max(p - a.window + 1, 0) / BK : 0;
   const int live = max(hi - lo + 1, 0);
   const int per = max((live + a.nsplit - 1) / a.nsplit, MIN_TILES);
@@ -385,7 +409,9 @@ decode_kernel(const Args a) {
 
   const int g = lane >> 2, tq = lane & 3;
   uint32_t qa[D / 16][4];
-  load_q<D>(qa, a, b, hk, g, tq);
+  load_q<D>(qa, a, b, hk, row0, nr, g, tq);
+  // the positions of this lane's rows g and g + 8
+  const int prow[2] = {p + (row0 + g) / a.G, p + (row0 + g + 8) / a.G};
   float o[NB][4];
 #pragma unroll
   for (int nb = 0; nb < NB; ++nb)
@@ -407,8 +433,9 @@ decode_kernel(const Args a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kl = key_of(warp, j, 2 * tq + (e & 1)), key = key0 + kl;
-        const bool ok = key < a.S && key <= p &&
-                        (a.window < 0 || key > p - a.window);
+        const int pr = prow[e >> 1];
+        const bool ok = key < a.S && key <= pr &&
+                        (a.window < 0 || key > pr - a.window);
         float x = sc[j][e] * a.scale_log2;
         if constexpr (F::Q8) x *= sk[kl];
         sc[j][e] = ok ? x : NEG_INF;
@@ -481,8 +508,8 @@ decode_kernel(const Args a) {
 
   const int tid = threadIdx.x;
   const bool direct = used <= 1;  // this CTA writes the output
-  const long long slot0 = ((long long)bh * a.nsplit + split) * a.G;
-  for (int idx = tid; idx < a.G * D; idx += 32 * CONSUMERS) {
+  const long long slot0 = ((long long)bh * a.nsplit + split) * rows + row0;
+  for (int idx = tid; idx < nr * D; idx += 32 * CONSUMERS) {
     const int r = idx / D, d = idx % D;
     float M = -INFINITY;
 #pragma unroll
@@ -497,7 +524,7 @@ decode_kernel(const Args a) {
       }
     }
     if (direct) {
-      out[r * a.o_sh + d] = __float2bfloat16_rn(O / Lsum);
+      a.o[o_off(a, b, hk, row0 + r) + d] = __float2bfloat16_rn(O / Lsum);
     } else {
       a.part_o[(slot0 + r) * D + d] = O;
       if (d == 0) {
@@ -508,15 +535,16 @@ decode_kernel(const Args a) {
   }
   if (direct) return;
 
-  // the last used split of this (b, kv head) to finish sums every used
-  // split's partial, in split order
+  // the last used split of this (b, kv head, m-tile) to finish sums every
+  // used split's partial, in split order
   // (one thread's fence after the barrier orders the CTA's writes before
   // its count: fences are cumulative)
   named_barrier_sync(1, 32 * CONSUMERS);
   if (tid == 0) {
+    const int c = bh * a.MT + mt;
     __threadfence();
-    last = atomicAdd(&a.counters[bh], 1) == used - 1;
-    if (last) a.counters[bh] = 0;  // ready for the next call
+    last = atomicAdd(&a.counters[c], 1) == used - 1;
+    if (last) a.counters[c] = 0;  // ready for the next call
     __threadfence();
   }
   named_barrier_sync(1, 32 * CONSUMERS);
@@ -526,46 +554,48 @@ decode_kernel(const Args a) {
   // and sum by shuffles, and each split's weight, the 1 / sum folded in;
   // then four output columns a thread, summed over the splits in split
   // order.
-  const long long base = (long long)bh * a.nsplit * a.G;
-  const int np = used * a.G;  // (split, row) pairs, split-major
+  // split sp's partial of row r is at base + sp * rows + r
+  const long long base = (long long)bh * a.nsplit * rows + row0;
+  const int np = used * nr;  // (split, row) pairs, split-major
   float* fm = reinterpret_cast<float*>(smem);
   float* fl = fm + np;
   for (int i = tid; i < np; i += 32 * CONSUMERS) {
-    fm[i] = __ldcg(a.part_ml + (base + i) * 2);
-    fl[i] = __ldcg(a.part_ml + (base + i) * 2 + 1);
+    const long long at = base + (long long)(i / nr) * rows + i % nr;
+    fm[i] = __ldcg(a.part_ml + at * 2);
+    fl[i] = __ldcg(a.part_ml + at * 2 + 1);
   }
   named_barrier_sync(1, 32 * CONSUMERS);
-  for (int r = warp; r < a.G; r += CONSUMERS) {
+  for (int r = warp; r < nr; r += CONSUMERS) {
     float M = -INFINITY;
-    for (int sp = lane; sp < used; sp += 32) M = fmaxf(M, fm[sp * a.G + r]);
+    for (int sp = lane; sp < used; sp += 32) M = fmaxf(M, fm[sp * nr + r]);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, off));
     float Lsum = 0.f;
     for (int sp = lane; sp < used; sp += 32)
-      Lsum += fl[sp * a.G + r] * exp2f(fm[sp * a.G + r] - M);
+      Lsum += fl[sp * nr + r] * exp2f(fm[sp * nr + r] - M);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       Lsum += __shfl_xor_sync(0xffffffffu, Lsum, off);
     __syncwarp();
     for (int sp = lane; sp < used; sp += 32)
-      fm[sp * a.G + r] = exp2f(fm[sp * a.G + r] - M) / Lsum;
+      fm[sp * nr + r] = exp2f(fm[sp * nr + r] - M) / Lsum;
   }
   named_barrier_sync(1, 32 * CONSUMERS);
-  for (int idx = tid; idx < a.G * D / 4; idx += 32 * CONSUMERS) {
+  for (int idx = tid; idx < nr * D / 4; idx += 32 * CONSUMERS) {
     const int r = idx / (D / 4), d = 4 * (idx % (D / 4));
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 8
     for (int sp = 0; sp < used; ++sp) {
       const float4 v = __ldcg(reinterpret_cast<const float4*>(
-          a.part_o + (base + sp * a.G + r) * D + d));
-      const float wt = fm[sp * a.G + r];
+          a.part_o + (base + (long long)sp * rows + r) * D + d));
+      const float wt = fm[sp * nr + r];
       acc.x += v.x * wt;
       acc.y += v.y * wt;
       acc.z += v.z * wt;
       acc.w += v.w * wt;
     }
-    __nv_bfloat16* dst = out + r * a.o_sh + d;
+    __nv_bfloat16* dst = a.o + o_off(a, b, hk, row0 + r) + d;
     *reinterpret_cast<__nv_bfloat162*>(dst) =
         __floats2bfloat162_rn(acc.x, acc.y);
     *reinterpret_cast<__nv_bfloat162*>(dst + 2) =
@@ -585,22 +615,23 @@ int launch(const Args& a, int B, cudaStream_t stream) {
       decode_kernel<D, F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
-  decode_kernel<D, F><<<dim3(a.nsplit, B * a.KVH), THREADS, smem, stream>>>(
-      a);
+  decode_kernel<D, F>
+      <<<dim3(a.nsplit * a.MT, B * a.KVH), THREADS, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// One call as the host's wrapper gives it: H / KVH = G in 1..16, D 64 or
-// 128, nsplit >= 1 (and above 1 partials and counters). Returns 0 or a
-// cudaError_t.
+// One call as the host's wrapper gives it: H / KVH = G in 1..16, T >= 1,
+// D 64 or 128, nsplit >= 1 (and above 1 partials and counters). Returns 0
+// or a cudaError_t.
 template <class F>
-int run(const Args& a, int B, int H, int D, cudaStream_t stream) {
+int run(Args a, int B, int H, int D, cudaStream_t stream) {
   const int bad = (int)cudaErrorInvalidValue;
   if (B <= 0 || a.KVH <= 0 || H % a.KVH || a.G != H / a.KVH || a.G < 1 ||
-      a.G > MAX_G || a.S <= 0 || a.nsplit < 1 ||
+      a.G > MAX_G || a.S <= 0 || a.T < 1 || a.nsplit < 1 ||
       (a.nsplit > 1 &&
        (a.part_o == nullptr || a.part_ml == nullptr || a.counters == nullptr)))
     return bad;
+  a.MT = (a.G * a.T + MAX_G - 1) / MAX_G;
   if (D == 64) return launch<64, F>(a, B, stream);
   if (D == 128) return launch<128, F>(a, B, stream);
   return bad;

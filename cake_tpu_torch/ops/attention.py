@@ -2,17 +2,22 @@
 and the single-device branch of ``self_attention_block``).
 
 The cache is a fixed ``max_seq`` buffer; attention reads it up to the
-causal frontier of each query row. Every prefill (T > 1, one shared
-position) goes to :func:`cake_tpu_torch.ops.flash.flash_attention` and every
-decode step (T == 1) to :func:`~cake_tpu_torch.ops.flash.flash_decode`:
-their CUDA kernels on the card, their plain versions for CPU tensors. There
-is no other route and no crossover dispatch.
+causal frontier of each query row. Every prompt pass (T > 1 at one shared
+host position: an int or a 0-d tensor) goes to
+:func:`cake_tpu_torch.ops.flash.flash_attention`. Every decode step (T == 1)
+and every speculative verify (T > 1 from a per-row frontier, a ``pos [B]``
+tensor; the single stream passes a ``[1]`` tensor on the device, so a
+fused round never waits for the host) goes to
+:func:`~cake_tpu_torch.ops.flash.flash_decode`, whose kernel takes T query
+positions a stream. Their CUDA kernels run on the card, their plain
+versions for CPU tensors. There is no other route and no crossover
+dispatch. (The JAX package sends the per-row T > 1 shape to XLA.)
 
 Over the int8 cache (:class:`~cake_tpu_torch.ops.kvcache.QuantizedKV`),
 prefill goes to :func:`~cake_tpu_torch.ops.flash.flash_attention_q8` and
-decode to :func:`~cake_tpu_torch.ops.flash.flash_decode_q8`; both read the
-int8 bytes and fold the scales in, so no dequantized copy of the cache is
-made. (The JAX package's decode dequantizes at trace level, where XLA fuses
+decode and verify to :func:`~cake_tpu_torch.ops.flash.flash_decode_q8`; both
+read the int8 bytes and fold the scales in, so no dequantized copy of the
+cache is made. (The JAX package's decode dequantizes at trace level, where XLA fuses
 the conversion into the attention's operand read; ``flash_decode_q8`` is
 the port's counterpart of that fusion.)
 """
@@ -36,17 +41,13 @@ def attend(q: torch.Tensor, k_all, v_all, pos,
            window: int | None = None) -> torch.Tensor:
     """Masked GQA attention over a fixed-size KV buffer (tensors or
     :class:`~cake_tpu_torch.ops.kvcache.QuantizedKV`). Returns
-    ``[B, H, T, D]``. ``pos`` is shared by the rows (int or 0-d tensor) or,
-    for one query row, per row (``[B]``)."""
-    if q.shape[2] == 1:
+    ``[B, H, T, D]``. ``pos`` is shared by the rows (int or 0-d tensor) or
+    per row (``[B]``); query ``t`` sits at ``pos + t``."""
+    if q.shape[2] == 1 or (isinstance(pos, torch.Tensor) and pos.dim() > 0):
         if isinstance(k_all, kv.QuantizedKV):
             return flash_decode_q8(q, k_all.q, k_all.scale, v_all.q,
                                    v_all.scale, pos, window=window)
         return flash_decode(q, k_all, v_all, pos, window=window)
-    if isinstance(pos, torch.Tensor) and pos.dim() > 0:
-        raise NotImplementedError(
-            "per-row positions with T > 1 (the serving engine's chunked "
-            "prefill) are not ported yet")
     if isinstance(k_all, kv.QuantizedKV):
         return flash_attention_q8(q, k_all.q, k_all.scale, v_all.q,
                                   v_all.scale, int(pos), window=window)

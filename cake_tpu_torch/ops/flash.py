@@ -4,8 +4,9 @@ and ``flash_decode``; and of the XLA decode over the int8 cache,
 ``cake_tpu/ops/attention.py:419-421``).
 
 :func:`flash_attention` (prefill), :func:`flash_attention_q8` (prefill over
-the int8 KV cache), :func:`flash_decode` (one query row) and
-:func:`flash_decode_q8` (one query row over the int8 cache) launch the
+the int8 KV cache), :func:`flash_decode` (T query positions a stream from a
+per-row frontier: one for a decode step, K + 1 for a speculative verify)
+and :func:`flash_decode_q8` (the same over the int8 cache) launch the
 hand-written CUDA kernels of ``cake_tpu_torch/csrc/`` for a tensor on the
 card and raise for anything those kernels do not take. For a tensor on the
 CPU, and only there, they compute the same function with the plain
@@ -43,11 +44,13 @@ NEG_INF = -1e30
 # they load); kv_block_bounds counts in these units on both sides. The two
 # prefill kernels take 128 q rows (two wgmma warpgroups of 64) over 128-key
 # tiles; decode splits its keys in 64-key tiles and folds a GQA group of up
-# to 16 query heads into one mma.sync tile.
+# to 16 query heads and its T positions into the rows of mma.sync m16
+# tiles, one CTA a tile.
 PREFILL_BLOCK_Q = 128
 PREFILL_BLOCK_K = 128
 DECODE_BLOCK_K = 64
 DECODE_MAX_GROUP = 16
+DECODE_TILE_ROWS = 16
 _LOG2E = 1.4426950408889634
 
 
@@ -130,16 +133,17 @@ def flash_attention_q8_ref(q: torch.Tensor, k_q: torch.Tensor,
 def flash_decode_ref(q: torch.Tensor, k_all: torch.Tensor,
                      v_all: torch.Tensor, pos,
                      window: int | None = None) -> torch.Tensor:
-    """Plain version of :func:`flash_decode` (``q [B, H, 1, D]``, ``pos``
-    shared or ``[B]``): reads the union of the rows' live block ranges and
-    masks each row inside it."""
-    b, s = q.shape[0], k_all.shape[2]
+    """Plain version of :func:`flash_decode` (``q [B, H, T, D]``, ``pos``
+    shared or ``[B]``, query ``t`` of row ``b`` at ``pos[b] + t``): reads
+    the union of the rows' live block ranges and masks each query inside
+    it."""
+    b, t, s = q.shape[0], q.shape[2], k_all.shape[2]
     pos_t = _row_positions(pos, b, q.device).long()
-    lo_kb, hi_kb = kv_block_bounds(pos_t, 0, 1, DECODE_BLOCK_K, window)
+    lo_kb, hi_kb = kv_block_bounds(pos_t, 0, t, DECODE_BLOCK_K, window)
     lo = 0 if isinstance(lo_kb, int) else int(lo_kb.min()) * DECODE_BLOCK_K
     hi = min((int(hi_kb.max()) + 1) * DECODE_BLOCK_K, s)
-    return _plain_attention(q, k_all[:, :, lo:hi], v_all[:, :, lo:hi],
-                            pos_t[:, None],
+    qpos = pos_t[:, None] + torch.arange(t, device=q.device)
+    return _plain_attention(q, k_all[:, :, lo:hi], v_all[:, :, lo:hi], qpos,
                             torch.arange(lo, hi, device=q.device), window)
 
 
@@ -238,8 +242,8 @@ _VP, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 
 @functools.cache
 def _entry(name: str, argtypes: tuple):
-    if name.startswith("flash_decode"):  # one query row, no q tile
-        consts = {"block_k": DECODE_BLOCK_K}
+    if name.startswith("flash_decode"):  # row tiles of G * T rows
+        consts = {"block_k": DECODE_BLOCK_K, "tile_rows": DECODE_TILE_ROWS}
     else:
         consts = {"block_q": PREFILL_BLOCK_Q, "block_k": PREFILL_BLOCK_K}
     return build.entry(name, argtypes, consts)
@@ -255,9 +259,10 @@ def _prefill_bounds(t: int, pos: int, window, device):
 _PREFILL_ARGS = (_VP,) * 6 + (_I,) * 6 + (_LL,) * 6 + (_I, _I, _F, _VP)
 _PREFILL_Q8_ARGS = (_VP,) * 8 + (_I,) * 6 + (_LL,) * 6 + (_I, _I, _F, _VP)
 # q, k[, k_scale], v[, v_scale], pos, o, part_o, part_ml, counters; B, H,
-# KVH, S, D, nsplit; q and o strides; window, scale, stream
-_DECODE_ARGS = (_VP,) * 8 + (_I,) * 6 + (_LL,) * 4 + (_I, _F, _VP)
-_DECODE_Q8_ARGS = (_VP,) * 10 + (_I,) * 6 + (_LL,) * 4 + (_I, _F, _VP)
+# KVH, S, D, T, nsplit; q and o strides (batch, head, position); window,
+# scale, stream
+_DECODE_ARGS = (_VP,) * 8 + (_I,) * 7 + (_LL,) * 6 + (_I, _F, _VP)
+_DECODE_Q8_ARGS = (_VP,) * 10 + (_I,) * 7 + (_LL,) * 6 + (_I, _F, _VP)
 
 
 def flash_attention(q: torch.Tensor, k_all: torch.Tensor,
@@ -326,16 +331,24 @@ def flash_attention_q8(q: torch.Tensor, k_q: torch.Tensor,
     return out
 
 
-def num_splits(b: int, kvh: int, s: int, device) -> int:
+def decode_tiles(h: int, kvh: int, t: int) -> int:
+    """m16 row tiles of a kv head at ``t`` query positions: its G * T
+    rows, 16 a tile (one CTA each)."""
+    return -(-(h // kvh) * t // DECODE_TILE_ROWS)
+
+
+def num_splits(b: int, kvh: int, s: int, device, tiles: int = 1) -> int:
     """KV splits of the decode kernels, from the shapes alone (never from
-    ``pos``): about one CTA an SM, fewer and longer CTAs than two an SM,
-    never more splits than the buffer's KV tiles. Each CTA takes its share
-    of its row's live tiles on the card."""
-    return max(1, min(-(-s // DECODE_BLOCK_K), sm_count(device) // (b * kvh)))
+    ``pos``): about one CTA an SM over the ``b * kvh * tiles`` (stream, kv
+    head, row tile) triples, fewer and longer CTAs than two an SM, never
+    more splits than the buffer's KV tiles. Each CTA takes its share of
+    its row's live tiles on the card."""
+    return max(1, min(-(-s // DECODE_BLOCK_K),
+                      sm_count(device) // (b * kvh * tiles)))
 
 
-# per card: one int a (b, kv head), 0 between calls (the last CTA of a
-# (b, kv head) resets its own)
+# per card: one int a (b, kv head, row tile), 0 between calls (the last CTA
+# of each resets its own)
 _COUNTERS: dict[torch.device, torch.Tensor] = {}
 
 
@@ -350,26 +363,25 @@ def _counters(device, n: int) -> torch.Tensor:
 def _decode(name: str, argtypes, q: torch.Tensor, kv_ptrs: tuple, s: int,
             kvh: int, pos, window) -> torch.Tensor:
     """One launch of decode kernel ``name`` over the cache pointers
-    ``kv_ptrs``; partials, counters and the output allocated here, no
-    tensor op on ``pos``."""
+    ``kv_ptrs``, for any number T of query positions; partials, counters
+    and the output allocated here, no tensor op on ``pos``."""
     b, h, t, d = q.shape
-    if t != 1:
-        raise ValueError(f"{name} takes one query row, got T={t}")
     pos_t = _row_positions(pos, b, q.device)
-    nsplit = num_splits(b, kvh, s, q.device)
+    tiles = decode_tiles(h, kvh, t)
+    nsplit = num_splits(b, kvh, s, q.device, tiles)
     part_o = part_ml = counters = None
     if nsplit > 1:
-        # per (b, kv head, split, group row): unnormalized output, max, sum
-        part_o = torch.empty(b * h * nsplit * d, dtype=torch.float32,
+        # per (b, kv head, split, row): unnormalized output, max, sum
+        part_o = torch.empty(b * h * t * nsplit * d, dtype=torch.float32,
                              device=q.device)
-        part_ml = torch.empty(b * h * nsplit * 2, dtype=torch.float32,
+        part_ml = torch.empty(b * h * t * nsplit * 2, dtype=torch.float32,
                               device=q.device)
-        counters = _counters(q.device, b * kvh)
+        counters = _counters(q.device, b * kvh * tiles)
     out = _bthd_output(q)
     lib, fn = _entry(name, argtypes)
     err = fn(q.data_ptr(), *kv_ptrs, pos_t.data_ptr(), out.data_ptr(),
              _ptr(part_o), _ptr(part_ml), _ptr(counters), b, h, kvh, s, d,
-             nsplit, q.stride(0), q.stride(1), out.stride(0), out.stride(1),
+             t, nsplit, *q.stride()[:3], *out.stride()[:3],
              -1 if window is None else window, _LOG2E / math.sqrt(d),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, lib, name)
@@ -379,14 +391,17 @@ def _decode(name: str, argtypes, q: torch.Tensor, kv_ptrs: tuple, s: int,
 
 def flash_decode(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
                  pos, *, window: int | None = None) -> torch.Tensor:
-    """Single-position flash attention of ``q [B, H, 1, D]`` over
-    ``k_all/v_all [B, KVH, S, D]``. Returns ``[B, H, 1, D]``.
+    """Flash attention of ``q [B, H, T, D]`` over ``k_all/v_all
+    [B, KVH, S, D]`` from a frontier per row: query ``t`` of row ``b`` sits
+    at ``pos[b] + t`` and sees the keys at or before it (and inside its
+    window). T is 1 for a decode step and K + 1 for a speculative verify.
+    Returns ``[B, H, T, D]``.
 
     ``pos`` is shared (int or 0-d tensor) or per row (``[B]``, the
     multi-stream frontier); an int32 ``[B]`` tensor on the card is read by
     the kernel where it lies, which then makes the call exactly one launch
-    with no host sync. Only the KV tiles at or before each row's frontier
-    (and inside its window) are read."""
+    with no host sync, at any T. Only the KV tiles at or before each row's
+    last query (and inside its first query's window) are read."""
     if q.device.type == "cpu":
         return flash_decode_ref(q, k_all, v_all, pos, window=window)
     _check_operands("flash_decode", q, k_all, v_all,
@@ -403,7 +418,7 @@ def flash_decode_q8(q: torch.Tensor, k_q: torch.Tensor,
     """:func:`flash_decode` over the int8 cache ``k_q/v_q [B, KVH, S, D]``
     with per-token scales ``k_scale/v_scale [B, KVH, S]``, read where they
     lie: no dequantized copy of the cache is made. Returns
-    ``[B, H, 1, D]``."""
+    ``[B, H, T, D]``."""
     if q.device.type == "cpu":
         return flash_decode_q8_ref(q, k_q, k_scale, v_q, v_scale, pos,
                                    window=window)

@@ -16,7 +16,9 @@ The batched sampler of the serving engine (:func:`sample_tokens_keyed`)
 takes one noise row per stream, and :func:`keyed_gumbel_noise` draws all
 of them in one pass of tensor ops from a counter hash of ``(seed,
 stream_id, index, token id)``: no host generator, nothing reseeded, and a
-stream's noise independent of its companions in the batch.
+stream's noise independent of its companions in the batch. Speculation's
+rejection sampling draws each round's uniforms and Gumbel rows from the
+same hash in a domain of their own (:func:`spec_round_draws`).
 """
 
 from __future__ import annotations
@@ -214,6 +216,41 @@ def _fmix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+# the fold domain of speculation's round draws (the JAX package's 0x5BEC):
+# mixed into a stream's hash state, it keeps every round draw disjoint from
+# the per-token noise of the same stream and index
+SPEC_DOMAIN = 0x5BEC
+
+
+def _stream_keys(seed: int, stream_ids: torch.Tensor, index: torch.Tensor,
+                 domain: int | None = None) -> torch.Tensor:
+    """The hash state ``[B]`` (int64 lanes in ``[0, 2^32)``) of each row's
+    ``(seed, stream_ids[b], index[b])``, in ``domain`` if one is given."""
+    dev = index.device
+    sid = stream_ids.to(device=dev, dtype=torch.int64) & _M32
+    idx = index.to(torch.int64) & _M32
+    k = _fmix32(torch.full_like(idx, (seed & _M32) ^ 0x9E3779B9))
+    k = _fmix32(k ^ (((seed >> 32) & _M32) ^ 0x7F4A7C15))
+    k = _fmix32(k ^ _mul32(sid, 0x9E3779B9))
+    if domain is not None:
+        k = _fmix32(k ^ domain)
+    return _fmix32(k ^ _mul32(idx, 0x85EBCA77))
+
+
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    """24 bits of each hash lane as a uniform f32 in (0, 1)."""
+    return ((x >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+
+
+def _gumbel(k: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Standard Gumbel noise ``[..., vocab]`` f32 from the hash states
+    ``k [...]``, one counter a token id."""
+    v = torch.arange(vocab, dtype=torch.int64, device=k.device)
+    x = _fmix32(k[..., None] ^ _mul32(v, 0xC2B2AE3D))
+    x = _fmix32(x ^ k[..., None])
+    return -torch.log(-torch.log(_unit(x)))
+
+
 def keyed_gumbel_noise(seed: int, stream_ids: torch.Tensor,
                        index: torch.Tensor, vocab: int) -> torch.Tensor:
     """Standard Gumbel noise ``[B, vocab]`` f32 on ``index``'s device: row
@@ -221,18 +258,27 @@ def keyed_gumbel_noise(seed: int, stream_ids: torch.Tensor,
     from a counter hash over the token ids in one vectorised pass (24
     uniform bits a token). A stream's sampled ids therefore do not depend on
     the batch it runs in, the fused-block size or when it was admitted."""
-    dev = index.device
-    sid = stream_ids.to(device=dev, dtype=torch.int64) & _M32
-    idx = index.to(torch.int64) & _M32
-    k = _fmix32(torch.full_like(idx, (seed & _M32) ^ 0x9E3779B9))
-    k = _fmix32(k ^ (((seed >> 32) & _M32) ^ 0x7F4A7C15))
-    k = _fmix32(k ^ _mul32(sid, 0x9E3779B9))
-    k = _fmix32(k ^ _mul32(idx, 0x85EBCA77))
-    v = torch.arange(vocab, dtype=torch.int64, device=dev)
-    x = _fmix32(k[:, None] ^ _mul32(v, 0xC2B2AE3D)[None, :])
-    x = _fmix32(x ^ k[:, None])
-    u = ((x >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
-    return -torch.log(-torch.log(u))
+    return _gumbel(_stream_keys(seed, stream_ids, index), vocab)
+
+
+def spec_round_draws(seed: int, stream_ids: torch.Tensor, pos: torch.Tensor,
+                     t: int, vocab: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The draws of one speculative round of rejection sampling, on
+    ``pos``'s device: ``(uniforms [B, T], gumbel [B, T, vocab])`` f32, row
+    ``b``'s a function of ``(seed, stream_ids[b], pos[b])`` alone (the
+    position the round starts at, so no two rounds of a stream share
+    draws), in the :data:`SPEC_DOMAIN` of the counter hash, disjoint from
+    :func:`keyed_gumbel_noise`'s per-token draws. Step ``i`` of the round
+    accepts its proposal when ``uniforms[:, i]`` falls below the
+    proposal's probability and otherwise samples with ``gumbel[:, i]``
+    (``ops.sampling`` takes ``argmax(logits + gumbel)``, the rule of
+    ``jax.random.categorical``). The batch engine and the single stream
+    (stream id 0) draw alike."""
+    k = _stream_keys(seed, stream_ids, pos, SPEC_DOMAIN)
+    steps = torch.arange(t, dtype=torch.int64, device=k.device)
+    ki = _fmix32(k[:, None] ^ _mul32(steps + 1, 0x27D4EB2F))  # [B, T]
+    return _unit(_fmix32(ki ^ 0x165667B1)), _gumbel(ki, vocab)
 
 
 def _fmix32_int(x: int) -> int:

@@ -1,7 +1,8 @@
 """The serving engine's programs on one device (port of the single-device
 case of ``cake_tpu/parallel/pipeline.py``: ``build_sharded_prefill``,
-``build_admit_prefill`` and ``build_sharded_decode`` in its ``per_row``
-serving mode).
+``build_admit_prefill``, ``build_sharded_decode`` in its ``per_row``
+serving mode, and speculation's ``build_sharded_verify`` and
+``build_sharded_verify_rows``).
 
 The JAX package compiles each into one ``shard_map`` program over a mesh.
 Here there is no mesh: each builder returns a plain function over the
@@ -73,6 +74,37 @@ def build_admit_prefill(model: Llama):
         return model.logits(x[:, last_local])
 
     return admit
+
+
+def build_sharded_verify(model: Llama):
+    """The single stream's speculative verify: ``(tokens [1, T], cache,
+    pos) -> logits [T, vocab]`` f32, a logit row at every position. The T
+    tokens sit at ``pos .. pos + T - 1``; ``pos`` is a ``[1]`` int32 tensor
+    on the device (a fused round never waits for the host), and the
+    attention goes through the multi-query decode kernels. K/V is written
+    at every one of the T slots: those past the accepted run hold rejected
+    tokens' K/V, beyond the causal frontier until later steps overwrite
+    them."""
+
+    def verify(tokens: torch.Tensor, cache: KVCache, pos) -> torch.Tensor:
+        return model.logits(model.hidden(tokens, cache, pos)[0])
+
+    return verify
+
+
+def build_sharded_verify_rows(model: Llama):
+    """The batch engine's speculative verify: ``(fed [B, T], cache, pos
+    [B]) -> logits [B, T, vocab]`` f32. Row ``b`` feeds its last token and
+    its proposals at ``pos[b] ..`` (per-row RoPE rows and KV writes,
+    clamped into the window as the JAX package's ``dynamic_update_slice``
+    clamps, and per-row frontiers down through the multi-query decode
+    kernels)."""
+
+    def verify_rows(fed: torch.Tensor, cache: KVCache,
+                    pos: torch.Tensor) -> torch.Tensor:
+        return model.logits(model.hidden(fed, cache, pos))
+
+    return verify_rows
 
 
 def build_sharded_decode(model: Llama, settings: SamplerSettings,

@@ -62,9 +62,18 @@ queued ``import_begin``/``import_attach``) move one stream's pages and
 sampler state as a snapshot (:mod:`cake_tpu_torch.disagg.snapshot`):
 the serve scheduler's preemption spill and the engine's suspend/resume.
 
-Not ported yet, and refused with an error in the constructor: batched
-speculation, the interleaved pipeline schedules and every mesh axis above
-1.
+Batched n-gram speculation (``spec_k > 0``): each round verifies every
+live stream's K prompt-lookup proposals in one per-row call
+(``parallel.pipeline.build_sharded_verify_rows``, through the multi-query
+decode kernels) and banks the accepted run, 1..K+1 tokens a stream; the
+banks are emitted one row per ``step()``. ``spec_rounds > 1`` chains that
+many rounds on the device (device proposer, verify, accept and state
+update) with one host copy at the end. Greedy streams are identical to the
+plain engine's; sampled streams are distribution-identical through
+rejection sampling, with draws keyed by (seed, stream id, position).
+
+Not ported yet, and refused with an error in the constructor: the
+interleaved pipeline schedules and every mesh axis above 1.
 """
 
 from __future__ import annotations
@@ -99,8 +108,10 @@ from cake_tpu_torch.parallel.pipeline import (
     build_admit_prefill,
     build_sharded_decode,
     build_sharded_prefill,
+    build_sharded_verify_rows,
     check_single_device,
 )
+from cake_tpu_torch.runtime import speculative as spec
 from cake_tpu_torch.runtime import threadcheck
 from cake_tpu_torch.runtime.generator import Token, _bucket, encode_prompt
 from cake_tpu_torch.utils.device import HostCopy, resolve_device
@@ -185,6 +196,8 @@ class BatchGenerator:
         kv_quant: str | None = None,
         interleave: bool | None = None,
         spec_k: int = 0,
+        spec_ngram: int = 3,
+        spec_rounds: int = 8,
         logprobs: int = 0,
         kv_layout: str = "slot",
         kv_page_size: int = 16,
@@ -205,8 +218,13 @@ class BatchGenerator:
                 "kv_layout='paged' does not compose with batched "
                 "speculation (spec_k): the fused verify rounds write "
                 "K+1 slots per row outside the page write-back plan")
-        if spec_k:
-            raise _unported("batched speculation (spec_k)")
+        if logprobs and spec_k:
+            raise ValueError("logprobs do not compose with batched "
+                             "speculation (spec_k): accepted runs have no "
+                             "per-step logits to report")
+        if lookahead and spec_k:
+            raise ValueError("lookahead dispatch does not compose with "
+                             "batched speculation (spec_k)")
         if interleave:
             raise _unported("the interleaved pipeline schedule")
         self.max_seq = max_seq or config.max_seq_len
@@ -262,6 +280,21 @@ class BatchGenerator:
         self._decode_masked = build_sharded_decode(
             self.model, self.settings, self.logprobs_k, masked=True,
             paged=self._paged)
+        # Batched n-gram speculation (spec_k > 0): each round verifies every
+        # live stream's K proposals in one per-row call and banks the
+        # accepted run. A row with no proposal still advances one token
+        # (-1 pads never match), so a round subsumes a plain step. With
+        # spec_rounds > 1 the rounds chain on the device, one host copy a
+        # chain.
+        self._spec_k = max(0, int(spec_k))
+        self._spec_ngram = int(spec_ngram)
+        self._spec_rounds = max(1, int(spec_rounds))
+        self._verify_rows = build_sharded_verify_rows(self.model)
+        self._spec_bank: list[list[int]] = []
+        self._spec_ctx: torch.Tensor | None = None  # [B, max_seq] context
+        self._spec_ctx_pos: np.ndarray | None = None  # host pos at sync
+        self._n_spec_dispatches = 0
+        self._n_spec_chains = 0
         self._lookahead = bool(lookahead)
         # a launched block not yet emitted: (steps, ids' host copy, the
         # logprobs' host copies or None)
@@ -283,6 +316,7 @@ class BatchGenerator:
         # (cut to a PREFIX_BLOCK boundary). A row may hold the donor's KV
         # past the match length, beyond the reusing stream's frontier
         # until its own prefill and decode overwrite it.
+        self._eos_t = spec.eos_tensor(self._eos_ids, self.device)
         self._prefix_store = PrefixLRU(self.PREFIX_CACHE_ENTRIES)
         self._prefix_hits = 0
         self._n_decode_dispatches = 0
@@ -302,9 +336,10 @@ class BatchGenerator:
         self._sentinel.install()
         # counts of model calls (warm-ups included), for callers that
         # check kernel launches: prompt passes (batched prefill and each
-        # admission chunk) and batched decode steps
+        # admission chunk), batched decode steps and speculative verifies
         self.prefill_calls = 0
         self.decode_steps = 0
+        self.verify_calls = 0
 
     @property
     def eos_ids(self) -> frozenset:
@@ -327,10 +362,16 @@ class BatchGenerator:
     # -- constrained decoding -----------------------------------------------
     def _check_guide_ok(self, guide) -> None:
         """Refuse, where a caller can turn it into a client error
-        (``enqueue``, ``set_prompts``), a guide whose mask does not cover
-        this engine's vocabulary: its rows would gather the wrong bits."""
+        (``enqueue``, ``set_prompts``), a guide on a speculating engine, or
+        one whose mask does not cover this engine's vocabulary: its rows
+        would gather the wrong bits."""
         if guide is None:
             return
+        if self._spec_k:
+            raise ValueError(
+                "constrained decoding does not compose with batched "
+                "speculation (spec_k): the fused verify rounds cannot "
+                "advance the host-side DFA between tokens")
         v8 = (self.config.vocab_size + 7) // 8
         if guide.dfa.mask_bits.shape[1] != v8:
             raise ValueError(
@@ -586,6 +627,9 @@ class BatchGenerator:
         self._index = np.ones((b,), np.int64)
         self._emitted_first = False
         self._block_buf: deque = deque()
+        self._spec_bank = [[] for _ in self.streams]
+        self._spec_ctx = None  # fresh prompts: the device context is stale
+        self._spec_ctx_pos = None
         # emission rows recorded (admit() flushing the block buffer) but
         # not yet handed to a step() caller
         self._pending_rows: list[list[Token | None]] = []
@@ -1393,6 +1437,12 @@ class BatchGenerator:
                     detok=TokenOutputStream(self.tokenizer)
                     if self.tokenizer else None, noise_id=stream_id)
         self.streams[slot] = s
+        if self._spec_k:
+            self._spec_bank[slot] = []  # the slot's old stream is gone
+            # the device context row still holds the old stream's tokens;
+            # a coincidence of positions could pass the staleness check
+            self._spec_ctx = None
+            self._spec_ctx_pos = None
         s.generated.append(tok_id)
         window_full = len(ids) + 1 >= self.max_seq
         is_eos = tok_id in self._eos_ids
@@ -1448,6 +1498,9 @@ class BatchGenerator:
                 # as that arrival's: they go with the stream
                 for row in self._pending_rows:
                     row[i] = None
+                # and so do its banked speculative tokens
+                if self._spec_bank:
+                    self._spec_bank[i] = []
                 # paged: retirement is the KV free, a host-side unref loop
                 # over the slot's pages
                 self._release_pages(i)
@@ -1631,9 +1684,181 @@ class BatchGenerator:
             (rows[i], (lp_h[0][i], lp_h[1][i]) if lp_h is not None else None)
             for i in range(size))
 
+    # -- batched speculation ---------------------------------------------------
+    def _spec_emit_or_round(self):
+        """Drain the per-stream banks of accepted tokens one row a call;
+        when they are empty, run one batched verify round (or a chain of
+        ``spec_rounds``). Returns None, and the caller takes the plain
+        decode path, when speculation cannot or should not run:
+
+        - no live streams;
+        - a live stream within K+1 slots of its window (its fed row's KV
+          write would clamp over committed slots). The gate is
+          batch-global but bounded: such a stream fills its window within
+          K+1 plain steps and retires;
+        - greedy with no proposal on any live stream: a (K+1)-wide verify
+          that advances every stream one token is worse than a plain step,
+          with the same outputs. Sampled streams keep the verify: their
+          round draws are keyed apart from the plain steps' noise, and
+          skipping rounds on other streams' proposals would make a stream
+          depend on its batch."""
+        if any(self._spec_bank):
+            return self._emit_spec_bank()
+        live = [i for i, s in enumerate(self.streams) if not s.done]
+        if not live:
+            return None
+        k = self._spec_k
+        if (self._spec_rounds > 1
+                and all(int(self._pos[i]) + self._spec_rounds * (k + 1)
+                        < self.max_seq for i in live)):
+            # the chain skips the host's "all proposals empty" probe,
+            # which would itself force the per-round sync it exists to
+            # avoid
+            self._spec_chain(live)
+            return self._emit_spec_bank()
+        if any(int(self._pos[i]) + k + 1 > self.max_seq for i in live):
+            return None
+        props = np.full((len(self.streams), k), -1, np.int64)
+        with self._prof.phase("spec_propose"):
+            for i in live:
+                s = self.streams[i]
+                pr = spec.ngram_propose(s.prompt + s.generated,
+                                        self._spec_ngram, k)
+                props[i, :len(pr)] = pr
+        if self.settings.greedy and (props < 0).all():
+            return None
+        self._spec_round(live, props)
+        return self._emit_spec_bank()
+
+    def _spec_accept(self, logits, props, pos, alive=None):
+        """The batched accept, each row's round draws keyed by its noise id
+        and ``pos``, the rings updated in place: ``(tokens [B, K+1],
+        count [B])``."""
+        return spec.accept_round(logits, props, self._history,
+                                 self._hist_slot, self._eos_t, self.settings,
+                                 self._sids, pos, alive=alive)
+
+    def _spec_round(self, live: list[int], props: np.ndarray) -> None:
+        """One verify round from the host's proposals, one host copy."""
+        b = len(self.streams)
+        k = self._spec_k
+        t0 = time.perf_counter()
+        fed = np.zeros((b, k + 1), np.int64)
+        fed[:, 0] = self._last_tokens.cpu().numpy()
+        fed[:, 1:] = np.maximum(props, 0)  # -1 pads embed as 0; never match
+        pos = self._ids(self._pos.astype(np.int32))
+        with span("spec.verify", rounds=1, batch=b), \
+                self._prof.phase("spec_verify"), \
+                self._sentinel.decode_phase():
+            logits = self._verify_rows(self._ids(fed), self.cache, pos)
+            self.verify_calls += 1
+        with self._prof.phase("spec_accept"), self._sentinel.decode_phase():
+            toks, count = self._spec_accept(logits, self._ids(props), pos)
+            host = torch.cat([count[:, None], toks], 1).cpu().numpy()
+            count, toks = host[:, 0], host[:, 1:]
+        self._n_decode_dispatches += 1
+        self._n_spec_dispatches += 1
+        self._busy_s += time.perf_counter() - t0
+        live_mask = np.zeros((b,), bool)
+        live_mask[live] = True
+        # finished rows advance exactly one slot (as in a plain step, their
+        # writes clamped and discarded); live rows bank their run
+        n = np.where(live_mask, np.maximum(count, 1), 1)
+        spec.record_acceptance(
+            int((props[live] >= 0).sum()),
+            int(sum(max(0, int(n[i]) - 1) for i in live)))
+        for i in live:
+            self._spec_bank[i] = toks[i, :n[i]].tolist()
+        self._pos = (self._pos + n).astype(self._pos.dtype)
+        self._index = self._index + n
+        last = toks[np.arange(b), n - 1]
+        self._last_tokens = self._ids(np.where(live_mask, last, fed[:, 0]))
+
+    def _spec_propose(self, ctx, pos, last):
+        """The device proposer over the context rows, and the fed block
+        ``[last, proposals]``: ``(props [B, K], fed [B, K+1])``."""
+        props = spec.ngram_propose_rows(ctx, pos + 1, n_max=self._spec_ngram,
+                                        k=self._spec_k)
+        return props, torch.cat([last[:, None], props.clamp(min=0)], 1)
+
+    def _spec_chain(self, live: list[int]) -> None:
+        """``spec_rounds`` propose -> verify -> accept rounds launched
+        back to back, one host copy at the end. The caller guarantees every
+        live row ``pos + spec_rounds * (K+1) < max_seq``."""
+        b = len(self.streams)
+        if (self._spec_ctx is None or self._spec_ctx_pos is None
+                or not np.array_equal(self._spec_ctx_pos, self._pos)):
+            buf = np.zeros((b, self.max_seq), np.int64)
+            for i, s in enumerate(self.streams):
+                ctx_i = (s.prompt + s.generated
+                         + self._spec_bank[i])[:self.max_seq]
+                buf[i, :len(ctx_i)] = ctx_i
+            self._spec_ctx = self._ids(buf)
+        t0 = time.perf_counter()
+        ctx = self._spec_ctx
+        pos = self._ids(self._pos.astype(np.int32))
+        done = self._ids(np.asarray([s.done for s in self.streams]))
+        last = self._last_tokens
+        toks_r, n_r = [], []
+        with span("spec.verify", rounds=self._spec_rounds, batch=b), \
+                self._prof.phase("spec_verify"), \
+                self._sentinel.decode_phase():
+            for _ in range(self._spec_rounds):
+                props, fed = self._spec_propose(ctx, pos, last)
+                logits = self._verify_rows(fed, self.cache, pos)
+                self.verify_calls += 1
+                # rows frozen by done emit and push nothing; a frozen row
+                # near the window's end may clamp-write inside its own dead
+                # context row, which is never proposed from again
+                toks, n = self._spec_accept(logits, props, pos, alive=~done)
+                pos, done, last = spec.update_rows(toks, n, ctx, pos, done,
+                                                   last, self._eos_t)
+                toks_r.append(toks)
+                n_r.append(n)
+        with self._prof.phase("spec_accept"):
+            # one copy: [R, B, 1 + (K+1)]
+            host = torch.cat([torch.stack(n_r)[..., None],
+                              torch.stack(toks_r)], -1).cpu().numpy()
+            n_all, toks_all = host[..., 0], host[..., 1:]
+        self._n_decode_dispatches += self._spec_rounds
+        self._n_spec_dispatches += self._spec_rounds
+        self._n_spec_chains += 1
+        self._busy_s += time.perf_counter() - t0
+        # device proposer: the proposal lengths never reach the host, so
+        # proposed is the K x rows x rounds upper bound
+        spec.record_acceptance(
+            self._spec_k * len(live) * n_all.shape[0],
+            int(sum(max(0, int(n_all[r, i]) - 1)
+                    for r in range(n_all.shape[0]) for i in live)))
+        for i in live:
+            self._spec_bank[i] = [int(t) for r in range(n_all.shape[0])
+                                  for t in toks_all[r, i, :n_all[r, i]]]
+        adv = n_all.sum(axis=0)
+        self._pos = (self._pos + adv).astype(self._pos.dtype)
+        self._index = self._index + adv
+        self._last_tokens = last
+        self._spec_ctx = ctx
+        self._spec_ctx_pos = self._pos.copy()
+
+    def _emit_spec_bank(self) -> list:
+        """One row of the banks: each stream's oldest banked token, the
+        streams with an empty bank silent."""
+        row = np.zeros((len(self.streams),), np.int64)
+        skip = [not bank for bank in self._spec_bank]
+        for i, bank in enumerate(self._spec_bank):
+            if bank:
+                row[i] = bank.pop(0)
+        return self._emit(row, skip=skip)
+
     def _step_decode(self):
+        # buffered block rows are earlier tokens than anything a new round
+        # would produce: they go first
         if self._block_buf:
             return self._emit_buffered()
+        if self._spec_k:
+            row = self._spec_emit_or_round()
+            if row is not None:
+                return row
         # capacity is per stream: a finished stream's row keeps advancing
         # (its clamped writes touch only its own cache row, whose outputs
         # are discarded), so only LIVE streams gate the block
@@ -1685,6 +1910,8 @@ class BatchGenerator:
             "tokens_emitted": self._n_emitted,
             "decode_dispatches": self._n_decode_dispatches,
             "admit_dispatches": self._n_admit_dispatches,
+            "spec_dispatches": self._n_spec_dispatches,
+            "spec_chains": self._n_spec_chains,
             "prefix_hits": self._prefix_hits,
             "prefix_entries": (len(self._prefix_tree) if self._paged
                                and self._prefix_tree is not None
@@ -1707,8 +1934,10 @@ class BatchGenerator:
     def generate(self, max_new_tokens: int) -> list[list[int]]:
         """Run all streams to EOS or ``max_new_tokens`` MORE tokens each
         (repeated calls continue where the last left off); returns each
-        stream's generated ids, in prompt order. A stream admitted
-        into a slot mid-call starts its quota from zero."""
+        stream's generated ids, in prompt order. With batched speculation
+        the emission is ragged (a stream banks 1..K+1 tokens a round), so
+        the loop runs until every live stream has this call's quota. A
+        stream admitted into a slot mid-call starts its quota from zero."""
         start = {i: (s, len(s.generated))
                  for i, s in enumerate(self.streams)}
 
@@ -1722,7 +1951,11 @@ class BatchGenerator:
                     return False
             return True
 
-        cap = 2 * max_new_tokens * max(1, len(self.streams)) + 8
+        # the worst case of steps a token of a slow stream: draining another
+        # stream's bank of K+1 costs up to spec_k + 1 steps while the slow
+        # stream gains one token
+        per_tok = max(2, self._spec_k + 2)
+        cap = per_tok * max_new_tokens * max(1, len(self.streams)) + 8
         for _ in range(cap):
             if quota_met():
                 break

@@ -10,6 +10,8 @@
                                           # result line
     python3 chip_smoke.py --phase 11      # phases 1 and 11 only; no
                                           # result line
+    python3 chip_smoke.py --phase 12      # phases 1 and 12 only; no
+                                          # result line
 
 Phases, each fatal on failure:
 
@@ -24,12 +26,17 @@ Phases, each fatal on failure:
    planted faults (both decodes one tile short at either end, the matmuls
    at M = 1 and 2048, and both prefills one tile short) must fail the same
    check; each matmul and each decode run twice on the same inputs gives
-   the same bits;
+   the same bits; both decodes also in their multi-query form (the
+   speculative verify: T = 2, 5, 9 and 17 query positions a stream, one
+   stream and 8 at ragged frontiers, a row at S - T, a window), with its
+   own planted faults;
 3. kernel timings (CUDA events, L2 flushed before each call) beside the
    card's bound, the plain version and one PyTorch call as a yardstick,
    with the prefill kernels' and each matmul case's TFLOP/s, registers and
-   shared memory (the matmuls at every linear, M = 1 and 2048; the decodes
-   at pos 2047, 4095 and four rows), printed as one JSON line at the end;
+   shared memory (the matmuls at every linear, M = 1 and 2048, and at the
+   verify's M = 9 and 72; the decodes at pos 2047, 4095 and four rows, and
+   at T = 5 and 9 beside SDPA with a per-row causal mask), printed as one
+   JSON line at the end;
 4. the model at full Llama-3-8B width and 2 layers, on the card (kernels)
    against the CPU (plain path), from the same weights: bf16, int8 weights
    with the int8 cache, int4 g128 weights; and codes quantized on the card
@@ -110,7 +117,19 @@ Phases, each fatal on failure:
    the uninterrupted run; on (a), the in-process server with
    ``--spill-mb 256``: eight batch requests hold the slots, an
    interactive one preempts a victim, which is spilled and resumed, and
-   every stream equals the engine's own ids.
+   every stream equals the engine's own ids;
+12. n-gram speculation (K = 8), run at the end of each of phase 7's paths
+   after phase 11, over its weights: (i) ``SpeculativeGenerator`` on phase
+   5's prompt, 64 tokens, rounds 1 (the host loop) and 8 (chained on the
+   card), launches exact, ids equal to the plain stream up to its first
+   near-tie (MARGIN_TIE); (ii) the batch engine at 8 slots on phase 7's
+   scenario, launches exact, every stream equal to phase 7's ids up to
+   its first near-tie, and the card time of a verify round beside a plain
+   8-slot step's; (iii) ``spec_replay_fn`` over ``corpus_tokens`` at K = 4
+   and 8: tokens a round, card ms and launches a verify beside a plain
+   step (random weights make live acceptance meaningless); (iv) on (a),
+   one request to the in-process server on a K = 8 engine, whose ids equal
+   the engine's.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the ``cake_tpu_torch`` package beside this file, it exits with
@@ -337,6 +356,63 @@ def decode_checks(torch, flash, name, rnd, make_kv) -> dict:
     return errs
 
 
+# the multi-query decode (the speculative verify, T = K + 1 query positions
+# a stream): T = 2, 5, 9 (K = 8's verify) and 17 (the rows of a kv head at
+# Llama-3-8B's group 4 cross into a fifth 16-row tile); one stream at the
+# buffer's last slots and at 2047 with a window whose lower edge falls
+# inside a 64-key tile, and 8 streams at ragged frontiers, one at S - T
+MQ_T = (2, 5, 9, 17)
+MQ_WINDOW = 1000
+
+
+def mq_rows(t: int) -> tuple:
+    return (S - t, 2047, 1100, 517, 260, 64, 33, 5)
+
+
+def multi_query_checks(torch, flash, name, rnd, make_kv) -> dict:
+    """Decode kernel ``name`` at T > 1 against its plain version on every
+    case above (worst row relative L2 within ROW_REL_L2), twice on the same
+    inputs for the same bits, and with two planted faults at T = 9: a
+    stream's last live tile dropped (its frontier a tile lower) and the
+    first live tile dropped (a window starting a tile late)."""
+    kernel, plain = getattr(flash, name), getattr(flash, f"{name}_ref")
+    errs = {}
+    kv1, kv8 = make_kv(1, KVH, S, D), make_kv(8, KVH, S, D)
+    if not (2047 - MQ_WINDOW + 1) % flash.DECODE_BLOCK_K:
+        fail("the multi-query window edge must fall inside a tile")
+    for t in MQ_T:
+        for b, pos, window in ((1, [S - t], None), (1, [2047], MQ_WINDOW),
+                               (8, list(mq_rows(t)), None),
+                               (8, list(mq_rows(t)), MQ_WINDOW)):
+            kv = kv1 if b == 1 else kv8
+            q = rnd(b, H, t, D)
+            p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+            label = (f"{name} T={t} B={b} pos={pos if b == 1 else 'ragged'}"
+                     f" window={window}")
+            out = kernel(q, *kv, p, window=window)
+            err = compare(torch, label, out, plain(q, *kv, p, window=window))
+            if window is None:
+                errs[(name, "mq", b, t)] = err
+            if not torch.equal(out, kernel(q, *kv, p, window=window)):
+                fail(f"{label}: a second call on the same inputs gives "
+                     "other bits")
+    say(f"[2] {name} at T = {list(MQ_T)}: two calls give the same bits in "
+        "every case")
+    t = 9
+    q = rnd(8, H, t, D)
+    p = torch.tensor(mq_rows(t), dtype=torch.int32, device="cuda")
+    bad = p.clone()
+    bad[1] -= flash.DECODE_BLOCK_K
+    planted(torch, f"{name} T={t} B=8, row 1's last tile dropped",
+            kernel(q, *kv8, bad), plain(q, *kv8, p))
+    q1 = rnd(1, H, t, D)
+    p1 = torch.tensor([S - t], dtype=torch.int32, device="cuda")
+    planted(torch, f"{name} T={t} B=1 pos={S - t}, first tile dropped",
+            kernel(q1, *kv1, p1, window=S - t - flash.DECODE_BLOCK_K + 1),
+            plain(q1, *kv1, p1))
+    return errs
+
+
 def phase_kernels(torch, flash) -> dict:
     for t, pos, window in PREFILL_CASES:
         if window is not None and not window_edge_inside_tile(
@@ -374,6 +450,10 @@ def phase_kernels(torch, flash) -> dict:
     errs.update(decode_checks(
         torch, flash, "flash_decode", rnd, lambda b, kvh, s, d: (
             rnd(b, kvh, s, d), rnd(b, kvh, s, d))))
+    errs.update(multi_query_checks(
+        torch, flash, "flash_decode", rnd, lambda b, kvh, s, d: (
+            rnd(b, kvh, s, d), rnd(b, kvh, s, d))))
+    torch.cuda.empty_cache()
     return errs
 
 
@@ -463,6 +543,9 @@ def phase_quant_kernels(torch, flash, qmatmul, quant, kvcache) -> dict:
                                                                1000)),
             flash.flash_attention_q8_ref(q, *kv8, 1000))
     errs.update(decode_checks(torch, flash, "flash_decode_q8", rnd, cache))
+    errs.update(multi_query_checks(torch, flash, "flash_decode_q8", rnd,
+                                   cache))
+    torch.cuda.empty_cache()
     small = cache(2, 2, 100, 64)
     qs = rnd(2, 4, 40, 64)
     compare(torch, "flash_prefill_q8 D=64 G=2 S=100 T=40 pos=30",
@@ -526,28 +609,32 @@ def decode_inputs(torch, kvcache, name, b, rnd):
         kvcache.dequant_kv(c, torch.bfloat16) for c in (kq, vq))
 
 
-def decode_case(torch, flash, kvcache, name, b, pos, rnd) -> dict:
-    """Card times of one decode call: the kernel, its plain version and
-    SDPA over the live keys (a boolean mask for per-row frontiers), beside
-    the bound: q, the output, and each row's live keys read once (bf16 K
-    and V, or int8 codes and their f32 scales)."""
+def decode_case(torch, flash, kvcache, name, b, pos, rnd, t=1) -> dict:
+    """Card times of one decode call of ``t`` query positions a row: the
+    kernel, its plain version and SDPA over the live keys (a boolean mask
+    for per-row frontiers and for T > 1: query t sees keys up to pos + t),
+    beside the bound: q, the output, and each row's live keys (up to its
+    last query) read once (bf16 K and V, or int8 codes and their f32
+    scales); 2 products of D multiply-adds a key, head and query row."""
     import torch.nn.functional as F
 
     kv, lib_kv = decode_inputs(torch, kvcache, name, b, rnd)
-    q = rnd(b, H, 1, D)
+    q = rnd(b, H, t, D)
     p = torch.tensor(pos, dtype=torch.int32, device="cuda")
-    live = [x + 1 for x in pos]
+    live = [x + t for x in pos]
     per_key = 2 * D * 2 if name == "flash_decode" else 2 * (D + 4)
     nbytes = 2 * q.numel() * 2 + KVH * sum(live) * per_key
-    b_ms, b_by = bound(nbytes, 4 * H * D * sum(live))
+    b_ms, b_by = bound(nbytes, 4 * H * D * sum(
+        x + i + 1 for x in pos for i in range(t)))
     n = max(live)
-    lk, lv = (t[:, :, :n] for t in lib_kv)
+    lk, lv = (c[:, :, :n] for c in lib_kv)
     mask = None
-    if b > 1:
-        mask = (torch.arange(n, device="cuda")[None] < torch.tensor(
-            live, device="cuda")[:, None])[:, None, None]
+    if b > 1 or t > 1:
+        mask = (torch.arange(n, device="cuda")[None, None, :]
+                <= p.long()[:, None, None]
+                + torch.arange(t, device="cuda")[None, :, None])[:, None]
     kernel, plain = getattr(flash, name), getattr(flash, f"{name}_ref")
-    return {"shape": f"q [{b},{H},1,{D}] "
+    case = {"shape": f"q [{b},{H},{t},{D}] "
                      f"{'bf16' if name == 'flash_decode' else 'int8'} k/v "
                      f"[{b},{KVH},{S},{D}] pos {list(pos)}",
             "ms": time_ms(torch, lambda: kernel(q, *kv, p)),
@@ -555,6 +642,8 @@ def decode_case(torch, flash, kvcache, name, b, pos, rnd) -> dict:
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, lk, lv, attn_mask=mask, enable_gqa=True)),
             "bound_ms": b_ms, "bound_by": b_by}
+    case["pct_of_bound"] = 100 * b_ms / case["ms"]
+    return case
 
 
 def decode_row(torch, flash, kvcache, build, name, replaces, errs,
@@ -800,6 +889,50 @@ def prefill_rows(build, rows) -> None:
                 f"{r.get('registers')} registers, "
                 f"{r['dynamic_smem_bytes']} bytes of dynamic shared memory, "
                 f"{r.get('spill_store_bytes')} bytes of spill stores")
+
+
+# (B, T) of the timed multi-query decodes: one stream and 8 at ragged
+# frontiers, at the verify's T of K = 4 and K = 8; and the verify's M = B T
+# of the linears at K = 8 (one stream, 8 slots)
+MQ_TIMED = ((1, 9), (8, 5), (8, 9))
+VERIFY_M = (9, 72)
+
+
+def multi_query_timing(torch, flash, qmatmul, quant, kvcache, build,
+                       rows) -> None:
+    """Phase 3's timings at the verify's shapes, added to the kernels' rows
+    as cases: both decodes at T = 5 and 9 (one stream, 8 streams), and the
+    linears and the head at M = 9 and 72 for the int8 and int4 g128
+    tiers."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    by_name = {r["name"]: r for r in rows}
+    for name in ("flash_decode", "flash_decode_q8"):
+        for b, t in MQ_TIMED:
+            c = decode_case(torch, flash, kvcache, name, b,
+                            (2047,) if b == 1 else mq_rows(t), rnd, t=t)
+            by_name[name]["cases"].append(c)
+            say(f"[3] {name} {c['shape']}: {c['ms']:.4f} ms, "
+                f"{c['pct_of_bound']:.1f}% of bound {c['bound_ms']:.4f} by "
+                f"{c['bound_by']} (plain {c['plain_ms']:.4f}, library "
+                f"{c['library_ms']:.4f})")
+        torch.cuda.empty_cache()
+    for name, tier in (("quant_matmul", TIERS[0]), ("quant4_matmul",
+                                                     TIERS[2])):
+        for m in VERIFY_M:
+            for k_, n in LINEARS + (HEAD,):
+                c = matmul_case(torch, quant, qmatmul, build, tier, m, k_, n,
+                                gen)
+                by_name[name]["cases"].append(c)
+                say(f"[3] {name} {c['tier']} {c['shape']}: {c['ms']:.4f} "
+                    f"ms, {c['pct_of_bound']:.1f}% of bound "
+                    f"{c['bound_ms']:.4f} by {c['bound_by']} (plain "
+                    f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f}); "
+                    f"{c['plan']}")
 
 
 # --------------------------------------------------------------------------
@@ -1072,10 +1205,16 @@ def phase_one_launch(torch, flash, kvcache) -> None:
                                       (1, H, 1, D)))
     kq, vq = kvcache.quant_kv(k), kvcache.quant_kv(v)
     p = torch.tensor([2047], dtype=torch.int32, device="cuda")
+    # and the verify's multi-query form: T = 17 (five 16-row tiles)
+    q17 = torch.randn((1, H, 17, D), generator=gen, device="cuda").to(
+        torch.bfloat16)
     for name, call in (
             ("flash_decode", lambda: flash.flash_decode(q, k, v, p)),
             ("flash_decode_q8", lambda: flash.flash_decode_q8(
-                q, kq.q, kq.scale, vq.q, vq.scale, p))):
+                q, kq.q, kq.scale, vq.q, vq.scale, p)),
+            ("flash_decode T=17", lambda: flash.flash_decode(q17, k, v, p)),
+            ("flash_decode_q8 T=17", lambda: flash.flash_decode_q8(
+                q17, kq.q, kq.scale, vq.q, vq.scale, p))):
         call()  # built and loaded before the trace
         prof = device_profile(torch, call)
         say(f"[5] one {name} call: {prof['kernel_launches']} kernel "
@@ -3395,6 +3534,374 @@ def phase_paged_only(torch, build) -> list:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 12
+# --------------------------------------------------------------------------
+
+# proposals a round: the default of the JAX package's command line
+SPEC_K = 8
+# A verify writes the K/V of its K + 1 positions from M = K + 1 (or 8 (K +
+# 1)) projections, whose bf16 outputs round otherwise than a plain step's
+# M = 1 or 8: over the bf16 cache the streams part at near-ties as phase
+# 7's do (MARGIN_TIE). Over the int8 cache a K or V element one bf16 ulp
+# off can flip its int8 code, which moves it by a whole scale step (1/127
+# of the row's largest element, ~2^-7 relative against bf16's 2^-8), so a
+# stream there is held up to its first margin below twice MARGIN_TIE (on
+# an H100 the int8 single stream at rounds 1 parted at a margin of 0.0682)
+SPEC_MARGIN_TIE_Q8 = 2 * MARGIN_TIE
+# single-stream rounds chained on the card a host copy (1 is the host loop)
+SPEC_ROUNDS = (1, 8)
+# (K, rounds of the replay): one corpus pass, capped so the phase stays
+# short; tokens a round read over every round replayed
+REPLAY_K = (4, 8)
+REPLAY_ROUNDS = 128
+
+
+def main_path_prompt(torch, cfg) -> list:
+    """Phase 5's 2,000-id prompt."""
+    return torch.randint(0, cfg.vocab_size, (2000,),
+                         generator=torch.Generator().manual_seed(SEED)
+                         ).tolist()
+
+
+def check_until_tie(torch, cfg, params, label, prompt, ids, ref, settings,
+                    kv_quant, tag="[12]") -> dict:
+    """``ids`` against the reference ``ref`` up to the first step whose
+    penalized margin (over ``ids``' own teacher-forced logits) falls below
+    MARGIN_TIE (SPEC_MARGIN_TIE_Q8 over the int8 cache); fails on a
+    difference before it."""
+    m = penalized_margins(torch, stream_logits(torch, cfg, params, prompt,
+                                               ids, kv_quant),
+                          prompt, ids, settings)
+    limit = SPEC_MARGIN_TIE_Q8 if kv_quant else MARGIN_TIE
+    tie = next((j for j, x in enumerate(m) if x < limit), len(ids))
+    diff = next((j for j, (a, b) in enumerate(zip(ids, ref)) if a != b),
+                None)
+    if diff is None and len(ids) != len(ref):
+        diff = min(len(ids), len(ref))  # one of them ended at an EOS
+    at = round(m[diff], 4) if diff is not None and diff < len(m) else "-"
+    say(f"{tag} {label}: first difference from the plain run at step "
+        f"{diff} (margin there {at}), first margin < {limit} at step {tie} "
+        f"(least margin {min(m):.4f})")
+    if diff is not None and diff < tie:
+        fail(f"{label} differs from the plain run at step {diff}, before "
+             f"any near-tie (margin {at} there)")
+    return {"first_difference": diff, "first_near_tie": tie,
+            "min_margin": min(m)}
+
+
+def spec_single(torch, build, cfg, params, label, weights, kv_quant,
+                prompt, ref_ids, settings) -> list:
+    """(i) ``SpeculativeGenerator`` (K = 8) on phase 5's prompt, 64 tokens
+    at each of SPEC_ROUNDS, launches exact (the prefill, each plain
+    fallback step and each verify is one model call)."""
+    from cake_tpu_torch.runtime.speculative import SpeculativeGenerator
+
+    n_new = 64
+    warm = SpeculativeGenerator(cfg, params, settings=settings,
+                                kv_quant=kv_quant, spec_k=SPEC_K,
+                                spec_rounds=2)
+    warm.set_prompt(prompt)
+    for i in range(4):  # cuBLAS at M = 9, the accept's first launches
+        warm.next_token(i)
+    del warm
+    out = []
+    for rounds in SPEC_ROUNDS:
+        gen = SpeculativeGenerator(cfg, params, settings=settings,
+                                   kv_quant=kv_quant, spec_k=SPEC_K,
+                                   spec_rounds=rounds)
+        gen.set_prompt(prompt)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        ids = [gen.next_token(0).id]
+        t1 = time.perf_counter()
+        for i in range(1, n_new):
+            tok = gen.next_token(i)
+            ids.append(tok.id)
+            if tok.is_end_of_stream:
+                break
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = build.launches()
+        want = expected_launches(cfg, weights, kv_quant, gen.prefill_calls,
+                                 gen.decode_steps + gen.verify_calls)
+        run = {"spec_rounds": rounds, "launches": counts,
+               "prefill_calls": gen.prefill_calls,
+               "decode_steps": gen.decode_steps,
+               "verify_calls": gen.verify_calls,
+               "dispatches": gen.dispatches, "emitted": gen.emitted,
+               "decode_tokens_per_s": (len(ids) - 1) / (t2 - t1),
+               "prefill_ms": (t1 - t0) * 1e3}
+        say(f"[12] {label} single stream K={SPEC_K} rounds={rounds}: "
+            f"{len(ids)} ids, {gen.verify_calls} verifies, "
+            f"{gen.decode_steps} plain steps, {gen.dispatches} dispatches, "
+            f"{gen.emitted / gen.dispatches:.2f} tokens a dispatch, decode "
+            f"{run['decode_tokens_per_s']:.2f} tokens/s (host clock); "
+            f"launches {counts}")
+        if counts != want or not gen.verify_calls:
+            fail(f"[12] {label} rounds={rounds}: kernels launched {counts}, "
+                 f"want {want} ({gen.verify_calls} verifies)")
+        run.update(check_until_tie(
+            torch, cfg, params, f"{label} single stream rounds={rounds}",
+            prompt, ids, ref_ids, settings, kv_quant))
+        out.append(run)
+        del gen
+    return out
+
+
+def spec_batch(torch, build, cfg, params, label, weights, kv_quant, prompts,
+               arrivals, ref_streams, settings) -> dict:
+    """(ii) The batch engine at 8 slots with K = 8 (rounds chained, the
+    default 8) on phase 7's scenario: launches exact, every stream equal to
+    ``ref_streams`` (phase 7's block-8 slot ids) up to its first near-tie;
+    then the card time of one chained dispatch a round beside a plain
+    8-slot step's."""
+    from cake_tpu_torch.runtime.batch_generator import BatchGenerator
+
+    g = BatchGenerator(cfg, params, settings=settings, block_size=8,
+                       kv_quant=kv_quant, spec_k=SPEC_K)
+    g.warm_admission(64)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    p0, d0, v0 = g.prefill_calls, g.decode_steps, g.verify_calls
+    streams, ttft, wall, tokens, _ = drive_batch(
+        torch, g, prompts, BATCH_QUOTAS, list(zip(arrivals, ARRIVAL_QUOTAS)))
+    torch.cuda.synchronize()
+    counts = build.launches()
+    st = g.stats()
+    calls = (g.prefill_calls - p0, g.decode_steps - d0, g.verify_calls - v0)
+    want = expected_launches(cfg, weights, kv_quant, calls[0],
+                             calls[1] + calls[2])
+    say(f"[12] {label} batch K={SPEC_K}: {tokens} tokens in {wall:.3f} s "
+        f"after the first step, {tokens / wall:.2f} tokens/s aggregate "
+        f"(host clock, 8 slots); {calls[0]} prompt passes, {calls[1]} plain "
+        f"steps, {calls[2]} verifies in {st['spec_chains']} chains; "
+        f"{st['tokens_per_dispatch']} tokens a dispatch; launches {counts}")
+    if counts != want or not calls[2]:
+        fail(f"[12] {label} batch: kernels launched {counts}, want {want}")
+    every = prompts + arrivals
+    vs = {}
+    for sid, ids in streams.items():
+        vs[sid] = check_until_tie(torch, cfg, params,
+                                  f"{label} batch stream {sid}", every[sid],
+                                  ids, ref_streams[sid], settings, kv_quant)
+    # one chained dispatch (8 rounds) under the profiler, then a plain
+    # 8-slot step of the same prompts
+    g.set_prompts(prompts)
+    g.step()  # the first tokens
+    c0 = g.stats()["spec_chains"]
+    prof = device_profile(torch, g.step)
+    if g.stats()["spec_chains"] != c0 + 1:
+        fail(f"[12] {label}: the profiled step ran no chained dispatch")
+    prof.pop("kernels")
+    rounds = g._spec_rounds
+    del g
+    torch.cuda.empty_cache()
+    plain = BatchGenerator(cfg, params, settings=settings, block_size=1,
+                           kv_quant=kv_quant)
+    plain.set_prompts(prompts)
+    plain.step()
+    plain.step()
+    step = device_profile(torch, plain.step)
+    step.pop("kernels")
+    del plain
+    torch.cuda.empty_cache()
+    say(f"[12] {label} batch: a verify round {prof['device_ms'] / rounds:.3f}"
+        f" ms of card kernel time over {prof['kernel_launches'] / rounds:.1f}"
+        f" launches (8 slots x {SPEC_K + 1} positions); a plain 8-slot step "
+        f"{step['device_ms']:.3f} ms over {step['kernel_launches']} "
+        f"launches; top of the round {prof['top']}")
+    return {"launches": counts, "tokens_per_s": tokens / wall,
+            "arrival_ttft_ms": list(ttft.values()), "stats": st,
+            "prompt_passes": calls[0], "plain_steps": calls[1],
+            "verifies": calls[2], "vs_plain": vs,
+            "verify_round_device_ms": prof["device_ms"] / rounds,
+            "verify_round_launches": prof["kernel_launches"] / rounds,
+            "plain_step_device_ms": step["device_ms"],
+            "plain_step_launches": step["kernel_launches"]}
+
+
+def spec_replay(torch, build, cfg, params, label, weights, kv_quant,
+                settings) -> list:
+    """(iii) ``spec_replay_fn`` over ``corpus_tokens`` (one pass, 64 ids
+    prefilled) at each K of REPLAY_K: tokens a round over REPLAY_ROUNDS
+    rounds; the card time and launches of a verify round (a profiled chain
+    of 8, kernel launches exact) beside a plain single-stream step's."""
+    from cake_tpu_torch.models.llama import Llama
+    from cake_tpu_torch.ops.kvcache import init_cache
+    from cake_tpu_torch.parallel.pipeline import build_sharded_verify
+    from cake_tpu_torch.runtime.generator import LlamaGenerator
+    from cake_tpu_torch.runtime.speculative import spec_replay_fn
+    from cake_tpu_torch.utils.corpus import corpus_tokens
+
+    model = Llama(cfg, params)
+    verify = build_sharded_verify(model)
+    toks = corpus_tokens(cfg.vocab_size)
+    window = min(cfg.max_seq_len, len(toks))
+    corpus = torch.tensor(toks[:window], dtype=torch.int64, device="cuda")
+    prompt_len, chain = 64, 8
+    out = []
+    for k in REPLAY_K:
+        cache = init_cache(cfg, 1, cfg.max_seq_len, device="cuda",
+                           quant=kv_quant)
+        with torch.inference_mode():
+            model.hidden(corpus[None, :prompt_len], cache, 0)
+            pos = torch.tensor([prompt_len], dtype=torch.int32,
+                               device="cuda")
+            acc = torch.zeros((), device="cuda")
+            counts = []
+            pos_h = prompt_len
+            while (pos_h + 2 * chain * (k + 1) + 1 < window
+                   and len(counts) < REPLAY_ROUNDS):
+                c, pos, acc = spec_replay_fn(verify, corpus, pos, cache, acc,
+                                             k, 3, chain)
+                counts += c.tolist()
+                pos_h = int(pos)
+            build.reset_launches()
+            prof = device_profile(torch, lambda: spec_replay_fn(
+                verify, corpus, pos, cache, acc, k, 3, chain))
+            launches = build.launches()
+        want = expected_launches(cfg, weights, kv_quant, 0, chain)
+        if launches != want:
+            fail(f"[12] {label} replay K={k}: kernels launched {launches} "
+                 f"for {chain} verifies, want {want}")
+        if not torch.isfinite(acc).item():
+            fail(f"[12] {label} replay K={k}: the logits checksum is not "
+                 "finite")
+        prof.pop("kernels")
+        out.append({"k": k, "rounds": len(counts),
+                    "tokens_per_round": sum(counts) / len(counts),
+                    "acceptance": (sum(counts) - len(counts))
+                    / (k * len(counts)),
+                    "verify_device_ms": prof["device_ms"] / chain,
+                    "verify_launches": prof["kernel_launches"] / chain,
+                    "kernel_launches_per_verify": {
+                        n: c // chain for n, c in launches.items() if c}})
+        del cache
+        torch.cuda.empty_cache()
+    gen = LlamaGenerator(cfg, params, settings=settings, block_size=1,
+                         kv_quant=kv_quant)
+    gen.set_prompt(toks[:prompt_len].tolist())
+    gen.next_token(0)
+    gen.next_token(1)
+    step = device_profile(torch, lambda: gen.next_token(2))
+    del gen
+    for r in out:
+        r["plain_step_device_ms"] = step["device_ms"]
+        r["plain_step_launches"] = step["kernel_launches"]
+        say(f"[12] {label} corpus replay K={r['k']}: "
+            f"{r['tokens_per_round']:.3f} tokens a round over {r['rounds']} "
+            f"rounds (acceptance {r['acceptance']:.3f}); a verify "
+            f"{r['verify_device_ms']:.3f} ms of card kernel time over "
+            f"{r['verify_launches']:.1f} launches (kernels "
+            f"{r['kernel_launches_per_verify']}), a plain step "
+            f"{step['device_ms']:.3f} ms over {step['kernel_launches']}")
+    return out
+
+
+def spec_serve(torch, cfg, params, settings) -> dict:
+    """(iv) One ``--mode serve`` request on a K = 8 engine (8 slots, in this
+    process): its SSE ids equal the engine's own for the prompt admitted
+    the same way, cut at ``max_tokens`` exactly."""
+    from cake_tpu_torch.runtime.batch_generator import BatchGenerator
+    from cake_tpu_torch.serve.api import start_api_server
+    from cake_tpu_torch.serve.scheduler import Scheduler
+
+    prompt = torch.randint(0, cfg.vocab_size, (300,),
+                           generator=torch.Generator().manual_seed(SEED + 12)
+                           ).tolist()
+    n = 29  # not a whole number of rounds: tokens stay banked at the cut
+    ref = BatchGenerator(cfg, params, settings=settings, block_size=8,
+                         spec_k=SPEC_K)
+    want = drive_batch(torch, ref, [[cfg.bos_token_id]] * 8, [1] * 8,
+                       [(prompt, n)], after=8)[0][8]
+    del ref
+    torch.cuda.empty_cache()
+    engine = BatchGenerator(cfg, params, settings=settings, block_size=8,
+                            spec_k=SPEC_K)
+    sched = Scheduler(engine, queue_depth=8, request_timeout_s=300)
+    sched.start(max_concurrent=8, warm_prompt_len=64)
+    server = start_api_server(sched, bind="127.0.0.1", port=0)
+    try:
+        got = sse(server.port, {"prompt_ids": prompt, "max_tokens": n})
+    finally:
+        server.close()
+        sched.close()
+    spec_dispatches = engine.stats()["spec_dispatches"]
+    del engine
+    torch.cuda.empty_cache()
+    say(f"[12] serve on a K={SPEC_K} engine: {len(got['ids'])} SSE ids "
+        f"(max_tokens {n}), {spec_dispatches} verifies; equal to the "
+        f"engine's: {got['ids'] == want}")
+    if got["ids"] != want or len(want) != n or not spec_dispatches:
+        fail(f"[12] serve: SSE ids {got['ids']} vs the engine's {want} "
+             f"(max_tokens {n}, {spec_dispatches} verifies)")
+    return {"ids": len(got["ids"]), "spec_dispatches": spec_dispatches}
+
+
+def phase_spec(torch, build, label, cfg, params, weights, kv_quant, prompts,
+               arrivals, slot_streams=None) -> dict:
+    """Phase 12 over one path's weights (phase 5's and 7's): speculation
+    on the single stream and in the batch engine, the corpus replay, and
+    (bf16) one request over HTTP. ``slot_streams``: phase 7's block-8 ids
+    (computed here when None)."""
+    from cake_tpu_torch.ops.sampling import SamplerSettings
+    from cake_tpu_torch.runtime.batch_generator import BatchGenerator
+
+    t_phase = time.perf_counter()
+    settings = SamplerSettings(temperature=0)
+    if slot_streams is None:
+        g = BatchGenerator(cfg, params, settings=settings, block_size=8,
+                           kv_quant=kv_quant)
+        slot_streams = drive_batch(torch, g, prompts, BATCH_QUOTAS,
+                                   list(zip(arrivals, ARRIVAL_QUOTAS)))[0]
+        del g
+        torch.cuda.empty_cache()
+    prompt = main_path_prompt(torch, cfg)
+    ref = single_stream(torch, cfg, params, prompt, 64, settings, kv_quant)
+    out = {"path": f"spec {label}"}
+    out["single"] = spec_single(torch, build, cfg, params, label, weights,
+                                kv_quant, prompt, ref, settings)
+    torch.cuda.empty_cache()
+    out["batch"] = spec_batch(torch, build, cfg, params, label, weights,
+                              kv_quant, prompts, arrivals, slot_streams,
+                              settings)
+    out["replay"] = spec_replay(torch, build, cfg, params, label, weights,
+                                kv_quant, settings)
+    if weights == "bf16":
+        out["serve"] = spec_serve(torch, cfg, params, settings)
+    out["launches"] = {name: sum(r["launches"][name] for r in
+                                 out["single"] + [out["batch"]])
+                       for name in out["batch"]["launches"]}
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"[12] {label}: {out['seconds']:.1f} s")
+    return out
+
+
+def phase_spec_only(torch, build) -> list:
+    """``--phase 12``: phase 12 alone, over freshly drawn weights (seed 0)
+    and phase 7's prompts; the plain slot engine gives the reference ids."""
+    from cake_tpu_torch.models import llama
+    from cake_tpu_torch.models.config import llama3_8b
+
+    cfg = llama3_8b(max_seq_len=4096)
+    prompts, arrivals = batch_prompts(torch, cfg)
+    out = []
+    for label, init, weights, kv_quant in (
+            ("(a) bf16", lambda: llama.init_params(cfg, seed=SEED), "bf16",
+             None),
+            ("(b) int8 weights, int8 cache",
+             lambda: llama.init_params_int8(cfg, seed=SEED), "quant_matmul",
+             "int8")):
+        params = init()
+        out.append(phase_spec(torch, build, label, cfg, params, weights,
+                              kv_quant, prompts, arrivals))
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3403,11 +3910,12 @@ def main() -> int:
     other = None
     only_guided = sys.argv[1:] == ["--phase", "10"]
     only_paged = sys.argv[1:] == ["--phase", "11"]
+    only_spec = sys.argv[1:] == ["--phase", "12"]
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels":
         other = Path(sys.argv[2]).resolve()
-    elif len(sys.argv) > 1 and not (only_guided or only_paged):
+    elif len(sys.argv) > 1 and not (only_guided or only_paged or only_spec):
         fail(f"usage: {sys.argv[0]} [--kernels DIR | --phase 10 | "
-             "--phase 11]")
+             "--phase 11 | --phase 12]")
     sys.path.insert(0, str(other or REPO))
     try:
         from cake_tpu_torch.ops import flash, kvcache, qmatmul, quant
@@ -3435,6 +3943,11 @@ def main() -> int:
                         "paged": phase_paged_only(torch, build)}))
         say(card)
         return 0
+    if only_spec:
+        say(json.dumps({"card": card, "spec": phase_spec_only(torch,
+                                                              build)}))
+        say(card)
+        return 0
     errs = phase_kernels(torch, flash)
     errs.update(phase_quant_kernels(torch, flash, qmatmul, quant, kvcache))
     errs.update(phase_batch_kernels(torch, flash, qmatmul, quant, kvcache))
@@ -3444,28 +3957,36 @@ def main() -> int:
     rows += phase_quant_timing(torch, flash, qmatmul, quant, kvcache, build,
                                errs)
     batch_timing(torch, flash, qmatmul, quant, kvcache, build, rows)
+    multi_query_timing(torch, flash, qmatmul, quant, kvcache, build, rows)
     prefill_rows(build, rows)
     phase_model(torch)
     main_path = phase_main_path(torch, build, flash, kvcache)
     cli = phase_cli(torch, build)
-    # phase 11 runs at the end of each of phase 7's paths, over its weights
-    paged = []
-    batch = phase_batch(torch, build, after=lambda *a: paged.append(
-        phase_paged(torch, build, *a)))
+    # phases 11 and 12 run at the end of each of phase 7's paths, over its
+    # weights
+    paged, spec = [], []
+
+    def after(*a):
+        paged.append(phase_paged(torch, build, *a))
+        spec.append(phase_spec(torch, build, *a))
+
+    batch = phase_batch(torch, build, after=after)
     serve = phase_serve(torch)
     cross_host = phase_cross_host(torch, build, main_path)
     cross_host_cli = phase_cli_topology(torch, build, cli)
     guided, guided_cli_ids = phase_guided(torch, build, cli)
     # over the paths (a), (b), (c), the batch runs, the cross-host runs,
-    # phase 10's guided and lookahead runs and phase 11's paged runs
+    # phase 10's guided and lookahead runs, phase 11's paged runs and phase
+    # 12's speculative runs
     for r in rows:
         r["launches"] = sum(p["launches"][r["name"]]
                             for p in main_path + batch + cross_host + guided
-                            + paged)
+                            + paged + spec)
     say(json.dumps({"card": card, "main_path": main_path, "batch": batch,
                     "serve": serve, "cross_host": cross_host,
                     "cross_host_cli": cross_host_cli, "guided": guided,
-                    "guided_cli": guided_cli_ids, "paged": paged}))
+                    "guided_cli": guided_cli_ids, "paged": paged,
+                    "spec": spec}))
     say(json.dumps({"kernels": rows}))
     say(card)
     say(json.dumps({"ok": True, "device": {

@@ -224,7 +224,8 @@ def test_warm_admission_leaves_the_batch_alone(tiers):
 @pytest.mark.parametrize("kwargs,match", [
     (dict(kv_layout="paged", spec_k=4),
      "paged' does not compose with batched speculation"),
-    (dict(spec_k=4), "speculation.*not ported"),
+    (dict(spec_k=4, logprobs=2),
+     "logprobs do not compose with batched speculation"),
     (dict(kv_layout="ring"), "must be 'slot' or 'paged'"),
     (dict(interleave=True), "interleaved.*not ported"),
     (dict(dp=2), "dp=2.*not ported"),

@@ -65,6 +65,93 @@ def test_flash_decode_ref(group, pos, window):
     _close(got, _attend_xla(jq, jk, jv, jp, window=window))
 
 
+# the multi-query decode (the speculative verify's shape): T query
+# positions a row from ragged per-row frontiers, one row ending at the
+# buffer's last slot (S - T), and a window of 30 whose lower edge falls
+# inside a 64-key tile (pos + t - 29 not a multiple of 64) for the first
+# query of the rows at 90 and S - T
+MQ_POS = [2, 90, None]  # None: S - T
+MQ_S = 192
+
+
+def _mq_pos(t):
+    return np.array([MQ_S - t if p is None else p for p in MQ_POS], np.int32)
+
+
+@pytest.mark.parametrize("t", [2, 5, 9])
+@pytest.mark.parametrize("window", [None, 30])
+@pytest.mark.parametrize("group", [1, 4])
+def test_multi_query_decode_ref(t, window, group):
+    """``flash_decode_ref`` at T > 1 against the XLA path the JAX package
+    sends this shape to (f32, atol = rtol = 1e-5)."""
+    b, kvh, d = 3, 2, 16
+    p = _mq_pos(t)
+    if window is not None:
+        assert all((int(x) - window + 1) % tflash.DECODE_BLOCK_K
+                   for x in p[1:])
+    q, k, v = _qkv(100 * t + group, b, kvh * group, kvh, t, MQ_S, d)
+    got = tflash.flash_decode_ref(*map(torch.from_numpy, (q, k, v)),
+                                  torch.from_numpy(p), window=window)
+    _close(got, _attend_xla(*map(jnp.asarray, (q, k, v)), jnp.asarray(p),
+                            window=window))
+
+
+@pytest.mark.parametrize("t", [2, 5, 9])
+@pytest.mark.parametrize("window", [None, 30])
+def test_multi_query_decode_q8_ref(t, window):
+    """``flash_decode_q8_ref`` at T > 1 against the JAX package's decode
+    over the int8 cache: ``dequant_kv`` to q's dtype, then the XLA path
+    (f32, atol = rtol = 1e-5)."""
+    from cake_tpu.ops import kvcache as jkv
+
+    b, kvh, g, d = 3, 2, 2, 16
+    rng = np.random.default_rng(t)
+    q = rng.standard_normal((b, kvh * g, t, d)).astype(np.float32)
+    codes = [rng.integers(-127, 128, (b, kvh, MQ_S, d)).astype(np.int8)
+             for _ in range(2)]
+    scales = [rng.uniform(0.001, 0.05, (b, kvh, MQ_S)).astype(np.float32)
+              for _ in range(2)]
+    p = _mq_pos(t)
+    got = tflash.flash_decode_q8_ref(
+        torch.from_numpy(q), torch.from_numpy(codes[0]),
+        torch.from_numpy(scales[0]), torch.from_numpy(codes[1]),
+        torch.from_numpy(scales[1]), torch.from_numpy(p), window=window)
+    jk, jv = (jkv.dequant_kv(jkv.QuantizedKV(q=jnp.asarray(c),
+                                             scale=jnp.asarray(sc)),
+                             jnp.float32)
+              for c, sc in zip(codes, scales))
+    _close(got, _attend_xla(jnp.asarray(q), jk, jv, jnp.asarray(p),
+                            window=window))
+
+
+def test_multi_query_decode_ref_bf16():
+    """In bf16 the multi-query plain version agrees with the JAX XLA path
+    within bf16 tolerance (2e-2), as the prefill's does."""
+    b, kvh, t, d = 3, 2, 9, 32
+    q, k, v = _qkv(12, b, 4, kvh, t, MQ_S, d)
+    p = _mq_pos(t)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    got = tflash.flash_decode_ref(tq, tk, tv, torch.from_numpy(p))
+    want = np.asarray(_attend_xla(jq, jk, jv, jnp.asarray(p)), np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2,
+                               rtol=2e-2)
+
+
+def test_multi_query_decode_rows_are_single_query_decodes():
+    """Query t of a row at frontier p is the single-query decode at p + t
+    over the same buffer, bit for bit: T = 1 is unchanged, and the T
+    positions are independent rows."""
+    b, kvh, t, d = 3, 2, 5, 16
+    q, k, v = map(torch.from_numpy, _qkv(13, b, 4, kvh, t, MQ_S, d))
+    p = torch.from_numpy(_mq_pos(t))
+    full = tflash.flash_decode_ref(q, k, v, p, window=30)
+    for i in range(t):
+        one = tflash.flash_decode_ref(q[:, :, i:i + 1], k, v, p + i,
+                                      window=30)
+        assert torch.equal(full[:, :, i:i + 1], one)
+
+
 def test_refs_ignore_kv_past_the_frontier():
     b, kvh, t, s, d, pos = 1, 2, 4, 128, 8, 60
     q, k, v = map(torch.from_numpy, _qkv(3, b, 2 * kvh, kvh, t, s, d))

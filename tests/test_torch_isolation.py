@@ -59,7 +59,9 @@ def test_import_leaves_jax_and_triton_out():
             "cake_tpu_torch.constrain.fsm, cake_tpu_torch.constrain.guide, "
             "cake_tpu_torch.kvpool, cake_tpu_torch.kvpool.pool, "
             "cake_tpu_torch.disagg, cake_tpu_torch.disagg.snapshot, "
-            "cake_tpu_torch.serve.spill, cake_tpu_torch.testing.chaos\n"
+            "cake_tpu_torch.serve.spill, cake_tpu_torch.testing.chaos, "
+            "cake_tpu_torch.runtime.speculative, "
+            "cake_tpu_torch.utils.corpus\n"
             "print(sorted(m for m in ('jax', 'triton', 'cake_tpu', "
             "'ml_dtypes') if m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -174,6 +176,43 @@ def test_paged_and_spill_entry_points_raise_without_a_card():
     assert g.cache.k.device.type == "cpu"
     snap = g.export_stream(0)
     assert g.import_begin(snap)["n_kv"] == 3
+
+
+def test_speculative_entry_points_raise_without_a_card():
+    """Speculation never moves a run onto the CPU: without a card the
+    single-stream generator, the speculating engine and ``--speculate`` on
+    each command-line path raise unless the CPU is asked for; asked for, the
+    rounds run there."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device exists")
+    from cake_tpu_torch import cli
+    from cake_tpu_torch.models.config import tiny
+    from cake_tpu_torch.models.llama import init_params
+    from cake_tpu_torch.runtime.batch_generator import BatchGenerator
+    from cake_tpu_torch.runtime.speculative import SpeculativeGenerator
+
+    cfg = tiny(max_seq_len=64)
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SpeculativeGenerator(cfg, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BatchGenerator(cfg, params, spec_k=4)
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        cli.run(cli.build_parser().parse_args(
+            ["--model", "unused", "--prompt-ids", "1", "--speculate", "4"]))
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        cli.run_serve(cli.build_parser().parse_args(
+            ["--model", "unused", "--prompts-file", "unused",
+             "--speculate", "4"]))
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        cli.run_http_serve(cli.build_parser().parse_args(
+            ["--model", "unused", "--mode", "serve", "--speculate", "4"]))
+    build.reset_launches()
+    gen = SpeculativeGenerator(cfg, params, spec_k=4, device="cpu")
+    gen.set_prompt([5, 9, 2, 5, 9, 2])
+    ids = [gen.next_token(i).id for i in range(8)]
+    assert len(ids) == 8 and gen.verify_calls > 0
+    assert sum(build.launches().values()) == 0
 
 
 def test_cross_host_entry_points_raise_without_a_card():
@@ -376,6 +415,59 @@ def test_decode_wrappers_take_every_group_to_16(wrapper, group, accepted):
         assert "one CUDA device" in str(err.value)
     else:
         assert f"GQA group {group} is not built" in str(err.value)
+
+
+@pytest.mark.parametrize("wrapper", ["flash_decode", "flash_decode_q8"])
+@pytest.mark.parametrize("t", [2, 9, 17, 40])
+def test_decode_wrappers_take_any_number_of_query_positions(wrapper, t):
+    """The multi-query form: any T passes every shape check with per-row
+    positions and stops only at the device check (``meta`` tensors are not
+    on a card); on CPU tensors it is the plain version, with no launch."""
+    q = torch.empty(2, 8, t, 128, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(2, 2, 100, 128, dtype=torch.bfloat16, device="meta")
+    pos = torch.empty(2, dtype=torch.int32, device="meta")
+    args = (q, k, k, pos)
+    if wrapper == "flash_decode_q8":
+        kq, ks = _q8(k)
+        args = (q, kq, ks, kq, ks, pos)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        getattr(flash, wrapper)(*args)
+    build.reset_launches()
+    qc, kc, vc = _qkv(t=t)
+    p = torch.tensor([20], dtype=torch.int32)
+    if wrapper == "flash_decode":
+        got = flash.flash_decode(qc, kc, vc, p)
+        want = flash.flash_decode_ref(qc, kc, vc, p)
+    else:
+        kq, ks = _q8(kc)
+        got = flash.flash_decode_q8(qc, kq, ks, kq, ks, p)
+        want = flash.flash_decode_q8_ref(qc, kq, ks, kq, ks, p)
+    assert torch.equal(got, want) and got.shape == qc.shape
+    assert sum(build.launches().values()) == 0
+
+
+def test_attend_routes_per_row_multi_query_to_the_decode_kernels(
+        monkeypatch):
+    """``attend`` with T > 1 and ``pos [B]`` goes to the decode wrappers
+    (the speculative verify); with an int or 0-d ``pos`` to the prefill
+    ones, as before."""
+    from cake_tpu_torch.ops import attention
+    from cake_tpu_torch.ops import kvcache as kv
+
+    seen = []
+    for name in ("flash_attention", "flash_attention_q8", "flash_decode",
+                 "flash_decode_q8"):
+        monkeypatch.setattr(attention, name,
+                            lambda *a, _n=name, **k: seen.append(_n))
+    q, k, v = _qkv(t=5)
+    qkv = kv.QuantizedKV(*_q8(k))
+    # pos [1] is the single stream's verify; 3 and a 0-d 3 a prompt pass
+    for pos in (torch.tensor([3], dtype=torch.int32), 3, torch.tensor(3)):
+        attention.attend(q, k, v, pos)
+        attention.attend(q, qkv, qkv, pos)
+    assert seen == ["flash_decode", "flash_decode_q8",
+                    "flash_attention", "flash_attention_q8",
+                    "flash_attention", "flash_attention_q8"]
 
 
 def test_decode_pos_shapes():

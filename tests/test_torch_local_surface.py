@@ -357,7 +357,8 @@ def test_cli_obs_flags_write_the_jax_names(checkpoint, tmp_path):
     (["--lookahead", "--stages", "2"], "not supported with --stages"),
     (["--kv-layout", "paged"], "--kv-layout paged applies to the batched "
      "serving engine"),
-    (["--speculate", "4"], "--speculate.*not ported"),
+    (["--speculate", "4", "--decode-block", "4"],
+     "--decode-block does not compose with --speculate"),
 ])
 def test_cli_refusals(checkpoint, extra, match):
     import re

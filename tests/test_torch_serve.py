@@ -419,7 +419,8 @@ def test_prompts_file_prints_the_jax_cli_lines(checkpoint, tmp_path):
     (["--kv-page-size", "8"],
      "--kv-page-size/--kv-pool-pages configure the paged KV pool; they "
      "require --kv-layout paged"),
-    (["--speculate", "4"], "speculation.*not ported"),
+    (["--speculate", "4", "--kv-layout", "paged"],
+     "paged' does not compose with batched speculation"),
     (["--dp", "2"], "dp=2"),
     (["--spill-mb", "32"], "--spill-mb configure the request server; "
      "they apply only with --mode serve"),
