@@ -77,7 +77,6 @@ constexpr int BK = 64;          // keys per KV tile (unit of kv_block_bounds)
 constexpr int CONSUMERS = 4;    // warps; each takes 16 keys of every tile
 constexpr int THREADS = 32 * (CONSUMERS + 1);  // and the producer warp
 constexpr int MAX_G = 16;       // query rows of a CTA: one m16 A tile
-constexpr int STAGES = 4;
 // the least number of KV tiles a split takes (1 and 4 measured no faster)
 constexpr int MIN_TILES = 2;
 constexpr float NEG_INF = -1e30f;
@@ -103,6 +102,8 @@ struct Int8KV {
 // - bf16 V, ldmatrix (8 groups, 16 bytes each): stride = 16 mod 128;
 // - int8 V, 4-byte loads of 4 groups 2 apart (8 words each): stride = 16
 //   mod 64.
+// The ring is 4 slots deep, 3 where 4 would not fit a CTA's shared memory
+// (bf16 at D = 256: a slot is 64.6 KB).
 template <int D, class F>
 struct Layout {
   static constexpr int ROW = D * F::ESIZE;  // bytes of a K or V row
@@ -111,6 +112,7 @@ struct Layout {
   static constexpr int V_OFF = 8 * K_GROUP;
   static constexpr int S_OFF = V_OFF + 8 * V_GROUP;  // key, value scales
   static constexpr int SLOT = S_OFF + (F::Q8 ? 2 * BK * 4 : 0);
+  static constexpr int STAGES = 4 * SLOT <= 227 * 1024 ? 4 : 3;
   // the four warps' outputs, maxima and sums, merged at the end, in rows
   // of MSTRIDE floats: a warp's store of one fragment element writes rows
   // g (8 of them) at columns out_d(nb, 2tq + c), 2tq apart for bf16 and
@@ -121,6 +123,7 @@ struct Layout {
   static constexpr int SMEM =
       STAGES * SLOT > MERGE ? STAGES * SLOT : MERGE;
   static_assert(SLOT % 128 == 0, "slots keep the banks' alignment");
+  static_assert(SMEM <= 227 * 1024, "over a CTA's shared memory");
 
   __device__ static int k_row(int key) {
     return (key >> 3) * K_GROUP + (key & 7) * ROW;
@@ -301,6 +304,7 @@ __device__ __forceinline__ void produce(const Args& a, unsigned char* smem,
                                         long long head, int first, int n,
                                         int lane) {
   using L = Layout<D, F>;
+  constexpr int STAGES = L::STAGES;
   const unsigned char* kg = a.k + head * a.S * L::ROW;
   const unsigned char* vg = a.v + head * a.S * L::ROW;
   for (int i = 0; i < n; ++i) {
@@ -369,6 +373,7 @@ __global__ void __launch_bounds__(THREADS)
 decode_kernel(const Args a) {
   using L = Layout<D, F>;
   constexpr int NB = D / 8;  // output n8 blocks
+  constexpr int STAGES = L::STAGES;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t bars[2 * STAGES];
   __shared__ int last;
@@ -621,7 +626,7 @@ int launch(const Args& a, int B, cudaStream_t stream) {
 }
 
 // One call as the host's wrapper gives it: H / KVH = G in 1..16, T >= 1,
-// D 64 or 128, nsplit >= 1 (and above 1 partials and counters). Returns 0
+// D 64, 128 or 256, nsplit >= 1 (and above 1 partials and counters). Returns 0
 // or a cudaError_t.
 template <class F>
 int run(Args a, int B, int H, int D, cudaStream_t stream) {
@@ -634,12 +639,16 @@ int run(Args a, int B, int H, int D, cudaStream_t stream) {
   a.MT = (a.G * a.T + MAX_G - 1) / MAX_G;
   if (D == 64) return launch<64, F>(a, B, stream);
   if (D == 128) return launch<128, F>(a, B, stream);
+  if (D == 256) return launch<256, F>(a, B, stream);
   return bad;
 }
 
 template <class F>
 int smem_bytes(int D) {
-  return D == 64 ? Layout<64, F>::SMEM : D == 128 ? Layout<128, F>::SMEM : 0;
+  return D == 64    ? Layout<64, F>::SMEM
+         : D == 128 ? Layout<128, F>::SMEM
+         : D == 256 ? Layout<256, F>::SMEM
+                    : 0;
 }
 
 }  // namespace fd90

@@ -10,16 +10,17 @@
 // kv head h / (H / KVH).
 //
 // What bounds it on this card: at the main path's shapes (T = 2048,
-// D = 128) the two products do ~T/2 multiply-adds per KV byte, far above
-// the H100's ~295 operations per byte, so it is bound by tensor-core
+// D = 128 or 256) the two products do ~T/2 multiply-adds per KV byte, far
+// above the H100's ~295 operations per byte, so it is bound by tensor-core
 // operations, and only wgmma reaches their full rate.
 //
 // What the design does about that (csrc/flash_prefill_sm90.cuh): a CTA of
 // 3 warpgroups per 128 q rows of one (b, h). The producer warpgroup gives
 // its registers away (setmaxnreg) and one of its threads keeps a 2-stage
-// ring of 128-key K and V tiles filled by TMA (128-byte swizzle, full and
-// empty mbarriers), so loads overlap the products. Two consumer warpgroups
-// of 64 q rows each run S = Q K^T and O += P V on wgmma, P staying in
+// ring of 128-key K and V tiles (64-key at D = 256) filled by TMA (128-byte
+// swizzle, full and empty mbarriers), so loads overlap the products. Two
+// consumer warpgroups of 64 q rows each run S = Q K^T and O += P V on
+// wgmma, P staying in
 // registers and V read in place through the descriptor's transpose flag;
 // only diagonal and window-edge tiles are masked; the longest q tiles start
 // first. The loop runs only over the live KV tiles [kb_lo, kb_hi] that the
@@ -47,7 +48,7 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
                      int S, long long o_sb, long long o_sh, long long o_st,
                      int pos, int window, float scale_log2) {
   using P = BfPlan<D>;
-  constexpr int ST = P::STAGES;
+  constexpr int ST = P::STAGES, BK = P::BK;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[4 * ST + 1];
   const Ring ring{bars, bars + ST, bars + 2 * ST, bars + 3 * ST};
@@ -114,8 +115,9 @@ int launch(const void* q, const void* k, const void* v, void* o,
            int window, float scale_log2, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
   int err = q_tensor_map(&tm_q, q, B, H, T, D, q_sb, q_sh, q_st);
-  if (!err) err = kv_tensor_map(&tm_k, k, B, KVH, S, D, false);
-  if (!err) err = kv_tensor_map(&tm_v, v, B, KVH, S, D, false);
+  constexpr int BK = BfPlan<D>::BK;
+  if (!err) err = kv_tensor_map(&tm_k, k, B, KVH, S, D, false, BK);
+  if (!err) err = kv_tensor_map(&tm_v, v, B, KVH, S, D, false, BK);
   if (err) return err;
   constexpr int smem = BfPlan<D>::SMEM;
   // above 48 KB a kernel must opt in to dynamic shared memory
@@ -134,13 +136,19 @@ int launch(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// Block sizes the host side needs for `kv_block_bounds`.
+// Block sizes the host side needs for `kv_block_bounds` (keys a tile, per
+// head width).
 int flash_prefill_block_q() { return BQ; }
-int flash_prefill_block_k() { return BK; }
+int flash_prefill_block_k_d64() { return BfPlan<64>::BK; }
+int flash_prefill_block_k_d128() { return BfPlan<128>::BK; }
+int flash_prefill_block_k_d256() { return BfPlan<256>::BK; }
 
 // Dynamic shared memory of one CTA at head width D (0 if D is not built).
 int flash_prefill_smem_bytes(int D) {
-  return D == 64 ? BfPlan<64>::SMEM : D == 128 ? BfPlan<128>::SMEM : 0;
+  return D == 64    ? BfPlan<64>::SMEM
+         : D == 128 ? BfPlan<128>::SMEM
+         : D == 256 ? BfPlan<256>::SMEM
+                    : 0;
 }
 
 // Returns 0, a cudaError_t or ERR_TENSOR_MAP. `kb_lo` may be null (no
@@ -159,6 +167,10 @@ int flash_prefill_bf16(const void* q, const void* k, const void* v, void* o,
                         scale_log2, st);
     case 128:
       return launch<128>(q, k, v, o, kb_lo, kb_hi, B, H, KVH, T, S, q_sb,
+                         q_sh, q_st, o_sb, o_sh, o_st, pos, window,
+                         scale_log2, st);
+    case 256:
+      return launch<256>(q, k, v, o, kb_lo, kb_hi, B, H, KVH, T, S, q_sb,
                          q_sh, q_st, o_sb, o_sh, o_st, pos, window,
                          scale_log2, st);
     default:

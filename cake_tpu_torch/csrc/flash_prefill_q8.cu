@@ -17,7 +17,7 @@
 // output bf16. Query head h reads kv head h / (H / KVH).
 //
 // What bounds it on this card: at the main path's shapes (T = 2048,
-// D = 128) the two products do ~T/2 multiply-adds per KV byte, far above
+// D = 128 or 256) the two products do ~T/2 multiply-adds per KV byte, far above
 // the H100's ~295 operations per byte: bound by tensor-core operations, as
 // the bf16 kernel is. The int8 cache halves the KV bytes it reads.
 //
@@ -27,9 +27,12 @@
 // two scale hooks on. The producer warpgroup differs: TMA brings each int8
 // K and V tile (half the bf16 bytes) into a staging buffer, and its 128
 // threads convert the codes to bf16 (exact: |q| <= 127) into the same
-// swizzled 2-stage ring the consumers read, beside the tile's 128 key and
-// 128 value scales, then arrive on the stage's "full" barrier. The next
-// int8 tile is in flight while the consumers work on the current one.
+// swizzled 2-stage ring the consumers read, beside the tile's BK key and
+// BK value scales, then arrive on the stage's "full" barrier. The next
+// int8 tile is in flight while the consumers work on the current one. At
+// D = 256 the tiles are 64 keys (csrc/flash_prefill_sm90.cuh) and the
+// staging ring is half as deep (NBUF), which keeps the CTA within its
+// shared memory.
 
 #include "flash_prefill_sm90.cuh"
 
@@ -40,7 +43,6 @@ namespace {
 // the producer's threads convert tiles, so they keep more registers
 constexpr int PRODUCER_REGS = 56;
 constexpr int CONSUMER_REGS = consumer_regs(PRODUCER_REGS);
-static_assert(BK == 128, "one key (and its two scales) per producer thread");
 
 // Four int8 codes to four bf16 values, two packed pairs.
 __device__ __forceinline__ void i8x4_to_bf16x4(uint32_t w, uint32_t& lo,
@@ -49,18 +51,24 @@ __device__ __forceinline__ void i8x4_to_bf16x4(uint32_t w, uint32_t& lo,
   hi = i8x2_to_bf16x2(w, 0x4342);
 }
 
-// TMA stages the codes in quarter tiles (K rows 0-63, K rows 64-127, V rows
-// 0-63, V rows 64-127 of a tile) in a ring of NBUF buffers, two tiles ahead
-// of the conversion. Each producer warp converts its own SLICE rows of every
-// quarter and marks the buffer read (a "freed" mbarrier counting the four
-// warps); thread 0 refills a buffer a step later, so the warps never wait
-// for each other.
-constexpr int HALF = BK / 2;
-constexpr int SLICE = HALF / 4;
-constexpr int NBUF = 8;
+// TMA stages the codes in quarter tiles (K rows 0 to BK/2 - 1, K rows BK/2
+// to BK - 1, then the same of V) in a ring of NBUF buffers of HALF * D
+// bytes (8 KB), two tiles ahead of the conversion (one at D = 256). Each
+// producer warp converts its own SLICE rows of every quarter and marks the
+// buffer read (a "freed" mbarrier counting the four warps); thread 0
+// refills a buffer a step later, so the warps never wait for each other.
+// One producer thread a key of a tile loads its two scales.
+template <int D>
+struct Staging {
+  static constexpr int BK = block_k(D);
+  static constexpr int HALF = BK / 2;
+  static constexpr int SLICE = HALF / 4;
+  static constexpr int NBUF = D == 256 ? 4 : 8;
+  static_assert(BK <= 128, "one key (and its two scales) per thread");
+};
 
 template <int D>
-using Q8Plan = Plan<D, 2, NBUF * HALF * D>;
+using Q8Plan = Plan<D, 2, Staging<D>::NBUF * Staging<D>::HALF * D>;
 
 // Where the producer is in its sequence of quarters: K of tile j (parts 0
 // and 1), then V of tile j - 1 (parts 2 and 3), for j = 0..n. A consumer
@@ -90,8 +98,9 @@ struct Quarters {
 // conflicts.
 template <int D>
 struct Codes {
+  static constexpr int BK = block_k(D);
   static constexpr int PER_ROW = D / 8;  // 8-code units a row
-  static constexpr int N = SLICE * PER_ROW / 32;
+  static constexpr int N = Staging<D>::SLICE * PER_ROW / 32;
   uint2 w[N];
 
   __device__ __forceinline__ void load(const unsigned char* src, int lane) {
@@ -123,6 +132,7 @@ __device__ __forceinline__ void stage_quarter(uint32_t staging,
                                               uint64_t* bar, int buf,
                                               Quarters at, int lo, int hk,
                                               int b) {
+  constexpr int BK = block_k(D), HALF = Staging<D>::HALF;
   mbar_expect_tx(bar, HALF * D);
   tma_load_4d(staging + buf * HALF * D, at.part < 2 ? tm_k : tm_v, bar, 0,
               (lo + at.tile()) * BK + (at.part & 1) * HALF, hk, b);
@@ -141,7 +151,9 @@ flash_prefill_q8_kernel(const __grid_constant__ CUtensorMap tm_q,
                         int S, long long o_sb, long long o_sh, long long o_st,
                         int pos, int window, float scale_log2) {
   using P = Q8Plan<D>;
-  constexpr int ST = P::STAGES;
+  using G = Staging<D>;
+  constexpr int ST = P::STAGES, BK = P::BK, HALF = G::HALF;
+  constexpr int SLICE = G::SLICE, NBUF = G::NBUF;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[4 * ST + 1 + 2 * NBUF];
   const Ring ring{bars, bars + ST, bars + 2 * ST, bars + 3 * ST};
@@ -200,7 +212,7 @@ flash_prefill_q8_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int seq = 0; at.valid(n); ++seq, at.next(n)) {
       const int buf = seq % NBUF, i = at.tile(), st = i % ST;
       const bool is_v = at.part >= 2;
-      if (at.part == 0) {  // this K tile's scales, read early
+      if (at.part == 0 && t < BK) {  // this K tile's scales, read early
         const int key = (lo + i) * BK + t;
         ks = key < S ? ks_src[key] : 0.f;
         vs = key < S ? vs_src[key] : 0.f;
@@ -227,7 +239,7 @@ flash_prefill_q8_kernel(const __grid_constant__ CUtensorMap tm_q,
                   (i / ST - 1) & 1);
       codes.store_bf16(base + (is_v ? P::v_slot(st) : P::k_slot(st)),
                        (at.part & 1) * HALF + warp * SLICE, lane);
-      if (at.part == 1) {  // both scales beside the K tile
+      if (at.part == 1 && t < BK) {  // both scales beside the K tile
         scales[st * 2 * BK + t] = ks;
         scales[st * 2 * BK + BK + t] = vs;
       }
@@ -253,6 +265,7 @@ int launch(const void* q, const void* k, const void* ks, const void* v,
            cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
   int err = q_tensor_map(&tm_q, q, B, H, T, D, q_sb, q_sh, q_st);
+  constexpr int HALF = Staging<D>::HALF;
   if (!err) err = kv_tensor_map(&tm_k, k, B, KVH, S, D, true, HALF);
   if (!err) err = kv_tensor_map(&tm_v, v, B, KVH, S, D, true, HALF);
   if (err) return err;
@@ -274,13 +287,19 @@ int launch(const void* q, const void* k, const void* ks, const void* v,
 
 extern "C" {
 
-// Block sizes the host side needs for `kv_block_bounds`.
+// Block sizes the host side needs for `kv_block_bounds` (keys a tile, per
+// head width).
 int flash_prefill_q8_block_q() { return BQ; }
-int flash_prefill_q8_block_k() { return BK; }
+int flash_prefill_q8_block_k_d64() { return Q8Plan<64>::BK; }
+int flash_prefill_q8_block_k_d128() { return Q8Plan<128>::BK; }
+int flash_prefill_q8_block_k_d256() { return Q8Plan<256>::BK; }
 
 // Dynamic shared memory of one CTA at head width D (0 if D is not built).
 int flash_prefill_q8_smem_bytes(int D) {
-  return D == 64 ? Q8Plan<64>::SMEM : D == 128 ? Q8Plan<128>::SMEM : 0;
+  return D == 64    ? Q8Plan<64>::SMEM
+         : D == 128 ? Q8Plan<128>::SMEM
+         : D == 256 ? Q8Plan<256>::SMEM
+                    : 0;
 }
 
 // Returns 0, a cudaError_t or ERR_TENSOR_MAP. `kb_lo` may be null (no
@@ -300,6 +319,10 @@ int flash_prefill_q8_bf16(const void* q, const void* k, const void* ks,
                         scale_log2, st);
     case 128:
       return launch<128>(q, k, ks, v, vs, o, kb_lo, kb_hi, B, H, KVH, T, S,
+                         q_sb, q_sh, q_st, o_sb, o_sh, o_st, pos, window,
+                         scale_log2, st);
+    case 256:
+      return launch<256>(q, k, ks, v, vs, o, kb_lo, kb_hi, B, H, KVH, T, S,
                          q_sb, q_sh, q_st, o_sb, o_sh, o_st, pos, window,
                          scale_log2, st);
     default:

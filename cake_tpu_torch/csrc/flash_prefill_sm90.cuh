@@ -7,13 +7,19 @@
 //
 // A CTA of 3 warpgroups takes BQ = 128 q rows of one (b, h):
 // - warpgroup 0, the producer, keeps a ring of K tiles and one of V tiles
-//   (BK = 128 keys, bf16, 128-byte swizzle) filled, with one "full" and one
-//   "empty" mbarrier per slot;
+//   (BK = 128 keys at D = 64 and 128, 64 at D = 256; bf16, 128-byte
+//   swizzle) filled, with one "full" and one "empty" mbarrier per slot;
 // - warpgroups 1 and 2, the consumers, own 64 q rows each. Q is loaded once
 //   by TMA. S = Q K^T is wgmma m64n128k16 with Q and K from shared memory
-//   (both K-major); P stays in registers, is rounded to bf16 there and is
-//   the register A operand of O += P V (wgmma m64n{D}k16), with V read in
-//   its natural [key][d] layout through the descriptor's transpose flag.
+//   (both K-major; m64n64k16 at BK = 64); P stays in registers, is rounded
+//   to bf16 there and is the register A operand of O += P V (wgmma
+//   m64n{D}k16), with V read in its natural [key][d] layout through the
+//   descriptor's transpose flag.
+// At D = 256 a consumer thread's O is 128 f32 registers: with BK = 128 its
+// S (64) and P (32) would not fit beside O in the consumer's register
+// budget, and two stages of 128-key K and V tiles (256 KB) beside Q (64 KB)
+// would not fit in shared memory. BK = 64 halves both: 176 registers of O,
+// S and P, and 64 + 2 x (32 + 32) = 192 KB.
 // Only the tiles that hold the causal diagonal or the window's lower edge
 // are masked element by element. Blocks are mapped so that the q tiles
 // with the most live KV tiles start first.
@@ -29,7 +35,8 @@ namespace fp90 {
 using namespace sm90;
 
 constexpr int BQ = 128;       // q rows per CTA: two consumer warpgroups of 64
-constexpr int BK = 128;       // keys per KV tile
+// keys per KV tile, the unit of kv_block_bounds on the host (per D)
+__host__ __device__ constexpr int block_k(int D) { return D == 256 ? 64 : 128; }
 constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int CONSUMER_THREADS = 256;
 // A CTA of THREADS threads is launched with 168 registers a thread (65,536
@@ -50,6 +57,7 @@ constexpr float NEG_INF = -1e30f;
 // codes ahead of their conversion.
 template <int D, int STAGES_, int STAGING_BYTES = 0>
 struct Plan {
+  static constexpr int BK = block_k(D);
   static constexpr int STAGES = STAGES_;
   static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = BK * D * 2;  // one bf16 K or V tile
@@ -59,6 +67,7 @@ struct Plan {
   static constexpr int STAGING =
       SCALES + (STAGING_BYTES ? STAGES * 2 * BK * 4 : 0);
   static constexpr int SMEM = STAGING + STAGING_BYTES;
+  static_assert(SMEM + 1024 <= 227 * 1024, "over a CTA's shared memory");
   __host__ __device__ static constexpr int k_slot(int s) {
     return K_RING + s * KV_BYTES;
   }
@@ -124,12 +133,12 @@ struct RowState {
 };
 
 // S = Q K^T of one KV tile into `s`, issued and committed (not waited).
-template <int D>
+template <int D, int BK>
 __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q_s,
                                          uint32_t k_s) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss_n128(
+    wgmma_ss(
         s, smem_desc(q_s + (kk / 4) * 64 * 128 + (kk % 4) * 32, 16, 1024),
         smem_desc(k_s + (kk / 4) * BK * 128 + (kk % 4) * 32, 16, 1024),
         kk > 0);
@@ -137,7 +146,7 @@ __device__ __forceinline__ void issue_qk(float (&s)[BK / 2], uint32_t q_s,
 }
 
 // O += P V of one KV tile, issued and committed (not waited).
-template <int D>
+template <int D, int BK>
 __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
                                          uint32_t (&p)[BK / 16][4],
                                          uint32_t v_s) {
@@ -152,12 +161,13 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
 // masked where the tile holds the diagonal or the window's lower edge,
 // exponentiated against the new running max, summed into l, and (int8
 // cache) times the value scale. Leaves the rescale of O in r.a0/r.a1.
-template <class Scales>
-__device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], RowState& r,
+template <int N, class Scales>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], RowState& r,
                                              const Scales& scales, int slot,
                                              int kb, int first, int last,
                                              int window, int tq,
                                              float scale_log2) {
+  constexpr int BK = 2 * N;
 #pragma unroll
   for (int n = 0; n < BK / 8; ++n) {
     if constexpr (Scales::kScaled) {
@@ -221,8 +231,10 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], RowState& r,
 
 // P rounded to bf16 in the layout of wgmma's register A operand: n8 blocks
 // 2j and 2j+1 of the scores are k-step j.
-__device__ __forceinline__ void round_p(const float (&s)[BK / 2],
-                                        uint32_t (&p)[BK / 16][4]) {
+template <int N>
+__device__ __forceinline__ void round_p(const float (&s)[N],
+                                        uint32_t (&p)[N / 8][4]) {
+  constexpr int BK = 2 * N;
 #pragma unroll
   for (int n = 0; n < BK / 8; ++n) {
     p[n / 2][(n & 1) * 2 + 0] = pack_bf16(s[n * 4 + 0], s[n * 4 + 1]);
@@ -254,6 +266,7 @@ __device__ __forceinline__ void consume(uint32_t smem, Scales scales,
                                         int pos, int window, float scale_log2,
                                         __nv_bfloat16* o, long long o_st) {
   constexpr int ST = P::STAGES;
+  constexpr int BK = P::BK;
   const int tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, tq = lane & 3;
@@ -278,7 +291,7 @@ __device__ __forceinline__ void consume(uint32_t smem, Scales scales,
   mbar_wait(&ring.full_k[0], 0);
   turn_begin(wg);
   wg_fence();
-  issue_qk<D>(s, q_s, smem + P::k_slot(0));
+  issue_qk<D, BK>(s, q_s, smem + P::k_slot(0));
   turn_end(wg);
   wg_wait<0>();
   fence_regs(s);
@@ -294,8 +307,8 @@ __device__ __forceinline__ void consume(uint32_t smem, Scales scales,
     mbar_wait(&ring.full_v[pst], ((i - 1) / ST) & 1);
     turn_begin(wg);
     wg_fence();
-    issue_qk<D>(s, q_s, smem + P::k_slot(st));
-    issue_pv<D>(acc, p, smem + P::v_slot(pst));
+    issue_qk<D, BK>(s, q_s, smem + P::k_slot(st));
+    issue_pv<D, BK>(acc, p, smem + P::v_slot(pst));
     turn_end(wg);
     wg_wait<1>();  // S of tile i
     fence_regs(s);
@@ -314,7 +327,7 @@ __device__ __forceinline__ void consume(uint32_t smem, Scales scales,
   mbar_wait(&ring.full_v[pst], ((n - 1) / ST) & 1);
   turn_begin(wg);
   wg_fence();
-  issue_pv<D>(acc, p, smem + P::v_slot(pst));
+  issue_pv<D, BK>(acc, p, smem + P::v_slot(pst));
   if (wg == 0) turn_end(wg);  // the last turn: warpgroup 0 goes no more
   wg_wait<0>();
   fence_regs(acc);
@@ -362,7 +375,7 @@ inline int q_tensor_map(CUtensorMap* map, const void* q, int B, int H, int T,
 // A contiguous cache buffer [B, KVH, S, D] in boxes of `rows` rows: bf16 in
 // 64-column blocks with 128-byte swizzle, int8 as whole unswizzled rows.
 inline int kv_tensor_map(CUtensorMap* map, const void* kv, int B, int KVH,
-                         int S, int D, bool int8, int rows = BK) {
+                         int S, int D, bool int8, int rows) {
   const cuuint64_t elem = int8 ? 1 : 2;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)KVH,
                               (cuuint64_t)B};

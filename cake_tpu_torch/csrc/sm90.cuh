@@ -252,10 +252,10 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
   "%114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "  \
   "%125, %126, %127"
 
-// S (64 x 128, f32) = or += A (64 x 16, shared) * B (16 x 128, shared,
-// K-major); `accumulate` 0 ignores S's old value.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
-                                              uint64_t db, int accumulate) {
+// S (64 x N, f32) = or += A (64 x 16, shared) * B (16 x N, shared,
+// K-major), N = 128 or 64; `accumulate` 0 ignores S's old value.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int accumulate) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
@@ -268,8 +268,38 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{" SM90_R32 "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : SM90_D8(0), SM90_D8(8), SM90_D8(16), SM90_D8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
 // O (64 x N, f32) += A (64 x 16, bf16 in registers) * B (16 x N, shared,
-// MN-major: the transpose flag of B is set).
+// MN-major: the transpose flag of B is set), N = 256, 128 or 64.
+__device__ __forceinline__ void wgmma_rs(float (&d)[128],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{" SM90_R128 "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
+      "}\n"
+      : SM90_D8(0), SM90_D8(8), SM90_D8(16), SM90_D8(24), SM90_D8(32),
+        SM90_D8(40), SM90_D8(48), SM90_D8(56), SM90_D8(64), SM90_D8(72),
+        SM90_D8(80), SM90_D8(88), SM90_D8(96), SM90_D8(104), SM90_D8(112),
+        SM90_D8(120)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4],
                                          uint64_t db) {

@@ -47,10 +47,9 @@ class LlamaConfig:
     max_seq_len: int = DEFAULT_MAX_SEQ_LEN
     dtype: str = "bfloat16"
     # --- model-family axes (all default to the Llama-3 shape) -------------
-    # HF `model_type`: "llama" | "mistral" | "qwen2" | "mixtral". Every
-    # family parses; the fields below are the only architectural deltas,
-    # and the decoder refuses those it does not compute yet
-    # (`models/llama.py` check_family).
+    # HF `model_type`: "llama" | "mistral" | "qwen2" | "mixtral" | "gemma".
+    # The same decoder serves every family; the fields below are the only
+    # architectural deltas.
     model_type: str = "llama"
     # q/k/v projection bias (Qwen2; HF Llama's `attention_bias` key maps
     # here too). Qwen2 itself is o-bias-free, but llama-arch

@@ -13,13 +13,18 @@ The functions below mirror the JAX ones; :class:`Llama` is the
 ``nn.Module`` that holds a tree on its device and runs it, in the place of
 the JAX package's ``forward``.
 
-Families: the config parses every family; this slice computes Llama and
-Mistral's sliding window. Qwen2's biases, Gemma's deltas and MoE layers
-raise ``NotImplementedError`` (:func:`check_family`).
+Families: the deltas dispatch on the layer dict and the config, as in the
+JAX package: q/k/v biases ``bq/bk/bv`` (Qwen2) and an o_proj bias ``bo``
+(llama-arch ``attention_bias`` checkpoints) are added where present; a
+``router`` with ``[E, in, out]`` expert stacks (Mixtral) replaces the dense
+MLP by :func:`~cake_tpu_torch.ops.moe.moe_swiglu`; Gemma's (1+w) norm,
+GeGLU and embedding scale follow ``rms_norm_offset``, ``hidden_act`` and
+``embed_scale``; Mistral's window is ``sliding_window``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -31,6 +36,7 @@ from cake_tpu_torch.models.config import LlamaConfig
 from cake_tpu_torch.ops.attention import self_attention_block
 from cake_tpu_torch.ops.kvcache import KVCache
 from cake_tpu_torch.ops.mlp import swiglu
+from cake_tpu_torch.ops.moe import moe_swiglu
 from cake_tpu_torch.ops.norms import rms_norm
 from cake_tpu_torch.ops.quant import (
     Quantized4Linear,
@@ -38,6 +44,7 @@ from cake_tpu_torch.ops.quant import (
     dense,
     quantize_linear,
     quantize_linear4,
+    reject_int4_moe,
     set_layer,
     stack_like,
 )
@@ -46,8 +53,10 @@ from cake_tpu_torch.utils.device import resolve_device
 
 Params = dict[str, Any]
 
-# Stacked per-layer weight names -> shape builders (without the [L] axis).
-LAYER_SHAPES = {
+# Stacked per-layer weight names -> shape builders (without the [L] axis),
+# for the dense-MLP, bias-free Llama base; :func:`layer_shapes` adds each
+# family's leaves.
+_LAYER_SHAPES = {
     "attn_norm": lambda c: (c.hidden_size,),
     "wq": lambda c: (c.hidden_size, c.num_attention_heads * c.head_dim),
     "wk": lambda c: (c.hidden_size, c.num_key_value_heads * c.head_dim),
@@ -59,54 +68,77 @@ LAYER_SHAPES = {
     "w_down": lambda c: (c.intermediate_size, c.hidden_size),
 }
 
+_BIAS_SHAPES = {
+    "bq": lambda c: (c.num_attention_heads * c.head_dim,),
+    "bk": lambda c: (c.num_key_value_heads * c.head_dim,),
+    "bv": lambda c: (c.num_key_value_heads * c.head_dim,),
+}
 
-def check_family(config: LlamaConfig) -> None:
-    """Refuse the families whose deltas this slice does not compute."""
-    missing = []
+_MOE_SHAPES = {
+    "router": lambda c: (c.hidden_size, c.num_local_experts),
+    "w_gate": lambda c: (c.num_local_experts, c.hidden_size,
+                         c.intermediate_size),
+    "w_up": lambda c: (c.num_local_experts, c.hidden_size,
+                       c.intermediate_size),
+    "w_down": lambda c: (c.num_local_experts, c.intermediate_size,
+                         c.hidden_size),
+}
+
+
+def layer_shapes(config: LlamaConfig) -> dict:
+    """Per-layer weight name -> shape (without the ``[L]`` axis) of the
+    config's family: the Llama base, with q/k/v biases when
+    ``attention_bias`` (Qwen2), and with the dense MLP replaced by a router
+    and ``[E, in, out]`` expert stacks when ``num_local_experts`` (Mixtral).
+    The same names, order and shapes as the JAX package's."""
+    shapes = dict(_LAYER_SHAPES)
     if config.attention_bias:
-        missing.append("q/k/v projection biases (Qwen2)")
+        shapes.update(_BIAS_SHAPES)
     if config.num_local_experts:
-        missing.append("routed MoE experts (Mixtral)")
-    if config.rms_norm_offset or config.embed_scale:
-        missing.append("Gemma's (1+w) norm and embedding scale")
-    if config.hidden_act != "silu":
-        missing.append(f"the {config.hidden_act} MLP (Gemma)")
-    if missing:
-        raise NotImplementedError(
-            f"model_type {config.model_type!r} needs "
-            f"{', '.join(missing)}, not ported yet (Llama and Mistral are)")
+        shapes.update(_MOE_SHAPES)
+    return shapes
 
 
 def init_params(config: LlamaConfig, seed: int = 0, device=None,
                 dtype=None) -> Params:
     """Random weights for tests and benchmarks, drawn on ``device`` (the
     card unless the CPU is asked for) from a ``torch.Generator`` seeded with
-    ``seed``, layer by layer straight into ``dtype``: the f32 temporaries
-    are one layer's size. Linear weights are ``N(0, 1/fan_in)``, norms are
-    ones. The numbers differ from the JAX package's for the same seed."""
+    ``seed``, layer by layer (and expert by expert) straight into
+    ``dtype``: the f32 temporaries are one matrix's size. Linear weights
+    are ``N(0, 1/fan_in)`` (fan-in the in axis, of an expert stack too),
+    the router too, biases ``N(0, 0.02^2)``; norms scale by one: ones, or
+    zeros under Gemma's ``(1+w)`` offset (as HF initializes them). The
+    head is drawn on its own, as the JAX package's init draws it, for a
+    tied config (Gemma) too: random Gemma weights with ones, every norm
+    scaling by two, amplify rounding far past the other families', and
+    with the embedding as the head every greedy stream repeats its last
+    token. The numbers differ from the JAX package's for the same
+    seed."""
     return _init_params(config, seed, device, dtype, None)
 
 
 def init_params_int8(config: LlamaConfig, seed: int = 0, device=None,
                      dtype=None) -> Params:
-    """:func:`init_params` with every linear quantized to int8 as it is
-    drawn: each layer's f32 weight is quantized on ``device`` and only its
-    codes and scales are kept, so the peak memory is the quantized bytes
-    plus one layer's temporaries. The same seed draws the same f32 weights
-    as :func:`init_params`."""
+    """:func:`init_params` with every linear (expert stacks among them)
+    quantized to int8 as it is drawn: each f32 matrix is quantized on
+    ``device`` and only its codes and scales are kept, so the peak memory
+    is the quantized bytes plus one matrix's temporaries. The same seed
+    draws the same f32 weights as :func:`init_params`."""
     return _init_params(config, seed, device, dtype, quantize_linear)
 
 
 def init_params_int4(config: LlamaConfig, seed: int = 0, device=None,
                      dtype=None, group_size: int | None = None) -> Params:
     """:func:`init_params_int8` at packed int4, per channel or with
-    ``group_size``-row groups along the in axis."""
+    ``group_size``-row groups along the in axis. MoE configs are refused
+    (:func:`~cake_tpu_torch.ops.quant.reject_int4_moe`)."""
+    if config.num_local_experts:
+        reject_int4_moe()
     return _init_params(config, seed, device, dtype,
                         lambda w: quantize_linear4(w, group_size=group_size))
 
 
 def _init_params(config, seed, device, dtype, qfn) -> Params:
-    check_family(config)
     dev = resolve_device(device)
     dt = dtype or config.torch_dtype
     L = config.num_hidden_layers
@@ -117,27 +149,48 @@ def _init_params(config, seed, device, dtype, qfn) -> Params:
                         dtype=torch.float32)
         return w / math.sqrt(fan_in)
 
-    def linear(shape):
+    def matrix(shape):
         return draw(shape, shape[0]).to(dt) if qfn is None \
             else qfn(draw(shape, shape[0]))
 
-    layers = {}
-    for name, shape_fn in LAYER_SHAPES.items():
-        shape = shape_fn(config)
-        if name.endswith("norm"):
-            layers[name] = torch.ones((L,) + shape, dtype=dt, device=dev)
-            continue
-        first = linear(shape)
+    def linear(shape):
+        if len(shape) == 2:
+            return matrix(shape)
+        first = matrix(shape[1:])  # an expert stack, one expert at a time
+        stacked = stack_like(first, shape[0], dev)
+        set_layer(stacked, 0, first)
+        for e in range(1, shape[0]):
+            set_layer(stacked, e, matrix(shape[1:]))
+        return stacked
+
+    def stack(shape, make):
+        first = make(shape)
         stacked = stack_like(first, L, dev)
         set_layer(stacked, 0, first)
         for i in range(1, L):
-            set_layer(stacked, i, linear(shape))
-        layers[name] = stacked
+            set_layer(stacked, i, make(shape))
+        return stacked
+
+    norm = 0.0 if config.rms_norm_offset else 1.0
+    layers = {}
+    for name, shape_fn in layer_shapes(config).items():
+        shape = shape_fn(config)
+        if name.endswith("norm"):
+            layers[name] = torch.full((L,) + shape, norm, dtype=dt,
+                                      device=dev)
+        elif name.startswith("b"):  # biases: small, and in full precision
+            layers[name] = stack(
+                shape, lambda s: (0.02 * draw(s, 1.0)).to(dt))
+        elif name == "router":  # tiny: stays in full precision
+            layers[name] = stack(shape, lambda s: draw(s, s[0]).to(dt))
+        else:
+            layers[name] = stack(shape, linear)
     return {
         "embed": draw((config.vocab_size, config.hidden_size),
                       config.hidden_size).to(dt),
         "layers": layers,
-        "norm_f": torch.ones(config.hidden_size, dtype=dt, device=dev),
+        "norm_f": torch.full((config.hidden_size,), norm, dtype=dt,
+                             device=dev),
         "lm_head": linear((config.hidden_size, config.vocab_size)),
     }
 
@@ -183,15 +236,29 @@ def unstack_layers(layers: Params) -> list[Params]:
 
 def embed_tokens(params: Params, tokens: torch.Tensor,
                  config: LlamaConfig) -> torch.Tensor:
-    """Token embedding lookup."""
-    return params["embed"][tokens].to(config.torch_dtype)
+    """Token embedding lookup, the one embedding entry point of every path.
+    Gemma (``embed_scale``) multiplies it by sqrt(hidden), the normalizer
+    rounded to the activation dtype first as the JAX package and HF do
+    (``sqrt(3072)`` is 55.5 in bf16)."""
+    dt = config.torch_dtype
+    x = params["embed"][tokens].to(dt)
+    if config.embed_scale:
+        x = x * _embed_normalizer(config.hidden_size, dt)
+    return x
+
+
+@functools.cache
+def _embed_normalizer(hidden: int, dtype: torch.dtype) -> float:
+    return float(torch.tensor(hidden ** 0.5, dtype=dtype))
 
 
 def block_forward(layer: Params, x: torch.Tensor, k_cache, v_cache,
                   cos_t: torch.Tensor, sin_t: torch.Tensor, pos,
                   config: LlamaConfig):
     """One pre-norm decoder block; writes this layer's cache (a tensor or
-    a :class:`~cake_tpu_torch.ops.kvcache.QuantizedKV`) in place.
+    a :class:`~cake_tpu_torch.ops.kvcache.QuantizedKV`) in place. The
+    family's deltas are read off the layer dict (``bq``/``bo``,
+    ``router``) and the config.
     ``cos_t/sin_t`` are the RoPE rows of the call's positions
     (:func:`cake_tpu_torch.ops.rope.rope_slice`)."""
     h = rms_norm(x, layer["attn_norm"], config.rms_norm_eps,
@@ -199,12 +266,19 @@ def block_forward(layer: Params, x: torch.Tensor, k_cache, v_cache,
     attn_out, k_cache, v_cache = self_attention_block(
         h, layer["wq"], layer["wk"], layer["wv"], layer["wo"], k_cache,
         v_cache, cos_t, sin_t, pos, config.num_attention_heads,
-        config.num_key_value_heads, window=config.sliding_window)
+        config.num_key_value_heads, window=config.sliding_window,
+        bq=layer.get("bq"), bk=layer.get("bk"), bv=layer.get("bv"),
+        bo=layer.get("bo"))
     x = x + attn_out
     h = rms_norm(x, layer["mlp_norm"], config.rms_norm_eps,
                  offset=config.rms_norm_offset)
-    x = x + swiglu(h, layer["w_gate"], layer["w_up"], layer["w_down"],
-                   act=config.hidden_act)
+    if "router" in layer:
+        x = x + moe_swiglu(h, layer["router"], layer["w_gate"],
+                           layer["w_up"], layer["w_down"],
+                           top_k=config.num_experts_per_tok)
+    else:
+        x = x + swiglu(h, layer["w_gate"], layer["w_up"], layer["w_down"],
+                       act=config.hidden_act)
     return x, k_cache, v_cache
 
 
@@ -238,7 +312,6 @@ class Llama(nn.Module):
 
     def __init__(self, config: LlamaConfig, params: Params):
         super().__init__()
-        check_family(config)
         self.config = config
         self.params = params
         self.layers = unstack_layers(params["layers"])

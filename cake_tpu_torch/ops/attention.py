@@ -68,21 +68,35 @@ def self_attention_block(
     num_heads: int,
     num_kv_heads: int,
     window: int | None = None,
+    bq: torch.Tensor | None = None,  # q/k/v projection biases (Qwen2)
+    bk: torch.Tensor | None = None,
+    bv: torch.Tensor | None = None,
+    bo: torch.Tensor | None = None,  # o_proj bias (llama attention_bias)
 ):
     """One attention sublayer including the cache write (in place).
 
     ``cos_t/sin_t`` are the RoPE table rows of this call's positions
     (:func:`cake_tpu_torch.ops.rope.rope_slice`), sliced once per forward
-    and shared by every layer. Returns ``(attn_out [B, T, hidden], k_cache,
-    v_cache)``."""
+    and shared by every layer. The q/k/v biases are added after their
+    projections, before RoPE; the o_proj bias after o_proj. Returns
+    ``(attn_out [B, T, hidden], k_cache, v_cache)``."""
     b, t, _ = x.shape
     d = out_features(wq) // num_heads
-    q = dense(x, wq).view(b, t, num_heads, d).transpose(1, 2)
-    k = dense(x, wk).view(b, t, num_kv_heads, d).transpose(1, 2)
-    v = dense(x, wv).view(b, t, num_kv_heads, d).transpose(1, 2)
+
+    def project(w, bias, heads):
+        y = dense(x, w)
+        if bias is not None:
+            y = y + bias
+        return y.view(b, t, heads, d).transpose(1, 2)
+
+    q = project(wq, bq, num_heads)
+    k = project(wk, bk, num_kv_heads)
+    v = project(wv, bv, num_kv_heads)
     q = rotate(q, cos_t, sin_t)
     k = rotate(k, cos_t, sin_t)
     k_cache, v_cache = kv.update_layer(k_cache, v_cache, k, v, pos)
     out = attend(q, k_cache, v_cache, pos, window=window)
-    out = out.transpose(1, 2).reshape(b, t, num_heads * d)
-    return dense(out, wo), k_cache, v_cache
+    out = dense(out.transpose(1, 2).reshape(b, t, num_heads * d), wo)
+    if bo is not None:
+        out = out + bo
+    return out, k_cache, v_cache

@@ -42,12 +42,15 @@ from cake_tpu_torch.utils.device import sm_count
 NEG_INF = -1e30
 # Tile sizes of the CUDA kernels (checked against the built libraries when
 # they load); kv_block_bounds counts in these units on both sides. The two
-# prefill kernels take 128 q rows (two wgmma warpgroups of 64) over 128-key
-# tiles; decode splits its keys in 64-key tiles and folds a GQA group of up
-# to 16 query heads and its T positions into the rows of mma.sync m16
-# tiles, one CTA a tile.
+# prefill kernels take 128 q rows (two wgmma warpgroups of 64) over
+# 128-key tiles, 64-key at head_dim 256 (`prefill_block_k`); decode splits
+# its keys in 64-key tiles and folds a GQA group of up to 16 query heads
+# and its T positions into the rows of mma.sync m16 tiles, one CTA a tile.
+# The head widths built are `HEAD_DIMS`.
+HEAD_DIMS = (64, 128, 256)
 PREFILL_BLOCK_Q = 128
 PREFILL_BLOCK_K = 128
+PREFILL_BLOCK_K_D256 = 64
 DECODE_BLOCK_K = 64
 DECODE_MAX_GROUP = 16
 DECODE_TILE_ROWS = 16
@@ -94,17 +97,29 @@ def _plain_attention(q, k, v, qpos, kpos, window):
     return out.reshape(b, h, t, d).to(q.dtype)
 
 
+def prefill_block_k(d: int) -> int:
+    """Keys a KV tile of the prefill kernels at head_dim ``d`` (the plain
+    versions read other widths in the 128-key tiles)."""
+    return PREFILL_BLOCK_K_D256 if d == 256 else PREFILL_BLOCK_K
+
+
+def _prefill_key_range(t: int, s: int, pos: int, d: int, window):
+    """The keys ``[lo, hi)`` of the live KV tiles of a whole prefill query
+    block, in the kernels' tiles at head_dim ``d``."""
+    bk = prefill_block_k(d)
+    lo_kb, hi_kb = kv_block_bounds(pos, 0, t, bk, window)
+    return lo_kb * bk, min((hi_kb + 1) * bk, s)
+
+
 def flash_attention_ref(q: torch.Tensor, k_all: torch.Tensor,
                         v_all: torch.Tensor, pos: int,
                         window: int | None = None) -> torch.Tensor:
     """Plain version of :func:`flash_attention`: reads the keys of the live
     block range of the whole query block and masks inside it."""
     t, s = q.shape[2], k_all.shape[2]
-    pos = int(pos)
-    lo_kb, hi_kb = kv_block_bounds(pos, 0, t, PREFILL_BLOCK_K, window)
-    lo, hi = lo_kb * PREFILL_BLOCK_K, min((hi_kb + 1) * PREFILL_BLOCK_K, s)
+    lo, hi = _prefill_key_range(t, s, int(pos), q.shape[3], window)
     dev = q.device
-    qpos = (pos + torch.arange(t, device=dev))[None]
+    qpos = (int(pos) + torch.arange(t, device=dev))[None]
     return _plain_attention(q, k_all[:, :, lo:hi], v_all[:, :, lo:hi], qpos,
                             torch.arange(lo, hi, device=dev), window)
 
@@ -118,8 +133,7 @@ def flash_attention_q8_ref(q: torch.Tensor, k_q: torch.Tensor,
     :func:`flash_attention_ref` does."""
     t, s = q.shape[2], k_q.shape[2]
     pos = int(pos)
-    lo_kb, hi_kb = kv_block_bounds(pos, 0, t, PREFILL_BLOCK_K, window)
-    lo, hi = lo_kb * PREFILL_BLOCK_K, min((hi_kb + 1) * PREFILL_BLOCK_K, s)
+    lo, hi = _prefill_key_range(t, s, pos, q.shape[3], window)
 
     def deq(x, scale):
         return x[:, :, lo:hi].float() * scale[:, :, lo:hi, None]
@@ -204,8 +218,9 @@ def _check_operands(name: str, q, k_all, v_all, max_group=None,
     if max_group and h // kvh > max_group:
         raise ValueError(f"{name}: GQA group {h // kvh} is not built (1 to "
                          f"{max_group})")
-    if d not in (64, 128):
-        raise ValueError(f"{name}: head_dim {d} is not built (64 or 128)")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {d} is not built "
+                         f"({', '.join(map(str, HEAD_DIMS))})")
     if not all(t.is_contiguous() for t in (k_all, v_all, *scales)):
         raise ValueError(f"{name}: k and v (and their scales) must be "
                          "contiguous")
@@ -245,15 +260,18 @@ def _entry(name: str, argtypes: tuple):
     if name.startswith("flash_decode"):  # row tiles of G * T rows
         consts = {"block_k": DECODE_BLOCK_K, "tile_rows": DECODE_TILE_ROWS}
     else:
-        consts = {"block_q": PREFILL_BLOCK_Q, "block_k": PREFILL_BLOCK_K}
+        consts = {"block_q": PREFILL_BLOCK_Q,
+                  **{f"block_k_d{d}": prefill_block_k(d) for d in HEAD_DIMS}}
     return build.entry(name, argtypes, consts)
 
 
-def _prefill_bounds(t: int, pos: int, window, device):
-    """Each prefill q tile's live KV-tile range, as the kernels read it."""
+def _prefill_bounds(t: int, pos: int, d: int, window, device):
+    """Each prefill q tile's live KV-tile range, as the kernels read it at
+    head_dim ``d``."""
     qb = torch.arange(-(-t // PREFILL_BLOCK_Q), dtype=torch.int32,
                       device=device)
-    return kv_block_bounds(pos, qb, PREFILL_BLOCK_Q, PREFILL_BLOCK_K, window)
+    return kv_block_bounds(pos, qb, PREFILL_BLOCK_Q, prefill_block_k(d),
+                           window)
 
 
 _PREFILL_ARGS = (_VP,) * 6 + (_I,) * 6 + (_LL,) * 6 + (_I, _I, _F, _VP)
@@ -284,7 +302,7 @@ def flash_attention(q: torch.Tensor, k_all: torch.Tensor,
     if pos < 0 or pos + t > s:
         raise ValueError(f"flash_attention: rows {pos}..{pos + t} run past "
                          f"the KV buffer ({s})")
-    kb_lo, kb_hi = _prefill_bounds(t, pos, window, q.device)
+    kb_lo, kb_hi = _prefill_bounds(t, pos, d, window, q.device)
     out = _bthd_output(q)
     lib, fn = _entry("flash_prefill", _PREFILL_ARGS)
     err = fn(q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
@@ -317,7 +335,7 @@ def flash_attention_q8(q: torch.Tensor, k_q: torch.Tensor,
     if pos < 0 or pos + t > s:
         raise ValueError(f"flash_attention_q8: rows {pos}..{pos + t} run "
                          f"past the KV buffer ({s})")
-    kb_lo, kb_hi = _prefill_bounds(t, pos, window, q.device)
+    kb_lo, kb_hi = _prefill_bounds(t, pos, d, window, q.device)
     out = _bthd_output(q)
     lib, fn = _entry("flash_prefill_q8", _PREFILL_Q8_ARGS)
     err = fn(q.data_ptr(), k_q.data_ptr(), k_scale.data_ptr(),

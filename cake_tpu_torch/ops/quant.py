@@ -44,10 +44,21 @@ from cake_tpu_torch.ops import qmatmul
 LAYER_LINEARS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
 
+def reject_int4_moe() -> None:
+    """The one int4 + MoE refusal, raised by every entry point that would
+    pack an expert stack (quantize_params, the int4 random init, the
+    checkpoint loader), with the JAX package's message."""
+    raise NotImplementedError(
+        "int4 MoE expert stacks are not wired (the nibble packing is 2D); "
+        "use int8 for Mixtral-family quantization")
+
+
 @dataclasses.dataclass
 class QuantizedLinear:
     """int8 weight ``q [..., in, out]`` and f32 per-output-channel
-    ``scale [..., out]`` (leading axes, the stacked layer axis, shared)."""
+    ``scale [..., out]``. The leading axes (the stacked layer axis, and an
+    expert stack's ``E``: ``q [L, E, in, out]``, ``scale [L, E, out]``) are
+    shared; indexing takes a layer's or an expert's view of both."""
 
     q: torch.Tensor
     scale: torch.Tensor
@@ -83,11 +94,13 @@ class Quantized4Linear:
         return 2 * self.qp.shape[-2] // self.scale.shape[-2]
 
 
-def stack_like(w, n: int, device):
-    """An empty ``[n, ...]`` stack, on ``device``, of weights shaped like
-    ``w`` (plain or quantized)."""
+def stack_like(w, n: int | tuple[int, ...], device):
+    """An empty ``[n, ...]`` stack (``[*n, ...]`` for a tuple), on
+    ``device``, of weights shaped like ``w`` (plain or quantized)."""
+    lead = (n,) if isinstance(n, int) else tuple(n)
+
     def empty(t):
-        return torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+        return torch.empty(lead + tuple(t.shape), dtype=t.dtype,
                            device=device)
 
     if isinstance(w, torch.Tensor):
@@ -96,8 +109,9 @@ def stack_like(w, n: int, device):
                      for f in dataclasses.fields(w)))
 
 
-def set_layer(stacked, i: int, w) -> None:
-    """``stacked[i] = w`` for plain and quantized weights."""
+def set_layer(stacked, i, w) -> None:
+    """``stacked[i] = w`` for plain and quantized weights (``i`` an int or
+    a tuple of them)."""
     if isinstance(stacked, torch.Tensor):
         stacked[i] = w
         return
@@ -235,12 +249,16 @@ def parse_quant_spec(spec: str | None) -> tuple[str | None, int | None]:
 
 def quantize_params(params: dict, bits: int = 8,
                     group_size: int | None = None) -> dict:
-    """Quantize every linear of a params tree (the layers' linears and the
-    head) on the tensors' device; other leaves are kept as they are."""
+    """Quantize every linear of a params tree (the layers' linears, expert
+    stacks ``[L, E, in, out]`` among them, and the head) on the tensors'
+    device; other leaves (norms, biases, the router) are kept as they
+    are."""
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     if group_size is not None and bits != 4:
         raise ValueError("group_size applies to bits=4 only")
+    if bits == 4 and "router" in params["layers"]:
+        reject_int4_moe()
 
     def qfn(w):
         return (quantize_linear(w) if bits == 8

@@ -45,7 +45,6 @@ class SegmentModel:
     by the master's local segments and the worker's layer runs."""
 
     def __init__(self, config: LlamaConfig, layers: dict, max_seq: int):
-        llama.check_family(config)
         self.config = config
         self.layers = llama.unstack_layers(layers)
         dev = next(iter(layers.values()))

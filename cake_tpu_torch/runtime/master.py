@@ -116,7 +116,6 @@ class DistributedGenerator(GeneratorBase):
             raise ValueError(
                 f"head params lie on {head_params['embed'].device}, the "
                 f"master runs on {self.device}")
-        llama.check_family(config)
         self.runners = runners
         self._seg_idents = [r.ident() for r in runners]
         self.head = {k: head_params[k] for k in ("embed", "norm_f",

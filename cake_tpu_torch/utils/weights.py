@@ -6,15 +6,17 @@ linear weights ``[out, in]``, the tree ``[in, out]``; per-layer tensors are
 stacked into one ``[num_layers, ...]`` tensor per name. A checkpoint that
 stores no ``lm_head.weight`` is loaded with a tied head (the embedding).
 
-It loads bf16/f32/f16 checkpoints of the Llama and Mistral families, and
-quantizes their linears on load (``quantize="int8"``, ``"int4"`` or
-``"int4:gN"``, on the host with the numpy quantizers of
-:mod:`cake_tpu_torch.ops.quant`, so the full-precision weights never reach
-the card). Pre-quantized checkpoints written by the JAX package's
-``tools/quantize_model.py`` (``<name>.q8``/``.q4`` codes in the HF
-``[out, in]`` orientation beside ``<name>.scale``) load their stored codes
-as they are. The Qwen2/Mixtral tensors raise ``NotImplementedError`` until
-their slices land.
+It loads bf16/f32/f16 checkpoints of every family the JAX package serves
+(Llama, Mistral, Qwen2 and llama-arch ``attention_bias`` biases, Gemma,
+Mixtral's experts; the family's tensors are detected from the stored names,
+:func:`detect_family`), and quantizes their linears on load
+(``quantize="int8"``, ``"int4"`` or ``"int4:gN"``, on the host with the
+numpy quantizers of :mod:`cake_tpu_torch.ops.quant`, tensor by tensor, so
+the full-precision weights never reach the card; int4 expert stacks are
+refused as in the JAX package). Pre-quantized checkpoints written by the
+JAX package's ``tools/quantize_model.py`` (``<name>.q8``/``.q4`` codes in
+the HF ``[out, in]`` orientation beside ``<name>.scale``, expert tensors
+among them) load their stored codes as they are.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from cake_tpu_torch.ops.quant import (
     parse_quant_spec,
     quantize_linear4_np,
     quantize_linear_np,
+    reject_int4_moe,
     set_layer,
     stack_like,
 )
@@ -55,6 +58,52 @@ _LAYER_MAP = {
     "w_down": ("mlp.down_proj.weight", True),
 }
 
+# q/k/v projection biases (Qwen2; HF llama-arch `attention_bias`)
+_BIAS_MAP = {
+    "bq": ("self_attn.q_proj.bias", False),
+    "bk": ("self_attn.k_proj.bias", False),
+    "bv": ("self_attn.v_proj.bias", False),
+}
+# the o_proj bias of llama-arch `attention_bias` checkpoints (Qwen2 has
+# none), loaded where the checkpoint stores it
+_O_BIAS = ("bo", ("self_attn.o_proj.bias", False))
+
+# Mixtral: w1 = gate, w3 = up, w2 = down, stacked over a new expert axis
+# ([L, E, in, out] in the tree); the router is `block_sparse_moe.gate`
+_MOE_EXPERT_MAP = {
+    "w_gate": "block_sparse_moe.experts.{e}.w1.weight",
+    "w_up": "block_sparse_moe.experts.{e}.w3.weight",
+    "w_down": "block_sparse_moe.experts.{e}.w2.weight",
+}
+_MOE_ROUTER = "block_sparse_moe.gate.weight"
+
+
+def hf_layer_map(num_experts: int = 0, attention_bias: bool = False,
+                 o_bias: bool = False) -> dict:
+    """The per-layer name map of a family: the base, with the q/k/v biases
+    and the o_proj bias where asked; an MoE family's expert tensors go by
+    :data:`_MOE_EXPERT_MAP` (they stack over an expert axis)."""
+    m = dict(_LAYER_MAP)
+    if attention_bias:
+        m.update(_BIAS_MAP)
+    if o_bias:
+        m[_O_BIAS[0]] = _O_BIAS[1]
+    if num_experts:
+        for k in _MOE_EXPERT_MAP:
+            del m[k]
+    return m
+
+
+def detect_family(name_to_file) -> tuple[int, bool, bool]:
+    """``(num_experts, attention_bias, o_bias)`` of a checkpoint, read off
+    its stored tensor names (0/False for the Llama base)."""
+    bias = any(n.endswith("self_attn.q_proj.bias") for n in name_to_file)
+    o_bias = any(n.endswith("self_attn.o_proj.bias") for n in name_to_file)
+    pat = re.compile(r"block_sparse_moe\.experts\.(\d+)\.")
+    experts = {int(m.group(1)) for n in name_to_file
+               if (m := pat.search(n))}
+    return len(experts), bias, o_bias
+
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -64,10 +113,17 @@ def params_from_hf_tensors(get: Callable[[str], torch.Tensor],
                            device=None, quantize: str | None = None,
                            prequantized: bool = False,
                            layer_range: tuple[int, int] | None = None,
-                           layers_only: bool = False) -> dict:
+                           layers_only: bool = False, num_experts: int = 0,
+                           attention_bias: bool = False,
+                           o_bias: bool = False) -> dict:
     """Build the params tree on ``device`` from a lookup ``get(hf_name)``.
     Each stacked tensor is allocated on the device once and filled layer by
-    layer, so the host holds one layer's tensor at a time.
+    layer (and expert by expert), so the host holds one matrix at a time.
+
+    ``num_experts``/``attention_bias``/``o_bias`` select the family's extra
+    tensors (:func:`hf_layer_map`, :func:`detect_family`): Mixtral's router
+    ``[L, H, E]`` and expert stacks ``[L, E, in, out]``, the q/k/v biases,
+    the o_proj bias.
 
     ``layer_range=(lo, hi)`` reads only blocks ``lo..hi-1``, stacked from 0
     (a worker's own layers; ``(0, 0)``, no layer at all: ``layers`` is
@@ -132,25 +188,50 @@ def params_from_hf_tensors(get: Callable[[str], torch.Tensor],
         return torch.from_numpy(q), torch.from_numpy(s)
 
     qcls = QuantizedLinear if tier == "int8" else Quantized4Linear
+    if num_experts and tier == "int4":
+        reject_int4_moe()
 
     def to_dev(t: torch.Tensor) -> torch.Tensor:
         return t.to(device=dev, dtype=dt)
 
+    def read(name: str, transpose: bool, quantized: bool):
+        """One matrix (or vector) of the tree, on the device."""
+        if quantized:
+            return qcls(*get_quant(name))
+        w = to_dev(get(name))
+        return w.t() if transpose else w
+
+    def stacked(names, transpose: bool, quantized: bool):
+        """``names`` (``[L]``, or ``[L][E]`` for an expert stack) read into
+        one stack of that leading shape, a matrix at a time."""
+        flat = names if isinstance(names[0], str) \
+            else [n for row in names for n in row]
+        lead = (len(names),) if flat is names else (len(names),
+                                                   len(names[0]))
+        out = None
+        for i, name in enumerate(flat):
+            w = read(name, transpose, quantized)
+            if out is None:
+                out = stack_like(w, lead, dev)
+            set_layer(out, divmod(i, lead[1]) if len(lead) == 2 else i, w)
+        return out
+
     layers = {}
-    for ours, (suffix, transpose) in _LAYER_MAP.items():
-        stacked = None
-        for i in range(lo, hi):
-            name = f"model.layers.{i}.{suffix}"
-            if tier is not None and ours in LAYER_LINEARS:
-                w = qcls(*get_quant(name))
-            else:
-                w = to_dev(get(name))
-                w = w.t() if transpose else w
-            if stacked is None:
-                stacked = stack_like(w, hi - lo, dev)
-            set_layer(stacked, i - lo, w)
-        if stacked is not None:
-            layers[ours] = stacked
+    if hi > lo:
+        for ours, (suffix, transpose) in hf_layer_map(
+                num_experts, attention_bias, o_bias).items():
+            layers[ours] = stacked(
+                [f"model.layers.{i}.{suffix}" for i in range(lo, hi)],
+                transpose, tier is not None and ours in LAYER_LINEARS)
+        if num_experts:
+            layers["router"] = stacked(
+                [f"model.layers.{i}.{_MOE_ROUTER}" for i in range(lo, hi)],
+                True, False)
+            for ours, pattern in _MOE_EXPERT_MAP.items():
+                layers[ours] = stacked(
+                    [[f"model.layers.{i}.{pattern.format(e=e)}"
+                      for e in range(num_experts)] for i in range(lo, hi)],
+                    True, tier is not None)
     params = {"layers": layers}
     if not layers_only:
         params["embed"] = to_dev(get("model.embed_tokens.weight"))
@@ -160,6 +241,10 @@ def params_from_hf_tensors(get: Callable[[str], torch.Tensor],
             q, s = get_quant(head)
             params["lm_head"] = qcls(q.to(dev).contiguous(),
                                      s.to(dev).contiguous())
+        elif tie_word_embeddings:
+            # the embedding's transposed view: torch.matmul reads it as it
+            # lies, so a tied head (Gemma's 256,000 x 3,072) is not copied
+            params["lm_head"] = params["embed"].t()
         else:
             params["lm_head"] = to_dev(get(head)).t().contiguous()
         params["norm_f"] = to_dev(get("model.norm.weight"))
@@ -179,18 +264,6 @@ def load_safetensors_index(model_dir: str | Path) -> dict[str, Path]:
         if f.exists():
             return {name: f for name in SafetensorsFile(f).keys()}
     raise FileNotFoundError(f"no safetensors index or file under {model_dir}")
-
-
-def check_supported(name_to_file: dict) -> None:
-    """Refuse checkpoints whose tensors the port cannot compute yet."""
-    names = list(name_to_file)
-    if any(n.endswith(("self_attn.q_proj.bias", "self_attn.o_proj.bias"))
-           for n in names):
-        raise NotImplementedError(
-            "checkpoints with attention biases (Qwen2) are not ported yet")
-    if any(re.search(r"block_sparse_moe\.", n) for n in names):
-        raise NotImplementedError(
-            "MoE checkpoints (Mixtral) are not ported yet")
 
 
 def detect_tied_head(name_to_file: dict, model_dir) -> bool:
@@ -242,7 +315,7 @@ def load_llama_params(model_dir: str | Path, num_layers: int,
     head."""
     dev = resolve_device(device)
     name_to_file = load_safetensors_index(model_dir)
-    check_supported(name_to_file)
+    num_experts, attention_bias, o_bias = detect_family(name_to_file)
     tied = not layers_only and detect_tied_head(name_to_file, model_dir)
     files: dict[Path, SafetensorsFile] = {}
 
@@ -256,13 +329,15 @@ def load_llama_params(model_dir: str | Path, num_layers: int,
         get, num_layers, dtype=dtype, tie_word_embeddings=tied, device=dev,
         quantize=quantize,
         prequantized=check_prequantized(name_to_file, quantize),
-        layer_range=layer_range, layers_only=layers_only)
+        layer_range=layer_range, layers_only=layers_only,
+        num_experts=num_experts, attention_bias=attention_bias,
+        o_bias=o_bias)
 
 
 def save_llama_params(params: dict, model_dir: str | Path) -> Path:
-    """Write a params tree as an HF-format checkpoint (test fixtures and
-    smoke runs); the inverse of :func:`load_llama_params`. Tensors keep
-    their dtype."""
+    """Write a params tree (plain weights, any family) as an HF-format
+    checkpoint (test fixtures and smoke runs); the inverse of
+    :func:`load_llama_params`. Tensors keep their dtype."""
     model_dir = Path(model_dir)
     model_dir.mkdir(parents=True, exist_ok=True)
     tensors = {
@@ -271,10 +346,21 @@ def save_llama_params(params: dict, model_dir: str | Path) -> Path:
         "lm_head.weight": params["lm_head"].t(),
     }
     layers = params["layers"]
-    for ours, (suffix, transpose) in _LAYER_MAP.items():
+    moe = "router" in layers
+    fam_map = hf_layer_map(
+        num_experts=layers["w_gate"].shape[1] if moe else 0,
+        attention_bias="bq" in layers, o_bias="bo" in layers)
+    for ours, (suffix, transpose) in fam_map.items():
         for i in range(layers[ours].shape[0]):
             w = layers[ours][i]
             tensors[f"model.layers.{i}.{suffix}"] = w.t() if transpose else w
+    if moe:
+        for i, router in enumerate(layers["router"]):
+            tensors[f"model.layers.{i}.{_MOE_ROUTER}"] = router.t()
+        for ours, pattern in _MOE_EXPERT_MAP.items():
+            for i, experts in enumerate(layers[ours]):
+                for e, w in enumerate(experts):
+                    tensors[f"model.layers.{i}.{pattern.format(e=e)}"] = w.t()
     out = model_dir / "model.safetensors"
     save_file(tensors, out)
     index = {"metadata": {}, "weight_map": {k: out.name for k in tensors}}

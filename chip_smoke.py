@@ -12,6 +12,8 @@
                                           # result line
     python3 chip_smoke.py --phase 12      # phases 1 and 12 only; no
                                           # result line
+    python3 chip_smoke.py --phase 13      # phases 1 and 13 only; no
+                                          # result line
 
 Phases, each fatal on failure:
 
@@ -29,18 +31,24 @@ Phases, each fatal on failure:
    the same bits; both decodes also in their multi-query form (the
    speculative verify: T = 2, 5, 9 and 17 query positions a stream, one
    stream and 8 at ragged frontiers, a row at S - T, a window), with its
-   own planted faults;
+   own planted faults; all four attention kernels again at Gemma-7B's
+   head_dim 256 (H = KVH = 16), and both matmuls at Qwen2-7B's and
+   Gemma-7B's linears (M = 1, 8, 2048) and the three families' heads;
 3. kernel timings (CUDA events, L2 flushed before each call) beside the
    card's bound, the plain version and one PyTorch call as a yardstick,
    with the prefill kernels' and each matmul case's TFLOP/s, registers and
    shared memory (the matmuls at every linear, M = 1 and 2048, and at the
    verify's M = 9 and 72; the decodes at pos 2047, 4095 and four rows, and
-   at T = 5 and 9 beside SDPA with a per-row causal mask), printed as one
-   JSON line at the end;
+   at T = 5 and 9 beside SDPA with a per-row causal mask; the families'
+   shapes: head_dim 256 and the Qwen2/Gemma linears and heads), printed
+   as one JSON line at the end;
 4. the model at full Llama-3-8B width and 2 layers, on the card (kernels)
    against the CPU (plain path), from the same weights: bf16, int8 weights
    with the int8 cache, int4 g128 weights; and codes quantized on the card
-   against codes quantized on the CPU;
+   against codes quantized on the CPU; then Qwen2-7B (bf16, int4 g128),
+   Gemma-7B (bf16, and with the int8 cache) and Mixtral-8x7B (bf16 and
+   int8 experts) the same way, with a decode step after the prompt, and
+   Mixtral's routing compared row by row (a flip only at a near-tie);
 5. the main paths: ``LlamaGenerator`` over the full 32-layer Llama-3-8B
    with random weights, a 2,000-token prompt and 64 tokens, block 8: (a)
    bf16, greedy and sampled; (b) int8 weights with the int8 KV cache; (c)
@@ -52,8 +60,9 @@ Phases, each fatal on failure:
 6. the command line (``python -m cake_tpu_torch.cli``) on a tiny
    checkpoint written by the port's own writer: bf16, ``--quantize int8
    --kv-quant int8`` and ``--quantize int4:g64``;
-7. the serving engine (``BatchGenerator``) over the full 32-layer
-   Llama-3-8B at 8 slots: (a) bf16, (b) int8 weights with the int8 KV
+7. the serving engine (``BatchGenerator``) over Llama-3-8B at full width
+   and 16 layers (``SERVE_LAYERS``; so are phases 8, 10, 11 and 12) at 8
+   slots: (a) bf16, (b) int8 weights with the int8 KV
    cache; ragged prompts of 2,000 to 5 ids (three sharing a 128-id
    prefix), a quota per stream, three arrivals admitted with ``enqueue``
    once two streams finish (the third a prefix hit); launches checked
@@ -83,7 +92,8 @@ Phases, each fatal on failure:
    the card's busy share print beside phase 5's. Then phase 6's three
    runs over two ``--mode worker`` processes and a ``--topology``
    master: their ids must equal phase 6's;
-10. structured output and lookahead on phase 5's weights and prompt, with
+10. structured output and lookahead on Llama-3-8B weights (seed 0,
+   ``SERVE_LAYERS``) and phase 5's prompt, with
    a tokenizer whose id i decodes to ``chr(32 + i % 95)`` over all
    128,256 ids (EOS 128001): the regex ``[0-9]{1,6};`` and a two-field
    JSON schema compiled to token DFAs (timed); (i) ``LlamaGenerator``
@@ -129,7 +139,19 @@ Phases, each fatal on failure:
    and 8: tokens a round, card ms and launches a verify beside a plain
    step (random weights make live acceptance meaningless); (iv) on (a),
    one request to the in-process server on a K = 8 engine, whose ids equal
-   the engine's.
+   the engine's;
+13. the model families at full width, random weights (seed 0) drawn on
+   the card, phase 5's prompt and 64 tokens through ``LlamaGenerator`` at
+   blocks 8 and 1 (equal ids, launches exact, one profiled decode block):
+   (q) Qwen2-7B, 28 layers, bf16; (g) Gemma-7B, 28 layers, bf16 and with
+   the int8 cache; (m) Mixtral-8x7B, 32 layers, int8 experts (the bf16
+   cache); (m16) Mixtral-8x7B at 12 layers with bf16 experts (32 do not
+   fit the card). On (g) and (m) the batch engine at 8 slots on phase 7's
+   scenario, slot and paged layouts (equal streams, launches exact), each
+   stream equal to its single stream up to its first near-tie and each
+   step its teacher-forced logits' greedy choice outside near-ties; on
+   (g) ``--speculate 4`` (the multi-query decode at D = 256) held the same
+   way.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the ``cake_tpu_torch`` package beside this file, it exits with
@@ -178,11 +200,21 @@ MODEL_REL_L2 = 2e-2
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
 H, KVH, D, S = 32, 8, 128, 4096
+MAIN = (H, KVH, D)
+# Gemma-7B's attention (gemma_7b): 16 query heads and 16 kv heads of 256,
+# the head width the JAX kernels take and the port's built last
+GEMMA = (16, 16, 256)
 # prefill (T, pos, window) at full width: the timed shape, the main path's
 # 2,000-token prompt (not a whole number of 128-row q tiles), a later chunk
 # and a window whose lower edge falls inside KV tiles
 PREFILL_CASES = ((2048, 0, None), (2000, 0, None), (256, 1000, None),
                  (512, 1000, 300))
+# Phases 7, 8, 10, 11 and 12 (the serving paths and the guides) run
+# Llama-3-8B at full width and 16 of its 32 layers: with phase 13's
+# families at full depth the whole script took 996.3 s of its 1,200 s
+# limit on an H100 with them at 32, and 924.3 s with phase 10 (270 s of
+# it) at 32 (PR 12's runs).
+SERVE_LAYERS = 16
 # the linears' (K, N) of Llama-3-8B: gate/up, down, k/v, q/o; and the head
 LINEARS = ((4096, 14336), (14336, 4096), (4096, 1024), (4096, 4096))
 HEAD = (4096, 128256)
@@ -268,11 +300,12 @@ def planted(torch, label, bad, ref):
         fail(f"the kernel check passes {label}")
 
 
-def window_edge_inside_tile(flash, t, pos, window) -> bool:
+def window_edge_inside_tile(flash, t, pos, window, d=D) -> bool:
     """Whether some q row's lowest visible key (pos + row - window + 1)
-    falls strictly inside a KV tile, so that the prefill kernels take the
-    window's edge-mask path and not only whole tiles."""
-    return any((pos + r - window + 1) % flash.PREFILL_BLOCK_K
+    falls strictly inside a KV tile (of head width ``d``), so that the
+    prefill kernels take the window's edge-mask path and not only whole
+    tiles."""
+    return any((pos + r - window + 1) % flash.prefill_block_k(d)
                for r in range(t) if pos + r - window + 1 > 0)
 
 
@@ -314,22 +347,38 @@ DECODE_CASES = tuple(
 )
 
 
-def decode_checks(torch, flash, name, rnd, make_kv) -> dict:
+# the same at Gemma's attention (GEMMA: head_dim 256, group 1): frontiers 0
+# to the buffer's end, the two window edges, per-row frontiers with and
+# without a window
+D256_DECODE_CASES = tuple(
+    (f"D=256 B=1 pos={p}", 1, GEMMA[1], 1, GEMMA[2], S, [p], None)
+    for p in (0, 1, 127, 2047, 4095)) + tuple(
+    (f"D=256 B={b} pos={pos}{f' window={w}' if w else ''}", b, GEMMA[1], 1,
+     GEMMA[2], S, pos, w)
+    for b, pos, w in ((1, [2047], 1000), (1, [2047], 1024),
+                      (4, [3, 700, 2048, 4095], None),
+                      (4, [3, 700, 2048, 4095], 1000)))
+
+
+def decode_checks(torch, flash, name, rnd, make_kv, cases=DECODE_CASES,
+                  shape=MAIN) -> dict:
     """Decode kernel ``name`` (``flash_decode`` or ``flash_decode_q8``)
-    against its plain version on every case of DECODE_CASES, twice on the
-    same inputs for the same bits, and with two planted faults: a frontier
-    one tile lower (the row's last tile dropped, as a loop ending at
-    max_kb - 1 would) and a window one tile late (keys 0..63 dropped, as a
-    loop starting at min_kb + 1 would). ``make_kv(b, kvh, s, d)`` gives the
-    cache operands."""
+    against its plain version on every case of ``cases``, twice on the
+    same inputs for the same bits, and with two planted faults at
+    ``shape`` (H, KVH, D): a frontier one tile lower (the row's last tile
+    dropped, as a loop ending at max_kb - 1 would) and a window one tile
+    late (keys 0..63 dropped, as a loop starting at min_kb + 1 would).
+    ``make_kv(b, kvh, s, d)`` gives the cache operands."""
     kernel, plain = getattr(flash, name), getattr(flash, f"{name}_ref")
+    h0, kvh0, d0 = shape
+    tag = () if shape == MAIN else (d0,)
     on_boundary = {(c[6][0] - c[7] + 1) % flash.DECODE_BLOCK_K == 0
-                   for c in DECODE_CASES if c[1] == 1 and c[7]}
+                   for c in cases if c[1] == 1 and c[7]}
     if on_boundary != {False, True}:
         fail("the decode cases need a window edge inside a tile and one on "
              "a tile boundary")
     errs, seen = {}, {}
-    for label, b, kvh, g, d, s, pos, window in DECODE_CASES:
+    for label, b, kvh, g, d, s, pos, window in cases:
         key = (b, kvh, d, s)
         if key not in seen:
             seen[key] = make_kv(b, kvh, s, d)
@@ -339,19 +388,20 @@ def decode_checks(torch, flash, name, rnd, make_kv) -> dict:
         out = kernel(q, *kv, p, window=window)
         err = compare(torch, f"{name} {label}", out,
                       plain(q, *kv, p, window=window))
-        if b == 1 and window is None and g == H // KVH:
-            errs[(name, 1, pos[0], None)] = err
+        if b == 1 and window is None and (kvh * g, kvh, d) == shape:
+            errs[(name, *tag, 1, pos[0], None)] = err
         if not torch.equal(out, kernel(q, *kv, p, window=window)):
             fail(f"{name} {label}: a second call on the same inputs gives "
                  "other bits")
     say(f"[2] {name}: two calls give the same bits in every case")
-    kv, q1 = seen[(1, KVH, D, S)], rnd(1, H, 1, D)
+    kv, q1 = seen[(1, kvh0, d0, S)], rnd(1, h0, 1, d0)
     for label, pos, bad_pos, window in (
             ("last tile dropped", 2047, 2047 - 64, None),
             ("first tile dropped", 4095, 4095, 4096 - 64)):
         p, bp = (torch.tensor([x], dtype=torch.int32, device="cuda")
                  for x in (pos, bad_pos))
-        planted(torch, f"{name} pos={pos} {label}",
+        planted(torch, f"{name}{''.join(f' D={x}' for x in tag)} "
+                f"pos={pos} {label}",
                 kernel(q1, *kv, bp, window=window), plain(q1, *kv, p))
     return errs
 
@@ -369,15 +419,19 @@ def mq_rows(t: int) -> tuple:
     return (S - t, 2047, 1100, 517, 260, 64, 33, 5)
 
 
-def multi_query_checks(torch, flash, name, rnd, make_kv) -> dict:
+def multi_query_checks(torch, flash, name, rnd, make_kv,
+                       shape=MAIN) -> dict:
     """Decode kernel ``name`` at T > 1 against its plain version on every
-    case above (worst row relative L2 within ROW_REL_L2), twice on the same
-    inputs for the same bits, and with two planted faults at T = 9: a
-    stream's last live tile dropped (its frontier a tile lower) and the
-    first live tile dropped (a window starting a tile late)."""
+    case above at ``shape`` (H, KVH, D) (worst row relative L2 within
+    ROW_REL_L2), twice on the same inputs for the same bits, and with two
+    planted faults at T = 9: a stream's last live tile dropped (its
+    frontier a tile lower) and the first live tile dropped (a window
+    starting a tile late)."""
     kernel, plain = getattr(flash, name), getattr(flash, f"{name}_ref")
+    h, kvh, d = shape
+    tag = () if shape == MAIN else (d,)
     errs = {}
-    kv1, kv8 = make_kv(1, KVH, S, D), make_kv(8, KVH, S, D)
+    kv1, kv8 = make_kv(1, kvh, S, d), make_kv(8, kvh, S, d)
     if not (2047 - MQ_WINDOW + 1) % flash.DECODE_BLOCK_K:
         fail("the multi-query window edge must fall inside a tile")
     for t in MQ_T:
@@ -385,29 +439,30 @@ def multi_query_checks(torch, flash, name, rnd, make_kv) -> dict:
                                (8, list(mq_rows(t)), None),
                                (8, list(mq_rows(t)), MQ_WINDOW)):
             kv = kv1 if b == 1 else kv8
-            q = rnd(b, H, t, D)
+            q = rnd(b, h, t, d)
             p = torch.tensor(pos, dtype=torch.int32, device="cuda")
-            label = (f"{name} T={t} B={b} pos={pos if b == 1 else 'ragged'}"
-                     f" window={window}")
+            label = (f"{name} D={d} T={t} B={b} "
+                     f"pos={pos if b == 1 else 'ragged'} window={window}")
             out = kernel(q, *kv, p, window=window)
             err = compare(torch, label, out, plain(q, *kv, p, window=window))
             if window is None:
-                errs[(name, "mq", b, t)] = err
+                errs[(name, "mq", *tag, b, t)] = err
             if not torch.equal(out, kernel(q, *kv, p, window=window)):
                 fail(f"{label}: a second call on the same inputs gives "
                      "other bits")
-    say(f"[2] {name} at T = {list(MQ_T)}: two calls give the same bits in "
-        "every case")
+    say(f"[2] {name} D={d} at T = {list(MQ_T)}: two calls give the same "
+        "bits in every case")
     t = 9
-    q = rnd(8, H, t, D)
+    q = rnd(8, h, t, d)
     p = torch.tensor(mq_rows(t), dtype=torch.int32, device="cuda")
     bad = p.clone()
     bad[1] -= flash.DECODE_BLOCK_K
-    planted(torch, f"{name} T={t} B=8, row 1's last tile dropped",
+    planted(torch, f"{name} D={d} T={t} B=8, row 1's last tile dropped",
             kernel(q, *kv8, bad), plain(q, *kv8, p))
-    q1 = rnd(1, H, t, D)
+    q1 = rnd(1, h, t, d)
     p1 = torch.tensor([S - t], dtype=torch.int32, device="cuda")
-    planted(torch, f"{name} T={t} B=1 pos={S - t}, first tile dropped",
+    planted(torch, f"{name} D={d} T={t} B=1 pos={S - t}, first tile "
+            "dropped",
             kernel(q1, *kv1, p1, window=S - t - flash.DECODE_BLOCK_K + 1),
             plain(q1, *kv1, p1))
     return errs
@@ -554,6 +609,117 @@ def phase_quant_kernels(torch, flash, qmatmul, quant, kvcache) -> dict:
     return errs
 
 
+# the families' linears (K, N) beyond Llama-3-8B's, whose shapes Mixtral's
+# experts and attention share (LINEARS): Qwen2-7B's gate/up, down, k/v,
+# q/o, and Gemma-7B's gate/up, down, q/k/v, o; and the three heads
+FAMILY_LINEARS = {
+    "qwen2_7b": ((3584, 18944), (18944, 3584), (3584, 512), (3584, 3584)),
+    "gemma_7b": ((3072, 24576), (24576, 3072), (3072, 4096), (4096, 3072)),
+}
+FAMILY_HEADS = {"qwen2_7b": (3584, 152064), "gemma_7b": (3072, 256000),
+                "mixtral_8x7b": (4096, 32000)}
+
+
+def phase_head256_kernels(torch, flash, kvcache) -> dict:
+    """Phase 2 at Gemma's attention (GEMMA, S = 4096): both prefills at
+    PREFILL_CASES (64-key tiles: the window's edge inside them), both
+    decodes at D256_DECODE_CASES and in their multi-query form, each with
+    its planted faults (one tile short at either end) and twice on the
+    same inputs."""
+    h, kvh, d = GEMMA
+    for t, pos, window in PREFILL_CASES:
+        if window is not None and not window_edge_inside_tile(
+                flash, t, pos, window, d):
+            fail(f"D=256 prefill case T={t} pos={pos} window={window} "
+                 "never masks inside a tile")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    def bf16(b, kvh_, s, d_):
+        return rnd(b, kvh_, s, d_), rnd(b, kvh_, s, d_)
+
+    def int8(b, kvh_, s, d_):
+        kq, vq = (kvcache.quant_kv(rnd(b, kvh_, s, d_)) for _ in range(2))
+        return kq.q, kq.scale, vq.q, vq.scale
+
+    errs = {}
+    for name, make_kv in (("flash_attention", bf16),
+                          ("flash_attention_q8", int8)):
+        kernel = getattr(flash, name)
+        plain = getattr(flash, f"{name}_ref")
+        kv = make_kv(1, kvh, S, d)
+        key = "prefill" if name == "flash_attention" else "prefill_q8"
+        for t, pos, window in PREFILL_CASES:
+            q = rnd(1, h, t, d)
+            out = kernel(q, *kv, pos, window=window)
+            errs[(key, d, t, pos, window)] = compare(
+                torch, f"{name} D=256 T={t} pos={pos} window={window}",
+                out, plain(q, *kv, pos, window=window))
+            if not torch.equal(out, kernel(q, *kv, pos, window=window)):
+                fail(f"{name} D=256 T={t}: a second call on the same inputs "
+                     "gives other bits")
+        q = rnd(1, h, 256, d)
+        planted(torch, f"{name} D=256 T=256 pos=1000 last tile dropped",
+                tile_short(flash, lambda: kernel(q, *kv, 1000)),
+                plain(q, *kv, 1000))
+        del kv
+    for name, make_kv in (("flash_decode", bf16), ("flash_decode_q8", int8)):
+        errs.update(decode_checks(torch, flash, name, rnd, make_kv,
+                                  D256_DECODE_CASES, GEMMA))
+        errs.update(multi_query_checks(torch, flash, name, rnd, make_kv,
+                                       GEMMA))
+        torch.cuda.empty_cache()
+    return errs
+
+
+def phase_family_matmuls(torch, qmatmul, quant) -> dict:
+    """Phase 2's matmul checks at the families' shapes: every linear of
+    FAMILY_LINEARS at M = 1, 8 and 2048, each head at M = 1 and 8, int8
+    and int4 g128 (Qwen2 and Gemma run both tiers), twice on the same
+    inputs; a planted fault (one K tile short) on each family's gate at
+    M = 1 and 2048."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    plain = {"quant_matmul": quant.quant_matmul_ref,
+             "quant4_matmul": quant.quant4_matmul_ref}
+    errs = {}
+    shapes = [(kn, (1, 8, 2048)) for lins in FAMILY_LINEARS.values()
+              for kn in lins] + [(kn, (1, 8)) for kn in FAMILY_HEADS.values()]
+    for (k, n), ms in shapes:
+        w = torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
+        for tier in (TIERS[0], TIERS[2]):
+            name, wq, scale = quantized(quant, w, tier)
+            fn = getattr(qmatmul, name)
+            for m in ms:
+                x = torch.randn(m, k, generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                label = f"{name} {tier_label(tier)} M={m} K={k} N={n}"
+                out = fn(x, wq, scale)
+                errs[(name, tier[1], m, k, n)] = compare(
+                    torch, label, out, plain[name](x, wq, scale))
+                if not torch.equal(out, fn(x, wq, scale)):
+                    fail(f"{label}: a second call on the same inputs gives "
+                         "other bits")
+                if (k, n) in [lins[0] for lins in FAMILY_LINEARS.values()] \
+                        and m != 8:
+                    k2 = k - qmatmul.BLOCK_K
+                    int4 = name == "quant4_matmul"
+                    planted(torch, f"{label} one K tile short",
+                            qmatmul._launch(
+                                name, x[:, :k2].contiguous(),
+                                wq[:k2 // 2 if int4 else k2], scale, n,
+                                (tier[1] or 0,) if int4 else ()),
+                            plain[name](x, wq, scale))
+            del wq, scale
+        del w
+        torch.cuda.empty_cache()
+    say("[2] the matmuls at the families' linears and heads: two calls give "
+        "the same bits")
+    return errs
+
+
 # --------------------------------------------------------------------------
 # phase 3
 # --------------------------------------------------------------------------
@@ -597,10 +763,11 @@ def bound(nbytes: float, flops: float) -> tuple[float, str]:
 DECODE_TIMED = ((1, (2047,)), (1, (4095,)), (4, (3, 700, 2048, 4095)))
 
 
-def decode_inputs(torch, kvcache, name, b, rnd):
+def decode_inputs(torch, kvcache, name, b, rnd, shape=MAIN):
     """``(kernel's cache operands, the bf16 K and V a library call reads)``
-    of decode kernel ``name`` at the main path's widths, batch ``b``."""
-    k, v = rnd(b, KVH, S, D), rnd(b, KVH, S, D)
+    of decode kernel ``name`` at ``shape`` (H, KVH, D), batch ``b``."""
+    _, kvh, d = shape
+    k, v = rnd(b, kvh, S, d), rnd(b, kvh, S, d)
     if name == "flash_decode":
         return (k, v), (k, v)
     kq, vq = kvcache.quant_kv(k), kvcache.quant_kv(v)
@@ -609,7 +776,8 @@ def decode_inputs(torch, kvcache, name, b, rnd):
         kvcache.dequant_kv(c, torch.bfloat16) for c in (kq, vq))
 
 
-def decode_case(torch, flash, kvcache, name, b, pos, rnd, t=1) -> dict:
+def decode_case(torch, flash, kvcache, name, b, pos, rnd, t=1,
+                shape=MAIN) -> dict:
     """Card times of one decode call of ``t`` query positions a row: the
     kernel, its plain version and SDPA over the live keys (a boolean mask
     for per-row frontiers and for T > 1: query t sees keys up to pos + t),
@@ -618,13 +786,14 @@ def decode_case(torch, flash, kvcache, name, b, pos, rnd, t=1) -> dict:
     scales); 2 products of D multiply-adds a key, head and query row."""
     import torch.nn.functional as F
 
-    kv, lib_kv = decode_inputs(torch, kvcache, name, b, rnd)
-    q = rnd(b, H, t, D)
+    h, kvh, d = shape
+    kv, lib_kv = decode_inputs(torch, kvcache, name, b, rnd, shape)
+    q = rnd(b, h, t, d)
     p = torch.tensor(pos, dtype=torch.int32, device="cuda")
     live = [x + t for x in pos]
-    per_key = 2 * D * 2 if name == "flash_decode" else 2 * (D + 4)
-    nbytes = 2 * q.numel() * 2 + KVH * sum(live) * per_key
-    b_ms, b_by = bound(nbytes, 4 * H * D * sum(
+    per_key = 2 * d * 2 if name == "flash_decode" else 2 * (d + 4)
+    nbytes = 2 * q.numel() * 2 + kvh * sum(live) * per_key
+    b_ms, b_by = bound(nbytes, 4 * h * d * sum(
         x + i + 1 for x in pos for i in range(t)))
     n = max(live)
     lk, lv = (c[:, :, :n] for c in lib_kv)
@@ -634,9 +803,9 @@ def decode_case(torch, flash, kvcache, name, b, pos, rnd, t=1) -> dict:
                 <= p.long()[:, None, None]
                 + torch.arange(t, device="cuda")[None, :, None])[:, None]
     kernel, plain = getattr(flash, name), getattr(flash, f"{name}_ref")
-    case = {"shape": f"q [{b},{H},{t},{D}] "
+    case = {"shape": f"q [{b},{h},{t},{d}] "
                      f"{'bf16' if name == 'flash_decode' else 'int8'} k/v "
-                     f"[{b},{KVH},{S},{D}] pos {list(pos)}",
+                     f"[{b},{kvh},{S},{d}] pos {list(pos)}",
             "ms": time_ms(torch, lambda: kernel(q, *kv, p)),
             "plain_ms": time_ms(torch, lambda: plain(q, *kv, p)),
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
@@ -935,6 +1104,109 @@ def multi_query_timing(torch, flash, qmatmul, quant, kvcache, build,
                     f"{c['plan']}")
 
 
+def prefill_case(torch, flash, kvcache, build, name, shape, t, rnd) -> dict:
+    """Card times of one prefill call at ``shape`` (H, KVH, D), T = ``t``
+    from pos 0, beside the bound (q, the output and the live K/V read once;
+    the causal (q, k) pairs' two products), the plain version and SDPA
+    (over K/V dequantized beforehand for the int8 cache); its rate and
+    build figures."""
+    import torch.nn.functional as F
+
+    h, kvh, d = shape
+    q = rnd(1, h, t, d)
+    k, v = rnd(1, kvh, S, d), rnd(1, kvh, S, d)
+    if name == "flash_prefill":
+        args, fn, ref = (q, k, v, 0), flash.flash_attention, \
+            flash.flash_attention_ref
+        lk, lv, per_key = k[:, :, :t], v[:, :, :t], 2 * d * 2
+    else:
+        kq, vq = kvcache.quant_kv(k), kvcache.quant_kv(v)
+        args = (q, kq.q, kq.scale, vq.q, vq.scale, 0)
+        fn, ref = flash.flash_attention_q8, flash.flash_attention_q8_ref
+        lk, lv = (kvcache.dequant_kv(kvcache.QuantizedKV(
+            c.q[:, :, :t], c.scale[:, :, :t]), torch.bfloat16)
+            for c in (kq, vq))
+        per_key = 2 * (d + 4)
+    flops = 4 * h * d * (t * (t + 1) // 2)
+    b_ms, b_by = bound(2 * q.numel() * 2 + kvh * t * per_key, flops)
+    case = {"shape": f"q [1,{h},{t},{d}] "
+                     f"{'bf16' if name == 'flash_prefill' else 'int8'} k/v "
+                     f"[1,{kvh},{S},{d}] pos 0",
+            "ms": time_ms(torch, lambda: fn(*args)),
+            "plain_ms": time_ms(torch, lambda: ref(*args), n=5),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, lk, lv, is_causal=True, enable_gqa=True)),
+            "bound_ms": b_ms, "bound_by": b_by}
+    case["pct_of_bound"] = 100 * b_ms / case["ms"]
+    case["tflops"] = flops / case["ms"] / 1e9
+    case.update(kernel_build_info(build, name, d))
+    return case
+
+
+def family_timing(torch, flash, qmatmul, quant, kvcache, build, errs,
+                  rows) -> None:
+    """Phase 3's timings at the families' shapes, added to the kernels'
+    rows as cases: both prefills and both decodes at Gemma's attention
+    (GEMMA: prefill T = 2048; decode one stream at pos 2047, 8 streams at
+    ragged frontiers, and T = 5 and 9), with registers and shared memory
+    at D = 256; the matmuls at FAMILY_LINEARS (M = 1 and 2048) and the
+    heads (M = 1), int8 and int4 g128. (Mixtral's experts run at
+    Llama-3-8B's linear shapes: phase 3's rows at M = 1, 8 and 2048.)"""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    by_name = {r["name"]: r for r in rows}
+
+    def add(name, c):
+        c["max_abs_err"] = c.get("max_abs_err")
+        by_name[name].setdefault("cases", []).append(c)
+        say(f"[3] {name} {c.get('tier', '')} {c['shape']}: {c['ms']:.4f} "
+            f"ms, {c['pct_of_bound']:.1f}% of bound {c['bound_ms']:.4f} by "
+            f"{c['bound_by']} (plain {c['plain_ms']:.4f}, library "
+            f"{c['library_ms']:.4f}); {c.get('registers')} registers, "
+            f"{c.get('dynamic_smem_bytes')} bytes of dynamic shared memory, "
+            f"{c.get('spill_store_bytes')} bytes of spill stores")
+
+    d = GEMMA[2]
+    for name, key in (("flash_prefill", "prefill"),
+                      ("flash_prefill_q8", "prefill_q8")):
+        c = prefill_case(torch, flash, kvcache, build, name, GEMMA, 2048, rnd)
+        c["max_abs_err"] = errs[(key, d, 2048, 0, None)]
+        add(name, c)
+        torch.cuda.empty_cache()
+    for name in ("flash_decode", "flash_decode_q8"):
+        for b, t, pos in ((1, 1, (2047,)), (BATCH, 1, BATCH_POS_TIMED),
+                          (1, 9, (2047,)), (8, 5, mq_rows(5)),
+                          (8, 9, mq_rows(9))):
+            c = decode_case(torch, flash, kvcache, name, b, pos, rnd, t=t,
+                            shape=GEMMA)
+            c.update(kernel_build_info(build, name, d))
+            if (b, t) == (1, 1):
+                c["max_abs_err"] = errs[(name, d, 1, 2047, None)]
+            add(name, c)
+        torch.cuda.empty_cache()
+    for name, tier in (("quant_matmul", TIERS[0]),
+                       ("quant4_matmul", TIERS[2])):
+        for family, lins in FAMILY_LINEARS.items():
+            for (k, n), ms in [(kn, (1, 2048)) for kn in lins] + [
+                    (FAMILY_HEADS[family], (1,))]:
+                for m in ms:
+                    c = matmul_case(torch, quant, qmatmul, build, tier, m, k,
+                                    n, gen)
+                    c["family"] = family
+                    c["max_abs_err"] = errs.get((name, tier[1], m, k, n))
+                    add(name, c)
+        c = matmul_case(torch, quant, qmatmul, build, tier, 1,
+                        *FAMILY_HEADS["mixtral_8x7b"], gen)
+        c["family"] = "mixtral_8x7b"
+        c["max_abs_err"] = errs.get(
+            (name, tier[1], 1, *FAMILY_HEADS["mixtral_8x7b"]))
+        add(name, c)
+
+
 # --------------------------------------------------------------------------
 # phase 4
 # --------------------------------------------------------------------------
@@ -1001,6 +1273,137 @@ def phase_model(torch) -> None:
                      "differs from the CPU's")
     say("[4] int8 and int4 g128 codes and scales of a [4096, 14336] weight: "
         "card == cpu")
+
+
+# Mixtral's routing in two runs of other shapes (the card against the
+# CPU, the batch engine against a single stream) may differ where a
+# token's k-th and (k+1)-th router logits (f32, from bf16 activations) lie
+# closer than the runs' rounding moves them: such a flip is a tie, not a
+# fault. On an H100 the 2-layer model's gaps on the card and the CPU
+# differ by up to 2.6e-2 (phase 4): a flip at a gap of twice that fails.
+ROUTER_TIE = 5e-2
+
+
+class RouterLog:
+    """Records, while active, each ``moe.router_topk`` call's top-k ids
+    (sorted) and the gap between its k-th and (k+1)-th logits, per row."""
+
+    def __init__(self, moe):
+        self.moe, self.calls = moe, []
+
+    def __enter__(self):
+        real = self.real = self.moe.router_topk
+
+        def recording(x2d, router_w, top_k):
+            combine, w, idx = real(x2d, router_w, top_k)
+            top = (x2d.float() @ router_w.float()).topk(top_k + 1,
+                                                        dim=-1).values
+            self.calls.append((idx.sort(dim=-1).values.cpu(),
+                               (top[:, top_k - 1] - top[:, top_k]).cpu()))
+            return combine, w, idx
+
+        self.moe.router_topk = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.router_topk = self.real
+
+
+def routing_flips(card: RouterLog, cpu: RouterLog) -> list:
+    """(call, row, gap) of every row whose top-k set differs between the
+    two runs, the gap the smaller of the two runs'."""
+    out = []
+    for i, ((ia, ga), (ib, gb)) in enumerate(zip(card.calls, cpu.calls)):
+        for r in (ia != ib).any(dim=-1).nonzero().flatten().tolist():
+            out.append((i, r, min(float(ga[r]), float(gb[r]))))
+    return out
+
+
+# phase 4's families: (label, preset, init, KV cache)
+FAMILY_MODELS = (
+    ("qwen2_7b bf16", "qwen2_7b", "bf16", None),
+    ("qwen2_7b int4 g128", "qwen2_7b", "int4g128", None),
+    ("gemma_7b bf16", "gemma_7b", "bf16", None),
+    ("gemma_7b bf16, int8 cache", "gemma_7b", "bf16", "int8"),
+    ("mixtral_8x7b bf16", "mixtral_8x7b", "bf16", None),
+    ("mixtral_8x7b int8 experts", "mixtral_8x7b", "int8", None),
+)
+
+
+def family_init(llama, weights: str):
+    """The random init of a weight tier: bf16, int8 or int4 g128."""
+    return {"bf16": llama.init_params, "int8": llama.init_params_int8,
+            "int4g128": lambda c, **kw: llama.init_params_int4(
+                c, group_size=128, **kw)}[weights]
+
+
+def phase_model_families(torch) -> list:
+    """Phase 4 for the other families: each at full width and 2 layers, a
+    T = 64 prefill and one decode step on the card (kernels) against the
+    CPU (plain path) from the same weights, the logits held to
+    MODEL_REL_L2; Mixtral's routing compared row by row (ROUTER_TIE)."""
+    from cake_tpu_torch.models import config as presets
+    from cake_tpu_torch.models import llama
+    from cake_tpu_torch.ops import moe
+    from cake_tpu_torch.ops.kvcache import init_cache
+
+    out = []
+    for label, preset, weights, kv_quant in FAMILY_MODELS:
+        cfg = getattr(presets, preset)(num_hidden_layers=2, max_seq_len=128)
+        tokens = torch.randint(0, cfg.vocab_size, (1, 65),
+                               generator=torch.Generator().manual_seed(SEED))
+        params = family_init(llama, weights)(cfg, seed=SEED, device="cuda")
+        if cfg.tie_word_embeddings and weights == "bf16":
+            # Gemma's tied head as a checkpoint loads it: the embedding's
+            # transposed view, read by torch.matmul as it lies
+            params["lm_head"] = params["embed"].t()
+        params_cpu = to_device(params, "cpu")
+        logs, logits = [], []
+        for dev, p in (("cuda", params), ("cpu", params_cpu)):
+            with RouterLog(moe) as log, torch.inference_mode():
+                m = llama.Llama(cfg, p)
+                cache = init_cache(cfg, 1, 128, device=dev, quant=kv_quant)
+                t = tokens.to(dev)
+                first = m(t[:, :64], cache, 0)
+                step = m(t[:, 64:], cache, torch.tensor(
+                    [64], dtype=torch.int32, device=dev))
+            logs.append(log)
+            logits.append(torch.stack([first[0], step[0]]).float().cpu())
+        got, want = logits
+        if got.shape != (2, cfg.vocab_size) or not torch.isfinite(got).all():
+            fail(f"2-layer logits ({label}): shape {tuple(got.shape)} or "
+                 "not finite")
+        rows_rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).tolist()
+        rel = max(rows_rel)
+        flips = routing_flips(*logs)
+        row = {"model": label, "rel_l2": rel, "router_flips": flips}
+        note = ""
+        if cfg.num_local_experts:
+            gaps, cpu_gaps = (torch.cat([g for _, g in log.calls])
+                              for log in logs)
+            dl = (gaps - cpu_gaps).abs().max().item()
+            row.update(min_router_gap=gaps.min().item(), router_gap_diff=dl)
+            note = (f"; routing: {len(flips)} rows differ, least k/k+1 "
+                    f"gap {gaps.min().item():.3e}, gaps card vs cpu within "
+                    f"{dl:.3e}")
+        say(f"[4] 2-layer {label} width, T=64 prefill and a decode step, "
+            f"cuda vs cpu: relative L2 {rows_rel[0]:.3e} and "
+            f"{rows_rel[1]:.3e} (limit {MODEL_REL_L2}){note}")
+        wide = [f for f in flips if f[2] >= ROUTER_TIE]
+        if wide:
+            fail(f"{label}: routing differs between card and CPU at gaps "
+                 f"{wide} >= {ROUTER_TIE}")
+        if not rel < MODEL_REL_L2 and not flips:
+            fail(f"2-layer model ({label}): relative L2 {rel} >= "
+                 f"{MODEL_REL_L2}")
+        if not rel < MODEL_REL_L2:
+            say(f"[4] {label}: relative L2 {rel:.3e} past the limit after "
+                f"routing flips at near-ties {flips} (< {ROUTER_TIE}): a "
+                "tie, not a fault")
+        out.append(row)
+        del params, params_cpu
+        torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1519,10 +1922,10 @@ def batch_prompts(torch, cfg):
     return prompts, arrivals
 
 
-def penalized_margins(torch, logits, prompt, ids, settings) -> list:
-    """:func:`greedy_margins` after the repeat penalty of each step (over
-    the last ``repeat_last_n`` ids before it), what the greedy choice
-    compares; ``logits`` are the stream's :func:`stream_logits`."""
+def penalized_logits(torch, logits, prompt, ids, settings):
+    """A stream's :func:`stream_logits` after the repeat penalty of each
+    step (over the last ``repeat_last_n`` ids before it): what the greedy
+    choice compares."""
     from cake_tpu_torch.ops import sampling
 
     n, nh, seq = len(prompt), settings.repeat_last_n, prompt + ids
@@ -1530,8 +1933,13 @@ def penalized_margins(torch, logits, prompt, ids, settings) -> list:
     for j in range(len(ids)):
         tail = seq[max(0, n + j - nh):n + j]
         hist[j, :len(tail)] = torch.tensor(tail, dtype=torch.int32)
-    return top2_gaps(sampling.apply_repeat_penalty(
-        logits, hist.cuda(), settings.repeat_penalty))
+    return sampling.apply_repeat_penalty(logits, hist.cuda(),
+                                         settings.repeat_penalty)
+
+
+def penalized_margins(torch, logits, prompt, ids, settings) -> list:
+    """:func:`greedy_margins` after the repeat penalty of each step."""
+    return top2_gaps(penalized_logits(torch, logits, prompt, ids, settings))
 
 
 def logprob_errors(torch, logits, lps) -> list:
@@ -1693,7 +2101,7 @@ def check_against_single(torch, cfg, params, label, prompts, streams,
 
 
 def phase_batch(torch, build, after=None) -> list:
-    """The serving engine over the full 32-layer Llama-3-8B at 8 slots:
+    """The serving engine over Llama-3-8B (SERVE_LAYERS) at 8 slots:
     (a) bf16, (b) int8 weights with the int8 KV cache; then a small
     window (1,024) whose longest stream runs to the edge. ``after(label,
     cfg, params, weights, kv_quant, prompts, arrivals, streams)`` runs at
@@ -1704,7 +2112,8 @@ def phase_batch(torch, build, after=None) -> list:
     from cake_tpu_torch.ops.sampling import SamplerSettings
     from cake_tpu_torch.runtime.batch_generator import BatchGenerator
 
-    cfg = llama3_8b(max_seq_len=4096)
+    cfg = llama3_8b(num_hidden_layers=SERVE_LAYERS,
+                    max_seq_len=4096)
     prompts, arrivals = batch_prompts(torch, cfg)
     every = prompts + arrivals
     settings = SamplerSettings(temperature=0)
@@ -1908,7 +2317,8 @@ def phase_serve(torch) -> dict:
     from cake_tpu_torch.serve.api import start_api_server
     from cake_tpu_torch.serve.scheduler import Scheduler
 
-    cfg = llama3_8b(max_seq_len=4096)
+    cfg = llama3_8b(num_hidden_layers=SERVE_LAYERS,
+                    max_seq_len=4096)
     g = torch.Generator().manual_seed(SEED + 9)
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
                for n in (900, 300, 120, 40, 600)]
@@ -2962,14 +3372,14 @@ def guided_cli(torch, build, local_ids: dict) -> dict:
 
 
 def phase_guided(torch, build, local_ids: dict) -> tuple[list, dict]:
-    """Phase 10 over phase 5's Llama-3-8B params (seed 0) and 2,000-id
-    prompt: (i) guided single streams, (ii) the guided batch, (iv) the
-    HTTP plane's ``response_format`` on bf16; (iii) lookahead on bf16
-    and on int8 weights with the int8 cache; (v) the command line."""
+    """Phase 10 over Llama-3-8B params (seed 0, SERVE_LAYERS) and phase
+    5's 2,000-id prompt: (i) guided single streams, (ii) the guided batch,
+    (iv) the HTTP plane's ``response_format`` on bf16; (iii) lookahead on
+    bf16 and on int8 weights with the int8 cache; (v) the command line."""
     from cake_tpu_torch.models import llama
     from cake_tpu_torch.models.config import llama3_8b
 
-    cfg = llama3_8b(max_seq_len=4096)
+    cfg = llama3_8b(num_hidden_layers=SERVE_LAYERS, max_seq_len=4096)
     prompt = torch.randint(0, cfg.vocab_size, (2000,),
                            generator=torch.Generator().manual_seed(SEED)
                            ).tolist()
@@ -3517,7 +3927,8 @@ def phase_paged_only(torch, build) -> list:
     from cake_tpu_torch.models import llama
     from cake_tpu_torch.models.config import llama3_8b
 
-    cfg = llama3_8b(max_seq_len=4096)
+    cfg = llama3_8b(num_hidden_layers=SERVE_LAYERS,
+                    max_seq_len=4096)
     prompts, arrivals = batch_prompts(torch, cfg)
     out = []
     for label, init, weights, kv_quant in (
@@ -3885,7 +4296,8 @@ def phase_spec_only(torch, build) -> list:
     from cake_tpu_torch.models import llama
     from cake_tpu_torch.models.config import llama3_8b
 
-    cfg = llama3_8b(max_seq_len=4096)
+    cfg = llama3_8b(num_hidden_layers=SERVE_LAYERS,
+                    max_seq_len=4096)
     prompts, arrivals = batch_prompts(torch, cfg)
     out = []
     for label, init, weights, kv_quant in (
@@ -3902,6 +4314,367 @@ def phase_spec_only(torch, build) -> list:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 13
+# --------------------------------------------------------------------------
+
+# (label, preset, layers, weight tier, KV caches of the single stream,
+# batch engine?, speculation?) of phase 13's paths; Mixtral's bf16 experts
+# (93 GB at 32 layers) do not fit the card: 12 layers
+FAMILY_PATHS = (
+    ("(q) qwen2_7b bf16", "qwen2_7b", 28, "bf16", (None,), False, False),
+    ("(g) gemma_7b bf16", "gemma_7b", 28, "bf16", (None, "int8"), True,
+     True),
+    ("(m) mixtral_8x7b int8 experts", "mixtral_8x7b", 32, "int8", (None,),
+     True, False),
+    ("(m16) mixtral_8x7b bf16 experts, 12 layers", "mixtral_8x7b", 12,
+     "bf16", (None,), False, False),
+)
+# speculation on (g): the command line's --speculate 4, rounds chained
+FAMILY_SPEC_K = 4
+# Two runs at other shapes round each logit to bf16 on their own (up to
+# half a step each, so a margin can move by two steps on rounding alone)
+# from hidden states the kernels' shapes already moved: a margin under
+# three bf16 steps of the top logit is a near-tie. (On an H100 Gemma-7B's
+# batch streams parted from their single streams at margins of 0 to 2
+# steps.)
+FAMILY_TIE_STEPS = 3
+
+
+class MoeRows:
+    """Records, while active, the rows N (B x T) of every routed MLP call
+    of the model: the experts' products are 3 E a layer when N k >
+    GATHER_MAX_ROWS (dense), else 3 N k (gather)."""
+
+    def __init__(self, llama):
+        self.llama, self.rows = llama, []
+
+    def __enter__(self):
+        real = self.real = self.llama.moe_swiglu
+
+        def recording(x, *args, **kw):
+            self.rows.append(x.shape[0] * x.shape[1])
+            return real(x, *args, **kw)
+
+        self.llama.moe_swiglu = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.llama.moe_swiglu = self.real
+
+    def expert_products(self, cfg) -> int:
+        from cake_tpu_torch.ops.moe import GATHER_MAX_ROWS
+
+        k, e = cfg.num_experts_per_tok, cfg.num_local_experts
+        return sum(3 * e if n * k > GATHER_MAX_ROWS else 3 * n * k
+                   for n in self.rows)
+
+
+def family_launches(cfg, weights, kv_quant, calls: int, prefill_calls: int,
+                    moe_rows: MoeRows) -> dict:
+    """Each kernel's launches over ``calls`` model calls (``prefill_calls``
+    of them prompt passes, the rest decode steps or verifies): one
+    attention kernel a layer a call; with quantized weights 7 linears a
+    layer and the head a call, or with routed experts 4 linears a layer,
+    the head, and the expert products ``moe_rows`` counted."""
+    L = cfg.num_hidden_layers
+    counts = expected_launches(cfg, "bf16", kv_quant, prefill_calls,
+                               calls - prefill_calls)
+    if weights == "int8":
+        counts["quant_matmul"] = (
+            (4 * L + 1) * calls + moe_rows.expert_products(cfg)
+            if cfg.num_local_experts else (7 * L + 1) * calls)
+    elif weights == "int4g128":
+        counts["quant4_matmul"] = (7 * L + 1) * calls
+    return counts
+
+
+def bf16_steps(torch, x):
+    """The bf16 step (ulp) at the magnitude of each element of ``x``."""
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp(min=1e-30)))
+                      - 7)
+
+
+def family_until_tie(torch, cfg, params, label, prompt, ids, ref,
+                     settings) -> dict:
+    """``ids`` (a stream of one engine) against ``ref`` (the same prompt's
+    single stream, or a function that runs it: not called when the first
+    near-tie is at step 0) up to the first near-tie, and each step of ``ids``
+    against the greedy choice of its own teacher-forced logits (one
+    forward pass over the prompt and ``ids``). A step is a near-tie where
+    its penalized top-1 minus top-2 logit is under FAMILY_TIE_STEPS bf16
+    steps of the top logit; near-ties are exempt from the per-step check,
+    and the streams may part at the first. For a routed model the first
+    step whose position's k-th and (k+1)-th router logits lie closer than
+    ROUTER_TIE in some layer is a near-tie too, and ends the per-step
+    check (a flip there changes the context every later step reads).
+    Fails on a difference before the first near-tie, or on a step off its
+    logits' choice outside a near-tie."""
+    from cake_tpu_torch.ops import moe
+
+    with RouterLog(moe) as log:
+        logits = stream_logits(torch, cfg, params, prompt, ids, None)
+    pen = penalized_logits(torch, logits, prompt, ids, settings)
+    top = pen.topk(2, dim=-1)
+    margin = top.values[:, 0] - top.values[:, 1]
+    near = margin < FAMILY_TIE_STEPS * bf16_steps(torch, top.values[:, 0])
+    n = len(prompt)
+    near = near.tolist()
+    gaps, routed = None, len(ids)
+    if log.calls:
+        gaps = torch.stack([g for _, g in log.calls])[
+            :, n - 1:n - 1 + len(ids)].min(dim=0).values
+        routed = next((j for j, g in enumerate(gaps.tolist())
+                       if g < ROUTER_TIE), len(ids))
+    choice = top.indices[:, 0].tolist()
+    tie = min(next((j for j, x in enumerate(near) if x), len(ids)), routed)
+    diff = None
+    if tie:  # else nothing comes before the first near-tie
+        ref = ref() if callable(ref) else ref
+        diff = next((j for j, (a, b) in enumerate(zip(ids, ref))
+                     if a != b), None)
+        if diff is None and len(ids) != len(ref):
+            diff = min(len(ids), len(ref))  # one of them ended at an EOS
+    off = [j for j, (i, c) in enumerate(zip(ids[:routed], choice))
+           if i != c and not near[j]]
+    out = {"first_difference": diff, "first_near_tie": tie,
+           "near_ties": sum(near), "min_margin": margin.min().item(),
+           "off_choice": off, "steps_held": routed}
+    note = ""
+    if gaps is not None:
+        note = f"; first router gap < {ROUTER_TIE} at step {routed}"
+        out["min_router_gap"] = gaps.min().item()
+        at = "-" if diff is None or diff >= len(ids) else (
+            f"{gaps[diff].item():.3e}")
+        note += (f"; least router gap {gaps.min().item():.3e}, at the "
+                 f"first difference {at}")
+    if diff is not None and diff < len(ids):
+        steps = (margin[diff] / bf16_steps(torch, top.values[diff, 0]))
+        note = (f"; margin at the first difference {margin[diff]:.4f} "
+                f"({steps.item():.1f} bf16 steps)") + note
+    against = (f"at step {diff}" if tie else
+               "not compared (a near-tie at step 0)")
+    say(f"[13] {label}: first difference from the single stream {against}, "
+        f"first near-tie at step {tie}, {sum(near)} of "
+        f"{len(ids)} steps logit near-ties; steps off their logits' choice "
+        f"outside a near-tie: {off}{note}")
+    if diff is not None and diff < tie:
+        fail(f"{label} differs from the single stream at step {diff}, "
+             "before any near-tie")
+    if off:
+        fail(f"{label}: steps {off} are not their teacher-forced logits' "
+             "greedy choice, and no near-tie")
+    return out
+
+
+def family_generator(torch, build, cfg, params, label, weights, kv_quant,
+                     prompt, settings) -> dict:
+    """``LlamaGenerator`` on phase 5's prompt, 64 tokens at blocks 8 and 1
+    (the same ids), launches exact; the greedy margins; one profiled
+    decode block."""
+    from cake_tpu_torch.models import llama
+    from cake_tpu_torch.runtime.generator import LlamaGenerator
+
+    n_new = 64
+    warm = LlamaGenerator(cfg, params, settings=settings, block_size=8,
+                          kv_quant=kv_quant)
+    warm.set_prompt(prompt)
+    for i in range(9):
+        warm.next_token(i)
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"path": label, "kv_quant": kv_quant, "runs": []}
+    ids_by_block = {}
+    for block in (8, 1):
+        gen = LlamaGenerator(cfg, params, settings=settings,
+                             block_size=block, kv_quant=kv_quant)
+        gen.set_prompt(prompt)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        with MoeRows(llama) as rows:
+            t0 = time.perf_counter()
+            ids = [gen.next_token(0).id]
+            t1 = time.perf_counter()
+            ids += [gen.next_token(i).id for i in range(1, n_new)]
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        counts = build.launches()
+        calls = gen.prefill_calls + gen.decode_steps
+        want = family_launches(cfg, weights, kv_quant, calls,
+                               gen.prefill_calls, rows)
+        if counts != want or not gen.decode_steps:
+            fail(f"[13] {label} block {block}: kernels launched {counts}, "
+                 f"want {want}")
+        run = {"block": block, "prefill_ms": (t1 - t0) * 1e3,
+               "decode_tokens_per_s": (n_new - 1) / (t2 - t1),
+               "launches": counts, "first_ids": ids[:8]}
+        out["runs"].append(run)
+        ids_by_block[block] = ids
+        say(f"[13] {label}{' int8 cache' if kv_quant else ''} block "
+            f"{block}: prefill_ms {run['prefill_ms']:.2f}, decode "
+            f"tokens_per_s {run['decode_tokens_per_s']:.2f}, ids "
+            f"{ids[:8]}...; launches {counts}")
+        del gen
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches"] = {k: sum(r["launches"][k] for r in out["runs"])
+                       for k in out["runs"][0]["launches"]}
+    if ids_by_block[8] != ids_by_block[1]:
+        fail(f"[13] {label}: blocks 8 and 1 give other ids")
+    m = greedy_margins(torch, cfg, params, prompt, ids_by_block[8],
+                       kv_quant)
+    out["min_margin"] = min(m)
+    out["ids"] = ids_by_block[8]
+    prof = profile_main_path(torch, cfg, params, prompt, label, kv_quant)
+    out["decode_card_ms_per_step"] = prof["decode_block_8"][
+        "device_ms_per_step"]
+    out["decode_launches_per_step"] = prof["decode_block_8"][
+        "kernel_launches_per_step"]
+    out["prefill_card_ms"] = prof["prefill"]["device_ms"]
+    say(f"[13] {label}: blocks 8 and 1 equal; least greedy margin "
+        f"{min(m):.4f}; peak {out['peak_gb']:.2f} GB; decode "
+        f"{out['decode_card_ms_per_step']:.3f} card ms and "
+        f"{out['decode_launches_per_step']:.1f} launches a step")
+    return out
+
+
+def family_batch(torch, build, cfg, params, label, weights,
+                 settings) -> list:
+    """The batch engine at 8 slots on phase 7's scenario, slot and paged
+    layouts at block 8: launches exact, the layouts' streams equal, every
+    stream equal to its single-stream run up to its first near-tie."""
+    from cake_tpu_torch.models import llama
+    from cake_tpu_torch.runtime.batch_generator import BatchGenerator
+
+    prompts, arrivals = batch_prompts(torch, cfg)
+    every = prompts + arrivals
+    out, want = [], None
+    for layout in ("slot", "paged"):
+        if layout == "slot":
+            g = BatchGenerator(cfg, params, settings=settings, block_size=8)
+        else:
+            g = paged_engine(torch, cfg, params, None, 8, settings=settings)
+        g.warm_admission(64)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        p0, d0 = g.prefill_calls, g.decode_steps
+        with MoeRows(llama) as rows:
+            streams, ttft, wall, tokens, _ = drive_batch(
+                torch, g, prompts, BATCH_QUOTAS,
+                list(zip(arrivals, ARRIVAL_QUOTAS)))
+            torch.cuda.synchronize()
+        counts = build.launches()
+        pc, dc = g.prefill_calls - p0, g.decode_steps - d0
+        expect = family_launches(cfg, weights, None, pc + dc, pc, rows)
+        say(f"[13] {label} batch {layout} block 8: {tokens} tokens in "
+            f"{wall:.3f} s, {tokens / wall:.2f} tokens/s aggregate (host "
+            f"clock, 8 slots); arrivals' TTFT ms "
+            f"{[round(t, 2) for t in ttft.values()]}; {pc} prompt passes, "
+            f"{dc} decode steps; launches {counts}")
+        if counts != expect:
+            fail(f"[13] {label} batch {layout}: kernels launched {counts}, "
+                 f"want {expect}")
+        if want is not None and streams != want:
+            fail(f"[13] {label}: the paged layout's streams differ from the "
+                 "slot layout's")
+        prof = profile_batch(torch, g, prompts, f"{label} {layout}",
+                             tag="[13]")
+        out.append({"path": f"batch {label} {layout}", "launches": counts,
+                    "tokens_per_s": tokens / wall,
+                    "arrival_ttft_ms": list(ttft.values()),
+                    "card_ms_per_step": prof["device_ms_per_step"],
+                    "launches_per_step": prof["kernel_launches"]
+                    / prof["steps"], "busy_share": prof["busy_share"]})
+        want = streams
+        del g
+        torch.cuda.empty_cache()
+    out[0]["vs_single_stream"] = [
+        family_until_tie(
+            torch, cfg, params, f"{label} batch stream {sid}", every[sid],
+            ids, lambda sid=sid, n=len(ids): single_stream(
+                torch, cfg, params, every[sid], n, settings, None), settings)
+        for sid, ids in want.items()]
+    return out
+
+
+def family_spec(torch, build, cfg, params, label, prompt, ref_ids,
+                settings) -> dict:
+    """``SpeculativeGenerator`` (K = FAMILY_SPEC_K, rounds chained) on
+    phase 5's prompt, 64 tokens: launches exact (a verify is one model
+    call: a multi-query decode a layer at D = 256), ids equal to the plain
+    stream up to its first near-tie."""
+    from cake_tpu_torch.runtime.speculative import SpeculativeGenerator
+
+    gen = SpeculativeGenerator(cfg, params, settings=settings,
+                               spec_k=FAMILY_SPEC_K, spec_rounds=8)
+    gen.set_prompt(prompt)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    ids = [gen.next_token(0).id]
+    t1 = time.perf_counter()
+    ids += [gen.next_token(i).id for i in range(1, len(ref_ids))]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = build.launches()
+    want = expected_launches(cfg, "bf16", None, gen.prefill_calls,
+                             gen.decode_steps + gen.verify_calls)
+    say(f"[13] {label} --speculate {FAMILY_SPEC_K}: {gen.verify_calls} "
+        f"verifies, {gen.decode_steps} plain steps, "
+        f"{gen.emitted / gen.dispatches:.2f} tokens a dispatch, decode "
+        f"{(len(ids) - 1) / (t2 - t1):.2f} tokens/s; launches {counts}")
+    if counts != want or not gen.verify_calls:
+        fail(f"[13] {label} speculation: kernels launched {counts}, want "
+             f"{want}")
+    out = {"path": f"spec {label}", "launches": counts,
+           "verify_calls": gen.verify_calls,
+           "decode_tokens_per_s": (len(ids) - 1) / (t2 - t1)}
+    out.update(family_until_tie(torch, cfg, params,
+                                f"{label} speculation", prompt, ids,
+                                ref_ids, settings))
+    return out
+
+
+def phase_families(torch, build) -> list:
+    """Phase 13: each of FAMILY_PATHS at full width with random weights
+    (seed 0) drawn on the card, each path's weights freed before the
+    next."""
+    from cake_tpu_torch.models import config as presets
+    from cake_tpu_torch.models import llama
+    from cake_tpu_torch.ops.sampling import SamplerSettings
+
+    settings = SamplerSettings(temperature=0)
+    results = []
+    for label, preset, layers, weights, caches, batch, spec in FAMILY_PATHS:
+        t_path = time.perf_counter()
+        cfg = getattr(presets, preset)(num_hidden_layers=layers,
+                                       max_seq_len=S)
+        prompt = main_path_prompt(torch, cfg)
+        t0 = time.perf_counter()
+        params = family_init(llama, weights)(cfg, seed=SEED)
+        torch.cuda.synchronize()
+        say(f"[13] {label}: {layers} layers drawn on the card in "
+            f"{time.perf_counter() - t0:.1f} s, "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+        plain_ids = None
+        for kv_quant in caches:
+            r = family_generator(torch, build, cfg, params, label, weights,
+                                 kv_quant, prompt, settings)
+            ids = r.pop("ids")
+            plain_ids = plain_ids or ids
+            results.append(r)
+        if batch:
+            results += family_batch(torch, build, cfg, params, label,
+                                    weights, settings)
+        if spec:
+            results.append(family_spec(torch, build, cfg, params, label,
+                                       prompt, plain_ids, settings))
+        del params
+        torch.cuda.empty_cache()
+        say(f"[13] {label}: {time.perf_counter() - t_path:.1f} s")
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -3911,11 +4684,13 @@ def main() -> int:
     only_guided = sys.argv[1:] == ["--phase", "10"]
     only_paged = sys.argv[1:] == ["--phase", "11"]
     only_spec = sys.argv[1:] == ["--phase", "12"]
+    only_families = sys.argv[1:] == ["--phase", "13"]
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels":
         other = Path(sys.argv[2]).resolve()
-    elif len(sys.argv) > 1 and not (only_guided or only_paged or only_spec):
+    elif len(sys.argv) > 1 and not (only_guided or only_paged or only_spec
+                                    or only_families):
         fail(f"usage: {sys.argv[0]} [--kernels DIR | --phase 10 | "
-             "--phase 11 | --phase 12]")
+             "--phase 11 | --phase 12 | --phase 13]")
     sys.path.insert(0, str(other or REPO))
     try:
         from cake_tpu_torch.ops import flash, kvcache, qmatmul, quant
@@ -3948,9 +4723,23 @@ def main() -> int:
                                                               build)}))
         say(card)
         return 0
+    if only_families:
+        say(json.dumps({"card": card, "families": phase_families(torch,
+                                                                 build)}))
+        say(card)
+        return 0
+    t_run = time.perf_counter()
+
+    def lap(phases: str) -> None:
+        say(f"[t] phases {phases} done, {time.perf_counter() - t_run:.1f} s "
+            "after phase 1")
+
     errs = phase_kernels(torch, flash)
     errs.update(phase_quant_kernels(torch, flash, qmatmul, quant, kvcache))
     errs.update(phase_batch_kernels(torch, flash, qmatmul, quant, kvcache))
+    errs.update(phase_head256_kernels(torch, flash, kvcache))
+    errs.update(phase_family_matmuls(torch, qmatmul, quant))
+    lap("2")
     # timed before the profiled main path: a profiler session slows the
     # host for the rest of the process
     rows = phase_timing(torch, flash, kvcache, build, errs)
@@ -3959,9 +4748,15 @@ def main() -> int:
     batch_timing(torch, flash, qmatmul, quant, kvcache, build, rows)
     multi_query_timing(torch, flash, qmatmul, quant, kvcache, build, rows)
     prefill_rows(build, rows)
+    family_timing(torch, flash, qmatmul, quant, kvcache, build, errs, rows)
+    lap("3")
     phase_model(torch)
+    families_model = phase_model_families(torch)
+    lap("4")
     main_path = phase_main_path(torch, build, flash, kvcache)
+    lap("5")
     cli = phase_cli(torch, build)
+    lap("6")
     # phases 11 and 12 run at the end of each of phase 7's paths, over its
     # weights
     paged, spec = [], []
@@ -3971,22 +4766,29 @@ def main() -> int:
         spec.append(phase_spec(torch, build, *a))
 
     batch = phase_batch(torch, build, after=after)
+    lap("7, 11, 12")
     serve = phase_serve(torch)
+    lap("8")
     cross_host = phase_cross_host(torch, build, main_path)
     cross_host_cli = phase_cli_topology(torch, build, cli)
+    lap("9")
     guided, guided_cli_ids = phase_guided(torch, build, cli)
+    lap("10")
+    families = phase_families(torch, build)
+    lap("13")
     # over the paths (a), (b), (c), the batch runs, the cross-host runs,
-    # phase 10's guided and lookahead runs, phase 11's paged runs and phase
-    # 12's speculative runs
+    # phase 10's guided and lookahead runs, phase 11's paged runs, phase
+    # 12's speculative runs and phase 13's family runs
     for r in rows:
         r["launches"] = sum(p["launches"][r["name"]]
                             for p in main_path + batch + cross_host + guided
-                            + paged + spec)
+                            + paged + spec + families)
     say(json.dumps({"card": card, "main_path": main_path, "batch": batch,
                     "serve": serve, "cross_host": cross_host,
                     "cross_host_cli": cross_host_cli, "guided": guided,
                     "guided_cli": guided_cli_ids, "paged": paged,
-                    "spec": spec}))
+                    "spec": spec, "families_model": families_model,
+                    "families": families}))
     say(json.dumps({"kernels": rows}))
     say(card)
     say(json.dumps({"ok": True, "device": {
