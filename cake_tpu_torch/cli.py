@@ -23,6 +23,13 @@ Usage::
   python -m cake_tpu_torch.cli --mode worker --name w1 --model DIR \
       --topology t.yml --address 0.0.0.0:10128
   python -m cake_tpu_torch.cli --model DIR --topology t.yml --prompt "..."
+  # disaggregated prefill/decode behind the routing gateway: replicas
+  # register themselves; the gateway routes prefill -> KV handoff -> decode
+  python -m cake_tpu_torch.cli --mode gateway --serve-port 8080
+  python -m cake_tpu_torch.cli --model DIR --mode serve --kv-layout paged \
+      --role prefill --serve-port 8081 --register-with http://127.0.0.1:8080
+  python -m cake_tpu_torch.cli --model DIR --mode serve --kv-layout paged \
+      --role decode --serve-port 8082 --register-with http://127.0.0.1:8080
 
 Runs on the CUDA card; ``--cpu`` runs the plain PyTorch path on the CPU.
 Without a card and without ``--cpu`` it stops with an error.
@@ -39,11 +46,17 @@ sampler; ``--device N`` picks the CUDA card; ``--profile DIR`` writes a
 observability planes as in the JAX command line. ``--kv-layout paged``
 (with ``--kv-page-size``, ``--kv-pool-pages``) serves ``--prompts-file``
 and ``--mode serve`` over pooled KV pages, and ``--spill-mb`` bounds the
-host RAM that ``--mode serve`` spills preempted streams into. The JAX
-command line's gateway mode, meshes (``--stages/--tp/--dp/--sp/--ep``
-above 1, and topologies with mesh ``device:`` nodes), disaggregated roles, fault injection (``--chaos``) and the cluster views
-(``--cluster-report``, ``--top``) are refused with an error until their
-slices of the port land.
+host RAM that ``--mode serve`` spills preempted streams into.
+``--role prefill|decode`` (with ``--transfer-port``, ``--transfer-codec``)
+splits a paged serve fleet into tiers that hand streams over the KV
+transfer channel, and ``--register-with`` announces a replica to a
+``--mode gateway`` (``--backends``, ``--route-policy``, ``--lease-ttl``,
+``--probe-interval``, ``--admit-wait``, ``--admit-queue``,
+``--gateway-prefix-block``), which holds no model and opens no CUDA
+context. The JAX command line's meshes (``--stages/--tp/--dp/--sp/--ep``
+above 1, and topologies with mesh ``device:`` nodes), fault injection
+(``--chaos``) and the cluster views (``--cluster-report``, ``--top``) are
+refused with an error until their slices of the port land.
 """
 
 from __future__ import annotations
@@ -76,8 +89,10 @@ def build_parser() -> argparse.ArgumentParser:
         prog="cake-tpu-torch",
         description="Llama inference on one CUDA card (PyTorch port of "
                     "cake-tpu)")
-    p.add_argument("--model", required=True,
-                   help="checkpoint directory (config.json + safetensors)")
+    p.add_argument("--model", default=None,
+                   help="checkpoint directory (config.json + safetensors); "
+                        "required in every mode except gateway (a gateway "
+                        "holds no model)")
     p.add_argument("--mode", choices=["master", "worker", "serve",
                                       "gateway"], default="master",
                    help="master: one-shot generation (default; with "
@@ -89,7 +104,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "the continuous-batching engine (or, with "
                         "--topology, the wire master in one slot), with "
                         "admission queueing, backpressure, cancellation "
-                        "and SIGTERM drain; gateway is not ported yet")
+                        "and SIGTERM drain; gateway: route the same API "
+                        "across a fleet of --mode serve replicas "
+                        "(health-checked, load-aware, two-stage "
+                        "prefill -> decode over the KV transfer channel)")
     p.add_argument("--name", default=None,
                    help="--mode worker: this worker's name in the topology")
     p.add_argument("--address", default="127.0.0.1:10128",
@@ -201,8 +219,8 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="{int8,int4,int4:gN}",
                    help="quantize linear weights on load (per-channel "
                         "symmetric; int4 is packed two-per-byte; int4:gN "
-                        "uses N-row group-wise scales; the card's kernels "
-                        "take N a multiple of 64)")
+                        "uses N-row group-wise scales, N a multiple of "
+                        "16)")
     p.add_argument("--kv-quant", choices=["int8"], default=None,
                    dest="kv_quant",
                    help="store the KV cache as int8 + per-slot scales")
@@ -282,8 +300,27 @@ def build_parser() -> argparse.ArgumentParser:
                         "(requests may ask 'logprobs': N <= K; default 0)")
     p.add_argument("--role", choices=["mixed", "prefill", "decode"],
                    default="mixed",
-                   help="--mode serve: replica tier; only mixed is ported "
-                        "(prefill/decode move KV pages between replicas)")
+                   help="--mode serve: replica tier -- mixed (default) runs "
+                        "the classic everything-replica; prefill runs "
+                        "prefill only and ships the finished KV pages to "
+                        "a decode replica over the transfer channel; "
+                        "decode imports pages and runs the batched step "
+                        "(both need --kv-layout paged)")
+    p.add_argument("--transfer-port", type=int, default=None,
+                   dest="transfer_port", metavar="PORT",
+                   help="--mode serve: KV transfer-channel listener port "
+                        "(0 = ephemeral; advertised on /healthz as "
+                        "transfer_port so the gateway's tier map finds "
+                        "it). Defaults to ephemeral for --role decode; "
+                        "setting it on a mixed replica lets it accept "
+                        "imports too (drain migration, session resume)")
+    p.add_argument("--transfer-codec", choices=["none", "bf16", "int8"],
+                   default="none", dest="transfer_codec",
+                   help="--mode serve: per-page codec for exported KV "
+                        "snapshots (the --wire-codec path; default none). "
+                        "Round trips are bit-identical whenever the codec "
+                        "is lossless for the cache dtype: none always, "
+                        "bf16 on a bf16 cache")
     p.add_argument("--sched-policy", choices=["slo", "fifo"],
                    default="slo", dest="sched_policy",
                    help="--mode serve: admission policy: slo (priority "
@@ -309,6 +346,70 @@ def build_parser() -> argparse.ArgumentParser:
                    dest="slo_tpot_ms", metavar="MS",
                    help="--mode serve: mean time-per-output-token SLO "
                         "target")
+    # -- routing gateway (--mode gateway: cake_tpu_torch/gateway) ------------
+    p.add_argument("--backends", default=None, metavar="HOST:PORT,...",
+                   help="--mode gateway: comma-separated serve-replica "
+                        "addresses the gateway routes across (each runs "
+                        "--mode serve; the gateway health-checks their "
+                        "/healthz and proxies /v1/completions, /v1/models "
+                        "to the fleet). These are STATIC SEED members; "
+                        "replicas started with --register-with join "
+                        "dynamically, so an empty --backends is fine")
+    p.add_argument("--register-with", default=None, dest="register_with",
+                   metavar="URL",
+                   help="--mode serve: announce this replica to a gateway "
+                        "(POST <URL>/v1/fleet/register) and heartbeat-"
+                        "renew the membership lease at the cadence the "
+                        "gateway asks for; SIGTERM deregisters FIRST, so "
+                        "the gateway stops routing here before the drain "
+                        "starts answering 503")
+    p.add_argument("--lease-ttl", type=float, default=10.0,
+                   dest="lease_ttl", metavar="S",
+                   help="--mode gateway: registration lease TTL for "
+                        "dynamically registered replicas (default 10). A "
+                        "missed renewal demotes through the probe "
+                        "hysteresis -- never an instant delete -- and only "
+                        "a long-expired, non-UP member is garbage-"
+                        "collected")
+    p.add_argument("--admit-wait", type=float, default=0.5,
+                   dest="admit_wait", metavar="S",
+                   help="--mode gateway: when EVERY routable backend is "
+                        "saturated, how long an interactive request may "
+                        "queue at the front door for a slot to free "
+                        "before being shed with a fleet-derived "
+                        "Retry-After (default 0.5; 0 = always shed; "
+                        "batch-class requests never queue)")
+    p.add_argument("--admit-queue", type=int, default=32,
+                   dest="admit_queue", metavar="N",
+                   help="--mode gateway: how many saturated-fleet "
+                        "requests may queue at once (default 32; past "
+                        "that, shed immediately -- a bounded queue, not "
+                        "buffer bloat)")
+    p.add_argument("--route-policy", choices=["p2c", "round_robin",
+                                              "prefix"],
+                   default="p2c", dest="route_policy",
+                   help="--mode gateway: routing policy -- p2c "
+                        "(power-of-two-choices on the live /healthz load "
+                        "signal; default), round_robin, or prefix "
+                        "(prefix-affinity: same-prefix prompts land on "
+                        "the replica whose engine prefix store already "
+                        "holds their KV, p2c fallback when it is "
+                        "saturated)")
+    p.add_argument("--probe-interval", type=float, default=2.0,
+                   dest="probe_interval", metavar="S",
+                   help="--mode gateway: seconds between /healthz probe "
+                        "passes (default 2.0); DOWN backends re-probe on "
+                        "a jittered backoff instead (the circuit "
+                        "breaker)")
+    p.add_argument("--gateway-prefix-block", type=int, default=64,
+                   dest="gateway_prefix_block", metavar="N",
+                   help="--mode gateway: prefix-affinity alignment -- the "
+                        "routing key is the FIRST N tokens of the prompt "
+                        "(characters for a text prompt), so prompts "
+                        "sharing a system prefix route together whatever "
+                        "their tail length; prompts shorter than N get "
+                        "no preference (default 64, matching the "
+                        "engine's prefix_block)")
     return p
 
 
@@ -767,6 +868,9 @@ _SERVE_FLAGS = (
     ("--request-timeout", lambda a: a.request_timeout is not None),
     ("--serve-logprobs", lambda a: bool(a.serve_logprobs)),
     ("--role", lambda a: a.role != "mixed"),
+    ("--transfer-port", lambda a: a.transfer_port is not None),
+    ("--transfer-codec", lambda a: a.transfer_codec != "none"),
+    ("--register-with", lambda a: a.register_with is not None),
     ("--slo-ttft-ms", lambda a: a.slo_ttft_ms is not None),
     ("--slo-tpot-ms", lambda a: a.slo_tpot_ms is not None),
     ("--sched-policy", lambda a: a.sched_policy != "slo"),
@@ -810,6 +914,13 @@ def run_http_serve(args, topology=None) -> int:
         sys.exit("error: --mode serve takes prompts over HTTP "
                  "(POST /v1/completions); --prompts-file/--prompt-ids "
                  "belong to the one-shot paths")
+    if args.role != "mixed" and args.kv_layout != "paged":
+        sys.exit(f"error: --role {args.role} moves KV between replicas "
+                 "as pool pages; it requires --kv-layout paged")
+    if args.role == "prefill" and args.transfer_port is not None:
+        sys.exit("error: --transfer-port opens the IMPORT listener; a "
+                 "prefill replica only exports (its targets arrive "
+                 "per-request from the gateway)")
     if topology is not None:
         if args.kv_layout == "paged":
             sys.exit("error: --kv-layout paged rides the batched mesh "
@@ -837,12 +948,7 @@ def run_http_serve(args, topology=None) -> int:
     config = _load_config(args)
     tokenizer = _load_tokenizer(args.model)
     t0 = time.perf_counter()
-    slo = None
-    if args.slo_ttft_ms is not None or args.slo_tpot_ms is not None:
-        from cake_tpu_torch.obs.reqtrace import SloPolicy, SloTracker
-
-        slo = SloTracker(SloPolicy(ttft_ms=args.slo_ttft_ms,
-                                   tpot_ms=args.slo_tpot_ms))
+    slo = _slo_tracker(args)
     try:
         if topology is not None:
             from cake_tpu_torch.serve.engine import SingleStreamEngine
@@ -857,7 +963,8 @@ def run_http_serve(args, topology=None) -> int:
                                     **_engine_kwargs(args))
         scheduler = Scheduler(engine, queue_depth=queue_depth,
                               request_timeout_s=request_timeout,
-                              role=args.role, slo=slo,
+                              role=args.role,
+                              transfer_codec=args.transfer_codec, slo=slo,
                               sched_policy=args.sched_policy,
                               spill_mb=args.spill_mb,
                               fairness_factor=args.fairness_factor)
@@ -869,6 +976,21 @@ def run_http_serve(args, topology=None) -> int:
     scheduler.start(max_concurrent=max_concurrent,
                     warm_prompt_len=min(64, engine.max_seq // 2),
                     warm_constrain=tokenizer is not None)
+
+    # KV transfer listener: a decode replica always accepts imports
+    # (ephemeral port unless pinned); a mixed replica only when
+    # --transfer-port asked for one (drain migration, session resume
+    # without a tier split). Its port rides /healthz so the gateway's tier
+    # map discovers it.
+    xfer_server = None
+    if args.role == "decode" or args.transfer_port is not None:
+        from cake_tpu_torch.disagg import TransferServer
+
+        xfer_server = TransferServer(scheduler, bind=serve_bind,
+                                     port=args.transfer_port or 0).start()
+        scheduler.transfer_port = xfer_server.port
+        log.info("KV transfer channel on %s:%d (--role %s)", serve_bind,
+                 xfer_server.port, args.role)
 
     def serve_status():
         return {
@@ -886,6 +1008,16 @@ def run_http_serve(args, topology=None) -> int:
                               model_id=Path(args.model).name
                               or "cake-tpu-torch",
                               on_drain=stop.set)
+    registrar = None
+    if args.register_with:
+        from cake_tpu_torch.serve.register import Registrar
+
+        registrar = Registrar(
+            args.register_with, f"{serve_bind}:{server.port}",
+            role=args.role,
+            transfer_port=xfer_server.port if xfer_server else 0).start()
+        log.info("registering with gateway %s as %s:%d",
+                 args.register_with, serve_bind, server.port)
     log.info("model loaded in %.1fs (%s); serving on http://%s:%d/ "
              "(%d slots, queue %d, %ss deadline)",
              time.perf_counter() - t0, memory_report(), serve_bind,
@@ -902,11 +1034,183 @@ def run_http_serve(args, topology=None) -> int:
     try:
         stop.wait()
     finally:
+        # deregister before the drain starts answering 503s: the gateway
+        # pins this member DRAINING at once, so the probe race window (up
+        # to one --probe-interval) cannot route a request into the exit
+        if registrar is not None:
+            registrar.deregister()
         server.drain(timeout_s=request_timeout)
+        if xfer_server is not None:
+            xfer_server.stop()
         scheduler.close()
         if status_httpd is not None:
             status_httpd.shutdown()
             status_httpd.server_close()
+        obs.flush_artifacts()
+        log.info("drained; bye")
+    return 0
+
+
+def _slo_tracker(args):
+    """SLO accounting shared by serve and gateway (obs/reqtrace): built
+    only when a target is set, so untargeted runs pay nothing."""
+    if args.slo_ttft_ms is None and args.slo_tpot_ms is None:
+        return None
+    from cake_tpu_torch.obs.reqtrace import SloPolicy, SloTracker
+
+    return SloTracker(SloPolicy(ttft_ms=args.slo_ttft_ms,
+                                tpot_ms=args.slo_tpot_ms))
+
+
+def _gateway_flags(args) -> list[str]:
+    """Names of the --mode gateway flags the user actually set -- they
+    mean nothing on the single-process modes."""
+    out = []
+    if args.backends is not None:
+        out.append("--backends")
+    if args.route_policy != "p2c":
+        out.append("--route-policy")
+    if args.probe_interval != 2.0:
+        out.append("--probe-interval")
+    if args.gateway_prefix_block != 64:
+        out.append("--gateway-prefix-block")
+    if args.lease_ttl != 10.0:
+        out.append("--lease-ttl")
+    if args.admit_wait != 0.5:
+        out.append("--admit-wait")
+    if args.admit_queue != 32:
+        out.append("--admit-queue")
+    return out
+
+
+def run_gateway(args) -> int:
+    """--mode gateway: the multi-replica routing front door
+    (cake_tpu_torch/gateway) -- health-checked, load-aware routing of the
+    serving API across a fleet of --mode serve replicas. The gateway
+    holds no model and touches no accelerator: it is pure fleet plumbing
+    (probes, policy, proxy), so one host can front many."""
+    import signal
+    import threading
+
+    from cake_tpu_torch import __version__, obs
+    from cake_tpu_torch.gateway.api import parse_backends, start_gateway
+    from cake_tpu_torch.gateway.health import HealthMonitor
+    from cake_tpu_torch.gateway.policy import make_policy
+    from cake_tpu_torch.obs import metrics as obs_metrics
+
+    if args.model:
+        sys.exit("error: --model belongs to the serving/generation modes; "
+                 "a gateway holds no model -- point --backends at --mode "
+                 "serve replicas instead")
+    if args.topology:
+        sys.exit("error: --topology describes a model deployment; the "
+                 "gateway's fleet is --backends (each backend may itself "
+                 "run a --topology)")
+    if args.prompts_file or args.prompt_ids:
+        sys.exit("error: --mode gateway takes requests over HTTP "
+                 "(POST /v1/completions); --prompts-file/--prompt-ids "
+                 "belong to the one-shot paths")
+    if args.cluster_report or args.top:
+        sys.exit("error: --cluster-report/--top aggregate a master's "
+                 "workers; the gateway exposes its fleet view on / and "
+                 "/metrics instead")
+    flags = _link_flags(args) + (["--chaos"] if args.chaos else [])
+    if flags:
+        sys.exit(f"error: {'/'.join(flags)} drive a master's worker "
+                 "links; the gateway's failure handling is built in "
+                 "(probes, breaker, transparent retry)")
+    engine_flags = [f for f, on in (
+        ("--max-concurrent", args.max_concurrent is not None),
+        ("--queue-depth", args.queue_depth is not None),
+        ("--serve-logprobs", bool(args.serve_logprobs)),
+        ("--role", args.role != "mixed"),
+        ("--transfer-port", args.transfer_port is not None),
+        ("--transfer-codec", args.transfer_codec != "none"),
+        ("--register-with", args.register_with is not None),
+    ) if on]
+    if engine_flags:
+        sys.exit(f"error: {'/'.join(engine_flags)} configure a serve "
+                 "replica's engine; pass them to the --mode serve "
+                 "processes behind --backends")
+    if args.probe_interval <= 0:
+        sys.exit("error: --probe-interval must exceed 0")
+    if args.gateway_prefix_block < 1:
+        sys.exit("error: --gateway-prefix-block must be >= 1")
+    if args.request_timeout is not None and args.request_timeout <= 0:
+        sys.exit("error: --request-timeout must exceed 0")
+    if args.lease_ttl <= 0:
+        sys.exit("error: --lease-ttl must exceed 0")
+    if args.admit_wait < 0:
+        sys.exit("error: --admit-wait must be >= 0")
+    if args.admit_queue < 1:
+        sys.exit("error: --admit-queue must be >= 1")
+
+    serve_port = args.serve_port if args.serve_port is not None else 8080
+    serve_bind = args.serve_bind or "127.0.0.1"
+    request_timeout = (args.request_timeout
+                       if args.request_timeout is not None else 300.0)
+    try:
+        backends = parse_backends(args.backends) if args.backends else []
+    except ValueError as e:
+        sys.exit(f"error: {e}")
+    # an empty --backends is a valid start state: the fleet forms (or
+    # RE-forms, after a gateway restart) from replica self-registrations
+    monitor = HealthMonitor(backends, probe_interval=args.probe_interval,
+                            lease_ttl_s=args.lease_ttl, allow_empty=True)
+    policy = make_policy(args.route_policy,
+                         prefix_block=args.gateway_prefix_block)
+    monitor.start()
+
+    def gateway_status():
+        return {
+            "role": "gateway",
+            "version": __version__,
+            "policy": args.route_policy,
+            "backends": monitor.describe(),
+            "metrics": obs_metrics.registry().snapshot(),
+        }
+
+    server = start_gateway(monitor, policy, bind=serve_bind,
+                           port=serve_port,
+                           prefix_block=args.gateway_prefix_block,
+                           read_timeout=request_timeout,
+                           status_fn=gateway_status,
+                           slo=_slo_tracker(args),
+                           admit_wait_s=args.admit_wait,
+                           admit_queue=args.admit_queue)
+    status_httpd = None
+    if args.status_port is not None:
+        from cake_tpu_torch.obs import statusd
+
+        status_httpd, bound = statusd.start_status_server(
+            gateway_status, bind=args.status_bind, port=args.status_port)
+        log.info("status page on http://%s:%d/", args.status_bind, bound)
+    up = len(monitor.routable())
+    log.info("gateway on http://%s:%d/ -- %d backend(s), %d up, "
+             "policy %s, probe every %gs",
+             serve_bind, server.port, len(backends), up,
+             args.route_policy, args.probe_interval)
+    if not up:
+        log.warning("no backend answered the initial probe; serving 503 "
+                    "until one comes up")
+
+    stop = threading.Event()
+
+    def _on_signal(signum, frame):
+        log.info("signal %d: draining (no new admissions; in-flight "
+                 "proxied streams finish)", signum)
+        stop.set()
+
+    for signum in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(signum, _on_signal)
+    try:
+        stop.wait()
+    finally:
+        server.drain(timeout_s=request_timeout)
+        if status_httpd is not None:
+            status_httpd.shutdown()
+            status_httpd.server_close()
+        monitor.stop()
         obs.flush_artifacts()
         log.info("drained; bye")
     return 0
@@ -975,8 +1279,19 @@ def _write_obs(args) -> None:
 
 
 def _main(args) -> int:
+    if args.mode != "gateway" and not args.model:
+        sys.exit("error: --model is required (only --mode gateway runs "
+                 "without a checkpoint)")
+    if args.mode != "gateway" and _gateway_flags(args):
+        sys.exit(f"error: {'/'.join(_gateway_flags(args))} configure the "
+                 "routing gateway; they require --mode gateway (they "
+                 "would otherwise be silently ignored)")
+    if args.kv_layout == "paged" and args.mode == "gateway":
+        sys.exit("error: --kv-layout paged applies to the batched serving "
+                 "engine; it requires --mode serve or a --prompts-file "
+                 "batch run (it would otherwise be silently ignored)")
     if args.mode == "gateway":
-        sys.exit("error: --mode gateway is not ported yet")
+        return run_gateway(args)
     if args.chaos:
         sys.exit("error: --chaos (fault injection on the worker links, the "
                  "JAX package's testing/chaos.py) is not ported yet")

@@ -31,6 +31,11 @@
 //   acc += partial * s[g, n] in f32. Two accumulators fit at BM = 192
 //   (2 x 96 f32 and 32 registers of A fragments, of the 240 a consumer
 //   gets once the producer keeps 24), which grouped takes for 256.
+//   Groups that are a multiple of 16 rows but not of 64 (`Int4W<FINE>`)
+//   start and end inside a k step: the fold then comes before the k16
+//   step that starts a group, after the products issued so far are done,
+//   and the group's two scales a thread needs wait in registers (a slot
+//   carries the 4 rows of scales its 64 K rows can meet).
 // The grid is rastered with the M tiles fastest, so the CTAs of a wave
 // share the weight's N tiles in L2.
 //
@@ -51,6 +56,9 @@
 //   finish (a per-strip counter it resets itself) sums the partials in
 //   split order, scales and stores bf16: one launch, no atomics in any sum,
 //   the same bits on every run.
+// Grouped, a warp's 32 K rows of a slot lie in one group when groups are a
+// multiple of 64; `Int4W<FINE>` groups (a multiple of 16) fold each k16
+// step's partial with its own group's scales (a slot carries 8 rows).
 
 #pragma once
 
@@ -129,6 +137,7 @@ __device__ __forceinline__ uint32_t raw_pair(const unsigned char* raw, int r,
 struct Int8W {
   static constexpr int PACK = 1;
   static constexpr bool GROUPED = false;
+  static constexpr bool FINE = false;
 
   // Prefill: the wgmma A fragment (W^T, 16 weight columns x 16 K rows) of
   // k16 step kk of a raw [64][128] tile, for the thread's columns col and
@@ -148,13 +157,19 @@ struct Int8W {
   }
 };
 
+// How an int4 weight is scaled: per output channel, in groups of a multiple
+// of 64 K rows, or in groups of a multiple of 16 (the k16 step) that a k
+// step or a warp's rows may cross.
+enum Scales { PER_CHANNEL = 0, GROUPS = 1, FINE = 2 };
+
 // packed int4 [K/2, N]: byte row p holds K rows 2p (low nibble) and 2p + 1
 // (high nibble). Per-channel scales in the epilogue, or grouped [K/g, N]
 // scales folded into each group's f32 partial.
-template <bool G>
+template <int G>
 struct Int4W {
   static constexpr int PACK = 2;
-  static constexpr bool GROUPED = G;
+  static constexpr bool GROUPED = G != PER_CHANNEL;
+  static constexpr bool FINE = G == qmm::FINE;
 
   // Prefill: as Int8W::a_frag over a raw [32][128] packed tile: K rows
   // 2tq and 2tq + 1 of step kk are the two nibbles of packed row kk * 8 +
@@ -178,12 +193,14 @@ struct Int4W {
 // Byte offsets of a ring slot in the dynamic shared memory (1024-aligned):
 // the x tile (BM rows of 64 bf16), the raw weight tile (64 int8 or 32
 // packed int4 rows of 128 columns), both with TMA's 128-byte swizzle, and
-// (grouped) the k step's 128 scales.
+// (grouped) the k step's 128 scales, or (fine) the 4 rows of them from row
+// kt * BK / g: 64 K rows meet at most 4 groups of 16 or more.
 template <class W, int BM>
 struct PrefillPlan {
   static constexpr int RAW = BM * BK * 2;
   static constexpr int S = RAW + BK / W::PACK * BN;
-  static constexpr int TX = S + (W::GROUPED ? BN * 4 : 0);  // TMA bytes
+  static constexpr int SROWS = W::FINE ? 4 : 1;
+  static constexpr int TX = S + (W::GROUPED ? SROWS * BN * 4 : 0);  // TMA
   static constexpr int SLOT = round_up(TX, 1024);
   static constexpr int STAGES = 5;
   static constexpr int SMEM = STAGES * SLOT;
@@ -202,6 +219,7 @@ struct Consumer {
   uint32_t a[2][BK / 16][4];  // the A fragments of two k steps
   int pending = -1;  // the slot whose products may still be in flight
   int col, tq;
+  float gs0 = 0.f, gs1 = 0.f;  // fine: the current group's two scales
 
   // The A fragments of k step `kt` (its slot has landed) into set S.
   template <int S>
@@ -214,10 +232,14 @@ struct Consumer {
   // acc += part * s[g, col], once the group's products are done; the
   // group's scales are in slot `s` (its last k step).
   __device__ __forceinline__ void fold(const unsigned char* slot) {
+    const float* sc = reinterpret_cast<const float*>(slot + P::S);
+    fold(sc[col], sc[col + 1]);
+  }
+
+  // acc += part * (s0, s1) for the thread's two columns.
+  __device__ __forceinline__ void fold(float s0, float s1) {
     fence_regs(part);
     fence_regs(acc);
-    const float* sc = reinterpret_cast<const float*>(slot + P::S);
-    const float s0 = sc[col], s1 = sc[col + 1];
 #pragma unroll
     for (int j = 0; j < NACC / 4; ++j) {
       acc[j * 4 + 0] += part[j * 4 + 0] * s0;
@@ -241,25 +263,52 @@ __device__ __forceinline__ void prefill_step(Consumer<W, BM>& c, int kt,
   using P = PrefillPlan<W, BM>;
   constexpr int ST = P::STAGES;
   const int s = kt % ST;
-  const bool first = W::GROUPED && (kt * BK) % group == 0;
-  if (W::GROUPED && first && kt > 0) {
-    // the previous group's products are done: fold them in, then free
-    // the slot that holds its scales
-    wg_wait<0>();
-    c.fold(smem_raw + c.pending * P::SLOT);
-    fence_proxy_async();  // the scales are read before TMA refills
-    if (tid == 0) mbar_arrive(&empty[c.pending]);
-    c.pending = -1;
-  }
-  wg_fence();
   const uint32_t x = smem + s * P::SLOT;
+  if constexpr (W::FINE) {
+    // a k16 step that starts a group folds the previous group in (once the
+    // products issued so far are done) and takes the new group's scales
+    // from this slot's rows, which start at row kt * BK / group
+    const float* sc =
+        reinterpret_cast<const float*>(smem_raw + s * P::SLOT + P::S);
+    const int row0 = kt * BK / group;
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    const uint64_t db = smem_desc(x + kk * 32, 16, 1024);
-    if constexpr (W::GROUPED)
-      wgmma_rs_kmajor(c.part, c.a[S][kk], db, !(first && kk == 0));
-    else
-      wgmma_rs_kmajor(c.acc, c.a[S][kk], db, 1);
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const int k = kt * BK + kk * 16;
+      const bool first = k % group == 0;
+      if (first) {
+        if (k > 0) {
+          wg_commit();
+          wg_wait<0>();
+          c.fold(c.gs0, c.gs1);
+        }
+        const float* r = sc + (k / group - row0) * BN;
+        c.gs0 = r[c.col];
+        c.gs1 = r[c.col + 1];
+      }
+      wg_fence();
+      wgmma_rs_kmajor(c.part, c.a[S][kk], smem_desc(x + kk * 32, 16, 1024),
+                      !first);
+    }
+  } else {
+    const bool first = W::GROUPED && (kt * BK) % group == 0;
+    if (W::GROUPED && first && kt > 0) {
+      // the previous group's products are done: fold them in, then free
+      // the slot that holds its scales
+      wg_wait<0>();
+      c.fold(smem_raw + c.pending * P::SLOT);
+      fence_proxy_async();  // the scales are read before TMA refills
+      if (tid == 0) mbar_arrive(&empty[c.pending]);
+      c.pending = -1;
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t db = smem_desc(x + kk * 32, 16, 1024);
+      if constexpr (W::GROUPED)
+        wgmma_rs_kmajor(c.part, c.a[S][kk], db, !(first && kk == 0));
+      else
+        wgmma_rs_kmajor(c.acc, c.a[S][kk], db, 1);
+    }
   }
   wg_commit();
   wg_wait<1>();  // the previous step's products are done
@@ -345,7 +394,10 @@ prefill_kernel(const __grid_constant__ CUtensorMap tm_x,
     wg_wait<0>();
     fence_regs(c.a[0]);
     fence_regs(c.a[1]);
-    if constexpr (W::GROUPED) c.fold(smem_raw + c.pending * P::SLOT);
+    if constexpr (W::FINE)
+      c.fold(c.gs0, c.gs1);
+    else if constexpr (W::GROUPED)
+      c.fold(smem_raw + c.pending * P::SLOT);
     fence_regs(c.acc);
 
     // D row (col, col + 1), column j * 8 + 2 tq (+ 1) -> y rows m, m + 1
@@ -389,14 +441,16 @@ __device__ __forceinline__ void mma_step(float (&acc)[4],
 
 // A ring slot: the weight tile (64 byte rows of 128 columns, 128-byte
 // swizzle), the x columns of its K rows (one 16-row x 64-column block,
-// 128-byte swizzle, per 64 K rows) and (grouped) two rows of 128 scales.
+// 128-byte swizzle, per 64 K rows) and (grouped) two rows of 128 scales,
+// or (fine) eight: 128 K rows meet at most 8 groups of 16 or more.
 // A slot covers SK = 64 K rows of int8 or 128 of int4: 8 KB of weight.
 template <class W>
 struct DecodePlan {
   static constexpr int SK = 64 * W::PACK;
   static constexpr int X = DECODE_W_BYTES;
   static constexpr int S = X + SK / 64 * 16 * 128;
-  static constexpr int TX = S + (W::GROUPED ? 2 * BN * 4 : 0);
+  static constexpr int SROWS = W::FINE ? 8 : 2;
+  static constexpr int TX = S + (W::GROUPED ? SROWS * BN * 4 : 0);
   static constexpr int SLOT = round_up(TX, 1024);
   // ring slots: three CTAs of either format share an SM's shared memory
   static constexpr int STAGES = W::PACK == 1 ? 6 : 5;
@@ -485,6 +539,26 @@ __device__ __forceinline__ void decode_k16(float (&acc)[8][NM][4],
   }
 }
 
+// acc += gp * s[row, n] for the thread's columns of the 8 fragments, from
+// the slot's rows of scales `sc`.
+template <int NM>
+__device__ __forceinline__ void fold_scaled(float (&acc)[8][NM][4],
+                                            const float (&gp)[8][NM][4],
+                                            const float* sc, int row, int g) {
+  const float* r = sc + row * BN + 16 * g;
+#pragma unroll
+  for (int f = 0; f < 8; ++f) {
+    const float2 v = *reinterpret_cast<const float2*>(r + 2 * f);
+#pragma unroll
+    for (int nm = 0; nm < NM; ++nm) {
+      acc[f][nm][0] += gp[f][nm][0] * v.x;
+      acc[f][nm][1] += gp[f][nm][1] * v.x;
+      acc[f][nm][2] += gp[f][nm][2] * v.y;
+      acc[f][nm][3] += gp[f][nm][3] * v.y;
+    }
+  }
+}
+
 // Output strip blockIdx.x (128 columns) over the K slots of split
 // blockIdx.y: [split * per_split, +per_split) of ceil(K / SK), never empty.
 template <class W, int NM>
@@ -551,7 +625,19 @@ decode_kernel(const __grid_constant__ CUtensorMap tm_x,
     const int s = i % ST;
     const unsigned char* slot = smem_raw + s * P::SLOT;
     mbar_wait(&full[s], (i / ST) & 1);
-    if constexpr (W::GROUPED) {
+    const float* sc = reinterpret_cast<const float*>(slot + P::S);
+    const int k = (first + i) * P::SK;  // the slot's first K row
+    if constexpr (W::FINE) {
+      // each k16 step lies in one group: its partial, times that group's
+      // scales
+#pragma unroll
+      for (int st = 0; st < STEPS; ++st) {
+        const int k16 = (warp * STEPS + st) * 16;
+        float gp[8][NM][4];
+        decode_k16<W, NM>(gp, slot, slot + P::X, k16, g, tq, true);
+        fold_scaled<NM>(acc, gp, sc, (k + k16) / group - k / group, g);
+      }
+    } else if constexpr (W::GROUPED) {
       // this warp's 32 K rows lie in one group: their partial, times the
       // group's scales
       float gp[8][NM][4];
@@ -559,21 +645,8 @@ decode_kernel(const __grid_constant__ CUtensorMap tm_x,
       for (int st = 0; st < STEPS; ++st)
         decode_k16<W, NM>(gp, slot, slot + P::X, (warp * STEPS + st) * 16,
                           g, tq, st == 0);
-      const int k = (first + i) * P::SK;
-      const int row = (k + warp * STEPS * 16) / group - k / group;
-      const float* sc = reinterpret_cast<const float*>(slot + P::S) +
-                        row * BN + 16 * g;
-#pragma unroll
-      for (int f = 0; f < 8; ++f) {
-        const float2 v = *reinterpret_cast<const float2*>(sc + 2 * f);
-#pragma unroll
-        for (int nm = 0; nm < NM; ++nm) {
-          acc[f][nm][0] += gp[f][nm][0] * v.x;
-          acc[f][nm][1] += gp[f][nm][1] * v.x;
-          acc[f][nm][2] += gp[f][nm][2] * v.y;
-          acc[f][nm][3] += gp[f][nm][3] * v.y;
-        }
-      }
+      fold_scaled<NM>(acc, gp, sc,
+                      (k + warp * STEPS * 16) / group - k / group, g);
     } else {
 #pragma unroll
       for (int st = 0; st < STEPS; ++st)
@@ -654,8 +727,8 @@ int launch_prefill(const void* x, const void* w, const void* scale, void* y,
   tm_s = tm_w;  // never read unless grouped
   if (!err && W::GROUPED)
     err = tensor_map_2d(&tm_s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scale, N,
-                        (K + group - 1) / group, (cuuint64_t)N * 4, BN, 1,
-                        CU_TENSOR_MAP_SWIZZLE_NONE);
+                        (K + group - 1) / group, (cuuint64_t)N * 4, BN,
+                        P::SROWS, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err) return err;
   // above 48 KB a kernel must opt in to dynamic shared memory
   cudaError_t cerr = cudaFuncSetAttribute(
@@ -684,8 +757,8 @@ int launch_decode(const void* x, const void* w, const void* scale, void* y,
   tm_s = tm_w;  // never read unless grouped
   if (!err && W::GROUPED)
     err = tensor_map_2d(&tm_s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, scale, N,
-                        (K + group - 1) / group, (cuuint64_t)N * 4, BN, 2,
-                        CU_TENSOR_MAP_SWIZZLE_NONE);
+                        (K + group - 1) / group, (cuuint64_t)N * 4, BN,
+                        P::SROWS, CU_TENSOR_MAP_SWIZZLE_NONE);
   if (err) return err;
   cudaError_t cerr = cudaFuncSetAttribute(
       decode_kernel<W, NM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -719,7 +792,10 @@ int run(const void* x, const void* w, const void* scale, void* y, void* part,
         int splits, int per_split, cudaStream_t stream) {
   const int bad = (int)cudaErrorInvalidValue;
   if (M <= 0 || K <= 0 || K % BK || N <= 0 || N % 16) return bad;
-  if (W::GROUPED && (group <= 0 || group % BK)) return bad;
+  // fine groups: a multiple of the k16 step that is not one of BK
+  if (W::GROUPED && (group <= 0 || group % (W::FINE ? 16 : BK) ||
+                     (W::FINE && group % BK == 0)))
+    return bad;
   if (block_m == 16) {
     const int slots = (K + DecodePlan<W>::SK - 1) / DecodePlan<W>::SK;
     if (M > 16 || splits < 1 || per_split < 1 ||

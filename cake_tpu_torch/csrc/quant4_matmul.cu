@@ -6,7 +6,7 @@
 // 2i in its low nibble and K row 2i+1 in its high nibble, each a signed
 // value in [-7, 7]; f32 accumulation; output bf16. Scales are f32, either
 // per output channel (scale [N], applied in the epilogue) or grouped along
-// K (scale [K/g, N], g a multiple of 64: each group's f32 partial is
+// K (scale [K/g, N], g a multiple of 16: each group's f32 partial is
 // multiplied by its group's scale before it is added, never the bf16
 // weight).
 //
@@ -20,7 +20,10 @@
 // a fragment's two K rows are one byte's two nibbles, in both regimes.
 // Grouped prefill folds each group's wgmma partial into the sum (BM = 192:
 // both 96-float accumulators fit a consumer thread's registers); grouped
-// decode folds each warp's 32-row partial of a slot.
+// decode folds each warp's 32-row partial of a slot. Groups that are a
+// multiple of 16 rows but not of 64 (g16, g32, g96) are their own instance
+// (`qmm::FINE`): the fold comes at the k16 step that starts a group, inside
+// a k step (prefill) or a warp's rows (decode); multiples of 64 keep theirs.
 
 #include "qmatmul_sm90.cuh"
 
@@ -30,13 +33,29 @@ extern "C" {
 int quant4_matmul_block_k() { return qmm::BK; }
 int quant4_matmul_block_n() { return qmm::BN; }
 int quant4_matmul_decode_block_k() {
-  return qmm::DecodePlan<qmm::Int4W<false>>::SK;
+  return qmm::DecodePlan<qmm::Int4W<qmm::PER_CHANNEL>>::SK;
 }
 
-// Dynamic shared memory of a CTA of the plan's block_m (0 if not built).
-int quant4_matmul_smem_bytes(int block_m, int grouped) {
-  return grouped ? qmm::smem_bytes<qmm::Int4W<true>>(block_m)
-                 : qmm::smem_bytes<qmm::Int4W<false>>(block_m);
+// The instance a group size runs: PER_CHANNEL (0), GROUPS (a multiple of
+// 64), FINE (another multiple of 16); -1 for any other.
+int quant4_matmul_scales(int group) {
+  if (group == 0) return qmm::PER_CHANNEL;
+  if (group < 0 || group % 16) return -1;
+  return group % qmm::BK ? qmm::FINE : qmm::GROUPS;
+}
+
+// Dynamic shared memory of a CTA of the plan's block_m for the instance
+// `scales` (quant4_matmul_scales; 0 if not built).
+int quant4_matmul_smem_bytes(int block_m, int scales) {
+  switch (scales) {
+    case qmm::PER_CHANNEL:
+      return qmm::smem_bytes<qmm::Int4W<qmm::PER_CHANNEL>>(block_m);
+    case qmm::GROUPS:
+      return qmm::smem_bytes<qmm::Int4W<qmm::GROUPS>>(block_m);
+    case qmm::FINE:
+      return qmm::smem_bytes<qmm::Int4W<qmm::FINE>>(block_m);
+  }
+  return 0;
 }
 
 // Returns 0, a cudaError_t or ERR_TENSOR_MAP. `group` is the group size
@@ -47,12 +66,21 @@ int quant4_matmul_bf16(const void* x, const void* qp, const void* scale,
                        int per_split, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* cnt = static_cast<int*>(counters);
-  if (group > 0)
-    return qmm::run<qmm::Int4W<true>>(x, qp, scale, y, part, cnt, M, N, K,
-                                      group, block_m, splits, per_split, st);
-  if (group < 0) return (int)cudaErrorInvalidValue;
-  return qmm::run<qmm::Int4W<false>>(x, qp, scale, y, part, cnt, M, N, K, 0,
-                                     block_m, splits, per_split, st);
+  switch (quant4_matmul_scales(group)) {
+    case qmm::PER_CHANNEL:
+      return qmm::run<qmm::Int4W<qmm::PER_CHANNEL>>(
+          x, qp, scale, y, part, cnt, M, N, K, 0, block_m, splits, per_split,
+          st);
+    case qmm::GROUPS:
+      return qmm::run<qmm::Int4W<qmm::GROUPS>>(x, qp, scale, y, part, cnt, M,
+                                               N, K, group, block_m, splits,
+                                               per_split, st);
+    case qmm::FINE:
+      return qmm::run<qmm::Int4W<qmm::FINE>>(x, qp, scale, y, part, cnt, M,
+                                             N, K, group, block_m, splits,
+                                             per_split, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* quant4_matmul_error_string(int err) {

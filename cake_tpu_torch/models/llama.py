@@ -41,6 +41,7 @@ from cake_tpu_torch.ops.norms import rms_norm
 from cake_tpu_torch.ops.quant import (
     Quantized4Linear,
     QuantizedLinear,
+    check_int4_group,
     dense,
     quantize_linear,
     quantize_linear4,
@@ -134,6 +135,8 @@ def init_params_int4(config: LlamaConfig, seed: int = 0, device=None,
     (:func:`~cake_tpu_torch.ops.quant.reject_int4_moe`)."""
     if config.num_local_experts:
         reject_int4_moe()
+    if group_size is not None:
+        check_int4_group(group_size)
     return _init_params(config, seed, device, dtype,
                         lambda w: quantize_linear4(w, group_size=group_size))
 

@@ -14,7 +14,9 @@ What the kernels take: ``x [..., K]`` bf16 (leading axes are flattened to
 M rows, which must then be contiguous), the weight ``[K, N]`` int8 or
 ``[K/2, N]`` packed int4, contiguous, with K a multiple of the 64-row K
 tile and N a multiple of 16; f32 scales ``[N]``, or ``[K/g, N]`` for int4
-with g a multiple of 64. Every pointer is 16-byte aligned, all on one card.
+with g a multiple of 16 (the tensor cores' k16 step; a multiple of 64 folds
+at k-tile bounds, another multiple of 16 inside them). Every pointer is
+16-byte aligned, all on one card.
 
 Work split (:func:`plan`): M > 16 is the prefill regime, a CTA per
 ``BM x 128`` output tile over all of K (BM 256, grouped int4 192, where
@@ -213,11 +215,11 @@ def quant4_matmul(x: torch.Tensor, qp: torch.Tensor,
             raise ValueError(f"quant4_matmul: {scale.shape[0]} groups do not "
                              f"divide in-dim {k}")
         group = k // scale.shape[0]
-        if group % BLOCK_K:
+        if group % quant.INT4_GROUP_STEP:
             raise ValueError(
                 f"quant4_matmul: group size {group} is not built: the CUDA "
                 f"kernel takes group sizes that are a multiple of its "
-                f"{BLOCK_K}-row K tile (64, 128, ...)")
+                f"{quant.INT4_GROUP_STEP}-row k step (16, 32, 48, ...)")
     x2 = _check("quant4_matmul", x, qp, scale, k, n)
     return _launch("quant4_matmul", x2, qp, scale, n, (group,)).reshape(
         *x.shape[:-1], n)

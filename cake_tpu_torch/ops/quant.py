@@ -232,19 +232,41 @@ def quantize_linear4_np(w, group_size: int | None = None
             np.ascontiguousarray(scale))
 
 
+# int4 group sizes must be a multiple of this: the card's kernel folds a
+# group's partial at a k16 step of its tensor cores, and a group of 2, 4 or
+# 8 rows would store f32 scales as large as its int4 codes or larger (the
+# JAX package takes any even N that divides the in-dim)
+INT4_GROUP_STEP = 16
+
+
+def check_int4_group(n: int) -> int:
+    """``n`` if it is a group size the port loads int4 weights at, else a
+    ValueError."""
+    if n <= 0 or n % INT4_GROUP_STEP:
+        raise ValueError(
+            f"int4 group size {n} is not a multiple of {INT4_GROUP_STEP} "
+            f"(the tensor cores' k step); groups of 2, 4 or 8 rows would "
+            f"store f32 scales as large as their int4 codes or larger")
+    return n
+
+
 def parse_quant_spec(spec: str | None) -> tuple[str | None, int | None]:
     """``None`` -> ``(None, None)``; ``"int8"``/``"int4"`` -> per channel;
-    ``"int4:gN"`` -> int4 with N-row groups along the in axis."""
+    ``"int4:gN"`` -> int4 with N-row groups along the in axis, N a multiple
+    of 16."""
     if spec is None:
         return None, None
     if spec in ("int8", "int4"):
         return spec, None
     m = re.fullmatch(r"int4:g(\d+)", spec)
     if m and int(m.group(1)) > 0:
-        return "int4", int(m.group(1))
+        try:
+            return "int4", check_int4_group(int(m.group(1)))
+        except ValueError as e:
+            raise ValueError(f"quantize spec {spec!r}: {e}") from None
     raise ValueError(
         f"unsupported quantize spec {spec!r} (want int8, int4, or int4:gN "
-        f"with N >= 1)")
+        f"with N a multiple of {INT4_GROUP_STEP})")
 
 
 def quantize_params(params: dict, bits: int = 8,
@@ -257,6 +279,8 @@ def quantize_params(params: dict, bits: int = 8,
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     if group_size is not None and bits != 4:
         raise ValueError("group_size applies to bits=4 only")
+    if group_size is not None:
+        check_int4_group(group_size)
     if bits == 4 and "router" in params["layers"]:
         reject_int4_moe()
 

@@ -441,9 +441,26 @@ class Listener:
         return Connection(sock=conn)
 
     def close(self) -> None:
+        # a thread parked in accept() wakes on shutdown; a close alone
+        # leaves it blocked on Linux (a server's stop would wait out its
+        # join timeout)
         if self._fd is not None:
+            try:
+                s = socket.socket(fileno=self._fd)
+            except OSError:
+                s = None
+            if s is not None:
+                try:
+                    s.shutdown(socket.SHUT_RDWR)
+                except OSError:
+                    pass
+                s.detach()
             self._lib.cw_close(self._fd)
             self._fd = None
         if self._sock is not None:
+            try:
+                self._sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
             self._sock.close()
             self._sock = None

@@ -22,15 +22,24 @@ scheduler:
   match is withheld until resolved, so stop text never reaches the
   client; finish_reason ``"stop"``, distinct from ``"eos"``);
   ``logprobs: N`` adds top-N logprobs to every token event and the final
-  usage block (server capacity set by ``--serve-logprobs``). The
-  disaggregated prefill/decode fields (``_disagg``, ``_resume``) are not
-  ported yet and answer ``400``.
+  usage block (server capacity set by ``--serve-logprobs``).
+
+  Disaggregated prefill/decode: a tier-aware gateway adds ``_disagg``
+  (``{"target": "host:port"}``: prefill here, ship the KV pages to that
+  transfer channel and answer with the transfer id) or ``_resume``
+  (``{"xfer_id": ...}``: continue an imported stream, replaying the
+  tokens it already holds so the client sees the whole stream). A
+  prefill-role replica refuses requests without ``_disagg``.
 - ``POST /v1/batch`` — N prompts in, one JSON result set out, resumable
   by id (``GET /v1/batch/<id>``).
-- ``POST /v1/fleet/drain`` — gateway-initiated drain. Re-homing live
-  sessions to a sibling (``migrate_to``) needs the disaggregated KV
-  plane, which is not ported yet, and answers ``400``; without it this
-  is a classic drain.
+- ``POST /v1/fleet/drain`` — gateway-initiated rolling restart: begin a
+  drain that re-homes live sessions to the sibling named in
+  ``migrate_to`` instead of making clients wait it out. Admitted streams
+  export their KV through the snapshot path and the handler splices the
+  sibling's resumed stream onto the client connection (skipping the
+  tokens already delivered here), so the client sees one uninterrupted,
+  bit-identical stream; queued sessions re-run whole on the sibling.
+  Without ``migrate_to`` this is a classic drain.
 - ``GET /v1/models`` / ``GET /healthz`` — discovery and liveness.
 - ``GET /`` + ``GET /metrics`` — the exact statusd surface
   (``obs.statusd.status_response``), so one port serves traffic AND
@@ -61,7 +70,7 @@ from cake_tpu_torch.serve.session import CLASSES, Session, sse_event
 
 log = logging.getLogger("cake_tpu_torch.serve.api")
 
-# Thread domain : everything in this module runs on
+# Thread domain: everything in this module runs on
 # HTTP handler threads (ThreadingHTTPServer — the nested Handler class
 # inherits this module domain). Calls into engine-domain state must go
 # through the scheduler's declared crossing points (_THREAD_SAFE);
@@ -133,13 +142,35 @@ def _parse_guide(body: dict, engine):
         raise ValueError(f"bad response_format: {e}")
 
 
-def _refuse_unported(body: dict) -> None:
-    """The disaggregated prefill/decode fields need modules that are not
-    ported yet: a clear 400, never a silent local run."""
-    for field in ("_disagg", "_resume"):
-        if body.get(field) is not None:
-            raise ValueError(f"'{field}': disaggregated prefill/decode is "
-                             "not ported yet")
+def _parse_disagg(body: dict, scheduler) -> tuple[dict | None, str | None]:
+    """Validate the disagg extension fields a tier-aware gateway injects:
+    ``_disagg`` ({"target": "host:port"}) asks this replica to prefill
+    and ship the KV pages to the target's transfer channel; ``_resume``
+    ({"xfer_id": ...}) asks it to continue an imported stream. Returns
+    ``(handoff, resume_xfer)``; raises ValueError on a malformed or
+    unsupported combination."""
+    dis, res = body.get("_disagg"), body.get("_resume")
+    if dis is None and res is None:
+        return None, None
+    if dis is not None and res is not None:
+        raise ValueError("'_disagg' and '_resume' are mutually exclusive")
+    if not (hasattr(scheduler.engine, "export_stream")
+            and getattr(scheduler.engine, "paged", False)):
+        raise ValueError(
+            "this replica cannot move KV pages (disagg needs the batched "
+            "mesh engine with --kv-layout paged)")
+    if dis is not None:
+        if not isinstance(dis, dict) or not isinstance(
+                dis.get("target"), str):
+            raise ValueError("'_disagg' must be {\"target\": \"host:port\"}")
+        host, _, port = dis["target"].rpartition(":")
+        if not host or not port.isdigit():
+            raise ValueError(
+                f"'_disagg' target {dis['target']!r} is not host:port")
+        return {"host": host, "port": int(port)}, None
+    if not isinstance(res, dict) or not isinstance(res.get("xfer_id"), str):
+        raise ValueError("'_resume' must be {\"xfer_id\": \"...\"}")
+    return None, res["xfer_id"]
 
 
 def _parse_request(body: dict, scheduler) -> Session:
@@ -147,7 +178,6 @@ def _parse_request(body: dict, scheduler) -> Session:
     with a client-facing message)."""
     if not isinstance(body, dict):
         raise ValueError("body must be a JSON object")
-    _refuse_unported(body)
     prompt = body.get("prompt")
     prompt_ids = body.get("prompt_ids")
     if (prompt is None) == (prompt_ids is None):
@@ -216,7 +246,7 @@ def _parse_request(body: dict, scheduler) -> Session:
 class ApiServer:
     """The serving front end; ``start_api_server`` is the entry point."""
 
-    _GUARDED_BY = {"_batches": "_batch_lock"}
+    _GUARDED_BY = {"_relays": "_relay_lock", "_batches": "_batch_lock"}
 
     def __init__(self, scheduler, status_fn=None, bind: str = "127.0.0.1",
                  port: int = 0, model_id: str = "cake-tpu", on_drain=None):
@@ -225,11 +255,16 @@ class ApiServer:
         # rolling-restart hook: called (handler thread) after a
         # /v1/fleet/drain ack so the process can schedule its own exit
         self.on_drain = on_drain
+        self._relay_lock = threading.Lock()
+        self._relays = 0
         # /v1/batch registry: results land here as each
         # prompt finishes, so a client that disconnected mid-batch
         # re-fetches by id instead of re-running N prompts
         self._batch_lock = threading.Lock()
         self._batches: dict[str, dict] = {}
+        # set once a drain carries a migrate_to target: drain() then
+        # waits for handler threads still splicing sibling streams
+        self._migrating = threading.Event()
         if status_fn is None:
             def status_fn():
                 from cake_tpu_torch.obs import metrics as obs_metrics
@@ -256,8 +291,39 @@ class ApiServer:
         leak the bound port."""
         try:
             self.scheduler.stop(drain=True, timeout_s=timeout_s)
+            self._await_relays(timeout_s)
         finally:
             self.close()
+
+    def _relay_enter(self) -> None:
+        with self._relay_lock:
+            self._relays += 1
+
+    def _relay_exit(self) -> None:
+        with self._relay_lock:
+            self._relays -= 1
+
+    def _await_relays(self, timeout_s: float) -> None:
+        """Drain helper: wait out in-flight migration relays (handler
+        threads splicing a sibling's stream onto their client) before
+        the process tears down — exiting under them would fail the very
+        streams the migration saved. The settle window covers the gap
+        between the engine thread queueing a migrate event and the
+        handler thread entering its relay. No-op unless a migrate
+        drain actually started."""
+        if not self._migrating.is_set():
+            return
+        deadline = time.monotonic() + max(0.0, timeout_s)
+        quiet_t = time.monotonic()
+        while time.monotonic() < deadline:
+            with self._relay_lock:
+                busy = self._relays > 0
+            now = time.monotonic()
+            if busy:
+                quiet_t = now
+            elif now - quiet_t >= 0.25:
+                return
+            time.sleep(0.05)
 
     def close(self) -> None:
         try:
@@ -273,6 +339,15 @@ def start_api_server(scheduler, status_fn=None, bind: str = "127.0.0.1",
     bound (``port=0`` picks an ephemeral one)."""
     return ApiServer(scheduler, status_fn=status_fn, bind=bind, port=port,
                      model_id=model_id, on_drain=on_drain).start()
+
+
+def _iter_sse(resp):
+    """Yield each SSE frame's data payload (str) from a sibling's
+    streaming HTTP response."""
+    for line in resp:
+        line = line.strip()
+        if line.startswith(b"data: "):
+            yield line[6:].decode()
 
 
 def _make_handler(server: ApiServer):
@@ -314,21 +389,28 @@ def _make_handler(server: ApiServer):
                     "running": st["running"],
                     "max_concurrent": st["max_concurrent"],
                     "tok_s_ema": st["observed_tok_s"],
-                    "role": st["role"],
-                    # KV transfers between replicas (not ported: 0), and
-                    # the spill pressure: victims parked in host RAM are
-                    # latent load that will resume here
+                    # disagg tier map: the gateway's prober learns the
+                    # replica's role, its transfer address, and the KV
+                    # transfers currently in flight from the SAME GET
+                    # that feeds the p2c load signal
+                    "role": st.get("role", "mixed"),
                     "kv_transfers_inflight": st.get(
                         "kv_transfers_inflight", 0),
+                    # spill pressure: victims parked in host
+                    # RAM are latent load that WILL resume here — the
+                    # gateway's p2c signal folds them into load_score
                     "spilled": st.get("spilled", 0),
                     "preemptions": st.get("preemptions", 0),
                 }
+                if st.get("transfer_port"):
+                    body["transfer_port"] = st["transfer_port"]
                 eng_st = st.get("engine")
                 kv = (eng_st.get("kvpool")
                       if isinstance(eng_st, dict) else None)
                 if kv:
-                    # paged-KV pressure: a pool out of free pages defers
-                    # admissions even when slots look open
+                    # paged-KV pressure rides the same cheap load body:
+                    # a pool out of free pages defers admissions even
+                    # when slots look open
                     body["kv_pages_free"] = kv["pages_free"]
                 if st.get("slo"):
                     # SLO burn state (--slo-ttft-ms/--slo-tpot-ms) rides
@@ -400,24 +482,43 @@ def _make_handler(server: ApiServer):
                 return
             try:
                 sess = _parse_request(body, scheduler)
+                sess.handoff, sess.resume_xfer = _parse_disagg(body,
+                                                               scheduler)
             except ValueError as e:
                 self._error(400, str(e))
                 return
+            # kept so a drain can re-submit this request to a sibling
+            # if it re-homes the session mid-flight
+            sess.raw_body = body
             # request-scoped trace context: honor the client/gateway's
             # traceparent (or mint one), and judge completed requests
             # against the replica's SLO targets, if any
             sess.reqtrace = obs_reqtrace.ReqTrace.from_header(
                 self.headers.get(obs_reqtrace.HEADER))
             sess.slo = scheduler.slo
+            if scheduler.role == "prefill" and sess.handoff is None:
+                # a prefill-tier replica runs bucketed prefill ONLY; a
+                # request without a handoff target would decode here and
+                # defeat the tier split — refuse loudly so a misrouted
+                # gateway (or curl) learns immediately
+                self._error(400, "this replica is prefill-tier: "
+                                 "completions must arrive via a "
+                                 "disagg-aware gateway (_disagg target)")
+                return
+            if sess.resume_xfer is not None:
+                if not self._replay_resume(sess):
+                    return  # 409 (unknown transfer) or completed-by-replay
             try:
                 scheduler.submit(sess)
             except QueueFull as e:
                 # never block the accept loop: full queue answers 429 with
                 # the observed-throughput Retry-After hint
+                self._abort_resume_import(sess)
                 self._error(429, str(e), headers={
                     "Retry-After": str(max(1, round(e.retry_after_s)))})
                 return
             except Draining:
+                self._abort_resume_import(sess)
                 self._error(503, "server is draining")
                 return
             # a handler dying mid-pump (any reason, not just the client
@@ -425,13 +526,105 @@ def _make_handler(server: ApiServer):
             # would keep generating into a queue nobody drains until its
             # token budget runs out
             try:
-                if sess.stream:
+                if sess.handoff is not None:
+                    self._handoff_response(sess)
+                elif sess.stream:
                     self._stream_response(sess)
                 else:
                     self._unary_response(sess)
             finally:
                 if sess.finish_reason is None:
                     scheduler.cancel(sess)
+
+        def _abort_resume_import(self, sess) -> None:
+            """A resume refused before admission will never attach: drop
+            its begun import NOW so the pinned pages do not sit out the
+            import TTL while the gateway re-prefills elsewhere."""
+            if sess.resume_xfer is not None:
+                scheduler.abort_import(sess.resume_xfer)
+
+        def _replay_resume(self, sess) -> bool:
+            """Prime a resume session with the snapshot's already-
+            generated tokens (the decode replica re-emits the WHOLE
+            stream, so the client's view is identical to an
+            uninterrupted one). Returns False when the response was
+            already written: unknown transfer (409 — the gateway
+            re-prefills) or the replay alone satisfied the request (the
+            import is aborted and the stream never attaches)."""
+            meta = scheduler.import_meta(sess.resume_xfer)
+            if meta is None:
+                self._error(409, f"unknown or expired transfer "
+                                 f"{sess.resume_xfer!r}; re-prefill")
+                return False
+            for tok, text in zip(meta["generated"], meta["texts"]):
+                sess.on_token(tok, text)
+                # clamp inside the loop: a snapshot may carry more
+                # tokens than THIS request's budget allows
+                if sess.stop_hit or len(sess.generated) >= sess.max_tokens:
+                    break
+            if sess.stop_hit or len(sess.generated) >= sess.max_tokens:
+                scheduler.abort_import(sess.resume_xfer)
+                sess.finish("stop" if sess.stop_hit else "length")
+                if sess.stream:
+                    self._stream_response(sess)
+                else:
+                    self._unary_response(sess)
+                return False
+            return True
+
+        def _handoff_response(self, sess) -> None:
+            """Wait for the engine's export, ship it over the transfer
+            channel (retry/backoff — on THIS thread, never the engine's),
+            and answer the gateway with the transfer id to resume."""
+            from cake_tpu_torch.disagg import (
+                TransferError,
+                peek_xfer_id,
+                send_snapshot,
+            )
+
+            ev = self._next_event(sess)
+            if ev[0] == "error":
+                _, status, message = ev
+                self._error(status, message)
+                return
+            if ev[0] == "migrate":
+                # drain re-home: the sibling re-runs prefill+handoff
+                # from the original body; its answer (the decode-side
+                # xfer id) relays as-is
+                self._migrate_unary(sess, None, ev[2])
+                return
+            if ev[0] != "handoff":  # e.g. a deadline fired mid-prefill
+                self._error(504, f"prefill did not complete ({ev[0]}); "
+                                 "re-prefill")
+                return
+            payload = ev[1]
+            ctx = sess.reqtrace
+            scheduler.xfer_out_enter()
+            try:
+                send_snapshot(sess.handoff["host"], sess.handoff["port"],
+                              payload,
+                              deadline_s=scheduler.transfer_deadline_s,
+                              trace=ctx)
+            except TransferError as e:
+                # retry budget exhausted or receiver rejected: the pages
+                # are gone with this replica's slot — tell the gateway
+                # to re-prefill (502: infrastructure, not client, fault)
+                self._json(502, {"handoff": False, "error": str(e)})
+                return
+            finally:
+                scheduler.xfer_out_exit()
+                if ctx is not None:
+                    # the prefill half of the request ends here; make
+                    # its spans (queue/admit/export/transfer attempts)
+                    # queryable under the request id
+                    ctx.request_id = sess.id
+                    obs_reqtrace.request_log().put(ctx)
+            self._json(200, {
+                "handoff": True,
+                "xfer_id": peek_xfer_id(payload),
+                "prompt_tokens": len(sess.prompt_ids),
+                "snapshot_bytes": len(payload),
+            })
 
         def _batch_request(self) -> None:
             """``POST /v1/batch``: N prompts in, one JSON
@@ -498,6 +691,7 @@ def _make_handler(server: ApiServer):
                 except ValueError as e:
                     record(i, {"error": str(e), "status": 400})
                     continue
+                sess.raw_body = per
                 sess.slo = scheduler.slo
                 pending.append((i, sess))
             active: deque = deque()
@@ -549,6 +743,11 @@ def _make_handler(server: ApiServer):
                         if scheduler.engine.tokenizer is not None:
                             out["text"] = "".join(texts)
                         return out
+                    elif ev[0] == "migrate":
+                        # batches don't relay: the prompt re-runs via
+                        # a re-POST against the sibling
+                        return {"error": "replica drained mid-batch; "
+                                         "re-submit", "status": 503}
                     else:
                         return {"error": ev[2], "status": ev[1]}
             finally:
@@ -556,11 +755,11 @@ def _make_handler(server: ApiServer):
                     scheduler.cancel(sess)
 
         def _fleet_drain(self) -> None:
-            """Gateway-initiated drain (classic: in-flight streams finish
-            here). A ``migrate_to`` target would re-home live sessions
-            through the disaggregated KV plane, which is not ported yet:
-            400. The ack is written before the process-exit hook fires so
-            the caller always sees it."""
+            """Gateway-initiated rolling restart: begin a
+            drain that re-homes live sessions to the sibling named in
+            ``migrate_to`` (absent = classic drain). The ack is written
+            before the process-exit hook fires so the caller always
+            sees it."""
             try:
                 length = int(self.headers.get("Content-Length", 0))
                 body = json.loads(self.rfile.read(length) or b"{}")
@@ -569,15 +768,144 @@ def _make_handler(server: ApiServer):
                 return
             target = body.get("migrate_to") if isinstance(body, dict) \
                 else None
-            if target is not None:
-                self._error(400, "'migrate_to': re-homing sessions needs "
-                                 "the disaggregated KV plane, not ported "
-                                 "yet")
+            if target is not None and not (
+                    isinstance(target, dict)
+                    and isinstance(target.get("addr"), str)):
+                self._error(400, "'migrate_to' must be "
+                                 "{\"addr\": \"host:port\", ...}")
                 return
-            scheduler.begin_drain()
-            self._json(200, {"ok": True, "draining": True, "migrating": 0})
+            if target is not None:
+                server._migrating.set()
+            n = scheduler.migrate_out(target)
+            self._json(200, {"ok": True, "draining": True, "migrating": n})
             if server.on_drain is not None:
                 server.on_drain()
+
+        def _migrate_post(self, sess, payload, target):
+            """Ship the KV snapshot (if any) to the sibling's transfer
+            channel and re-submit the original request there as a
+            resume. Falls back to a plain full re-run when the snapshot
+            cannot be delivered — decoding is deterministic, so the
+            sibling reproduces the same stream either way. Returns
+            ``(conn, response)``; the caller owns both."""
+            import http.client
+
+            from cake_tpu_torch.disagg import (
+                TransferError,
+                peek_xfer_id,
+                send_snapshot,
+            )
+
+            body = dict(sess.raw_body or {})
+            # a queued resume's import was aborted with the drain; the
+            # sibling re-prefills from the prompt the body still carries
+            body.pop("_resume", None)
+            if payload is not None:
+                body.pop("_disagg", None)
+                try:
+                    xfer = target.get("transfer")
+                    if not isinstance(xfer, str):
+                        raise TransferError(
+                            "sibling advertises no transfer channel")
+                    host, _, port = xfer.rpartition(":")
+                    scheduler.xfer_out_enter()
+                    try:
+                        send_snapshot(
+                            host, int(port), payload,
+                            deadline_s=scheduler.transfer_deadline_s,
+                            trace=sess.reqtrace)
+                    finally:
+                        scheduler.xfer_out_exit()
+                    body["_resume"] = {"xfer_id": peek_xfer_id(payload)}
+                except TransferError as e:
+                    log.warning("drain snapshot ship failed (%s); the "
+                                "sibling re-runs request %s in full",
+                                e, sess.id)
+            host, _, port = target["addr"].rpartition(":")
+            raw = json.dumps(body).encode()
+            headers = {"Content-Type": "application/json"}
+            if sess.reqtrace is not None:
+                headers[obs_reqtrace.HEADER] = sess.reqtrace.header()
+            conn = http.client.HTTPConnection(host, int(port),
+                                              timeout=30.0)
+            conn.request("POST", "/v1/completions", raw, headers)
+            return conn, conn.getresponse()
+
+        def _migrate_stream(self, sess, payload, target,
+                            index: int) -> None:
+            """Splice the sibling's stream onto this connection: the
+            sibling re-emits the WHOLE stream (resume replay), so the
+            first ``index`` token frames — already delivered here — are
+            skipped and the rest flow through, making the client's view
+            bit-identical to an uninterrupted run. On failure before
+            the first relayed byte the connection just closes: the
+            gateway has not committed the response (it withholds the
+            head until the first body byte) and retries transparently
+            against a healthy sibling."""
+            server._relay_enter()
+            wrote = False
+            conn = None
+            try:
+                conn, resp = self._migrate_post(sess, payload, target)
+                if resp.status != 200:
+                    raise OSError(f"sibling answered {resp.status}")
+                for data in _iter_sse(resp):
+                    if data == "[DONE]":
+                        self.wfile.write(sse_event("[DONE]"))
+                        self.wfile.flush()
+                        return
+                    frame = json.loads(data)
+                    if frame.get("error") is not None:
+                        raise OSError(
+                            f"sibling stream failed: {frame['error']}")
+                    if frame.get("done"):
+                        frame["id"] = sess.id
+                    elif frame.get("index", 0) < index:
+                        continue  # already delivered by this replica
+                    self.wfile.write(sse_event(frame))
+                    self.wfile.flush()
+                    wrote = True
+                raise OSError("sibling stream ended without [DONE]")
+            except Exception as e:
+                log.warning("migrate relay for %s failed: %s", sess.id, e)
+                if wrote or index > 0:
+                    # mid-stream: the response is committed — the best
+                    # remaining option is an explicit error frame
+                    try:
+                        self.wfile.write(sse_event(
+                            {"id": sess.id, "status": 502,
+                             "error": f"migration relay failed: {e}"}))
+                        self.wfile.flush()
+                    except OSError:
+                        pass
+            finally:
+                if conn is not None:
+                    conn.close()
+                server._relay_exit()
+
+        def _migrate_unary(self, sess, payload, target) -> None:
+            """Re-run/resume on the sibling and relay its answer under
+            the original request id. Nothing has been written to this
+            client yet, so a failure just closes the connection — the
+            gateway retries uncommitted responses transparently."""
+            server._relay_enter()
+            conn = None
+            try:
+                conn, resp = self._migrate_post(sess, payload, target)
+                out = json.loads(resp.read())
+                if resp.status != 200:
+                    raise OSError(f"sibling answered {resp.status}: {out}")
+                if "id" in out:
+                    out["id"] = sess.id
+                self._json(200, out)
+            except (BrokenPipeError, ConnectionResetError):
+                pass
+            except Exception as e:
+                log.warning("migrate relay for %s failed: %s", sess.id, e)
+            finally:
+                if conn is not None:
+                    conn.close()
+                server._relay_exit()
 
         def _next_event(self, sess):
             """Block on the session queue, but never past a dead engine
@@ -621,6 +949,10 @@ def _make_handler(server: ApiServer):
                         self.wfile.write(sse_event("[DONE]"))
                         self.wfile.flush()
                         return
+                    elif ev[0] == "migrate":
+                        _, payload, target = ev
+                        self._migrate_stream(sess, payload, target, index)
+                        return
                     else:  # error
                         _, status, message = ev
                         self.wfile.write(sse_event(
@@ -641,6 +973,11 @@ def _make_handler(server: ApiServer):
                 if ev[0] == "token":
                     if ev[2]:
                         texts.append(ev[2])
+                elif ev[0] == "migrate":
+                    # the sibling re-runs the whole request; its full
+                    # answer supersedes the tokens collected so far
+                    self._migrate_unary(sess, ev[1], ev[2])
+                    return
                 elif ev[0] == "done":
                     _, reason, usage, tail = ev
                     if tail:

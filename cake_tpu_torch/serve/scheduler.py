@@ -42,9 +42,16 @@ SLO-aware scheduling, ``sched_policy="slo"`` (the default;
   the session's ``tenant`` (defaults to its class): over-budget tenants
   queue behind in-budget arrivals of the same class and are preferred
   preemption victims (``serve.tenant_throttled``).
-
-The JAX package's disaggregated prefill/decode roles, KV transfers
-between replicas and drain migration to a sibling are not ported yet.
+- **Replica roles** (``role``): "prefill" runs prefill only and hands each
+  stream's KV pages to a decode replica at its first token
+  (``_handoff_one``: export on the engine thread, the send on the
+  handler's); "decode" imports snapshots that arrive over the transfer
+  channel (``submit_import``, an inbox the engine thread drains; begun
+  imports that no resume claims expire after ``import_ttl_s``) and runs
+  the batched step; "mixed" does both in one engine.
+- **Drain migration** (``migrate_out``): a drain with a sibling re-homes
+  every live session there -- queued ones re-run whole, admitted ones
+  ride a KV snapshot -- instead of making clients wait it out.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import os
+import queue
 import threading
 import time
 from collections import deque
@@ -70,6 +78,22 @@ log = logging.getLogger("cake_tpu_torch.serve.scheduler")
 # preemption (the single-tenant baseline)
 SCHED_POLICIES = ("slo", "fifo")
 
+# replica roles (cake_tpu_torch/disagg): what this scheduler does with a
+# request is role-driven -- "prefill" runs prefill only and hands the
+# finished KV pages off at the first token; "decode" imports pages and
+# runs the steady-state batched step (it still serves plain requests: that
+# is the gateway's re-prefill fallback); "mixed" is the classic replica.
+ROLES = ("mixed", "prefill", "decode")
+
+# KV transfers in flight on this replica (outgoing handoff sends + imports
+# awaiting their resume): the /healthz kv_transfers_inflight field the
+# gateway's tier map reads
+_INFLIGHT = obs_metrics.gauge("disagg.inflight")
+
+# sessions re-homed to a sibling replica by a drain: queued ones re-run
+# whole, admitted ones ride a KV snapshot
+MIGRATED = obs_metrics.counter("serve.migrated_sessions")
+
 # batch victims spilled to host RAM for an interactive arrival, how long
 # their resume took (import begin through attach queued, replay
 # included), and admissions where an over-budget tenant was queued behind
@@ -77,11 +101,6 @@ SCHED_POLICIES = ("slo", "fifo")
 PREEMPTIONS = obs_metrics.counter("serve.preemptions")
 RESUME_MS = obs_metrics.histogram("serve.resume_ms")
 THROTTLED = obs_metrics.counter("serve.tenant_throttled")
-
-# The JAX server's drain-migration series: migration to a sibling is not
-# ported; it is declared so that /metrics lists the same serve.* series as
-# the JAX server, and reads 0.
-obs_metrics.counter("serve.migrated_sessions")
 
 
 class TenantAccounts:
@@ -166,32 +185,37 @@ class Scheduler:
         "_stopping": "_cond",
         "_engine_stats": "_cond",
         "_spilled": "_cond",
+        "_import_inbox": "_cond",
+        "_imports_meta": "_cond",
+        "_xfer_out": "_cond",
+        "_migrate_to": "_cond",
     }
 
     # Thread domains, machine-checked by the thread-domain contract: the class
     # is engine-domain (only the engine thread runs its un-listed
     # methods), and _THREAD_SAFE names the crossing points — the
     # handler-facing API that hands work across the boundary through the
-    # condition lock and the admission queue instead of touching the
-    # engine. `start` primes the engine on the caller's
+    # condition lock, the admission queue and the import inbox instead of
+    # touching the engine. `start` primes the engine on the caller's
     # thread happens-before the engine thread exists, so it counts as
     # engine-domain code. The runtime twin (CAKE_THREAD_STRICT=1,
     # runtime/threadcheck) stamps the engine thread at _run entry and
     # asserts membership in the engine's annotated mutators.
     _THREAD_DOMAIN = "engine"
     _THREAD_OF = {"start": "engine"}
-    # the wire activation codec a spilled snapshot's pages ride: "none" is
-    # lossless for every cache (the JAX scheduler's --transfer-codec,
-    # which comes with the KV transfer plane, defaults to it)
-    transfer_codec = "none"
     _THREAD_SAFE = (
         "submit", "cancel", "stop", "close", "encode_prompt",
-        "retry_after_s", "stats", "begin_drain",
+        "submit_import", "abort_import", "import_meta",
+        "xfer_out_enter", "xfer_out_exit", "kv_transfers_inflight",
+        "retry_after_s", "stats", "_sync_inflight", "migrate_out",
+        "can_migrate",
     )
 
     def __init__(self, engine, queue_depth: int = 64,
                  request_timeout_s: float | None = None,
-                 role: str = "mixed",
+                 role: str = "mixed", transfer_codec: str = "none",
+                 transfer_deadline_s: float = 15.0,
+                 import_ttl_s: float = 120.0,
                  slo: obs_reqtrace.SloTracker | None = None,
                  sched_policy: str = "slo", spill_mb: float = 64.0,
                  fairness_factor: float = 2.0):
@@ -200,16 +224,25 @@ class Scheduler:
         if sched_policy not in SCHED_POLICIES:
             raise ValueError(f"sched_policy must be one of "
                              f"{SCHED_POLICIES}, got {sched_policy!r}")
-        if role != "mixed":
-            # the prefill and decode roles hand streams between replicas
+        if role not in ROLES:
+            raise ValueError(f"role must be one of {ROLES}, got {role!r}")
+        if role != "mixed" and not (hasattr(engine, "export_stream")
+                                    and getattr(engine, "paged", False)):
             raise ValueError(
-                f"role {role!r} needs a disagg-capable engine and the KV "
-                "transfer plane between replicas, not ported yet; the "
-                "port serves 'mixed'")
+                f"role {role!r} needs a disagg-capable engine "
+                "(BatchGenerator with kv_layout='paged')")
         self.engine = engine
         self.queue_depth = queue_depth
         self.request_timeout_s = request_timeout_s
+        # disagg plane: role and KV-transfer knobs. The transfer listener
+        # (if any) reports its port here so /healthz can advertise it to
+        # the gateway's tier map. transfer_codec is the wire activation
+        # codec a handoff's, a migration's and a spilled snapshot's pages
+        # ride ("none" is lossless for every cache).
         self.role = role
+        self.transfer_codec = transfer_codec
+        self.transfer_deadline_s = transfer_deadline_s
+        self.import_ttl_s = import_ttl_s
         # SLO accounting (--slo-ttft-ms/--slo-tpot-ms): sessions judge
         # themselves against this tracker at finish (obs/reqtrace)
         self.slo = slo
@@ -232,6 +265,7 @@ class Scheduler:
         # testing/chaos.SpillChaos hook, consulted on the engine thread at
         # the preempt/resume protocol points (tests arm it directly)
         self.spill_chaos = None
+        self.transfer_port: int | None = None
         self.max_concurrent = 0  # set by start()
         self._queue: deque[Session] = deque()
         self._by_sid: dict[int, Session] = {}
@@ -240,6 +274,18 @@ class Scheduler:
         self._thread: threading.Thread | None = None
         self._stopping = False
         self._draining = False
+        # KV-transfer state: the import inbox feeds snapshot payloads from
+        # transfer-listener threads to the engine thread (the only thread
+        # allowed to touch the engine/pool); the meta map mirrors begun
+        # imports for the resume handler; _xfer_out counts outgoing
+        # handoff sends in flight
+        self._import_inbox: deque = deque()
+        self._imports_meta: dict[str, dict] = {}
+        self._xfer_out = 0
+        # drain migration target ({"addr", "transfer"}): set by
+        # migrate_out, consumed by the engine thread's _migrate_all
+        self._migrate_to: dict | None = None
+        self._last_sweep = time.monotonic()
         # engine-stats snapshot for handler threads: the engine thread
         # refreshes it every loop pass, so stats()/healthz never walk
         # live engine state from a foreign thread 
@@ -347,13 +393,140 @@ class Scheduler:
         with self._cond:
             self._cond.notify_all()
 
-    def begin_drain(self) -> None:
-        """Stop admitting (a gateway-initiated drain): queued sessions are
-        refused with a 503 at the engine thread's next pass, in-flight
-        streams finish."""
+    def can_migrate(self) -> bool:
+        """Admitted streams can ride a KV snapshot to a sibling (the
+        disagg export plane). Queued sessions re-home regardless."""
+        return bool(hasattr(self.engine, "export_stream")
+                    and getattr(self.engine, "paged", False))
+
+    def migrate_out(self, target: dict | None) -> int:
+        """Begin a drain that RE-HOMES live sessions instead of making
+        clients wait it out (rolling restarts): stop admitting,
+        and ask the engine thread to hand every live session to its
+        handler with a migration target — queued sessions re-run whole
+        on the sibling, admitted ones export their stream via the
+        existing disagg snapshot path. ``target`` is ``{"addr":
+        "host:port", "transfer": "host:port"}`` (None = classic drain:
+        in-flight streams finish here). Returns the number of sessions
+        that will migrate."""
         with self._cond:
             self._draining = True
+            n = 0
+            if target is not None and isinstance(target.get("addr"), str):
+                self._migrate_to = dict(target)
+                n = len(self._queue) + len(self._by_sid)
             self._cond.notify_all()
+        return n
+
+    # -- KV-transfer plane (cake_tpu_torch/disagg) ----------------------------
+    def submit_import(self, payload: bytes, timeout_s: float = 10.0) -> dict:
+        """Hand an inbound snapshot to the engine thread and wait for its
+        verdict (called by the transfer listener). Parse + fingerprint
+        validation happen on the engine thread (`import_begin`); pool
+        pressure does NOT delay the verdict — the pages land later via
+        the engine's FIFO-fair arrival queue. Raises ``ValueError`` with
+        the refusal reason (the sender's XFER_REJECT) on a bad snapshot,
+        ``TimeoutError`` when the engine thread is wedged or gone."""
+        reply: queue.Queue = queue.Queue()
+        with self._cond:
+            if self._draining:
+                raise ValueError("replica is draining; re-prefill elsewhere")
+            self._import_inbox.append(("begin", payload, reply))
+            self._cond.notify_all()
+        try:
+            verdict, value = reply.get(timeout=timeout_s)
+        except queue.Empty:
+            raise TimeoutError("engine thread did not pick up the import")
+        if verdict == "err":
+            raise ValueError(value)
+        return value
+
+    def abort_import(self, xfer_id: str) -> None:
+        """Queue an import abort (resume satisfied by the replay alone,
+        or the caller gave up) — processed on the engine thread."""
+        with self._cond:
+            self._import_inbox.append(("abort", xfer_id, None))
+            self._cond.notify_all()
+
+    def import_meta(self, xfer_id: str) -> dict | None:
+        """Resume metadata for a begun import (None = unknown/expired)."""
+        with self._cond:
+            meta = self._imports_meta.get(xfer_id)
+            return dict(meta) if meta is not None else None
+
+    def xfer_out_enter(self) -> None:
+        with self._cond:
+            self._xfer_out += 1
+        self._sync_inflight()
+
+    def xfer_out_exit(self) -> None:
+        with self._cond:
+            self._xfer_out -= 1
+        self._sync_inflight()
+
+    def kv_transfers_inflight(self) -> int:
+        with self._cond:
+            return self._xfer_out + len(self._imports_meta)
+
+    def _sync_inflight(self) -> None:
+        _INFLIGHT.set(self.kv_transfers_inflight())
+
+    def _drain_import_inbox(self) -> None:
+        """Engine thread: apply queued KV-transfer ops."""
+        while True:
+            with self._cond:
+                if not self._import_inbox:
+                    return
+                kind, payload, reply = self._import_inbox.popleft()
+            if kind == "begin":
+                t_begin = time.time()
+                try:
+                    meta = self.engine.import_begin(payload)
+                except Exception as e:
+                    if reply is not None:
+                        reply.put(("err", str(e)))
+                    continue
+                with self._cond:
+                    self._imports_meta[meta["xfer_id"]] = dict(
+                        meta, t=time.monotonic())
+                self._sync_inflight()
+                ctx = obs_reqtrace.ReqTrace.from_wire(meta.get("trace"))
+                if ctx is not None:
+                    # the snapshot carried its request's trace context:
+                    # land the import as a span parented under the
+                    # prefill tier's export, and make it queryable here
+                    ctx.add_span("disagg.import", t_begin,
+                                 (time.time() - t_begin) * 1e3,
+                                 xfer=meta["xfer_id"])
+                    obs_reqtrace.request_log().put(ctx)
+                if reply is not None:
+                    reply.put(("ok", meta))
+            else:  # abort
+                self.engine.import_abort(payload)
+                with self._cond:
+                    self._imports_meta.pop(payload, None)
+                self._sync_inflight()
+
+    def _sweep_imports(self) -> bool:
+        """Engine thread, ~1/s: expire begun-but-unresumed imports so an
+        orphaned transfer (gateway died between ACK and resume) cannot
+        pin pool pages forever. Returns True when a sweep pass ran (the
+        parked loop refreshes the stats snapshot on that cadence — a
+        sweep can unpin pages with no work pass in sight)."""
+        now = time.monotonic()
+        if now - self._last_sweep < 1.0:
+            return False
+        self._last_sweep = now
+        if hasattr(self.engine, "expire_imports"):
+            self.engine.expire_imports(self.import_ttl_s)
+        with self._cond:
+            stale = [x for x, m in self._imports_meta.items()
+                     if now - m["t"] > self.import_ttl_s]
+            for x in stale:
+                self._imports_meta.pop(x, None)
+        if stale:
+            self._sync_inflight()
+        return True
 
     def _refresh_engine_stats(self, best_effort: bool = False) -> None:
         """Engine thread: publish the stats snapshot handler threads
@@ -410,8 +583,9 @@ class Scheduler:
             "preemptions": self._n_preempt,
             **({"spill": self._spill.stats()}
                if self._spill is not None else {}),
-            # KV transfers between replicas are not ported: none in flight
-            "kv_transfers_inflight": 0,
+            "kv_transfers_inflight": self.kv_transfers_inflight(),
+            **({"transfer_port": self.transfer_port}
+               if self.transfer_port else {}),
             **({"slo": self.slo.snapshot()}
                if self.slo is not None else {}),
             "engine": engine_stats,
@@ -419,7 +593,9 @@ class Scheduler:
 
     # -- engine thread --------------------------------------------------------
     def _has_work_locked(self) -> bool:
-        return bool(self._queue or self._by_sid or self._spilled
+        return bool(self._queue or self._by_sid or self._import_inbox
+                    or self._spilled
+                    or self._migrate_to is not None
                     or self.engine.pending_admissions())
 
     def _run(self) -> None:
@@ -456,10 +632,24 @@ class Scheduler:
                         "idle_park",
                         (time.perf_counter() - t_park) * 1e3)
                     self._expire_queued_locked()
+                    # imports awaiting resume are not work (nothing to
+                    # step), but their TTL must still tick while parked,
+                    # and a sweep that runs can unpin pages, so the
+                    # handler-facing stats snapshot refreshes with it (the
+                    # condition's RLock makes the re-acquire safe)
+                    if self._sweep_imports():
+                        self._refresh_engine_stats()
                 if self._stopping or (self._draining
                                       and not self._has_work_locked()):
                     break
             try:
+                self._drain_import_inbox()
+                self._sweep_imports()
+                if self._migrate_all():
+                    # the slot set just went empty: skip the engine step
+                    # and let the top-of-loop drain check park/exit
+                    self._refresh_engine_stats(best_effort=True)
+                    continue
                 self._admit()
                 row = self.engine.step()
                 steps += 1
@@ -497,12 +687,24 @@ class Scheduler:
             if s.cancelled.is_set():
                 _session.CANCELLED.inc()
             elif self._draining:
-                s.fail(503, "server is draining; retry against a peer")
+                if self._migrate_to is not None:
+                    # drain with a sibling: re-home instead of refusing --
+                    # nothing was emitted yet, so the session re-runs
+                    # whole over there and the client sees one stream
+                    s.migrate_ready(None, self._migrate_to)
+                    MIGRATED.inc()
+                else:
+                    s.fail(503, "server is draining; retry against a peer")
             elif s.deadline is not None and now > s.deadline:
                 _session.TIMEOUTS.inc()
                 s.fail(504, "deadline expired while queued")
             else:
                 keep.append(s)
+                continue
+            # a refused resume will never attach: release its begun
+            # import's pinned pages now instead of waiting out the TTL
+            if s.resume_xfer is not None:
+                self._import_inbox.append(("abort", s.resume_xfer, None))
         if len(keep) != len(self._queue):
             self._queue = keep
             _session.QUEUE_DEPTH.set(len(self._queue))
@@ -575,7 +777,8 @@ class Scheduler:
         return ("admit", sess)
 
     def _admit_one(self, sess: Session) -> None:
-        """Hand one queued session to the engine (``enqueue``)."""
+        """Hand one queued session to the engine (``enqueue``, or attach a
+        begun import for a gateway-routed resume)."""
         with self._cond:
             sid = self._next_sid
             self._next_sid += 1
@@ -589,13 +792,24 @@ class Scheduler:
                       if ctx is not None else contextlib.nullcontext())
         try:
             with admit_span:
+                if sess.resume_xfer is not None:
+                    # a resumed import: attach the already-landed pages to
+                    # a slot (a page-table edit) -- the snapshot, not the
+                    # request body, is the source of stream state
+                    self.engine.import_attach(sess.resume_xfer, sid)
+                    with self._cond:
+                        self._imports_meta.pop(sess.resume_xfer, None)
+                    self._sync_inflight()
                 # guide= only when constrained: an unconstrained admission
                 # keeps the bare call every engine speaks
-                if sess.guide is not None:
+                elif sess.guide is not None:
                     self.engine.enqueue(sess.prompt_ids, sid,
                                         guide=sess.guide)
                 else:
                     self.engine.enqueue(sess.prompt_ids, sid)
+        except KeyError as e:  # unknown/expired transfer
+            sess.fail(409, str(e))
+            return
         except ValueError as e:  # encode raced the window, etc.
             sess.fail(400, str(e))
             return
@@ -715,7 +929,7 @@ class Scheduler:
             cands = [
                 (sid, sess) for sid, sess in self._by_sid.items()
                 if CLASSES.index(sess.cls) > want
-                and sess.logprobs == 0
+                and sess.handoff is None and sess.logprobs == 0
                 and sess.finish_reason is None
                 and not sess.cancelled.is_set()
             ]
@@ -811,8 +1025,13 @@ class Scheduler:
                                "attached; retry")
 
     def _deliver(self, row) -> None:
-        """Fan one emitted row out to its sessions' event queues."""
+        """Fan one emitted row out to its sessions' event queues. A handoff
+        session (prefill role: the gateway asked for the KV to ship
+        elsewhere) gets no token events -- its first token is the export
+        trigger, and every token it has rides the snapshot to be replayed
+        by the decode replica's resume."""
         n = 0
+        handoffs: list[tuple[int, Session, object]] = []
         with self._cond:
             # _by_sid is written only on this (engine) thread; the locked
             # snapshot keeps the _GUARDED_BY annotation honest and stays
@@ -825,6 +1044,9 @@ class Scheduler:
             sess = by_sid.get(stream.stream_id)
             if sess is None:
                 continue  # priming/dummy slot, or already aborted
+            if sess.handoff is not None:
+                handoffs.append((stream.stream_id, sess, tok))
+                continue
             sess.on_token(tok.id, tok.text,
                           logprobs=getattr(tok, "logprobs", None))
             self._tenants.add(sess.tenant)
@@ -838,6 +1060,8 @@ class Scheduler:
                     or ("eos" if tok.id in self.engine.eos_ids
                         else "length")
                 )
+        for sid, sess, tok in handoffs:
+            self._handoff_one(sid, sess, tok)
         if n:
             self._rate_tokens += n
             dt = time.perf_counter() - self._rate_t0
@@ -907,3 +1131,92 @@ class Scheduler:
         for s in queued + running + spilled:
             if s.finish_reason is None:
                 s.fail(503, message)
+
+    def _handoff_one(self, sid: int, sess: Session, tok) -> None:
+        """Export + retire a prefilled stream at its first token; the
+        snapshot payload rides the session's event queue to the handler
+        thread, which ships it over the transfer channel (the slow part
+        -- retry/backoff against the decode replica -- must never run on
+        the engine thread)."""
+        if tok.is_end_of_stream:
+            # nothing to hand off: the stream completed AT its first
+            # token (EOS / window / grammar dead end). 409 tells the
+            # gateway to re-prefill elsewhere -- rare, and the plain
+            # path reproduces the 1-token stream deterministically.
+            self.engine.finish(sid)
+            with self._cond:
+                self._by_sid.pop(sid, None)
+            sess.fail(409, "stream completed during prefill; re-prefill")
+            return
+        ctx = sess.reqtrace
+        try:
+            if ctx is not None:
+                # inside the span so the snapshot's wire-trace parent is
+                # the export span itself -- the decode tier's
+                # disagg.import then hangs under it in the merged tree
+                with ctx.span("disagg.export", request=sess.id):
+                    payload = self.engine.export_stream(
+                        sid, codec=self.transfer_codec, trace=ctx.wire())
+            else:
+                payload = self.engine.export_stream(
+                    sid, codec=self.transfer_codec)
+        except Exception as e:
+            log.exception("export of stream %d failed", sid)
+            self.engine.finish(sid)
+            with self._cond:
+                self._by_sid.pop(sid, None)
+            sess.fail(500, f"kv export failed: {e}")
+            return
+        self.engine.finish(sid)
+        with self._cond:
+            self._by_sid.pop(sid, None)
+        sess.handoff_ready(payload)
+
+    def _migrate_all(self) -> bool:
+        """Engine thread: drain-migrate every admitted session to the
+        sibling named by migrate_out (rolling restarts). Each
+        live stream's KV exports via the disagg snapshot path when the
+        engine supports it; the payload (or None -- the sibling re-runs
+        the whole request) rides the session's event queue to the
+        handler thread, which ships it and splices the sibling's stream
+        onto the client connection (serve/api._migrate_relay). Returns
+        True when a migration pass ran -- the run loop then skips the
+        engine step, since the slot set just went empty."""
+        with self._cond:
+            target = self._migrate_to
+            if target is None:
+                return False
+            self._migrate_to = None
+        # finished/cancelled sessions close out normally first (tail
+        # flush, counters) so only live streams ride the migration
+        self._retire()
+        with self._cond:
+            items = list(self._by_sid.items())
+        exportable = self.can_migrate()
+        for sid, sess in items:
+            payload = None
+            # handoff sessions re-run their prefill+handoff on the
+            # sibling from the original body; no snapshot to carry
+            if exportable and sess.handoff is None:
+                try:
+                    payload = self.engine.export_stream(
+                        sid, codec=self.transfer_codec)
+                except Exception:
+                    log.exception("drain export of stream %d failed; "
+                                  "sibling re-runs the request", sid)
+                    payload = None
+            self.engine.finish(sid)
+            with self._cond:
+                self._by_sid.pop(sid, None)
+            sess.migrate_ready(payload, target)
+            MIGRATED.inc()
+        # spilled victims migrate too: their snapshot is already in host
+        # RAM, so it rides the same path without touching the engine
+        with self._cond:
+            spilled, self._spilled = self._spilled, []
+        for ent in spilled:
+            sess = ent["sess"]
+            payload = self._spill.take(sess.id) if self._spill else None
+            sess.migrate_ready(payload, target)
+            MIGRATED.inc()
+        return True

@@ -102,6 +102,17 @@ class Session:
         self.tenant = tenant or self.cls
         # structured generation
         self.guide = guide
+        # disagg plane (cake_tpu_torch/disagg): a handoff session prefills
+        # and ships its KV instead of streaming tokens (``handoff`` = the
+        # target parsed from the request's ``_disagg`` extension); a
+        # resume session continues an imported stream (``resume_xfer`` =
+        # the transfer id from ``_resume``)
+        self.handoff: dict | None = None
+        self.resume_xfer: str | None = None
+        # drain migration: the original parsed request body, kept so a
+        # drain can re-home this session to a sibling replica (the resume
+        # request re-sends the same parameters)
+        self.raw_body: dict | None = None
         self.stop = list(stop or [])
         self.logprobs = max(0, int(logprobs))
         self.stop_hit = False
@@ -342,3 +353,19 @@ class Session:
                 for row in self.logprob_rows
             ]
         return u
+
+    def handoff_ready(self, payload: bytes) -> None:
+        """The engine exported this session's stream (engine thread):
+        hand the snapshot payload to the handler thread, which ships it
+        over the transfer channel and answers the gateway."""
+        self.finish_reason = "handoff"
+        self.events.put(("handoff", payload))
+
+    def migrate_ready(self, payload: bytes | None,
+                      target: dict) -> None:
+        """A drain is re-homing this session (engine thread): the
+        handler thread ships the snapshot (``payload``; None for a
+        still-queued session -- the sibling just re-runs the request)
+        and splices the sibling's stream into the client's connection."""
+        self.finish_reason = "migrate"
+        self.events.put(("migrate", payload, target))

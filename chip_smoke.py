@@ -14,6 +14,8 @@
                                           # result line
     python3 chip_smoke.py --phase 13      # phases 1 and 13 only; no
                                           # result line
+    python3 chip_smoke.py --phase 14      # phases 1 and 14 only; no
+                                          # result line
 
 Phases, each fatal on failure:
 
@@ -34,14 +36,18 @@ Phases, each fatal on failure:
    own planted faults; all four attention kernels again at Gemma-7B's
    head_dim 256 (H = KVH = 16), and both matmuls at Qwen2-7B's and
    Gemma-7B's linears (M = 1, 8, 2048) and the three families' heads;
+   ``quant4_matmul`` at int4 groups the kernel folds inside its 64-row K
+   tile (g16 and g32 at Llama-3-8B's gate/up and down, g96 at Gemma-7B's,
+   M = 1, 8, 2048, and a ragged K = 192), twice on the same inputs, with a
+   planted fault (each group scaled by the next group's scales);
 3. kernel timings (CUDA events, L2 flushed before each call) beside the
    card's bound, the plain version and one PyTorch call as a yardstick,
    with the prefill kernels' and each matmul case's TFLOP/s, registers and
    shared memory (the matmuls at every linear, M = 1 and 2048, and at the
    verify's M = 9 and 72; the decodes at pos 2047, 4095 and four rows, and
    at T = 5 and 9 beside SDPA with a per-row causal mask; the families'
-   shapes: head_dim 256 and the Qwen2/Gemma linears and heads), printed
-   as one JSON line at the end;
+   shapes: head_dim 256 and the Qwen2/Gemma linears and heads; int4 g32,
+   g16 and g96), printed as one JSON line at the end;
 4. the model at full Llama-3-8B width and 2 layers, on the card (kernels)
    against the CPU (plain path), from the same weights: bf16, int8 weights
    with the int8 cache, int4 g128 weights; and codes quantized on the card
@@ -56,10 +62,11 @@ Phases, each fatal on failure:
    the model calls, then a profiler trace of one prefill and one decode
    block for the card's kernel time and launches a decode step (and, over
    the int8 cache, no dequantizing kernel); a trace of one call of each
-   decode wrapper shows one kernel launch;
+   decode wrapper shows one kernel launch; (d) int4 g32 weights at 4
+   layers, 16 greedy tokens, launches exact;
 6. the command line (``python -m cake_tpu_torch.cli``) on a tiny
    checkpoint written by the port's own writer: bf16, ``--quantize int8
-   --kv-quant int8`` and ``--quantize int4:g64``;
+   --kv-quant int8``, ``--quantize int4:g64`` and ``--quantize int4:g32``;
 7. the serving engine (``BatchGenerator``) over Llama-3-8B at full width
    and 16 layers (``SERVE_LAYERS``; so are phases 8, 10, 11 and 12) at 8
    slots: (a) bf16, (b) int8 weights with the int8 KV
@@ -151,7 +158,30 @@ Phases, each fatal on failure:
    stream equal to its single stream up to its first near-tie and each
    step its teacher-forced logits' greedy choice outside near-ties; on
    (g) ``--speculate 4`` (the multi-query decode at D = 256) held the same
-   way.
+   way;
+14. disaggregated prefill/decode behind the routing gateway, Llama-3-8B at
+   full width and ``SERVE_LAYERS``, random weights (seed 0), paged engines
+   at 8 slots sharing one set of weights: a prefill and a decode replica
+   (with a KV transfer listener) join a p2c gateway started with no
+   backends by registering, and the gateway finds the tiers from their
+   ``/healthz``; phase 8's five prompts through the gateway as SSE equal a
+   mixed replica's greedy ids up to a near-tie (MARGIN_TIE), on (a) bf16
+   under the transfer codecs none, bf16 (bit-identical to none) and int8
+   (lossy: each step its teacher-forced logits' choice outside near-ties)
+   and (b) int8 weights with the int8 cache; launches exact over both
+   replicas' model calls, one handoff a request, no transfer left in
+   flight; the handoff's parts (export, send, import), snapshot bytes,
+   client TTFT beside the mixed replica's, and a 2,000-id handoff by hand
+   (resume to first decoded token), and the decode replica's card ms a
+   step; on (a), two mixed replicas behind a gateway they joined by
+   registering: one is drained mid-stream and migrates the stream to the
+   other, whose ids equal an undisturbed run's; the other then
+   deregisters, leaving rotation while its ``/healthz`` still answers 200
+   before its drain turns it 503. Last, the command line: ``--mode
+   gateway``, a ``--role prefill`` and a ``--role decode`` replica that
+   ``--register-with`` it and a mixed replica as processes over phase 6's
+   checkpoint; the gateway's ids equal the mixed replica's, and SIGTERM
+   drains all four to exit 0.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the ``cake_tpu_torch`` package beside this file, it exits with
@@ -720,6 +750,50 @@ def phase_family_matmuls(torch, qmatmul, quant) -> dict:
     return errs
 
 
+# int4 groups the card folds inside its 64-row K tile (a multiple of the
+# k16 step but not of 64): (group, its linears (K, N)) -- Llama-3-8B's
+# gate/up and down for g16 and g32, Gemma-7B's for g96 (96 does not divide
+# 4096) -- and a ragged shape off the 128-row int4 decode slot
+FINE_GROUPS = tuple(
+    (g, lins + ((192, 272),)) for g, lins in (
+        (16, LINEARS[:2]), (32, LINEARS[:2]),
+        (96, FAMILY_LINEARS["gemma_7b"][:2])))
+
+
+def phase_fine_groups(torch, qmatmul, quant) -> dict:
+    """quant4_matmul at the FINE_GROUPS (M = 1, 8 and 2048; the ragged shape
+    at 5 and 130) against its plain version, twice on the same inputs (the
+    same bits); a planted fault, each group scaled by the next group's
+    scales, must fail the same check."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+    errs = {}
+    for group, shapes in FINE_GROUPS:
+        for k, n in shapes:
+            w = torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
+            _, wq, scale = quantized(quant, w, ("quant4_matmul", group))
+            del w
+            # the scale row of the next group (the last keeps its own)
+            shifted = torch.cat([scale[1:], scale[-1:]]).contiguous()
+            for m in (5, 130) if k == 192 else (1, 8, 2048):
+                x = torch.randn(m, k, generator=gen, device="cuda").to(
+                    torch.bfloat16)
+                label = f"quant4_matmul int4 g{group} M={m} K={k} N={n}"
+                out = qmatmul.quant4_matmul(x, wq, scale)
+                ref = quant.quant4_matmul_ref(x, wq, scale)
+                errs[("quant4_matmul", group, m, k, n)] = compare(
+                    torch, label, out, ref)
+                if not torch.equal(out, qmatmul.quant4_matmul(x, wq, scale)):
+                    fail(f"{label}: a second call on the same inputs gives "
+                         "other bits")
+                planted(torch, f"{label} each group scaled by the next's",
+                        qmatmul.quant4_matmul(x, wq, shifted), ref)
+            del wq, scale, shifted
+            torch.cuda.empty_cache()
+    say("[2] quant4_matmul at groups of 16, 32 and 96: two calls give the "
+        "same bits")
+    return errs
+
+
 # --------------------------------------------------------------------------
 # phase 3
 # --------------------------------------------------------------------------
@@ -1034,18 +1108,47 @@ def matmul_build_info(build, name: str, plan, group, m: int) -> dict:
     """The build figures of the matmul instance a call with ``plan`` runs
     (format, regime, and BM or the x rows it pads to), and its dynamic
     shared memory."""
-    fmt = "Int8W" if name == "quant_matmul" else f"Int4WILb{int(bool(group))}E"
+    lib = build.library(name)
+    scales = 0
+    if name == "quant4_matmul":
+        lib.quant4_matmul_scales.restype = ctypes.c_int
+        lib.quant4_matmul_scales.argtypes = [ctypes.c_int]
+        scales = lib.quant4_matmul_scales(group or 0)
+    fmt = "Int8W" if name == "quant_matmul" else f"Int4WILi{scales}E"
     if plan.regime == "prefill":
         kern, inst = "prefill_kernel", f"Li{plan.block_m}E"
     else:
         kern, inst = "decode_kernel", f"Li{1 if m <= 8 else 2}E"
     info = entry_build_info(build, name,
                             lambda e: kern in e and fmt in e and inst in e)
-    fn = getattr(build.library(name), f"{name}_smem_bytes")
+    fn = getattr(lib, f"{name}_smem_bytes")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
-    info["dynamic_smem_bytes"] = fn(plan.block_m, int(bool(group)))
+    info["dynamic_smem_bytes"] = fn(plan.block_m, scales)
     return info
+
+
+def fine_group_timing(torch, qmatmul, quant, build, errs, rows) -> None:
+    """Phase 3's quant4_matmul cases at groups the kernel folds inside its K
+    tile: g32 at Llama-3-8B's gate/up and down (M = 1 and 2048), g16 at the
+    gate and g96 at Gemma-7B's gate (M = 1 and 2048)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    row = next(r for r in rows if r["name"] == "quant4_matmul")
+    for group, (k, n) in ((32, LINEARS[0]), (32, LINEARS[1]),
+                          (16, LINEARS[0]),
+                          (96, FAMILY_LINEARS["gemma_7b"][0])):
+        for m in (1, 2048):
+            c = matmul_case(torch, quant, qmatmul, build,
+                            ("quant4_matmul", group), m, k, n, gen)
+            c["max_abs_err"] = errs.get(("quant4_matmul", group, m, k, n))
+            row["cases"].append(c)
+            say(f"[3] quant4_matmul {c['tier']} {c['shape']}: "
+                f"{c['ms']:.4f} ms, {c['pct_of_bound']:.1f}% of bound "
+                f"{c['bound_ms']:.4f} by {c['bound_by']}, "
+                f"{c['tflops']:.1f} TFLOP/s (plain {c['plain_ms']:.4f}, "
+                f"library {c['library_ms']:.4f}); {c['plan']}; "
+                f"{c.get('registers')} registers, "
+                f"{c.get('spill_store_bytes')} bytes of spill stores")
 
 
 def prefill_rows(build, rows) -> None:
@@ -1529,6 +1632,41 @@ def run_path(torch, build, cfg, params, prompt, label, runs, weights,
     return result
 
 
+def fine_group_path(torch, build) -> dict:
+    """``int4:g32`` end to end: Llama-3-8B at full width and 4 layers, int4
+    g32 weights drawn on the card (seed 0), 16 greedy tokens after a
+    100-id prompt through ``LlamaGenerator``, with the counts set to 0 just
+    before and every kernel's launches exact."""
+    from cake_tpu_torch.models import llama
+    from cake_tpu_torch.models.config import llama3_8b
+    from cake_tpu_torch.ops.sampling import SamplerSettings
+    from cake_tpu_torch.runtime.generator import LlamaGenerator
+
+    cfg = llama3_8b(num_hidden_layers=4, max_seq_len=4096)
+    params = llama.init_params_int4(cfg, seed=SEED, group_size=32)
+    prompt = torch.randint(0, cfg.vocab_size, (100,),
+                           generator=torch.Generator().manual_seed(SEED)
+                           ).tolist()
+    build.reset_launches()
+    gen = LlamaGenerator(cfg, params, settings=SamplerSettings(
+        temperature=0), block_size=8)
+    gen.set_prompt(prompt)
+    ids = [gen.next_token(i).id for i in range(16)]
+    counts = build.launches()
+    want = expected_launches(cfg, "quant4_matmul", None, gen.prefill_calls,
+                             gen.decode_steps)
+    if counts != want or gen.decode_steps == 0:
+        fail(f"int4 g32 generation: kernels launched {counts}, want {want}")
+    if not all(0 <= i < cfg.vocab_size for i in ids):
+        fail(f"int4 g32 generation: ids {ids} outside the vocabulary")
+    say(f"[5] (d) int4 g32 weights, 4 layers: 16 ids {ids}; launches "
+        f"{counts} exact")
+    del gen, params
+    torch.cuda.empty_cache()
+    return {"path": "(d) int4 g32 weights, 4 layers", "ids": ids,
+            "launches": counts}
+
+
 def phase_main_path(torch, build, flash, kvcache) -> list:
     from cake_tpu_torch.models import llama
     from cake_tpu_torch.models.config import llama3_8b
@@ -1741,7 +1879,10 @@ def phase_cli(torch, build) -> dict:
     out = {}
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as d:
         cfg = write_cli_checkpoint(torch, build, d)
-        for label, flags, _ in CLI_FLAGS:
+        # int4 groups of 32 rows (folded inside the kernel's K tile) run
+        # locally too; phase 9 repeats only CLI_FLAGS
+        for label, flags, _ in CLI_FLAGS + (
+                ("int4:g32", ["--quantize", "int4:g32"], None),):
             r = subprocess.run(
                 [sys.executable, "-m", "cake_tpu_torch.cli", "--model", d,
                  *CLI_RUN, *flags],
@@ -2319,10 +2460,7 @@ def phase_serve(torch) -> dict:
 
     cfg = llama3_8b(num_hidden_layers=SERVE_LAYERS,
                     max_seq_len=4096)
-    g = torch.Generator().manual_seed(SEED + 9)
-    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
-               for n in (900, 300, 120, 40, 600)]
-    quotas = (32, 24, 40, 16, 24)
+    prompts, quotas = serve_prompts(torch, cfg)
     params = llama.init_params(cfg, seed=SEED)
     settings = SamplerSettings(temperature=0)
     # the engine's own ids: 8 slots, each request admitted with enqueue
@@ -4396,7 +4534,7 @@ def bf16_steps(torch, x):
 
 
 def family_until_tie(torch, cfg, params, label, prompt, ids, ref,
-                     settings) -> dict:
+                     settings, tag="[13]") -> dict:
     """``ids`` (a stream of one engine) against ``ref`` (the same prompt's
     single stream, or a function that runs it: not called when the first
     near-tie is at step 0) up to the first near-tie, and each step of ``ids``
@@ -4454,7 +4592,7 @@ def family_until_tie(torch, cfg, params, label, prompt, ids, ref,
                 f"({steps.item():.1f} bf16 steps)") + note
     against = (f"at step {diff}" if tie else
                "not compared (a near-tie at step 0)")
-    say(f"[13] {label}: first difference from the single stream {against}, "
+    say(f"{tag} {label}: first difference from the single stream {against}, "
         f"first near-tie at step {tie}, {sum(near)} of "
         f"{len(ids)} steps logit near-ties; steps off their logits' choice "
         f"outside a near-tie: {off}{note}")
@@ -4675,6 +4813,574 @@ def phase_families(torch, build) -> list:
     return results
 
 
+# --------------------------------------------------------------------------
+# phase 14
+# --------------------------------------------------------------------------
+
+# the disaggregated fleet's replicas: the paged engine at 8 slots, page 16
+DISAGG_SLOTS = 8
+# phase 5's prompt length: the handoff the prediction in PERF.md is about
+HANDOFF_PROMPT = 2000
+
+
+def serve_prompts(torch, cfg) -> tuple[list, tuple]:
+    """Phase 8's five prompts (900, 300, 120, 40 and 600 ids) and quotas."""
+    g = torch.Generator().manual_seed(SEED + 9)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in (900, 300, 120, 40, 600)]
+    return prompts, (32, 24, 40, 16, 24)
+
+
+class Replica:
+    """One serve replica in this process: the paged engine (8 slots, page
+    16, greedy) over ``params``, its scheduler in ``role``, the HTTP API
+    on an ephemeral port and, with ``transfer``, a KV transfer listener
+    whose port ``/healthz`` advertises."""
+
+    def __init__(self, cfg, params, role="mixed", transfer=False,
+                 kv_quant=None, codec="none"):
+        from cake_tpu_torch.disagg import TransferServer
+        from cake_tpu_torch.ops.sampling import SamplerSettings
+        from cake_tpu_torch.runtime.batch_generator import BatchGenerator
+        from cake_tpu_torch.serve.api import start_api_server
+        from cake_tpu_torch.serve.scheduler import Scheduler
+
+        self.role = role
+        self.engine = BatchGenerator(
+            cfg, params, settings=SamplerSettings(temperature=0),
+            block_size=8, kv_quant=kv_quant, kv_layout="paged",
+            kv_page_size=16)
+        self.sched = Scheduler(self.engine, queue_depth=8,
+                               request_timeout_s=300, role=role,
+                               transfer_codec=codec)
+        self.sched.start(max_concurrent=DISAGG_SLOTS, warm_prompt_len=64)
+        self.server = start_api_server(self.sched, bind="127.0.0.1", port=0)
+        self.port = self.server.port
+        self.addr = f"127.0.0.1:{self.port}"
+        self.xfer = None
+        if transfer:
+            self.xfer = TransferServer(self.sched).start()
+            self.sched.transfer_port = self.xfer.port
+
+    def calls(self) -> tuple[int, int]:
+        return self.engine.prefill_calls, self.engine.decode_steps
+
+    def healthz(self) -> tuple[int, dict]:
+        import urllib.error
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(
+                    f"http://{self.addr}/healthz", timeout=30) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read() or b"{}")
+
+    def close(self) -> None:
+        self.server.close()
+        if self.xfer is not None:
+            self.xfer.stop()
+        self.sched.close()
+
+
+def timed_sse(port: int, body: dict, on_token=None) -> dict:
+    """``sse`` with the client's times: to the first and to the second
+    token (ms from the request)."""
+    t0 = time.perf_counter()
+    marks = []
+
+    def mark():
+        marks.append((time.perf_counter() - t0) * 1e3)
+        if on_token is not None:
+            on_token(len(marks))
+
+    r = sse(port, body, mark)
+    r["ttft_ms"] = marks[0] if marks else None
+    r["second_token_ms"] = marks[1] if len(marks) > 1 else None
+    return r
+
+
+def wait_until(cond, what: str, timeout: float = 60.0) -> None:
+    deadline = time.time() + timeout
+    while not cond():
+        if time.time() > deadline:
+            fail(f"[14] {what}")
+        time.sleep(0.05)
+
+
+class HandoffClock:
+    """The handoff's parts, timed where they run: the prefill engine's
+    export (pages gathered and copied to the host), the send over the
+    transfer channel (with its ACK), and the decode engine's import
+    (parse, then the pages written into its pool). Each is a list of ms,
+    one a handoff; ``bytes`` the snapshot sizes."""
+
+    def __init__(self, torch, pre, dec):
+        import cake_tpu_torch.disagg as disagg
+
+        self.parts = {"export_ms": [], "send_ms": [], "import_parse_ms": [],
+                      "import_write_ms": [], "bytes": []}
+        self._undo = []
+
+        def timed(obj, name, key, sync=False, nbytes=None):
+            real = getattr(obj, name)
+
+            def wrapper(*a, **kw):
+                if sync:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real(*a, **kw)
+                if sync:
+                    torch.cuda.synchronize()
+                self.parts[key].append((time.perf_counter() - t0) * 1e3)
+                if nbytes is not None:
+                    self.parts["bytes"].append(nbytes(a, kw))
+                return out
+
+            setattr(obj, name, wrapper)
+            self._undo.append((obj, name, real))
+
+        timed(pre.engine, "export_stream", "export_ms", sync=True)
+        timed(disagg, "send_snapshot", "send_ms",
+              nbytes=lambda a, kw: len(a[2]))
+        timed(dec.engine, "import_begin", "import_parse_ms")
+        timed(dec.engine, "_import_begin_tick", "import_write_ms",
+              sync=True)
+
+    def close(self) -> None:
+        for obj, name, real in self._undo:
+            if isinstance(obj, type(json)):  # a module's function
+                setattr(obj, name, real)
+            else:
+                delattr(obj, name)  # the engine's own method again
+
+
+def two_stage(pre, dec, prompt, quota) -> dict:
+    """The gateway's two-stage route by hand, timed: prefill on ``pre``
+    with ``dec``'s transfer channel as the handoff target (the reply
+    carries the transfer id and the snapshot's bytes), then the resume on
+    ``dec``, whose first token is the snapshot's own (replayed) and whose
+    second is the first it decodes."""
+    import urllib.request
+
+    t0 = time.perf_counter()
+    req = urllib.request.Request(
+        f"http://{pre.addr}/v1/completions",
+        data=json.dumps({"prompt_ids": prompt, "max_tokens": quota,
+                         "_disagg": {"target": f"127.0.0.1:"
+                                               f"{dec.xfer.port}"}}).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        out = json.loads(r.read())
+    leg_ms = (time.perf_counter() - t0) * 1e3
+    if not out.get("handoff"):
+        fail(f"[14] the prefill replica did not hand off: {out}")
+    r = timed_sse(dec.port, {"prompt_ids": prompt, "max_tokens": quota,
+                             "_resume": {"xfer_id": out["xfer_id"]}})
+    return {"prefill_leg_ms": leg_ms,
+            "resume_to_first_token_ms": r["second_token_ms"],
+            "snapshot_bytes": out["snapshot_bytes"], "ids": r["ids"]}
+
+
+def disagg_path(torch, build, cfg, params, label, weights, kv_quant,
+                codecs) -> dict:
+    """One path of phase 14 over ``params``: the reference (a mixed
+    replica, requests one at a time), then a decode replica and, for each
+    codec of ``codecs``, a fresh prefill replica (a second pass over the
+    same prompts would hit its prefix store, and a prefix hit prefills at
+    other shapes) that join a p2c gateway started with no backends by
+    registering; the five prompts through the gateway as SSE, and phase
+    5's 2,000-id handoff by hand."""
+    from cake_tpu_torch.gateway.api import HANDOFFS, start_gateway
+    from cake_tpu_torch.gateway.health import HealthMonitor
+    from cake_tpu_torch.gateway.policy import make_policy
+    from cake_tpu_torch.ops.sampling import SamplerSettings
+    from cake_tpu_torch.serve.register import Registrar
+
+    settings = SamplerSettings(temperature=0)
+    prompts, quotas = serve_prompts(torch, cfg)
+    mixed = Replica(cfg, params, kv_quant=kv_quant)
+    ref = [timed_sse(mixed.port, {"prompt_ids": p, "max_tokens": q})
+           for p, q in zip(prompts, quotas)]
+    mixed.close()
+    del mixed
+    torch.cuda.empty_cache()
+
+    mon = HealthMonitor([], probe_interval=0.2, up_after=1, lease_ttl_s=5.0,
+                        allow_empty=True).start()
+    gw = start_gateway(mon, make_policy("p2c"), connect_timeout=5.0,
+                       read_timeout=300.0)
+    gw_url = f"http://127.0.0.1:{gw.port}"
+    dec = Replica(cfg, params, "decode", transfer=True, kv_quant=kv_quant)
+    dec_reg = Registrar(gw_url, dec.addr, role="decode",
+                        transfer_port=dec.xfer.port).start()
+    out = {"path": label, "runs": {}}
+    # launches and model calls of both replicas while requests run (each
+    # prefill replica is made and warmed outside these windows)
+    counts = dict.fromkeys(build.launches(), 0)
+    calls, pre_calls = [0, 0], [0, 0]
+    n_req = handoffs = 0
+    parts = {}
+    try:
+        for codec in codecs + ("handoff",):
+            pre = Replica(cfg, params, "prefill", kv_quant=kv_quant,
+                          codec="none" if codec == "handoff" else codec)
+            reg = Registrar(gw_url, pre.addr, role="prefill").start()
+            wait_until(lambda: {b.addr for b in mon.routable()}
+                       >= {pre.addr, dec.addr},
+                       f"{label}: the gateway never found the tiers from "
+                       "the replicas' registrations and /healthz")
+            clock = HandoffClock(torch, pre, dec)
+            torch.cuda.synchronize()
+            l0, p0, d0 = build.launches(), pre.calls(), dec.calls()
+            h0 = HANDOFFS.value
+
+            def close_window():
+                """The window's launches and both replicas' model calls,
+                once no transfer is left in flight."""
+                wait_until(lambda: dec.sched.kv_transfers_inflight() == 0
+                           and pre.sched.kv_transfers_inflight() == 0,
+                           f"{label}: kv_transfers_inflight never returned "
+                           "to 0")
+                torch.cuda.synchronize()
+                l1, p1, d1 = build.launches(), pre.calls(), dec.calls()
+                for k in counts:
+                    counts[k] += l1[k] - l0[k]
+                for j in range(2):
+                    pre_calls[j] += p1[j] - p0[j]
+                    calls[j] += p1[j] - p0[j] + d1[j] - d0[j]
+
+            try:
+                if codec == "handoff":
+                    g = torch.Generator().manual_seed(SEED)
+                    long_prompt = torch.randint(
+                        0, cfg.vocab_size, (HANDOFF_PROMPT,),
+                        generator=g).tolist()
+                    hand = two_stage(pre, dec, long_prompt, 16)
+                    close_window()
+                    parts = clock.parts
+                    continue
+                got = [timed_sse(gw.port, {"prompt_ids": p,
+                                           "max_tokens": q})
+                       for p, q in zip(prompts, quotas)]
+                # the comparisons' teacher-forced passes run after it
+                close_window()
+                n_req += len(got)
+                handoffs += HANDOFFS.value - h0
+                run = {"ttft_ms": [r["ttft_ms"] for r in got],
+                       "ttft_direct_ms": [r["ttft_ms"] for r in ref],
+                       "snapshot_bytes": clock.parts["bytes"],
+                       "export_ms": clock.parts["export_ms"],
+                       "send_ms": clock.parts["send_ms"],
+                       "import_parse_ms": clock.parts["import_parse_ms"],
+                       "import_write_ms": clock.parts["import_write_ms"]}
+                for i, (r, want) in enumerate(zip(got, ref)):
+                    what = f"{label} codec {codec} prompt {i}"
+                    if codec == "int8":
+                        # lossy: each step the greedy choice of its own
+                        # teacher-forced logits outside near-ties
+                        run.setdefault("held", []).append(family_until_tie(
+                            torch, cfg, params, what, prompts[i], r["ids"],
+                            want["ids"], settings, tag="[14]"))
+                    elif codec == "bf16":
+                        if r["ids"] != out["runs"]["none"]["ids"][i]:
+                            fail(f"[14] {what}: the bf16 codec's ids differ "
+                                 "from codec none's (it is lossless on "
+                                 "this cache)")
+                    else:
+                        run.setdefault("held", []).append(check_until_tie(
+                            torch, cfg, params, what, prompts[i], r["ids"],
+                            want["ids"], settings, kv_quant, tag="[14]"))
+                run["ids"] = [r["ids"] for r in got]
+                out["runs"][codec] = run
+                say(f"[14] {label} codec {codec}: 5 SSE streams through the "
+                    f"gateway (prefill -> handoff -> decode) held to the "
+                    f"mixed replica's ids; snapshot bytes "
+                    f"{run['snapshot_bytes']}; export ms "
+                    f"{[round(x, 2) for x in run['export_ms']]}, send ms "
+                    f"{[round(x, 2) for x in run['send_ms']]}, import ms "
+                    f"{[round(x, 2) for x in run['import_parse_ms']]} parse "
+                    f"+ {[round(x, 2) for x in run['import_write_ms']]} "
+                    f"write; client TTFT ms "
+                    f"{[round(t, 2) for t in run['ttft_ms']]} against the "
+                    f"mixed replica's direct "
+                    f"{[round(t, 2) for t in run['ttft_direct_ms']]}")
+            finally:
+                clock.close()
+                reg.deregister()
+                pre.close()
+                del pre
+                torch.cuda.empty_cache()
+        want = expected_launches(cfg, weights, kv_quant, *calls)
+        say(f"[14] {label} launches {counts} over {calls[0]} prompt passes "
+            f"and {calls[1]} decode steps (prefill replicas {pre_calls}, "
+            f"decode replica {[calls[j] - pre_calls[j] for j in range(2)]});"
+            f" gateway handoffs {handoffs} for {n_req} requests; no "
+            "transfer left in flight")
+        if counts != want:
+            fail(f"[14] {label}: kernels launched {counts}, want {want}")
+        if handoffs != n_req:
+            fail(f"[14] {label}: {handoffs} handoffs for {n_req} "
+                 "requests through the gateway")
+        out.update(launches=counts, handoffs=handoffs, handoff_2000=dict(
+            hand, ids=None, export_ms=parts["export_ms"][-1],
+            send_ms=parts["send_ms"][-1],
+            import_parse_ms=parts["import_parse_ms"][-1],
+            import_write_ms=parts["import_write_ms"][-1]))
+        h = out["handoff_2000"]
+        say(f"[14] {label} handoff of the {HANDOFF_PROMPT}-id prompt (codec "
+            f"none): snapshot {h['snapshot_bytes']} bytes; export "
+            f"{h['export_ms']:.2f} ms, send {h['send_ms']:.2f} ms, import "
+            f"{h['import_parse_ms']:.2f} ms parse + "
+            f"{h['import_write_ms']:.2f} ms pool write; prefill leg "
+            f"{h['prefill_leg_ms']:.2f} ms; resume to first decoded token "
+            f"{h['resume_to_first_token_ms']:.2f} ms")
+    finally:
+        dec_reg.deregister()
+        gw.close()
+        mon.stop()
+        dec.server.close()
+        dec.xfer.stop()
+        dec.sched.close()
+    # the decode replica's 8-slot step on the card, its engine driven here
+    # once its scheduler has stopped
+    out["decode_profile"] = profile_batch(
+        torch, dec.engine, batch_prompts(torch, cfg)[0], label, tag="[14]")
+    del dec
+    torch.cuda.empty_cache()
+    return out
+
+
+def migrate_and_register(torch, cfg, params) -> dict:
+    """Two mixed replicas with transfer listeners join a round-robin
+    gateway started with no backends (``Registrar``). A stream runs on the
+    first; once it has 8 tokens the gateway drains that replica
+    (``/v1/fleet/drain/<addr>``: the replica migrates to its sibling), and
+    the stream must finish with the ids of an undisturbed run on the
+    sibling. Then the sibling leaves as SIGTERM has it leave: it
+    deregisters first, and the gateway stops routing to it while its own
+    ``/healthz`` still answers 200; only then does its drain turn that
+    503."""
+    import threading
+    import urllib.request
+
+    from cake_tpu_torch.gateway.api import start_gateway
+    from cake_tpu_torch.gateway.health import HealthMonitor
+    from cake_tpu_torch.gateway.policy import make_policy
+    from cake_tpu_torch.ops.sampling import SamplerSettings
+    from cake_tpu_torch.serve import scheduler as scheduler_mod
+    from cake_tpu_torch.serve.register import Registrar
+
+    prompts, _ = serve_prompts(torch, cfg)
+    a = Replica(cfg, params, transfer=True)
+    b = Replica(cfg, params, transfer=True)
+    mon = HealthMonitor([], probe_interval=0.2, up_after=1, lease_ttl_s=5.0,
+                        allow_empty=True).start()
+    gw = start_gateway(mon, make_policy("round_robin"), connect_timeout=5.0,
+                       read_timeout=300.0)
+    gw_url = f"http://127.0.0.1:{gw.port}"
+    regs = {r.addr: Registrar(gw_url, r.addr, role="mixed",
+                              transfer_port=r.xfer.port).start()
+            for r in (a, b)}
+    out = {}
+    try:
+        wait_until(lambda: {x.addr for x in mon.routable()}
+                   == {a.addr, b.addr},
+                   "the registered replicas never became routable")
+        body = {"prompt_ids": prompts[1], "max_tokens": 160}
+        want = sse(b.port, body)["ids"]
+        m0 = scheduler_mod.MIGRATED.value
+        ack, fired = {}, threading.Event()
+
+        def drain():
+            fired.wait(timeout=300)
+            req = urllib.request.Request(
+                f"{gw_url}/v1/fleet/drain/{a.addr}", data=b"{}",
+                headers={"Content-Type": "application/json"},
+                method="POST")
+            with urllib.request.urlopen(req, timeout=60) as r:
+                ack.update(json.loads(r.read()))
+
+        t = threading.Thread(target=drain)
+        t.start()
+        got = timed_sse(a.port, body,
+                        on_token=lambda n: n == 8 and fired.set())["ids"]
+        t.join(timeout=120)
+        migrated = scheduler_mod.MIGRATED.value - m0
+        say(f"[14] migrate-on-drain: drain ack {ack}; {migrated} session "
+            f"migrated; the stream's {len(got)} ids against the undisturbed "
+            f"run on the sibling")
+        if not ack.get("ok") or migrated != 1 or len(got) != 160:
+            fail(f"[14] the drain did not migrate the stream mid-decode "
+                 f"(ack {ack}, {migrated} migrated, {len(got)} ids)")
+        out["migrate"] = check_until_tie(
+            torch, cfg, params, "migrated stream", prompts[1], got, want,
+            SamplerSettings(temperature=0), None, tag="[14]")
+        if mon.lookup(a.addr).state != "draining":
+            fail(f"[14] the drained replica is {mon.lookup(a.addr).state} "
+                 "at the gateway, want draining")
+        # the sibling leaves: deregistered first, out of rotation while
+        # its /healthz still says 200
+        regs[b.addr].deregister()
+        state = mon.lookup(b.addr).state
+        code, _ = b.healthz()
+        routable = [x.addr for x in mon.routable()]
+        say(f"[14] registration: after the deregister the gateway holds the "
+            f"sibling {state} (routable {routable}) while its /healthz "
+            f"answers {code}")
+        if b.addr in routable or code != 200:
+            fail("[14] the gateway still routes to a deregistered replica, "
+                 "or its /healthz turned 503 before the deregister")
+        b.sched.migrate_out(None)  # the drain SIGTERM starts next
+        wait_until(lambda: b.healthz()[0] == 503,
+                   "the drained sibling's /healthz never turned 503")
+        out["deregistered_state"] = state
+    finally:
+        for reg in regs.values():
+            reg.stop()
+        gw.close()
+        mon.stop()
+        a.close()
+        b.close()
+    del a, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def disagg_cli(torch, build) -> dict:
+    """The command line's entry points as processes over phase 6's tiny
+    checkpoint: ``--mode gateway`` (no backends), a prefill and a decode
+    replica that ``--register-with`` it, and a mixed replica beside them.
+    A request through the gateway gives the mixed replica's ids; SIGTERM
+    drains all four and each exits 0 with "drained; bye"."""
+    import signal
+    import urllib.request
+
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = {}
+
+    def port_of(proc, log, pattern):
+        deadline = time.time() + 300
+        while time.time() < deadline:
+            m = re.search(pattern, log.read_text())
+            if m:
+                return int(m.group(1))
+            if proc.poll() is not None:
+                fail(f"[14] cli: a process exited with {proc.returncode}: "
+                     f"{log.read_text()[-2000:]}")
+            time.sleep(0.2)
+        fail(f"[14] cli: no port in 300 s: {log.read_text()[-2000:]}")
+
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as d:
+        write_cli_checkpoint(torch, build, d)
+        logs, procs = {}, {}
+
+        def start(name, args):
+            logs[name] = Path(d) / f"{name}.log"
+            with open(logs[name], "w") as log:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", "cake_tpu_torch.cli", *args],
+                    stdout=subprocess.DEVNULL, stderr=log, env=env,
+                    cwd=REPO)
+
+        try:
+            start("gateway", ["--mode", "gateway", "--serve-port", "0",
+                              "--probe-interval", "0.2", "--lease-ttl",
+                              "5"])
+            gw_port = port_of(procs["gateway"], logs["gateway"],
+                              r"gateway on http://127\.0\.0\.1:(\d+)/")
+            serve = ["--model", d, "--mode", "serve", "--serve-port", "0",
+                     "--kv-layout", "paged", "--max-seq", "128",
+                     "--temperature", "0", "--max-concurrent", "4"]
+            reg = ["--register-with", f"http://127.0.0.1:{gw_port}"]
+            start("prefill", serve + ["--role", "prefill"] + reg)
+            start("decode", serve + ["--role", "decode"] + reg)
+            start("mixed", serve)
+            ports = {n: port_of(procs[n], logs[n],
+                                r"serving on http://127\.0\.0\.1:(\d+)/")
+                     for n in ("prefill", "decode", "mixed")}
+
+            def tiers():
+                try:
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{gw_port}/healthz",
+                            timeout=10) as r:
+                        return json.loads(r.read()).get("tiers") or {}
+                except OSError:
+                    return {}
+
+            wait_until(lambda: tiers().get("prefill") and
+                       tiers().get("decode"),
+                       f"cli: the gateway never listed both tiers "
+                       f"({tiers()})")
+            body = {"prompt_ids": [3, 5, 7, 9], "max_tokens": 8}
+            want = sse(ports["mixed"], body)["ids"]
+            got = sse(gw_port, body)["ids"]
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{gw_port}/metrics", timeout=10) as r:
+                metrics = r.read().decode()
+            m = re.search(r"^cake_disagg_handoffs(?:_total)? (\S+)$",
+                          metrics, re.M)
+            handoffs = float(m.group(1)) if m else 0.0
+            say(f"[14] cli: gateway {got} against the mixed replica "
+                f"{want}; gateway handoffs {handoffs}")
+            if got != want or len(got) != 8 or handoffs < 1:
+                fail(f"[14] cli: the tiered route gave {got} ({handoffs} "
+                     f"handoffs), the mixed replica {want}")
+            out = {"ids": got, "handoffs": handoffs}
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.send_signal(signal.SIGTERM)
+            codes = {}
+            for n, proc in procs.items():
+                try:
+                    codes[n] = proc.wait(timeout=120)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    codes[n] = proc.wait()
+        tails = {n: logs[n].read_text().strip().splitlines()[-1:]
+                 for n in procs}
+        say(f"[14] cli: SIGTERM exit codes {codes}")
+        for n in procs:
+            if codes[n] != 0 or not tails[n] or \
+                    not tails[n][0].endswith("drained; bye"):
+                fail(f"[14] cli: {n} exited {codes[n]}, last log line "
+                     f"{tails[n]}: {logs[n].read_text()[-2000:]}")
+        out["exit_codes"] = codes
+    return out
+
+
+def phase_disagg(torch, build) -> list:
+    """Phase 14: disaggregated prefill/decode behind the routing gateway on
+    Llama-3-8B at full width and SERVE_LAYERS, random weights (seed 0): (a)
+    bf16 under the transfer codecs none, bf16 (bit-identical to none) and
+    int8 (lossy: held to the teacher-forced choice), then migrate-on-drain
+    and registration over the same weights; (b) int8 weights with the int8
+    cache, codec none. Returns each path's results (the command line's
+    entry points are ``disagg_cli``)."""
+    from cake_tpu_torch.models import llama
+    from cake_tpu_torch.models.config import llama3_8b
+
+    cfg = llama3_8b(num_hidden_layers=SERVE_LAYERS, max_seq_len=4096)
+    out = []
+    for label, init, weights, kv_quant, codecs in (
+            ("(a) bf16", lambda: llama.init_params(cfg, seed=SEED), "bf16",
+             None, ("none", "bf16", "int8")),
+            ("(b) int8 weights, int8 cache",
+             lambda: llama.init_params_int8(cfg, seed=SEED), "quant_matmul",
+             "int8", ("none",))):
+        params = init()
+        r = disagg_path(torch, build, cfg, params, label, weights, kv_quant,
+                        codecs)
+        if kv_quant is None:
+            r.update(migrate_and_register(torch, cfg, params))
+        out.append(r)
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4685,12 +5391,13 @@ def main() -> int:
     only_paged = sys.argv[1:] == ["--phase", "11"]
     only_spec = sys.argv[1:] == ["--phase", "12"]
     only_families = sys.argv[1:] == ["--phase", "13"]
+    only_disagg = sys.argv[1:] == ["--phase", "14"]
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels":
         other = Path(sys.argv[2]).resolve()
     elif len(sys.argv) > 1 and not (only_guided or only_paged or only_spec
-                                    or only_families):
+                                    or only_families or only_disagg):
         fail(f"usage: {sys.argv[0]} [--kernels DIR | --phase 10 | "
-             "--phase 11 | --phase 12 | --phase 13]")
+             "--phase 11 | --phase 12 | --phase 13 | --phase 14]")
     sys.path.insert(0, str(other or REPO))
     try:
         from cake_tpu_torch.ops import flash, kvcache, qmatmul, quant
@@ -4728,6 +5435,11 @@ def main() -> int:
                                                                  build)}))
         say(card)
         return 0
+    if only_disagg:
+        say(json.dumps({"card": card, "disagg": phase_disagg(torch, build),
+                        "disagg_cli": disagg_cli(torch, build)}))
+        say(card)
+        return 0
     t_run = time.perf_counter()
 
     def lap(phases: str) -> None:
@@ -4739,6 +5451,7 @@ def main() -> int:
     errs.update(phase_batch_kernels(torch, flash, qmatmul, quant, kvcache))
     errs.update(phase_head256_kernels(torch, flash, kvcache))
     errs.update(phase_family_matmuls(torch, qmatmul, quant))
+    errs.update(phase_fine_groups(torch, qmatmul, quant))
     lap("2")
     # timed before the profiled main path: a profiler session slows the
     # host for the rest of the process
@@ -4749,11 +5462,13 @@ def main() -> int:
     multi_query_timing(torch, flash, qmatmul, quant, kvcache, build, rows)
     prefill_rows(build, rows)
     family_timing(torch, flash, qmatmul, quant, kvcache, build, errs, rows)
+    fine_group_timing(torch, qmatmul, quant, build, errs, rows)
     lap("3")
     phase_model(torch)
     families_model = phase_model_families(torch)
     lap("4")
     main_path = phase_main_path(torch, build, flash, kvcache)
+    main_path.append(fine_group_path(torch, build))
     lap("5")
     cli = phase_cli(torch, build)
     lap("6")
@@ -4776,19 +5491,24 @@ def main() -> int:
     lap("10")
     families = phase_families(torch, build)
     lap("13")
+    disagg = phase_disagg(torch, build)
+    disagg_cli_run = disagg_cli(torch, build)
+    lap("14")
     # over the paths (a), (b), (c), the batch runs, the cross-host runs,
     # phase 10's guided and lookahead runs, phase 11's paged runs, phase
-    # 12's speculative runs and phase 13's family runs
+    # 12's speculative runs, phase 13's family runs and phase 14's
+    # disaggregated runs (both replicas)
     for r in rows:
         r["launches"] = sum(p["launches"][r["name"]]
                             for p in main_path + batch + cross_host + guided
-                            + paged + spec + families)
+                            + paged + spec + families + disagg)
     say(json.dumps({"card": card, "main_path": main_path, "batch": batch,
                     "serve": serve, "cross_host": cross_host,
                     "cross_host_cli": cross_host_cli, "guided": guided,
                     "guided_cli": guided_cli_ids, "paged": paged,
                     "spec": spec, "families_model": families_model,
-                    "families": families}))
+                    "families": families, "disagg": disagg,
+                    "disagg_cli": disagg_cli_run}))
     say(json.dumps({"kernels": rows}))
     say(card)
     say(json.dumps({"ok": True, "device": {

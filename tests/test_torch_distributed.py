@@ -598,7 +598,7 @@ def test_cli_serve_over_a_topology_answers_sse(checkpoint, workers):
     (["--topology", "T", "--prompts-file", "P"], "not supported here"),
     (["--mode", "serve", "--topology", "T", "--serve-logprobs", "2"],
      "single-stream wire master"),
-    (["--mode", "gateway"], "gateway is not ported"),
+    (["--mode", "gateway"], "a gateway holds no model"),
 ])
 def test_refused_flags_exit_with_an_error(checkpoint, tmp_path, extra,
                                           match):

@@ -61,9 +61,51 @@ def test_import_leaves_jax_and_triton_out():
             "cake_tpu_torch.disagg, cake_tpu_torch.disagg.snapshot, "
             "cake_tpu_torch.serve.spill, cake_tpu_torch.testing.chaos, "
             "cake_tpu_torch.runtime.speculative, "
-            "cake_tpu_torch.utils.corpus\n"
+            "cake_tpu_torch.utils.corpus, cake_tpu_torch.disagg.transfer, "
+            "cake_tpu_torch.serve.register, cake_tpu_torch.gateway, "
+            "cake_tpu_torch.gateway.api, cake_tpu_torch.gateway.health, "
+            "cake_tpu_torch.gateway.policy\n"
             "print(sorted(m for m in ('jax', 'triton', 'cake_tpu', "
             "'ml_dtypes') if m in sys.modules))")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, env=env, cwd=REPO)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "[]"
+
+
+# a gateway holds no model and opens no CUDA context: its modules, and the
+# replica's registration client, import no torch
+GATEWAY_FILES = sorted((REPO / "cake_tpu_torch" / "gateway").glob("*.py")) \
+    + [REPO / "cake_tpu_torch" / "serve" / "register.py"]
+
+
+@pytest.mark.parametrize("path", GATEWAY_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_the_gateway_imports_no_torch(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if n == "torch" or n.startswith("torch.")]
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+def test_a_gateway_process_loads_no_torch():
+    """What ``--mode gateway`` imports (the command line, the gateway, the
+    status page) leaves torch out of the process."""
+    code = ("import sys, cake_tpu_torch.cli, cake_tpu_torch.gateway, "
+            "cake_tpu_torch.gateway.api, cake_tpu_torch.gateway.health, "
+            "cake_tpu_torch.gateway.policy, cake_tpu_torch.serve.register, "
+            "cake_tpu_torch.obs.statusd, cake_tpu_torch.obs.reqtrace\n"
+            "args = cake_tpu_torch.cli.build_parser().parse_args("
+            "['--mode', 'gateway'])\n"
+            "print(sorted(m for m in ('torch', 'jax', 'cake_tpu') "
+            "if m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(REPO))
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120, env=env, cwd=REPO)
@@ -176,6 +218,24 @@ def test_paged_and_spill_entry_points_raise_without_a_card():
     assert g.cache.k.device.type == "cpu"
     snap = g.export_stream(0)
     assert g.import_begin(snap)["n_kv"] == 3
+
+
+def test_disaggregated_roles_raise_without_a_card():
+    """A prefill or decode replica never slides onto the CPU: without a
+    card ``--role`` serving stops with the device error (after its own
+    flag checks), and only a gateway, which holds no model, starts."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device exists")
+    from cake_tpu_torch import cli
+
+    for role in ("prefill", "decode"):
+        with pytest.raises(SystemExit, match="no CUDA device"):
+            cli.run_http_serve(cli.build_parser().parse_args(
+                ["--model", "unused", "--mode", "serve", "--kv-layout",
+                 "paged", "--role", role]))
+    with pytest.raises(SystemExit, match="requires --kv-layout paged"):
+        cli.run_http_serve(cli.build_parser().parse_args(
+            ["--model", "unused", "--mode", "serve", "--role", "decode"]))
 
 
 def test_speculative_entry_points_raise_without_a_card():

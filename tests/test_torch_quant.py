@@ -85,13 +85,55 @@ def test_pack_unpack_every_byte():
 
 
 def test_parse_quant_spec_matches_jax():
-    for spec in (None, "int8", "int4", "int4:g64", "int4:g8"):
+    for spec in (None, "int8", "int4", "int4:g64", "int4:g16", "int4:g32",
+                 "int4:g96"):
         assert tq.parse_quant_spec(spec) == jq.parse_quant_spec(spec)
     for bad in ("int2", "int4:g0", "int4:g", "int8:g64"):
         with pytest.raises(ValueError):
             tq.parse_quant_spec(bad)
         with pytest.raises(ValueError):
             jq.parse_quant_spec(bad)
+    # groups under the k16 step: the JAX package parses them, the port
+    # refuses them when the spec is parsed (a deviation ROADMAP.md keeps)
+    assert jq.parse_quant_spec("int4:g8") == ("int4", 8)
+
+
+@pytest.mark.parametrize("group", [2, 4, 8, 24])
+def test_int4_groups_under_the_k_step_are_refused_at_load(group):
+    """g2, g4 and g8 (and any group that is not a multiple of 16) are
+    refused when the spec is parsed or the params are made, with the
+    reason, never at the first linear."""
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tq.parse_quant_spec(f"int4:g{group}")
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tq.quantize_params({"layers": {"wq": torch.ones(1, 48, 16)},
+                            "lm_head": torch.ones(48, 16)}, bits=4,
+                           group_size=group)
+    from cake_tpu_torch.cli import build_parser
+
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["--model", "m", "--quantize",
+                                   f"int4:g{group}"])
+
+
+@pytest.mark.parametrize("m,group", [(m, g) for m in (1, 8, 130)
+                                     for g in (16, 32, 96)])
+def test_quant4_fine_groups_match_jax(m, group):
+    """Groups the card folds inside its 64-row K tile (16, 32, 96): the
+    port's codes and scales equal the JAX quantizer's, and the plain
+    version equals ``quant4_matmul_xla`` and the dequantized product."""
+    k, n = 192, 272
+    x, w = _f32(40 + group, m, k), _f32(41 + group, k, n)
+    ql = jq.quantize_linear4(jnp.asarray(w), group_size=group)
+    got_q = tq.quantize_linear4(torch.from_numpy(w), group_size=group)
+    _eq(got_q.qp, ql.qp)
+    _eq(got_q.scale, ql.scale)
+    assert got_q.group_size == group
+    got = tq.quant4_matmul_ref(torch.from_numpy(x), got_q.qp, got_q.scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(
+        jq.quant4_matmul_xla(jnp.asarray(x), ql.qp, ql.scale)), **TOL_WIDE)
+    deq = tq.dequantize_linear4(got_q, torch.float32)
+    np.testing.assert_allclose(got.numpy(), x @ deq.numpy(), **TOL_WIDE)
 
 
 # the shapes the card's kernels are held to across their new tiles: M off

@@ -320,8 +320,9 @@ def test_disconnected_client_frees_slot(servers):
 @pytest.mark.parametrize("field,value,match", [
     ("response_format", {"type": "regex", "pattern": "(a"},
      "bad response_format"),
-    ("_disagg", {"target": "127.0.0.1:1"}, "not ported yet"),
-    ("_resume", {"xfer_id": "x"}, "not ported yet"),
+    # the disaggregated fields on a slot-layout engine (JAX's message)
+    ("_disagg", {"target": "127.0.0.1:1"}, "cannot move KV pages"),
+    ("_resume", {"xfer_id": "x"}, "cannot move KV pages"),
     ("temperature", 0.9, "temperature"),
 ])
 def test_unported_and_mismatched_fields_answer_400(servers, field, value,
@@ -372,6 +373,8 @@ def test_drain_finishes_in_flight_and_refuses_new(jparams):
 
 
 def test_only_the_mixed_role_is_served(jparams):
+    """Over the slot layout: the prefill and decode roles need the paged
+    engine (tests/test_torch_disagg.py drives them over it)."""
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams),
                               device="cpu")
     engine = BatchGenerator(tiny(**CFG), tparams, device="cpu")
