@@ -23,6 +23,10 @@ Usage::
   python -m cake_tpu_torch.cli --mode worker --name w1 --model DIR \
       --topology t.yml --address 0.0.0.0:10128
   python -m cake_tpu_torch.cli --model DIR --topology t.yml --prompt "..."
+  # the same with a fault on each worker link (reconnect and replay keep
+  # the stream), the cluster report and the live panel on stderr
+  python -m cake_tpu_torch.cli --model DIR --topology t.yml --prompt "..." \
+      --chaos kill@7 --cluster-report report.json --top
   # disaggregated prefill/decode behind the routing gateway: replicas
   # register themselves; the gateway routes prefill -> KV handoff -> decode
   python -m cake_tpu_torch.cli --mode gateway --serve-port 8080
@@ -53,10 +57,14 @@ transfer channel, and ``--register-with`` announces a replica to a
 ``--mode gateway`` (``--backends``, ``--route-policy``, ``--lease-ttl``,
 ``--probe-interval``, ``--admit-wait``, ``--admit-queue``,
 ``--gateway-prefix-block``), which holds no model and opens no CUDA
-context. The JAX command line's meshes (``--stages/--tp/--dp/--sp/--ep``
-above 1, and topologies with mesh ``device:`` nodes), fault injection
-(``--chaos``) and the cluster views (``--cluster-report``, ``--top``) are
-refused with an error until their slices of the port land.
+context. On a topology master, ``--chaos SPEC`` puts a fault-injecting
+proxy (``testing/chaos.py``) in front of every worker link,
+``--cluster-report PATH`` writes the end-of-run cluster report
+(``obs/cluster.py``) and ``--top`` paints the live cluster panel on
+stderr (``obs/top.py``); ``--straggler-factor`` sets when a worker is
+flagged. The JAX command line's meshes (``--stages/--tp/--dp/--sp/--ep``
+above 1, and topologies with mesh ``device:`` nodes) are refused with an
+error until multi-GPU parallelism is ported.
 """
 
 from __future__ import annotations
@@ -147,13 +155,30 @@ def build_parser() -> argparse.ArgumentParser:
                         "(default 30) of a mid-stream reconnect; past it "
                         "the segment fails over to its next replica")
     p.add_argument("--chaos", default=None, metavar="SPEC",
-                   help="fault injection on the worker links: not ported "
-                        "yet")
+                   help="topology master: put a fault-injecting proxy "
+                        "(cake_tpu_torch.testing.chaos) in front of every "
+                        "worker link. SPEC is comma-separated "
+                        "kind[@[r]FRAME][=PARAM] directives -- kill, "
+                        "truncate, corrupt, stall (PARAM ms), blackhole, "
+                        "refuse (PARAM conns) -- applied to successive "
+                        "connections per link, or seed=N for a "
+                        "seed-reproducible random schedule")
     p.add_argument("--cluster-report", default=None, dest="cluster_report",
                    metavar="PATH",
-                   help="end-of-run cluster report: not ported yet")
+                   help="topology master: write an end-of-run JSON cluster "
+                        "report -- per-worker segment forward p50/p99, RTT "
+                        "and clock offset, byte/op counters, straggler "
+                        "flags, and the master's own per-segment stats")
     p.add_argument("--top", action="store_true",
-                   help="live cluster panel: not ported yet")
+                   help="topology master: live ANSI cluster panel on "
+                        "stderr while generating (the token stream on "
+                        "stdout stays clean)")
+    p.add_argument("--straggler-factor", type=float, default=2.0,
+                   dest="straggler_factor", metavar="F",
+                   help="flag a worker as straggler when its segment "
+                        "forward p99 exceeds the median of its peers' "
+                        "p99s by this factor (cluster report / --top / "
+                        "cluster.* gauges; default 2.0)")
     p.add_argument("--prompt", default="Why is the sky blue?")
     p.add_argument("--prompt-ids", default=None, dest="prompt_ids",
                    help="comma-separated token ids (bypasses the tokenizer)")
@@ -543,6 +568,7 @@ def _link_flags(args) -> list[str]:
         ("--op-timeout", args.op_timeout is not None),
         ("--connect-retries", bool(args.connect_retries)),
         ("--recover-deadline", args.recover_deadline is not None),
+        ("--chaos", bool(args.chaos)),
     ) if set_]
 
 
@@ -562,6 +588,8 @@ def _build_distributed_gen(args, config, topology, tokenizer, settings,
         sys.exit("error: --kv-quant on the master applies to the local "
                  "path; pass it to each worker process instead (workers "
                  "own their layers' caches)")
+    if args.chaos:
+        _chaos_proxies(args.chaos, topology)
     L = config.num_hidden_layers
     try:
         head = load_llama_params(args.model, L, dtype=config.dtype,
@@ -586,6 +614,31 @@ def _build_distributed_gen(args, config, topology, tokenizer, settings,
     except (NotImplementedError, ValueError, RuntimeError, OSError,
             wire.WireError) as e:  # e.g. a worker refuses the codec
         sys.exit(f"error: {e}")
+
+
+def _chaos_proxies(spec: str, topology) -> None:
+    """``--chaos``: one frame-aware fault-injecting proxy a worker
+    address, each running the same schedule, with the topology rewired
+    through them (the proxies live as long as the process)."""
+    from cake_tpu_torch.testing import chaos
+
+    try:
+        faults = chaos.parse_spec(spec)
+    except ValueError as e:
+        sys.exit(f"error: bad --chaos spec: {e}")
+    log.warning("chaos enabled: %s — faults WILL be injected on every "
+                "worker link", ", ".join(str(f) for f in faults))
+    for node in topology:
+        wrapped = []
+        for a in (node.hosts or ([node.host] if node.host else [])):
+            host, _, port = a.partition(":")
+            proxy = chaos.ChaosProxy(host, int(port or 10128),
+                                     faults).start()
+            wrapped.append(proxy.addr)
+            log.info("chaos proxy %s -> %s", proxy.addr, a)
+        if wrapped:
+            node.hosts = wrapped
+            node.host = wrapped[0]
 
 
 def _status_server(args, status_fn, what: str):
@@ -643,6 +696,12 @@ def run(args, topology=None) -> int:
         return st
 
     status_httpd = _status_server(args, master_status, "master")
+    top_view = None
+    if args.top:
+        from cake_tpu_torch.obs.top import Top
+
+        top_view = Top(gen.cluster_scraper(args.straggler_factor))
+        top_view.start()
 
     if args.prompt_ids:
         gen.set_prompt([int(t) for t in args.prompt_ids.split(",")])
@@ -676,6 +735,8 @@ def run(args, topology=None) -> int:
     finally:
         if profiler is not None:
             _stop_profiler(profiler, args.profile)
+        if top_view is not None:
+            top_view.stop()
     rest = gen.last()
     if rest:
         print(rest, end="")
@@ -688,6 +749,8 @@ def run(args, topology=None) -> int:
                  n_tokens, (n_tokens - 1) / dt, t_warm - t_gen0)
     if topology is not None:
         _log_segments(gen.runner_stats())
+    if args.cluster_report:
+        _write_cluster_report(gen, args)
     if status_httpd is not None:
         status_httpd.shutdown()
         status_httpd.server_close()
@@ -696,6 +759,25 @@ def run(args, topology=None) -> int:
         log.error("generation ended early: %r", gen_error)
         return 1
     return 0
+
+
+def _write_cluster_report(gen, args) -> None:
+    """``--cluster-report``: one last scrape while the worker connections
+    are open (the STATS exchange rides them), so before ``gen.close()``;
+    the stragglers are logged."""
+    import json
+
+    try:
+        report = gen.cluster_report(args.straggler_factor)
+        with open(args.cluster_report, "w") as f:
+            json.dump(report, f, indent=1)
+            f.write("\n")
+        log.info("cluster report written to %s", args.cluster_report)
+        for name in report.get("stragglers", []):
+            log.warning("straggler worker: %s", name)
+    except OSError as e:
+        log.error("could not write cluster report to %s: %s",
+                  args.cluster_report, e)
 
 
 def _start_profiler(args, device: str):
@@ -741,7 +823,8 @@ def _log_segments(stats: list[dict]) -> None:
 def run_worker(args) -> int:
     """--mode worker: load this worker's layers (only their tensors are
     read) on the card and serve them to masters of either package until
-    killed."""
+    SIGTERM or SIGINT, which end it with exit code 0."""
+    from cake_tpu_torch.embed import serve_until_signal
     from cake_tpu_torch.parallel.pipeline import check_single_device
     from cake_tpu_torch.runtime.worker import Worker
     from cake_tpu_torch.utils.memory import memory_report
@@ -751,6 +834,10 @@ def run_worker(args) -> int:
         sys.exit("error: --mode worker requires --name")
     if not args.topology:
         sys.exit("error: --mode worker requires --topology")
+    if args.cluster_report or args.top:
+        sys.exit("error: --cluster-report/--top are master-side aggregation "
+                 "views; pass them to the master process (they would "
+                 "otherwise be silently ignored in worker mode)")
     flags = [f for f in _link_flags(args) if f != "--wire-codec"]
     if flags:
         sys.exit(f"error: {'/'.join(flags)} drive the master's side of the "
@@ -784,11 +871,7 @@ def run_worker(args) -> int:
     if args.status_port is not None:
         worker.start_status_server(args.status_port, bind=args.status_bind)
     log.info("worker ready (%s)", memory_report())
-    try:
-        worker.serve_forever()
-    except KeyboardInterrupt:
-        worker.shutdown()
-    return 0
+    return serve_until_signal(worker)
 
 
 def _read_prompts(args, tokenizer) -> list:
@@ -826,6 +909,10 @@ def run_serve(args) -> int:
         sys.exit("error: --lookahead needs fused blocks to pipeline; it "
                  "requires --decode-block > 1 (it would otherwise be "
                  "silently ignored)")
+    if args.cluster_report or args.top:
+        sys.exit("error: --cluster-report/--top aggregate across cross-host "
+                 "workers (master/worker --topology runs); serving rides "
+                 "the mesh")
     device = _device(args)
     config = _load_config(args)
     tokenizer = _load_tokenizer(args.model)
@@ -914,6 +1001,11 @@ def run_http_serve(args, topology=None) -> int:
         sys.exit("error: --mode serve takes prompts over HTTP "
                  "(POST /v1/completions); --prompts-file/--prompt-ids "
                  "belong to the one-shot paths")
+    if args.cluster_report or args.top:
+        sys.exit("error: --cluster-report/--top report on a one-shot "
+                 "master run; --mode serve exposes the same data live on "
+                 "/ and /metrics instead (they would otherwise be "
+                 "silently ignored)")
     if args.role != "mixed" and args.kv_layout != "paged":
         sys.exit(f"error: --role {args.role} moves KV between replicas "
                  "as pool pages; it requires --kv-layout paged")
@@ -1114,7 +1206,7 @@ def run_gateway(args) -> int:
         sys.exit("error: --cluster-report/--top aggregate a master's "
                  "workers; the gateway exposes its fleet view on / and "
                  "/metrics instead")
-    flags = _link_flags(args) + (["--chaos"] if args.chaos else [])
+    flags = _link_flags(args)
     if flags:
         sys.exit(f"error: {'/'.join(flags)} drive a master's worker "
                  "links; the gateway's failure handling is built in "
@@ -1292,14 +1384,6 @@ def _main(args) -> int:
                  "batch run (it would otherwise be silently ignored)")
     if args.mode == "gateway":
         return run_gateway(args)
-    if args.chaos:
-        sys.exit("error: --chaos (fault injection on the worker links, the "
-                 "JAX package's testing/chaos.py) is not ported yet")
-    if args.cluster_report or args.top:
-        sys.exit("error: --cluster-report/--top (the cluster views, the JAX "
-                 "package's obs/cluster.py and obs/top.py) are not ported "
-                 "yet; the master logs each segment's stats at the end of "
-                 "a run")
     if args.kv_layout != "paged" and (args.kv_page_size is not None
                                       or args.kv_pool_pages is not None):
         sys.exit("error: --kv-page-size/--kv-pool-pages configure the "
@@ -1339,6 +1423,13 @@ def _main(args) -> int:
                      "--topology (cross-host workers) is not supported "
                      "here")
         return run_serve(args)
+    if (args.cluster_report or args.top) and topology is None:
+        sys.exit("error: --cluster-report/--top aggregate across cross-host "
+                 "workers; they need a host-addressed --topology (they "
+                 "would otherwise be silently ignored)")
+    if args.straggler_factor <= 1.0:
+        sys.exit("error: --straggler-factor must exceed 1.0 (a worker at "
+                 "the median is not a straggler)")
     if args.speculate and args.decode_block is not None:
         sys.exit("error: --decode-block does not compose with --speculate "
                  "(speculative rounds replace fused-block dispatches; the "

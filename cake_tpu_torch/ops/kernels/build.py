@@ -15,6 +15,10 @@ to build, a plain C one seconds.
 Each kernel has one launch counter. A wrapper adds one where it launches
 its kernel and nowhere else, so a run can show that its path went through
 the kernels (:func:`launches`, :func:`reset_launches`).
+
+:func:`build_shim` builds the embedding shim ``native/cake_embed.cc`` the
+same way, with ``g++`` and Python's include and link flags (from
+``sysconfig``: a machine may have no ``python3-config``).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import os
 import re
 import shutil
 import subprocess
+import sysconfig
 import threading
 from pathlib import Path
 
@@ -180,3 +185,46 @@ def check(err: int, lib: ctypes.CDLL, name: str) -> None:
         raise RuntimeError(
             f"{name} launch failed: CUDA error {err} "
             f"({fn(err).decode()})")
+
+
+SHIM_SRC = _PKG / "native" / "cake_embed.cc"
+
+
+def shim_flags() -> list[str]:
+    """``g++`` flags of the embedding shim: Python's headers, and its
+    shared library where the interpreter has one (a statically linked
+    interpreter exports the symbols the shim then resolves at load)."""
+    flags = ["-O2", "-fPIC", "-shared",
+             f"-I{sysconfig.get_config_var('INCLUDEPY')}"]
+    if sysconfig.get_config_var("Py_ENABLE_SHARED"):
+        libdir = sysconfig.get_config_var("LIBDIR")
+        lib = sysconfig.get_config_var("LDLIBRARY")  # libpython3.X.so
+        flags += [f"-L{libdir}", f"-l{lib[3:].split('.so')[0]}",
+                  f"-Wl,-rpath,{libdir}"]
+    return flags
+
+
+def shim_path() -> Path:
+    h = hashlib.sha256(SHIM_SRC.read_bytes())
+    h.update(" ".join(shim_flags()).encode())
+    return BUILD_DIR / f"libcakeembed-{h.hexdigest()[:16]}.so"
+
+
+def build_shim() -> Path:
+    """The embedding shim's library, built first if missing; raises with
+    ``g++``'s output if the build fails."""
+    out = shim_path()
+    with _LOCK:
+        if out.exists():
+            return out
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        r = subprocess.run(["g++", *shim_flags(), "-o", str(tmp),
+                            str(SHIM_SRC)],
+                           capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"embedding shim build failed (g++ exit "
+                               f"{r.returncode}):\n{r.stdout}{r.stderr}")
+        os.replace(tmp, out)
+    return out

@@ -25,13 +25,14 @@ import torch
 
 from cake_tpu_torch.models import llama
 from cake_tpu_torch.models.config import LlamaConfig
+from cake_tpu_torch.obs import cluster as obs_cluster
 from cake_tpu_torch.obs import flight as obs_flight
 from cake_tpu_torch.obs import metrics as obs_metrics
 from cake_tpu_torch.obs.trace import span
 from cake_tpu_torch.ops.sampling import SamplerSettings
 from cake_tpu_torch.parallel.runner import BlockRunner, LocalRunner, RemoteRunner
 from cake_tpu_torch.parallel.topology import Topology
-from cake_tpu_torch.runtime import wire
+from cake_tpu_torch.runtime import protocol, wire
 from cake_tpu_torch.runtime.generator import GeneratorBase, Token, _bucket
 
 log = logging.getLogger("cake_tpu_torch.master")
@@ -70,25 +71,6 @@ def build_runners(
             log.info("connected: %s", runner.info)
             runners.append(runner)
     return runners
-
-
-def _link(runner) -> dict:
-    """Connection-level health the master measured itself: the min-RTT
-    ping sample's RTT and clock offset, else the handshake RTT."""
-    clock = getattr(runner, "clock", None)
-    if clock is not None and clock.synced:
-        snap = clock.snapshot()
-        link = {"rtt_ms": snap["rtt_ms"],
-                "clock_offset_ms": snap["offset_ms"]}
-    else:
-        info = getattr(runner, "info", None)
-        rtt = getattr(info, "latency_ms", None) if info else None
-        link = {"rtt_ms": round(rtt, 4) if rtt else None,
-                "clock_offset_ms": None}
-    addrs = getattr(runner, "addrs", None)
-    if addrs and len(addrs) > 1:
-        link["replica"] = f"{runner._addr_idx + 1}/{len(addrs)}"
-    return link
 
 
 class DistributedGenerator(GeneratorBase):
@@ -142,6 +124,7 @@ class DistributedGenerator(GeneratorBase):
         # model calls, for callers that check kernel launches
         self.prefill_calls = 0
         self.decode_steps = 0
+        self._scraper = None
 
     def _on_new_prompt(self) -> None:
         self._t_start = None
@@ -322,10 +305,47 @@ class DistributedGenerator(GeneratorBase):
             addrs = getattr(r, "addrs", None)
             if addrs and len(addrs) > 1:
                 entry["replicas"] = list(addrs)
-            entry.update({k: v for k, v in _link(r).items()
+            # the cluster report's rtt/offset fields, from one source
+            entry.update({k: v for k, v in obs_cluster.runner_link(r).items()
                           if v is not None})
             stats.append(entry)
         return stats
+
+    # -- cluster view --------------------------------------------------------
+    def cluster_scraper(self, straggler_factor: float | None = None):
+        """The :class:`~cake_tpu_torch.obs.cluster.ClusterScraper` over
+        this plan's remote segments: a WireSource per CAP_STATS worker (in
+        band, no status port needed); a worker without the capability that
+        advertises a ``status_port`` in its handshake is scraped over HTTP
+        at its connection host. Made once, so ``--top`` and
+        ``--cluster-report`` aggregate into the same ``cluster.*``
+        series."""
+        if self._scraper is None:
+            sources = []
+            for r in self.runners:
+                if not isinstance(r, RemoteRunner):
+                    continue
+                if protocol.CAP_STATS in r.caps:
+                    sources.append(obs_cluster.WireSource(r))
+                elif getattr(r.info, "status_port", 0):
+                    host = r.addr.rsplit(":", 1)[0]
+                    sources.append(obs_cluster.HttpSource(
+                        f"http://{host}:{r.info.status_port}/",
+                        name=r.info.name, runner=r))
+            self._scraper = obs_cluster.ClusterScraper(
+                sources,
+                straggler_factor or obs_cluster.DEFAULT_STRAGGLER_FACTOR)
+        return self._scraper
+
+    def cluster_report(self, straggler_factor: float | None = None) -> dict:
+        """One aggregation pass over every remote worker plus this
+        master's own per-segment view (the ``--cluster-report`` file)."""
+        report = self.cluster_scraper(straggler_factor).scrape()
+        report["segments"] = self.runner_stats()
+        report["tokens_per_sec"] = self.tokens_per_sec()
+        report["recoveries"] = self.recoveries
+        report["failovers"] = self.failovers
+        return report
 
     def close(self) -> None:
         for r in self.runners:

@@ -5,6 +5,15 @@ The format: an 8-byte little-endian header length N, N bytes of JSON
 (``{name: {"dtype", "shape", "data_offsets": [start, end]}, ...}`` with an
 optional ``"__metadata__"`` entry), then the tensors' raw little-endian
 bytes, offsets counted from the end of the header.
+
+:func:`save_file` lays a file out as the ``safetensors`` package does, so
+the same tensors and metadata give the same bytes: the tensors in the
+package's order (by dtype, from the package's highest dtype rank down, then
+by name), ``__metadata__`` first in the header, compact JSON with non-ASCII
+names as UTF-8, the header padded with spaces to a multiple of 8. (The
+package keeps metadata in a hash map, so its files with two or more
+metadata keys differ from run to run; this writer keeps the caller's
+order.)
 """
 
 from __future__ import annotations
@@ -54,25 +63,35 @@ class SafetensorsFile:
         return torch.frombuffer(raw, dtype=dtype).reshape(e["shape"])
 
 
+# the safetensors package's dtype ranks, lowest first (its `Dtype` enum
+# order): its files hold the tensors of the highest rank first
+_RANK = {name: i for i, name in enumerate(
+    ("BOOL", "U8", "I8", "I16", "F16", "BF16", "I32", "F32", "F64", "I64"))}
+
+
 def save_file(tensors: dict[str, torch.Tensor], path: str | Path,
               metadata: dict[str, str] | None = None) -> None:
-    """Write ``tensors`` (any device; copied to the host) to ``path``."""
+    """Write ``tensors`` (any device; copied to the host one at a time) to
+    ``path``, laid out as the ``safetensors`` package lays them out."""
+    names = sorted(tensors, key=lambda n: (
+        -_RANK[_NAMES[tensors[n].dtype]], n))
     header: dict = {}
-    if metadata:
+    if metadata is not None:
         header["__metadata__"] = metadata
-    blobs = []
     offset = 0
-    for name, t in tensors.items():
-        t = t.detach().contiguous().cpu()
-        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+    for name in names:
+        t = tensors[name]
+        size = t.numel() * t.element_size()
         header[name] = {"dtype": _NAMES[t.dtype], "shape": list(t.shape),
-                        "data_offsets": [offset, offset + len(raw)]}
-        blobs.append(raw)
-        offset += len(raw)
-    head = json.dumps(header, separators=(",", ":")).encode()
+                        "data_offsets": [offset, offset + size]}
+        offset += size
+    head = json.dumps(header, separators=(",", ":"),
+                      ensure_ascii=False).encode()
     head += b" " * (-len(head) % 8)  # the data starts 8-byte aligned
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(head)))
         f.write(head)
-        for raw in blobs:
-            f.write(raw)
+        for name in names:
+            t = tensors[name].detach().contiguous().cpu()
+            if t.numel():
+                f.write(t.reshape(-1).view(torch.uint8).numpy())

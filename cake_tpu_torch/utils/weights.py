@@ -363,6 +363,8 @@ def save_llama_params(params: dict, model_dir: str | Path) -> Path:
                     tensors[f"model.layers.{i}.{pattern.format(e=e)}"] = w.t()
     out = model_dir / "model.safetensors"
     save_file(tensors, out)
-    index = {"metadata": {}, "weight_map": {k: out.name for k in tensors}}
+    index = {"metadata": {"total_size": sum(
+        t.numel() * t.element_size() for t in tensors.values())},
+        "weight_map": {k: out.name for k in tensors}}
     (model_dir / "model.safetensors.index.json").write_text(json.dumps(index))
     return out

@@ -16,6 +16,8 @@
                                           # result line
     python3 chip_smoke.py --phase 14      # phases 1 and 14 only; no
                                           # result line
+    python3 chip_smoke.py --phase 15      # phases 1, 6 and 15 only; no
+                                          # result line
 
 Phases, each fatal on failure:
 
@@ -181,7 +183,37 @@ Phases, each fatal on failure:
    gateway``, a ``--role prefill`` and a ``--role decode`` replica that
    ``--register-with`` it and a mixed replica as processes over phase 6's
    checkpoint; the gateway's ids equal the mixed replica's, and SIGTERM
-   drains all four to exit 0.
+   drains all four to exit 0;
+15. the operator's tools, the embeddable worker and the cross-host fault
+   and cluster views: (a) Llama-3-8B at full width and 8 of its 32
+   layers, random weights (seed 0) drawn on the card, written in bf16 by
+   the port's safetensors writer, quantized on the card by
+   ``tools/quantize_model`` to int8 and to int4 g128 (layer 0's seven
+   linears and the head equal the CPU quantizer's codes and scales bit for
+   bit; a scale with one bit flipped fails that check), the int8 copy
+   split by ``tools/split_model`` over worker A (layers 0-1) and B (2-7),
+   both started from their bundles by ``embed.spawn_worker``; a master
+   (embedding, norm, head from the full directory) over them on phase 5's
+   2,000-id prompt, 32 greedy tokens, the bf16 cache: every step's logits
+   equal the single-device generator's over the same files bit for bit,
+   the ids equal, launches exact over master and workers; then the same
+   behind a port ``ChaosProxy`` per worker (kill, truncate, corrupt and a
+   stall under the op deadline: 3 recoveries; a stall over a 3 s deadline:
+   1), each fault in the proxies' events, the ids the clean run's up to a
+   replayed step that is a near-tie there (a recovery replays the context
+   in one prefill-shaped pass, which rounds otherwise than decode steps),
+   each replayed step's logits near the clean step's; the clean
+   run's cluster report has both workers up with forward p50/p99, RTT and
+   clock offset, flags B and not A at a straggler factor of 2, and renders
+   both rows; checkpoint, quantize, split and load times, TTFT, decode
+   tokens/s, segment ms and the card's busy share print. (b) As processes
+   over phase 6's checkpoint: ``tools.quantize_model`` (int8, int4 g64)
+   and ``tools.split_model``; per tier a ``--mode worker`` and a worker
+   served through the C shim (``cake_start_worker_opts``, from a process
+   that loads the library with ctypes), and a ``--topology`` master with
+   ``--chaos kill@7 --cluster-report --top`` printing phase 6's
+   ids alone on stdout (the panel on stderr, the report naming both
+   workers); SIGTERM ends every worker with exit 0.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the ``cake_tpu_torch`` package beside this file, it exits with
@@ -2843,7 +2875,7 @@ def prefill_breakdown(torch, gen, prompt, label) -> list:
     return {"ttft_ms": ttft, "segments_ms": segs, "hops": hops}
 
 
-def profile_cross_host(torch, gen, index0, label) -> dict:
+def profile_cross_host(torch, gen, index0, label, phase: int = 9) -> dict:
     """Card time of 8 decode steps from a profiler trace, beside the host
     clock's time for 8 unprofiled steps: the card's busy share a step."""
     torch.cuda.synchronize()
@@ -2858,7 +2890,8 @@ def profile_cross_host(torch, gen, index0, label) -> dict:
     prof["device_ms_per_step"] = prof["device_ms"] / 8
     prof["wall_ms_per_step"] = wall_ms
     prof["busy_share"] = prof["device_ms_per_step"] / wall_ms
-    say(f"[9] {label} decode step: {prof['device_ms_per_step']:.3f} ms of "
+    say(f"[{phase}] {label} decode step: "
+        f"{prof['device_ms_per_step']:.3f} ms of "
         f"card kernel time over {prof['kernel_launches'] / 8:.1f} launches,"
         f" {wall_ms:.3f} ms on the host clock: card busy "
         f"{100 * prof['busy_share']:.1f}%; top {prof['top']}")
@@ -5381,6 +5414,543 @@ def phase_disagg(torch, build) -> list:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 15
+# --------------------------------------------------------------------------
+
+
+# the full-width run: Llama-3-8B at 8 of its 32 layers, split unevenly over
+# two workers; the master keeps the embedding, the final norm and the head
+TOOLS_LAYERS = 8
+TOOLS_NODES = {"A": (0, 2), "B": (2, 8)}
+TOOLS_NEW = 32
+# the card's codes are compared with the CPU quantizer's for these
+TOOLS_CHECKED = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+                 "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj",
+                 "mlp.down_proj")
+# a process that loads the embedding shim with ctypes and serves a worker
+# through cake_start_worker_opts until SIGTERM
+SHIM_HOST = ("import ctypes, logging, sys\n"
+             "logging.basicConfig(level=logging.INFO)\n"
+             "lib = ctypes.CDLL(sys.argv[1])\n"
+             "f = lib.cake_start_worker_opts\n"
+             "f.argtypes = [ctypes.c_char_p] * 5\n"
+             "f.restype = ctypes.c_int\n"
+             "sys.exit(f(*(a.encode() for a in sys.argv[2:])))\n")
+
+
+def gbytes(path: Path) -> float:
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file()) / 1e9
+
+
+def quantized_codes(quant, w, bits: int):
+    """(codes in the HF [out, in] orientation, scale) of an HF weight, as
+    ``tools/quantize_model.py`` stores them."""
+    if bits == 8:
+        q = quant.quantize_linear(w.t())
+        return q.q.t().contiguous(), q.scale
+    q = quant.quantize_linear4(w.t(), group_size=128)
+    return q.qp.t().contiguous(), q.scale
+
+
+def check_card_codes(torch, quant, src: Path, outs: dict) -> dict:
+    """Layer 0's seven linears and the head, quantized on the CPU, against
+    the files the card wrote (``outs``: bits -> directory), bit for bit;
+    then a planted fault (one scale's last bit flipped) must fail the same
+    check. Returns the CPU's seconds and GB/s for layer 0's linears."""
+    from cake_tpu_torch.utils.safetensors import SafetensorsFile
+    from cake_tpu_torch.utils.weights import load_safetensors_index
+
+    src_files = load_safetensors_index(src)
+    names = [f"model.layers.0.{n}.weight" for n in TOOLS_CHECKED]
+    names.append("lm_head.weight")
+    card = {bits: load_safetensors_index(d) for bits, d in outs.items()}
+
+    def stored(bits, name):
+        f = card[bits][name]
+        return SafetensorsFile(f).get_tensor(name)
+
+    cpu_s, cpu_bytes = 0.0, 0
+    planted = None
+    for name in names:
+        w = SafetensorsFile(src_files[name]).get_tensor(name)
+        for bits in outs:
+            t0 = time.perf_counter()
+            q, scale = quantized_codes(quant, w, bits)
+            if bits == 8 and name.startswith("model.layers.0."):
+                cpu_s += time.perf_counter() - t0
+                cpu_bytes += w.numel() * w.element_size()
+            suffix = ".q8" if bits == 8 else ".q4"
+            got_q = stored(bits, name + suffix)
+            got_s = stored(bits, name + ".scale")
+            if not (torch.equal(got_q, q) and torch.equal(got_s, scale)):
+                fail(f"{name} int{bits}: the card's codes or scales differ "
+                     "from the CPU quantizer's")
+            if planted is None:
+                bad = got_s.clone()
+                bad.view(torch.int32)[0] ^= 1
+                planted = torch.equal(bad, scale)
+    if planted:
+        fail("a scale with its last bit flipped passed the codes check")
+    say(f"[15] the card's int8 and int4 g128 codes and scales of layer 0's "
+        f"seven linears and the head equal the CPU quantizer's bit for bit; "
+        f"a scale with its last bit flipped fails the check; the CPU "
+        f"quantizes layer 0's linears (int8) in {cpu_s:.3f} s, "
+        f"{cpu_bytes / cpu_s / 1e9:.3f} GB/s")
+    return {"cpu_layer0_s": cpu_s, "cpu_layer0_gb_per_s":
+            cpu_bytes / cpu_s / 1e9}
+
+
+def tools_master(cfg, head, topo, **kw):
+    from cake_tpu_torch.ops.sampling import SamplerSettings
+    from cake_tpu_torch.runtime.master import (
+        DistributedGenerator,
+        build_runners,
+    )
+
+    return DistributedGenerator(
+        cfg, head, build_runners(cfg, topo, None, max_seq=cfg.max_seq_len,
+                                 **kw),
+        settings=SamplerSettings(temperature=0))
+
+
+# a recovery replays the context in one prefill-shaped pass, so the
+# replayed step's logits are the decode step's up to bf16 rounding in other
+# kernel shapes: held to this relative L2 error (a replay at the wrong
+# positions or over the wrong context reads ~1)
+REPLAY_REL_L2 = 5e-2
+
+
+def chaos_run(torch, cfg, head, workers, prompt, clean, label, faults,
+              want_recoveries, **kw) -> dict:
+    """The clean run again with a port ``ChaosProxy`` in front of each
+    worker (``faults``: name -> schedule). The recoveries must count each
+    fatal fault and the proxies' events list each fault. The ids must
+    equal the clean run's (``clean``: its ids, logits and penalized
+    margins) up to a replayed step that is a near-tie there (MARGIN_TIE),
+    and each replayed step before that must take the clean step's greedy
+    choice with logits within REPLAY_REL_L2 of the clean step's."""
+    from cake_tpu_torch.parallel.topology import Topology
+    from cake_tpu_torch.testing.chaos import ChaosProxy, parse_spec
+
+    proxies = {n: ChaosProxy("127.0.0.1", w.port, parse_spec(faults[n]))
+               .start() for n, w in workers.items()}
+    gen = None
+    replayed = []
+    try:
+        topo = Topology.from_dict({
+            n: {"host": p.addr, "layers": [
+                f"model.layers.{i}" for i in range(*TOOLS_NODES[n])]}
+            for n, p in proxies.items()})
+        gen = tools_master(cfg, head, topo, **kw)
+        logits = keep_logits(gen)
+        real = gen._replay_context
+
+        def replay():
+            replayed.append(len(gen._generated))
+            return real()
+
+        gen._replay_context = replay
+        run = drive_stream(torch, gen, prompt, TOOLS_NEW)
+        segs = gen.runner_stats()
+        recoveries = gen.recoveries
+    finally:
+        if gen is not None:
+            gen.close()
+        for p in proxies.values():
+            p.stop()
+    events = {n: p.events for n, p in proxies.items()}
+    fired = {n: [f for f in faults[n].split(",") if f != "none"]
+             for n in faults}
+    ids = run["ids"]
+    parted = next((i for i, (a, b) in enumerate(zip(ids, clean["ids"]))
+                   if a != b), None)
+    held = [j for j in replayed if parted is None or j <= parted]
+    rel = {j: float((logits[j] - clean["logits"][j]).norm()
+                    / clean["logits"][j].norm()) for j in held}
+    margins = {j: clean["margins"][j] for j in held}
+    say(f"[15] {label}: {recoveries} recoveries, replayed steps {replayed} "
+        f"(clean margins {margins}, logits relative L2 against the clean "
+        f"steps {rel}); ids "
+        f"{'equal' if parted is None else f'part at step {parted}'}; "
+        f"events {events}; TTFT {run['ttft_ms']:.2f} ms, decode "
+        f"{run['decode_tokens_per_s']:.2f} tokens/s; segment p50 ms "
+        f"{[round(s['p50_ms'], 3) for s in segs]}")
+    if recoveries != want_recoveries:
+        fail(f"{label}: {recoveries} recoveries, want {want_recoveries}")
+    for n in faults:
+        if [e for _, e in events[n]] != fired[n]:
+            fail(f"{label}: proxy {n} recorded {events[n]}, want "
+                 f"{fired[n]}")
+    bad = {j: r for j, r in rel.items() if r > REPLAY_REL_L2}
+    if bad:
+        fail(f"{label}: replayed steps' logits off the clean steps' by "
+             f"{bad} (relative L2)")
+    if parted is not None and not (parted in replayed
+                                   and clean["margins"][parted] < MARGIN_TIE):
+        fail(f"{label}: ids {ids} part from the clean run's "
+             f"{clean['ids']} at step {parted}, not a replayed near-tie")
+    return {"ttft_ms": run["ttft_ms"],
+            "decode_tokens_per_s": run["decode_tokens_per_s"],
+            "recoveries": recoveries, "events": events,
+            "replayed_steps": replayed, "parted_at": parted,
+            "replay_rel_l2": rel, "replay_clean_margins": margins,
+            "segments_p50_ms": [s["p50_ms"] for s in segs]}
+
+
+def tools_full_width(torch, build, root: Path) -> dict:
+    """Phase 15 (a): Llama-3-8B at full width and 8 layers written by the
+    port's writer, quantized on the card, split, served by two embedded
+    workers from their bundles, clean and under chaos, and the cluster
+    report of the clean run."""
+    import shutil
+
+    from cake_tpu_torch import embed
+    from cake_tpu_torch.models import llama
+    from cake_tpu_torch.models.config import llama3_8b
+    from cake_tpu_torch.ops import quant
+    from cake_tpu_torch.ops.sampling import SamplerSettings
+    from cake_tpu_torch.parallel.runner import RemoteRunner
+    from cake_tpu_torch.parallel.topology import Topology
+    from cake_tpu_torch.runtime.generator import LlamaGenerator
+    from cake_tpu_torch.tools import quantize_model, split_model
+    from cake_tpu_torch.utils.weights import (
+        load_llama_params,
+        save_llama_params,
+    )
+
+    out: dict = {}
+    cfg = llama3_8b(num_hidden_layers=TOOLS_LAYERS, max_seq_len=4096)
+    src, q8, q4 = root / "bf16", root / "int8", root / "int4g128"
+    params = llama.init_params(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_llama_params(params, src)
+    (src / "config.json").write_text(json.dumps(cfg.to_hf_dict()))
+    dt = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    out["checkpoint_gb"] = gbytes(src)
+    out["checkpoint_write_gb_per_s"] = out["checkpoint_gb"] / dt
+    say(f"[15] bf16 checkpoint of Llama-3-8B at {TOOLS_LAYERS} layers: "
+        f"{out['checkpoint_gb']:.3f} GB written in {dt:.2f} s, "
+        f"{out['checkpoint_write_gb_per_s']:.3f} GB/s")
+    for label, d, kw in (("int8", q8, {}),
+                         ("int4 g128", q4, dict(bits=4, group_size=128))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        quantize_model.quantize_checkpoint(src, d, **kw)
+        dt = time.perf_counter() - t0
+        out[f"quantize_{label}_s"] = dt
+        say(f"[15] quantize_model {label} on the card: {dt:.2f} s, "
+            f"{out['checkpoint_gb'] / dt:.3f} GB/s of the bf16 checkpoint "
+            f"read; {gbytes(d):.3f} GB written")
+    out.update(check_card_codes(torch, quant, src, {8: q8, 4: q4}))
+    shutil.rmtree(q4)
+    shutil.rmtree(src)
+
+    topo_file = root / "topology.json"
+    full_topo = {n: {"host": "127.0.0.1:0", "layers": [
+        f"model.layers.{lo}-{hi - 1}"]} for n, (lo, hi) in TOOLS_NODES.items()}
+    topo_file.write_text(json.dumps(full_topo))
+    t0 = time.perf_counter()
+    split_model.main(["--model-path", str(q8), "--topology", str(topo_file),
+                      "--output", str(root / "bundles")])
+    out["split_s"] = time.perf_counter() - t0
+    bundles = {n: root / "bundles" / f"{n}-node" for n in TOOLS_NODES}
+    out["bundle_gb"] = {n: gbytes(b) for n, b in bundles.items()}
+    say(f"[15] split_model: bundles {out['bundle_gb']} GB in "
+        f"{out['split_s']:.2f} s")
+    for n, b in bundles.items():
+        if list(Topology.from_path(b / "topology.yml").nodes) != [n]:
+            fail(f"bundle {n}: its topology.yml does not load back as {n}")
+
+    workers = {}
+    try:
+        for n, b in bundles.items():
+            t0 = time.perf_counter()
+            workers[n] = embed.spawn_worker(
+                n, str(b / "model"), str(b / "topology.yml"),
+                address="127.0.0.1:0", max_seq=cfg.max_seq_len)
+            out[f"load_{n}_bundle_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        from_full = embed.spawn_worker("B", str(q8), str(topo_file),
+                                       address="127.0.0.1:0",
+                                       max_seq=cfg.max_seq_len)
+        out["load_B_full_dir_s"] = time.perf_counter() - t0
+        from_full.shutdown()
+        del from_full
+        say(f"[15] embed.spawn_worker load: A {out['load_A_bundle_s']:.2f} "
+            f"s, B {out['load_B_bundle_s']:.2f} s from their bundles; B "
+            f"{out['load_B_full_dir_s']:.2f} s from the full directory")
+
+        prompt = torch.randint(
+            0, cfg.vocab_size, (2000,),
+            generator=torch.Generator().manual_seed(SEED)).tolist()
+        ref_gen = LlamaGenerator(
+            cfg, load_llama_params(q8, TOOLS_LAYERS, quantize="int8"),
+            settings=SamplerSettings(temperature=0), block_size=1)
+        drive_stream(torch, ref_gen, prompt, 4)  # warm
+        ref_logits = keep_logits(ref_gen)
+        ref = drive_stream(torch, ref_gen, prompt, TOOLS_NEW)
+        del ref_gen
+        head = load_llama_params(q8, TOOLS_LAYERS, quantize="int8",
+                                 layer_range=(0, 0))
+        topo = Topology.from_dict({
+            n: {"host": f"127.0.0.1:{w.port}",
+                "layers": full_topo[n]["layers"]}
+            for n, w in workers.items()})
+        gen = tools_master(cfg, head, topo)  # warm: not timed or counted
+        drive_stream(torch, gen, prompt, 4)
+        gen.close()
+        gen = tools_master(cfg, head, topo)
+        try:
+            logits = keep_logits(gen)
+            p0, d0 = gen.prefill_calls, gen.decode_steps
+            torch.cuda.synchronize()
+            build.reset_launches()
+            run = drive_stream(torch, gen, prompt, TOOLS_NEW)
+            torch.cuda.synchronize()
+            counts = build.launches()
+            want = expected_launches(cfg, "quant_matmul", None,
+                                     gen.prefill_calls - p0,
+                                     gen.decode_steps - d0)
+            diff = logits_diff(torch, logits, ref_logits)
+            say(f"[15] clean run over the bundles: launches {counts} "
+                f"(master and workers); logits against the single-device "
+                f"generator over {diff['steps']} steps: "
+                f"{diff['unequal_steps']} steps differ, max abs "
+                f"{diff['max_abs']:.3e}")
+            if counts != want or gen.prefill_calls - p0 != 1:
+                fail(f"phase 15: kernels launched {counts}, want {want}")
+            if diff["steps"] != TOOLS_NEW or diff["unequal_steps"]:
+                fail(f"phase 15: logits differ from the single-device "
+                     f"generator's at {diff['unequal_steps']} of "
+                     f"{diff['steps']} steps")
+            if run["ids"] != ref["ids"]:
+                fail(f"phase 15: ids {run['ids']} differ from the "
+                     f"single-device stream's {ref['ids']}")
+            segs = gen.runner_stats()
+            report = gen.cluster_report(2.0)
+            clean = {"ids": run["ids"], "logits": logits,
+                     "margins": penalized_margins(
+                         torch, torch.stack(logits).cuda(), prompt,
+                         run["ids"], gen.settings)}
+            out["clean"] = {"ttft_ms": run["ttft_ms"],
+                            "decode_tokens_per_s":
+                                run["decode_tokens_per_s"],
+                            "segments": [{k: s[k] for k in (
+                                "layers", "p50_ms", "p99_ms")}
+                                for s in segs]}
+            out["launches"] = counts
+            say(f"[15] clean: TTFT {run['ttft_ms']:.2f} ms, decode "
+                f"{run['decode_tokens_per_s']:.2f} tokens/s; segments "
+                f"{out['clean']['segments']}")
+            out["profile"] = profile_cross_host(torch, gen, TOOLS_NEW,
+                                                "clean", phase=15)
+        finally:
+            gen.close()
+        check_report(report)
+        out["report"] = {n: {k: w[k] for k in (
+            "forward_p50_ms", "forward_p99_ms", "rtt_ms", "clock_offset_ms",
+            "straggler")} for n, w in report["workers"].items()}
+
+        op_f = 2 + RemoteRunner.CLOCK_PINGS  # the first op of a connection
+        out["chaos"] = chaos_run(
+            torch, cfg, head, workers, prompt, clean,
+            "chaos (kill, truncate, corrupt, a stall under --op-timeout)",
+            {"A": f"none,kill@{op_f + 4},none,corrupt@{op_f + 1},none",
+             "B": f"none,none,truncate@{op_f + 2},none,"
+                  f"stall@{op_f + 1}=500"}, 3)
+        out["chaos_stall"] = chaos_run(
+            torch, cfg, head, workers, prompt, clean,
+            "chaos (a stall over --op-timeout 3)",
+            {"A": "none,none", "B": f"none,stall@{op_f + 2}=4500"}, 1,
+            op_timeout_s=3.0)
+    finally:
+        for w in workers.values():
+            w.shutdown()
+    return out
+
+
+def check_report(report: dict) -> None:
+    """The clean run's cluster report: both workers up with forward
+    p50/p99, RTT and clock offset; at a straggler factor of 2 the worker
+    with 6 layers is flagged and the one with 2 is not; the panel carries
+    both rows."""
+    from cake_tpu_torch.obs.top import render
+
+    ws = report["workers"]
+    say("[15] cluster report: " + json.dumps(
+        {n: {k: w.get(k) for k in ("up", "forward_p50_ms", "forward_p99_ms",
+                                   "rtt_ms", "clock_offset_ms",
+                                   "straggler")} for n, w in ws.items()}))
+    for n in TOOLS_NODES:
+        w = ws.get(n, {})
+        if not (w.get("up") and w.get("forward_p50_ms")
+                and w.get("forward_p99_ms") and w.get("rtt_ms")
+                and w.get("clock_offset_ms") is not None):
+            fail(f"cluster report: worker {n} is not up with its forward "
+                 f"p50/p99, RTT and clock offset: {w}")
+    if report["stragglers"] != ["B"]:
+        fail(f"cluster report: stragglers {report['stragglers']} at factor "
+             "2, want B (6 layers) and not A (2)")
+    panel = render(report)
+    if not all(f"\n{n} " in panel for n in TOOLS_NODES):
+        fail(f"the --top panel lacks a worker's row:\n{panel}")
+    say(panel)
+
+
+def tools_cli(torch, build, root: Path, local_ids: dict) -> dict:
+    """Phase 15 (b): the tools and the cluster flags as processes over
+    phase 6's checkpoint: quantize_model (int8; int4 g64) and split_model
+    over two workers, one a ``--mode worker`` process and one served
+    through the C shim from a process that loads it with ctypes; a
+    ``--topology`` master with ``--chaos``, ``--cluster-report`` and
+    ``--top`` prints phase 6's ids; SIGTERM ends each worker with exit 0.
+    The two tiers run side by side."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    shim = build.build_shim()
+    write_cli_checkpoint(torch, build, root)
+    # phase 6's label -> (quantize_model's flags, the --mode worker's
+    # flags, the shim worker's options, the master's flags)
+    tiers = {"int8": (["--bits", "8"], ["--quantize", "int8",
+                                        "--kv-quant", "int8"],
+                      {"kv_quant": "int8"}, ["--quantize", "int8"]),
+             "int4:g64": (["--bits", "4", "--group-size", "64"],
+                          ["--quantize", "int4:g64"], {},
+                          ["--quantize", "int4:g64"])}
+    dirs = {t: t.replace(":", "") for t in tiers}
+    layers = {"w0": ["model.layers.0"], "w1": ["model.layers.1"]}
+    topo = root / "split.json"
+    topo.write_text(json.dumps({n: {"host": "127.0.0.1:10128",
+                                    "layers": ls}
+                                for n, ls in layers.items()}))
+
+    def run_all(cmds: dict, what: str) -> dict:
+        procs = {k: subprocess.Popen(c, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True,
+                                     env=env, cwd=REPO)
+                 for k, c in cmds.items()}
+        outs = {}
+        for k, p in procs.items():
+            o, e = p.communicate(timeout=300)
+            if p.returncode != 0:
+                fail(f"{what} {k} exit {p.returncode}: {e[-2000:]}")
+            outs[k] = (o, e)
+        return outs
+
+    t0 = time.perf_counter()
+    py = [sys.executable, "-m"]
+    run_all({t: py + ["cake_tpu_torch.tools.quantize_model", "--model-path",
+                      str(root), "--output", str(root / dirs[t]), *qf]
+             for t, (qf, _, _, _) in tiers.items()}, "quantize_model")
+    run_all({t: py + ["cake_tpu_torch.tools.split_model", "--model-path",
+                      str(root / dirs[t]), "--topology", str(topo),
+                      "--output", str(root / f"b-{dirs[t]}")]
+             for t in tiers}, "split_model")
+    say(f"[15] cli: quantize_model and split_model, int8 and int4 g64, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    procs, logs = {}, {}
+    out = {}
+    try:
+        for t, (_, wflags, opts, _) in tiers.items():
+            b = root / f"b-{dirs[t]}"
+            logs[t, "w0"] = root / f"{dirs[t]}-w0.log"
+            logs[t, "w1"] = root / f"{dirs[t]}-w1.log"
+            with open(logs[t, "w0"], "w") as log:
+                procs[t, "w0"] = subprocess.Popen(
+                    py + ["cake_tpu_torch.cli", "--mode", "worker", "--name",
+                          "w0", "--model", str(b / "w0-node" / "model"),
+                          "--topology", str(b / "w0-node" / "topology.yml"),
+                          "--address", "127.0.0.1:0", "--max-seq", "128",
+                          *wflags],
+                    stdout=subprocess.DEVNULL, stderr=log, env=env, cwd=REPO)
+            with open(logs[t, "w1"], "w") as log:
+                procs[t, "w1"] = subprocess.Popen(
+                    [sys.executable, "-c", SHIM_HOST, str(shim), "w1",
+                     str(b / "w1-node" / "model"),
+                     str(b / "w1-node" / "topology.yml"), "127.0.0.1:0",
+                     json.dumps({"max_seq": 128, **opts})],
+                    stdout=subprocess.DEVNULL, stderr=log, env=env, cwd=REPO)
+        masters = {}
+        for t, (_, _, _, mflags) in tiers.items():
+            mt = root / f"master-{dirs[t]}.json"
+            mt.write_text(json.dumps({
+                n: {"host": f"127.0.0.1:"
+                            f"{worker_port(procs[t, n], logs[t, n])}",
+                    "layers": ls} for n, ls in layers.items()}))
+            masters[t] = py + [
+                "cake_tpu_torch.cli", "--model", str(root / dirs[t]),
+                *CLI_RUN, "--topology", str(mt), "--connect-retries", "100",
+                "--chaos", "kill@7", "--cluster-report",
+                str(root / f"report-{dirs[t]}.json"), "--top", *mflags]
+        results = run_all(masters, "topology master")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.terminate()
+        codes = {}
+        for k, p in procs.items():
+            try:
+                codes[k] = p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                codes[k] = p.wait()
+    for t, (stdout, stderr) in results.items():
+        ids = stdout.strip()
+        want = ",".join(map(str, local_ids[t]))
+        report = json.loads((root / f"report-{dirs[t]}.json").read_text())
+        say(f"[15] cli {t}: master over a --mode worker and a shim worker "
+            f"printed {ids!r} (phase 6: {want}); report workers "
+            f"{sorted(report['workers'])}, recoveries "
+            f"{report['recoveries']}; worker exit codes "
+            f"{[codes[t, n] for n in layers]}")
+        if ids != want:
+            fail(f"cli {t}: stdout {ids!r}, want only phase 6's ids {want}")
+        if sorted(report["workers"]) != sorted(layers) or not all(
+                w["up"] for w in report["workers"].values()):
+            fail(f"cli {t}: the cluster report names {report['workers']}")
+        if "WORKER" not in stderr or "cake-tpu cluster" not in stderr:
+            fail(f"cli {t}: no --top panel on stderr")
+        if "chaos enabled" not in stderr:
+            fail(f"cli {t}: --chaos did not arm its proxies")
+        out[t] = {"ids": ids, "recoveries": report["recoveries"]}
+    bad = {f"{t}/{n}": c for (t, n), c in codes.items() if c != 0}
+    if bad:
+        fail(f"workers did not exit 0 on SIGTERM: {bad}; "
+             f"{[logs[k].read_text()[-1000:] for k in logs]}")
+    return out
+
+
+def phase_tools(torch, build, local_ids: dict) -> dict:
+    """Phase 15: the operator's tools, the embeddable worker and the
+    cross-host fault and cluster views on the card. The files live in a
+    temporary directory removed at the end, whatever happens."""
+    import shutil
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(build.BUILD_DIR).free
+    say(f"[15] free disk under {build.BUILD_DIR.name}: {free / 1e9:.1f} GB "
+        "(the run writes ~12 GB)")
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(dir=build.BUILD_DIR))
+    try:
+        full = tools_full_width(torch, build, root / "full")
+        t_full = time.perf_counter() - t0
+        (root / "cli").mkdir()
+        cli_run = tools_cli(torch, build, root / "cli", local_ids)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    say(f"[15] phase 15 took {seconds:.1f} s ({t_full:.1f} s the "
+        "full-width run)")
+    return {"path": "tools: quantize, split, embedded workers, chaos, "
+                    "cluster report", "launches": full.pop("launches"),
+            "full_width": full, "cli": cli_run, "seconds": seconds}
+
+
 def main() -> int:
     import torch
 
@@ -5392,12 +5962,15 @@ def main() -> int:
     only_spec = sys.argv[1:] == ["--phase", "12"]
     only_families = sys.argv[1:] == ["--phase", "13"]
     only_disagg = sys.argv[1:] == ["--phase", "14"]
+    only_tools = sys.argv[1:] == ["--phase", "15"]
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels":
         other = Path(sys.argv[2]).resolve()
     elif len(sys.argv) > 1 and not (only_guided or only_paged or only_spec
-                                    or only_families or only_disagg):
+                                    or only_families or only_disagg
+                                    or only_tools):
         fail(f"usage: {sys.argv[0]} [--kernels DIR | --phase 10 | "
-             "--phase 11 | --phase 12 | --phase 13 | --phase 14]")
+             "--phase 11 | --phase 12 | --phase 13 | --phase 14 | "
+             "--phase 15]")
     sys.path.insert(0, str(other or REPO))
     try:
         from cake_tpu_torch.ops import flash, kvcache, qmatmul, quant
@@ -5438,6 +6011,11 @@ def main() -> int:
     if only_disagg:
         say(json.dumps({"card": card, "disagg": phase_disagg(torch, build),
                         "disagg_cli": disagg_cli(torch, build)}))
+        say(card)
+        return 0
+    if only_tools:
+        say(json.dumps({"card": card, "tools": phase_tools(
+            torch, build, phase_cli(torch, build))}))
         say(card)
         return 0
     t_run = time.perf_counter()
@@ -5494,21 +6072,24 @@ def main() -> int:
     disagg = phase_disagg(torch, build)
     disagg_cli_run = disagg_cli(torch, build)
     lap("14")
+    tools = phase_tools(torch, build, cli)
+    lap("15")
     # over the paths (a), (b), (c), the batch runs, the cross-host runs,
     # phase 10's guided and lookahead runs, phase 11's paged runs, phase
-    # 12's speculative runs, phase 13's family runs and phase 14's
-    # disaggregated runs (both replicas)
+    # 12's speculative runs, phase 13's family runs, phase 14's
+    # disaggregated runs (both replicas) and phase 15's clean run over the
+    # bundles (master and workers)
     for r in rows:
         r["launches"] = sum(p["launches"][r["name"]]
                             for p in main_path + batch + cross_host + guided
-                            + paged + spec + families + disagg)
+                            + paged + spec + families + disagg + [tools])
     say(json.dumps({"card": card, "main_path": main_path, "batch": batch,
                     "serve": serve, "cross_host": cross_host,
                     "cross_host_cli": cross_host_cli, "guided": guided,
                     "guided_cli": guided_cli_ids, "paged": paged,
                     "spec": spec, "families_model": families_model,
                     "families": families, "disagg": disagg,
-                    "disagg_cli": disagg_cli_run}))
+                    "disagg_cli": disagg_cli_run, "tools": tools}))
     say(json.dumps({"kernels": rows}))
     say(card)
     say(json.dumps({"ok": True, "device": {

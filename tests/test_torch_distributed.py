@@ -588,10 +588,11 @@ def test_cli_serve_over_a_topology_answers_sse(checkpoint, workers):
     (["--topology", "T", "--kv-quant", "int8"], "workers own"),
     (["--topology", "T", "--speculate", "4"], "not supported with --sp or "
                                               "--topology"),
-    (["--topology", "T", "--chaos", "kill@3"], "--chaos.*not ported"),
-    (["--topology", "T", "--cluster-report", "r.json"],
-     "cluster-report/--top.*not ported"),
-    (["--topology", "T", "--top"], "cluster-report/--top.*not ported"),
+    (["--topology", "T", "--chaos", "explode@3"], "bad --chaos spec"),
+    (["--topology", "T", "--straggler-factor", "1"],
+     "--straggler-factor must exceed 1.0"),
+    (["--cluster-report", "r.json"], "cluster-report/--top.*need a "
+                                     "host-addressed --topology"),
     (["--topology", "MESH"], "mesh `device:`.*not ported"),
     (["--wire-codec", "int8"], "need a host-addressed --topology"),
     (["--connect-retries", "3"], "need a host-addressed --topology"),

@@ -64,7 +64,11 @@ def test_import_leaves_jax_and_triton_out():
             "cake_tpu_torch.utils.corpus, cake_tpu_torch.disagg.transfer, "
             "cake_tpu_torch.serve.register, cake_tpu_torch.gateway, "
             "cake_tpu_torch.gateway.api, cake_tpu_torch.gateway.health, "
-            "cake_tpu_torch.gateway.policy\n"
+            "cake_tpu_torch.gateway.policy, cake_tpu_torch.embed, "
+            "cake_tpu_torch.tools.quantize_model, "
+            "cake_tpu_torch.tools.split_model, cake_tpu_torch.tools.deploy, "
+            "cake_tpu_torch.tools.watch, cake_tpu_torch.obs.cluster, "
+            "cake_tpu_torch.obs.top\n"
             "print(sorted(m for m in ('jax', 'triton', 'cake_tpu', "
             "'ml_dtypes') if m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -297,6 +301,50 @@ def test_cross_host_entry_points_raise_without_a_card():
         cli.run_worker(cli.build_parser().parse_args(
             ["--model", "unused", "--mode", "worker", "--name", "w",
              "--topology", "unused"]))
+
+
+def test_the_shim_source_embeds_the_port():
+    """The port's C shim calls ``cake_tpu_torch.embed`` (the JAX package's
+    ``native/cake_embed.cc`` names ``cake_tpu.embed``)."""
+    src = build.SHIM_SRC.read_text()
+    assert build.SHIM_SRC.parent == REPO / "cake_tpu_torch" / "native"
+    assert '"cake_tpu_torch.embed"' in src
+    assert "cake_tpu.embed" not in src
+
+
+def test_operator_tools_and_the_embedded_worker_raise_without_a_card(
+        tmp_path):
+    """The quantizer and the embeddable worker compute on the card unless
+    the CPU is asked for; the splitter, which copies bytes, needs none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device exists")
+    import json
+
+    from cake_tpu_torch import embed
+    from cake_tpu_torch.models.config import tiny
+    from cake_tpu_torch.models.llama import init_params
+    from cake_tpu_torch.tools import quantize_model
+    from cake_tpu_torch.utils.weights import save_llama_params
+
+    cfg = tiny()
+    save_llama_params(init_params(cfg, device="cpu"), tmp_path / "m")
+    (tmp_path / "m" / "config.json").write_text(json.dumps(
+        cfg.to_hf_dict()))
+    topo = tmp_path / "t.json"
+    topo.write_text(json.dumps({"w": {"layers": ["model.layers.0-3"]}}))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quantize_model.quantize_checkpoint(tmp_path / "m", tmp_path / "q")
+    assert not (tmp_path / "q").exists()
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        quantize_model.main(["--model-path", str(tmp_path / "m"),
+                             "--output", str(tmp_path / "q")])
+    for fn in (embed.spawn_worker, embed.start_worker):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn("w", str(tmp_path / "m"), str(topo), address="127.0.0.1:0")
+    h = embed.spawn_worker("w", str(tmp_path / "m"), str(topo),
+                           address="127.0.0.1:0", device="cpu")
+    assert h._worker.device.type == "cpu"
+    h.shutdown()
 
 
 def test_wire_build_writes_under_the_port_build_dir_only(monkeypatch):
