@@ -62,9 +62,20 @@ proxy (``testing/chaos.py``) in front of every worker link,
 ``--cluster-report PATH`` writes the end-of-run cluster report
 (``obs/cluster.py``) and ``--top`` paints the live cluster panel on
 stderr (``obs/top.py``); ``--straggler-factor`` sets when a worker is
-flagged. The JAX command line's meshes (``--stages/--tp/--dp/--sp/--ep``
-above 1, and topologies with mesh ``device:`` nodes) are refused with an
-error until multi-GPU parallelism is ported.
+flagged.
+
+``--stages/--tp/--dp`` run a ``(dp, stage, tp)`` rank mesh: the command
+starts ``dp x stages x tp`` ranks itself, one process each
+(:mod:`cake_tpu_torch.parallel.launch`), so the JAX command lines run
+unchanged, as does a topology whose nodes carry mesh ``device:`` indices
+(one stage a node). Rank 0 prints and serves; every rank runs the same
+steps over its shard, read from the checkpoint shard by shard.
+``--dist-backend nccl|gloo`` picks the transport (NCCL on the card, one
+card a rank; gloo with ``--cpu`` or when ranks share a card), and
+``--coordinator/--num-processes/--process-id`` spread the ranks over
+hosts, one process a host. ``--sp``, ``--ep`` and ``--prefill-chunks``
+above 1, and ``--speculate`` over a mesh, are refused with an error: they
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -257,11 +268,39 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (plain PyTorch attention) instead "
                         "of the CUDA card")
-    # flags of the JAX command line whose paths are not ported: accepted
-    # so that they fail with a clear error instead of an argparse one
-    for flag in ("--stages", "--tp", "--dp", "--sp", "--ep"):
+    # the rank mesh (parallel/mesh.py): one process a rank
+    p.add_argument("--stages", type=int, default=1,
+                   help="pipeline stages: the layers split evenly over "
+                        "this many ranks")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor parallelism: heads, the MLP width and the "
+                        "vocab split over this many ranks")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data parallelism: a batch's rows split over this "
+                        "many ranks (--prompts-file and --mode serve)")
+    for flag in ("--sp", "--ep"):
         p.add_argument(flag, type=int, default=1,
-                       help="mesh axis: only 1 is ported (one card)")
+                       help="mesh axis that is not ported yet (only 1)")
+    p.add_argument("--prefill-chunks", type=int, default=1,
+                   dest="prefill_chunks",
+                   help="the pipelined prefill across stages: not ported "
+                        "yet (only 1)")
+    p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
+                   dest="dist_backend",
+                   help="the mesh's transport: nccl (default on the card; "
+                        "one card a rank) or gloo (default with --cpu; "
+                        "ranks that share a card)")
+    p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="multi-host mesh: the address of global rank 0's "
+                        "rendezvous store (same command on every host, with "
+                        "--num-processes/--process-id)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   dest="num_processes",
+                   help="hosts of a multi-host mesh, one process each")
+    p.add_argument("--process-id", type=int, default=None,
+                   dest="process_id")
+    # set by main(): the rank's context and plan of a mesh run
+    p.set_defaults(rank_ctx=None, mesh_plan=None, argv=[])
     p.add_argument("--kv-layout", choices=["slot", "paged"], default="slot",
                    dest="kv_layout",
                    help="KV cache layout for the batched serving engine: "
@@ -470,9 +509,12 @@ def _load_tokenizer(model_dir: str):
 
 def _device(args) -> str:
     """``cpu`` with ``--cpu``, else the CUDA card (``--device N`` makes
-    card N the current one, so every ``cuda`` tensor lands there)."""
+    card N the current one, so every ``cuda`` tensor lands there); a mesh
+    rank's own device."""
     import torch
 
+    if args.rank_ctx is not None:
+        return str(args.rank_ctx.device)
     if args.device is not None:
         if args.cpu:
             sys.exit("error: --device picks a CUDA card; it does not apply "
@@ -511,11 +553,128 @@ def _settings(args):
 
 
 def _load_params(args, config, device):
+    """The checkpoint's params on ``device``; a mesh rank reads its own
+    shard."""
+    if args.mesh_plan is not None:
+        from cake_tpu_torch.utils.sharded_load import (
+            load_llama_params_on_mesh,
+        )
+
+        return load_llama_params_on_mesh(
+            args.model, config, args.mesh_plan, args.rank_ctx.rank,
+            quantize=args.quantize, device=device)
     from cake_tpu_torch.utils.weights import load_llama_params
 
     return load_llama_params(args.model, config.num_hidden_layers,
                              dtype=config.dtype, device=device,
                              quantize=args.quantize)
+
+
+def _coll(args):
+    """The mesh rank's collectives, or None on one card."""
+    if args.mesh_plan is None:
+        return None
+    return args.rank_ctx.collectives(args.mesh_plan)
+
+
+def _mesh_setup(args, topology):
+    """The ``MeshPlan`` of ``--stages/--tp/--dp`` (or of a topology's mesh
+    ``device:`` nodes), or None for one card. Exits with an error on what
+    the mesh does not run."""
+    from cake_tpu_torch.ops.quant import parse_quant_spec
+    from cake_tpu_torch.parallel.mesh import (
+        NEXT_SLICE,
+        MeshPlan,
+        check_axes,
+        validate_shardable,
+    )
+
+    try:
+        check_axes(sp=args.sp, ep=args.ep)
+    except ValueError as e:
+        sys.exit(f"error: {e}")
+    if args.prefill_chunks > 1:
+        sys.exit(f"error: --prefill-chunks {args.prefill_chunks} (the "
+                 f"pipelined prefill across stages) is {NEXT_SLICE}")
+    if args.process_id is not None and not (args.coordinator
+                                            or args.num_processes):
+        sys.exit("error: --process-id requires --coordinator and/or "
+                 "--num-processes (it would otherwise be silently ignored)")
+    topo_mesh = topology is not None and any(
+        n.device is not None for n in topology)
+    multi = args.num_processes is not None or args.coordinator is not None
+    if not (max(args.stages, args.tp, args.dp) > 1 or topo_mesh or multi):
+        return None
+    if topo_mesh and args.stages > 1:
+        sys.exit("error: --stages conflicts with a device-indexed topology "
+                 "(the stage count comes from the topology's device "
+                 "entries)")
+    if args.device is not None:
+        sys.exit("error: --device picks one card; a mesh's ranks take "
+                 "theirs by local rank")
+    if args.speculate:
+        sys.exit(f"error: --speculate over a rank mesh (the mesh "
+                 f"speculative generator) is {NEXT_SLICE}")
+    if (args.mode == "master" and not args.prompts_file
+            and args.dp > 1):
+        sys.exit("error: --dp splits a batch's rows over ranks; local "
+                 "generation is one stream (use --prompts-file or --mode "
+                 "serve)")
+    if args.mode == "serve" and (args.role != "mixed"
+                                 or args.transfer_port is not None):
+        sys.exit("error: --role/--transfer-port move KV between replicas "
+                 "as snapshots, which is not ported over a rank mesh yet")
+    config = _load_config(args)
+    tier, group = parse_quant_spec(args.quantize)
+    try:
+        if topo_mesh:
+            plan = MeshPlan.from_topology(config, topology, tp=args.tp,
+                                          dp=args.dp)
+        else:
+            plan = MeshPlan.build(config, num_stages=args.stages,
+                                  tp=args.tp, dp=args.dp)
+        validate_shardable(config, plan.num_stages, plan.tp,
+                           group_size=group, quantized=tier is not None,
+                           kernels=not args.cpu)
+    except ValueError as e:
+        sys.exit(f"error: {e}")
+    if plan.size == 1 and not multi:
+        return None  # a one-stage topology: one card
+    return plan
+
+
+def _spawn_mesh(args, plan) -> int:
+    """Start this host's ranks of ``plan``, each running this command line
+    (:func:`rank_main`), and wait for them."""
+    import torch
+
+    from cake_tpu_torch.parallel import distributed, launch
+
+    nproc = args.num_processes or 1
+    if plan.size % nproc:
+        sys.exit(f"error: a mesh of {plan.size} ranks does not split over "
+                 f"{nproc} processes")
+    if nproc > 1 and not args.coordinator:
+        sys.exit("error: --num-processes > 1 needs --coordinator HOST:PORT "
+                 "(global rank 0's host)")
+    local = plan.size // nproc
+    device_type = "cpu" if args.cpu else "cuda"
+    if device_type == "cuda" and not torch.cuda.is_available():
+        sys.exit("error: no CUDA device is available; pass --cpu to run on "
+                 "the CPU")
+    try:
+        backend = distributed.choose_backend(args.dist_backend, device_type,
+                                             local)
+    except ValueError as e:
+        sys.exit(f"error: {e}")
+    log.info("mesh dp=%d x stages=%d x tp=%d: starting %d of %d ranks "
+             "here (%s, %s)", plan.dp, plan.num_stages, plan.tp, local,
+             plan.size, device_type, backend)
+    return launch.spawn("cake_tpu_torch.cli:rank_main", args.argv,
+                        local_ranks=local, backend=backend,
+                        device_type=device_type,
+                        coordinator=args.coordinator, num_processes=nproc,
+                        process_id=args.process_id or 0)
 
 
 def _decode_block(args) -> int:
@@ -544,19 +703,20 @@ def _engine_kwargs(args) -> dict:
 
 
 def _load_topology(args):
-    """The ``--topology`` file; mesh ``device:`` nodes are refused."""
+    """The ``--topology`` file: host-addressed workers, or mesh
+    ``device:`` nodes (one stage a node), not both."""
     from cake_tpu_torch.parallel.topology import Topology
 
     try:
         topology = Topology.from_path(args.topology)
     except (OSError, ValueError) as e:
         sys.exit(f"error: --topology {args.topology}: {e}")
-    mesh = [n.name for n in topology if n.device is not None]
-    if mesh:
-        sys.exit(f"error: topology nodes with mesh `device:` indices "
-                 f"({mesh}) drive the single-program mesh pipeline, which "
-                 "is not ported yet (multi-GPU parallelism); give them "
-                 "`host:` addresses for the cross-host path")
+    with_dev = [n.name for n in topology if n.device is not None]
+    without = [n.name for n in topology if n.device is None]
+    if with_dev and without:
+        sys.exit(f"error: topology mixes mesh nodes (device: {with_dev}) "
+                 f"with host-addressed workers ({without}); a deployment is "
+                 "one or the other")
     return topology
 
 
@@ -671,7 +831,17 @@ def run(args, topology=None) -> int:
     else:
         try:
             params = _load_params(args, config, device)
-            if args.speculate:
+            if args.mesh_plan is not None:
+                from cake_tpu_torch.runtime.mesh_generator import (
+                    MeshGenerator,
+                )
+
+                gen = MeshGenerator(config, params, _coll(args),
+                                    tokenizer=tokenizer, settings=settings,
+                                    max_seq=args.max_seq,
+                                    block_size=_decode_block(args),
+                                    kv_quant=args.kv_quant)
+            elif args.speculate:
                 gen = SpeculativeGenerator(
                     config, params, tokenizer=tokenizer, settings=settings,
                     max_seq=args.max_seq, device=device,
@@ -825,7 +995,7 @@ def run_worker(args) -> int:
     read) on the card and serve them to masters of either package until
     SIGTERM or SIGINT, which end it with exit code 0."""
     from cake_tpu_torch.embed import serve_until_signal
-    from cake_tpu_torch.parallel.pipeline import check_single_device
+    from cake_tpu_torch.parallel.mesh import check_axes
     from cake_tpu_torch.runtime.worker import Worker
     from cake_tpu_torch.utils.memory import memory_report
     from cake_tpu_torch.utils.weights import load_llama_params
@@ -847,10 +1017,13 @@ def run_worker(args) -> int:
         sys.exit("error: a worker takes its inputs from masters over the "
                  "wire; --prompts-file/--prompt-ids belong to the master")
     try:
-        check_single_device(dp=args.dp, tp=args.tp, stages=args.stages,
-                            sp=args.sp, ep=args.ep)
+        check_axes(sp=args.sp, ep=args.ep)
     except ValueError as e:
         sys.exit(f"error: {e}")
+    if max(args.stages, args.tp, args.dp) > 1:
+        sys.exit("error: a --mode worker serves its topology-assigned "
+                 "layers on one card; --stages/--tp/--dp drive the rank "
+                 "mesh of a master")
     device = _device(args)
     config = _load_config(args)
     topology = _load_topology(args)
@@ -922,7 +1095,7 @@ def run_serve(args) -> int:
         params = _load_params(args, config, device)
         gen = BatchGenerator(config, params, tokenizer=tokenizer,
                              settings=_settings(args), device=device,
-                             **_engine_kwargs(args))
+                             coll=_coll(args), **_engine_kwargs(args))
         gen.set_prompts(prompts)
     except (NotImplementedError, ValueError) as e:
         sys.exit(f"error: {e}")
@@ -969,9 +1142,11 @@ _SERVE_FLAGS = (
 def run_http_serve(args, topology=None) -> int:
     """--mode serve: the HTTP API and the SLO-aware scheduler over the
     continuous-batching engine on one card, or over the wire master of a
-    host-addressed ``topology`` in one slot (requests serialize).
-    SIGTERM/SIGINT (or a drain request) stop admission; in-flight streams
-    finish; the log ends with "drained; bye"."""
+    host-addressed ``topology`` in one slot (requests serialize), or over
+    a rank mesh (rank 0 serves HTTP and drives the engine of every rank,
+    :mod:`cake_tpu_torch.serve.mesh`). SIGTERM/SIGINT (or a drain request)
+    stop admission; in-flight streams finish; the log ends with "drained;
+    bye", and every rank exits with code 0."""
     import signal
     import threading
 
@@ -1052,7 +1227,18 @@ def run_http_serve(args, topology=None) -> int:
             engine = BatchGenerator(config, params, tokenizer=tokenizer,
                                     settings=_settings(args), device=device,
                                     logprobs=args.serve_logprobs,
+                                    coll=_coll(args),
                                     **_engine_kwargs(args))
+            if args.mesh_plan is not None:
+                from cake_tpu_torch.serve.mesh import MeshEngine, follow
+
+                if args.rank_ctx.rank != 0:
+                    # a follower: rank 0's engine calls, until it stops
+                    for signum in (signal.SIGTERM, signal.SIGINT):
+                        signal.signal(signum, signal.SIG_IGN)
+                    follow(engine, _coll(args))
+                    return 0
+                engine = MeshEngine(engine, _coll(args))
         scheduler = Scheduler(engine, queue_depth=queue_depth,
                               request_timeout_s=request_timeout,
                               role=args.role,
@@ -1135,6 +1321,8 @@ def run_http_serve(args, topology=None) -> int:
         if xfer_server is not None:
             xfer_server.stop()
         scheduler.close()
+        if args.mesh_plan is not None:
+            engine.stop()  # every follower rank exits
         if status_httpd is not None:
             status_httpd.shutdown()
             status_httpd.server_close()
@@ -1308,11 +1496,25 @@ def run_gateway(args) -> int:
     return 0
 
 
-def main(argv=None) -> int:
+def main(argv=None, rank=None) -> int:
+    """The command line; ``rank`` (a
+    :class:`~cake_tpu_torch.parallel.launch.RankContext`) runs it as one
+    rank of a mesh: rank 0 prints, serves and writes the observability
+    files, the other ranks run the same steps silently."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
-    logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+    args.argv = argv
+    args.rank_ctx = rank
+    follower = rank is not None and rank.rank != 0
+    logging.basicConfig(level=logging.WARNING if follower else logging.INFO,
+                        stream=sys.stderr, force=rank is not None,
                         format="%(asctime)s %(levelname)s %(name)s: "
                                "%(message)s")
+    if follower:
+        sys.stdout = open(os.devnull, "w")
+        for name in ("trace", "metrics_out", "flight_log", "profile",
+                     "status_port"):
+            setattr(args, name, None)
     _start_obs(args)
     try:
         return _main(args)
@@ -1407,6 +1609,23 @@ def _main(args) -> int:
     if args.mode == "worker":
         return run_worker(args)
     topology = _load_topology(args) if args.topology else None
+    plan = _mesh_setup(args, topology)
+    if topology is not None and any(n.device is not None for n in topology):
+        topology = None  # the mesh's stages, not cross-host workers
+    elif topology is not None and plan is not None:
+        sys.exit("error: --stages/--tp/--dp (the rank mesh) and a "
+                 "host-addressed --topology (cross-host workers) are "
+                 "mutually exclusive; give topology nodes `device:` "
+                 "indices to drive the mesh from the file")
+    args.mesh_plan = plan
+
+    def dispatch(fn, *a) -> int:
+        """``fn`` here, or on the mesh's ranks, each of which runs this
+        command line again as its own rank."""
+        if plan is not None and args.rank_ctx is None:
+            return _spawn_mesh(args, plan)
+        return fn(*a)
+
     if topology is None and _link_flags(args):
         sys.exit(f"error: {'/'.join(_link_flags(args))} drive cross-host "
                  "worker links; they need a host-addressed --topology "
@@ -1416,13 +1635,13 @@ def _main(args) -> int:
                  "paths; it is not supported with --sp or --topology (it "
                  "would otherwise be silently ignored)")
     if args.mode == "serve":
-        return run_http_serve(args, topology)
+        return dispatch(run_http_serve, args, topology)
     if args.prompts_file:
         if topology is not None:
             sys.exit("error: --prompts-file serving runs the batch engine; "
                      "--topology (cross-host workers) is not supported "
                      "here")
-        return run_serve(args)
+        return dispatch(run_serve, args)
     if (args.cluster_report or args.top) and topology is None:
         sys.exit("error: --cluster-report/--top aggregate across cross-host "
                  "workers; they need a host-addressed --topology (they "
@@ -1440,7 +1659,7 @@ def _main(args) -> int:
         if args.speculate:
             sys.exit("error: --lookahead does not compose with --speculate "
                      "(the spec plane needs the host between dispatches)")
-        if topology is not None or max(args.stages, args.tp, args.sp) > 1:
+        if topology is not None or plan is not None:
             sys.exit("error: --lookahead runs the all-local fused-block "
                      "path (or --prompts-file serving); it is not "
                      "supported with --stages/--tp/--sp or --topology")
@@ -1448,14 +1667,13 @@ def _main(args) -> int:
             sys.exit("error: --lookahead needs fused blocks to pipeline; "
                      "it requires --decode-block > 1 (it would otherwise "
                      "be silently ignored)")
-    try:
-        from cake_tpu_torch.parallel.pipeline import check_single_device
+    return dispatch(run, args, topology)
 
-        check_single_device(dp=args.dp, tp=args.tp, stages=args.stages,
-                            sp=args.sp, ep=args.ep)
-    except ValueError as e:
-        sys.exit(f"error: {e}")
-    return run(args, topology)
+
+def rank_main(ctx, argv: list[str]) -> int:
+    """One rank of a mesh started by the command line
+    (:func:`cake_tpu_torch.parallel.launch.spawn`'s target)."""
+    return main(argv, rank=ctx)
 
 
 if __name__ == "__main__":

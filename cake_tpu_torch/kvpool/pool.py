@@ -7,7 +7,9 @@ Physical layout: one pooled buffer per cache half,
 
 (the int8 cache adds the per-slot scale half without the trailing
 ``head_dim``, as :class:`~cake_tpu_torch.ops.kvcache.QuantizedKV` does).
-There is no mesh: the pool lies whole on the engine's device.
+Over a rank mesh (dp 1) each rank's pool holds its own layers and KV
+heads, ``[L/S, P, KH/tp, page_size, D]``; the page tables are the same
+on every rank.
 
 A decode dispatch addresses the pool through two small int32 operands:
 

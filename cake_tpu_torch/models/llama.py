@@ -50,6 +50,7 @@ from cake_tpu_torch.ops.quant import (
     stack_like,
 )
 from cake_tpu_torch.ops.rope import rope_slice, rope_tables
+from cake_tpu_torch.parallel.mesh import MeshPlan, local_config
 from cake_tpu_torch.utils.device import resolve_device
 
 Params = dict[str, Any]
@@ -257,13 +258,16 @@ def _embed_normalizer(hidden: int, dtype: torch.dtype) -> float:
 
 def block_forward(layer: Params, x: torch.Tensor, k_cache, v_cache,
                   cos_t: torch.Tensor, sin_t: torch.Tensor, pos,
-                  config: LlamaConfig):
+                  config: LlamaConfig, reduce=None):
     """One pre-norm decoder block; writes this layer's cache (a tensor or
     a :class:`~cake_tpu_torch.ops.kvcache.QuantizedKV`) in place. The
     family's deltas are read off the layer dict (``bq``/``bo``,
     ``router``) and the config.
     ``cos_t/sin_t`` are the RoPE rows of the call's positions
-    (:func:`cake_tpu_torch.ops.rope.rope_slice`)."""
+    (:func:`cake_tpu_torch.ops.rope.rope_slice`). Under tensor parallelism
+    ``config`` is the rank's local one (its heads and intermediate width,
+    :func:`~cake_tpu_torch.parallel.mesh.local_config`) and ``reduce`` the
+    all-reduce over tp after each row-parallel linear."""
     h = rms_norm(x, layer["attn_norm"], config.rms_norm_eps,
                  offset=config.rms_norm_offset)
     attn_out, k_cache, v_cache = self_attention_block(
@@ -271,30 +275,32 @@ def block_forward(layer: Params, x: torch.Tensor, k_cache, v_cache,
         v_cache, cos_t, sin_t, pos, config.num_attention_heads,
         config.num_key_value_heads, window=config.sliding_window,
         bq=layer.get("bq"), bk=layer.get("bk"), bv=layer.get("bv"),
-        bo=layer.get("bo"))
+        bo=layer.get("bo"), reduce=reduce)
     x = x + attn_out
     h = rms_norm(x, layer["mlp_norm"], config.rms_norm_eps,
                  offset=config.rms_norm_offset)
     if "router" in layer:
         x = x + moe_swiglu(h, layer["router"], layer["w_gate"],
                            layer["w_up"], layer["w_down"],
-                           top_k=config.num_experts_per_tok)
+                           top_k=config.num_experts_per_tok,
+                           reduce=reduce)
     else:
         x = x + swiglu(h, layer["w_gate"], layer["w_up"], layer["w_down"],
-                       act=config.hidden_act)
+                       act=config.hidden_act, reduce=reduce)
     return x, k_cache, v_cache
 
 
 def forward_layers(layers: list[Params], x: torch.Tensor, cache: KVCache,
                    cos: torch.Tensor, sin: torch.Tensor, pos,
-                   config: LlamaConfig) -> tuple[torch.Tensor, KVCache]:
+                   config: LlamaConfig,
+                   reduce=None) -> tuple[torch.Tensor, KVCache]:
     """Run the decoder blocks ``layers`` (one dict per layer, see
     :func:`unstack_layers`) over ``x [B, T, hidden]`` at ``pos``; the RoPE
     rows are sliced once for all of them."""
     cos_t, sin_t = rope_slice(cos, sin, pos, x.shape[1])
     for i, layer in enumerate(layers):
         x, _, _ = block_forward(layer, x, cache.k[i], cache.v[i], cos_t,
-                                sin_t, pos, config)
+                                sin_t, pos, config, reduce)
     return x, cache
 
 
@@ -311,13 +317,37 @@ class Llama(nn.Module):
     tensors stay where they are; nothing is copied) and the RoPE tables.
 
     ``hidden(tokens, cache, pos)`` runs embed and blocks, ``logits(x)`` the
-    final norm and head."""
+    final norm and head.
 
-    def __init__(self, config: LlamaConfig, params: Params):
+    Over a rank mesh (``coll``, a rank's
+    :class:`~cake_tpu_torch.parallel.collectives.Collectives`), ``params``
+    and the cache are the rank's shards
+    (:func:`~cake_tpu_torch.parallel.mesh.shard_params`, ``CACHE_SPEC``):
+    stage ``s`` takes the activation from stage ``s - 1`` (stage 0 embeds),
+    runs its own ``L/S`` layers with the tp-local head counts and an
+    all-reduce over tp after each row-parallel linear, and hands the
+    activation on; the last stage's vocab-sharded head is gathered over
+    tp and broadcast to the other stages, so ``logits`` returns the full
+    logits on every rank and every rank samples the same token.
+    :meth:`rows` and :meth:`gather_rows` split a batch over dp and gather
+    its logits back. Without ``coll`` nothing of this runs: no collective
+    and no launch is added."""
+
+    def __init__(self, config: LlamaConfig, params: Params, coll=None):
         super().__init__()
         self.config = config
         self.params = params
         self.layers = unstack_layers(params["layers"])
+        self.coll = coll
+        self.plan = coll.plan if coll is not None else MeshPlan()
+        # the config the blocks and the cache see: this rank's layers,
+        # heads and intermediate width
+        self.layer_config = (local_config(config, self.plan)
+                             if coll is not None else config)
+        self._reduce = (coll.all_reduce if self.plan.tp > 1 else None)
+        self.stage = coll.coords["stage"] if coll is not None else 0
+        # this rank's index on dp: which rows of a batch it runs
+        self.rows_index = coll.coords["dp"] if coll is not None else 0
         # JAX's tables are the cache's length; rows below it are the same
         # whatever the length, so one table per length seen is kept
         self._rope: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
@@ -334,16 +364,61 @@ class Llama(nn.Module):
                 device=self.device)
         return self._rope[max_seq]
 
+    @property
+    def last_stage(self) -> bool:
+        return self.stage == self.plan.num_stages - 1
+
     def hidden(self, tokens: torch.Tensor, cache: KVCache,
                pos) -> torch.Tensor:
+        """The last stage's output activation (on an earlier stage: its
+        own stage's, which only gives :meth:`logits` its shape)."""
         cos, sin = self.rope(cache.max_seq)
-        x = embed_tokens(self.params, tokens, self.config)
+        if self.stage == 0:
+            x = embed_tokens(self.params, tokens, self.config)
+        else:
+            x = self.coll.recv_prev(
+                (*tokens.shape, self.config.hidden_size),
+                self.config.torch_dtype)
         x, _ = forward_layers(self.layers, x, cache, cos, sin, pos,
-                              self.config)
+                              self.layer_config, self._reduce)
+        if not self.last_stage:
+            self.coll.send_next(x)
         return x
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        return lm_head(self.params, x, self.config)
+        if self.coll is None:
+            return lm_head(self.params, x, self.config)
+        if self.last_stage:
+            out = lm_head(self.params, x, self.config)
+            if self.plan.tp > 1:
+                out = self.coll.all_gather(out, "tp", dim=-1)
+        else:
+            out = torch.empty((*x.shape[:-1], self.config.vocab_size),
+                              dtype=torch.float32, device=x.device)
+        if self.plan.num_stages > 1:
+            out = out.contiguous()
+            self.coll.broadcast(out, "stage", self.plan.num_stages - 1)
+        return out
+
+    def rows(self, t):
+        """This dp rank's rows of a batch tensor ``t [B, ...]`` (padded up
+        to a multiple of dp with zero rows); ``t`` itself at dp 1, and
+        for an int or 0-d position shared by the rows."""
+        dp = self.plan.dp
+        if dp == 1 or not isinstance(t, torch.Tensor) or t.dim() == 0:
+            return t
+        per = -(-t.shape[0] // dp)
+        pad = per * dp - t.shape[0]
+        if pad:
+            t = torch.cat([t, t.new_zeros((pad, *t.shape[1:]))])
+        return t[self.rows_index * per:(self.rows_index + 1) * per]
+
+    def gather_rows(self, y: torch.Tensor, batch: int) -> torch.Tensor:
+        """The dp ranks' rows of ``y`` gathered back into the first
+        ``batch`` rows of the whole batch (``y`` itself at dp 1)."""
+        if self.plan.dp == 1:
+            return y
+        return self.coll.all_gather(y, "dp", dim=0)[:batch]
 
     def forward(self, tokens: torch.Tensor, cache: KVCache,
                 pos) -> torch.Tensor:

@@ -72,13 +72,17 @@ def self_attention_block(
     bk: torch.Tensor | None = None,
     bv: torch.Tensor | None = None,
     bo: torch.Tensor | None = None,  # o_proj bias (llama attention_bias)
+    reduce=None,
 ):
     """One attention sublayer including the cache write (in place).
 
     ``cos_t/sin_t`` are the RoPE table rows of this call's positions
     (:func:`cake_tpu_torch.ops.rope.rope_slice`), sliced once per forward
     and shared by every layer. The q/k/v biases are added after their
-    projections, before RoPE; the o_proj bias after o_proj. Returns
+    projections, before RoPE; the o_proj bias after o_proj. Under tensor
+    parallelism the weights and the cache hold this rank's heads, and
+    ``reduce`` (the all-reduce over tp) sums the row-parallel o_proj's
+    partial output before the bias. Returns
     ``(attn_out [B, T, hidden], k_cache, v_cache)``."""
     b, t, _ = x.shape
     d = out_features(wq) // num_heads
@@ -97,6 +101,8 @@ def self_attention_block(
     k_cache, v_cache = kv.update_layer(k_cache, v_cache, k, v, pos)
     out = attend(q, k_cache, v_cache, pos, window=window)
     out = dense(out.transpose(1, 2).reshape(b, t, num_heads * d), wo)
+    if reduce is not None:
+        out = reduce(out)
     if bo is not None:
         out = out + bo
     return out, k_cache, v_cache

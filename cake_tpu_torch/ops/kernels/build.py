@@ -7,7 +7,11 @@ loaded with :mod:`ctypes`. The build happens at first use, into
 carries the hash of the source, of the ``csrc/`` headers it includes and
 of the flags, so an edited source or header is rebuilt and an unchanged
 one is loaded as it is. :func:`build_all` starts
-one ``nvcc`` per missing library, all at once.
+one ``nvcc`` per missing library, all at once, under an exclusive lock on
+``_build/.build.lock`` (``flock``): processes that ask for the same build
+at once (a mesh's ranks) get one build, and the others load its result.
+The kernel drops the lock when its holder dies, so a run cut off mid-build
+leaves nothing to clean up.
 
 No PyTorch header is compiled: a source that includes them takes minutes
 to build, a plain C one seconds.
@@ -23,7 +27,9 @@ same way, with ``g++`` and Python's include and link flags (from
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -113,11 +119,29 @@ def build_log(name: str) -> str:
     return log.read_text() if log.exists() else ""
 
 
+@contextlib.contextmanager
+def build_lock():
+    """The build directory's lock, held across processes while a build
+    runs (``flock`` on ``.build.lock``)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".build.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build_all(names=None) -> list[str]:
     """Build every missing library, one ``nvcc`` each, all started together;
-    returns the names that were built. Raises with nvcc's output if one
-    fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    returns the names that were built (by this process: a library another
+    process built while this one waited for the lock is loaded, not
+    rebuilt). Raises with nvcc's output if one fails."""
+    with build_lock():
+        return _build_missing(names)
+
+
+def _build_missing(names) -> list[str]:
     todo = [n for n in (names or SOURCES) if not library_path(n).exists()]
     if not todo:
         return []
@@ -214,10 +238,9 @@ def build_shim() -> Path:
     """The embedding shim's library, built first if missing; raises with
     ``g++``'s output if the build fails."""
     out = shim_path()
-    with _LOCK:
+    with _LOCK, build_lock():
         if out.exists():
             return out
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
         r = subprocess.run(["g++", *shim_flags(), "-o", str(tmp),
                             str(SHIM_SRC)],

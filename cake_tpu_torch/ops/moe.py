@@ -1,5 +1,6 @@
-"""Mixture-of-Experts SwiGLU (port of ``cake_tpu/ops/moe.py``, without its
-``ep``/``tp`` mesh arguments: expert parallelism is not ported).
+"""Mixture-of-Experts SwiGLU (port of ``cake_tpu/ops/moe.py``, with its
+``tp`` mesh argument and without ``ep``: expert parallelism is not ported
+yet).
 
 Mixtral routing: the router scores every expert in f32, keeps the top-k
 logits per token and takes the softmax over those k only. Two strategies of
@@ -111,10 +112,13 @@ def _moe_gather(x2d: torch.Tensor, w_topk: torch.Tensor, idx: torch.Tensor,
 
 
 def moe_swiglu(x: torch.Tensor, router_w: torch.Tensor, w_gate, w_up,
-               w_down, top_k: int) -> torch.Tensor:
+               w_down, top_k: int, reduce=None) -> torch.Tensor:
     """Routed SwiGLU MLP of ``x [B, T, H]`` (residual not added):
     ``router_w [H, E]``, expert stacks ``w_gate/w_up [E, H, F]`` and
-    ``w_down [E, F, H]``, plain or int8."""
+    ``w_down [E, F, H]``, plain or int8. Under tensor parallelism the
+    stacks hold this rank's slice of every expert's intermediate (the
+    router is replicated: every rank routes every token), and ``reduce``
+    (the all-reduce over tp) sums the combined partial outputs."""
     b, t, h = x.shape
     x2d = x.reshape(b * t, h)
     combine, w_topk, idx = router_topk(x2d, router_w, top_k)
@@ -122,4 +126,6 @@ def moe_swiglu(x: torch.Tensor, router_w: torch.Tensor, w_gate, w_up,
         out = _moe_gather(x2d, w_topk, idx, w_gate, w_up, w_down)
     else:
         out = _moe_dense(x2d, combine, w_gate, w_up, w_down)
+    if reduce is not None:
+        out = reduce(out)
     return out.reshape(b, t, h)

@@ -1,2 +1,2 @@
-"""Program builders of the serving engine (port of ``cake_tpu/parallel``
-for one device: no mesh)."""
+"""The serving engine's programs, the rank mesh and its collectives, and
+the cross-host topology and runners (port of ``cake_tpu/parallel``)."""

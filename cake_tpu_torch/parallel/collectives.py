@@ -1,0 +1,239 @@
+"""Every collective the mesh issues, and their accounting (port-only: the
+JAX package's collectives are ``psum``/``all_gather``/``ppermute`` inside
+one compiled program).
+
+One :class:`Collectives` per rank holds the rank's process group on each
+mesh axis above 1 (``dp``, ``stage``, ``tp``) and a gloo control group over
+every rank. Its operations are the only collectives of the port:
+
+- ``all_reduce(t, TP)``: the row-parallel linears' partial sums;
+- ``all_gather(t, axis, dim)``: the vocab-sharded head's logits over tp,
+  and the batch rows' logits over dp;
+- ``send_next``/``recv_prev``: the stage hand-off of the activation;
+- ``broadcast(t, STAGE, src)``: the last stage's logits to the others;
+- ``broadcast_object``: the controller's engine calls, over the control
+  group.
+
+Under NCCL, card tensors go straight to the collective. Under gloo they go
+through pinned host buffers, on purpose and every time: gloo's own CUDA
+support covers only some collectives. Each operation counts its calls,
+bytes (what this rank sends) and milliseconds per axis: card-side time
+from CUDA events around the operation where the tensor lies on the card,
+host time on the CPU (:meth:`Collectives.stats`).
+"""
+
+from __future__ import annotations
+
+import datetime
+import time
+from collections import defaultdict
+
+import torch
+import torch.distributed as dist
+
+from cake_tpu_torch.parallel.mesh import DP, STAGE, TP, MeshPlan
+
+CONTROL = "control"
+# seconds a follower waits for rank 0's next engine call (a week)
+CONTROL_TIMEOUT_S = 7 * 24 * 3600.0
+# timed operations kept as CUDA event pairs before they are summed
+_FOLD_EVENTS = 4096
+
+
+class Collectives:
+    """The collectives of global rank ``rank`` of ``plan`` (the process
+    group is already initialized with ``backend``). Every rank builds its
+    groups in the same order (:meth:`MeshPlan.lines`), as
+    ``torch.distributed.new_group`` requires."""
+
+    def __init__(self, plan: MeshPlan, rank: int, backend: str,
+                 device: torch.device, timeout_s: float):
+        """``timeout_s`` bounds every collective on the mesh's axes (a
+        group that is not given one waits PyTorch's default half hour)."""
+        self.plan = plan
+        self.rank = rank
+        self.backend = backend
+        self.device = torch.device(device)
+        self.coords = plan.coords(rank)
+        self._groups: dict[str, tuple] = {}
+        for axis in (DP, STAGE, TP):
+            if plan.shape()[axis] == 1:
+                continue
+            for line in plan.lines(axis):
+                group = dist.new_group(
+                    line, timeout=datetime.timedelta(seconds=timeout_s))
+                if rank in line:
+                    self._groups[axis] = (group, line)
+        # an idle server's followers wait on the control group between
+        # requests: it waits as long as it must (a rank that dies still
+        # breaks its connections at once)
+        self._control = dist.new_group(
+            list(range(plan.size)), backend="gloo",
+            timeout=datetime.timedelta(seconds=CONTROL_TIMEOUT_S))
+        self._host: dict[tuple, torch.Tensor] = {}
+        self._count = defaultdict(lambda: {"calls": 0, "bytes": 0,
+                                           "ms": 0.0})
+        self._events: dict[str, list] = defaultdict(list)
+
+    # -- helpers -------------------------------------------------------------
+    def _staged(self, t: torch.Tensor) -> bool:
+        """Whether ``t`` goes through a pinned host buffer (gloo and a
+        card tensor)."""
+        return self.backend == "gloo" and t.device.type == "cuda"
+
+    def _buffer(self, key: str, like: torch.Tensor) -> torch.Tensor:
+        """A pinned host buffer shaped like ``like``, kept per key, shape
+        and dtype (a decode step reuses its buffers)."""
+        k = (key, tuple(like.shape), like.dtype)
+        buf = self._host.get(k)
+        if buf is None:
+            buf = torch.empty(like.shape, dtype=like.dtype,
+                              pin_memory=torch.cuda.is_available())
+            self._host[k] = buf
+        return buf
+
+    def _to_host(self, key: str, t: torch.Tensor) -> torch.Tensor:
+        buf = self._buffer(key, t)
+        buf.copy_(t)  # waits for the kernels that produce t
+        return buf
+
+    def _timed(self, axis: str, nbytes: int, device_type: str):
+        """Context of one operation: counts it and times it (CUDA events
+        on the card, the host clock on the CPU)."""
+        return _Timed(self, axis, nbytes, device_type)
+
+    # -- tensor collectives --------------------------------------------------
+    def all_reduce(self, t: torch.Tensor, axis: str = TP) -> torch.Tensor:
+        """Sum ``t`` over ``axis`` in place; returns it."""
+        group, _ = self._groups[axis]
+        with self._timed(axis, t.numel() * t.element_size(),
+                         t.device.type):
+            if self._staged(t):
+                buf = self._to_host(f"ar.{axis}", t)
+                dist.all_reduce(buf, group=group)
+                t.copy_(buf)
+            else:
+                dist.all_reduce(t, group=group)
+        return t
+
+    def all_gather(self, t: torch.Tensor, axis: str,
+                   dim: int = -1) -> torch.Tensor:
+        """The ranks' ``t`` along ``axis``, concatenated on ``dim`` in axis
+        order."""
+        group, line = self._groups[axis]
+        t = t.contiguous()
+        with self._timed(axis, t.numel() * t.element_size(),
+                         t.device.type):
+            if self._staged(t):
+                src = self._to_host(f"ag.{axis}", t)
+                parts = [self._buffer(f"ag.{axis}.{i}", src)
+                         for i in range(len(line))]
+                dist.all_gather(parts, src, group=group)
+                out = torch.cat(parts, dim=dim).to(t.device)
+            else:
+                parts = [torch.empty_like(t) for _ in line]
+                dist.all_gather(parts, t, group=group)
+                out = torch.cat(parts, dim=dim)
+        return out
+
+    def broadcast(self, t: torch.Tensor, axis: str,
+                  src_index: int) -> torch.Tensor:
+        """``t`` of the rank at index ``src_index`` of ``axis``, in place on
+        every rank of the line."""
+        group, line = self._groups[axis]
+        src = line[src_index]
+        nbytes = t.numel() * t.element_size() if self.rank == src else 0
+        with self._timed(axis, nbytes, t.device.type):
+            if self._staged(t):
+                buf = self._to_host(f"bc.{axis}", t) if self.rank == src \
+                    else self._buffer(f"bc.{axis}", t)
+                dist.broadcast(buf, src, group=group)
+                if self.rank != src:
+                    t.copy_(buf)
+            else:
+                dist.broadcast(t, src, group=group)
+        return t
+
+    def _stage_peer(self, step: int) -> int:
+        s = self.coords[STAGE] + step
+        return self.plan.rank_of(**{**self.coords, STAGE: s})
+
+    def send_next(self, t: torch.Tensor) -> None:
+        """The activation to the next stage (same dp, tp place)."""
+        t = t.contiguous()
+        with self._timed(STAGE, t.numel() * t.element_size(),
+                         t.device.type):
+            src = self._to_host("send", t) if self._staged(t) else t
+            dist.send(src, self._stage_peer(1))
+
+    def recv_prev(self, shape, dtype) -> torch.Tensor:
+        """The activation from the previous stage, on this rank's
+        device."""
+        like = torch.empty(shape, dtype=dtype, device=self.device)
+        with self._timed(STAGE, 0, like.device.type):
+            if self._staged(like):
+                buf = self._buffer("recv", like)
+                dist.recv(buf, self._stage_peer(-1))
+                like.copy_(buf)
+            else:
+                dist.recv(like, self._stage_peer(-1))
+        return like
+
+    # -- host objects (the control group) -------------------------------------
+    def broadcast_object(self, obj=None):
+        """Rank 0's ``obj`` on every rank (pickled over the control
+        group)."""
+        box = [obj if self.rank == 0 else None]
+        with self._timed(CONTROL, 0, "cpu"):
+            dist.broadcast_object_list(box, src=0, group=self._control)
+        return box[0]
+
+    def barrier(self) -> None:
+        dist.barrier(group=self._control)
+
+    # -- accounting ----------------------------------------------------------
+    def reset_stats(self) -> None:
+        self._count.clear()
+        self._events.clear()
+
+    def stats(self) -> dict[str, dict]:
+        """Per axis: ``calls``, ``bytes`` this rank sent and ``ms`` (card
+        time where the tensors lay on the card; waits for the card)."""
+        if self._events:
+            torch.cuda.synchronize(self.device)
+            for axis, evs in self._events.items():
+                self._count[axis]["ms"] += sum(a.elapsed_time(b)
+                                               for a, b in evs)
+            self._events.clear()
+        return {k: dict(v) for k, v in self._count.items()}
+
+
+class _Timed:
+    def __init__(self, coll: Collectives, axis: str, nbytes: int,
+                 device_type: str):
+        self.coll, self.axis, self.nbytes = coll, axis, nbytes
+        self.cuda = device_type == "cuda"
+
+    def __enter__(self):
+        c = self.coll._count[self.axis]
+        c["calls"] += 1
+        c["bytes"] += self.nbytes
+        if self.cuda:
+            self.ev = (torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True))
+            self.ev[0].record()
+        else:
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self.cuda:
+            self.ev[1].record()
+            events = self.coll._events[self.axis]
+            events.append(self.ev)
+            if len(events) >= _FOLD_EVENTS:  # a long run folds as it goes
+                self.coll.stats()
+        else:
+            self.coll._count[self.axis]["ms"] += (
+                time.perf_counter() - self.t0) * 1e3
+        return False

@@ -1,16 +1,24 @@
-"""The serving engine's programs on one device (port of the single-device
-case of ``cake_tpu/parallel/pipeline.py``: ``build_sharded_prefill``,
+"""The serving engine's programs, on one card or over a rank mesh (port of
+``cake_tpu/parallel/pipeline.py``: ``build_sharded_prefill``,
 ``build_admit_prefill``, ``build_sharded_decode`` in its ``per_row``
 serving mode, and speculation's ``build_sharded_verify`` and
 ``build_sharded_verify_rows``).
 
-The JAX package compiles each into one ``shard_map`` program over a mesh.
-Here there is no mesh: each builder returns a plain function over the
+The JAX package compiles each into one ``shard_map`` program over a mesh,
+in which every stage computes every step into a discarded select (SPMD
+uniformity). Here each builder returns a plain function over the
 :class:`~cake_tpu_torch.models.llama.Llama` module, whose attention and
 quantized linears are the CUDA kernels on the card and their plain
-versions on the CPU. The caches are written in place. Mesh axes (``dp``,
-``tp``, ``stages``, ``sp``, ``ep``) above 1 are refused
-(:func:`check_single_device`).
+versions on the CPU. Over a rank mesh the module is a rank's shard: stage
+``s`` runs only its own layers on the activation stage ``s - 1`` hands it
+(the serialized schedule), tp ranks run their heads and all-reduce the
+row-parallel outputs, and every rank gets the full logits
+(:meth:`Llama.logits`: the counterpart of ``_head_logits`` and
+``_select_stage0``). A batch splits over dp (:meth:`Llama.rows`) and its
+logits are gathered back (:meth:`Llama.gather_rows`), so every rank
+samples every row the same way. The caches are the rank's shards, written
+in place. ``sp`` and ``ep`` above 1 are refused
+(:func:`cake_tpu_torch.parallel.mesh.check_axes`).
 
 The decode's ``paged=True`` form runs the same body over the paged KV
 layout (:mod:`cake_tpu_torch.kvpool`): it gathers every stream's pages
@@ -29,18 +37,6 @@ from cake_tpu_torch.ops.kvcache import KVCache
 from cake_tpu_torch.ops.sampling import SamplerSettings
 
 
-def check_single_device(dp: int = 1, tp: int = 1, stages: int = 1,
-                        sp: int = 1, ep: int = 1) -> None:
-    """Refuse every mesh axis above 1: multi-device parallelism is not
-    ported yet."""
-    axes = {"dp": dp, "tp": tp, "stages": stages, "sp": sp, "ep": ep}
-    wide = [f"{k}={v}" for k, v in axes.items() if v != 1]
-    if wide:
-        raise ValueError(
-            f"{', '.join(wide)}: multi-device parallelism is not ported "
-            "yet (the port serves on one card; every mesh axis must be 1)")
-
-
 def build_sharded_prefill(model: Llama):
     """The batched prompt pass: ``(tokens [B, T], cache, last_index [B],
     pos0=0) -> logits [B, vocab]`` f32. ``tokens`` are right-padded prompts
@@ -52,9 +48,11 @@ def build_sharded_prefill(model: Llama):
 
     def prefill(tokens: torch.Tensor, cache: KVCache,
                 last_index: torch.Tensor, pos0: int = 0) -> torch.Tensor:
-        x = model.hidden(tokens, cache, pos0)
+        x = model.hidden(model.rows(tokens), cache, pos0)
         rows = torch.arange(x.shape[0], device=x.device)
-        return model.logits(x[rows, last_index.to(x.device).long()])
+        last = model.rows(last_index.to(x.device).long())
+        return model.gather_rows(model.logits(x[rows, last]),
+                                 tokens.shape[0])
 
     return prefill
 
@@ -102,7 +100,8 @@ def build_sharded_verify_rows(model: Llama):
 
     def verify_rows(fed: torch.Tensor, cache: KVCache,
                     pos: torch.Tensor) -> torch.Tensor:
-        return model.logits(model.hidden(fed, cache, pos))
+        x = model.hidden(model.rows(fed), cache, model.rows(pos))
+        return model.gather_rows(model.logits(x), fed.shape[0])
 
     return verify_rows
 
@@ -148,7 +147,9 @@ def build_sharded_decode(model: Llama, settings: SamplerSettings,
 
     def step(token, cache, pos, stream_ids, history, hist_slot, index,
              mask, lp):
-        logits = model(token[:, None], cache, pos)
+        logits = model.gather_rows(
+            model(model.rows(token[:, None]), cache, model.rows(pos)),
+            token.shape[0])
         if logprobs_k:
             v, i = sampling.topk_logprobs(logits, logprobs_k)
             lp[0].append(v)

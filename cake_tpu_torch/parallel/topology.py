@@ -11,8 +11,8 @@ The file is YAML, read with PyYAML where it is installed. A JSON document
 is valid YAML, so a JSON topology loads in both packages; without PyYAML
 the file is read as JSON, and a file that is not JSON then raises an error
 that names PyYAML. A node may carry ``device: <int>`` (the JAX package's
-mesh-stage extension); the port parses it, and its command line refuses
-such topologies until multi-device parallelism is ported.
+mesh-stage extension): such a topology gives the rank mesh its stages
+(:meth:`cake_tpu_torch.parallel.mesh.MeshPlan.from_topology`).
 """
 
 from __future__ import annotations
@@ -73,7 +73,7 @@ class Node:
     host: str = ""
     description: str = ""
     layers: list[str] = dataclasses.field(default_factory=list)
-    device: int | None = None  # mesh stage index (refused by the port)
+    device: int | None = None  # mesh stage index (parallel/mesh.py)
     hosts: list[str] | None = None  # replica addresses (failover order)
 
     def __post_init__(self):

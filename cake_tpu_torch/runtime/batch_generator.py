@@ -1,5 +1,6 @@
-"""Multi-stream serving on one card: N prompts decode concurrently in one
-batch (port of ``cake_tpu/runtime/batch_generator.py``).
+"""Multi-stream serving on one card or over a rank mesh: N prompts decode
+concurrently in one batch (port of
+``cake_tpu/runtime/batch_generator.py``).
 
 Every decode launch advances all streams by one token (or one
 ``block_size`` block); each stream keeps its own state:
@@ -72,8 +73,14 @@ update) with one host copy at the end. Greedy streams are identical to the
 plain engine's; sampled streams are distribution-identical through
 rejection sampling, with draws keyed by (seed, stream id, position).
 
+Over a ``(dp, stage, tp)`` rank mesh (``coll=``) every rank runs the same
+engine calls: the batch's rows split over dp, each rank holds its layers,
+KV heads and rows of the cache, and every rank gets the gathered logits
+and samples the same tokens. The paged layout runs at dp 1, and snapshot
+export and import stay on one card.
+
 Not ported yet, and refused with an error in the constructor: the
-interleaved pipeline schedules and every mesh axis above 1.
+interleaved pipeline schedules and the sp and ep axes.
 """
 
 from __future__ import annotations
@@ -109,13 +116,27 @@ from cake_tpu_torch.parallel.pipeline import (
     build_sharded_decode,
     build_sharded_prefill,
     build_sharded_verify_rows,
-    check_single_device,
+)
+from cake_tpu_torch.parallel.mesh import (
+    MeshPlan,
+    check_axes,
+    local_batch,
+    validate_shardable,
 )
 from cake_tpu_torch.runtime import speculative as spec
 from cake_tpu_torch.runtime import threadcheck
 from cake_tpu_torch.runtime.generator import Token, _bucket, encode_prompt
 from cake_tpu_torch.utils.device import HostCopy, resolve_device
 from cake_tpu_torch.utils.token_stream import TokenOutputStream
+
+
+def mesh_call(fn):
+    """Marks an engine call that changes the engine's state: over a rank
+    mesh the serve plane runs it on every rank, in rank 0's order
+    (:class:`~cake_tpu_torch.serve.mesh.MeshEngine`). A call left
+    unmarked runs on rank 0 alone."""
+    fn.mesh_call = True
+    return fn
 
 
 @dataclasses.dataclass
@@ -149,11 +170,6 @@ _IMPORT_ABORTS = obs_metrics.counter("disagg.import_aborts")
 # admissions and KV-page imports
 _ARR_IMPORT = "import"  # (xfer_id, None, None, _ARR_IMPORT)
 _ARR_ATTACH = "attach"  # (xfer_id, sid, None, _ARR_ATTACH)
-
-
-def _unported(what: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet (the port's BatchGenerator "
-                      "serves the slot layout)")
 
 
 class BatchGenerator:
@@ -202,17 +218,40 @@ class BatchGenerator:
         kv_layout: str = "slot",
         kv_page_size: int = 16,
         kv_pool_pages: int | None = None,
+        coll=None,
     ):
+        """``coll`` (a rank's
+        :class:`~cake_tpu_torch.parallel.collectives.Collectives`) runs the
+        engine as that rank's part of a ``(dp, stage, tp)`` mesh: every
+        rank runs the same engine calls over its shard of the model
+        (``params`` are the rank's shard) and its cache, ``[L/S, B/dp,
+        KVH/tp, S, D]``; the batch's logits are gathered on every rank, so
+        every rank samples every row the same way and keeps the same host
+        state. ``num_stages``, ``tp`` and ``dp`` above 1 need it and must
+        be its plan's. At stages > 1 the steps run the serialized
+        schedule (stage after stage), as the JAX engine does whenever the
+        batch does not divide by the stage count; ``interleave=True`` is
+        not ported yet."""
         if kv_layout not in ("slot", "paged"):
             raise ValueError(
                 f"kv_layout must be 'slot' or 'paged', got {kv_layout!r}")
         self._paged = kv_layout == "paged"
+        check_axes(sp=sp, ep=ep)
+        plan = coll.plan if coll is not None else MeshPlan()
+        asked = {"dp": dp, "tp": tp, "num_stages": num_stages}
+        if any(v not in (1, getattr(plan, k)) for k, v in asked.items()):
+            wide = ", ".join(f"{k}={v}" for k, v in asked.items() if v != 1)
+            raise ValueError(
+                f"{wide} run over a rank mesh: pass the rank's collectives "
+                "(coll=; cake_tpu_torch.parallel.launch starts the ranks)"
+                if coll is None else f"{wide} differ from the plan {plan}")
+        validate_shardable(config, plan.num_stages, plan.tp)
+        dp = plan.dp
         if self._paged and (dp != 1 or sp != 1):
             raise ValueError(
                 "kv_layout='paged' requires dp == 1 and sp == 1 (the "
                 "page axis is unsharded; batch/sequence sharding of "
                 "pooled pages is future work)")
-        check_single_device(dp=dp, tp=tp, stages=num_stages, sp=sp, ep=ep)
         if self._paged and spec_k:
             raise ValueError(
                 "kv_layout='paged' does not compose with batched "
@@ -226,7 +265,9 @@ class BatchGenerator:
             raise ValueError("lookahead dispatch does not compose with "
                              "batched speculation (spec_k)")
         if interleave:
-            raise _unported("the interleaved pipeline schedule")
+            raise ValueError("the interleaved pipeline schedule "
+                             "(interleave=True) is not ported yet; stages "
+                             "run the serialized schedule")
         self.max_seq = max_seq or config.max_seq_len
         self._page_size = int(kv_page_size)
         self._pool_pages_req = kv_pool_pages
@@ -271,7 +312,8 @@ class BatchGenerator:
         self.tokenizer = tokenizer
         self.block_size = max(1, block_size)
         self.kv_quant = kv_quant
-        self.model = Llama(config, params)
+        self.model = Llama(config, params, coll)
+        self._mesh = coll is not None and plan.size > 1
         self._prefill = build_sharded_prefill(self.model)
         self._admit_prefill = build_admit_prefill(self.model)
         self._decode = build_sharded_decode(self.model, self.settings,
@@ -347,8 +389,20 @@ class BatchGenerator:
         return frozenset(self._eos_ids)
 
     def _new_cache(self, batch: int) -> KVCache:
-        return init_cache(self.config, batch=batch, max_seq=self.max_seq,
-                          device=self.device, quant=self.kv_quant)
+        """A zeroed cache of ``batch`` rows: this rank's rows of them over
+        dp (a batch-1 staging cache is whole on every dp rank) and its
+        layers and KV heads."""
+        return init_cache(self.model.layer_config,
+                          batch=local_batch(batch, self.model.plan),
+                          max_seq=self.max_seq, device=self.device,
+                          quant=self.kv_quant)
+
+    def _local_row(self, slot: int) -> int | None:
+        """Slot ``slot``'s row in this rank's share of the batch cache, or
+        None where another dp rank holds it."""
+        per = local_batch(len(self.streams), self.model.plan)
+        owner, row = divmod(slot, per)
+        return row if owner == self.model.rows_index else None
 
     def _ids(self, ids) -> torch.Tensor:
         """A host array on the engine's device. To the card through pinned
@@ -462,9 +516,13 @@ class BatchGenerator:
         page is written)."""
         if self._paged:
             return self.cache, self._paged_args_warm(1)
-        return init_cache(self.config, batch=len(self.streams), max_seq=64,
-                          device=self.device, quant=self.kv_quant), ()
+        return init_cache(self.model.layer_config,
+                          batch=local_batch(len(self.streams),
+                                            self.model.plan),
+                          max_seq=64, device=self.device,
+                          quant=self.kv_quant), ()
 
+    @mesh_call
     @torch.inference_mode()
     def warm_constrain(self) -> None:
         """Run the masked step once at the live batch's width outside the
@@ -518,6 +576,7 @@ class BatchGenerator:
             self.prefill_calls += 1
         return logits
 
+    @mesh_call
     @torch.inference_mode()
     def set_prompts(self, prompts: list, stream_ids: list[int] | None = None,
                     guides: list | None = None) -> None:
@@ -670,6 +729,7 @@ class BatchGenerator:
     def _free_slot(self) -> int | None:
         return next((i for i, s in enumerate(self.streams) if s.done), None)
 
+    @mesh_call
     def enqueue(self, prompt, stream_id: int, guide=None) -> None:
         """Queue a prompt for continuous admission. Each later ``step()``
         advances its prefill by one chunk beside the running batch's
@@ -732,7 +792,7 @@ class BatchGenerator:
         self._tables = [[] for _ in range(b)]
         self._page_map_dev = None
         self.cache = kvpool_pool.init_pool(
-            self.config, pages, self._page_size, self.kv_quant,
+            self.model.layer_config, pages, self._page_size, self.kv_quant,
             device=self.device)
 
     def _alloc_page(self) -> int:
@@ -893,6 +953,10 @@ class BatchGenerator:
         }
 
     def _require_paged(self, what: str) -> None:
+        if self._mesh:
+            raise ValueError(
+                f"{what} over a rank mesh is not ported yet (KV moves "
+                "between engines on one card)")
         if not self._paged:
             raise ValueError(
                 f"{what} needs kv_layout='paged': KV moves between "
@@ -1228,6 +1292,7 @@ class BatchGenerator:
                     == meta["generated"])
         return slot, xid
 
+    @mesh_call
     @torch.inference_mode()
     def warm_admission(self, prompt_len: int) -> None:
         """Run the admission path once for prompts of this length outside
@@ -1421,8 +1486,12 @@ class BatchGenerator:
             self._page_map_dev = None
         else:
             # the splice: the staged row into slot `slot` of every layer
-            for dst, src in zip(halves(self.cache), halves(st["cache"])):
-                dst[:, slot].copy_(src[:, 0])
+            # (on the dp rank that holds the slot)
+            row = self._local_row(slot)
+            if row is not None:
+                for dst, src in zip(halves(self.cache),
+                                    halves(st["cache"])):
+                    dst[:, row].copy_(src[:, 0])
         # the stream's sampler state into row `slot`
         self._sids[slot] = stream_id
         self._history[slot] = self._ids(hist_row)
@@ -1479,6 +1548,14 @@ class BatchGenerator:
             if base_new >= max(1, self.PREFIX_SHARE_MIN):
                 self._store_prefix(ids[:base_new], st["cache"])
 
+    @mesh_call
+    def retire_all(self) -> None:
+        """Mark every stream of the batch done: each row becomes a free
+        slot for ``enqueue`` (the serve scheduler primes its slots so)."""
+        for s in self.streams:
+            s.done = True
+
+    @mesh_call
     def finish(self, stream_id: int) -> bool:
         """Retire the stream with this ``stream_id`` at any point of its
         life. Live: it stops emitting and its slot (batch row + KV rows)
@@ -1520,6 +1597,7 @@ class BatchGenerator:
             self.import_abort(xid)
         return len(self._arrivals) != n0
 
+    @mesh_call
     @torch.inference_mode()
     def admit(self, prompt, stream_id: int) -> tuple[int, Token]:
         """Admit a new prompt into a finished slot of a running batch,
@@ -1594,6 +1672,7 @@ class BatchGenerator:
         self._emitted_ctr.inc(emitted)
         return out
 
+    @mesh_call
     @torch.inference_mode()
     def step(self) -> list[Token | None]:
         """Advance every live stream one token; returns one entry per slot
@@ -1623,6 +1702,7 @@ class BatchGenerator:
         finally:
             prof.step_end()
 
+    @mesh_call
     def drain(self) -> None:
         """Emit everything already launched, buffered block rows first,
         then a block in flight, without launching more: the rows land in
@@ -1931,6 +2011,7 @@ class BatchGenerator:
                                 if wall > 0 else None),
         }
 
+    @mesh_call
     def generate(self, max_new_tokens: int) -> list[list[int]]:
         """Run all streams to EOS or ``max_new_tokens`` MORE tokens each
         (repeated calls continue where the last left off); returns each

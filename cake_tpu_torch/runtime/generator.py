@@ -306,7 +306,7 @@ class LlamaGenerator(GeneratorBase):
                  settings: SamplerSettings | None = None,
                  max_seq: int | None = None, block_size: int = 1,
                  device=None, kv_quant: str | None = None,
-                 lookahead: bool = False):
+                 lookahead: bool = False, coll=None):
         """``block_size > 1`` runs that many decode steps per block with the
         tokens kept on the device, and streams them one at a time.
 
@@ -317,21 +317,28 @@ class LlamaGenerator(GeneratorBase):
 
         ``kv_quant="int8"`` stores the KV cache as int8 with one scale per
         token and head (half the cache bytes; quantized as it is
-        written)."""
+        written).
+
+        ``coll`` (a rank's
+        :class:`~cake_tpu_torch.parallel.collectives.Collectives`) runs
+        the model as that rank's shard of a mesh: ``params`` are the
+        rank's shard and the cache holds its layers and KV heads
+        (:class:`~cake_tpu_torch.runtime.mesh_generator.MeshGenerator`)."""
         dev = resolve_device(device)
         if params["embed"].device.type != dev.type:
             raise ValueError(
                 f"params lie on {params['embed'].device}, the generator "
                 f"runs on {dev}")
         super().__init__(config, tokenizer, settings, max_seq, dev)
-        self.model = Llama(config, params)
+        self.model = Llama(config, params, coll)
         self.block_size = max(1, block_size)
         self._lookahead = bool(lookahead) and self.block_size > 1
         # a launched block's device ids and their queued host copy
         self._inflight: tuple[torch.Tensor, HostCopy] | None = None
         self._guide_table: torch.Tensor | None = None
-        self.cache = init_cache(config, batch=1, max_seq=self.max_seq,
-                                device=self.device, quant=kv_quant)
+        self.cache = init_cache(self.model.layer_config, batch=1,
+                                max_seq=self.max_seq, device=self.device,
+                                quant=kv_quant)
         # per-token decode latency (a block records ms a token, so the
         # series compares across block sizes) and prompt-pass ms
         self._decode_hist = obs_metrics.Histogram("generator.decode_ms")

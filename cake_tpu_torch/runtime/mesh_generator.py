@@ -1,0 +1,74 @@
+"""Single-stream generator over a rank mesh (port of
+``cake_tpu/runtime/mesh_generator.py``).
+
+The JAX ``MeshGenerator`` compiles the whole per-token step over a
+``(dp, stage, sp, tp)`` device mesh. The port's runs on every rank of a
+``(stage, tp)`` mesh, one process each
+(:mod:`cake_tpu_torch.parallel.launch`): every rank runs the same
+generation loop over its shard of the model
+(:class:`~cake_tpu_torch.models.llama.Llama` with the rank's
+collectives), gets the full logits of each step and samples the same
+token, so every rank's stream is the stream. The loop is
+:class:`~cake_tpu_torch.runtime.generator.LlamaGenerator`'s: prompt
+buckets, fused blocks of ``block_size`` steps, the int8 KV cache.
+
+A topology whose nodes carry mesh ``device`` indices maps onto the stage
+axis (:meth:`~cake_tpu_torch.parallel.mesh.MeshPlan.from_topology`).
+"""
+
+from __future__ import annotations
+
+from cake_tpu_torch.models.config import LlamaConfig
+from cake_tpu_torch.ops.sampling import SamplerSettings
+from cake_tpu_torch.parallel.mesh import (
+    NEXT_SLICE,
+    check_axes,
+    is_rank_shard,
+    shard_params,
+    validate_shardable,
+)
+from cake_tpu_torch.runtime.generator import LlamaGenerator
+
+
+class MeshGenerator(LlamaGenerator):
+    """Single-stream generator whose steps run over a rank mesh. ``coll``
+    is this rank's :class:`~cake_tpu_torch.parallel.collectives.Collectives`
+    (its plan must have dp 1); ``params`` are the rank's shard
+    (:func:`~cake_tpu_torch.utils.sharded_load.load_llama_params_on_mesh`)
+    or the full tree, which is sliced here
+    (:func:`~cake_tpu_torch.parallel.mesh.shard_params`)."""
+
+    # as the JAX MeshGenerator: no masked sampling path
+    supports_guide = False
+
+    def __init__(self, config: LlamaConfig, params, coll, tokenizer=None,
+                 settings: SamplerSettings | None = None,
+                 max_seq: int | None = None, block_size: int = 1,
+                 prefill_chunks: int = 1, kv_quant: str | None = None):
+        """``block_size > 1`` runs that many decode steps a block, as the
+        local generator does; the noise of token ``index`` depends only on
+        ``(seed, index)``, and every rank draws it alike from the gathered
+        logits, so a seed gives the local generator's stream at any block
+        size and layout. ``prefill_chunks > 1`` (the pipelined prefill) is
+        not ported yet."""
+        plan = coll.plan
+        if plan.dp != 1:
+            raise ValueError(
+                "MeshGenerator is single-stream; build the plan with dp=1")
+        check_axes(plan.sp, plan.ep)
+        validate_shardable(config, plan.num_stages, plan.tp)
+        if prefill_chunks > 1:
+            raise ValueError(
+                f"prefill_chunks={prefill_chunks} (the pipelined prefill "
+                f"across stages) is {NEXT_SLICE}")
+        if not is_rank_shard(params, config, plan):
+            params = shard_params(params, plan, coll.rank, coll.device)
+        self.coll = coll
+        super().__init__(config, params, tokenizer=tokenizer,
+                         settings=settings, max_seq=max_seq,
+                         block_size=block_size, device=coll.device,
+                         kv_quant=kv_quant, coll=coll)
+
+    @property
+    def plan(self):
+        return self.coll.plan

@@ -318,8 +318,7 @@ class Scheduler:
             cfg = self.engine.config
             tok = cfg.bos_token_id if cfg.bos_token_id is not None else 0
             self.engine.set_prompts([[tok]] * max_concurrent)
-            for s in self.engine.streams:
-                s.done = True
+            self.engine.retire_all()
         # every row of an engine primed by its caller is a slot too
         self.max_concurrent = len(self.engine.streams)
         self._next_sid = self.max_concurrent  # clear of the priming ids

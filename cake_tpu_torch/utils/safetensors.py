@@ -22,6 +22,7 @@ import json
 import struct
 from pathlib import Path
 
+import numpy as np
 import torch
 
 _DTYPES = {
@@ -49,6 +50,20 @@ class SafetensorsFile:
     def keys(self) -> list[str]:
         return list(self._entries)
 
+    def shape(self, name: str) -> tuple[int, ...]:
+        return tuple(self._entries[name]["shape"])
+
+    def sliceable(self, name: str) -> "SliceableTensor":
+        """Tensor ``name`` as a memory map: indexing it reads only the
+        bytes of the slice taken (:meth:`SliceableTensor.read`)."""
+        e = self._entries[name]
+        start, end = e["data_offsets"]
+        dtype = _DTYPES[e["dtype"]]
+        raw = np.memmap(self.path, dtype=_NP_BITS[dtype], mode="r",
+                        offset=self._base + start,
+                        shape=tuple(e["shape"])) if end > start else None
+        return SliceableTensor(raw, dtype, tuple(e["shape"]))
+
     def get_tensor(self, name: str) -> torch.Tensor:
         e = self._entries[name]
         start, end = e["data_offsets"]
@@ -61,6 +76,30 @@ class SafetensorsFile:
         if not raw:
             return torch.empty(e["shape"], dtype=dtype)
         return torch.frombuffer(raw, dtype=dtype).reshape(e["shape"])
+
+
+# numpy dtypes of the same width (bf16 has none: its bits ride uint16)
+_NP_BITS = {
+    torch.float64: np.float64, torch.float32: np.float32,
+    torch.float16: np.float16, torch.bfloat16: np.uint16,
+    torch.int64: np.int64, torch.int32: np.int32, torch.int16: np.int16,
+    torch.int8: np.int8, torch.uint8: np.uint8, torch.bool: np.bool_,
+}
+
+
+class SliceableTensor:
+    """A stored tensor read slice by slice (:meth:`SafetensorsFile.sliceable`,
+    the ``safetensors`` package's ``get_slice``)."""
+
+    def __init__(self, raw, dtype: torch.dtype, shape: tuple[int, ...]):
+        self._raw, self.dtype, self.shape = raw, dtype, shape
+
+    def read(self, index=()) -> torch.Tensor:
+        """``tensor[index]`` as a fresh tensor (only its bytes are read)."""
+        if self._raw is None:
+            return torch.empty(self.shape, dtype=self.dtype)[index]
+        a = np.array(self._raw[index])  # a copy: the map stays read-only
+        return torch.from_numpy(a).view(self.dtype)
 
 
 # the safetensors package's dtype ranks, lowest first (its `Dtype` enum

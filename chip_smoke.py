@@ -18,6 +18,9 @@
                                           # result line
     python3 chip_smoke.py --phase 15      # phases 1, 6 and 15 only; no
                                           # result line
+    python3 chip_smoke.py --phase 16      # phase 1, the tp-local kernel
+                                          # checks and phase 16 only; no
+                                          # result line
 
 Phases, each fatal on failure:
 
@@ -70,7 +73,7 @@ Phases, each fatal on failure:
    checkpoint written by the port's own writer: bf16, ``--quantize int8
    --kv-quant int8``, ``--quantize int4:g64`` and ``--quantize int4:g32``;
 7. the serving engine (``BatchGenerator``) over Llama-3-8B at full width
-   and 16 layers (``SERVE_LAYERS``; so are phases 8, 10, 11 and 12) at 8
+   and 8 layers (``SERVE_LAYERS``; so are phases 8, 10, 11, 12 and 14) at 8
    slots: (a) bf16, (b) int8 weights with the int8 KV
    cache; ragged prompts of 2,000 to 5 ids (three sharing a 128-id
    prefix), a quota per stream, three arrivals admitted with ``enqueue``
@@ -153,7 +156,7 @@ Phases, each fatal on failure:
    the card, phase 5's prompt and 64 tokens through ``LlamaGenerator`` at
    blocks 8 and 1 (equal ids, launches exact, one profiled decode block):
    (q) Qwen2-7B, 28 layers, bf16; (g) Gemma-7B, 28 layers, bf16 and with
-   the int8 cache; (m) Mixtral-8x7B, 32 layers, int8 experts (the bf16
+   the int8 cache; (m) Mixtral-8x7B, 16 layers, int8 experts (the bf16
    cache); (m16) Mixtral-8x7B at 12 layers with bf16 experts (32 do not
    fit the card). On (g) and (m) the batch engine at 8 slots on phase 7's
    scenario, slot and paged layouts (equal streams, launches exact), each
@@ -191,7 +194,7 @@ Phases, each fatal on failure:
    ``tools/quantize_model`` to int8 and to int4 g128 (layer 0's seven
    linears and the head equal the CPU quantizer's codes and scales bit for
    bit; a scale with one bit flipped fails that check), the int8 copy
-   split by ``tools/split_model`` over worker A (layers 0-1) and B (2-7),
+   split by ``tools/split_model`` over worker A (layer 0) and B (1-7),
    both started from their bundles by ``embed.spawn_worker``; a master
    (embedding, norm, head from the full directory) over them on phase 5's
    2,000-id prompt, 32 greedy tokens, the bf16 cache: every step's logits
@@ -214,6 +217,21 @@ Phases, each fatal on failure:
    ``--chaos kill@7 --cluster-report --top`` printing phase 6's
    ids alone on stdout (the panel on stderr, the report naming both
    workers); SIGTERM ends every worker with exit 0.
+16. the ``(dp, stage, tp)`` rank mesh on this one card, 4 ranks over gloo
+   (``parallel/launch.py RankPool``; phase 2 first holds every kernel at
+   the tp 2 and tp 4 local shapes against its plain version, planted
+   faults failing, and phase 3 times them there): Llama-3-8B at full
+   width and 8 layers written by the port's writer and read shard by
+   shard (``utils/sharded_load.py``); stages 2 x tp 2 in bf16 and with
+   int8 weights quantized on load plus the int8 cache (phase 5's prompt,
+   32 greedy tokens): every rank's ids equal, equal to one card's up to
+   the first near-tie (MARGIN_TIE), step 0's f32 logits within
+   MESH_LOGITS_REL_L2; the batch engine at dp 2 x tp 2, 8 slots, every
+   stream one card's up to a near-tie; each rank's launches exact; the
+   command line ``--tp 2 --stages 2 --dist-backend gloo`` as a process
+   printing the first run's ids. Per rank: card ms a decode step,
+   collective calls, ms and bytes a step per axis, TTFT and tokens/s,
+   labelled "one card, 4 ranks, gloo" (no multi-card speed).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the ``cake_tpu_torch`` package beside this file, it exits with
@@ -230,6 +248,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -271,12 +290,12 @@ GEMMA = (16, 16, 256)
 # and a window whose lower edge falls inside KV tiles
 PREFILL_CASES = ((2048, 0, None), (2000, 0, None), (256, 1000, None),
                  (512, 1000, 300))
-# Phases 7, 8, 10, 11 and 12 (the serving paths and the guides) run
-# Llama-3-8B at full width and 16 of its 32 layers: with phase 13's
+# Phases 7, 8, 10, 11, 12 and 14 (the serving paths and the guides) run
+# Llama-3-8B at full width and 8 of its 32 layers: with phase 13's
 # families at full depth the whole script took 996.3 s of its 1,200 s
-# limit on an H100 with them at 32, and 924.3 s with phase 10 (270 s of
-# it) at 32 (PR 12's runs).
-SERVE_LAYERS = 16
+# limit on an H100 with them at 32, 1,157.7 s with them at 16 and phase 16
+# (the mesh) added, and 1,046-1,170 s at 12 (PERF.md).
+SERVE_LAYERS = 8
 # the linears' (K, N) of Llama-3-8B: gate/up, down, k/v, q/o; and the head
 LINEARS = ((4096, 14336), (14336, 4096), (4096, 1024), (4096, 4096))
 HEAD = (4096, 128256)
@@ -4491,12 +4510,13 @@ def phase_spec_only(torch, build) -> list:
 
 # (label, preset, layers, weight tier, KV caches of the single stream,
 # batch engine?, speculation?) of phase 13's paths; Mixtral's bf16 experts
-# (93 GB at 32 layers) do not fit the card: 12 layers
+# (93 GB at 32 layers) do not fit the card: 12 layers. The int8 experts run
+# 16 of the 32 layers (32 took 107 s of the script's 1,200)
 FAMILY_PATHS = (
     ("(q) qwen2_7b bf16", "qwen2_7b", 28, "bf16", (None,), False, False),
     ("(g) gemma_7b bf16", "gemma_7b", 28, "bf16", (None, "int8"), True,
      True),
-    ("(m) mixtral_8x7b int8 experts", "mixtral_8x7b", 32, "int8", (None,),
+    ("(m) mixtral_8x7b int8 experts", "mixtral_8x7b", 16, "int8", (None,),
      True, False),
     ("(m16) mixtral_8x7b bf16 experts, 12 layers", "mixtral_8x7b", 12,
      "bf16", (None,), False, False),
@@ -5420,10 +5440,19 @@ def phase_disagg(torch, build) -> list:
 
 
 # the full-width run: Llama-3-8B at 8 of its 32 layers, split unevenly over
-# two workers; the master keeps the embedding, the final norm and the head
+# two workers; the master keeps the embedding, the final norm and the head.
+# On the H100 80GB HBM3 (700 W) a worker's decode op took about 1 ms plus
+# 1.3 ms a layer, mostly host time, so 2 layers against 6 ran only 2.2-2.8x
+# apart, and the report's p99s, interpolated in buckets 2x apart (2.5, 5,
+# 10, 25 ms), flagged B at factor 2 in some runs and not in others; 1 layer
+# against 7 should run about 4.5x apart
 TOOLS_LAYERS = 8
-TOOLS_NODES = {"A": (0, 2), "B": (2, 8)}
+TOOLS_NODES = {"A": (0, 1), "B": (1, 8)}
 TOOLS_NEW = 32
+# decode steps each worker serves before the cluster report is read: from
+# 100 samples on, a p99 is no longer the largest sample, so one stalled op
+# on the shared host does not decide which worker is the straggler
+REPORT_STEPS = 256
 # the card's codes are compared with the CPU quantizer's for these
 TOOLS_CHECKED = ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
                  "self_attn.o_proj", "mlp.gate_proj", "mlp.up_proj",
@@ -5652,6 +5681,7 @@ def tools_full_width(torch, build, root: Path) -> dict:
 
     topo_file = root / "topology.json"
     full_topo = {n: {"host": "127.0.0.1:0", "layers": [
+        f"model.layers.{lo}" if hi - lo == 1 else
         f"model.layers.{lo}-{hi - 1}"]} for n, (lo, hi) in TOOLS_NODES.items()}
     topo_file.write_text(json.dumps(full_topo))
     t0 = time.perf_counter()
@@ -5732,7 +5762,6 @@ def tools_full_width(torch, build, root: Path) -> dict:
                 fail(f"phase 15: ids {run['ids']} differ from the "
                      f"single-device stream's {ref['ids']}")
             segs = gen.runner_stats()
-            report = gen.cluster_report(2.0)
             clean = {"ids": run["ids"], "logits": logits,
                      "margins": penalized_margins(
                          torch, torch.stack(logits).cuda(), prompt,
@@ -5749,6 +5778,9 @@ def tools_full_width(torch, build, root: Path) -> dict:
                 f"{out['clean']['segments']}")
             out["profile"] = profile_cross_host(torch, gen, TOOLS_NEW,
                                                 "clean", phase=15)
+            for i in range(TOOLS_NEW + 16, TOOLS_NEW + 16 + REPORT_STEPS):
+                gen.next_token(i)
+            report = gen.cluster_report(2.0)
         finally:
             gen.close()
         check_report(report)
@@ -5777,7 +5809,7 @@ def tools_full_width(torch, build, root: Path) -> dict:
 def check_report(report: dict) -> None:
     """The clean run's cluster report: both workers up with forward
     p50/p99, RTT and clock offset; at a straggler factor of 2 the worker
-    with 6 layers is flagged and the one with 2 is not; the panel carries
+    with 7 layers is flagged and the one with 1 is not; the panel carries
     both rows."""
     from cake_tpu_torch.obs.top import render
 
@@ -5795,7 +5827,7 @@ def check_report(report: dict) -> None:
                  f"p50/p99, RTT and clock offset: {w}")
     if report["stragglers"] != ["B"]:
         fail(f"cluster report: stragglers {report['stragglers']} at factor "
-             "2, want B (6 layers) and not A (2)")
+             "2, want B (7 layers) and not A (1)")
     panel = render(report)
     if not all(f"\n{n} " in panel for n in TOOLS_NODES):
         fail(f"the --top panel lacks a worker's row:\n{panel}")
@@ -5951,6 +5983,445 @@ def phase_tools(torch, build, local_ids: dict) -> dict:
             "full_width": full, "cli": cli_run, "seconds": seconds}
 
 
+# --------------------------------------------------------------------------
+# phase 16
+# --------------------------------------------------------------------------
+
+
+# the (tp, H, KVH) of the tp-local attention: Llama-3-8B's heads over tp 2
+# and 4
+TP_HEADS = tuple((tp, H // tp, KVH // tp) for tp in (2, 4))
+# the tp-local linears (K, N) of Llama-3-8B at tp 2 and 4: gate/up and q
+# (column-parallel: N split), down and o (row-parallel: K split), and the
+# vocab-sharded head (N 64,128 and 32,064: the latter off the 128-column
+# tile)
+TP_LINEARS = tuple(
+    (tp, ((4096, 14336 // tp), (14336 // tp, 4096), (4096, 1024 // tp),
+          (4096, 4096 // tp), (4096 // tp, 4096), (4096, 128256 // tp)))
+    for tp in (2, 4))
+
+
+def phase_tp_kernels(torch, flash, qmatmul, quant, kvcache) -> dict:
+    """Phase 2 at the mesh's tp-local shapes: both prefills (the 2,000-id
+    prompt) and both decodes (one stream at 2047, four rows at ragged
+    frontiers) at H/tp and KVH/tp, each matmul tier at every tp-local
+    linear at M = 1 and 2000; planted faults at tp 4 (a dropped KV tile in
+    each attention kernel, a K tile short in each matmul tier) must fail."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    errs = {}
+    for tp, h, kvh in TP_HEADS:
+        k, v = rnd(1, kvh, S, D), rnd(1, kvh, S, D)
+        kq, vq = kvcache.quant_kv(k), kvcache.quant_kv(v)
+        kv8 = (kq.q, kq.scale, vq.q, vq.scale)
+        q = rnd(1, h, 2000, D)
+        for name, ops, fn, ref in (
+                ("flash_prefill", (k, v), flash.flash_attention,
+                 flash.flash_attention_ref),
+                ("flash_prefill_q8", kv8, flash.flash_attention_q8,
+                 flash.flash_attention_q8_ref)):
+            errs[(name, "tp", tp)] = compare(
+                torch, f"{name} tp={tp} H={h} KVH={kvh} T=2000",
+                fn(q, *ops, 0), ref(q, *ops, 0))
+            if tp == 4:
+                planted(torch, f"{name} tp=4 T=2000 last tile dropped",
+                        tile_short(flash, lambda: fn(q, *ops, 0)),
+                        ref(q, *ops, 0))
+        kb, vb = rnd(4, kvh, S, D), rnd(4, kvh, S, D)
+        kbq, vbq = kvcache.quant_kv(kb), kvcache.quant_kv(vb)
+        for name, one, four in (
+                ("flash_decode", (k, v), (kb, vb)),
+                ("flash_decode_q8", kv8,
+                 (kbq.q, kbq.scale, vbq.q, vbq.scale))):
+            kernel = getattr(flash, name)
+            plain = getattr(flash, f"{name}_ref")
+            for b, ops, pos in ((1, one, [2047]),
+                                (4, four, [3, 700, 2048, 4095])):
+                qd = rnd(b, h, 1, D)
+                p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+                err = compare(torch, f"{name} tp={tp} H={h} KVH={kvh} "
+                              f"B={b} pos={pos}", kernel(qd, *ops, p),
+                              plain(qd, *ops, p))
+                if b == 1:
+                    errs[(name, "tp", tp)] = err
+            if tp == 4:
+                qd = rnd(1, h, 1, D)
+                good = torch.tensor([2047], dtype=torch.int32,
+                                    device="cuda")
+                planted(torch, f"{name} tp=4 pos=2047 last tile dropped",
+                        kernel(qd, *one, good - 64), plain(qd, *one, good))
+        del k, v, kv8, kb, vb, kbq, vbq
+    plain = {"quant_matmul": quant.quant_matmul_ref,
+             "quant4_matmul": quant.quant4_matmul_ref}
+    for tp, linears in TP_LINEARS:
+        for k, n in linears:
+            w = torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
+            for tier in TIERS:
+                name, wq, scale = quantized(quant, w, tier)
+                for m in (1, 2000):
+                    x = torch.randn(m, k, generator=gen, device="cuda").to(
+                        torch.bfloat16)
+                    label = f"{name} {tier_label(tier)} tp={tp} M={m} " \
+                            f"K={k} N={n}"
+                    errs[(name, tier[1], "tp", tp, m, k, n)] = compare(
+                        torch, label, getattr(qmatmul, name)(x, wq, scale),
+                        plain[name](x, wq, scale))
+                    if tp == 4 and (k, n) == linears[1] and m == 1:
+                        k2 = k - qmatmul.BLOCK_K
+                        int4 = name == "quant4_matmul"
+                        planted(torch, f"{label} one K tile short",
+                                qmatmul._launch(
+                                    name, x[:, :k2].contiguous(),
+                                    wq[:k2 // 2 if int4 else k2], scale, n,
+                                    (tier[1] or 0,) if int4 else ()),
+                                plain[name](x, wq, scale))
+                del wq, scale
+            del w
+    torch.cuda.empty_cache()
+    say("[2] every kernel at the tp 2 and tp 4 local shapes: within "
+        "tolerance; the planted faults fail")
+    return errs
+
+
+def tp_local_timing(torch, flash, qmatmul, quant, kvcache, build,
+                    rows) -> None:
+    """Phase 3 at the tp-local shapes: each kernel row gains ``tp_cases``,
+    the kernel's, plain and library ms beside the bound at tp 2 and 4
+    (attention: the 2,000-id prompt's prefill, one stream's decode at
+    2047; matmuls at M = 1: the tp-local gate/up, down and head)."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    by_name = {r["name"]: r for r in rows}
+    for tp, h, kvh in TP_HEADS:
+        for name in ("flash_decode", "flash_decode_q8"):
+            c = decode_case(torch, flash, kvcache, name, 1, (2047,), rnd,
+                            shape=(h, kvh, D))
+            by_name[name].setdefault("tp_cases", []).append(
+                {"tp": tp, **c})
+        k, v = rnd(1, kvh, S, D), rnd(1, kvh, S, D)
+        kq, vq = kvcache.quant_kv(k), kvcache.quant_kv(v)
+        t = 2000
+        q = rnd(1, h, t, D)
+        for name, ops, fn, ref, per_key in (
+                ("flash_prefill", (k, v), flash.flash_attention,
+                 flash.flash_attention_ref, 2 * D * 2),
+                ("flash_prefill_q8", (kq.q, kq.scale, vq.q, vq.scale),
+                 flash.flash_attention_q8, flash.flash_attention_q8_ref,
+                 2 * (D + 4))):
+            b_ms, b_by = bound(2 * q.numel() * 2 + kvh * t * per_key,
+                               4 * h * D * (t * (t + 1) // 2))
+            lk, lv = ((k, v) if name == "flash_prefill" else tuple(
+                kvcache.dequant_kv(c, torch.bfloat16) for c in (kq, vq)))
+            c = {"tp": tp, "shape": f"q [1,{h},{t},{D}] k/v "
+                                     f"[1,{kvh},{S},{D}] pos 0",
+                 "ms": time_ms(torch, lambda: fn(q, *ops, 0)),
+                 "plain_ms": time_ms(torch, lambda: ref(q, *ops, 0)),
+                 "library_ms": time_ms(
+                     torch, lambda: F.scaled_dot_product_attention(
+                         q, lk[:, :, :t], lv[:, :, :t], is_causal=True,
+                         enable_gqa=True)),
+                 "bound_ms": b_ms, "bound_by": b_by}
+            by_name[name].setdefault("tp_cases", []).append(c)
+        del k, v, kq, vq, q
+    for tp, linears in TP_LINEARS:
+        for k, n in (linears[0], linears[1], linears[5]):
+            for tier in (TIERS[0], TIERS[2]):
+                c = matmul_case(torch, quant, qmatmul, build, tier, 1, k, n,
+                                gen)
+                by_name[tier[0]].setdefault("tp_cases", []).append(
+                    {"tp": tp, "tier": tier_label(tier), "shape":
+                     f"M=1 K={k} N={n}",
+                     **{key: c[key] for key in (
+                         "ms", "plain_ms", "library_ms", "bound_ms",
+                         "bound_by")}})
+    for r in rows:
+        for c in r.get("tp_cases", []):
+            say(f"[3] {r['name']} tp={c['tp']} {c.get('tier', '')} "
+                f"{c['shape']}: {c['ms']:.4f} ms (plain "
+                f"{c['plain_ms']:.4f}, library {c['library_ms']:.4f}, "
+                f"bound {c['bound_ms']:.4f} by {c['bound_by']})")
+    torch.cuda.empty_cache()
+
+
+# Llama-3-8B at full width and 8 of its 32 layers over 4 ranks on this
+# card (gloo): stages 2 x tp 2 for one stream, dp 2 x tp 2 for the batch
+MESH_LAYERS = 8
+MESH_NEW = 32
+MESH_SLOTS = 8
+MESH_BATCH_NEW = 16
+MESH_BATCH_LENS = (600, 410, 333, 257, 200, 129, 64, 17)
+# step 0's f32 logits over the mesh against one card: the tp all-reduce
+# and the tp-split matmuls sum bf16 partials in another order than one
+# card, through 8 bf16 layers
+MESH_LOGITS_REL_L2 = 5e-2
+MESH_LABEL = "one card, 4 ranks, gloo"
+
+
+def mesh_expected(cfg, coords, weights: str, kv_quant, prefill_calls: int,
+                  decode_steps: int, plan) -> dict:
+    """A rank's launches: its own layers' attention and linears, and the
+    head on the last stage only."""
+    import dataclasses
+
+    local = dataclasses.replace(
+        cfg, num_hidden_layers=cfg.num_hidden_layers // plan.num_stages)
+    want = expected_launches(local, weights, kv_quant, prefill_calls,
+                             decode_steps)
+    if weights != "bf16" and coords["stage"] != plan.num_stages - 1:
+        want[weights] -= prefill_calls + decode_steps
+    return want
+
+
+def check_rank_launches(label: str, out: list, cfg, weights, kv_quant,
+                        plan) -> None:
+    for r in out:
+        want = mesh_expected(cfg, r["coords"], weights, kv_quant,
+                             r["prefill_calls"], r["decode_steps"], plan)
+        if r["launches"] != want:
+            fail(f"{label}: rank {r['rank']} launched {r['launches']}, "
+                 f"expected {want}")
+    say(f"[16] {label}: every rank's launches exact (its layers' kernels "
+        f"at its prefill and decode counts; the head on the last stage)")
+
+
+def mesh_rank_lines(label: str, out: list, steps: int) -> list:
+    """The per-rank numbers: card ms a decode step, collective calls, ms
+    and bytes a step per axis, TTFT and tokens/s."""
+    rows = []
+    for r in out:
+        coll = {axis: {"ms_per_step": v["ms"] / steps,
+                       "bytes_per_step": v["bytes"] / steps,
+                       "calls_per_step": v["calls"] / steps}
+                for axis, v in r["coll"].items()}
+        row = {"rank": r["rank"], "coords": {
+            a: r["coords"][a] for a in ("dp", "stage", "tp")},
+            "collectives": coll}
+        for key in ("decode_ms_per_step", "ttft_s", "tok_s", "ms"):
+            if r.get(key) is not None:
+                row[key] = r[key]
+        if "ms" in row:  # the batch: card ms a dispatch (prefill included)
+            row["ms_per_step"] = row["ms"] / steps
+        rows.append(row)
+        say(f"[16] {label} ({MESH_LABEL}) rank {r['rank']} "
+            f"{row['coords']}: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in row.items()
+                if isinstance(v, float)) + "; collectives a step: " +
+            ", ".join(f"{a} {c['calls_per_step']:.1f} calls "
+                      f"{c['ms_per_step']:.3f} ms "
+                      f"{c['bytes_per_step'] / 1e6:.4f} MB"
+                      for a, c in coll.items()))
+    return rows
+
+
+def rel_l2(torch, a, b) -> float:
+    a = torch.as_tensor(a).float()
+    b = torch.as_tensor(b).float().to(a.device)
+    return ((a - b).norm() / b.norm()).item()
+
+
+def prefill_logits(torch, cfg, params, prompt, kv_quant):
+    """One card's f32 logits at the prompt's last position (the prompt
+    padded to the generator's bucket)."""
+    from cake_tpu_torch.models.llama import Llama
+    from cake_tpu_torch.ops.kvcache import init_cache
+    from cake_tpu_torch.runtime.generator import _bucket
+
+    t_pad = _bucket(len(prompt), cfg.max_seq_len)
+    tokens = torch.tensor([prompt + [0] * (t_pad - len(prompt))],
+                          device="cuda")
+    model = Llama(cfg, params)
+    with torch.inference_mode():
+        x = model.hidden(tokens, init_cache(cfg, 1, cfg.max_seq_len,
+                                            device="cuda", quant=kv_quant),
+                         0)
+        return model.logits(x[:, len(prompt) - 1])[0].float().cpu()
+
+
+def mesh_stream(torch, pool, cfg, params, d, prompt, settings, label,
+                weights, kv_quant) -> dict:
+    """One stream over stages 2 x tp 2, read shard by shard from ``d``:
+    every rank's ids equal, equal to one card's up to the first near-tie,
+    step 0's logits within MESH_LOGITS_REL_L2, launches exact."""
+    from cake_tpu_torch.parallel.mesh import MeshPlan
+
+    plan = MeshPlan(num_stages=2, tp=2)
+    ref = single_stream(torch, cfg, params, prompt, MESH_NEW, settings,
+                        kv_quant)
+    ref_logits = prefill_logits(torch, cfg, params, prompt, kv_quant)
+    t0 = time.perf_counter()
+    out = pool.run("cake_tpu_torch.parallel.jobs:mesh_generate", cfg, plan,
+                   prompt, MESH_NEW, model_dir=str(d),
+                   quantize=None if weights == "bf16" else "int8",
+                   settings=settings, block_size=8, kv_quant=kv_quant,
+                   want_logits=True)
+    seconds = time.perf_counter() - t0
+    ids = out[0]["ids"]
+    if any(r["ids"] != ids for r in out):
+        fail(f"{label}: the ranks' ids differ: {[r['ids'] for r in out]}")
+    say(f"[16] {label}: the 4 ranks sampled the same {len(ids)} tokens")
+    tie = check_until_tie(torch, cfg, params, label, prompt, ids, ref,
+                          settings, kv_quant, tag="[16]")
+    err = rel_l2(torch, out[0]["logits"], ref_logits)
+    say(f"[16] {label}: step 0's f32 logits against one card: relative L2 "
+        f"{err:.3e} (limit {MESH_LOGITS_REL_L2})")
+    if not err < MESH_LOGITS_REL_L2:
+        fail(f"{label}: step 0's logits relative L2 {err} >= "
+             f"{MESH_LOGITS_REL_L2}")
+    check_rank_launches(label, out, cfg, weights, kv_quant, plan)
+    return {"label": label, "plan": "stages 2 x tp 2", "ids": ids,
+            "tie": tie, "logits_rel_l2": err, "seconds": seconds,
+            "ranks": mesh_rank_lines(label, out, out[0]["decode_steps"]
+                                     + out[0]["prefill_calls"]),
+            "launches": {k: sum(r["launches"][k] for r in out)
+                         for k in out[0]["launches"]}}
+
+
+def mesh_batch_run(torch, pool, cfg, params, d, settings) -> dict:
+    """The batch engine at dp 2 x tp 2, 8 slots: every stream equals one
+    card's engine's up to its first near-tie, and each of its steps
+    outside a near-tie is the greedy choice of its own teacher-forced
+    logits on one card (``family_until_tie``); launches exact."""
+    from cake_tpu_torch.parallel.mesh import MeshPlan
+    from cake_tpu_torch.runtime.batch_generator import BatchGenerator
+
+    g = torch.Generator().manual_seed(SEED + 16)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in MESH_BATCH_LENS]
+    eng = BatchGenerator(cfg, params, settings=settings, block_size=8)
+    eng.set_prompts(prompts)
+    ref = eng.generate(MESH_BATCH_NEW)
+    del eng
+    torch.cuda.empty_cache()
+    plan = MeshPlan(dp=2, tp=2)
+    t0 = time.perf_counter()
+    out = pool.run("cake_tpu_torch.parallel.jobs:mesh_batch", cfg, plan,
+                   prompts, MESH_BATCH_NEW, model_dir=str(d),
+                   settings=settings, block_size=8)
+    seconds = time.perf_counter() - t0
+    streams = out[0]["streams"]
+    if any(r["streams"] != streams for r in out):
+        fail("batch dp 2 x tp 2: the ranks' streams differ")
+    ties = [family_until_tie(torch, cfg, params, f"batch dp 2 x tp 2 slot "
+                             f"{i}", p, s, r, settings, tag="[16]")
+            for i, (p, s, r) in enumerate(zip(prompts, streams, ref))]
+    equal = sum(s == r for s, r in zip(streams, ref))
+    say(f"[16] batch dp 2 x tp 2: {equal} of {len(ref)} streams equal one "
+        "card's engine's whole; the rest up to a near-tie, and every step "
+        "of every stream outside a near-tie is its teacher-forced logits' "
+        "greedy choice")
+    check_rank_launches("batch dp 2 x tp 2", out, cfg, "bf16", None,
+                        plan)
+    steps = out[0]["decode_steps"] + out[0]["prefill_calls"]
+    return {"label": "batch dp 2 x tp 2, 8 slots", "streams_equal": equal,
+            "ties": ties, "seconds": seconds,
+            "tokens": sum(len(s) for s in streams),
+            "ranks": mesh_rank_lines("batch", out, steps),
+            "launches": {k: sum(r["launches"][k] for r in out)
+                         for k in out[0]["launches"]}}
+
+
+def mesh_cli(d, prompt, want: list) -> dict:
+    """``--tp 2 --stages 2 --dist-backend gloo`` as a process: its ids
+    equal the first mesh run's."""
+    cmd = [sys.executable, "-m", "cake_tpu_torch.cli", "--model", str(d),
+           "--tp", "2", "--stages", "2", "--dist-backend", "gloo",
+           "--prompt-ids", ",".join(map(str, prompt)), "-n", str(MESH_NEW),
+           "--temperature", "0", "--max-seq", "4096"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                       cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)))
+    seconds = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"the mesh command line exited {r.returncode}: "
+             f"{r.stderr[-3000:]}")
+    ids = [int(t) for t in r.stdout.strip().splitlines()[-1].split(",")]
+    if ids != want:
+        fail(f"the mesh command line printed {ids}, the mesh run {want}")
+    say(f"[16] --tp 2 --stages 2 --dist-backend gloo as a process: the "
+        f"first mesh run's {len(ids)} ids in {seconds:.1f} s")
+    return {"ids_equal": True, "seconds": seconds}
+
+
+def phase_mesh(torch, build) -> dict:
+    """Phase 16: the (dp, stage, tp) mesh on this card, 4 ranks over
+    gloo: Llama-3-8B at full width and 8 layers written by the port's
+    writer, read shard by shard; stages 2 x tp 2 in bf16 and with int8
+    weights quantized on load plus the int8 KV cache, the batch engine at
+    dp 2 x tp 2, the command line as a process. The checkpoint lives in a
+    temporary directory removed at the end, whatever happens."""
+    import shutil
+
+    from cake_tpu_torch.models import llama
+    from cake_tpu_torch.models.config import llama3_8b
+    from cake_tpu_torch.ops.sampling import SamplerSettings
+    from cake_tpu_torch.parallel.launch import RankPool
+    from cake_tpu_torch.utils.weights import (
+        load_llama_params,
+        save_llama_params,
+    )
+
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    # the ranks' gloo collectives run on the host's cores: what else is
+    # using them shows here
+    say(f"[16] host: {os.cpu_count()} cores, load average "
+        f"{os.getloadavg()[0]:.2f}, {threading.active_count()} threads in "
+        "this process")
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(dir=build.BUILD_DIR))
+    out: dict = {"label": MESH_LABEL}
+    try:
+        cfg = llama3_8b(num_hidden_layers=MESH_LAYERS, max_seq_len=4096)
+        d = root / "ckpt"
+        params = llama.init_params(cfg, seed=SEED)
+        save_llama_params(params, d)
+        (d / "config.json").write_text(json.dumps(cfg.to_hf_dict()))
+        settings = SamplerSettings(temperature=0)
+        prompt = main_path_prompt(torch, cfg)
+        t_pool = time.perf_counter()
+        out["checkpoint_s"] = t_pool - t0
+        with RankPool(4, backend="gloo", device_type="cuda",
+                      timeout_s=300.0, job_timeout_s=600.0) as pool:
+            out["pool_start_s"] = time.perf_counter() - t_pool
+            out["bf16"] = mesh_stream(torch, pool, cfg, params, d, prompt,
+                                      settings, "stages 2 x tp 2 bf16",
+                                      "bf16", None)
+            params8 = load_llama_params(d, MESH_LAYERS, quantize="int8")
+            out["int8"] = mesh_stream(
+                torch, pool, cfg, params8, d, prompt, settings,
+                "stages 2 x tp 2 int8 on load + int8 KV", "quant_matmul",
+                "int8")
+            del params8
+            torch.cuda.empty_cache()
+            out["batch"] = mesh_batch_run(torch, pool, cfg, params, d,
+                                          settings)
+        del params
+        torch.cuda.empty_cache()
+        out["cli"] = mesh_cli(d, prompt, out["bf16"]["ids"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = {k: sum(out[p]["launches"][k]
+                              for p in ("bf16", "int8", "batch"))
+                       for k in out["bf16"]["launches"]}
+    say(f"[16] phase 16 took {out['seconds']:.1f} s ({MESH_LABEL}): "
+        f"checkpoint {out['checkpoint_s']:.1f} s, 4 ranks up "
+        f"in {out['pool_start_s']:.1f} s, " + ", ".join(
+            f"{k} {out[k]['seconds']:.1f} s"
+            for k in ("bf16", "int8", "batch", "cli")))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5963,14 +6434,15 @@ def main() -> int:
     only_families = sys.argv[1:] == ["--phase", "13"]
     only_disagg = sys.argv[1:] == ["--phase", "14"]
     only_tools = sys.argv[1:] == ["--phase", "15"]
+    only_mesh = sys.argv[1:] == ["--phase", "16"]
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels":
         other = Path(sys.argv[2]).resolve()
     elif len(sys.argv) > 1 and not (only_guided or only_paged or only_spec
                                     or only_families or only_disagg
-                                    or only_tools):
+                                    or only_tools or only_mesh):
         fail(f"usage: {sys.argv[0]} [--kernels DIR | --phase 10 | "
              "--phase 11 | --phase 12 | --phase 13 | --phase 14 | "
-             "--phase 15]")
+             "--phase 15 | --phase 16]")
     sys.path.insert(0, str(other or REPO))
     try:
         from cake_tpu_torch.ops import flash, kvcache, qmatmul, quant
@@ -6018,6 +6490,11 @@ def main() -> int:
             torch, build, phase_cli(torch, build))}))
         say(card)
         return 0
+    if only_mesh:
+        phase_tp_kernels(torch, flash, qmatmul, quant, kvcache)
+        say(json.dumps({"card": card, "mesh": phase_mesh(torch, build)}))
+        say(card)
+        return 0
     t_run = time.perf_counter()
 
     def lap(phases: str) -> None:
@@ -6030,6 +6507,7 @@ def main() -> int:
     errs.update(phase_head256_kernels(torch, flash, kvcache))
     errs.update(phase_family_matmuls(torch, qmatmul, quant))
     errs.update(phase_fine_groups(torch, qmatmul, quant))
+    errs.update(phase_tp_kernels(torch, flash, qmatmul, quant, kvcache))
     lap("2")
     # timed before the profiled main path: a profiler session slows the
     # host for the rest of the process
@@ -6041,6 +6519,7 @@ def main() -> int:
     prefill_rows(build, rows)
     family_timing(torch, flash, qmatmul, quant, kvcache, build, errs, rows)
     fine_group_timing(torch, qmatmul, quant, build, errs, rows)
+    tp_local_timing(torch, flash, qmatmul, quant, kvcache, build, rows)
     lap("3")
     phase_model(torch)
     families_model = phase_model_families(torch)
@@ -6074,22 +6553,26 @@ def main() -> int:
     lap("14")
     tools = phase_tools(torch, build, cli)
     lap("15")
+    mesh = phase_mesh(torch, build)
+    lap("16")
     # over the paths (a), (b), (c), the batch runs, the cross-host runs,
     # phase 10's guided and lookahead runs, phase 11's paged runs, phase
     # 12's speculative runs, phase 13's family runs, phase 14's
-    # disaggregated runs (both replicas) and phase 15's clean run over the
-    # bundles (master and workers)
+    # disaggregated runs (both replicas), phase 15's clean run over the
+    # bundles (master and workers) and phase 16's mesh runs (every rank)
     for r in rows:
         r["launches"] = sum(p["launches"][r["name"]]
                             for p in main_path + batch + cross_host + guided
-                            + paged + spec + families + disagg + [tools])
+                            + paged + spec + families + disagg
+                            + [tools, mesh])
     say(json.dumps({"card": card, "main_path": main_path, "batch": batch,
                     "serve": serve, "cross_host": cross_host,
                     "cross_host_cli": cross_host_cli, "guided": guided,
                     "guided_cli": guided_cli_ids, "paged": paged,
                     "spec": spec, "families_model": families_model,
                     "families": families, "disagg": disagg,
-                    "disagg_cli": disagg_cli_run, "tools": tools}))
+                    "disagg_cli": disagg_cli_run, "tools": tools,
+                    "mesh": mesh}))
     say(json.dumps({"kernels": rows}))
     say(card)
     say(json.dumps({"ok": True, "device": {

@@ -228,9 +228,9 @@ def test_warm_admission_leaves_the_batch_alone(tiers):
      "logprobs do not compose with batched speculation"),
     (dict(kv_layout="ring"), "must be 'slot' or 'paged'"),
     (dict(interleave=True), "interleaved.*not ported"),
-    (dict(dp=2), "dp=2.*not ported"),
-    (dict(tp=2), "tp=2.*not ported"),
-    (dict(num_stages=2), "stages=2.*not ported"),
+    (dict(dp=2), "dp=2 run over a rank mesh: pass the rank's collectives"),
+    (dict(tp=2), "tp=2 run over a rank mesh"),
+    (dict(num_stages=2), "stages=2 run over a rank mesh"),
     (dict(sp=2), "sp=2.*not ported"),
     (dict(ep=2), "ep=2.*not ported"),
 ])

@@ -76,3 +76,52 @@ def test_kernel_without_includes_keeps_its_source_and_flags_hash(
     with open(csrc / "sm90.cuh", "a") as f:
         f.write("\n// an edit\n")
     assert build.library_path(name) == before
+
+
+FAKE_NVCC = """#!/bin/sh
+# records its call, takes a while, and writes the library it was asked for
+echo "$$" >> "{log}"
+sleep 1
+out=""
+while [ $# -gt 0 ]; do
+  if [ "$1" = "-o" ]; then out="$2"; fi
+  shift
+done
+echo built > "$out"
+"""
+
+BUILD_ONE = ("import sys\n"
+             "from pathlib import Path\n"
+             "from cake_tpu_torch.ops.kernels import build\n"
+             "build.BUILD_DIR = Path(sys.argv[1])\n"
+             "print(build.build_all(['flash_decode']))\n")
+
+
+def test_concurrent_builds_of_one_kernel_build_it_once(tmp_path):
+    """Two processes asking for the same kernel at once (a mesh's ranks)
+    get one build: the second waits on the build lock and then finds the
+    library."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    log = tmp_path / "calls.log"
+    nvcc = bin_dir / "nvcc"
+    nvcc.write_text(FAKE_NVCC.format(log=log))
+    nvcc.chmod(0o755)
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ, PATH=f"{bin_dir}{os.pathsep}{os.environ['PATH']}",
+               PYTHONPATH=str(repo))
+    procs = [subprocess.Popen([sys.executable, "-c", BUILD_ONE,
+                               str(tmp_path / "_build")], env=env,
+                              stdout=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    outs = sorted(p.communicate(timeout=60)[0].strip() for p in procs)
+    assert [p.returncode for p in procs] == [0, 0]
+    assert outs == ["['flash_decode']", "[]"]
+    assert len(log.read_text().split()) == 1
+    built = list((tmp_path / "_build").glob("flash_decode-*.so"))
+    assert len(built) == 1 and built[0].read_text() == "built\n"

@@ -593,7 +593,8 @@ def test_cli_serve_over_a_topology_answers_sse(checkpoint, workers):
      "--straggler-factor must exceed 1.0"),
     (["--cluster-report", "r.json"], "cluster-report/--top.*need a "
                                      "host-addressed --topology"),
-    (["--topology", "MESH"], "mesh `device:`.*not ported"),
+    (["--topology", "MESH", "--stages", "2"],
+     "--stages conflicts with a device-indexed topology"),
     (["--wire-codec", "int8"], "need a host-addressed --topology"),
     (["--connect-retries", "3"], "need a host-addressed --topology"),
     (["--topology", "T", "--prompts-file", "P"], "not supported here"),

@@ -68,7 +68,12 @@ def test_import_leaves_jax_and_triton_out():
             "cake_tpu_torch.tools.quantize_model, "
             "cake_tpu_torch.tools.split_model, cake_tpu_torch.tools.deploy, "
             "cake_tpu_torch.tools.watch, cake_tpu_torch.obs.cluster, "
-            "cake_tpu_torch.obs.top\n"
+            "cake_tpu_torch.obs.top, cake_tpu_torch.parallel.mesh, "
+            "cake_tpu_torch.parallel.collectives, "
+            "cake_tpu_torch.parallel.distributed, "
+            "cake_tpu_torch.parallel.launch, cake_tpu_torch.parallel.jobs, "
+            "cake_tpu_torch.runtime.mesh_generator, "
+            "cake_tpu_torch.utils.sharded_load, cake_tpu_torch.serve.mesh\n"
             "print(sorted(m for m in ('jax', 'triton', 'cake_tpu', "
             "'ml_dtypes') if m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(REPO))

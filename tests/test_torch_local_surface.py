@@ -354,7 +354,9 @@ def test_cli_obs_flags_write_the_jax_names(checkpoint, tmp_path):
     (["--logit-bias", "7=3"], "--logit-bias wants ID:BIAS"),
     (["--lookahead", "--decode-block", "1"], "requires --decode-block > 1"),
     (["--lookahead", "--speculate", "2"], "does not compose with --speculate"),
-    (["--lookahead", "--stages", "2"], "not supported with --stages"),
+    (["--prefill-chunks", "2"], r"--prefill-chunks 2 \(the pipelined "
+     r"prefill across stages\) is not ported yet"),
+    (["--lookahead", "--tp", "2"], "not supported with --stages"),
     (["--kv-layout", "paged"], "--kv-layout paged applies to the batched "
      "serving engine"),
     (["--speculate", "4", "--decode-block", "4"],

@@ -424,7 +424,7 @@ def test_prompts_file_prints_the_jax_cli_lines(checkpoint, tmp_path):
      "require --kv-layout paged"),
     (["--speculate", "4", "--kv-layout", "paged"],
      "paged' does not compose with batched speculation"),
-    (["--dp", "2"], "dp=2"),
+    (["--sp", "2"], "sp=2: sequence and expert parallelism are not ported"),
     (["--spill-mb", "32"], "--spill-mb configure the request server; "
      "they apply only with --mode serve"),
 ])
