@@ -73,9 +73,16 @@ steps over its shard, read from the checkpoint shard by shard.
 ``--dist-backend nccl|gloo`` picks the transport (NCCL on the card, one
 card a rank; gloo with ``--cpu`` or when ranks share a card), and
 ``--coordinator/--num-processes/--process-id`` spread the ranks over
-hosts, one process a host. ``--sp``, ``--ep`` and ``--prefill-chunks``
-above 1, and ``--speculate`` over a mesh, are refused with an error: they
+hosts, one process a host. ``--speculate`` runs over the mesh on every
+entry point (the local path through ``MeshSpeculativeGenerator``), and a
+paged ``--mode serve`` over it spills, takes ``--role`` and
+``--transfer-port`` and migrates on drain, as on one card. ``--sp``,
+``--ep`` and ``--prefill-chunks`` above 1 are refused with an error: they
 are not ported yet.
+
+``--log-level debug|info|warning|error`` (default info; ``-v`` forces
+debug) sets the root log level; a mesh's other ranks log warnings only,
+unless ``-v`` is given.
 """
 
 from __future__ import annotations
@@ -474,6 +481,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "their tail length; prompts shorter than N get "
                         "no preference (default 64, matching the "
                         "engine's prefix_block)")
+    p.add_argument("--log-level", default="info", dest="log_level",
+                   choices=["debug", "info", "warning", "error"],
+                   help="root log level for this process (a mesh's other "
+                        "ranks log warnings only unless -v is given; -v "
+                        "forces debug)")
+    p.add_argument("-v", "--verbose", action="store_true")
     return p
 
 
@@ -612,18 +625,11 @@ def _mesh_setup(args, topology):
     if args.device is not None:
         sys.exit("error: --device picks one card; a mesh's ranks take "
                  "theirs by local rank")
-    if args.speculate:
-        sys.exit(f"error: --speculate over a rank mesh (the mesh "
-                 f"speculative generator) is {NEXT_SLICE}")
     if (args.mode == "master" and not args.prompts_file
             and args.dp > 1):
         sys.exit("error: --dp splits a batch's rows over ranks; local "
                  "generation is one stream (use --prompts-file or --mode "
                  "serve)")
-    if args.mode == "serve" and (args.role != "mixed"
-                                 or args.transfer_port is not None):
-        sys.exit("error: --role/--transfer-port move KV between replicas "
-                 "as snapshots, which is not ported over a rank mesh yet")
     config = _load_config(args)
     tier, group = parse_quant_spec(args.quantize)
     try:
@@ -694,8 +700,9 @@ def _kv_layout_kwargs(args) -> dict:
 
 def _engine_kwargs(args) -> dict:
     """BatchGenerator arguments of the serving paths; the engine refuses
-    what is not ported (meshes) and what does not compose with speculation
-    (lookahead, paged KV, logprobs, guides)."""
+    what is not ported (the sp and ep axes, the interleaved schedules) and
+    what does not compose with speculation (lookahead, paged KV,
+    logprobs, guides)."""
     return dict(max_seq=args.max_seq, block_size=_decode_block(args),
                 kv_quant=args.kv_quant, num_stages=args.stages, tp=args.tp,
                 dp=args.dp, sp=args.sp, ep=args.ep, spec_k=args.speculate,
@@ -831,7 +838,16 @@ def run(args, topology=None) -> int:
     else:
         try:
             params = _load_params(args, config, device)
-            if args.mesh_plan is not None:
+            if args.mesh_plan is not None and args.speculate:
+                from cake_tpu_torch.runtime.speculative import (
+                    MeshSpeculativeGenerator,
+                )
+
+                gen = MeshSpeculativeGenerator(
+                    config, params, _coll(args), tokenizer=tokenizer,
+                    settings=settings, max_seq=args.max_seq,
+                    kv_quant=args.kv_quant, spec_k=args.speculate)
+            elif args.mesh_plan is not None:
                 from cake_tpu_torch.runtime.mesh_generator import (
                     MeshGenerator,
                 )
@@ -1506,10 +1522,11 @@ def main(argv=None, rank=None) -> int:
     args.argv = argv
     args.rank_ctx = rank
     follower = rank is not None and rank.rank != 0
-    logging.basicConfig(level=logging.WARNING if follower else logging.INFO,
-                        stream=sys.stderr, force=rank is not None,
-                        format="%(asctime)s %(levelname)s %(name)s: "
-                               "%(message)s")
+    from cake_tpu_torch import obs
+
+    obs.setup_logging("debug" if args.verbose else
+                      "warning" if follower else args.log_level,
+                      force=rank is not None)
     if follower:
         sys.stdout = open(os.devnull, "w")
         for name in ("trace", "metrics_out", "flight_log", "profile",
@@ -1630,7 +1647,7 @@ def _main(args) -> int:
         sys.exit(f"error: {'/'.join(_link_flags(args))} drive cross-host "
                  "worker links; they need a host-addressed --topology "
                  "(they would otherwise be silently ignored)")
-    if topology is not None and args.speculate:
+    if args.topology and args.speculate:
         sys.exit("error: --speculate runs the local or mesh (stages/tp) "
                  "paths; it is not supported with --sp or --topology (it "
                  "would otherwise be silently ignored)")

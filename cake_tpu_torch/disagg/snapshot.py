@@ -110,6 +110,17 @@ class Snapshot:
     def n_pages(self) -> int:
         return len(self.pages)
 
+    def without_pages(self) -> "Snapshot":
+        """A copy whose page tensors keep only their shapes and dtypes
+        (``meta`` tensors): what the ranks of a mesh validate an import
+        against while its pages cross through a collective."""
+        import copy
+
+        out = copy.copy(self)
+        out.pages = [{k: t.to("meta") for k, t in page.items()}
+                     for page in self.pages]
+        return out
+
     def check_fingerprint(self, fp: dict) -> None:
         if self.fingerprint != fp:
             theirs = {k: v for k, v in self.fingerprint.items()

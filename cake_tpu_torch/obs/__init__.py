@@ -4,7 +4,8 @@ profiling plane, request traces and the status page. Stdlib only at
 import.
 
 CLI surface: ``--trace PATH``, ``--metrics-out PATH``, ``--flight-log
-PATH``, ``--prof-sample N``, ``--status-port``/``--status-bind``.
+PATH``, ``--prof-sample N``, ``--status-port``/``--status-bind``, and
+``--log-level``/``-v`` (:func:`setup_logging`).
 """
 
 from __future__ import annotations
@@ -14,6 +15,30 @@ import logging
 from cake_tpu_torch.obs import flight  # noqa: F401
 from cake_tpu_torch.obs.metrics import registry  # noqa: F401
 from cake_tpu_torch.obs.trace import span, tracer  # noqa: F401
+
+LOG_FORMAT = "%(asctime)s %(levelname)s %(name)s: %(message)s"
+
+_LEVELS = {
+    "debug": logging.DEBUG,
+    "info": logging.INFO,
+    "warning": logging.WARNING,
+    "error": logging.ERROR,
+}
+
+
+def setup_logging(level: str | int = "info", force: bool = True) -> None:
+    """Root logging on stderr at ``level`` (the command line's
+    ``--log-level``; ``-v`` maps to debug). ``force`` replaces handlers
+    an earlier configuration installed; without it those stay, and the
+    root level is set all the same."""
+    import sys
+
+    if isinstance(level, str):
+        level = _LEVELS.get(level.lower(), logging.INFO)
+    logging.basicConfig(level=level, format=LOG_FORMAT, stream=sys.stderr,
+                        force=force)
+    logging.getLogger().setLevel(level)
+
 
 # -- artifact durability ------------------------------------------------------
 #

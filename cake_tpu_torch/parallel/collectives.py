@@ -12,7 +12,11 @@ every rank. Its operations are the only collectives of the port:
 - ``send_next``/``recv_prev``: the stage hand-off of the activation;
 - ``broadcast(t, STAGE, src)``: the last stage's logits to the others;
 - ``broadcast_object``: the controller's engine calls, over the control
-  group.
+  group;
+- ``gather_to_root``/``scatter_from_root``: a stream snapshot's pages
+  (:meth:`~cake_tpu_torch.runtime.batch_generator.BatchGenerator.
+  export_stream` and ``import_begin``), from every rank to rank 0 and
+  back, over every rank of the mesh (the ``snapshot`` key of the stats).
 
 Under NCCL, card tensors go straight to the collective. Under gloo they go
 through pinned host buffers, on purpose and every time: gloo's own CUDA
@@ -34,6 +38,7 @@ import torch.distributed as dist
 from cake_tpu_torch.parallel.mesh import DP, STAGE, TP, MeshPlan
 
 CONTROL = "control"
+SNAPSHOT = "snapshot"
 # seconds a follower waits for rank 0's next engine call (a week)
 CONTROL_TIMEOUT_S = 7 * 24 * 3600.0
 # timed operations kept as CUDA event pairs before they are summed
@@ -178,6 +183,39 @@ class Collectives:
             else:
                 dist.recv(like, self._stage_peer(-1))
         return like
+
+    # -- snapshots (every rank of the mesh) ----------------------------------
+    def gather_to_root(self, t: torch.Tensor) -> list[torch.Tensor] | None:
+        """Every rank's ``t`` (one shape and dtype on every rank) on rank 0,
+        as host tensors in rank order; None on the other ranks."""
+        t = t.contiguous()
+        root = self.rank == 0
+        with self._timed(SNAPSHOT, t.numel() * t.element_size(),
+                         t.device.type):
+            src = t.cpu() if self._staged(t) else t
+            parts = ([torch.empty_like(src) for _ in range(self.plan.size)]
+                     if root else None)
+            dist.gather(src, parts, dst=0)
+            if root:
+                parts = [p.cpu() for p in parts]
+        return parts
+
+    def scatter_from_root(self, parts: list[torch.Tensor] | None, shape,
+                          dtype) -> torch.Tensor:
+        """Rank 0's host tensor ``parts[r]`` (each ``shape`` and ``dtype``)
+        on rank ``r``, as a host tensor; ``parts`` is read on rank 0
+        only."""
+        root = self.rank == 0
+        on_card = self.backend == "nccl"
+        dev = self.device if on_card else torch.device("cpu")
+        nbytes = sum(p.numel() * p.element_size() for p in parts) \
+            if root else 0
+        with self._timed(SNAPSHOT, nbytes, dev.type):
+            out = torch.empty(shape, dtype=dtype, device=dev)
+            src = [p.to(dev) for p in parts] if root else None
+            dist.scatter(out, src, src=0)
+            out = out.cpu()
+        return out
 
     # -- host objects (the control group) -------------------------------------
     def broadcast_object(self, obj=None):

@@ -364,3 +364,32 @@ def init_cache_on_mesh(config: LlamaConfig, plan: MeshPlan, batch: int = 1,
     rows = batch if batch_replicated else local_batch(batch, plan)
     return init_cache(loc, batch=rows, max_seq=max_seq, device=device,
                       quant=quant)
+
+
+# a stream's pages as a snapshot carries them: every cache half stacked
+# page after page, [layers, pages, kv_heads, page_size(, D)]
+PAGES_SPEC = (STAGE, None, TP, None, None)
+
+
+def shard_pages(halves: list[torch.Tensor], plan: MeshPlan,
+                rank: int) -> list[torch.Tensor]:
+    """Rank ``rank``'s part of a stream's page halves (:data:`PAGES_SPEC`):
+    its stage's layers and its tp shard's kv heads, as its pool holds
+    them (dp 1)."""
+    coords = plan.coords(rank)
+    return [shard_tensor(t, PAGES_SPEC[:t.dim()], plan, coords)
+            for t in halves]
+
+
+def assemble_pages(parts: list[list[torch.Tensor]],
+                   plan: MeshPlan) -> list[torch.Tensor]:
+    """The full model's page halves from every rank's part (``parts[r]``,
+    rank order; dp 1): the kv heads in tp order within a stage, then the
+    layers in stage order, the single device's layout."""
+    out = []
+    for i in range(len(parts[0])):
+        stages = [torch.cat([parts[plan.rank_of(stage=s, tp=t)][i]
+                             for t in range(plan.tp)], dim=2)
+                  for s in range(plan.num_stages)]
+        out.append(torch.cat(stages, dim=0))
+    return out

@@ -76,8 +76,12 @@ rejection sampling, with draws keyed by (seed, stream id, position).
 Over a ``(dp, stage, tp)`` rank mesh (``coll=``) every rank runs the same
 engine calls: the batch's rows split over dp, each rank holds its layers,
 KV heads and rows of the cache, and every rank gets the gathered logits
-and samples the same tokens. The paged layout runs at dp 1, and snapshot
-export and import stay on one card.
+and samples the same tokens. The paged layout runs at dp 1. A snapshot
+over the mesh is the single device's: its export gathers the stream's
+pages to rank 0 (each rank holds its stage's layers and its tp shard's
+kv heads), which assembles and encodes them, and an import scatters them
+back, each rank pinning and writing its own part
+(:func:`~cake_tpu_torch.parallel.mesh.shard_pages`).
 
 Not ported yet, and refused with an error in the constructor: the
 interleaved pipeline schedules and the sp and ep axes.
@@ -119,8 +123,10 @@ from cake_tpu_torch.parallel.pipeline import (
 )
 from cake_tpu_torch.parallel.mesh import (
     MeshPlan,
+    assemble_pages,
     check_axes,
     local_batch,
+    shard_pages,
     validate_shardable,
 )
 from cake_tpu_torch.runtime import speculative as spec
@@ -164,6 +170,27 @@ _EXPORTS = obs_metrics.counter("disagg.exports")
 _IMPORTS = obs_metrics.counter("disagg.imports")
 _RESUMES = obs_metrics.counter("disagg.resumes")
 _IMPORT_ABORTS = obs_metrics.counter("disagg.import_aborts")
+
+
+def _pack(tensors: list[torch.Tensor]) -> torch.Tensor:
+    """Tensors as one flat uint8 tensor (one collective carries them)."""
+    return torch.cat([t.contiguous().view(-1).view(torch.uint8)
+                      for t in tensors])
+
+
+def _nbytes(shape, dtype) -> int:
+    return int(np.prod(shape)) * torch.empty(0, dtype=dtype).element_size()
+
+
+def _unpack(flat: torch.Tensor, likes: list[tuple]) -> list[torch.Tensor]:
+    """:func:`_pack`'s inverse: ``likes`` are the ``(shape, dtype)``s."""
+    out, at = [], 0
+    for shape, dtype in likes:
+        n = _nbytes(shape, dtype)
+        out.append(flat[at:at + n].clone().view(dtype).view(shape))
+        at += n
+    return out
+
 
 # arrival-queue entry kinds (4th tuple field): None marks a prompt; imports
 # ride the same FIFO, so pool-pressure deferral stays FIFO-fair between
@@ -953,10 +980,6 @@ class BatchGenerator:
         }
 
     def _require_paged(self, what: str) -> None:
-        if self._mesh:
-            raise ValueError(
-                f"{what} over a rank mesh is not ported yet (KV moves "
-                "between engines on one card)")
         if not self._paged:
             raise ValueError(
                 f"{what} needs kv_layout='paged': KV moves between "
@@ -968,10 +991,10 @@ class BatchGenerator:
         return (("kq", "ks", "vq", "vs") if self.kv_quant == "int8"
                 else ("k", "v"))
 
-    def _page_shapes(self) -> dict:
+    def _page_shapes(self, cfg: LlamaConfig | None = None) -> dict:
         """Expected ``(shape, dtype)`` of each page tensor for this
-        geometry."""
-        cfg = self.config
+        geometry (the full model's, or ``cfg``'s: a rank's part)."""
+        cfg = cfg or self.config
         L, KH, D = (cfg.num_hidden_layers, cfg.num_key_value_heads,
                     cfg.head_dim)
         ps = self._page_size
@@ -983,9 +1006,50 @@ class BatchGenerator:
         dt = cfg.torch_dtype
         return {"k": ((L, KH, ps, D), dt), "v": ((L, KH, ps, D), dt)}
 
+    def _gather_pages(self, local: list[torch.Tensor]
+                      ) -> list[torch.Tensor] | None:
+        """A stream's pages on the host in the full model's layout
+        ``[L, n, KH, page_size(, D)]``, from this rank's ``local`` halves:
+        over a mesh, every rank's part gathered to rank 0 in one collective
+        and assembled there (None on the other ranks)."""
+        if not self._mesh:
+            return [t.cpu() for t in local]
+        coll = self.model.coll
+        parts = coll.gather_to_root(_pack(local))
+        if parts is None:
+            return None
+        likes = [(tuple(t.shape), t.dtype) for t in local]
+        return assemble_pages([_unpack(p, likes) for p in parts],
+                              coll.plan)
+
+    def _scatter_pages(self, snap) -> list[list[torch.Tensor]]:
+        """This rank's part of an import's pages, ``[page][half]`` host
+        tensors ``[L, KH, page_size(, D)]`` of the rank's layers and kv
+        heads: over a mesh rank 0 slices the snapshot's pages and scatters
+        the parts in one collective."""
+        keys = self._page_keys()
+        if not self._mesh:
+            return [[page[k] for k in keys] for page in snap.pages]
+        coll = self.model.coll
+        n = snap.n_pages
+        local = self._page_shapes(self.model.layer_config)
+        likes = [((shape[0], n) + shape[1:], dt)
+                 for shape, dt in (local[k] for k in keys)]
+        parts = None
+        if coll.rank == 0:
+            full = [torch.stack([page[k] for page in snap.pages], dim=1)
+                    for k in keys]
+            parts = [_pack(shard_pages(full, coll.plan, r))
+                     for r in range(coll.plan.size)]
+        nbytes = sum(_nbytes(*like) for like in likes)
+        mine = _unpack(coll.scatter_from_root(parts, (nbytes,), torch.uint8),
+                       likes)
+        return [[t[:, j] for t in mine] for j in range(n)]
+
+    @mesh_call
     @torch.inference_mode()
     def export_stream(self, stream_id: int, codec: str = "none",
-                      trace: dict | None = None) -> bytes:
+                      trace: dict | None = None) -> bytes | None:
         """Snapshot a live stream's KV pages and sampler/cursor state
         into versioned, self-describing bytes
         (:mod:`cake_tpu_torch.disagg.snapshot`): the suspend half of
@@ -995,7 +1059,8 @@ class BatchGenerator:
         ``finish(stream_id)`` after. The pages are pinned while they are
         read. ``codec`` carries each page through the wire activation
         codec; ``trace`` (an ``obs.reqtrace`` wire dict) rides the
-        header."""
+        header. Over a mesh every rank runs it and rank 0 returns the
+        snapshot (the single device's bytes); the others return None."""
         from cake_tpu_torch.disagg import snapshot as _snapshot
 
         self._domain_stamp.check("BatchGenerator.export_stream")
@@ -1022,11 +1087,13 @@ class BatchGenerator:
         try:
             ids = torch.as_tensor(table, dtype=torch.int64,
                                   device=self.device)
-            host = [buf.index_select(1, ids).cpu()
-                    for buf in halves(self.cache)]
+            host = self._gather_pages([buf.index_select(1, ids)
+                                       for buf in halves(self.cache)])
         finally:
             for pid in table:
                 self._pagepool.unpin(pid)
+        if host is None:  # a follower rank: rank 0 encodes
+            return None
         keys = self._page_keys()
         pages = [{k: t[:, j] for k, t in zip(keys, host)}
                  for j in range(n_pages)]
@@ -1051,22 +1118,32 @@ class BatchGenerator:
         _EXPORTS.inc()
         return data
 
+    @mesh_call
     def import_begin(self, data) -> dict:
-        """Parse and register an inbound snapshot. Validation (magic,
-        version, layout, the model fingerprint) happens here; the pool
-        work queues as an arrival in the same FIFO as prompt admissions,
-        so pool pressure defers it FIFO-fair. Idempotent by transfer id: a
-        duplicate returns the existing registration. Returns the resume
+        """Parse and register an inbound snapshot (its bytes, or a
+        decoded :class:`~cake_tpu_torch.disagg.snapshot.Snapshot`).
+        Validation (magic, version, layout, the model fingerprint)
+        happens here; the pool work queues as an arrival in the same FIFO
+        as prompt admissions, so pool pressure defers it FIFO-fair.
+        Idempotent by transfer id: a duplicate returns the existing
+        registration. Returns the resume
         metadata ``{"xfer_id", "stream_id", "prompt", "generated",
         "texts", "n_kv"}`` (``texts``: the incremental detokenization of
-        the generated ids, what a serve session replays)."""
+        the generated ids, what a serve session replays).
+
+        Over a mesh every rank runs it on the same header (rank 0 holds the
+        pages; the others a :meth:`~cake_tpu_torch.disagg.snapshot.
+        Snapshot.without_pages` copy, :mod:`cake_tpu_torch.serve.mesh`),
+        so every rank refuses alike, and the pages cross from rank 0 to
+        their ranks in one collective."""
         from cake_tpu_torch.disagg import snapshot as _snapshot
 
         self._domain_stamp.check("BatchGenerator.import_begin")
         self._require_paged("import_begin")
         if not self.streams:
             raise RuntimeError("set_prompts first")
-        snap = _snapshot.decode_snapshot(data)
+        snap = (data if isinstance(data, _snapshot.Snapshot)
+                else _snapshot.decode_snapshot(data))
         if snap.xfer_id in self._imports:
             return self._imports[snap.xfer_id]["meta"]
         snap.check_fingerprint(self._disagg_fingerprint())
@@ -1108,8 +1185,9 @@ class BatchGenerator:
         if snap.trace:
             meta["trace"] = snap.trace
         self._imports[snap.xfer_id] = {
-            "snap": snap, "pages": None, "detok": detok, "meta": meta,
-            "deferred": False, "t": time.monotonic(),
+            "snap": snap.without_pages(), "host": self._scatter_pages(snap),
+            "pages": None, "detok": detok, "meta": meta, "deferred": False,
+            "t": time.monotonic(),
         }
         self._arrivals.append((snap.xfer_id, None, None, _ARR_IMPORT))
         return meta
@@ -1146,12 +1224,10 @@ class BatchGenerator:
         # the record owns the pins from here: an abort can release them
         # if the write below raises
         rec["pages"] = pages
-        keys = self._page_keys()
-        kvpool_pool.write_pages(self.cache, pages,
-                                [[page[k] for k in keys]
-                                 for page in snap.pages])
+        kvpool_pool.write_pages(self.cache, pages, rec.pop("host"))
         _IMPORTS.inc()
 
+    @mesh_call
     def import_attach(self, xfer_id: str, stream_id: int) -> None:
         """Queue the attach of a begun import: when it reaches the FIFO
         head with a free slot, the imported pages become the stream's table
@@ -1207,6 +1283,7 @@ class BatchGenerator:
             g.state = snap.guide_state   # ...then resumes mid-grammar
         _RESUMES.inc()
 
+    @mesh_call
     def import_abort(self, xfer_id: str) -> bool:
         """Drop a begun import and release its page pins (the resume never
         came). Returns False when the id is unknown (already attached or
@@ -1225,20 +1302,30 @@ class BatchGenerator:
         _IMPORT_ABORTS.inc()
         return True
 
+    def expired_imports(self, ttl_s: float) -> list[str]:
+        """The begun but unattached imports older than ``ttl_s``."""
+        now = time.monotonic()
+        return [xid for xid, rec in self._imports.items()
+                if now - rec["t"] > ttl_s]
+
     def expire_imports(self, ttl_s: float) -> int:
         """Abort begun but unattached imports older than ``ttl_s``, so an
         orphaned transfer cannot pin pool pages forever. Returns the
-        number aborted."""
+        number aborted. (Over a mesh rank 0 decides by its own clock and
+        broadcasts each abort: :class:`~cake_tpu_torch.serve.mesh.
+        MeshEngine`.)"""
         self._domain_stamp.check("BatchGenerator.expire_imports")
-        if not self._imports:
-            return 0
-        now = time.monotonic()
-        expired = [xid for xid, rec in self._imports.items()
-                   if now - rec["t"] > ttl_s]
+        expired = self.expired_imports(ttl_s)
         for xid in expired:
             self.import_abort(xid)
         return len(expired)
 
+    def attach_failures(self) -> list[int]:
+        """Stream ids whose attach found its import gone, not yet
+        taken."""
+        return list(self._attach_failures)
+
+    @mesh_call
     def take_attach_failures(self) -> list[int]:
         """Stream ids whose attach found its import gone (aborted or
         expired): the serve scheduler fails those sessions."""
@@ -1249,6 +1336,7 @@ class BatchGenerator:
         """Begun but unattached imports (pages pinned or queued)."""
         return len(self._imports)
 
+    @mesh_call
     @torch.inference_mode()
     def import_stream(self, data, stream_id: int | None = None
                       ) -> tuple[int, str]:

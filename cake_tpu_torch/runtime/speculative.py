@@ -40,6 +40,7 @@ from cake_tpu_torch.ops import sampling
 from cake_tpu_torch.ops.sampling import NEG_INF, SamplerSettings
 from cake_tpu_torch.parallel.pipeline import build_sharded_verify
 from cake_tpu_torch.runtime.generator import LlamaGenerator
+from cake_tpu_torch.runtime.mesh_generator import MeshGenerator
 
 # process-wide acceptance accounting: every speculative path (the host
 # per-round loop, the fused chain, the batch engine) reports its
@@ -534,4 +535,32 @@ class SpeculativeGenerator(SpeculativeMixin, LlamaGenerator):
                          settings=settings, max_seq=max_seq, block_size=1,
                          device=device, kv_quant=kv_quant)
         self._spec_init(spec_k, spec_ngram, spec_rounds)
+        self._verify = build_sharded_verify(self.model)
+
+
+class MeshSpeculativeGenerator(SpeculativeMixin, MeshGenerator):
+    """Prompt-lookup speculation over a rank mesh (the JAX package's
+    ``MeshSpeculativeGenerator``): every rank runs the same rounds over
+    its shard of the model, the verify through the rank's collectives
+    (:func:`~cake_tpu_torch.parallel.pipeline.build_sharded_verify` over
+    the rank's :class:`~cake_tpu_torch.models.llama.Llama`, whose
+    multi-query decodes run at the tp-local heads). Every rank proposes
+    from the same context and accepts from the same gathered logits and
+    the same ``(seed, position)`` draws, so every rank's stream is the
+    stream. As in JAX a dispatch is one round (``spec_rounds`` 1): the
+    host proposes between rounds. Greedy streams equal plain decode;
+    sampled streams are distribution-identical. ``verify_calls`` counts
+    the verify's model calls on this rank (one multi-query decode a layer
+    of the rank's each)."""
+
+    def __init__(self, config: LlamaConfig, params, coll, tokenizer=None,
+                 settings: SamplerSettings | None = None,
+                 max_seq: int | None = None, kv_quant: str | None = None,
+                 spec_k: int = 8, spec_ngram: int = 3,
+                 prefill_chunks: int = 1):
+        settings = settings or SamplerSettings(temperature=0.0)
+        super().__init__(config, params, coll, tokenizer=tokenizer,
+                         settings=settings, max_seq=max_seq, block_size=1,
+                         prefill_chunks=prefill_chunks, kv_quant=kv_quant)
+        self._spec_init(spec_k, spec_ngram)
         self._verify = build_sharded_verify(self.model)

@@ -24,9 +24,14 @@ compiled DFA (a ``[states, vocab]`` table): each follower rebuilds it
 through :func:`~cake_tpu_torch.constrain.guide.guide_for`, whose compile
 is cached per grammar.
 
-Snapshot export and import (preemption spill, disaggregated handoff,
-migration) are not ported over the mesh: :class:`MeshEngine` hides them,
-so the scheduler runs without them, as it does for a slot-layout engine.
+A snapshot import crosses the control broadcast as its header: rank 0
+decodes the bytes, its own engine gets the whole snapshot and the
+followers a :meth:`~cake_tpu_torch.disagg.snapshot.Snapshot.without_pages`
+copy; the pages reach each rank's part through the engine's scatter
+(:meth:`~cake_tpu_torch.parallel.collectives.Collectives.
+scatter_from_root`), and an export's through its gather, so the
+page bytes never ride the pickled broadcast. The import TTL sweep is
+rank 0's clock: it broadcasts each abort it decides.
 """
 
 from __future__ import annotations
@@ -35,14 +40,13 @@ import dataclasses
 import logging
 
 from cake_tpu_torch.constrain.guide import Guide, guide_for
+from cake_tpu_torch.disagg.snapshot import Snapshot, decode_snapshot
 
 log = logging.getLogger("cake_tpu_torch.serve.mesh")
 
-# not over the mesh yet: absent, so callers take their no-snapshot path
-HIDDEN = frozenset({
-    "export_stream", "import_begin", "import_attach", "import_abort",
-    "import_stream",
-})
+# the engine calls whose first argument is a snapshot's bytes: rank 0
+# decodes them before the broadcast
+SNAPSHOT_IN = frozenset({"import_begin", "import_stream"})
 
 
 def broadcasts(engine, name: str) -> bool:
@@ -60,6 +64,8 @@ class GuideSpec:
 
 
 def _to_wire(v):
+    if isinstance(v, Snapshot):
+        return v.without_pages()
     if isinstance(v, Guide):
         if v.spec is None:
             raise ValueError(
@@ -95,14 +101,13 @@ class MeshEngine:
         self._last = None  # how rank 0's previous broadcast call ended
 
     def __getattr__(self, name):
-        if name in HIDDEN:
-            raise AttributeError(
-                f"{name} over a rank mesh is not ported yet")
         attr = getattr(self._engine, name)
         if not broadcasts(self._engine, name):
             return attr
 
         def call(*args, **kwargs):
+            if name in SNAPSHOT_IN and not isinstance(args[0], Snapshot):
+                args = (decode_snapshot(args[0]), *args[1:])
             wire = (_to_wire(args),
                     {k: _to_wire(v) for k, v in kwargs.items()})
             self._coll.broadcast_object((self._last, name, *wire))
@@ -116,15 +121,33 @@ class MeshEngine:
 
         return call
 
+    def expire_imports(self, ttl_s: float) -> int:
+        """The TTL sweep by rank 0's clock: each expired import's abort
+        goes to every rank."""
+        expired = self._engine.expired_imports(ttl_s)
+        for xid in expired:
+            self.import_abort(xid)
+        return len(expired)
+
+    def take_attach_failures(self) -> list[int]:
+        """Broadcast only when there is something to take (the scheduler
+        asks every pass): every rank's list empties alike."""
+        if not self._engine.attach_failures():
+            return []
+        return self.__getattr__("take_attach_failures")()
+
     def stop(self) -> None:
         """End every follower's loop."""
         self._coll.broadcast_object((self._last, None, (), {}))
 
 
-def follow(engine, coll) -> None:
+def follow(engine, coll) -> list[tuple[str, str]]:
     """A follower rank's loop: run rank 0's engine calls until it stops
-    the mesh. Raises when a call ended otherwise here than on rank 0."""
+    the mesh. Raises when a call ended otherwise here than on rank 0.
+    Returns the calls that raised on every rank alike, ``(name, the
+    exception's type name)`` in order."""
     err = None  # how this rank's previous call ended
+    refused = []
     while True:
         lead, name, args, kwargs = coll.broadcast_object()
         if lead != _outcome(err):
@@ -133,8 +156,11 @@ def follow(engine, coll) -> None:
                 f"{_outcome(err) or 'success'} here and in "
                 f"{lead or 'success'} on rank 0; the ranks are out of "
                 "step") from err
+        if err is not None:
+            refused.append((last, _outcome(err)))
         if name is None:
-            return
+            return refused
+        last = name
         try:
             getattr(engine, name)(
                 *_from_wire(args, engine),

@@ -248,8 +248,9 @@ class Scheduler:
         self.slo = slo
         self.sched_policy = sched_policy
         # the spill store exists only when the engine exports pages (the
-        # paged layout); a slot-layout engine keeps class ordering
-        # without preemption
+        # paged layout, on one card or over a rank mesh, where this is
+        # rank 0's store: the export's bytes land there); a slot-layout
+        # engine keeps class ordering without preemption
         can_spill = bool(hasattr(engine, "export_stream")
                          and getattr(engine, "paged", False))
         self._spill: SpillStore | None = (

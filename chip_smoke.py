@@ -155,11 +155,11 @@ Phases, each fatal on failure:
 13. the model families at full width, random weights (seed 0) drawn on
    the card, phase 5's prompt and 64 tokens through ``LlamaGenerator`` at
    blocks 8 and 1 (equal ids, launches exact, one profiled decode block):
-   (q) Qwen2-7B, 28 layers, bf16; (g) Gemma-7B, 28 layers, bf16 and with
-   the int8 cache; (m) Mixtral-8x7B, 16 layers, int8 experts (the bf16
-   cache); (m16) Mixtral-8x7B at 12 layers with bf16 experts (32 do not
-   fit the card). On (g) and (m) the batch engine at 8 slots on phase 7's
-   scenario, slot and paged layouts (equal streams, launches exact), each
+   (q) Qwen2-7B, 8 of its 28 layers, bf16; (g) Gemma-7B, 8 of 28, bf16
+   and with the int8 cache; (m) Mixtral-8x7B, 8 of 32, int8 experts (the
+   bf16 cache); (m16) Mixtral-8x7B at 12 layers with bf16 experts (32 do
+   not fit the card). On (g) and (m) the batch engine at 8 slots on phase
+   7's scenario, slot and paged layouts (equal streams, launches exact), each
    stream equal to its single stream up to its first near-tie and each
    step its teacher-forced logits' greedy choice outside near-ties; on
    (g) ``--speculate 4`` (the multi-query decode at D = 256) held the same
@@ -219,7 +219,8 @@ Phases, each fatal on failure:
    workers); SIGTERM ends every worker with exit 0.
 16. the ``(dp, stage, tp)`` rank mesh on this one card, 4 ranks over gloo
    (``parallel/launch.py RankPool``; phase 2 first holds every kernel at
-   the tp 2 and tp 4 local shapes against its plain version, planted
+   the tp 2 and tp 4 local shapes against its plain version, the decodes
+   also at the verify's T = 5 and 9 and the matmuls at M = 5, planted
    faults failing, and phase 3 times them there): Llama-3-8B at full
    width and 8 layers written by the port's writer and read shard by
    shard (``utils/sharded_load.py``); stages 2 x tp 2 in bf16 and with
@@ -229,9 +230,24 @@ Phases, each fatal on failure:
    MESH_LOGITS_REL_L2; the batch engine at dp 2 x tp 2, 8 slots, every
    stream one card's up to a near-tie; each rank's launches exact; the
    command line ``--tp 2 --stages 2 --dist-backend gloo`` as a process
-   printing the first run's ids. Per rank: card ms a decode step,
-   collective calls, ms and bytes a step per axis, TTFT and tokens/s,
-   labelled "one card, 4 ranks, gloo" (no multi-card speed).
+   printing the first run's ids. (s) ``MeshSpeculativeGenerator`` at
+   stages 2 x tp 2, K = 4, one round a dispatch, in bf16 and with int8
+   on load plus the int8 cache: every rank's ids equal, equal to one
+   card's ``SpeculativeGenerator`` at the same rounds up to a near-tie,
+   launches exact with the verifies counted, more than one token a
+   dispatch of the mesh's verify over the corpus replay (random weights
+   accept almost nothing live); a verify's card ms a rank beside a plain
+   step's; and
+   ``--speculate 4`` on the command line printing (s)'s ids. (x) The
+   paged batch engine at stages 2 x tp 2: the 2,000-id stream exported
+   after 8 tokens (its pages gathered to rank 0), finished and imported
+   into the freed slot (scattered back) continues with the uninterrupted
+   ids bit for bit; the same bytes imported on one card continue with
+   one card's greedy ids up to a near-tie, and the snapshot with its two
+   tp halves of the kv heads swapped fails that check. Per rank: card ms
+   a decode step, collective calls, ms and bytes a step per axis (and the
+   snapshot's gather and scatter), TTFT and tokens/s, labelled "one
+   card, 4 ranks, gloo" (no multi-card speed).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the ``cake_tpu_torch`` package beside this file, it exits with
@@ -242,6 +258,7 @@ from __future__ import annotations
 
 import ctypes
 import gc
+import itertools
 import json
 import os
 import re
@@ -250,6 +267,7 @@ import sys
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -294,7 +312,9 @@ PREFILL_CASES = ((2048, 0, None), (2000, 0, None), (256, 1000, None),
 # Llama-3-8B at full width and 8 of its 32 layers: with phase 13's
 # families at full depth the whole script took 996.3 s of its 1,200 s
 # limit on an H100 with them at 32, 1,157.7 s with them at 16 and phase 16
-# (the mesh) added, and 1,046-1,170 s at 12 (PERF.md).
+# (the mesh) added, and 1,046-1,170 s at 12 (PERF.md). At 4 the random
+# model's single stream in phase 12 finds no n-gram proposal in 64 tokens,
+# so its verify never runs.
 SERVE_LAYERS = 8
 # the linears' (K, N) of Llama-3-8B: gate/up, down, k/v, q/o; and the head
 LINEARS = ((4096, 14336), (14336, 4096), (4096, 1024), (4096, 4096))
@@ -4510,13 +4530,16 @@ def phase_spec_only(torch, build) -> list:
 
 # (label, preset, layers, weight tier, KV caches of the single stream,
 # batch engine?, speculation?) of phase 13's paths; Mixtral's bf16 experts
-# (93 GB at 32 layers) do not fit the card: 12 layers. The int8 experts run
-# 16 of the 32 layers (32 took 107 s of the script's 1,200)
+# (93 GB at 32 layers) do not fit the card: 12 layers. Qwen2-7B, Gemma-7B
+# and the int8 experts run 8 of their 28, 28 and 32 layers, so the script
+# stays well inside its 1,200 s as phase 16 grows (on an H100 the whole
+# script took 1,062.6 s with them at 28, 28 and 16 layers, and 1,087.2 s
+# at 16, 16 and 12 on a slower host)
 FAMILY_PATHS = (
-    ("(q) qwen2_7b bf16", "qwen2_7b", 28, "bf16", (None,), False, False),
-    ("(g) gemma_7b bf16", "gemma_7b", 28, "bf16", (None, "int8"), True,
+    ("(q) qwen2_7b bf16", "qwen2_7b", 8, "bf16", (None,), False, False),
+    ("(g) gemma_7b bf16", "gemma_7b", 8, "bf16", (None, "int8"), True,
      True),
-    ("(m) mixtral_8x7b int8 experts", "mixtral_8x7b", 16, "int8", (None,),
+    ("(m) mixtral_8x7b int8 experts", "mixtral_8x7b", 8, "int8", (None,),
      True, False),
     ("(m16) mixtral_8x7b bf16 experts, 12 layers", "mixtral_8x7b", 12,
      "bf16", (None,), False, False),
@@ -4587,7 +4610,7 @@ def bf16_steps(torch, x):
 
 
 def family_until_tie(torch, cfg, params, label, prompt, ids, ref,
-                     settings, tag="[13]") -> dict:
+                     settings, tag="[13]", check: bool = True) -> dict:
     """``ids`` (a stream of one engine) against ``ref`` (the same prompt's
     single stream, or a function that runs it: not called when the first
     near-tie is at step 0) up to the first near-tie, and each step of ``ids``
@@ -4600,7 +4623,8 @@ def family_until_tie(torch, cfg, params, label, prompt, ids, ref,
     ROUTER_TIE in some layer is a near-tie too, and ends the per-step
     check (a flip there changes the context every later step reads).
     Fails on a difference before the first near-tie, or on a step off its
-    logits' choice outside a near-tie."""
+    logits' choice outside a near-tie; with ``check`` False it reports
+    that under ``fault`` instead (a planted fault's run)."""
     from cake_tpu_torch.ops import moe
 
     with RouterLog(moe) as log:
@@ -4649,12 +4673,15 @@ def family_until_tie(torch, cfg, params, label, prompt, ids, ref,
         f"first near-tie at step {tie}, {sum(near)} of "
         f"{len(ids)} steps logit near-ties; steps off their logits' choice "
         f"outside a near-tie: {off}{note}")
+    out["fault"] = None
     if diff is not None and diff < tie:
-        fail(f"{label} differs from the single stream at step {diff}, "
-             "before any near-tie")
-    if off:
-        fail(f"{label}: steps {off} are not their teacher-forced logits' "
-             "greedy choice, and no near-tie")
+        out["fault"] = (f"{label} differs from the single stream at step "
+                        f"{diff}, before any near-tie")
+    elif off:
+        out["fault"] = (f"{label}: steps {off} are not their teacher-forced "
+                        "logits' greedy choice, and no near-tie")
+    if check and out["fault"]:
+        fail(out["fault"])
     return out
 
 
@@ -5999,14 +6026,22 @@ TP_LINEARS = tuple(
     (tp, ((4096, 14336 // tp), (14336 // tp, 4096), (4096, 1024 // tp),
           (4096, 4096 // tp), (4096 // tp, 4096), (4096, 128256 // tp)))
     for tp in (2, 4))
+# the mesh's speculative verify at tp-local heads: T = K + 1 query rows a
+# stream at the command line's --speculate 4 and at K = 8; M = 5 rows of
+# each tp-local linear
+TP_MQ_T = (5, 9)
+TP_VERIFY_M = 5
 
 
 def phase_tp_kernels(torch, flash, qmatmul, quant, kvcache) -> dict:
     """Phase 2 at the mesh's tp-local shapes: both prefills (the 2,000-id
     prompt) and both decodes (one stream at 2047, four rows at ragged
-    frontiers) at H/tp and KVH/tp, each matmul tier at every tp-local
-    linear at M = 1 and 2000; planted faults at tp 4 (a dropped KV tile in
-    each attention kernel, a K tile short in each matmul tier) must fail."""
+    frontiers) at H/tp and KVH/tp, both decodes' multi-query form (the
+    mesh's verify) at T = TP_MQ_T (one stream at 2047, four rows at
+    ragged frontiers with one at S - T), each matmul tier at every
+    tp-local linear at M = 1, TP_VERIFY_M and 2000; planted faults at tp 4
+    (a dropped KV tile in each attention kernel, also at each T, a K tile
+    short in each matmul tier) must fail."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 16)
 
     def rnd(*shape):
@@ -6054,6 +6089,23 @@ def phase_tp_kernels(torch, flash, qmatmul, quant, kvcache) -> dict:
                                     device="cuda")
                 planted(torch, f"{name} tp=4 pos=2047 last tile dropped",
                         kernel(qd, *one, good - 64), plain(qd, *one, good))
+            for t in TP_MQ_T:
+                for b, ops, pos in ((1, one, [2047]),
+                                    (4, four, [S - t, 2047, 700, 3])):
+                    qd = rnd(b, h, t, D)
+                    p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+                    err = compare(torch, f"{name} tp={tp} H={h} KVH={kvh} "
+                                  f"T={t} B={b} pos={pos}",
+                                  kernel(qd, *ops, p), plain(qd, *ops, p))
+                    if b == 1:
+                        errs[(name, "tp", tp, "mq", t)] = err
+                if tp == 4:
+                    qd = rnd(1, h, t, D)
+                    good = torch.tensor([2047], dtype=torch.int32,
+                                        device="cuda")
+                    planted(torch, f"{name} tp=4 T={t} pos=2047 last tile "
+                            "dropped", kernel(qd, *one, good - 64),
+                            plain(qd, *one, good))
         del k, v, kv8, kb, vb, kbq, vbq
     plain = {"quant_matmul": quant.quant_matmul_ref,
              "quant4_matmul": quant.quant4_matmul_ref}
@@ -6062,7 +6114,7 @@ def phase_tp_kernels(torch, flash, qmatmul, quant, kvcache) -> dict:
             w = torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5
             for tier in TIERS:
                 name, wq, scale = quantized(quant, w, tier)
-                for m in (1, 2000):
+                for m in (1, TP_VERIFY_M, 2000):
                     x = torch.randn(m, k, generator=gen, device="cuda").to(
                         torch.bfloat16)
                     label = f"{name} {tier_label(tier)} tp={tp} M={m} " \
@@ -6082,8 +6134,9 @@ def phase_tp_kernels(torch, flash, qmatmul, quant, kvcache) -> dict:
                 del wq, scale
             del w
     torch.cuda.empty_cache()
-    say("[2] every kernel at the tp 2 and tp 4 local shapes: within "
-        "tolerance; the planted faults fail")
+    say("[2] every kernel at the tp 2 and tp 4 local shapes (the decodes "
+        f"also at T = {list(TP_MQ_T)}, the matmuls also at M = "
+        f"{TP_VERIFY_M}): within tolerance; the planted faults fail")
     return errs
 
 
@@ -6092,7 +6145,8 @@ def tp_local_timing(torch, flash, qmatmul, quant, kvcache, build,
     """Phase 3 at the tp-local shapes: each kernel row gains ``tp_cases``,
     the kernel's, plain and library ms beside the bound at tp 2 and 4
     (attention: the 2,000-id prompt's prefill, one stream's decode at
-    2047; matmuls at M = 1: the tp-local gate/up, down and head)."""
+    2047, also at T = TP_MQ_T; matmuls at M = 1 and TP_VERIFY_M: the
+    tp-local gate/up, down and head)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
@@ -6104,10 +6158,11 @@ def tp_local_timing(torch, flash, qmatmul, quant, kvcache, build,
     by_name = {r["name"]: r for r in rows}
     for tp, h, kvh in TP_HEADS:
         for name in ("flash_decode", "flash_decode_q8"):
-            c = decode_case(torch, flash, kvcache, name, 1, (2047,), rnd,
-                            shape=(h, kvh, D))
-            by_name[name].setdefault("tp_cases", []).append(
-                {"tp": tp, **c})
+            for t in (1,) + TP_MQ_T:
+                c = decode_case(torch, flash, kvcache, name, 1, (2047,),
+                                rnd, t=t, shape=(h, kvh, D))
+                by_name[name].setdefault("tp_cases", []).append(
+                    {"tp": tp, **c})
         k, v = rnd(1, kvh, S, D), rnd(1, kvh, S, D)
         kq, vq = kvcache.quant_kv(k), kvcache.quant_kv(v)
         t = 2000
@@ -6134,13 +6189,14 @@ def tp_local_timing(torch, flash, qmatmul, quant, kvcache, build,
             by_name[name].setdefault("tp_cases", []).append(c)
         del k, v, kq, vq, q
     for tp, linears in TP_LINEARS:
-        for k, n in (linears[0], linears[1], linears[5]):
+        for (k, n), m in itertools.product(
+                (linears[0], linears[1], linears[5]), (1, TP_VERIFY_M)):
             for tier in (TIERS[0], TIERS[2]):
-                c = matmul_case(torch, quant, qmatmul, build, tier, 1, k, n,
+                c = matmul_case(torch, quant, qmatmul, build, tier, m, k, n,
                                 gen)
                 by_name[tier[0]].setdefault("tp_cases", []).append(
                     {"tp": tp, "tier": tier_label(tier), "shape":
-                     f"M=1 K={k} N={n}",
+                     f"M={m} K={k} N={n}",
                      **{key: c[key] for key in (
                          "ms", "plain_ms", "library_ms", "bound_ms",
                          "bound_by")}})
@@ -6165,6 +6221,20 @@ MESH_BATCH_LENS = (600, 410, 333, 257, 200, 129, 64, 17)
 # card, through 8 bf16 layers
 MESH_LOGITS_REL_L2 = 5e-2
 MESH_LABEL = "one card, 4 ranks, gloo"
+# (s): the command line's --speculate 4 over the mesh, one round a
+# dispatch (the JAX MeshSpeculativeGenerator's); each rank then times this
+# many verify calls and as many plain steps
+MESH_SPEC_K = 4
+MESH_SPEC_TIMED = 8
+# (s)'s stream is phase 5's random prompt, on which random weights accept
+# almost nothing live (one card's stream too): tokens a dispatch above 1
+# are read, as phase 12 reads them, off the mesh's verify replaying the
+# corpus (the proposer on real text) for this many rounds
+MESH_REPLAY_ROUNDS = 32
+# (x): the 2,000-id stream exported after this many tokens, and the tokens
+# its continuations run to
+MESH_EXPORT_AT = 8
+MESH_EXPORT_QUOTA = 24
 
 
 def mesh_expected(cfg, coords, weights: str, kv_quant, prefill_calls: int,
@@ -6184,9 +6254,12 @@ def mesh_expected(cfg, coords, weights: str, kv_quant, prefill_calls: int,
 
 def check_rank_launches(label: str, out: list, cfg, weights, kv_quant,
                         plan) -> None:
+    """Each rank's launches: a verify is one model call, as a decode step
+    is (the multi-query decode a layer, the linears at M = K + 1)."""
     for r in out:
         want = mesh_expected(cfg, r["coords"], weights, kv_quant,
-                             r["prefill_calls"], r["decode_steps"], plan)
+                             r["prefill_calls"], r["decode_steps"]
+                             + r.get("verify_calls", 0), plan)
         if r["launches"] != want:
             fail(f"{label}: rank {r['rank']} launched {r['launches']}, "
                  f"expected {want}")
@@ -6195,8 +6268,9 @@ def check_rank_launches(label: str, out: list, cfg, weights, kv_quant,
 
 
 def mesh_rank_lines(label: str, out: list, steps: int) -> list:
-    """The per-rank numbers: card ms a decode step, collective calls, ms
-    and bytes a step per axis, TTFT and tokens/s."""
+    """The per-rank numbers: card ms a decode step (or a verify call of
+    K + 1 tokens and a plain step), collective calls, ms and bytes a step
+    per axis, TTFT and tokens/s."""
     rows = []
     for r in out:
         coll = {axis: {"ms_per_step": v["ms"] / steps,
@@ -6206,7 +6280,8 @@ def mesh_rank_lines(label: str, out: list, steps: int) -> list:
         row = {"rank": r["rank"], "coords": {
             a: r["coords"][a] for a in ("dp", "stage", "tp")},
             "collectives": coll}
-        for key in ("decode_ms_per_step", "ttft_s", "tok_s", "ms"):
+        for key in ("decode_ms_per_step", "ttft_s", "tok_s", "ms",
+                    "verify_ms", "step_ms"):
             if r.get(key) is not None:
                 row[key] = r[key]
         if "ms" in row:  # the batch: card ms a dispatch (prefill included)
@@ -6330,13 +6405,14 @@ def mesh_batch_run(torch, pool, cfg, params, d, settings) -> dict:
                          for k in out[0]["launches"]}}
 
 
-def mesh_cli(d, prompt, want: list) -> dict:
-    """``--tp 2 --stages 2 --dist-backend gloo`` as a process: its ids
-    equal the first mesh run's."""
+def mesh_cli(d, prompt, want: list, extra=(), what="the first mesh run"
+             ) -> dict:
+    """``--tp 2 --stages 2 --dist-backend gloo`` (and ``extra``) as a
+    process: its ids equal ``want``, ``what``'s."""
     cmd = [sys.executable, "-m", "cake_tpu_torch.cli", "--model", str(d),
            "--tp", "2", "--stages", "2", "--dist-backend", "gloo",
            "--prompt-ids", ",".join(map(str, prompt)), "-n", str(MESH_NEW),
-           "--temperature", "0", "--max-seq", "4096"]
+           "--temperature", "0", "--max-seq", "4096", *extra]
     t0 = time.perf_counter()
     r = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
                        cwd=REPO, env=dict(os.environ, PYTHONPATH=str(REPO)))
@@ -6345,11 +6421,194 @@ def mesh_cli(d, prompt, want: list) -> dict:
         fail(f"the mesh command line exited {r.returncode}: "
              f"{r.stderr[-3000:]}")
     ids = [int(t) for t in r.stdout.strip().splitlines()[-1].split(",")]
+    flags = " ".join(["--tp 2 --stages 2 --dist-backend gloo", *extra])
     if ids != want:
-        fail(f"the mesh command line printed {ids}, the mesh run {want}")
-    say(f"[16] --tp 2 --stages 2 --dist-backend gloo as a process: the "
-        f"first mesh run's {len(ids)} ids in {seconds:.1f} s")
+        fail(f"{flags} printed {ids}, {what} {want}")
+    say(f"[16] {flags} as a process: {what}'s {len(ids)} ids in "
+        f"{seconds:.1f} s")
     return {"ids_equal": True, "seconds": seconds}
+
+
+def mesh_spec_run(torch, pool, cfg, params, d, prompt, settings, label,
+                  weights, kv_quant) -> dict:
+    """(s) ``MeshSpeculativeGenerator`` at stages 2 x tp 2, K =
+    MESH_SPEC_K, read shard by shard from ``d``: every rank's ids equal,
+    equal to one card's ``SpeculativeGenerator`` at the same rounds up to
+    the first near-tie (over the int8 cache SPEC_MARGIN_TIE_Q8), launches
+    exact with the verifies counted; each rank's card ms a verify call and
+    a plain step; then more than one token a dispatch of the mesh's
+    verify over the corpus replay (MESH_REPLAY_ROUNDS), its logits
+    finite."""
+    from cake_tpu_torch.parallel.mesh import MeshPlan
+    from cake_tpu_torch.runtime.speculative import SpeculativeGenerator
+
+    plan = MeshPlan(num_stages=2, tp=2)
+    gen = SpeculativeGenerator(cfg, params, settings=settings,
+                               kv_quant=kv_quant, spec_k=MESH_SPEC_K,
+                               spec_rounds=1)
+    gen.set_prompt(prompt)
+    ref = [gen.next_token(i).id for i in range(MESH_NEW)]
+    card = {"verify_calls": gen.verify_calls,
+            "tokens_per_dispatch": gen.emitted / gen.dispatches}
+    del gen
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = pool.run("cake_tpu_torch.parallel.jobs:mesh_speculate", cfg,
+                   plan, prompt, MESH_NEW, model_dir=str(d),
+                   quantize=None if weights == "bf16" else "int8",
+                   settings=settings, kv_quant=kv_quant,
+                   spec_k=MESH_SPEC_K, time_calls=MESH_SPEC_TIMED,
+                   replay_rounds=MESH_REPLAY_ROUNDS)
+    seconds = time.perf_counter() - t0
+    ids = out[0]["ids"]
+    if any(r["ids"] != ids for r in out):
+        fail(f"{label}: the ranks' ids differ: {[r['ids'] for r in out]}")
+    r0 = out[0]
+    per = r0["emitted"] / r0["dispatches"]
+    replay = r0["replay"]
+    say(f"[16] {label}: the 4 ranks sampled the same {len(ids)} tokens; "
+        f"{r0['verify_calls']} verifies, {r0['decode_steps']} plain steps, "
+        f"{per:.2f} tokens a dispatch live (one card: "
+        f"{card['verify_calls']} verifies, "
+        f"{card['tokens_per_dispatch']:.2f}); the corpus replay through "
+        f"the mesh's verify: {replay['tokens_per_round']:.3f} tokens a "
+        f"dispatch over {replay['rounds']} rounds")
+    if not (replay["tokens_per_round"] > 1 and all(
+            r["replay"] == replay for r in out) and replay["finite"]):
+        fail(f"{label}: the replay gave {[r['replay'] for r in out]}, not "
+             "above 1 token a dispatch with finite logits on every rank")
+    if kv_quant:
+        tie = check_until_tie(torch, cfg, params, label, prompt, ids, ref,
+                              settings, kv_quant, tag="[16]")
+    else:
+        tie = family_until_tie(torch, cfg, params, label, prompt, ids, ref,
+                               settings, tag="[16]")
+    check_rank_launches(label, out, cfg, weights, kv_quant, plan)
+    calls = r0["prefill_calls"] + r0["decode_steps"] + r0["verify_calls"]
+    return {"label": label, "plan": "stages 2 x tp 2", "spec_k": MESH_SPEC_K,
+            "ids": ids, "tie": tie, "seconds": seconds,
+            "tokens_per_dispatch": per,
+            "replay_tokens_per_dispatch": replay["tokens_per_round"],
+            "one_card": card,
+            "verify_calls": r0["verify_calls"],
+            "verify_ms": [r["verify_ms"] for r in out],
+            "step_ms": [r["step_ms"] for r in out],
+            "ranks": mesh_rank_lines(label, out, calls),
+            "launches": {k: sum(r["launches"][k] for r in out)
+                         for k in r0["launches"]}}
+
+
+def swap_tp_halves(data: bytes) -> bytes:
+    """A planted fault: the snapshot with the two tp 2 halves of every
+    page's kv heads swapped (what assembling the ranks' parts in the wrong
+    order would give)."""
+    import torch
+
+    from cake_tpu_torch.disagg import snapshot as snap_mod
+
+    s = snap_mod.decode_snapshot(data)
+    for page in s.pages:
+        for k, t in page.items():
+            h = t.shape[1] // 2
+            page[k] = torch.cat([t[:, h:], t[:, :h]], dim=1)
+    return snap_mod.encode_snapshot(
+        xfer_id=s.xfer_id, fingerprint=s.fingerprint, codec=s.codec,
+        stream_id=s.stream_id, prompt=s.prompt, generated=s.generated,
+        pos=s.pos, index=s.index, last_token=s.last_token, key=s.key,
+        history=s.history, hist_slot=s.hist_slot, guide_spec=s.guide_spec,
+        guide_state=s.guide_state, pages=s.pages, trace=s.trace)
+
+
+def card_import(torch, cfg, params, data, settings, n) -> list:
+    """Snapshot ``data`` imported into one card's paged engine (slots
+    free), run to ``n`` tokens of its stream: the snapshot's generated
+    ids and the continuation."""
+    g = paged_engine(torch, cfg, params, None, 1, settings=settings)
+    g.set_prompts([[1]])
+    g.retire_all()
+    g.import_stream(data, stream_id=7)
+    for _ in range(4 * n + 64):
+        s = next(s for s in g.streams if s.stream_id == 7)
+        if len(s.generated) >= n:
+            break
+        g.step()
+    out = list(s.generated)[:n]
+    del g
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_snapshot_run(torch, pool, cfg, params, d, prompt, settings) -> dict:
+    """(x) The paged batch engine at stages 2 x tp 2 (dp 1), 4 slots, rank
+    0 driving it as the serve scheduler does: the 2,000-id stream 0
+    exported after MESH_EXPORT_AT tokens (each rank's pages gathered to
+    rank 0), run on uninterrupted to MESH_EXPORT_QUOTA, finished, and its
+    snapshot imported into the freed slot (scattered back to the ranks)
+    must continue with the uninterrupted ids bit for bit. The same bytes
+    on one card continue with one card's greedy ids up to a near-tie
+    (``family_until_tie``); with the tp halves of the kv heads swapped
+    they must fail that check."""
+    from cake_tpu_torch.parallel.mesh import MeshPlan
+
+    plan = MeshPlan(num_stages=2, tp=2)
+    g = torch.Generator().manual_seed(SEED + 18)
+    prompts = [prompt] + [
+        torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+        for n in MESH_BATCH_LENS[1:4]]
+    script = [("run", 0, MESH_EXPORT_AT), ("export", 0, "live"),
+              ("run", 0, MESH_EXPORT_QUOTA), ("finish", 0),
+              ("import", "live", 100),
+              ("run", 100, MESH_EXPORT_QUOTA - MESH_EXPORT_AT)]
+    t0 = time.perf_counter()
+    out = pool.run("cake_tpu_torch.parallel.jobs:mesh_snapshot", cfg, plan,
+                   prompts, script, model_dir=str(d), settings=settings,
+                   kv_page_size=PAGE)
+    seconds = time.perf_counter() - t0
+    r0 = out[0]
+    data = r0["snapshots"]["live"]
+    want = r0["streams"][0][:MESH_EXPORT_QUOTA]
+    got = r0["streams"][100][:MESH_EXPORT_QUOTA - MESH_EXPORT_AT]
+    if got != want[MESH_EXPORT_AT:]:
+        fail(f"(x): the stream imported on the mesh continued with {got}, "
+             f"the uninterrupted stream with {want[MESH_EXPORT_AT:]}")
+    say(f"[16] (x) stages 2 x tp 2 paged: stream 0 exported after "
+        f"{MESH_EXPORT_AT} tokens ({len(data):,} B) and imported into the "
+        f"freed slot continues with the uninterrupted ids bit for bit "
+        f"({len(got)} tokens)")
+    check_rank_launches("(x) paged stages 2 x tp 2", out, cfg, "bf16", None,
+                        plan)
+    card = card_import(torch, cfg, params, data, settings,
+                       MESH_EXPORT_QUOTA)
+    tie = family_until_tie(torch, cfg, params,
+                           "(x) the mesh's snapshot on one card", prompt,
+                           card, want, settings, tag="[16]")
+    bad = card_import(torch, cfg, params, swap_tp_halves(data), settings,
+                      MESH_EXPORT_QUOTA)
+    planted_tie = family_until_tie(
+        torch, cfg, params, "(x) planted fault: the tp halves swapped",
+        prompt, bad, want, settings, tag="[16]", check=False)
+    if planted_tie["fault"] is None:
+        fail("(x): the snapshot with its tp halves swapped passes the "
+             "one-card check")
+    say(f"[16] (x) planted fault, the kv heads' tp halves swapped: "
+        f"{planted_tie['fault']}")
+    snap = {k: [r["coll"]["snapshot"][k] for r in out]
+            for k in ("calls", "bytes", "ms")}
+    ms = r0["snapshot_ms"]
+    say(f"[16] (x) ({MESH_LABEL}): export {ms['export live']:.2f} ms, "
+        f"import {ms['import live']:.2f} ms (rank 0, card clock); the "
+        f"snapshot collectives a rank (gather, scatter): calls "
+        f"{snap['calls']}, bytes {snap['bytes']}, ms "
+        f"{[round(x, 3) for x in snap['ms']]}")
+    steps = r0["decode_steps"] + r0["prefill_calls"]
+    return {"label": "(x) paged stages 2 x tp 2, 4 slots",
+            "snapshot_bytes": len(data), "export_ms": ms["export live"],
+            "import_ms": ms["import live"], "snapshot_coll": snap,
+            "same_mesh_bit_exact": True, "one_card": tie,
+            "planted": planted_tie["fault"], "seconds": seconds,
+            "ranks": mesh_rank_lines("(x) paged", out, steps),
+            "launches": {k: sum(r["launches"][k] for r in out)
+                         for k in r0["launches"]}}
 
 
 def phase_mesh(torch, build) -> dict:
@@ -6357,18 +6616,18 @@ def phase_mesh(torch, build) -> dict:
     gloo: Llama-3-8B at full width and 8 layers written by the port's
     writer, read shard by shard; stages 2 x tp 2 in bf16 and with int8
     weights quantized on load plus the int8 KV cache, the batch engine at
-    dp 2 x tp 2, the command line as a process. The checkpoint lives in a
-    temporary directory removed at the end, whatever happens."""
+    dp 2 x tp 2, (s) speculation and (x) snapshots at stages 2 x tp 2, the
+    command line as a process, plain and with --speculate. The checkpoint
+    lives in a temporary directory removed at the end, whatever
+    happens."""
     import shutil
 
     from cake_tpu_torch.models import llama
     from cake_tpu_torch.models.config import llama3_8b
+    from cake_tpu_torch.ops import quant
     from cake_tpu_torch.ops.sampling import SamplerSettings
     from cake_tpu_torch.parallel.launch import RankPool
-    from cake_tpu_torch.utils.weights import (
-        load_llama_params,
-        save_llama_params,
-    )
+    from cake_tpu_torch.utils.weights import save_llama_params
 
     gc.collect()
     torch.cuda.empty_cache()  # the ranks share the card with this process
@@ -6393,32 +6652,49 @@ def phase_mesh(torch, build) -> dict:
         with RankPool(4, backend="gloo", device_type="cuda",
                       timeout_s=300.0, job_timeout_s=600.0) as pool:
             out["pool_start_s"] = time.perf_counter() - t_pool
+            # the runs over one shard follow each other: a rank keeps the
+            # shard it read for the next job (parallel/jobs.py _shard)
             out["bf16"] = mesh_stream(torch, pool, cfg, params, d, prompt,
                                       settings, "stages 2 x tp 2 bf16",
                                       "bf16", None)
-            params8 = load_llama_params(d, MESH_LAYERS, quantize="int8")
+            out["spec"] = mesh_spec_run(
+                torch, pool, cfg, params, d, prompt, settings,
+                "(s) stages 2 x tp 2 bf16 --speculate 4", "bf16", None)
+            out["snapshot"] = mesh_snapshot_run(torch, pool, cfg, params, d,
+                                                prompt, settings)
+            # quantized on the card: the codes the ranks' loader makes
+            params8 = quant.quantize_params(params, 8)
             out["int8"] = mesh_stream(
                 torch, pool, cfg, params8, d, prompt, settings,
                 "stages 2 x tp 2 int8 on load + int8 KV", "quant_matmul",
                 "int8")
+            out["spec_int8"] = mesh_spec_run(
+                torch, pool, cfg, params8, d, prompt, settings,
+                "(s) stages 2 x tp 2 int8 on load + int8 KV --speculate 4",
+                "quant_matmul", "int8")
             del params8
             torch.cuda.empty_cache()
             out["batch"] = mesh_batch_run(torch, pool, cfg, params, d,
                                           settings)
         del params
         torch.cuda.empty_cache()
-        out["cli"] = mesh_cli(d, prompt, out["bf16"]["ids"])
+        with ThreadPoolExecutor(2) as ex:
+            plain = ex.submit(mesh_cli, d, prompt, out["bf16"]["ids"])
+            spec = ex.submit(mesh_cli, d, prompt, out["spec"]["ids"],
+                             ("--speculate", str(MESH_SPEC_K)), "(s)")
+            out["cli"], out["cli_spec"] = plain.result(), spec.result()
     finally:
         shutil.rmtree(root, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t0
-    out["launches"] = {k: sum(out[p]["launches"][k]
-                              for p in ("bf16", "int8", "batch"))
+    runs = ("bf16", "spec", "snapshot", "int8", "spec_int8", "batch")
+    out["launches"] = {k: sum(out[p]["launches"][k] for p in runs)
                        for k in out["bf16"]["launches"]}
     say(f"[16] phase 16 took {out['seconds']:.1f} s ({MESH_LABEL}): "
         f"checkpoint {out['checkpoint_s']:.1f} s, 4 ranks up "
         f"in {out['pool_start_s']:.1f} s, " + ", ".join(
             f"{k} {out[k]['seconds']:.1f} s"
-            for k in ("bf16", "int8", "batch", "cli")))
+            for k in (*runs, "cli", "cli_spec")) + " (the two command "
+        "lines side by side)")
     return out
 
 

@@ -371,3 +371,67 @@ def test_cli_refusals(checkpoint, extra, match):
     with pytest.raises(SystemExit) as exc:
         cli.main(args)
     assert re.search(match, str(exc.value.code)), exc.value.code
+
+
+# the JAX command line's options the port leaves out on purpose: they
+# fetch a checkpoint over the network
+LEFT_OUT = ("--fetch", "--refetch")
+# a value each option takes where its JAX default or type gives none
+VALUES = {"--quantize": "int8"}
+
+
+def test_every_jax_option_parses_in_the_ports_parser():
+    """Each option string of the JAX ``build_parser()`` (``-v`` and
+    ``--log-level`` among them), with a value of its type, parses in the
+    port's parser; ``--fetch`` and ``--refetch`` are refused."""
+    import argparse
+
+    from cake_tpu import cli as jcli
+
+    def value(a):
+        if a.nargs == 0:
+            return []
+        if a.choices:
+            return [str(next(iter(a.choices)))]
+        if a.type in (int, float):
+            return ["2"]
+        if isinstance(a.default, str):
+            return [a.default]
+        return ["x"]
+
+    port = cli.build_parser()
+    seen = set()
+    for a in jcli.build_parser()._actions:
+        if isinstance(a, argparse._HelpAction):
+            continue
+        for opt in a.option_strings:
+            argv = ["--model", "m", opt,
+                    *([VALUES[opt]] if opt in VALUES else value(a))]
+            if opt in LEFT_OUT:
+                with pytest.raises(SystemExit):
+                    port.parse_args(argv)
+            else:
+                port.parse_args(argv)
+            seen.add(opt)
+    assert {"-v", "--verbose", "--log-level", *LEFT_OUT} <= seen
+
+
+@pytest.mark.parametrize("argv,level", [
+    (["--log-level", "debug"], "DEBUG"),
+    (["--log-level", "error"], "ERROR"),
+    (["--log-level", "warning", "-v"], "DEBUG"),
+])
+def test_the_log_level_sets_the_root_level(argv, level):
+    """``--log-level`` (``-v`` forces debug) is applied before anything
+    else runs: a command line that then exits on a missing --model leaves
+    the root logger at the asked level."""
+    import logging
+
+    root = logging.getLogger()
+    before = root.level
+    try:
+        with pytest.raises(SystemExit, match="--model is required"):
+            cli.main(["--prompt", "hi", *argv])
+        assert logging.getLevelName(root.level) == level
+    finally:
+        root.setLevel(before)

@@ -251,7 +251,8 @@ RUN = ["--prompt-ids", "3,5,7,9,11,13", "-n", "10", "--temperature", "0",
     (["--tp", "2", "--quantize", "int4:g64"],
      r"int4 group size 64 does not divide wq's tp-local in-dim|"
      r"does not divide wo's tp-local in-dim 32"),
-    (["--tp", "2", "--speculate", "2"], r"--speculate over a rank mesh"),
+    (["--tp", "2", "--speculate", "2", "--decode-block", "4"],
+     r"--decode-block does not compose with --speculate"),
     (["--dp", "2"], r"--dp splits a batch's rows"),
     (["--tp", "3"], r"not divisible by tp 3"),
     (["--tp", "2", "--dist-backend", "nccl"], r"backend 'nccl' runs on "

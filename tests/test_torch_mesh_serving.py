@@ -7,9 +7,9 @@ Gloo ranks on the CPU, started once per module and fed jobs
 engine (which is held to JAX elsewhere): sampled streams (the port's
 keyed noise is its own), continuous admission, speculation, logprobs,
 lookahead, stages 2 and the paged layout at dp 1. And the serve plane's
-mesh handle: rank 0's engine calls reach the followers in order,
-snapshots are hidden; and two host processes (``--num-processes 2``)
-forming one mesh."""
+mesh handle: rank 0's engine calls reach the followers in order, a
+snapshot's export among them; and two host processes
+(``--num-processes 2``) forming one mesh."""
 
 import jax
 import numpy as np
@@ -24,6 +24,7 @@ from cake_tpu_torch.models.config import tiny
 from cake_tpu_torch.models.llama import params_from_jax
 from cake_tpu_torch.ops.sampling import SamplerSettings
 from cake_tpu_torch.constrain import guide_for
+from cake_tpu_torch.disagg.snapshot import decode_snapshot
 from cake_tpu_torch.parallel.jobs import _continuous, serve_loop
 from cake_tpu_torch.parallel.launch import RankPool
 from cake_tpu_torch.parallel.mesh import MeshPlan
@@ -149,32 +150,45 @@ class _Follower:
 def test_followers_replay_rank0s_engine_calls(weights):
     """The serve plane's mesh handle: every call that moves the engine
     goes to the followers first, in order, and a follower's engine ends
-    in rank 0's state; snapshot export and import are hidden, so the
-    scheduler serves without spill."""
+    in rank 0's state; the handle carries snapshot export (a follower runs
+    it too), so the scheduler over a paged engine serves with spill."""
     _, tparams = weights
     settings = SamplerSettings(**GREEDY)
+    paged = dict(kv_layout="paged", kv_page_size=8)
     ctl = _Lead()
     lead = MeshEngine(BatchGenerator(tiny(**CFG), tparams, settings=settings,
-                                     device="cpu"), ctl)
-    assert not hasattr(lead, "export_stream")
+                                     device="cpu", **paged), ctl)
+    assert hasattr(lead, "export_stream")
     sched = Scheduler(lead, spill_mb=64.0)
     lead.set_prompts([[1]] * 2)
     lead.retire_all()
     lead.enqueue([5, 9, 2, 11], 7)
     rows = [lead.step() for _ in range(6)]
+    data = lead.export_stream(7)
     lead.stop()
     assert ctl.sent[-1][1] is None
     names = [m[1] for m in ctl.sent[:-1]]
-    assert names == ["set_prompts", "retire_all", "enqueue"] + ["step"] * 6
+    assert names == ["set_prompts", "retire_all", "enqueue"] + [
+        "step"] * 6 + ["export_stream"]
     follower = BatchGenerator(tiny(**CFG), tparams, settings=settings,
-                              device="cpu")
+                              device="cpu", **paged)
+    exported = []
+    export = follower.export_stream
+    follower.export_stream = lambda *a, **k: exported.append(
+        export(*a, **k))
     follow(follower, _Follower(ctl.sent))
+    assert len(exported) == 1
+    mine, theirs = (decode_snapshot(d) for d in (data, exported[0]))
+    assert mine.pos == theirs.pos and mine.n_pages == theirs.n_pages
+    assert all(torch.equal(a[k], b[k]) for a, b in zip(mine.pages,
+                                                      theirs.pages)
+               for k in a)
     assert [s.prompt for s in follower.streams] == [
         s.prompt for s in lead.streams]
     got = [t.id for row in rows for t in row if t is not None]
     assert got and follower.stats()["decode_dispatches"] == \
         lead.stats()["decode_dispatches"]
-    assert sched._spill is None
+    assert sched._spill is not None
 
 
 class _Fault:
