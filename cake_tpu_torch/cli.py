@@ -64,8 +64,8 @@ proxy (``testing/chaos.py``) in front of every worker link,
 stderr (``obs/top.py``); ``--straggler-factor`` sets when a worker is
 flagged.
 
-``--stages/--tp/--dp`` run a ``(dp, stage, tp)`` rank mesh: the command
-starts ``dp x stages x tp`` ranks itself, one process each
+``--stages/--tp/--dp/--sp`` run a ``(dp, stage, sp, tp)`` rank mesh: the
+command starts ``dp x stages x sp x tp`` ranks itself, one process each
 (:mod:`cake_tpu_torch.parallel.launch`), so the JAX command lines run
 unchanged, as does a topology whose nodes carry mesh ``device:`` indices
 (one stage a node). Rank 0 prints and serves; every rank runs the same
@@ -76,9 +76,13 @@ card a rank; gloo with ``--cpu`` or when ranks share a card), and
 hosts, one process a host. ``--speculate`` runs over the mesh on every
 entry point (the local path through ``MeshSpeculativeGenerator``), and a
 paged ``--mode serve`` over it spills, takes ``--role`` and
-``--transfer-port`` and migrates on drain, as on one card. ``--sp``,
-``--ep`` and ``--prefill-chunks`` above 1 are refused with an error: they
-are not ported yet.
+``--transfer-port`` and migrates on drain, as on one card. ``--sp N``
+splits the KV window over N ranks (ring-attention prefill, the
+sequence-sharded decode: :mod:`cake_tpu_torch.ops.ring`) on all three
+entry points; with it ``--speculate``, ``--prefill-chunks``, ``--lookahead``,
+``--kv-layout paged`` and a sliding-window checkpoint are refused in the
+JAX command line's words. ``--ep`` and ``--prefill-chunks`` above 1 are
+refused with an error: they are not ported yet.
 
 ``--log-level debug|info|warning|error`` (default info; ``-v`` forces
 debug) sets the root log level; a mesh's other ranks log warnings only,
@@ -285,9 +289,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dp", type=int, default=1,
                    help="data parallelism: a batch's rows split over this "
                         "many ranks (--prompts-file and --mode serve)")
-    for flag in ("--sp", "--ep"):
-        p.add_argument(flag, type=int, default=1,
-                       help="mesh axis that is not ported yet (only 1)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence parallelism: the KV window splits over "
+                        "this many ranks (ring-attention prefill, decode "
+                        "over the sharded window)")
+    p.add_argument("--ep", type=int, default=1,
+                   help="mesh axis that is not ported yet (only 1)")
     p.add_argument("--prefill-chunks", type=int, default=1,
                    dest="prefill_chunks",
                    help="the pipelined prefill across stages: not ported "
@@ -502,7 +509,11 @@ def _load_config(args):
     if args.window is not None:
         # 0 disables the checkpoint's window; N narrows (or grants) one
         overrides["sliding_window"] = args.window or None
-    return LlamaConfig.from_hf_json(cfg_path, **overrides)
+    config = LlamaConfig.from_hf_json(cfg_path, **overrides)
+    if config.sliding_window and args.sp > 1:
+        sys.exit("error: sliding-window attention (this checkpoint's "
+                 "family) does not compose with --sp; run with --sp 1")
+    return config
 
 
 def _load_tokenizer(model_dir: str):
@@ -606,6 +617,21 @@ def _mesh_setup(args, topology):
         check_axes(sp=args.sp, ep=args.ep)
     except ValueError as e:
         sys.exit(f"error: {e}")
+    if args.sp > 1 and args.speculate:
+        # the verify programs are the sp == 1 path (in JAX too)
+        if args.mode == "serve" or args.prompts_file:
+            sys.exit("error: --speculate requires --sp 1 on the serving "
+                     "path")
+        sys.exit("error: --speculate runs the local or mesh (stages/tp) "
+                 "paths; it is not supported with --sp or --topology (it "
+                 "would otherwise be silently ignored)")
+    if args.sp > 1 and args.kv_layout == "paged":
+        sys.exit("error: kv_layout='paged' requires dp == 1 and sp == 1 "
+                 "(the page axis is unsharded; batch/sequence sharding of "
+                 "pooled pages is future work)")
+    if args.sp > 1 and args.prefill_chunks > 1:
+        sys.exit("error: --prefill-chunks requires --sp 1 (ring "
+                 "attention is the sequence-parallel prefill plane)")
     if args.prefill_chunks > 1:
         sys.exit(f"error: --prefill-chunks {args.prefill_chunks} (the "
                  f"pipelined prefill across stages) is {NEXT_SLICE}")
@@ -616,7 +642,8 @@ def _mesh_setup(args, topology):
     topo_mesh = topology is not None and any(
         n.device is not None for n in topology)
     multi = args.num_processes is not None or args.coordinator is not None
-    if not (max(args.stages, args.tp, args.dp) > 1 or topo_mesh or multi):
+    if not (max(args.stages, args.tp, args.dp, args.sp) > 1 or topo_mesh
+            or multi):
         return None
     if topo_mesh and args.stages > 1:
         sys.exit("error: --stages conflicts with a device-indexed topology "
@@ -635,11 +662,11 @@ def _mesh_setup(args, topology):
     try:
         if topo_mesh:
             plan = MeshPlan.from_topology(config, topology, tp=args.tp,
-                                          dp=args.dp)
+                                          dp=args.dp, sp=args.sp)
         else:
             plan = MeshPlan.build(config, num_stages=args.stages,
-                                  tp=args.tp, dp=args.dp)
-        validate_shardable(config, plan.num_stages, plan.tp,
+                                  tp=args.tp, dp=args.dp, sp=args.sp)
+        validate_shardable(config, plan.num_stages, plan.tp, sp=plan.sp,
                            group_size=group, quantized=tier is not None,
                            kernels=not args.cpu)
     except ValueError as e:
@@ -673,9 +700,9 @@ def _spawn_mesh(args, plan) -> int:
                                              local)
     except ValueError as e:
         sys.exit(f"error: {e}")
-    log.info("mesh dp=%d x stages=%d x tp=%d: starting %d of %d ranks "
-             "here (%s, %s)", plan.dp, plan.num_stages, plan.tp, local,
-             plan.size, device_type, backend)
+    log.info("mesh dp=%d x stages=%d x sp=%d x tp=%d: starting %d of %d "
+             "ranks here (%s, %s)", plan.dp, plan.num_stages, plan.sp,
+             plan.tp, local, plan.size, device_type, backend)
     return launch.spawn("cake_tpu_torch.cli:rank_main", args.argv,
                         local_ranks=local, backend=backend,
                         device_type=device_type,
@@ -700,7 +727,7 @@ def _kv_layout_kwargs(args) -> dict:
 
 def _engine_kwargs(args) -> dict:
     """BatchGenerator arguments of the serving paths; the engine refuses
-    what is not ported (the sp and ep axes, the interleaved schedules) and
+    what is not ported (the ep axis, the interleaved schedules) and
     what does not compose with speculation (lookahead, paged KV,
     logprobs, guides)."""
     return dict(max_seq=args.max_seq, block_size=_decode_block(args),
@@ -1036,10 +1063,10 @@ def run_worker(args) -> int:
         check_axes(sp=args.sp, ep=args.ep)
     except ValueError as e:
         sys.exit(f"error: {e}")
-    if max(args.stages, args.tp, args.dp) > 1:
+    if max(args.stages, args.tp, args.dp, args.sp) > 1:
         sys.exit("error: a --mode worker serves its topology-assigned "
-                 "layers on one card; --stages/--tp/--dp drive the rank "
-                 "mesh of a master")
+                 "layers on one card; --stages/--tp/--dp/--sp drive the "
+                 "rank mesh of a master")
     device = _device(args)
     config = _load_config(args)
     topology = _load_topology(args)

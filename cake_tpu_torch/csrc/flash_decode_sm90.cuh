@@ -58,10 +58,21 @@
 //   its own running max (two shuffles a row a tile) and per-lane sums;
 //   the four warps merge once at the end in shared memory, in warp order.
 // Numerics of csrc/flash_prefill_sm90.cuh: f32 scores times 1/sqrt(D)
-// (in the log2 domain), masked keys at -1e30, online softmax in f32, P
-// rounded to bf16 before P.V, output bf16. Over the int8 cache the key
-// scale multiplies the score column and the value scale P before its
+// (in the log2 domain), masked keys at -1e30 with P = 0, online softmax in
+// f32, P rounded to bf16 before P.V, output bf16. Over the int8 cache the
+// key scale multiplies the score column and the value scale P before its
 // rounding; the sum takes P without it.
+//
+// The statistics form (csrc/flash_decode_stats.cu, flash_decode_q8_stats.cu:
+// `Args::so` set) writes the online-softmax state instead of the output:
+// the unnormalized f32 accumulator, the row max in natural-log units and
+// the row sum, which a sequence-sharded decode merges across shards
+// (cake_tpu_torch/ops/ring.py combine_axis). A shard's frontier `pos` is
+// then relative to its first key and may be negative (a shard wholly past
+// the row) or past its end; a row with no live key, or a stream with no
+// live tile, gives m = -1e30, l = 0, o = 0. C++ division truncates, so a
+// frontier in (-BK, 0) still counts tile 0 as live (its keys all masked),
+// and one further below counts none: both end in the empty row.
 
 #pragma once
 
@@ -149,6 +160,11 @@ struct Args {
   long long q_sb, q_sh, q_st, o_sb, o_sh, o_st;
   int window;
   float scale_log2;
+  // the statistics form (null otherwise): o [B, H, T, D], m, l [B, H, T],
+  // f32, contiguous
+  float* so = nullptr;
+  float* sm = nullptr;
+  float* sl = nullptr;
 };
 
 // Row R of kv head hk of stream b: head hk * G + R % G at position R / G.
@@ -160,6 +176,13 @@ __device__ __forceinline__ long long o_off(const Args& a, int b, int hk,
                                            int r) {
   return b * a.o_sb + (hk * a.G + r % a.G) * a.o_sh + (r / a.G) * a.o_st;
 }
+// The statistics form's row: index of m and l, and of o in rows of D.
+__device__ __forceinline__ long long ml_off(const Args& a, int b, int hk,
+                                            int r) {
+  return ((long long)(b * a.KVH + hk) * a.G + r % a.G) * a.T + r / a.G;
+}
+
+constexpr float LN2 = 0.6931471805599453f;
 
 __device__ __forceinline__ void mma(float (&acc)[4], const uint32_t (&a)[4],
                                     uint32_t b0, uint32_t b1) {
@@ -461,7 +484,10 @@ decode_kernel(const Args a) {
     for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float x = exp2f(sc[j][e] - m[e >> 1]);
+        // a masked key adds nothing, even to a row whose max is still the
+        // mask value (exp2(-1e30 - -1e30) would be 1)
+        const float x =
+            sc[j][e] <= NEG_INF ? 0.f : exp2f(sc[j][e] - m[e >> 1]);
         l[e >> 1] += x;
         pr[j][e] = x;
         if constexpr (F::Q8)
@@ -512,6 +538,7 @@ decode_kernel(const Args a) {
   named_barrier_sync(1, 32 * CONSUMERS);
 
   const int tid = threadIdx.x;
+  const bool stats = a.so != nullptr;
   const bool direct = used <= 1;  // this CTA writes the output
   const long long slot0 = ((long long)bh * a.nsplit + split) * rows + row0;
   for (int idx = tid; idx < nr * D; idx += 32 * CONSUMERS) {
@@ -528,7 +555,14 @@ decode_kernel(const Args a) {
         O += red_o[(w * MAX_G + r) * MS + d] * wt;
       }
     }
-    if (direct) {
+    if (direct && stats) {
+      const long long at = ml_off(a, b, hk, row0 + r);
+      a.so[at * D + d] = O;
+      if (d == 0) {
+        a.sm[at] = M <= NEG_INF ? NEG_INF : M * LN2;
+        a.sl[at] = Lsum;
+      }
+    } else if (direct) {
       a.o[o_off(a, b, hk, row0 + r) + d] = __float2bfloat16_rn(O / Lsum);
     } else {
       a.part_o[(slot0 + r) * D + d] = O;
@@ -558,7 +592,8 @@ decode_kernel(const Args a) {
   // flight at once); then a warp a row: lanes take splits, the row's max
   // and sum by shuffles, and each split's weight, the 1 / sum folded in;
   // then four output columns a thread, summed over the splits in split
-  // order.
+  // order. The statistics form keeps the row's max and sum and leaves the
+  // 1 / sum out.
   // split sp's partial of row r is at base + sp * rows + r
   const long long base = (long long)bh * a.nsplit * rows + row0;
   const int np = used * nr;  // (split, row) pairs, split-major
@@ -584,7 +619,13 @@ decode_kernel(const Args a) {
       Lsum += __shfl_xor_sync(0xffffffffu, Lsum, off);
     __syncwarp();
     for (int sp = lane; sp < used; sp += 32)
-      fm[sp * nr + r] = exp2f(fm[sp * nr + r] - M) / Lsum;
+      fm[sp * nr + r] = stats ? exp2f(fm[sp * nr + r] - M)
+                              : exp2f(fm[sp * nr + r] - M) / Lsum;
+    if (stats && lane == 0) {
+      const long long at = ml_off(a, b, hk, row0 + r);
+      a.sm[at] = M <= NEG_INF ? NEG_INF : M * LN2;
+      a.sl[at] = Lsum;
+    }
   }
   named_barrier_sync(1, 32 * CONSUMERS);
   for (int idx = tid; idx < nr * D / 4; idx += 32 * CONSUMERS) {
@@ -599,6 +640,11 @@ decode_kernel(const Args a) {
       acc.y += v.y * wt;
       acc.z += v.z * wt;
       acc.w += v.w * wt;
+    }
+    if (stats) {
+      *reinterpret_cast<float4*>(a.so + ml_off(a, b, hk, row0 + r) * D + d) =
+          acc;
+      continue;
     }
     __nv_bfloat16* dst = a.o + o_off(a, b, hk, row0 + r) + d;
     *reinterpret_cast<__nv_bfloat162*>(dst) =

@@ -25,114 +25,12 @@
 // only diagonal and window-edge tiles are masked; the longest q tiles start
 // first. The loop runs only over the live KV tiles [kb_lo, kb_hi] that the
 // host computes with `kv_block_bounds` (cake_tpu_torch/ops/flash.py).
+// The kernel (`bf16_kernel`) is csrc/flash_prefill_sm90.cuh's, shared with
+// its statistics form (csrc/flash_prefill_stats.cu).
 
 #include "flash_prefill_sm90.cuh"
 
 using namespace fp90;
-
-namespace {
-
-constexpr int PRODUCER_REGS = 40;
-constexpr int CONSUMER_REGS = consumer_regs(PRODUCER_REGS);
-template <int D>
-using BfPlan = Plan<D, 2>;
-
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-flash_prefill_kernel(const __grid_constant__ CUtensorMap tm_q,
-                     const __grid_constant__ CUtensorMap tm_k,
-                     const __grid_constant__ CUtensorMap tm_v,
-                     __nv_bfloat16* __restrict__ o,
-                     const int* __restrict__ kb_lo,
-                     const int* __restrict__ kb_hi, int H, int KVH, int T,
-                     int S, long long o_sb, long long o_sh, long long o_st,
-                     int pos, int window, float scale_log2) {
-  using P = BfPlan<D>;
-  constexpr int ST = P::STAGES, BK = P::BK;
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  __shared__ __align__(8) uint64_t bars[4 * ST + 1];
-  const Ring ring{bars, bars + ST, bars + 2 * ST, bars + 3 * ST};
-  uint64_t* qbar = bars + 4 * ST;
-  const uint32_t smem = aligned_smem(smem_raw);
-
-  const Tile tile = tile_of_block();
-  const int hk = tile.h / (H / KVH);
-  const int lo = kb_lo ? kb_lo[tile.qt] : 0;
-  const int hi = min(kb_hi[tile.qt], (S - 1) / BK);
-  if (lo > hi) return;  // no live tile: never so for a valid call
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < ST; ++s) {
-      mbar_init(&ring.full_k[s], 1);
-      mbar_init(&ring.empty_k[s], CONSUMER_THREADS);
-      mbar_init(&ring.full_v[s], 1);
-      mbar_init(&ring.empty_v[s], CONSUMER_THREADS);
-    }
-    mbar_init(qbar, 1);
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (threadIdx.x < 128) {
-    // producer: one thread issues every TMA load
-    setmaxnreg_dec<PRODUCER_REGS>();
-    if (threadIdx.x == 0) {
-      prefetch_tensor_map(&tm_q);
-      prefetch_tensor_map(&tm_k);
-      prefetch_tensor_map(&tm_v);
-      mbar_expect_tx(qbar, P::Q_BYTES);
-      for (int w = 0; w < 2; ++w)
-        for (int cb = 0; cb < D / 64; ++cb)
-          tma_load_4d(smem + w * 64 * D * 2 + cb * 64 * 128, &tm_q, qbar,
-                      cb * 64, tile.qt * BQ + w * 64, tile.h, tile.b);
-      for (int kb = lo, i = 0; kb <= hi; ++kb, ++i) {
-        const int st = i % ST, parity = (i / ST - 1) & 1;
-        if (i >= ST) mbar_wait(&ring.empty_k[st], parity);
-        mbar_expect_tx(&ring.full_k[st], P::KV_BYTES);
-        for (int cb = 0; cb < D / 64; ++cb)
-          tma_load_4d(smem + P::k_slot(st) + cb * BK * 128, &tm_k,
-                      &ring.full_k[st], cb * 64, kb * BK, hk, tile.b);
-        if (i >= ST) mbar_wait(&ring.empty_v[st], parity);
-        mbar_expect_tx(&ring.full_v[st], P::KV_BYTES);
-        for (int cb = 0; cb < D / 64; ++cb)
-          tma_load_4d(smem + P::v_slot(st) + cb * BK * 128, &tm_v,
-                      &ring.full_v[st], cb * 64, kb * BK, hk, tile.b);
-      }
-    }
-  } else {
-    setmaxnreg_inc<CONSUMER_REGS>();
-    consume<D, P>(smem, NoScales{}, ring, qbar, threadIdx.x / 128 - 1,
-                  tile.qt, lo, hi, T, pos, window, scale_log2,
-                  o + tile.b * o_sb + tile.h * o_sh, o_st);
-  }
-}
-
-template <int D>
-int launch(const void* q, const void* k, const void* v, void* o,
-           const int* kb_lo, const int* kb_hi, int B, int H, int KVH, int T,
-           int S, long long q_sb, long long q_sh, long long q_st,
-           long long o_sb, long long o_sh, long long o_st, int pos,
-           int window, float scale_log2, cudaStream_t stream) {
-  CUtensorMap tm_q, tm_k, tm_v;
-  int err = q_tensor_map(&tm_q, q, B, H, T, D, q_sb, q_sh, q_st);
-  constexpr int BK = BfPlan<D>::BK;
-  if (!err) err = kv_tensor_map(&tm_k, k, B, KVH, S, D, false, BK);
-  if (!err) err = kv_tensor_map(&tm_v, v, B, KVH, S, D, false, BK);
-  if (err) return err;
-  constexpr int smem = BfPlan<D>::SMEM;
-  // above 48 KB a kernel must opt in to dynamic shared memory
-  cudaError_t cerr = cudaFuncSetAttribute(
-      flash_prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (cerr != cudaSuccess) return (int)cerr;
-  dim3 grid(H, (T + BQ - 1) / BQ, B);
-  flash_prefill_kernel<D><<<grid, THREADS, smem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<__nv_bfloat16*>(o), kb_lo, kb_hi, H, KVH,
-      T, S, o_sb, o_sh, o_st, pos, window, scale_log2);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -159,23 +57,10 @@ int flash_prefill_bf16(const void* q, const void* k, const void* v, void* o,
                        long long q_sh, long long q_st, long long o_sb,
                        long long o_sh, long long o_st, int pos, int window,
                        float scale_log2, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return launch<64>(q, k, v, o, kb_lo, kb_hi, B, H, KVH, T, S, q_sb,
-                        q_sh, q_st, o_sb, o_sh, o_st, pos, window,
-                        scale_log2, st);
-    case 128:
-      return launch<128>(q, k, v, o, kb_lo, kb_hi, B, H, KVH, T, S, q_sb,
-                         q_sh, q_st, o_sb, o_sh, o_st, pos, window,
-                         scale_log2, st);
-    case 256:
-      return launch<256>(q, k, v, o, kb_lo, kb_hi, B, H, KVH, T, S, q_sb,
-                         q_sh, q_st, o_sb, o_sh, o_st, pos, window,
-                         scale_log2, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return launch_bf16(q, k, v, NormDst{static_cast<__nv_bfloat16*>(o),
+                                      o_sb, o_sh, o_st},
+                     kb_lo, kb_hi, B, H, KVH, T, S, D, q_sb, q_sh, q_st, pos,
+                     window, scale_log2, static_cast<cudaStream_t>(stream));
 }
 
 const char* flash_prefill_error_string(int err) { return error_string(err); }

@@ -251,8 +251,9 @@ flash_prefill_q8_kernel(const __grid_constant__ CUtensorMap tm_q,
   } else {
     setmaxnreg_inc<CONSUMER_REGS>();
     consume<D, P>(smem, SlotScales{scales}, ring, qbar,
-                  threadIdx.x / 128 - 1, tile.qt, lo, hi, T, pos, window,
-                  scale_log2, o + tile.b * o_sb + tile.h * o_sh, o_st);
+                  threadIdx.x / 128 - 1, tile.qt, lo, hi, T, S, pos, window,
+                  scale_log2,
+                  NormOut{o + tile.b * o_sb + tile.h * o_sh, o_st});
   }
 }
 

@@ -20,9 +20,18 @@
 // budget, and two stages of 128-key K and V tiles (256 KB) beside Q (64 KB)
 // would not fit in shared memory. BK = 64 halves both: 176 registers of O,
 // S and P, and 64 + 2 x (32 + 32) = 192 KB.
-// Only the tiles that hold the causal diagonal or the window's lower edge
-// are masked element by element. Blocks are mapped so that the q tiles
-// with the most live KV tiles start first.
+// Only the tiles that hold the causal diagonal, the window's lower edge or
+// the buffer's end are masked element by element. Blocks are mapped so
+// that the q tiles with the most live KV tiles start first.
+//
+// The output is the normalized bf16 attention (`NormOut`) or, in the
+// statistics form (`StatsOut`, csrc/flash_prefill_stats.cu), the
+// online-softmax state itself: the unnormalized f32 accumulator, the row
+// max in natural-log units and the row sum, which partials over other key
+// blocks merge with exactly (a ring-attention visit). Its queries may lie
+// anywhere relative to the keys: a row with no live key, or a q tile with
+// none, gives m = -1e30, l = 0 and o = 0, so a masked key never counts
+// (its P is 0 even while the row's max is still the mask value).
 
 #pragma once
 
@@ -113,6 +122,25 @@ struct SlotScales {
   const float* base;  // K slot s: BK key scales at s * 2 * BK, then BK value
 };
 
+// Where a consumer warpgroup's rows go. NormOut: the bf16 output rows of
+// one (b, h), row stride o_st, divided by the row sum. StatsOut: the f32
+// accumulator rows of one (b, h) (D floats each, contiguous) and its row
+// max (natural-log units) and row sum, undivided.
+struct NormOut {
+  static constexpr bool kStats = false;
+  __nv_bfloat16* o;
+  long long o_st;
+};
+
+struct StatsOut {
+  static constexpr bool kStats = true;
+  float* o;
+  float* m;
+  float* l;
+};
+
+constexpr float LN2 = 0.6931471805599453f;
+
 // The two rings' mbarriers: a K slot is released once its scores (and, over
 // the int8 cache, its scales) are read, a V slot once its PV product is
 // done, so the next K tile loads while this one's softmax runs.
@@ -158,14 +186,15 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
 
 // The scores of tile `kb` (this thread's rows qa and qb, its columns
 // n * 8 + tq * 2 + {0, 1}) become P in place: scaled to the log2 domain,
-// masked where the tile holds the diagonal or the window's lower edge,
-// exponentiated against the new running max, summed into l, and (int8
+// masked where the tile holds the diagonal, the window's lower edge or the
+// buffer's end (key S), exponentiated against the new running max (a row
+// whose max is still the mask value takes P = 0), summed into l, and (int8
 // cache) times the value scale. Leaves the rescale of O in r.a0/r.a1.
 template <int N, class Scales>
 __device__ __forceinline__ void softmax_tile(float (&s)[N], RowState& r,
                                              const Scales& scales, int slot,
                                              int kb, int first, int last,
-                                             int window, int tq,
+                                             int S, int window, int tq,
                                              float scale_log2) {
   constexpr int BK = 2 * N;
 #pragma unroll
@@ -181,14 +210,15 @@ __device__ __forceinline__ void softmax_tile(float (&s)[N], RowState& r,
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[n * 4 + e] *= scale_log2;
   }
-  if (kb * BK + BK - 1 > first || (window >= 0 && kb * BK <= last - window)) {
+  if (kb * BK + BK - 1 > first || kb * BK + BK > S ||
+      (window >= 0 && kb * BK <= last - window)) {
 #pragma unroll
     for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = kb * BK + n * 8 + tq * 2 + (e & 1);
         const int qp = (e & 2) ? r.qb : r.qa;
-        if (!(key <= qp && (window < 0 || key > qp - window)))
+        if (!(key <= qp && key < S && (window < 0 || key > qp - window)))
           s[n * 4 + e] = NEG_INF;
       }
   }
@@ -207,13 +237,16 @@ __device__ __forceinline__ void softmax_tile(float (&s)[N], RowState& r,
   r.a1 = exp2f(r.m1 - mx1);
   r.m0 = mx0;
   r.m1 = mx1;
+  // every key of the row masked so far: exp2(-1e30 - -1e30) would be 1
+  const float b0 = mx0 <= NEG_INF ? INFINITY : mx0;
+  const float b1 = mx1 <= NEG_INF ? INFINITY : mx1;
   float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
   for (int n = 0; n < BK / 8; ++n) {
-    s[n * 4 + 0] = exp2f(s[n * 4 + 0] - mx0);
-    s[n * 4 + 1] = exp2f(s[n * 4 + 1] - mx0);
-    s[n * 4 + 2] = exp2f(s[n * 4 + 2] - mx1);
-    s[n * 4 + 3] = exp2f(s[n * 4 + 3] - mx1);
+    s[n * 4 + 0] = exp2f(s[n * 4 + 0] - b0);
+    s[n * 4 + 1] = exp2f(s[n * 4 + 1] - b0);
+    s[n * 4 + 2] = exp2f(s[n * 4 + 2] - b1);
+    s[n * 4 + 3] = exp2f(s[n * 4 + 3] - b1);
     rs0 += s[n * 4 + 0] + s[n * 4 + 1];
     rs1 += s[n * 4 + 2] + s[n * 4 + 3];
     if constexpr (Scales::kScaled) {
@@ -254,17 +287,18 @@ __device__ __forceinline__ void rescale(float (&acc)[N], const RowState& r) {
 }
 
 // One consumer warpgroup (`wg` 0 or 1, 64 q rows) over the live KV tiles
-// [lo, hi] of its CTA's q tile: online softmax with f32 running max and
-// sum, output in bf16 to rows `< T` of `o` (row stride `o_st`). The
+// [lo, hi] of its CTA's q tile (keys below S): online softmax with f32
+// running max and sum, rows `< T` written to `out` (`NormOut`,
+// `StatsOut`). The
 // products of consecutive tiles overlap the softmax: S of tile i and
 // P_{i-1} V_{i-1} are in flight together, and the softmax of tile i runs
 // while the second one finishes.
-template <int D, class P, class Scales>
+template <int D, class P, class Scales, class Out>
 __device__ __forceinline__ void consume(uint32_t smem, Scales scales,
                                         Ring ring, uint64_t* qbar, int wg,
-                                        int qt, int lo, int hi, int T,
+                                        int qt, int lo, int hi, int T, int S,
                                         int pos, int window, float scale_log2,
-                                        __nv_bfloat16* o, long long o_st) {
+                                        Out out) {
   constexpr int ST = P::STAGES;
   constexpr int BK = P::BK;
   const int tid = threadIdx.x % 128;
@@ -295,7 +329,8 @@ __device__ __forceinline__ void consume(uint32_t smem, Scales scales,
   turn_end(wg);
   wg_wait<0>();
   fence_regs(s);
-  softmax_tile(s, r, scales, 0, lo, first, last, window, tq, scale_log2);
+  softmax_tile(s, r, scales, 0, lo, first, last, S, window, tq,
+               scale_log2);
   mbar_arrive(&ring.empty_k[0]);
   round_p(s, p);
   for (int i = 1; i < n; ++i) {
@@ -312,7 +347,7 @@ __device__ __forceinline__ void consume(uint32_t smem, Scales scales,
     turn_end(wg);
     wg_wait<1>();  // S of tile i
     fence_regs(s);
-    softmax_tile(s, r, scales, st, lo + i, first, last, window, tq,
+    softmax_tile(s, r, scales, st, lo + i, first, last, S, window, tq,
                  scale_log2);
     mbar_arrive(&ring.empty_k[st]);
     wg_wait<0>();  // P_{i-1} V_{i-1}
@@ -338,19 +373,57 @@ __device__ __forceinline__ void consume(uint32_t smem, Scales scales,
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   const int ra = r0 + warp * 16 + g;
+  if constexpr (Out::kStats) {
+    // the state itself: O undivided, m in natural-log units (a row that
+    // saw no live key keeps m = -1e30, l = 0 and O = 0)
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int d = j * 8 + tq * 2;
-    if (ra < T)
-      *reinterpret_cast<__nv_bfloat162*>(o + ra * o_st + d) =
-          __floats2bfloat162_rn(acc[j * 4 + 0] * inv0,
-                                acc[j * 4 + 1] * inv0);
-    if (ra + 8 < T)
-      *reinterpret_cast<__nv_bfloat162*>(o + (ra + 8) * o_st + d) =
-          __floats2bfloat162_rn(acc[j * 4 + 2] * inv1,
-                                acc[j * 4 + 3] * inv1);
+    for (int j = 0; j < D / 8; ++j) {
+      const int d = j * 8 + tq * 2;
+      if (ra < T)
+        *reinterpret_cast<float2*>(out.o + (long long)ra * D + d) =
+            make_float2(acc[j * 4 + 0], acc[j * 4 + 1]);
+      if (ra + 8 < T)
+        *reinterpret_cast<float2*>(out.o + (long long)(ra + 8) * D + d) =
+            make_float2(acc[j * 4 + 2], acc[j * 4 + 3]);
+    }
+    if (tq == 0) {
+      if (ra < T) {
+        out.m[ra] = r.m0 <= NEG_INF ? NEG_INF : r.m0 * LN2;
+        out.l[ra] = l0;
+      }
+      if (ra + 8 < T) {
+        out.m[ra + 8] = r.m1 <= NEG_INF ? NEG_INF : r.m1 * LN2;
+        out.l[ra + 8] = l1;
+      }
+    }
+  } else {
+    const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int d = j * 8 + tq * 2;
+      if (ra < T)
+        *reinterpret_cast<__nv_bfloat162*>(out.o + ra * out.o_st + d) =
+            __floats2bfloat162_rn(acc[j * 4 + 0] * inv0,
+                                  acc[j * 4 + 1] * inv0);
+      if (ra + 8 < T)
+        *reinterpret_cast<__nv_bfloat162*>(out.o + (ra + 8) * out.o_st + d) =
+            __floats2bfloat162_rn(acc[j * 4 + 2] * inv1,
+                                  acc[j * 4 + 3] * inv1);
+    }
+  }
+}
+
+// The statistics form's rows of a q tile that sees no live KV tile at all:
+// m = -1e30, l = 0, O = 0 (every thread of the CTA takes a share).
+template <int D>
+__device__ __forceinline__ void store_empty(StatsOut out, int qt, int T) {
+  const int r0 = qt * BQ, rows = min(BQ, T - r0);
+  for (int i = threadIdx.x; i < rows * D; i += THREADS)
+    out.o[(long long)r0 * D + i] = 0.f;
+  for (int i = threadIdx.x; i < rows; i += THREADS) {
+    out.m[r0 + i] = NEG_INF;
+    out.l[r0 + i] = 0.f;
   }
 }
 
@@ -388,6 +461,165 @@ inline int kv_tensor_map(CUtensorMap* map, const void* kv, int B, int KVH,
       int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       kv, dims, strides, box,
       int8 ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+
+// --------------------------------------------------------------------------
+// The bf16-cache kernel (csrc/flash_prefill.cu, csrc/flash_prefill_stats.cu)
+// --------------------------------------------------------------------------
+
+constexpr int BF16_PRODUCER_REGS = 40;
+constexpr int BF16_CONSUMER_REGS = consumer_regs(BF16_PRODUCER_REGS);
+template <int D>
+using BfPlan = Plan<D, 2>;
+
+// The kernel's output: the normalized bf16 [B, H, T, D] at element strides
+// (o_sb, o_sh, o_st), or the statistics form's contiguous f32 o
+// [B, H, T, D], m and l [B, H, T].
+struct NormDst {
+  __nv_bfloat16* o;
+  long long o_sb, o_sh, o_st;
+};
+
+struct StatsDst {
+  float* o;
+  float* m;
+  float* l;
+};
+
+template <int D>
+__device__ __forceinline__ NormOut rows_of(const NormDst& d, int b, int h,
+                                           int H, int T) {
+  return {d.o + b * d.o_sb + h * d.o_sh, d.o_st};
+}
+
+template <int D>
+__device__ __forceinline__ StatsOut rows_of(const StatsDst& d, int b, int h,
+                                            int H, int T) {
+  const long long bh = (long long)b * H + h;
+  return {d.o + bh * T * D, d.m + bh * T, d.l + bh * T};
+}
+
+template <int D, class Dst>
+__global__ void __launch_bounds__(THREADS, 1)
+bf16_kernel(const __grid_constant__ CUtensorMap tm_q,
+            const __grid_constant__ CUtensorMap tm_k,
+            const __grid_constant__ CUtensorMap tm_v, const Dst dst,
+            const int* __restrict__ kb_lo, const int* __restrict__ kb_hi,
+            int H, int KVH, int T, int S, int pos, int window,
+            float scale_log2) {
+  using P = BfPlan<D>;
+  constexpr int ST = P::STAGES, BK = P::BK;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[4 * ST + 1];
+  const Ring ring{bars, bars + ST, bars + 2 * ST, bars + 3 * ST};
+  uint64_t* qbar = bars + 4 * ST;
+  const uint32_t smem = aligned_smem(smem_raw);
+
+  const Tile tile = tile_of_block();
+  const int hk = tile.h / (H / KVH);
+  const int lo = kb_lo ? kb_lo[tile.qt] : 0;
+  const int hi = min(kb_hi[tile.qt], (S - 1) / BK);
+  auto out = rows_of<D>(dst, tile.b, tile.h, H, T);
+  if (lo > hi) {  // no live tile: only the statistics form is called so
+    if constexpr (decltype(out)::kStats) store_empty<D>(out, tile.qt, T);
+    return;
+  }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&ring.full_k[s], 1);
+      mbar_init(&ring.empty_k[s], CONSUMER_THREADS);
+      mbar_init(&ring.full_v[s], 1);
+      mbar_init(&ring.empty_v[s], CONSUMER_THREADS);
+    }
+    mbar_init(qbar, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: one thread issues every TMA load
+    setmaxnreg_dec<BF16_PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      prefetch_tensor_map(&tm_q);
+      prefetch_tensor_map(&tm_k);
+      prefetch_tensor_map(&tm_v);
+      mbar_expect_tx(qbar, P::Q_BYTES);
+      for (int w = 0; w < 2; ++w)
+        for (int cb = 0; cb < D / 64; ++cb)
+          tma_load_4d(smem + w * 64 * D * 2 + cb * 64 * 128, &tm_q, qbar,
+                      cb * 64, tile.qt * BQ + w * 64, tile.h, tile.b);
+      for (int kb = lo, i = 0; kb <= hi; ++kb, ++i) {
+        const int st = i % ST, parity = (i / ST - 1) & 1;
+        if (i >= ST) mbar_wait(&ring.empty_k[st], parity);
+        mbar_expect_tx(&ring.full_k[st], P::KV_BYTES);
+        for (int cb = 0; cb < D / 64; ++cb)
+          tma_load_4d(smem + P::k_slot(st) + cb * BK * 128, &tm_k,
+                      &ring.full_k[st], cb * 64, kb * BK, hk, tile.b);
+        if (i >= ST) mbar_wait(&ring.empty_v[st], parity);
+        mbar_expect_tx(&ring.full_v[st], P::KV_BYTES);
+        for (int cb = 0; cb < D / 64; ++cb)
+          tma_load_4d(smem + P::v_slot(st) + cb * BK * 128, &tm_v,
+                      &ring.full_v[st], cb * 64, kb * BK, hk, tile.b);
+      }
+    }
+  } else {
+    setmaxnreg_inc<BF16_CONSUMER_REGS>();
+    consume<D, P>(smem, NoScales{}, ring, qbar, threadIdx.x / 128 - 1,
+                  tile.qt, lo, hi, T, S, pos, window, scale_log2, out);
+  }
+}
+
+template <int D, class Dst>
+int launch_bf16_d(const void* q, const void* k, const void* v, Dst dst,
+                  const int* kb_lo, const int* kb_hi, int B, int H, int KVH,
+                  int T, int S, long long q_sb, long long q_sh,
+                  long long q_st, int pos, int window, float scale_log2,
+                  cudaStream_t stream) {
+  CUtensorMap tm_q, tm_k, tm_v;
+  int err = q_tensor_map(&tm_q, q, B, H, T, D, q_sb, q_sh, q_st);
+  constexpr int BK = BfPlan<D>::BK;
+  if (!err) err = kv_tensor_map(&tm_k, k, B, KVH, S, D, false, BK);
+  if (!err) err = kv_tensor_map(&tm_v, v, B, KVH, S, D, false, BK);
+  if (err) return err;
+  constexpr int smem = BfPlan<D>::SMEM;
+  // above 48 KB a kernel must opt in to dynamic shared memory
+  cudaError_t cerr = cudaFuncSetAttribute(
+      bf16_kernel<D, Dst>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (cerr != cudaSuccess) return (int)cerr;
+  dim3 grid(H, (T + BQ - 1) / BQ, B);
+  bf16_kernel<D, Dst><<<grid, THREADS, smem, stream>>>(
+      tm_q, tm_k, tm_v, dst, kb_lo, kb_hi, H, KVH, T, S, pos, window,
+      scale_log2);
+  return (int)cudaGetLastError();
+}
+
+// One call of the bf16 kernel at head width D (64, 128 or 256). Returns 0,
+// a cudaError_t or ERR_TENSOR_MAP. `kb_lo` may be null (no window: 0).
+template <class Dst>
+int launch_bf16(const void* q, const void* k, const void* v, Dst dst,
+                const int* kb_lo, const int* kb_hi, int B, int H, int KVH,
+                int T, int S, int D, long long q_sb, long long q_sh,
+                long long q_st, int pos, int window, float scale_log2,
+                cudaStream_t stream) {
+  switch (D) {
+    case 64:
+      return launch_bf16_d<64>(q, k, v, dst, kb_lo, kb_hi, B, H, KVH, T, S,
+                               q_sb, q_sh, q_st, pos, window, scale_log2,
+                               stream);
+    case 128:
+      return launch_bf16_d<128>(q, k, v, dst, kb_lo, kb_hi, B, H, KVH, T, S,
+                                q_sb, q_sh, q_st, pos, window, scale_log2,
+                                stream);
+    case 256:
+      return launch_bf16_d<256>(q, k, v, dst, kb_lo, kb_hi, B, H, KVH, T, S,
+                                q_sb, q_sh, q_st, pos, window, scale_log2,
+                                stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace fp90

@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from cake_tpu_torch.models.config import LlamaConfig
+from cake_tpu_torch.ops import ring
 from cake_tpu_torch.ops.attention import self_attention_block
 from cake_tpu_torch.ops.kvcache import KVCache
 from cake_tpu_torch.ops.mlp import swiglu
@@ -258,7 +259,7 @@ def _embed_normalizer(hidden: int, dtype: torch.dtype) -> float:
 
 def block_forward(layer: Params, x: torch.Tensor, k_cache, v_cache,
                   cos_t: torch.Tensor, sin_t: torch.Tensor, pos,
-                  config: LlamaConfig, reduce=None):
+                  config: LlamaConfig, reduce=None, sp=None):
     """One pre-norm decoder block; writes this layer's cache (a tensor or
     a :class:`~cake_tpu_torch.ops.kvcache.QuantizedKV`) in place. The
     family's deltas are read off the layer dict (``bq``/``bo``,
@@ -267,7 +268,9 @@ def block_forward(layer: Params, x: torch.Tensor, k_cache, v_cache,
     (:func:`cake_tpu_torch.ops.rope.rope_slice`). Under tensor parallelism
     ``config`` is the rank's local one (its heads and intermediate width,
     :func:`~cake_tpu_torch.parallel.mesh.local_config`) and ``reduce`` the
-    all-reduce over tp after each row-parallel linear."""
+    all-reduce over tp after each row-parallel linear. ``sp`` (a
+    :class:`~cake_tpu_torch.ops.ring.SeqShard`): the cache is this rank's
+    range of a sequence-sharded one, attended in ``sp.mode``."""
     h = rms_norm(x, layer["attn_norm"], config.rms_norm_eps,
                  offset=config.rms_norm_offset)
     attn_out, k_cache, v_cache = self_attention_block(
@@ -275,7 +278,7 @@ def block_forward(layer: Params, x: torch.Tensor, k_cache, v_cache,
         v_cache, cos_t, sin_t, pos, config.num_attention_heads,
         config.num_key_value_heads, window=config.sliding_window,
         bq=layer.get("bq"), bk=layer.get("bk"), bv=layer.get("bv"),
-        bo=layer.get("bo"), reduce=reduce)
+        bo=layer.get("bo"), reduce=reduce, sp=sp)
     x = x + attn_out
     h = rms_norm(x, layer["mlp_norm"], config.rms_norm_eps,
                  offset=config.rms_norm_offset)
@@ -292,15 +295,15 @@ def block_forward(layer: Params, x: torch.Tensor, k_cache, v_cache,
 
 def forward_layers(layers: list[Params], x: torch.Tensor, cache: KVCache,
                    cos: torch.Tensor, sin: torch.Tensor, pos,
-                   config: LlamaConfig,
-                   reduce=None) -> tuple[torch.Tensor, KVCache]:
+                   config: LlamaConfig, reduce=None,
+                   sp=None) -> tuple[torch.Tensor, KVCache]:
     """Run the decoder blocks ``layers`` (one dict per layer, see
     :func:`unstack_layers`) over ``x [B, T, hidden]`` at ``pos``; the RoPE
     rows are sliced once for all of them."""
     cos_t, sin_t = rope_slice(cos, sin, pos, x.shape[1])
     for i, layer in enumerate(layers):
         x, _, _ = block_forward(layer, x, cache.k[i], cache.v[i], cos_t,
-                                sin_t, pos, config, reduce)
+                                sin_t, pos, config, reduce, sp)
     return x, cache
 
 
@@ -330,8 +333,12 @@ class Llama(nn.Module):
     tp and broadcast to the other stages, so ``logits`` returns the full
     logits on every rank and every rank samples the same token.
     :meth:`rows` and :meth:`gather_rows` split a batch over dp and gather
-    its logits back. Without ``coll`` nothing of this runs: no collective
-    and no launch is added."""
+    its logits back. At ``sp > 1`` the cache is this rank's range of the
+    sequence axis and every call names its attention mode
+    (``sp_mode``, :mod:`cake_tpu_torch.ops.ring`): a ring prompt pass
+    runs this rank's chunk of the tokens, and :meth:`prompt_logits` takes
+    each row's last token from the shard that holds it. Without ``coll``
+    nothing of this runs: no collective and no launch is added."""
 
     def __init__(self, config: LlamaConfig, params: Params, coll=None):
         super().__init__()
@@ -348,6 +355,8 @@ class Llama(nn.Module):
         self.stage = coll.coords["stage"] if coll is not None else 0
         # this rank's index on dp: which rows of a batch it runs
         self.rows_index = coll.coords["dp"] if coll is not None else 0
+        # and on sp: which range of the sequence its cache holds
+        self.sp_index = coll.coords["sp"] if coll is not None else 0
         # JAX's tables are the cache's length; rows below it are the same
         # whatever the length, so one table per length seen is kept
         self._rope: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
@@ -368,11 +377,42 @@ class Llama(nn.Module):
     def last_stage(self) -> bool:
         return self.stage == self.plan.num_stages - 1
 
-    def hidden(self, tokens: torch.Tensor, cache: KVCache,
-               pos) -> torch.Tensor:
+    def _seq_shard(self, sp_mode: str | None):
+        """The :class:`~cake_tpu_torch.ops.ring.SeqShard` of a call (None
+        at sp 1, where the mode is not read)."""
+        if self.plan.sp == 1:
+            return None
+        if sp_mode is None:
+            raise ValueError(
+                "a call over a sequence-sharded cache names its attention "
+                f"mode (sp_mode: one of {ring.MODES})")
+        return ring.SeqShard(self.coll, self.sp_index, self.plan.sp,
+                             sp_mode)
+
+    def hidden(self, tokens: torch.Tensor, cache: KVCache, pos,
+               sp_mode: str | None = None) -> torch.Tensor:
         """The last stage's output activation (on an earlier stage: its
-        own stage's, which only gives :meth:`logits` its shape)."""
-        cos, sin = self.rope(cache.max_seq)
+        own stage's, which only gives :meth:`logits` its shape). At
+        ``sp > 1``, ``sp_mode`` "ring" runs this rank's chunk of the
+        ``T`` tokens at positions ``sp_index * T/sp ..`` (``pos`` must be
+        0) and returns its ``T/sp`` rows; "chunk" and "decode" run every
+        token at ``pos`` on every sp rank."""
+        sp = self._seq_shard(sp_mode)
+        # the tables cover the global window
+        cos, sin = self.rope(cache.max_seq * self.plan.sp)
+        if sp is not None and sp.mode == "ring":
+            if not (isinstance(pos, int) and pos == 0):
+                raise ValueError(
+                    "per-row positions are not supported by sp prefill "
+                    "(rows share the chunk-offset position layout)"
+                    if isinstance(pos, torch.Tensor) else
+                    f"a ring prompt pass starts at position 0, not {pos}")
+            if tokens.shape[1] % sp.size:
+                raise ValueError(f"prompt bucket {tokens.shape[1]} does not "
+                                 f"split into sp={sp.size} chunks")
+            t_l = tokens.shape[1] // sp.size
+            tokens = tokens[:, sp.index * t_l:(sp.index + 1) * t_l]
+            pos = sp.index * t_l
         if self.stage == 0:
             x = embed_tokens(self.params, tokens, self.config)
         else:
@@ -380,7 +420,7 @@ class Llama(nn.Module):
                 (*tokens.shape, self.config.hidden_size),
                 self.config.torch_dtype)
         x, _ = forward_layers(self.layers, x, cache, cos, sin, pos,
-                              self.layer_config, self._reduce)
+                              self.layer_config, self._reduce, sp)
         if not self.last_stage:
             self.coll.send_next(x)
         return x
@@ -399,6 +439,34 @@ class Llama(nn.Module):
             out = out.contiguous()
             self.coll.broadcast(out, "stage", self.plan.num_stages - 1)
         return out
+
+    def prompt_logits(self, tokens: torch.Tensor, cache: KVCache, last,
+                      pos0: int = 0) -> torch.Tensor:
+        """A prompt pass of ``tokens [B, T]`` at positions ``pos0 ..``:
+        f32 logits ``[B, vocab]`` at each row's ``last`` (an int or a
+        ``[B]`` tensor of in-chunk indices). At ``sp > 1`` a pass from
+        position 0 is a ring pass, whose row ``last`` lies on one shard:
+        the owner contributes it and the others zeros, summed over sp (the
+        JAX package's ``_select_last_sp``); a pass at an offset is the
+        chunk mode, the same tokens on every sp rank."""
+        ring_pass = self.plan.sp > 1 and pos0 == 0
+        mode = ("ring" if ring_pass else "chunk") if self.plan.sp > 1 \
+            else None
+        x = self.hidden(tokens, cache, pos0, sp_mode=mode)
+        b = x.shape[0]
+        last = torch.as_tensor(last, device=x.device).long().reshape(-1)
+        last = last.expand(b)
+        rows = torch.arange(b, device=x.device)
+        if not ring_pass:
+            return self.logits(x[rows, last])
+        t_l = x.shape[1]
+        local = last - self.sp_index * t_l
+        own = (local >= 0) & (local < t_l)
+        val = torch.where(own[:, None], x[rows, local.clamp(0, t_l - 1)],
+                          torch.zeros((), dtype=x.dtype, device=x.device))
+        if self.last_stage:  # the other stages' rows only give a shape
+            self.coll.all_reduce(val, "sp")
+        return self.logits(val)
 
     def rows(self, t):
         """This dp rank's rows of a batch tensor ``t [B, ...]`` (padded up
@@ -422,5 +490,7 @@ class Llama(nn.Module):
 
     def forward(self, tokens: torch.Tensor, cache: KVCache,
                 pos) -> torch.Tensor:
-        """Logits ``[B, vocab]`` f32 at the last position."""
-        return self.logits(self.hidden(tokens, cache, pos)[:, -1, :])
+        """Logits ``[B, vocab]`` f32 at the last position (a decode step:
+        at ``sp > 1`` in the "decode" mode)."""
+        return self.logits(self.hidden(tokens, cache, pos,
+                                       sp_mode="decode")[:, -1, :])

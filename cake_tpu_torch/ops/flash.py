@@ -15,6 +15,18 @@ versions :func:`flash_attention_ref`, :func:`flash_attention_q8_ref`,
 tests hold against the JAX package and ``chip_smoke.py`` holds the kernels
 against on the card.
 
+The statistics forms :func:`flash_attention_stats`, :func:`flash_decode_stats`
+and :func:`flash_decode_q8_stats` (sequence parallelism:
+:mod:`cake_tpu_torch.ops.ring`) run the same kernels with another epilogue
+and return the online-softmax state ``(o [B, H, T, D] f32 unnormalized,
+m [B, H, T] f32 row max in natural-log units, l [B, H, T] f32 row sum of
+exp(score - m))`` of ``cake_tpu/ops/ring.py attend_stats``, over a key
+block whose first key sits at position 0 and from a query offset that may
+lie anywhere relative to it; a row with no live key gives exactly
+``m = -1e30, l = 0, o = 0``. Their plain versions
+(:func:`flash_attention_stats_ref`, :func:`flash_decode_stats_ref`,
+:func:`flash_decode_q8_stats_ref`) are :func:`plain_stats`.
+
 Numerics of both the kernels and the plain versions: f32 scores times
 ``1/sqrt(D)``, masked entries set to ``-1e30``, the softmax kept in f32,
 probabilities rounded to V's dtype before the PV product, output in q's
@@ -97,6 +109,29 @@ def _plain_attention(q, k, v, qpos, kpos, window):
     return out.reshape(b, h, t, d).to(q.dtype)
 
 
+def plain_stats(q, k, v, qpos, kpos, window):
+    """The online-softmax state of masked GQA attention of ``q [B, H, T,
+    D]`` over ``k/v [B, KVH, S', D]`` (keys at positions ``kpos [S']``,
+    query rows at ``qpos [B or 1, T]``), in f32 as ``cake_tpu/ops/ring.py
+    attend_stats`` computes it: ``(o, m, l)``, P rounded to V's dtype
+    before the PV product, masked keys adding nothing (a row with no live
+    key gives ``m = -1e30, l = 0, o = 0``)."""
+    b, h, t, d = q.shape
+    kvh = k.shape[1]
+    qg = q.reshape(b, kvh, h // kvh, t, d).float()
+    scores = torch.einsum("bkgtd,bksd->bkgts", qg, k.float()) / math.sqrt(d)
+    mask = kpos[None, None, :] <= qpos[:, :, None]  # [B|1, T, S']
+    if window is not None:
+        mask &= kpos[None, None, :] > qpos[:, :, None] - window
+    mask = mask[:, None, None]
+    scores = torch.where(mask, scores, NEG_INF)
+    m = scores.amax(dim=-1)
+    p = torch.where(mask, torch.exp(scores - m[..., None]), 0.0)
+    o = torch.einsum("bkgts,bksd->bkgtd", p.to(v.dtype).float(), v.float())
+    return (o.reshape(b, h, t, d), m.reshape(b, h, t),
+            p.sum(dim=-1).reshape(b, h, t))
+
+
 def prefill_block_k(d: int) -> int:
     """Keys a KV tile of the prefill kernels at head_dim ``d`` (the plain
     versions read other widths in the 128-key tiles)."""
@@ -169,6 +204,41 @@ def flash_decode_q8_ref(q: torch.Tensor, k_q: torch.Tensor,
     to q's dtype (``dequant_kv``), then :func:`flash_decode_ref`, which is
     what the JAX package computes at decode over the int8 cache."""
     return flash_decode_ref(
+        q, kv.dequant_kv(kv.QuantizedKV(k_q, k_scale), q.dtype),
+        kv.dequant_kv(kv.QuantizedKV(v_q, v_scale), q.dtype), pos,
+        window=window)
+
+
+def flash_attention_stats_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, pos: int,
+                              window: int | None = None):
+    """Plain version of :func:`flash_attention_stats`: query row ``t`` at
+    ``pos + t``, the keys at ``0 .. S - 1``."""
+    dev = q.device
+    qpos = (int(pos) + torch.arange(q.shape[2], device=dev))[None]
+    return plain_stats(q, k, v, qpos, torch.arange(k.shape[2], device=dev),
+                       window)
+
+
+def flash_decode_stats_ref(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, pos, window: int | None = None):
+    """Plain version of :func:`flash_decode_stats`: query ``t`` of row
+    ``b`` at ``pos[b] + t``, the keys at ``0 .. S - 1``."""
+    dev = q.device
+    pos_t = _row_positions(pos, q.shape[0], dev).long()
+    qpos = pos_t[:, None] + torch.arange(q.shape[2], device=dev)
+    return plain_stats(q, k, v, qpos, torch.arange(k.shape[2], device=dev),
+                       window)
+
+
+def flash_decode_q8_stats_ref(q: torch.Tensor, k_q: torch.Tensor,
+                              k_scale: torch.Tensor, v_q: torch.Tensor,
+                              v_scale: torch.Tensor, pos,
+                              window: int | None = None):
+    """Plain version of :func:`flash_decode_q8_stats`: the shard
+    dequantized to q's dtype, as the JAX package's sp decode does, then
+    :func:`flash_decode_stats_ref`."""
+    return flash_decode_stats_ref(
         q, kv.dequant_kv(kv.QuantizedKV(k_q, k_scale), q.dtype),
         kv.dequant_kv(kv.QuantizedKV(v_q, v_scale), q.dtype), pos,
         window=window)
@@ -281,6 +351,21 @@ _PREFILL_Q8_ARGS = (_VP,) * 8 + (_I,) * 6 + (_LL,) * 6 + (_I, _I, _F, _VP)
 # scale, stream
 _DECODE_ARGS = (_VP,) * 8 + (_I,) * 7 + (_LL,) * 6 + (_I, _F, _VP)
 _DECODE_Q8_ARGS = (_VP,) * 10 + (_I,) * 7 + (_LL,) * 6 + (_I, _F, _VP)
+# the statistics forms: o, m and l in the place of o and its strides
+_PREFILL_STATS_ARGS = (_VP,) * 8 + (_I,) * 6 + (_LL,) * 3 + (_I, _I, _F,
+                                                             _VP)
+_DECODE_STATS_ARGS = (_VP,) * 10 + (_I,) * 7 + (_LL,) * 3 + (_I, _F, _VP)
+_DECODE_Q8_STATS_ARGS = (_VP,) * 12 + (_I,) * 7 + (_LL,) * 3 + (_I, _F,
+                                                                _VP)
+
+
+def _stats_outputs(q: torch.Tensor):
+    """Empty ``(o [B, H, T, D], m [B, H, T], l [B, H, T])`` f32, contiguous,
+    on q's device."""
+    b, h, t, d = q.shape
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return (torch.empty(b, h, t, d, **f32), torch.empty(b, h, t, **f32),
+            torch.empty(b, h, t, **f32))
 
 
 def flash_attention(q: torch.Tensor, k_all: torch.Tensor,
@@ -314,6 +399,33 @@ def flash_attention(q: torch.Tensor, k_all: torch.Tensor,
     build.check(err, lib, "flash_prefill")
     build.count_launch("flash_prefill")
     return out
+
+
+def flash_attention_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          pos: int, *, window: int | None = None):
+    """The statistics form of :func:`flash_attention`: ``q [B, H, T, D]``
+    (roped) over the key block ``k/v [B, KVH, S, D]``, query row ``t`` at
+    ``pos + t`` relative to the block's first key; ``pos`` is any host int
+    (a ring visit of an earlier block lies wholly past its keys, one of a
+    later block wholly before them). Returns ``(o, m, l)`` (module
+    docstring); only the live KV tiles are read."""
+    if q.device.type == "cpu":
+        return flash_attention_stats_ref(q, k, v, pos, window=window)
+    _check_operands("flash_attention_stats", q, k, v)
+    b, h, t, d = q.shape
+    kvh, s = k.shape[1], k.shape[2]
+    pos = int(pos)
+    kb_lo, kb_hi = _prefill_bounds(t, pos, d, window, q.device)
+    o, m, l = _stats_outputs(q)
+    lib, fn = _entry("flash_prefill_stats", _PREFILL_STATS_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             m.data_ptr(), l.data_ptr(), _ptr(kb_lo), kb_hi.data_ptr(), b, h,
+             kvh, t, s, d, *q.stride()[:3], pos,
+             -1 if window is None else window, _LOG2E / math.sqrt(d),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, lib, "flash_prefill_stats")
+    build.count_launch("flash_prefill_stats")
+    return o, m, l
 
 
 def flash_attention_q8(q: torch.Tensor, k_q: torch.Tensor,
@@ -379,10 +491,11 @@ def _counters(device, n: int) -> torch.Tensor:
 
 
 def _decode(name: str, argtypes, q: torch.Tensor, kv_ptrs: tuple, s: int,
-            kvh: int, pos, window) -> torch.Tensor:
+            kvh: int, pos, window, stats: bool = False):
     """One launch of decode kernel ``name`` over the cache pointers
     ``kv_ptrs``, for any number T of query positions; partials, counters
-    and the output allocated here, no tensor op on ``pos``."""
+    and the output allocated here, no tensor op on ``pos``. ``stats``: the
+    statistics form, returning ``(o, m, l)``."""
     b, h, t, d = q.shape
     pos_t = _row_positions(pos, b, q.device)
     tiles = decode_tiles(h, kvh, t)
@@ -395,11 +508,17 @@ def _decode(name: str, argtypes, q: torch.Tensor, kv_ptrs: tuple, s: int,
         part_ml = torch.empty(b * h * t * nsplit * 2, dtype=torch.float32,
                               device=q.device)
         counters = _counters(q.device, b * kvh * tiles)
-    out = _bthd_output(q)
     lib, fn = _entry(name, argtypes)
-    err = fn(q.data_ptr(), *kv_ptrs, pos_t.data_ptr(), out.data_ptr(),
-             _ptr(part_o), _ptr(part_ml), _ptr(counters), b, h, kvh, s, d,
-             t, nsplit, *q.stride()[:3], *out.stride()[:3],
+    if stats:
+        out = _stats_outputs(q)
+        dst = (*(x.data_ptr() for x in out), _ptr(part_o), _ptr(part_ml),
+               _ptr(counters), b, h, kvh, s, d, t, nsplit, *q.stride()[:3])
+    else:
+        out = _bthd_output(q)
+        dst = (out.data_ptr(), _ptr(part_o), _ptr(part_ml), _ptr(counters),
+               b, h, kvh, s, d, t, nsplit, *q.stride()[:3],
+               *out.stride()[:3])
+    err = fn(q.data_ptr(), *kv_ptrs, pos_t.data_ptr(), *dst,
              -1 if window is None else window, _LOG2E / math.sqrt(d),
              torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, lib, name)
@@ -446,3 +565,38 @@ def flash_decode_q8(q: torch.Tensor, k_q: torch.Tensor,
                    (k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
                     v_scale.data_ptr()), k_q.shape[2], k_q.shape[1], pos,
                    window)
+
+
+def flash_decode_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       pos, *, window: int | None = None):
+    """The statistics form of :func:`flash_decode`: ``q [B, H, T, D]`` over
+    one shard ``k/v [B, KVH, S, D]`` of a sequence-sharded cache, query
+    ``t`` of row ``b`` at ``pos[b] + t`` relative to the shard's first key
+    (any integer: negative for a shard wholly past the row, ``>= S`` for
+    one wholly behind it). One launch, no host sync on a tensor ``pos``.
+    Returns ``(o, m, l)`` (module docstring)."""
+    if q.device.type == "cpu":
+        return flash_decode_stats_ref(q, k, v, pos, window=window)
+    _check_operands("flash_decode_stats", q, k, v,
+                    max_group=DECODE_MAX_GROUP)
+    return _decode("flash_decode_stats", _DECODE_STATS_ARGS, q,
+                   (k.data_ptr(), v.data_ptr()), k.shape[2], k.shape[1], pos,
+                   window, stats=True)
+
+
+def flash_decode_q8_stats(q: torch.Tensor, k_q: torch.Tensor,
+                          k_scale: torch.Tensor, v_q: torch.Tensor,
+                          v_scale: torch.Tensor, pos, *,
+                          window: int | None = None):
+    """:func:`flash_decode_stats` over one shard of the int8 cache, read
+    where it lies (:func:`flash_decode_q8`'s operands). Returns
+    ``(o, m, l)``."""
+    if q.device.type == "cpu":
+        return flash_decode_q8_stats_ref(q, k_q, k_scale, v_q, v_scale, pos,
+                                         window=window)
+    _check_operands("flash_decode_q8_stats", q, k_q, v_q,
+                    max_group=DECODE_MAX_GROUP, scales=(k_scale, v_scale))
+    return _decode("flash_decode_q8_stats", _DECODE_Q8_STATS_ARGS, q,
+                   (k_q.data_ptr(), k_scale.data_ptr(), v_q.data_ptr(),
+                    v_scale.data_ptr()), k_q.shape[2], k_q.shape[1], pos,
+                   window, stats=True)

@@ -51,6 +51,11 @@ SOURCES = {
     "flash_decode_q8": "flash_decode_q8.cu",
     "quant_matmul": "quant_matmul.cu",
     "quant4_matmul": "quant4_matmul.cu",
+    # the statistics forms of the flash kernels (ring attention and the
+    # sequence-sharded decode): the same headers, another epilogue
+    "flash_prefill_stats": "flash_prefill_stats.cu",
+    "flash_decode_stats": "flash_decode_stats.cu",
+    "flash_decode_q8_stats": "flash_decode_q8_stats.cu",
 }
 
 NVCC_FLAGS = (

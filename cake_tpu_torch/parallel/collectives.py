@@ -3,12 +3,19 @@ JAX package's collectives are ``psum``/``all_gather``/``ppermute`` inside
 one compiled program).
 
 One :class:`Collectives` per rank holds the rank's process group on each
-mesh axis above 1 (``dp``, ``stage``, ``tp``) and a gloo control group over
-every rank. Its operations are the only collectives of the port:
+mesh axis above 1 (``dp``, ``stage``, ``sp``, ``tp``) and a gloo control
+group over every rank. Its operations are the only collectives of the port:
 
-- ``all_reduce(t, TP)``: the row-parallel linears' partial sums;
+- ``all_reduce(t, TP)``: the row-parallel linears' partial sums; over
+  ``sp``, the last prompt token's activation from its owner shard and the
+  sequence-sharded decode's softmax statistics (``op="max"`` for the row
+  max, then the packed sums: :func:`cake_tpu_torch.ops.ring.combine_axis`);
 - ``all_gather(t, axis, dim)``: the vocab-sharded head's logits over tp,
-  and the batch rows' logits over dp;
+  the batch rows' logits over dp, and a ring prefill's roped K/V over sp
+  (the chunk layout into the cache's range layout);
+- ``ring_shift(t, SP)``: ring attention's rotation of a K/V block to the
+  next sp rank, the previous one's back (an ``isend``/``irecv`` pair
+  posted together, so no rank waits on a send first);
 - ``send_next``/``recv_prev``: the stage hand-off of the activation;
 - ``broadcast(t, STAGE, src)``: the last stage's logits to the others;
 - ``broadcast_object``: the controller's engine calls, over the control
@@ -35,7 +42,7 @@ from collections import defaultdict
 import torch
 import torch.distributed as dist
 
-from cake_tpu_torch.parallel.mesh import DP, STAGE, TP, MeshPlan
+from cake_tpu_torch.parallel.mesh import DP, SP, STAGE, TP, MeshPlan
 
 CONTROL = "control"
 SNAPSHOT = "snapshot"
@@ -61,7 +68,7 @@ class Collectives:
         self.device = torch.device(device)
         self.coords = plan.coords(rank)
         self._groups: dict[str, tuple] = {}
-        for axis in (DP, STAGE, TP):
+        for axis in (DP, STAGE, SP, TP):
             if plan.shape()[axis] == 1:
                 continue
             for line in plan.lines(axis):
@@ -108,18 +115,44 @@ class Collectives:
         return _Timed(self, axis, nbytes, device_type)
 
     # -- tensor collectives --------------------------------------------------
-    def all_reduce(self, t: torch.Tensor, axis: str = TP) -> torch.Tensor:
-        """Sum ``t`` over ``axis`` in place; returns it."""
+    def all_reduce(self, t: torch.Tensor, axis: str = TP,
+                   op: str = "sum") -> torch.Tensor:
+        """Reduce ``t`` over ``axis`` in place (``op`` "sum" or "max");
+        returns it."""
         group, _ = self._groups[axis]
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         with self._timed(axis, t.numel() * t.element_size(),
                          t.device.type):
             if self._staged(t):
                 buf = self._to_host(f"ar.{axis}", t)
-                dist.all_reduce(buf, group=group)
+                dist.all_reduce(buf, op=red, group=group)
                 t.copy_(buf)
             else:
-                dist.all_reduce(t, group=group)
+                dist.all_reduce(t, op=red, group=group)
         return t
+
+    def ring_shift(self, t: torch.Tensor, axis: str = SP) -> torch.Tensor:
+        """``t`` to the next rank of ``axis``' line (the last to the
+        first); returns the previous rank's ``t``, on this rank's device.
+        The send and the receive are posted together
+        (``batch_isend_irecv``), so the ring cannot deadlock."""
+        group, line = self._groups[axis]
+        i = line.index(self.rank)
+        nxt, prev = line[(i + 1) % len(line)], line[(i - 1) % len(line)]
+        t = t.contiguous()
+        with self._timed(axis, t.numel() * t.element_size(),
+                         t.device.type):
+            if self._staged(t):
+                src = self._to_host(f"rs.{axis}", t)
+                dst = self._buffer(f"rs.{axis}.in", t)
+            else:
+                src, dst = t, torch.empty_like(t)
+            ops = [dist.P2POp(dist.isend, src, nxt, group),
+                   dist.P2POp(dist.irecv, dst, prev, group)]
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+            out = dst.to(t.device, copy=True) if self._staged(t) else dst
+        return out
 
     def all_gather(self, t: torch.Tensor, axis: str,
                    dim: int = -1) -> torch.Tensor:

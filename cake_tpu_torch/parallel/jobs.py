@@ -20,7 +20,7 @@ from cake_tpu_torch.models.config import LlamaConfig
 from cake_tpu_torch.ops.kernels import build
 from cake_tpu_torch.ops.sampling import SamplerSettings
 from cake_tpu_torch.parallel.mesh import MeshPlan, shard_params
-from cake_tpu_torch.runtime.generator import _bucket
+from cake_tpu_torch.runtime.generator import prompt_bucket
 
 
 def _shard(ctx, config: LlamaConfig, plan: MeshPlan, params=None,
@@ -103,11 +103,10 @@ def mesh_generate(ctx, config: LlamaConfig, plan: MeshPlan,
     if want_logits:
         cache = init_cache_on_mesh(config, plan, 1, gen.max_seq,
                                    quant=kv_quant, device=ctx.device)
-        t_pad = _bucket(len(prompt), gen.max_seq)
+        t_pad = prompt_bucket(len(prompt), gen.max_seq, plan.sp)
         tokens = torch.tensor([prompt + [0] * (t_pad - len(prompt))],
                               device=ctx.device)
-        x = gen.model.hidden(tokens, cache, 0)
-        logits = gen.model.logits(x[:, len(prompt) - 1])[0]
+        logits = gen.model.prompt_logits(tokens, cache, len(prompt) - 1)[0]
         logits = logits.cpu().numpy() if ctx.rank == 0 else None
         del cache
     _sync(ctx.device)
@@ -222,7 +221,7 @@ def mesh_batch(ctx, config: LlamaConfig, plan: MeshPlan,
     shard = _shard(ctx, config, plan, params, model_dir, quantize)
     gen = BatchGenerator(config, shard, settings=settings, coll=coll,
                          device=ctx.device, num_stages=plan.num_stages,
-                         tp=plan.tp, dp=plan.dp, **engine_kw)
+                         tp=plan.tp, dp=plan.dp, sp=plan.sp, **engine_kw)
     _sync(ctx.device)
     coll.barrier()
     build.reset_launches()
@@ -261,7 +260,7 @@ def mesh_serve(ctx, config: LlamaConfig, plan: MeshPlan, prompts: list,
     gen = BatchGenerator(config, _shard(ctx, config, plan, params),
                          tokenizer=tokenizer, settings=settings, coll=coll,
                          device=ctx.device, num_stages=plan.num_stages,
-                         tp=plan.tp, dp=plan.dp, **engine_kw)
+                         tp=plan.tp, dp=plan.dp, sp=plan.sp, **engine_kw)
     if ctx.rank != 0:
         follow(gen, coll)
         return {"rank": ctx.rank}

@@ -17,10 +17,15 @@ rank's place in the same grid is its coordinates: the global rank is
   after it. The head is vocab-sharded and its logits gathered. The
   embedding and the norms are replicated.
 - ``dp``: the batch rows split over dp; a single stream runs at dp 1.
-- ``sp`` and ``ep`` are refused: ring attention and expert parallelism are
-  not ported yet.
+- ``sp``: the KV cache's sequence axis splits into equal ranges, rank
+  ``i`` holding positions ``[i * S/sp, (i + 1) * S/sp)``; a prompt pass
+  runs ring attention over ``T/sp``-token chunks and a decode step
+  attends each range and merges the softmax statistics
+  (:mod:`cake_tpu_torch.ops.ring`). The weights are replicated over sp.
+- ``ep`` is refused: expert parallelism is not ported yet.
 
-The KV cache of a rank is ``[L/S, B/dp, KVH/tp, S, D]``, as ``CACHE_SPEC``.
+The KV cache of a rank is ``[L/S, B/dp, KVH/tp, max_seq/sp, D]``, as
+``CACHE_SPEC``.
 :func:`param_specs` names the axis of every dimension of every leaf, as
 the JAX package's ``PartitionSpec`` tree does, and :func:`shard_params`
 slices a full tree down to one rank's shard by it.
@@ -45,13 +50,14 @@ NEXT_SLICE = "not ported yet (the next slice of the port)"
 
 
 def check_axes(sp: int = 1, ep: int = 1) -> None:
-    """Refuse the axes that are not ported: ``sp`` (ring attention) and
-    ``ep`` (expert parallelism)."""
-    wide = [f"{k}={v}" for k, v in (("sp", sp), ("ep", ep)) if v != 1]
-    if wide:
+    """Refuse the axis that is not ported: ``ep`` (expert parallelism).
+    ``sp`` is checked by :func:`validate_shardable`."""
+    if sp < 1:
+        raise ValueError(f"sp={sp}: the sequence axis needs sp >= 1")
+    if ep != 1:
         raise ValueError(
-            f"{', '.join(wide)}: sequence and expert parallelism are "
-            f"{NEXT_SLICE}; the port's mesh runs dp, stages and tp")
+            f"ep={ep}: expert parallelism is {NEXT_SLICE}; the port's mesh "
+            "runs dp, stages, sp and tp")
 
 
 def make_mesh(num_stages: int = 1, tp: int = 1, dp: int = 1, sp: int = 1,
@@ -354,16 +360,25 @@ def local_batch(batch: int, plan: MeshPlan) -> int:
     return -(-batch // plan.dp)
 
 
+def local_seq(max_seq: int, plan: MeshPlan) -> int:
+    """Positions a sp rank holds of a ``max_seq`` window (its range of the
+    sequence axis)."""
+    if max_seq % plan.sp:
+        raise ValueError(f"max_seq {max_seq} not divisible by sp {plan.sp}")
+    return max_seq // plan.sp
+
+
 def init_cache_on_mesh(config: LlamaConfig, plan: MeshPlan, batch: int = 1,
                        max_seq: int | None = None, quant: str | None = None,
                        batch_replicated: bool = False,
                        device=None) -> KVCache:
-    """One rank's zeroed cache: ``[L/S, B/dp, KVH/tp, S, D]`` (``B`` whole
-    with ``batch_replicated``), allocated where it lives."""
+    """One rank's zeroed cache: ``[L/S, B/dp, KVH/tp, max_seq/sp, D]``
+    (``B`` whole with ``batch_replicated``), allocated where it lives."""
     loc = local_config(config, plan)
     rows = batch if batch_replicated else local_batch(batch, plan)
-    return init_cache(loc, batch=rows, max_seq=max_seq, device=device,
-                      quant=quant)
+    return init_cache(loc, batch=rows,
+                      max_seq=local_seq(max_seq or config.max_seq_len, plan),
+                      device=device, quant=quant)
 
 
 # a stream's pages as a snapshot carries them: every cache half stacked

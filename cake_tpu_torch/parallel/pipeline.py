@@ -17,8 +17,15 @@ row-parallel outputs, and every rank gets the full logits
 ``_select_stage0``). A batch splits over dp (:meth:`Llama.rows`) and its
 logits are gathered back (:meth:`Llama.gather_rows`), so every rank
 samples every row the same way. The caches are the rank's shards, written
-in place. ``sp`` and ``ep`` above 1 are refused
-(:func:`cake_tpu_torch.parallel.mesh.check_axes`).
+in place. At ``sp > 1`` each ``build_*`` function names its attention
+mode, as the JAX ``sp_prefill``/``sp_chunk`` flags do
+(:mod:`cake_tpu_torch.ops.ring`): the batched prefill from position 0 is
+a ring pass (the bucket split over sp, the last tokens taken from their
+owner shards), one at an offset and every admission chunk run replicated
+over sp against the sequence-sharded cache, and the decode steps merge
+each shard's statistics. ``ep`` above 1 is
+refused (:func:`cake_tpu_torch.parallel.mesh.check_axes`); so are the paged
+decode and the verifies at ``sp > 1``.
 
 The decode's ``paged=True`` form runs the same body over the paged KV
 layout (:mod:`cake_tpu_torch.kvpool`): it gathers every stream's pages
@@ -44,15 +51,17 @@ def build_sharded_prefill(model: Llama):
     the cache) at positions ``pos0 .. pos0 + T - 1`` of every row; each
     row's logits are read at its own last real token ``last_index[b]``.
     The padding writes junk K/V past each prompt, which stays beyond the
-    row's causal frontier until its decode steps overwrite it."""
+    row's causal frontier until its decode steps overwrite it. At
+    ``sp > 1`` a pass from position 0 is a ring pass (``T`` a multiple of
+    sp), one at ``pos0 > 0`` the chunk mode
+    (:meth:`~cake_tpu_torch.models.llama.Llama.prompt_logits`)."""
 
     def prefill(tokens: torch.Tensor, cache: KVCache,
                 last_index: torch.Tensor, pos0: int = 0) -> torch.Tensor:
-        x = model.hidden(model.rows(tokens), cache, pos0)
-        rows = torch.arange(x.shape[0], device=x.device)
-        last = model.rows(last_index.to(x.device).long())
-        return model.gather_rows(model.logits(x[rows, last]),
-                                 tokens.shape[0])
+        last = model.rows(last_index.to(model.device).long())
+        return model.gather_rows(
+            model.prompt_logits(model.rows(tokens), cache, last, pos0),
+            tokens.shape[0])
 
     return prefill
 
@@ -64,11 +73,13 @@ def build_admit_prefill(model: Llama):
     attends the staging cache's committed positions below ``pos0``, so a
     prompt prefilled chunk by chunk (or above a stored prefix row) gets the
     same KV as one pass; ``last_local`` is the in-chunk index of the
-    prompt's last token (read on the final chunk)."""
+    prompt's last token (read on the final chunk). At ``sp > 1`` the
+    chunk runs replicated over sp against the sequence-sharded staging
+    cache (the "chunk" mode)."""
 
     def admit(tokens: torch.Tensor, cache: KVCache, pos0: int,
               last_local: int) -> torch.Tensor:
-        x = model.hidden(tokens, cache, pos0)
+        x = model.hidden(tokens, cache, pos0, sp_mode="chunk")
         return model.logits(x[:, last_local])
 
     return admit
@@ -144,6 +155,9 @@ def build_sharded_decode(model: Llama, settings: SamplerSettings,
     (:func:`~cake_tpu_torch.kvpool.pool.scatter_back`): the view holds the
     slot cache's contents, so the ids are the slot layout's."""
     vocab = model.config.vocab_size
+    if paged and model.plan.sp > 1:
+        raise ValueError("paged decode requires dp == 1 and sp == 1 "
+                         "(the page axis is unsharded)")
 
     def step(token, cache, pos, stream_ids, history, hist_slot, index,
              mask, lp):

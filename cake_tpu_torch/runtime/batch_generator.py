@@ -73,10 +73,15 @@ update) with one host copy at the end. Greedy streams are identical to the
 plain engine's; sampled streams are distribution-identical through
 rejection sampling, with draws keyed by (seed, stream id, position).
 
-Over a ``(dp, stage, tp)`` rank mesh (``coll=``) every rank runs the same
-engine calls: the batch's rows split over dp, each rank holds its layers,
-KV heads and rows of the cache, and every rank gets the gathered logits
-and samples the same tokens. The paged layout runs at dp 1. A snapshot
+Over a ``(dp, stage, sp, tp)`` rank mesh (``coll=``) every rank runs the
+same engine calls: the batch's rows split over dp, each rank holds its
+layers, KV heads, rows and (at ``sp > 1``) range of the window of the
+cache, and every rank gets the gathered logits and samples the same
+tokens. At ``sp > 1`` the batched prefill is a ring pass (its bucket
+rounded up to a multiple of sp), an offset prefill and every admission
+chunk run replicated over sp against the sequence-sharded cache, and each
+decode step merges the shards' statistics (:mod:`cake_tpu_torch.ops.ring`).
+The paged layout runs at dp 1 and sp 1. A snapshot
 over the mesh is the single device's: its export gathers the stream's
 pages to rank 0 (each rank holds its stage's layers and its tp shard's
 kv heads), which assembles and encodes them, and an import scatters them
@@ -84,7 +89,8 @@ back, each rank pinning and writing its own part
 (:func:`~cake_tpu_torch.parallel.mesh.shard_pages`).
 
 Not ported yet, and refused with an error in the constructor: the
-interleaved pipeline schedules and the sp and ep axes.
+interleaved pipeline schedules, the ep axis and speculation (``spec_k``)
+at ``sp > 1``.
 """
 
 from __future__ import annotations
@@ -126,6 +132,7 @@ from cake_tpu_torch.parallel.mesh import (
     assemble_pages,
     check_axes,
     local_batch,
+    local_seq,
     shard_pages,
     validate_shardable,
 )
@@ -249,13 +256,13 @@ class BatchGenerator:
     ):
         """``coll`` (a rank's
         :class:`~cake_tpu_torch.parallel.collectives.Collectives`) runs the
-        engine as that rank's part of a ``(dp, stage, tp)`` mesh: every
+        engine as that rank's part of a ``(dp, stage, sp, tp)`` mesh: every
         rank runs the same engine calls over its shard of the model
         (``params`` are the rank's shard) and its cache, ``[L/S, B/dp,
-        KVH/tp, S, D]``; the batch's logits are gathered on every rank, so
-        every rank samples every row the same way and keeps the same host
-        state. ``num_stages``, ``tp`` and ``dp`` above 1 need it and must
-        be its plan's. At stages > 1 the steps run the serialized
+        KVH/tp, max_seq/sp, D]``; the batch's logits are gathered on every
+        rank, so every rank samples every row the same way and keeps the
+        same host state. ``num_stages``, ``tp``, ``dp`` and ``sp`` above 1
+        need it and must be its plan's. At stages > 1 the steps run the serialized
         schedule (stage after stage), as the JAX engine does whenever the
         batch does not divide by the stage count; ``interleave=True`` is
         not ported yet."""
@@ -264,17 +271,30 @@ class BatchGenerator:
                 f"kv_layout must be 'slot' or 'paged', got {kv_layout!r}")
         self._paged = kv_layout == "paged"
         check_axes(sp=sp, ep=ep)
+        # the refusals at sp > 1 hold for a rank's engine too, where the
+        # plan gives sp
+        sp = coll.plan.sp if coll is not None and sp == 1 else sp
+        if self._paged and sp != 1:
+            raise ValueError(
+                "kv_layout='paged' requires dp == 1 and sp == 1 (the "
+                "page axis is unsharded; batch/sequence sharding of "
+                "pooled pages is future work)")
+        if spec_k and sp != 1:
+            raise ValueError(
+                f"batched speculation (spec_k) at sp={sp} (the verify over "
+                "a sequence-sharded window) is not ported yet (the next "
+                "slice of the port); run it at sp 1")
         plan = coll.plan if coll is not None else MeshPlan()
-        asked = {"dp": dp, "tp": tp, "num_stages": num_stages}
+        asked = {"dp": dp, "tp": tp, "num_stages": num_stages, "sp": sp}
         if any(v not in (1, getattr(plan, k)) for k, v in asked.items()):
             wide = ", ".join(f"{k}={v}" for k, v in asked.items() if v != 1)
             raise ValueError(
                 f"{wide} run over a rank mesh: pass the rank's collectives "
                 "(coll=; cake_tpu_torch.parallel.launch starts the ranks)"
                 if coll is None else f"{wide} differ from the plan {plan}")
-        validate_shardable(config, plan.num_stages, plan.tp)
+        validate_shardable(config, plan.num_stages, plan.tp, sp=plan.sp)
         dp = plan.dp
-        if self._paged and (dp != 1 or sp != 1):
+        if self._paged and dp != 1:
             raise ValueError(
                 "kv_layout='paged' requires dp == 1 and sp == 1 (the "
                 "page axis is unsharded; batch/sequence sharding of "
@@ -296,6 +316,10 @@ class BatchGenerator:
                              "(interleave=True) is not ported yet; stages "
                              "run the serialized schedule")
         self.max_seq = max_seq or config.max_seq_len
+        if plan.sp > 1 and self.max_seq % plan.sp:
+            raise ValueError(
+                f"max_seq {self.max_seq} must divide by sp {plan.sp} (the "
+                "KV window shards over the sp axis)")
         self._page_size = int(kv_page_size)
         self._pool_pages_req = kv_pool_pages
         if self._paged:
@@ -421,8 +445,8 @@ class BatchGenerator:
         layers and KV heads."""
         return init_cache(self.model.layer_config,
                           batch=local_batch(batch, self.model.plan),
-                          max_seq=self.max_seq, device=self.device,
-                          quant=self.kv_quant)
+                          max_seq=local_seq(self.max_seq, self.model.plan),
+                          device=self.device, quant=self.kv_quant)
 
     def _local_row(self, slot: int) -> int | None:
         """Slot ``slot``'s row in this rank's share of the batch cache, or
@@ -546,8 +570,8 @@ class BatchGenerator:
         return init_cache(self.model.layer_config,
                           batch=local_batch(len(self.streams),
                                             self.model.plan),
-                          max_seq=64, device=self.device,
-                          quant=self.kv_quant), ()
+                          max_seq=-(-64 // self.model.plan.sp),
+                          device=self.device, quant=self.kv_quant), ()
 
     @mesh_call
     @torch.inference_mode()
@@ -665,6 +689,13 @@ class BatchGenerator:
         # shared bucket, capped at the room above the prefix
         n_max = max(len(s.prompt) for s in self.streams)
         t_pad = min(_bucket(n_max - lcp, self.max_seq), self.max_seq - lcp)
+        sp = self.model.plan.sp
+        if sp > 1 and lcp == 0 and t_pad % sp:
+            # a ring pass shards the bucket over sp: rounded up to a
+            # multiple of it (junk slots stay beyond every frontier). The
+            # shared-prefix remainder (lcp > 0) runs replicated over sp
+            # instead, and rounding up could push it past max_seq - lcp.
+            t_pad = min(-(-t_pad // sp) * sp, self.max_seq)
         tokens = np.zeros((b, t_pad), np.int64)
         last = np.zeros((b,), np.int64)
         for i, s in enumerate(self.streams):

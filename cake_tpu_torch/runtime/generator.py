@@ -47,6 +47,7 @@ from cake_tpu_torch.obs.trace import span
 from cake_tpu_torch.ops import sampling
 from cake_tpu_torch.ops.kvcache import init_cache
 from cake_tpu_torch.ops.sampling import SamplerSettings
+from cake_tpu_torch.parallel.mesh import local_seq
 from cake_tpu_torch.utils.device import HostCopy, resolve_device
 from cake_tpu_torch.utils.token_stream import TokenOutputStream
 
@@ -97,6 +98,15 @@ def _bucket(n: int, max_seq: int, floor: int = 16) -> int:
     while b < n:
         b *= 2
     return min(b, max_seq)
+
+
+def prompt_bucket(n: int, max_seq: int, sp: int = 1) -> int:
+    """The padded length of an ``n``-token prompt pass: the power-of-two
+    bucket, rounded up to a multiple of ``sp`` (a ring pass splits it into
+    equal chunks; ``max_seq`` divides by sp, so the bucket stays inside
+    the window)."""
+    t_pad = _bucket(n, max_seq)
+    return -(-t_pad // sp) * sp
 
 
 def noise_seed(seed: int, index: int) -> int:
@@ -322,7 +332,8 @@ class LlamaGenerator(GeneratorBase):
         ``coll`` (a rank's
         :class:`~cake_tpu_torch.parallel.collectives.Collectives`) runs
         the model as that rank's shard of a mesh: ``params`` are the
-        rank's shard and the cache holds its layers and KV heads
+        rank's shard and the cache holds its layers and KV heads, and at
+        ``sp > 1`` its range of the window
         (:class:`~cake_tpu_torch.runtime.mesh_generator.MeshGenerator`)."""
         dev = resolve_device(device)
         if params["embed"].device.type != dev.type:
@@ -337,8 +348,9 @@ class LlamaGenerator(GeneratorBase):
         self._inflight: tuple[torch.Tensor, HostCopy] | None = None
         self._guide_table: torch.Tensor | None = None
         self.cache = init_cache(self.model.layer_config, batch=1,
-                                max_seq=self.max_seq, device=self.device,
-                                quant=kv_quant)
+                                max_seq=local_seq(self.max_seq,
+                                                  self.model.plan),
+                                device=self.device, quant=kv_quant)
         # per-token decode latency (a block records ms a token, so the
         # series compares across block sizes) and prompt-pass ms
         self._decode_hist = obs_metrics.Histogram("generator.decode_ms")
@@ -384,11 +396,11 @@ class LlamaGenerator(GeneratorBase):
         n = len(self._prompt_tokens)
         t0 = time.perf_counter()
         with span("prefill", tokens=n):
-            t_pad = _bucket(n, self.max_seq)
+            t_pad = prompt_bucket(n, self.max_seq, self.model.plan.sp)
             tokens = torch.tensor([self._prompt_tokens + [0] * (t_pad - n)],
                                   device=self.device)
-            x = self.model.hidden(tokens, self.cache, 0)
-            tok = int(self._sample(self.model.logits(x[:, n - 1])[0], 0))
+            logits = self.model.prompt_logits(tokens, self.cache, n - 1)
+            tok = int(self._sample(logits[0], 0))
             self._pos = n
             self.prefill_calls += 1
         dt_ms = (time.perf_counter() - t0) * 1e3

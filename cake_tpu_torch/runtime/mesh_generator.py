@@ -3,14 +3,17 @@
 
 The JAX ``MeshGenerator`` compiles the whole per-token step over a
 ``(dp, stage, sp, tp)`` device mesh. The port's runs on every rank of a
-``(stage, tp)`` mesh, one process each
+``(stage, sp, tp)`` mesh, one process each
 (:mod:`cake_tpu_torch.parallel.launch`): every rank runs the same
 generation loop over its shard of the model
 (:class:`~cake_tpu_torch.models.llama.Llama` with the rank's
 collectives), gets the full logits of each step and samples the same
 token, so every rank's stream is the stream. The loop is
 :class:`~cake_tpu_torch.runtime.generator.LlamaGenerator`'s: prompt
-buckets, fused blocks of ``block_size`` steps, the int8 KV cache.
+buckets, fused blocks of ``block_size`` steps, the int8 KV cache. At
+``sp > 1`` each rank holds a range of the window; the prompt bucket is
+rounded up to a multiple of sp and runs as a ring pass, and each decode
+step merges the shards' statistics (:mod:`cake_tpu_torch.ops.ring`).
 
 A topology whose nodes carry mesh ``device`` indices maps onto the stage
 axis (:meth:`~cake_tpu_torch.parallel.mesh.MeshPlan.from_topology`).
@@ -50,13 +53,20 @@ class MeshGenerator(LlamaGenerator):
         ``(seed, index)``, and every rank draws it alike from the gathered
         logits, so a seed gives the local generator's stream at any block
         size and layout. ``prefill_chunks > 1`` (the pipelined prefill) is
-        not ported yet."""
+        not ported yet, and refused at ``sp > 1`` as in JAX."""
         plan = coll.plan
         if plan.dp != 1:
             raise ValueError(
                 "MeshGenerator is single-stream; build the plan with dp=1")
         check_axes(plan.sp, plan.ep)
-        validate_shardable(config, plan.num_stages, plan.tp)
+        validate_shardable(config, plan.num_stages, plan.tp, sp=plan.sp)
+        if (max_seq or config.max_seq_len) % plan.sp:
+            raise ValueError(
+                f"max_seq {max_seq or config.max_seq_len} not divisible by "
+                f"sp {plan.sp}")
+        if prefill_chunks > 1 and plan.sp != 1:
+            raise ValueError("prefill_chunks (pipelined prefill) requires "
+                             "sp == 1")
         if prefill_chunks > 1:
             raise ValueError(
                 f"prefill_chunks={prefill_chunks} (the pipelined prefill "

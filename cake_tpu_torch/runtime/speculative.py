@@ -559,6 +559,11 @@ class MeshSpeculativeGenerator(SpeculativeMixin, MeshGenerator):
                  spec_k: int = 8, spec_ngram: int = 3,
                  prefill_chunks: int = 1):
         settings = settings or SamplerSettings(temperature=0.0)
+        if coll.plan.sp > 1:
+            raise ValueError(
+                f"speculation at sp={coll.plan.sp} (the verify over a "
+                "sequence-sharded cache) is not ported yet (the next "
+                "slice of the port); run it at sp 1")
         super().__init__(config, params, coll, tokenizer=tokenizer,
                          settings=settings, max_seq=max_seq, block_size=1,
                          prefill_chunks=prefill_chunks, kv_quant=kv_quant)

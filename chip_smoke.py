@@ -21,6 +21,9 @@
     python3 chip_smoke.py --phase 16      # phase 1, the tp-local kernel
                                           # checks and phase 16 only; no
                                           # result line
+    python3 chip_smoke.py --phase 17      # phase 1, the statistics forms'
+                                          # checks and times and phase 17
+                                          # only; no result line
 
 Phases, each fatal on failure:
 
@@ -60,8 +63,9 @@ Phases, each fatal on failure:
    Gemma-7B (bf16, and with the int8 cache) and Mixtral-8x7B (bf16 and
    int8 experts) the same way, with a decode step after the prompt, and
    Mixtral's routing compared row by row (a flip only at a near-tie);
-5. the main paths: ``LlamaGenerator`` over the full 32-layer Llama-3-8B
-   with random weights, a 2,000-token prompt and 64 tokens, block 8: (a)
+5. the main paths: ``LlamaGenerator`` over Llama-3-8B at full width and
+   8 of its 32 layers (``MAIN_LAYERS``, 32 before phase 17 came) with
+   random weights, a 2,000-token prompt and 64 tokens, block 8: (a)
    bf16, greedy and sampled; (b) int8 weights with the int8 KV cache; (c)
    int4 g128 weights; each with the kernels' launch counts checked against
    the model calls, then a profiler trace of one prefill and one decode
@@ -92,10 +96,10 @@ Phases, each fatal on failure:
 9. the cross-host path (topology, wire, ``Worker``, ``build_runners``,
    ``DistributedGenerator``) over loopback on this card, phase 5's
    weights and prompt, 64 greedy tokens: (a) bf16 over two worker
-   threads serving layers 0-19 and 20-31 (the reference's deployment of
-   record), the master holding embed, norm and head; (b) int8 weights
-   and the int8 cache, the master running layers 0-7 over one worker
-   serving 8-31. Every step's logits equal the single-device generator's
+   threads serving layers 0-4 and 5-7 (the reference's deployment of
+   record, 0-19 and 20-31 of 32, at MAIN_LAYERS), the master holding
+   embed, norm and head; (b) int8 weights and the int8 cache, the master
+   running layers 0-1 over one worker serving 2-7. Every step's logits equal the single-device generator's
    bit for bit (the activations cross the wire as exact bf16 into the
    same kernels at the same shapes), the ids equal, the launches of
    master and workers together match the model calls, and a worker
@@ -222,8 +226,8 @@ Phases, each fatal on failure:
    the tp 2 and tp 4 local shapes against its plain version, the decodes
    also at the verify's T = 5 and 9 and the matmuls at M = 5, planted
    faults failing, and phase 3 times them there): Llama-3-8B at full
-   width and 8 layers written by the port's writer and read shard by
-   shard (``utils/sharded_load.py``); stages 2 x tp 2 in bf16 and with
+   width and 4 layers (``MESH_LAYERS``; 8 before phase 17 came) written
+   by the port's writer and read shard by shard (``utils/sharded_load.py``); stages 2 x tp 2 in bf16 and with
    int8 weights quantized on load plus the int8 cache (phase 5's prompt,
    32 greedy tokens): every rank's ids equal, equal to one card's up to
    the first near-tie (MARGIN_TIE), step 0's f32 logits within
@@ -248,6 +252,31 @@ Phases, each fatal on failure:
    a decode step, collective calls, ms and bytes a step per axis (and the
    snapshot's gather and scatter), TTFT and tokens/s, labelled "one
    card, 4 ranks, gloo" (no multi-card speed).
+17. sequence parallelism over phase 16's 4 ranks, at 8 layers (phase
+   2 first holds the three statistics forms of the flash kernels,
+   ``flash_prefill_stats``, ``flash_decode_stats`` and
+   ``flash_decode_q8_stats``, against their plain versions at
+   Llama-3-8B's sp-local shapes, full heads and tp 2's: a ring visit of a
+   1,024-token chunk at offsets 0 and 1024, a later block, a window that
+   empties rows, a block past whose end the queries lie; one stream at
+   2047 of a 2,048-key shard and 8 streams of T = 5 rows at frontiers
+   inside, before (-10, -3000), across (-3) and past (3000) the shard,
+   with and without a window; the rows with no live key exactly m =
+   -1e30, l = 0, o = 0; planted faults failing; phase 3 times them beside
+   the bound and a library call): MeshGenerator at sp 2 x tp 2 and sp 4
+   in bf16 and at sp 2 x tp 2 with int8 weights (the checkpoint
+   quantized on the card by ``tools.quantize_model``) and the int8 cache,
+   on a 2,030-id prompt (ring chunks of 1,024 and 512 tokens) whose 32
+   greedy tokens cross the shard boundary at 2,048: every rank's ids equal,
+   equal to one card's up to the first near-tie, step 0's f32 logits
+   within MESH_LOGITS_REL_L2, each rank's launches exact (its visible
+   ring visits a layer a prompt pass, one decode statistics launch a
+   layer a step); the batch engine at sp 2 x tp 2, 8 slots (SP_BATCH_LENS,
+   one ring pass), every stream one card's up to a near-tie; ``--sp 2 --tp
+   2 --dist-backend gloo`` as a process printing the sp 2 x tp 2 run's
+   ids. Per rank: TTFT, card ms a decode step, collective calls, ms and
+   bytes a step per axis (``sp``: the ring's rotations and the decode's
+   statistics merge).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the ``cake_tpu_torch`` package beside this file, it exits with
@@ -316,6 +345,11 @@ PREFILL_CASES = ((2048, 0, None), (2000, 0, None), (256, 1000, None),
 # model's single stream in phase 12 finds no n-gram proposal in 64 tokens,
 # so its verify never runs.
 SERVE_LAYERS = 8
+# Phases 5 and 9 (the main paths and the cross-host path) run Llama-3-8B
+# at full width and 8 of its 32 layers since phase 17 came: at 32 the
+# whole script took 1,257 s of its 1,200 s limit on an H100 host (PERF.md
+# header); the kernels' shapes do not depend on the depth
+MAIN_LAYERS = 8
 # the linears' (K, N) of Llama-3-8B: gate/up, down, k/v, q/o; and the head
 LINEARS = ((4096, 14336), (14336, 4096), (4096, 1024), (4096, 4096))
 HEAD = (4096, 128256)
@@ -1591,10 +1625,10 @@ def expected_launches(cfg, weights: str, kv_quant, prefill_calls: int,
     forward (7 a layer and the head) goes to the weights' matmul kernel,
     each layer's prefill and each layer's decode step to the cache's
     attention kernels (int8: flash_prefill_q8 and flash_decode_q8)."""
+    from cake_tpu_torch.ops.kernels import build
+
     L = cfg.num_hidden_layers
-    counts = dict.fromkeys(("flash_prefill", "flash_decode",
-                            "flash_prefill_q8", "flash_decode_q8",
-                            "quant_matmul", "quant4_matmul"), 0)
+    counts = dict.fromkeys(build.SOURCES, 0)
     counts["flash_prefill_q8" if kv_quant else "flash_prefill"] = (
         L * prefill_calls)
     counts["flash_decode_q8" if kv_quant else "flash_decode"] = (
@@ -1743,7 +1777,7 @@ def phase_main_path(torch, build, flash, kvcache) -> list:
     from cake_tpu_torch.models.config import llama3_8b
     from cake_tpu_torch.ops.sampling import SamplerSettings
 
-    cfg = llama3_8b(max_seq_len=4096)
+    cfg = llama3_8b(num_hidden_layers=MAIN_LAYERS, max_seq_len=4096)
     prompt = torch.randint(0, cfg.vocab_size, (2000,),
                            generator=torch.Generator().manual_seed(SEED)
                            ).tolist()
@@ -2625,14 +2659,15 @@ def phase_serve(torch) -> dict:
 # phase 9
 # --------------------------------------------------------------------------
 
-# the reference's deployment of record (examples/topology.yaml): two
-# workers, layers 0-19 and 20-31; then the master running 0-7 itself over
-# one int8-cache worker serving 8-31
+# the reference's deployment of record (examples/topology.yaml), two
+# workers serving layers 0-19 and 20-31 of 32, at MAIN_LAYERS: 0-4 and
+# 5-7; then the master running 0-1 itself over one int8-cache worker
+# serving 2-7
 CROSS_HOST_PATHS = (
-    ("(a) bf16, w1 0-19 + w2 20-31", "bf16", None, {"w1": (0, 20),
-                                                    "w2": (20, 32)}),
-    ("(b) int8 weights, master 0-7 (bf16 cache) + w1 8-31 (int8 cache)",
-     "quant_matmul", "int8", {"w1": (8, 32)}),
+    ("(a) bf16, w1 0-4 + w2 5-7", "bf16", None, {"w1": (0, 5),
+                                                "w2": (5, 8)}),
+    ("(b) int8 weights, master 0-1 (bf16 cache) + w1 2-7 (int8 cache)",
+     "quant_matmul", "int8", {"w1": (2, 8)}),
 )
 
 
@@ -2966,13 +3001,13 @@ def planted_late_position(torch, gen, workers, prompt, ref_logits,
 
 
 def phase_cross_host(torch, build, main_path) -> list:
-    """The master over loopback workers at full Llama-3-8B width and depth
-    (phase 5's seed-0 weights and 2,000-id prompt), 64 greedy tokens a
-    path, beside phase 5's numbers of the same weights."""
+    """The master over loopback workers at full Llama-3-8B width and
+    MAIN_LAYERS (phase 5's seed-0 weights and 2,000-id prompt), 64 greedy
+    tokens a path, beside phase 5's numbers of the same weights."""
     from cake_tpu_torch.models import llama
     from cake_tpu_torch.models.config import llama3_8b
 
-    cfg = llama3_8b(max_seq_len=4096)
+    cfg = llama3_8b(num_hidden_layers=MAIN_LAYERS, max_seq_len=4096)
     prompt = torch.randint(0, cfg.vocab_size, (2000,),
                            generator=torch.Generator().manual_seed(SEED)
                            ).tolist()
@@ -6209,9 +6244,11 @@ def tp_local_timing(torch, flash, qmatmul, quant, kvcache, build,
     torch.cuda.empty_cache()
 
 
-# Llama-3-8B at full width and 8 of its 32 layers over 4 ranks on this
+# Llama-3-8B at full width and 4 of its 32 layers over 4 ranks on this
 # card (gloo): stages 2 x tp 2 for one stream, dp 2 x tp 2 for the batch
-MESH_LAYERS = 8
+# (8 layers before phase 17 came: with it the script ran 1,257 s of its
+# 1,200 on a slow H100 host, PERF.md); phase 17 runs SP_LAYERS
+MESH_LAYERS = 4
 MESH_NEW = 32
 MESH_SLOTS = 8
 MESH_BATCH_NEW = 16
@@ -6267,7 +6304,8 @@ def check_rank_launches(label: str, out: list, cfg, weights, kv_quant,
         f"at its prefill and decode counts; the head on the last stage)")
 
 
-def mesh_rank_lines(label: str, out: list, steps: int) -> list:
+def mesh_rank_lines(label: str, out: list, steps: int,
+                    tag: str = "[16]") -> list:
     """The per-rank numbers: card ms a decode step (or a verify call of
     K + 1 tokens and a plain step), collective calls, ms and bytes a step
     per axis, TTFT and tokens/s."""
@@ -6278,7 +6316,7 @@ def mesh_rank_lines(label: str, out: list, steps: int) -> list:
                        "calls_per_step": v["calls"] / steps}
                 for axis, v in r["coll"].items()}
         row = {"rank": r["rank"], "coords": {
-            a: r["coords"][a] for a in ("dp", "stage", "tp")},
+            a: r["coords"][a] for a in ("dp", "stage", "sp", "tp")},
             "collectives": coll}
         for key in ("decode_ms_per_step", "ttft_s", "tok_s", "ms",
                     "verify_ms", "step_ms"):
@@ -6287,7 +6325,7 @@ def mesh_rank_lines(label: str, out: list, steps: int) -> list:
         if "ms" in row:  # the batch: card ms a dispatch (prefill included)
             row["ms_per_step"] = row["ms"] / steps
         rows.append(row)
-        say(f"[16] {label} ({MESH_LABEL}) rank {r['rank']} "
+        say(f"{tag} {label} ({MESH_LABEL}) rank {r['rank']} "
             f"{row['coords']}: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in row.items()
                 if isinstance(v, float)) + "; collectives a step: " +
@@ -6405,12 +6443,12 @@ def mesh_batch_run(torch, pool, cfg, params, d, settings) -> dict:
                          for k in out[0]["launches"]}}
 
 
-def mesh_cli(d, prompt, want: list, extra=(), what="the first mesh run"
-             ) -> dict:
-    """``--tp 2 --stages 2 --dist-backend gloo`` (and ``extra``) as a
-    process: its ids equal ``want``, ``what``'s."""
+def mesh_cli(d, prompt, want: list, extra=(), what="the first mesh run",
+             axes=("--tp", "2", "--stages", "2"), tag="[16]") -> dict:
+    """``axes`` (``--tp 2 --stages 2``) with ``--dist-backend gloo`` (and
+    ``extra``) as a process: its ids equal ``want``, ``what``'s."""
     cmd = [sys.executable, "-m", "cake_tpu_torch.cli", "--model", str(d),
-           "--tp", "2", "--stages", "2", "--dist-backend", "gloo",
+           *axes, "--dist-backend", "gloo",
            "--prompt-ids", ",".join(map(str, prompt)), "-n", str(MESH_NEW),
            "--temperature", "0", "--max-seq", "4096", *extra]
     t0 = time.perf_counter()
@@ -6421,10 +6459,10 @@ def mesh_cli(d, prompt, want: list, extra=(), what="the first mesh run"
         fail(f"the mesh command line exited {r.returncode}: "
              f"{r.stderr[-3000:]}")
     ids = [int(t) for t in r.stdout.strip().splitlines()[-1].split(",")]
-    flags = " ".join(["--tp 2 --stages 2 --dist-backend gloo", *extra])
+    flags = " ".join([*axes, "--dist-backend gloo", *extra])
     if ids != want:
         fail(f"{flags} printed {ids}, {what} {want}")
-    say(f"[16] {flags} as a process: {what}'s {len(ids)} ids in "
+    say(f"{tag} {flags} as a process: {what}'s {len(ids)} ids in "
         f"{seconds:.1f} s")
     return {"ids_equal": True, "seconds": seconds}
 
@@ -6611,20 +6649,22 @@ def mesh_snapshot_run(torch, pool, cfg, params, d, prompt, settings) -> dict:
                          for k in r0["launches"]}}
 
 
-def phase_mesh(torch, build) -> dict:
+def phase_mesh(torch, build, run16: bool = True,
+               run17: bool = True) -> dict:
     """Phase 16: the (dp, stage, tp) mesh on this card, 4 ranks over
-    gloo: Llama-3-8B at full width and 8 layers written by the port's
-    writer, read shard by shard; stages 2 x tp 2 in bf16 and with int8
+    gloo: Llama-3-8B at full width and MESH_LAYERS layers written by the
+    port's writer, read shard by shard; stages 2 x tp 2 in bf16 and with int8
     weights quantized on load plus the int8 KV cache, the batch engine at
     dp 2 x tp 2, (s) speculation and (x) snapshots at stages 2 x tp 2, the
-    command line as a process, plain and with --speculate. The checkpoint
-    lives in a temporary directory removed at the end, whatever
-    happens."""
+    command line as a process, plain and with --speculate. Then phase 17
+    (``run17``, under ``sp``) over the same ranks and a checkpoint of
+    SP_LAYERS layers (and its int8 form), and ``--sp 2 --tp 2`` beside
+    the other command lines. The checkpoints live in a temporary
+    directory removed at the end, whatever happens."""
     import shutil
 
     from cake_tpu_torch.models import llama
     from cake_tpu_torch.models.config import llama3_8b
-    from cake_tpu_torch.ops import quant
     from cake_tpu_torch.ops.sampling import SamplerSettings
     from cake_tpu_torch.parallel.launch import RankPool
     from cake_tpu_torch.utils.weights import save_llama_params
@@ -6640,62 +6680,544 @@ def phase_mesh(torch, build) -> dict:
     root = Path(tempfile.mkdtemp(dir=build.BUILD_DIR))
     out: dict = {"label": MESH_LABEL}
     try:
-        cfg = llama3_8b(num_hidden_layers=MESH_LAYERS, max_seq_len=4096)
-        d = root / "ckpt"
-        params = llama.init_params(cfg, seed=SEED)
-        save_llama_params(params, d)
-        (d / "config.json").write_text(json.dumps(cfg.to_hf_dict()))
         settings = SamplerSettings(temperature=0)
-        prompt = main_path_prompt(torch, cfg)
+        # phase 16's checkpoint (MESH_LAYERS) and phase 17's (SP_LAYERS,
+        # and its int8 form quantized on the card by tools.quantize_model)
+        ckpts = {}
+        for on, key, layers in ((run16, "16", MESH_LAYERS),
+                                (run17, "17", SP_LAYERS)):
+            if not on:
+                continue
+            cfg = llama3_8b(num_hidden_layers=layers, max_seq_len=4096)
+            d = root / f"ckpt{key}"
+            ckpts[key] = (cfg, llama.init_params(cfg, seed=SEED), d)
+            save_llama_params(ckpts[key][1], d)
+            (d / "config.json").write_text(json.dumps(cfg.to_hf_dict()))
+        if run17:
+            from cake_tpu_torch.tools import quantize_model
+
+            quantize_model.quantize_checkpoint(ckpts["17"][2],
+                                               root / "ckpt17_q8")
+        prompt = main_path_prompt(torch, llama3_8b())
         t_pool = time.perf_counter()
         out["checkpoint_s"] = t_pool - t0
         with RankPool(4, backend="gloo", device_type="cuda",
                       timeout_s=300.0, job_timeout_s=600.0) as pool:
             out["pool_start_s"] = time.perf_counter() - t_pool
-            # the runs over one shard follow each other: a rank keeps the
-            # shard it read for the next job (parallel/jobs.py _shard)
-            out["bf16"] = mesh_stream(torch, pool, cfg, params, d, prompt,
-                                      settings, "stages 2 x tp 2 bf16",
-                                      "bf16", None)
-            out["spec"] = mesh_spec_run(
-                torch, pool, cfg, params, d, prompt, settings,
-                "(s) stages 2 x tp 2 bf16 --speculate 4", "bf16", None)
-            out["snapshot"] = mesh_snapshot_run(torch, pool, cfg, params, d,
-                                                prompt, settings)
-            # quantized on the card: the codes the ranks' loader makes
-            params8 = quant.quantize_params(params, 8)
-            out["int8"] = mesh_stream(
-                torch, pool, cfg, params8, d, prompt, settings,
-                "stages 2 x tp 2 int8 on load + int8 KV", "quant_matmul",
-                "int8")
-            out["spec_int8"] = mesh_spec_run(
-                torch, pool, cfg, params8, d, prompt, settings,
-                "(s) stages 2 x tp 2 int8 on load + int8 KV --speculate 4",
-                "quant_matmul", "int8")
-            del params8
-            torch.cuda.empty_cache()
-            out["batch"] = mesh_batch_run(torch, pool, cfg, params, d,
-                                          settings)
-        del params
+            if run16:
+                mesh_runs(torch, pool, *ckpts["16"], prompt, settings, out)
+            if run17:
+                out["sp"] = phase_sp(torch, pool, *ckpts["17"],
+                                     root / "ckpt17_q8", settings)
+        ckpts = {k: (c, None, d) for k, (c, _, d) in ckpts.items()}
         torch.cuda.empty_cache()
-        with ThreadPoolExecutor(2) as ex:
-            plain = ex.submit(mesh_cli, d, prompt, out["bf16"]["ids"])
-            spec = ex.submit(mesh_cli, d, prompt, out["spec"]["ids"],
-                             ("--speculate", str(MESH_SPEC_K)), "(s)")
-            out["cli"], out["cli_spec"] = plain.result(), spec.result()
+        with ThreadPoolExecutor(3) as ex:
+            jobs = {}
+            if run16:
+                d = ckpts["16"][2]
+                jobs["cli"] = ex.submit(mesh_cli, d, prompt,
+                                        out["bf16"]["ids"])
+                jobs["cli_spec"] = ex.submit(
+                    mesh_cli, d, prompt, out["spec"]["ids"],
+                    ("--speculate", str(MESH_SPEC_K)), "(s)")
+            if run17:
+                jobs["sp_cli"] = ex.submit(
+                    mesh_cli, ckpts["17"][2], out["sp"]["prompt"],
+                    out["sp"]["sp2_tp2"]["ids"], (), "the sp 2 x tp 2 run",
+                    ("--sp", "2", "--tp", "2"), "[17]")
+            for key, job in jobs.items():
+                out[key] = job.result()
     finally:
         shutil.rmtree(root, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t0
+    if run17:
+        out["sp"]["cli"] = out.pop("sp_cli")
+        out["sp"].pop("prompt")
+    if not run16:
+        return out
     runs = ("bf16", "spec", "snapshot", "int8", "spec_int8", "batch")
     out["launches"] = {k: sum(out[p]["launches"][k] for p in runs)
                        for k in out["bf16"]["launches"]}
-    say(f"[16] phase 16 took {out['seconds']:.1f} s ({MESH_LABEL}): "
-        f"checkpoint {out['checkpoint_s']:.1f} s, 4 ranks up "
+    say(f"[16] phase 16 took {out['seconds']:.1f} s ({MESH_LABEL}), phase "
+        f"17 included: checkpoint {out['checkpoint_s']:.1f} s, 4 ranks up "
         f"in {out['pool_start_s']:.1f} s, " + ", ".join(
             f"{k} {out[k]['seconds']:.1f} s"
-            for k in (*runs, "cli", "cli_spec")) + " (the two command "
-        "lines side by side)")
+            for k in (*runs, "cli", "cli_spec")) + " (the command lines "
+        "side by side)")
     return out
+
+
+def mesh_runs(torch, pool, cfg, params, d, prompt, settings, out) -> None:
+    """Phase 16's runs over the pool, into ``out``."""
+    from cake_tpu_torch.ops import quant
+
+    # the runs over one shard follow each other: a rank keeps the
+    # shard it read for the next job (parallel/jobs.py _shard)
+    out["bf16"] = mesh_stream(torch, pool, cfg, params, d, prompt,
+                              settings, "stages 2 x tp 2 bf16",
+                              "bf16", None)
+    out["spec"] = mesh_spec_run(
+        torch, pool, cfg, params, d, prompt, settings,
+        "(s) stages 2 x tp 2 bf16 --speculate 4", "bf16", None)
+    out["snapshot"] = mesh_snapshot_run(torch, pool, cfg, params, d,
+                                        prompt, settings)
+    # quantized on the card: the codes the ranks' loader makes
+    params8 = quant.quantize_params(params, 8)
+    out["int8"] = mesh_stream(
+        torch, pool, cfg, params8, d, prompt, settings,
+        "stages 2 x tp 2 int8 on load + int8 KV", "quant_matmul",
+        "int8")
+    out["spec_int8"] = mesh_spec_run(
+        torch, pool, cfg, params8, d, prompt, settings,
+        "(s) stages 2 x tp 2 int8 on load + int8 KV --speculate 4",
+        "quant_matmul", "int8")
+    del params8
+    torch.cuda.empty_cache()
+    out["batch"] = mesh_batch_run(torch, pool, cfg, params, d,
+                                  settings)
+
+
+# --------------------------------------------------------------------------
+# phase 17: sequence parallelism over the rank mesh
+# --------------------------------------------------------------------------
+
+# a 2,030-id prompt: a 2,048-token bucket, so the ring runs 1,024-token
+# chunks at sp 2 and 512 at sp 4; its 32 decoded tokens cross position
+# 2,048, the first of sp 2's second shard (4,096 / 2)
+SP_LAYERS = 8
+SP_PROMPT = 2030
+SP_NEW = 32
+SP_BATCH_NEW = 16
+# the engine's 8 slots: the longest crosses 2,048 as it decodes
+SP_BATCH_LENS = (2040, 1100, 517, 260, 200, 129, 64, 17)
+
+
+def sp_expected(cfg, coords, plan, weights: str, kv_quant, ring_passes: int,
+                decode_steps: int) -> dict:
+    """A rank's launches at sp > 1: each ring pass one prefill statistics
+    launch a layer for each visit a row of the rank sees (the blocks at or
+    before its own: its sp index + 1), each decode step one decode
+    statistics launch a layer (over the int8 cache its q8 form), and the
+    linears as at sp 1 (the head on the last stage only)."""
+    from cake_tpu_torch.ops.kernels import build
+
+    L = cfg.num_hidden_layers // plan.num_stages
+    want = dict.fromkeys(build.SOURCES, 0)
+    want["flash_prefill_stats"] = L * (coords["sp"] + 1) * ring_passes
+    want["flash_decode_q8_stats" if kv_quant else "flash_decode_stats"] = (
+        L * decode_steps)
+    if weights != "bf16":
+        calls = ring_passes + decode_steps
+        want[weights] = (7 * L + 1) * calls
+        if coords["stage"] != plan.num_stages - 1:
+            want[weights] -= calls
+    return want
+
+
+def sp_check_launches(label: str, out: list, cfg, plan, weights,
+                      kv_quant) -> None:
+    for r in out:
+        want = sp_expected(cfg, r["coords"], plan, weights, kv_quant,
+                           r["prefill_calls"], r["decode_steps"])
+        if r["launches"] != want:
+            fail(f"{label}: rank {r['rank']} launched {r['launches']}, "
+                 f"expected {want}")
+    say(f"[17] {label}: every rank's launches exact (its visible ring "
+        "visits a layer a prompt pass, one decode statistics launch a "
+        "layer a step)")
+
+
+def sp_stream(torch, pool, cfg, d, prompt, settings, label, plan, weights,
+              kv_quant, ref, ref_logits, ref_params) -> dict:
+    """One stream over ``plan``, read shard by shard from ``d`` (int8
+    weights: a pre-quantized checkpoint): every
+    rank's ids equal, equal to one card's ``ref`` up to the first
+    near-tie, step 0's logits within MESH_LOGITS_REL_L2 of ``ref_logits``,
+    launches exact; TTFT, card ms a decode step and the collectives per
+    axis, a rank."""
+    t0 = time.perf_counter()
+    out = pool.run("cake_tpu_torch.parallel.jobs:mesh_generate", cfg, plan,
+                   prompt, SP_NEW, model_dir=str(d),
+                   quantize=None if weights == "bf16" else "int8",
+                   settings=settings, block_size=8, kv_quant=kv_quant,
+                   want_logits=True)
+    seconds = time.perf_counter() - t0
+    ids = out[0]["ids"]
+    if any(r["ids"] != ids for r in out):
+        fail(f"{label}: the ranks' ids differ: {[r['ids'] for r in out]}")
+    say(f"[17] {label}: the {plan.size} ranks sampled the same {len(ids)} "
+        f"tokens, positions {len(prompt)}..{len(prompt) + len(ids) - 1} "
+        f"(the shard boundary at {S // plan.sp})")
+    tie = check_until_tie(torch, cfg, ref_params, label, prompt, ids, ref,
+                          settings, kv_quant, tag="[17]")
+    err = rel_l2(torch, out[0]["logits"], ref_logits)
+    say(f"[17] {label}: step 0's f32 logits against one card: relative L2 "
+        f"{err:.3e} (limit {MESH_LOGITS_REL_L2})")
+    if not err < MESH_LOGITS_REL_L2:
+        fail(f"{label}: step 0's logits relative L2 {err} >= "
+             f"{MESH_LOGITS_REL_L2}")
+    sp_check_launches(label, out, cfg, plan, weights, kv_quant)
+    return {"label": label, "ids": ids, "tie": tie, "logits_rel_l2": err,
+            "seconds": seconds,
+            "ranks": mesh_rank_lines(label, out, out[0]["decode_steps"]
+                                     + out[0]["prefill_calls"], "[17]"),
+            "launches": {k: sum(r["launches"][k] for r in out)
+                         for k in out[0]["launches"]}}
+
+
+def sp_batch_run(torch, pool, cfg, params, d, settings) -> dict:
+    """The batch engine at sp 2 x tp 2, 8 slots, one ring pass over the 8
+    prompts (SP_BATCH_LENS): every stream equals one card's engine's up to
+    its first near-tie, and each step outside a near-tie is its own
+    teacher-forced logits' greedy choice (``family_until_tie``); launches
+    exact."""
+    from cake_tpu_torch.parallel.mesh import MeshPlan
+    from cake_tpu_torch.runtime.batch_generator import BatchGenerator
+
+    g = torch.Generator().manual_seed(SEED + 17)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in SP_BATCH_LENS]
+    eng = BatchGenerator(cfg, params, settings=settings, block_size=8)
+    eng.set_prompts(prompts)
+    ref = eng.generate(SP_BATCH_NEW)
+    del eng
+    torch.cuda.empty_cache()
+    plan = MeshPlan(sp=2, tp=2)
+    label = "batch sp 2 x tp 2"
+    t0 = time.perf_counter()
+    out = pool.run("cake_tpu_torch.parallel.jobs:mesh_batch", cfg, plan,
+                   prompts, SP_BATCH_NEW, model_dir=str(d),
+                   settings=settings, block_size=8)
+    seconds = time.perf_counter() - t0
+    streams = out[0]["streams"]
+    if any(r["streams"] != streams for r in out):
+        fail(f"{label}: the ranks' streams differ")
+    ties = [family_until_tie(torch, cfg, params, f"{label} slot {i}", p, s,
+                             r, settings, tag="[17]")
+            for i, (p, s, r) in enumerate(zip(prompts, streams, ref))]
+    equal = sum(s == r for s, r in zip(streams, ref))
+    say(f"[17] {label}: {equal} of {len(ref)} streams equal one card's "
+        "engine's whole; the rest up to a near-tie")
+    if out[0]["prefill_calls"] != 1:
+        fail(f"{label}: {out[0]['prefill_calls']} prompt passes, one ring "
+             "pass expected")
+    sp_check_launches(label, out, cfg, plan, "bf16", None)
+    steps = out[0]["decode_steps"] + out[0]["prefill_calls"]
+    return {"label": f"{label}, 8 slots", "streams_equal": equal,
+            "ties": ties, "seconds": seconds,
+            "tokens": sum(len(s) for s in streams),
+            "ranks": mesh_rank_lines(label, out, steps, "[17]"),
+            "launches": {k: sum(r["launches"][k] for r in out)
+                         for k in out[0]["launches"]}}
+
+
+def phase_sp(torch, pool, cfg, params, d, d8, settings) -> dict:
+    """Phase 17: sequence parallelism on this card over phase 16's 4 gloo
+    ranks (Llama-3-8B at full width, SP_LAYERS layers, seed 0, max_seq
+    4096, read from ``d``, and its int8 form from ``d8``): MeshGenerator at
+    sp 2 x tp 2 and sp 4 in bf16 and at sp 2 x tp 2 with int8 weights and
+    the int8 cache, on a 2,030-id prompt decoding across the shard
+    boundary; the batch engine at sp 2 x tp 2. (The command line, ``--sp 2
+    --tp 2``, runs after the pool, in :func:`phase_mesh`.)"""
+    from cake_tpu_torch.ops import quant
+    from cake_tpu_torch.parallel.mesh import MeshPlan
+
+    t0 = time.perf_counter()
+    prompt = torch.randint(0, cfg.vocab_size, (SP_PROMPT,),
+                           generator=torch.Generator().manual_seed(SEED + 17)
+                           ).tolist()
+    out: dict = {"prompt": prompt}
+    ref = single_stream(torch, cfg, params, prompt, SP_NEW, settings, None)
+    ref_logits = prefill_logits(torch, cfg, params, prompt, None)
+    # the batch follows the sp 2 x tp 2 stream: a rank keeps the shard it
+    # read for the next job of the same plan (parallel/jobs.py _shard)
+    out["sp2_tp2"] = sp_stream(torch, pool, cfg, d, prompt, settings,
+                               "sp 2 x tp 2 bf16", MeshPlan(sp=2, tp=2),
+                               "bf16", None, ref, ref_logits, params)
+    out["batch"] = sp_batch_run(torch, pool, cfg, params, d, settings)
+    out["sp4"] = sp_stream(torch, pool, cfg, d, prompt, settings,
+                           "sp 4 bf16", MeshPlan(sp=4), "bf16", None, ref,
+                           ref_logits, params)
+    params8 = quant.quantize_params(params, 8)
+    ref8 = single_stream(torch, cfg, params8, prompt, SP_NEW, settings,
+                         "int8")
+    ref8_logits = prefill_logits(torch, cfg, params8, prompt, "int8")
+    out["sp2_tp2_int8"] = sp_stream(
+        torch, pool, cfg, d8, prompt, settings,
+        "sp 2 x tp 2 int8 pre-quantized + int8 KV", MeshPlan(sp=2, tp=2),
+        "quant_matmul", "int8", ref8, ref8_logits, params8)
+    del params8
+    torch.cuda.empty_cache()
+    runs = ("sp2_tp2", "batch", "sp4", "sp2_tp2_int8")
+    out["launches"] = {k: sum(out[r]["launches"][k] for r in runs)
+                       for k in out["sp2_tp2"]["launches"]}
+    out["seconds"] = time.perf_counter() - t0
+    say(f"[17] phase 17's runs over the pool took {out['seconds']:.1f} s: "
+        + ", ".join(f"{k} {out[k]['seconds']:.1f} s" for k in runs))
+    return out
+
+
+# --------------------------------------------------------------------------
+# phases 2 and 3: the statistics forms (sequence parallelism)
+# --------------------------------------------------------------------------
+
+# Llama-3-8B's sp-local shapes: a ring chunk of the 2,048-token bucket at
+# sp 2 and a shard of the 4,096 window at sp 2, at the full heads and at
+# tp 2's local heads
+SP_BLOCK = 1024
+SP_SHARD = 2048
+SP_HEADS = ((1, H, KVH), (2, H // 2, KVH // 2))
+# decode frontiers relative to the shard (T = 5 rows at each): inside it,
+# a shard wholly past the row (-3000), a frontier in (-64, 0) (-10), rows
+# of one launch on both sides of the shard's first key (-3), and past the
+# shard's end (3000)
+SP_DECODE_POS = (2047, 1500, 700, 3, -3, -10, -3000, 3000)
+SP_STATS = ("flash_prefill_stats", "flash_decode_stats",
+            "flash_decode_q8_stats")
+_LOG2E = 1.4426950408889634
+# a row with no live key: m exactly this, l and o exactly 0
+NEG_INF_F32 = -1e30
+
+
+def compare_stats(torch, label, got, ref) -> float:
+    """A statistics form's ``(o, m, l)`` against its plain version: the
+    rows with no live key exactly ``m = -1e30, l = 0, o = 0`` in both; of
+    the others, m and l held as every kernel output is (``compare``, each
+    as one row), and o, which grows with l, divided by l as its user
+    divides it (the attention output, held elementwise and row by row),
+    and undivided to the worst row's relative L2 (ROW_REL_L2). Returns the
+    max abs error of o / l."""
+    o, m, l = got
+    ro, rm, rl = ref
+    torch.cuda.synchronize()
+    empty = rm == NEG_INF_F32
+    if not torch.equal(m == NEG_INF_F32, empty):
+        fail(f"{label}: the rows with no live key differ ("
+             f"{int((m == NEG_INF_F32).sum())} against "
+             f"{int(empty.sum())})")
+    if not ((l[empty] == 0).all() and (o[empty] == 0).all()):
+        fail(f"{label}: a row with no live key has l or o other than 0")
+    live = ~empty
+    err = 0.0
+    if live.any():
+        err = compare(torch, f"{label} o / l", o[live] / l[live][:, None],
+                      ro[live] / rl[live][:, None])
+        _, rel, _ = verdict(torch, o[live], ro[live])
+        say(f"[2] {label} o: worst row rel L2 {rel:.3e}")
+        if not rel < ROW_REL_L2:
+            fail(f"{label}: o's worst row relative L2 {rel} >= "
+                 f"{ROW_REL_L2}")
+        compare(torch, f"{label} m", m[live][None], rm[live][None])
+        compare(torch, f"{label} l", l[live][None], rl[live][None])
+    say(f"[2] {label}: {int(empty.sum())} of {empty.numel()} rows with no "
+        "live key, exact")
+    return err
+
+
+def sp_decode_ops(kvcache, name, k, v):
+    """The cache operands of decode statistics form ``name``."""
+    if "q8" not in name:
+        return k, v
+    kq, vq = kvcache.quant_kv(k), kvcache.quant_kv(v)
+    return kq.q, kq.scale, vq.q, vq.scale
+
+
+def phase_sp_kernels(torch, flash, kvcache) -> dict:
+    """Phase 2 of the statistics forms at Llama-3-8B's sp-local shapes
+    (full heads and tp 2's): the prefill form, q [1, H, 1024, 128] against
+    a [1, KVH, 1024, 128] block at relative offsets 0 (the diagonal) and
+    1024 (an earlier block, every key live); then a later block (no row
+    sees a key: every q tile empty), a window that empties rows and whole
+    q tiles, and a block not a whole number of tiles with the queries past
+    its end. The decode forms over a [B, KVH, 2048, 128] shard: one stream
+    at 2047 and 8 streams of T = 5 rows at SP_DECODE_POS, with and without
+    a window. Planted faults must fail: the prefill one tile short, a
+    decode frontier one tile lower, m left in log2 units."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    errs = {}
+    for tp, h, kvh in SP_HEADS:
+        q = rnd(1, h, SP_BLOCK, D)
+        k, v = rnd(1, kvh, SP_BLOCK, D), rnd(1, kvh, SP_BLOCK, D)
+        cases = [(0, None, k, v), (SP_BLOCK, None, k, v)]
+        if tp == 1:
+            cases += [(-SP_BLOCK, None, k, v), (512, 300, k, v),
+                      (SP_BLOCK, None, k[:, :, :1000].contiguous(),
+                       v[:, :, :1000].contiguous())]
+        for pos, window, kb, vb in cases:
+            label = (f"flash_prefill_stats tp={tp} q [1,{h},{SP_BLOCK},{D}] "
+                     f"block [1,{kvh},{kb.shape[2]},{D}] offset {pos}"
+                     f"{f' window={window}' if window else ''}")
+            err = compare_stats(
+                torch, label,
+                flash.flash_attention_stats(q, kb, vb, pos, window=window),
+                flash.flash_attention_stats_ref(q, kb, vb, pos,
+                                                window=window))
+            errs[("flash_prefill_stats", tp, pos, window, kb.shape[2])] = err
+        if tp == 1:
+            ref = flash.flash_attention_stats_ref(q, k, v, 0)
+            planted(torch, "flash_prefill_stats offset 0 last tile "
+                    "dropped", tile_short(
+                        flash, lambda: flash.flash_attention_stats(
+                            q, k, v, 0))[2][None], ref[2][None])
+            # past the diagonal the loop's end is the block's: its last
+            # tile left out
+            ref = flash.flash_attention_stats_ref(q, k, v, SP_BLOCK)
+            cut = SP_BLOCK - flash.PREFILL_BLOCK_K
+            planted(torch, f"flash_prefill_stats offset {SP_BLOCK} the "
+                    "block's last tile dropped",
+                    flash.flash_attention_stats(
+                        q, k[:, :, :cut].contiguous(),
+                        v[:, :, :cut].contiguous(), SP_BLOCK)[2][None],
+                    ref[2][None])
+            got = flash.flash_attention_stats(q, k, v, SP_BLOCK)
+            planted(torch, "flash_prefill_stats m in log2 units",
+                    got[1] * _LOG2E, ref[1])
+        for name in SP_STATS[1:]:
+            kernel = getattr(flash, name)
+            plain = getattr(flash, f"{name}_ref")
+            for b, t, pos, window in (
+                    (1, 1, [SP_SHARD - 1], None),
+                    (8, 5, list(SP_DECODE_POS), None),
+                    (8, 5, list(SP_DECODE_POS), 700)):
+                kb, vb = rnd(b, kvh, SP_SHARD, D), rnd(b, kvh, SP_SHARD, D)
+                ops = sp_decode_ops(kvcache, name, kb, vb)
+                qd = rnd(b, h, t, D)
+                p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+                label = (f"{name} tp={tp} q [{b},{h},{t},{D}] shard "
+                         f"[{b},{kvh},{SP_SHARD},{D}] pos {pos}"
+                         f"{f' window={window}' if window else ''}")
+                errs[(name, tp, b, t, window)] = compare_stats(
+                    torch, label, kernel(qd, *ops, p, window=window),
+                    plain(qd, *ops, p, window=window))
+                if tp == 1 and b == 1:
+                    planted(torch, f"{name} pos {pos} one tile lower",
+                            kernel(qd, *ops, p - 64)[0],
+                            plain(qd, *ops, p)[0])
+    torch.cuda.empty_cache()
+    say("[2] the statistics forms at the sp-local shapes (full heads and "
+        "tp 2's), empty rows exact, edge frontiers and windows: within "
+        "tolerance; the planted faults fail")
+    return errs
+
+
+def sp_prefill_case(torch, flash, h, kvh, pos, rnd) -> dict:
+    """Card times of one prefill statistics call, q [1, h, 1024, 128]
+    against a [1, kvh, 1024, 128] block at relative offset ``pos`` (0: the
+    diagonal, causal; 1024: every key live): the kernel, its plain
+    version and ``aten._scaled_dot_product_flash_attention`` (which
+    returns the log-sum-exp beside its output; K and V repeated to the
+    query heads beforehand), beside the bound: q, K and V read once, o, m
+    and l (f32) written once; 2 products of D multiply-adds a live (q,
+    key) pair."""
+    t = s = SP_BLOCK
+    q = rnd(1, h, t, D)
+    k, v = rnd(1, kvh, s, D), rnd(1, kvh, s, D)
+    kx, vx = (x.repeat_interleave(h // kvh, dim=1) for x in (k, v))
+    pairs = t * (t + 1) // 2 if pos == 0 else t * s
+    nbytes = q.numel() * 2 + 2 * k.numel() * 2 + q.numel() * 4 + 2 * h * t * 4
+    b_ms, b_by = bound(nbytes, 4 * h * D * pairs)
+    lib = torch.ops.aten._scaled_dot_product_flash_attention
+    case = {"shape": f"q [1,{h},{t},{D}] block [1,{kvh},{s},{D}] offset "
+                     f"{pos}",
+            "ms": time_ms(torch, lambda: flash.flash_attention_stats(
+                q, k, v, pos)),
+            "plain_ms": time_ms(torch, lambda: flash.flash_attention_stats_ref(
+                q, k, v, pos)),
+            "library_ms": time_ms(torch, lambda: lib(q, kx, vx, 0.0,
+                                                     pos == 0)),
+            "bound_ms": b_ms, "bound_by": b_by}
+    case["pct_of_bound"] = 100 * b_ms / case["ms"]
+    return case
+
+
+def sp_decode_case(torch, flash, kvcache, name, b, t, pos, h, kvh,
+                   rnd) -> dict:
+    """Card times of one decode statistics call over a [b, kvh, 2048, 128]
+    shard from the shard-relative frontiers ``pos``: the kernel, its plain
+    version and SDPA over the same live keys (a boolean mask per row and
+    query), beside the bound: q read, o, m and l written, and each row's
+    live keys read once (bf16 K and V, or int8 codes and f32 scales); 2
+    products of D multiply-adds a live (query, key) pair."""
+    import torch.nn.functional as F
+
+    k, v = rnd(b, kvh, SP_SHARD, D), rnd(b, kvh, SP_SHARD, D)
+    ops = sp_decode_ops(kvcache, name, k, v)
+    q = rnd(b, h, t, D)
+    p = torch.tensor(pos, dtype=torch.int32, device="cuda")
+    live = [max(0, min(x + t, SP_SHARD)) for x in pos]
+    pairs = sum(max(0, min(x + i + 1, SP_SHARD)) for x in pos
+                for i in range(t))
+    per_key = 2 * D * 2 if "q8" not in name else 2 * (D + 4)
+    nbytes = q.numel() * 2 + q.numel() * 4 + 2 * b * h * t * 4 + \
+        kvh * sum(live) * per_key
+    b_ms, b_by = bound(nbytes, 4 * h * D * pairs)
+    n = max(1, max(live))
+    mask = (torch.arange(n, device="cuda")[None, None, :]
+            <= p.long()[:, None, None]
+            + torch.arange(t, device="cuda")[None, :, None])[:, None]
+    lk, lv = ((k, v) if "q8" not in name else tuple(
+        kvcache.dequant_kv(kvcache.quant_kv(x), torch.bfloat16)
+        for x in (k, v)))
+    lk, lv = lk[:, :, :n], lv[:, :, :n]
+    kernel, plain = getattr(flash, name), getattr(flash, f"{name}_ref")
+    case = {"shape": f"q [{b},{h},{t},{D}] "
+                     f"{'int8' if 'q8' in name else 'bf16'} shard "
+                     f"[{b},{kvh},{SP_SHARD},{D}] pos {list(pos)}",
+            "ms": time_ms(torch, lambda: kernel(q, *ops, p)),
+            "plain_ms": time_ms(torch, lambda: plain(q, *ops, p)),
+            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, lk, lv, attn_mask=mask, enable_gqa=True)),
+            "bound_ms": b_ms, "bound_by": b_by}
+    case["pct_of_bound"] = 100 * b_ms / case["ms"]
+    return case
+
+
+def sp_kernel_timing(torch, flash, kvcache, build, errs, rows) -> None:
+    """Phase 3 of the statistics forms: a kernel-table row each, headed by
+    the ring's visit of an earlier block (prefill, offset 1024) and one
+    stream's decode at 2047 over its shard, with the diagonal visit, tp
+    2's local heads and 8 streams of T = 5 at SP_DECODE_POS as cases."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    replaces = {"flash_prefill_stats": "cake_tpu/ops/ring.py:38",
+                "flash_decode_stats": "cake_tpu/ops/ring.py:214",
+                "flash_decode_q8_stats": "cake_tpu/ops/attention.py:385"}
+    for name in SP_STATS:
+        if name == "flash_prefill_stats":
+            cases = [sp_prefill_case(torch, flash, h, kvh, pos, rnd)
+                     for (tp, h, kvh), pos in ((SP_HEADS[0], SP_BLOCK),
+                                               (SP_HEADS[0], 0),
+                                               (SP_HEADS[1], SP_BLOCK))]
+            err = errs[(name, 1, SP_BLOCK, None, SP_BLOCK)]
+        else:
+            cases = [sp_decode_case(torch, flash, kvcache, name, b, t, pos,
+                                    h, kvh, rnd)
+                     for (tp, h, kvh), b, t, pos in (
+                         (SP_HEADS[0], 1, 1, (SP_SHARD - 1,)),
+                         (SP_HEADS[0], 8, 5, SP_DECODE_POS),
+                         (SP_HEADS[1], 1, 1, (SP_SHARD - 1,)))]
+            err = errs[(name, 1, 1, 1, None)]
+        row = {"name": name, "route": "cuda",
+               "source": f"cake_tpu_torch/csrc/{name}.cu",
+               "replaces": replaces[name], "max_abs_err": err, **cases[0],
+               "cases": cases[1:], **kernel_build_info(build, name)}
+        row["kernel_ms"] = row["ms"]
+        rows.append(row)
+        for c in cases:
+            say(f"[3] {name} {c['shape']}: {c['ms']:.4f} ms, "
+                f"{c['pct_of_bound']:.1f}% of bound {c['bound_ms']:.4f} by "
+                f"{c['bound_by']} (plain {c['plain_ms']:.4f}, library "
+                f"{c['library_ms']:.4f})")
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -6711,14 +7233,15 @@ def main() -> int:
     only_disagg = sys.argv[1:] == ["--phase", "14"]
     only_tools = sys.argv[1:] == ["--phase", "15"]
     only_mesh = sys.argv[1:] == ["--phase", "16"]
+    only_sp = sys.argv[1:] == ["--phase", "17"]
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels":
         other = Path(sys.argv[2]).resolve()
     elif len(sys.argv) > 1 and not (only_guided or only_paged or only_spec
                                     or only_families or only_disagg
-                                    or only_tools or only_mesh):
+                                    or only_tools or only_mesh or only_sp):
         fail(f"usage: {sys.argv[0]} [--kernels DIR | --phase 10 | "
              "--phase 11 | --phase 12 | --phase 13 | --phase 14 | "
-             "--phase 15 | --phase 16]")
+             "--phase 15 | --phase 16 | --phase 17]")
     sys.path.insert(0, str(other or REPO))
     try:
         from cake_tpu_torch.ops import flash, kvcache, qmatmul, quant
@@ -6768,7 +7291,19 @@ def main() -> int:
         return 0
     if only_mesh:
         phase_tp_kernels(torch, flash, qmatmul, quant, kvcache)
-        say(json.dumps({"card": card, "mesh": phase_mesh(torch, build)}))
+        say(json.dumps({"card": card, "mesh": phase_mesh(torch, build,
+                                                         run17=False)}))
+        say(card)
+        return 0
+    if only_sp:
+        errs = phase_sp_kernels(torch, flash, kvcache)
+        rows: list = []
+        sp_kernel_timing(torch, flash, kvcache, build, errs, rows)
+        mesh = phase_mesh(torch, build, run16=False)
+        for r in rows:
+            r["launches"] = mesh["sp"]["launches"][r["name"]]
+        say(json.dumps({"card": card, "sp": mesh["sp"]}))
+        say(json.dumps({"kernels": rows}))
         say(card)
         return 0
     t_run = time.perf_counter()
@@ -6784,6 +7319,7 @@ def main() -> int:
     errs.update(phase_family_matmuls(torch, qmatmul, quant))
     errs.update(phase_fine_groups(torch, qmatmul, quant))
     errs.update(phase_tp_kernels(torch, flash, qmatmul, quant, kvcache))
+    errs.update(phase_sp_kernels(torch, flash, kvcache))
     lap("2")
     # timed before the profiled main path: a profiler session slows the
     # host for the rest of the process
@@ -6796,6 +7332,7 @@ def main() -> int:
     family_timing(torch, flash, qmatmul, quant, kvcache, build, errs, rows)
     fine_group_timing(torch, qmatmul, quant, build, errs, rows)
     tp_local_timing(torch, flash, qmatmul, quant, kvcache, build, rows)
+    sp_kernel_timing(torch, flash, kvcache, build, errs, rows)
     lap("3")
     phase_model(torch)
     families_model = phase_model_families(torch)
@@ -6830,17 +7367,18 @@ def main() -> int:
     tools = phase_tools(torch, build, cli)
     lap("15")
     mesh = phase_mesh(torch, build)
-    lap("16")
+    lap("16, 17")
     # over the paths (a), (b), (c), the batch runs, the cross-host runs,
     # phase 10's guided and lookahead runs, phase 11's paged runs, phase
     # 12's speculative runs, phase 13's family runs, phase 14's
     # disaggregated runs (both replicas), phase 15's clean run over the
-    # bundles (master and workers) and phase 16's mesh runs (every rank)
+    # bundles (master and workers) and phase 16's and 17's mesh runs
+    # (every rank)
     for r in rows:
         r["launches"] = sum(p["launches"][r["name"]]
                             for p in main_path + batch + cross_host + guided
                             + paged + spec + families + disagg
-                            + [tools, mesh])
+                            + [tools, mesh, mesh["sp"]])
     say(json.dumps({"card": card, "main_path": main_path, "batch": batch,
                     "serve": serve, "cross_host": cross_host,
                     "cross_host_cli": cross_host_cli, "guided": guided,

@@ -231,7 +231,11 @@ def test_warm_admission_leaves_the_batch_alone(tiers):
     (dict(dp=2), "dp=2 run over a rank mesh: pass the rank's collectives"),
     (dict(tp=2), "tp=2 run over a rank mesh"),
     (dict(num_stages=2), "stages=2 run over a rank mesh"),
-    (dict(sp=2), "sp=2.*not ported"),
+    (dict(sp=2, kv_layout="paged"),
+     r"kv_layout='paged' requires dp == 1 and sp == 1 \(the page axis is "
+     "unsharded"),
+    (dict(sp=2, spec_k=4), r"batched speculation \(spec_k\) at sp=2 .* is "
+     "not ported yet"),
     (dict(ep=2), "ep=2.*not ported"),
 ])
 def test_unported_options_are_refused(tiers, kwargs, match):

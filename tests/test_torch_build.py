@@ -8,8 +8,9 @@ import pytest
 
 from cake_tpu_torch.ops.kernels import build
 
-FLASH = {"flash_prefill", "flash_prefill_q8"}
-DECODE = {"flash_decode", "flash_decode_q8"}
+FLASH = {"flash_prefill", "flash_prefill_q8", "flash_prefill_stats"}
+DECODE = {"flash_decode", "flash_decode_q8", "flash_decode_stats",
+          "flash_decode_q8_stats"}
 MATMUL = {"quant_matmul", "quant4_matmul"}
 
 

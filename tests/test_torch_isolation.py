@@ -408,9 +408,20 @@ def test_cpu_tensors_take_the_plain_versions():
                        quant.quant_matmul_ref(x, q8.q, q8.scale))
     assert torch.equal(qmatmul.quant4_matmul(x, q4.qp, q4.scale),
                        quant.quant4_matmul_ref(x, q4.qp, q4.scale))
+    for got, want in (
+            (flash.flash_attention_stats(q, k, v, 70),
+             flash.flash_attention_stats_ref(q, k, v, 70)),
+            (flash.flash_decode_stats(q, k, v, -2),
+             flash.flash_decode_stats_ref(q, k, v, -2)),
+            (flash.flash_decode_q8_stats(q, kq, ks, vq, vs, 9),
+             flash.flash_decode_q8_stats_ref(q, kq, ks, vq, vs, 9))):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert build.launches() == {"flash_prefill": 0, "flash_decode": 0,
                                 "flash_prefill_q8": 0, "flash_decode_q8": 0,
-                                "quant_matmul": 0, "quant4_matmul": 0}
+                                "quant_matmul": 0, "quant4_matmul": 0,
+                                "flash_prefill_stats": 0,
+                                "flash_decode_stats": 0,
+                                "flash_decode_q8_stats": 0}
 
 
 def _q8(x):

@@ -9,9 +9,10 @@ tests/test_mesh_generator.py) and block size 4, with step 0's f32 logits
 within LOGITS_ATOL. Held to the port's own single
 device: sampled streams (every rank samples the same token), the
 families at tp 2. Refused with clear errors: NCCL on a shared card,
---sp 2, --ep 2, --prefill-chunks 2, an int4 group that does not divide a
-tp-local in-dim. A rank that dies fails the run within the timeout.
-(int8 at tp 2 against JAX and the shard rules:
+--ep 2, --prefill-chunks 2, --sp 2 with --speculate, --prefill-chunks
+or a sliding window (in the JAX command line's words), an int4 group
+that does not divide a tp-local in-dim. A rank that dies fails the run
+within the timeout. (sp itself: tests/test_torch_sp.py; int8 at tp 2 against JAX and the shard rules:
 tests/test_torch_sharded_load.py; the command line's meshes:
 tests/test_torch_mesh_cli.py.)"""
 
@@ -241,10 +242,14 @@ RUN = ["--prompt-ids", "3,5,7,9,11,13", "-n", "10", "--temperature", "0",
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--sp", "2"], r"sp=2: sequence and expert parallelism are not "
-     r"ported yet"),
-    (["--ep", "2"], r"ep=2: sequence and expert parallelism are not "
-     r"ported yet"),
+    (["--sp", "2", "--speculate", "2"], r"--speculate runs the local or "
+     r"mesh \(stages/tp\) paths; it is not supported with --sp or "
+     r"--topology"),
+    (["--sp", "2", "--prefill-chunks", "2"], r"--prefill-chunks requires "
+     r"--sp 1 \(ring attention is the sequence-parallel prefill plane\)"),
+    (["--sp", "2", "--window", "8"], r"sliding-window attention \(this "
+     r"checkpoint's family\) does not compose with --sp; run with --sp 1"),
+    (["--ep", "2"], r"ep=2: expert parallelism is not ported yet"),
     (["--prefill-chunks", "2", "--stages", "2"],
      r"--prefill-chunks 2 \(the pipelined prefill across stages\) is not "
      r"ported yet"),

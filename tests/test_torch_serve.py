@@ -424,7 +424,10 @@ def test_prompts_file_prints_the_jax_cli_lines(checkpoint, tmp_path):
      "require --kv-layout paged"),
     (["--speculate", "4", "--kv-layout", "paged"],
      "paged' does not compose with batched speculation"),
-    (["--sp", "2"], "sp=2: sequence and expert parallelism are not ported"),
+    (["--sp", "2", "--speculate", "4"],
+     "--speculate requires --sp 1 on the serving path"),
+    (["--sp", "2", "--kv-layout", "paged"],
+     "kv_layout='paged' requires dp == 1 and sp == 1"),
     (["--spill-mb", "32"], "--spill-mb configure the request server; "
      "they apply only with --mode serve"),
 ])
