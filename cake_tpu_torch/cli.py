@@ -64,8 +64,9 @@ proxy (``testing/chaos.py``) in front of every worker link,
 stderr (``obs/top.py``); ``--straggler-factor`` sets when a worker is
 flagged.
 
-``--stages/--tp/--dp/--sp`` run a ``(dp, stage, sp, tp)`` rank mesh: the
-command starts ``dp x stages x sp x tp`` ranks itself, one process each
+``--stages/--tp/--dp/--sp/--ep`` run a ``(dp, stage, sp, ep, tp)`` rank
+mesh: the command starts ``dp x stages x sp x ep x tp`` ranks itself, one
+process each
 (:mod:`cake_tpu_torch.parallel.launch`), so the JAX command lines run
 unchanged, as does a topology whose nodes carry mesh ``device:`` indices
 (one stage a node). Rank 0 prints and serves; every rank runs the same
@@ -81,8 +82,12 @@ splits the KV window over N ranks (ring-attention prefill, the
 sequence-sharded decode: :mod:`cake_tpu_torch.ops.ring`) on all three
 entry points; with it ``--speculate``, ``--prefill-chunks``, ``--lookahead``,
 ``--kv-layout paged`` and a sliding-window checkpoint are refused in the
-JAX command line's words. ``--ep`` and ``--prefill-chunks`` above 1 are
-refused with an error: they are not ported yet.
+JAX command line's words. ``--ep N`` splits a Mixtral checkpoint's
+experts over N ranks on all three entry points (refused on a dense
+checkpoint, as in JAX). ``--prefill-chunks M`` pipelines local
+generation's prompt pass over the stages in M chunks (``--stages > 1``;
+refused on the serving paths, as in JAX); the batch engine picks the
+interleaved schedules itself at stages > 1.
 
 ``--log-level debug|info|warning|error`` (default info; ``-v`` forces
 debug) sets the root log level; a mesh's other ranks log warnings only,
@@ -294,11 +299,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "this many ranks (ring-attention prefill, decode "
                         "over the sharded window)")
     p.add_argument("--ep", type=int, default=1,
-                   help="mesh axis that is not ported yet (only 1)")
+                   help="expert parallelism (MoE checkpoints): a layer's "
+                        "experts split over this many ranks")
     p.add_argument("--prefill-chunks", type=int, default=1,
                    dest="prefill_chunks",
-                   help="the pipelined prefill across stages: not ported "
-                        "yet (only 1)")
+                   help="the pipelined prefill: the prompt in this many "
+                        "chunks streaming through the stages (local "
+                        "generation, --stages > 1)")
     p.add_argument("--dist-backend", choices=["nccl", "gloo"], default=None,
                    dest="dist_backend",
                    help="the mesh's transport: nccl (default on the card; "
@@ -513,6 +520,9 @@ def _load_config(args):
     if config.sliding_window and args.sp > 1:
         sys.exit("error: sliding-window attention (this checkpoint's "
                  "family) does not compose with --sp; run with --sp 1")
+    if args.ep > 1 and not config.num_local_experts:
+        sys.exit("error: --ep requires an MoE checkpoint "
+                 "(num_local_experts > 0 in config.json)")
     return config
 
 
@@ -607,7 +617,6 @@ def _mesh_setup(args, topology):
     the mesh does not run."""
     from cake_tpu_torch.ops.quant import parse_quant_spec
     from cake_tpu_torch.parallel.mesh import (
-        NEXT_SLICE,
         MeshPlan,
         check_axes,
         validate_shardable,
@@ -629,21 +638,34 @@ def _mesh_setup(args, topology):
         sys.exit("error: kv_layout='paged' requires dp == 1 and sp == 1 "
                  "(the page axis is unsharded; batch/sequence sharding of "
                  "pooled pages is future work)")
-    if args.sp > 1 and args.prefill_chunks > 1:
-        sys.exit("error: --prefill-chunks requires --sp 1 (ring "
-                 "attention is the sequence-parallel prefill plane)")
-    if args.prefill_chunks > 1:
-        sys.exit(f"error: --prefill-chunks {args.prefill_chunks} (the "
-                 f"pipelined prefill across stages) is {NEXT_SLICE}")
+    if args.prefill_chunks > 1 and args.mode == "serve":
+        sys.exit("error: --prefill-chunks is not supported with --mode "
+                 "serve (arrivals prefill chunk-by-chunk through the "
+                 "admission path instead; it would otherwise be silently "
+                 "ignored)")
+    if args.prefill_chunks > 1 and args.prompts_file:
+        sys.exit("error: --prefill-chunks is not supported with "
+                 "--prompts-file serving")
     if args.process_id is not None and not (args.coordinator
                                             or args.num_processes):
         sys.exit("error: --process-id requires --coordinator and/or "
                  "--num-processes (it would otherwise be silently ignored)")
     topo_mesh = topology is not None and any(
         n.device is not None for n in topology)
+    if args.prefill_chunks > 1:
+        # overlap needs stages to overlap across, and the sp plane owns
+        # long-context prefill (the JAX command line's checks)
+        if args.sp > 1:
+            sys.exit("error: --prefill-chunks requires --sp 1 (ring "
+                     "attention is the sequence-parallel prefill plane)")
+        if not (args.stages > 1 or topo_mesh):
+            sys.exit("error: --prefill-chunks pipelines the prompt across "
+                     "mesh stages; it requires --stages > 1 (or a "
+                     "device-indexed topology), otherwise it would be "
+                     "silently ignored")
     multi = args.num_processes is not None or args.coordinator is not None
-    if not (max(args.stages, args.tp, args.dp, args.sp) > 1 or topo_mesh
-            or multi):
+    if not (max(args.stages, args.tp, args.dp, args.sp, args.ep) > 1
+            or topo_mesh or multi):
         return None
     if topo_mesh and args.stages > 1:
         sys.exit("error: --stages conflicts with a device-indexed topology "
@@ -662,12 +684,15 @@ def _mesh_setup(args, topology):
     try:
         if topo_mesh:
             plan = MeshPlan.from_topology(config, topology, tp=args.tp,
-                                          dp=args.dp, sp=args.sp)
+                                          dp=args.dp, sp=args.sp,
+                                          ep=args.ep)
         else:
             plan = MeshPlan.build(config, num_stages=args.stages,
-                                  tp=args.tp, dp=args.dp, sp=args.sp)
+                                  tp=args.tp, dp=args.dp, sp=args.sp,
+                                  ep=args.ep)
         validate_shardable(config, plan.num_stages, plan.tp, sp=plan.sp,
-                           group_size=group, quantized=tier is not None,
+                           ep=plan.ep, group_size=group,
+                           quantized=tier is not None,
                            kernels=not args.cpu)
     except ValueError as e:
         sys.exit(f"error: {e}")
@@ -700,9 +725,9 @@ def _spawn_mesh(args, plan) -> int:
                                              local)
     except ValueError as e:
         sys.exit(f"error: {e}")
-    log.info("mesh dp=%d x stages=%d x sp=%d x tp=%d: starting %d of %d "
-             "ranks here (%s, %s)", plan.dp, plan.num_stages, plan.sp,
-             plan.tp, local, plan.size, device_type, backend)
+    log.info("mesh dp=%d x stages=%d x sp=%d x ep=%d x tp=%d: starting %d "
+             "of %d ranks here (%s, %s)", plan.dp, plan.num_stages, plan.sp,
+             plan.ep, plan.tp, local, plan.size, device_type, backend)
     return launch.spawn("cake_tpu_torch.cli:rank_main", args.argv,
                         local_ranks=local, backend=backend,
                         device_type=device_type,
@@ -727,7 +752,6 @@ def _kv_layout_kwargs(args) -> dict:
 
 def _engine_kwargs(args) -> dict:
     """BatchGenerator arguments of the serving paths; the engine refuses
-    what is not ported (the ep axis, the interleaved schedules) and
     what does not compose with speculation (lookahead, paged KV,
     logprobs, guides)."""
     return dict(max_seq=args.max_seq, block_size=_decode_block(args),
@@ -873,7 +897,8 @@ def run(args, topology=None) -> int:
                 gen = MeshSpeculativeGenerator(
                     config, params, _coll(args), tokenizer=tokenizer,
                     settings=settings, max_seq=args.max_seq,
-                    kv_quant=args.kv_quant, spec_k=args.speculate)
+                    kv_quant=args.kv_quant, spec_k=args.speculate,
+                    prefill_chunks=args.prefill_chunks)
             elif args.mesh_plan is not None:
                 from cake_tpu_torch.runtime.mesh_generator import (
                     MeshGenerator,
@@ -883,6 +908,7 @@ def run(args, topology=None) -> int:
                                     tokenizer=tokenizer, settings=settings,
                                     max_seq=args.max_seq,
                                     block_size=_decode_block(args),
+                                    prefill_chunks=args.prefill_chunks,
                                     kv_quant=args.kv_quant)
             elif args.speculate:
                 gen = SpeculativeGenerator(
@@ -1063,10 +1089,10 @@ def run_worker(args) -> int:
         check_axes(sp=args.sp, ep=args.ep)
     except ValueError as e:
         sys.exit(f"error: {e}")
-    if max(args.stages, args.tp, args.dp, args.sp) > 1:
+    if max(args.stages, args.tp, args.dp, args.sp, args.ep) > 1:
         sys.exit("error: a --mode worker serves its topology-assigned "
-                 "layers on one card; --stages/--tp/--dp/--sp drive the "
-                 "rank mesh of a master")
+                 "layers on one card; --stages/--tp/--dp/--sp/--ep drive "
+                 "the rank mesh of a master")
     device = _device(args)
     config = _load_config(args)
     topology = _load_topology(args)

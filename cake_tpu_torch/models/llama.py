@@ -37,7 +37,7 @@ from cake_tpu_torch.ops import ring
 from cake_tpu_torch.ops.attention import self_attention_block
 from cake_tpu_torch.ops.kvcache import KVCache
 from cake_tpu_torch.ops.mlp import swiglu
-from cake_tpu_torch.ops.moe import moe_swiglu
+from cake_tpu_torch.ops.moe import ExpertShard, moe_swiglu
 from cake_tpu_torch.ops.norms import rms_norm
 from cake_tpu_torch.ops.quant import (
     Quantized4Linear,
@@ -259,7 +259,7 @@ def _embed_normalizer(hidden: int, dtype: torch.dtype) -> float:
 
 def block_forward(layer: Params, x: torch.Tensor, k_cache, v_cache,
                   cos_t: torch.Tensor, sin_t: torch.Tensor, pos,
-                  config: LlamaConfig, reduce=None, sp=None):
+                  config: LlamaConfig, reduce=None, sp=None, ep=None):
     """One pre-norm decoder block; writes this layer's cache (a tensor or
     a :class:`~cake_tpu_torch.ops.kvcache.QuantizedKV`) in place. The
     family's deltas are read off the layer dict (``bq``/``bo``,
@@ -270,7 +270,9 @@ def block_forward(layer: Params, x: torch.Tensor, k_cache, v_cache,
     :func:`~cake_tpu_torch.parallel.mesh.local_config`) and ``reduce`` the
     all-reduce over tp after each row-parallel linear. ``sp`` (a
     :class:`~cake_tpu_torch.ops.ring.SeqShard`): the cache is this rank's
-    range of a sequence-sharded one, attended in ``sp.mode``."""
+    range of a sequence-sharded one, attended in ``sp.mode``. ``ep`` (an
+    :class:`~cake_tpu_torch.ops.moe.ExpertShard`): the expert stacks are
+    this rank's run of experts."""
     h = rms_norm(x, layer["attn_norm"], config.rms_norm_eps,
                  offset=config.rms_norm_offset)
     attn_out, k_cache, v_cache = self_attention_block(
@@ -286,7 +288,7 @@ def block_forward(layer: Params, x: torch.Tensor, k_cache, v_cache,
         x = x + moe_swiglu(h, layer["router"], layer["w_gate"],
                            layer["w_up"], layer["w_down"],
                            top_k=config.num_experts_per_tok,
-                           reduce=reduce)
+                           reduce=reduce, ep=ep)
     else:
         x = x + swiglu(h, layer["w_gate"], layer["w_up"], layer["w_down"],
                        act=config.hidden_act, reduce=reduce)
@@ -295,15 +297,15 @@ def block_forward(layer: Params, x: torch.Tensor, k_cache, v_cache,
 
 def forward_layers(layers: list[Params], x: torch.Tensor, cache: KVCache,
                    cos: torch.Tensor, sin: torch.Tensor, pos,
-                   config: LlamaConfig, reduce=None,
-                   sp=None) -> tuple[torch.Tensor, KVCache]:
+                   config: LlamaConfig, reduce=None, sp=None,
+                   ep=None) -> tuple[torch.Tensor, KVCache]:
     """Run the decoder blocks ``layers`` (one dict per layer, see
     :func:`unstack_layers`) over ``x [B, T, hidden]`` at ``pos``; the RoPE
     rows are sliced once for all of them."""
     cos_t, sin_t = rope_slice(cos, sin, pos, x.shape[1])
     for i, layer in enumerate(layers):
         x, _, _ = block_forward(layer, x, cache.k[i], cache.v[i], cos_t,
-                                sin_t, pos, config, reduce, sp)
+                                sin_t, pos, config, reduce, sp, ep)
     return x, cache
 
 
@@ -337,8 +339,12 @@ class Llama(nn.Module):
     sequence axis and every call names its attention mode
     (``sp_mode``, :mod:`cake_tpu_torch.ops.ring`): a ring prompt pass
     runs this rank's chunk of the tokens, and :meth:`prompt_logits` takes
-    each row's last token from the shard that holds it. Without ``coll``
-    nothing of this runs: no collective and no launch is added."""
+    each row's last token from the shard that holds it. At ``ep > 1`` the
+    expert stacks are this rank's run of experts and the routed MLP's
+    combine is one all-reduce over ``(ep, tp)``. The interleaved schedules
+    drive a stage cycle by cycle through :meth:`embed`,
+    :meth:`stage_layers` and :meth:`shift`. Without ``coll`` nothing of
+    this runs: no collective and no launch is added."""
 
     def __init__(self, config: LlamaConfig, params: Params, coll=None):
         super().__init__()
@@ -352,6 +358,13 @@ class Llama(nn.Module):
         self.layer_config = (local_config(config, self.plan)
                              if coll is not None else config)
         self._reduce = (coll.all_reduce if self.plan.tp > 1 else None)
+        # at ep > 1 the rank's run of experts, combined over (ep, tp)
+        self._ep = None
+        if self.plan.ep > 1:
+            axis = "ep_tp" if self.plan.tp > 1 else "ep"
+            self._ep = ExpertShard(
+                coll.coords["ep"],
+                functools.partial(coll.all_reduce, axis=axis))
         self.stage = coll.coords["stage"] if coll is not None else 0
         # this rank's index on dp: which rows of a batch it runs
         self.rows_index = coll.coords["dp"] if coll is not None else 0
@@ -414,16 +427,44 @@ class Llama(nn.Module):
             tokens = tokens[:, sp.index * t_l:(sp.index + 1) * t_l]
             pos = sp.index * t_l
         if self.stage == 0:
-            x = embed_tokens(self.params, tokens, self.config)
+            x = self.embed(tokens)
         else:
             x = self.coll.recv_prev(
                 (*tokens.shape, self.config.hidden_size),
                 self.config.torch_dtype)
         x, _ = forward_layers(self.layers, x, cache, cos, sin, pos,
-                              self.layer_config, self._reduce, sp)
+                              self.layer_config, self._reduce, sp, self._ep)
         if not self.last_stage:
             self.coll.send_next(x)
         return x
+
+    # -- the microbatch hand-off of the interleaved schedules ----------------
+    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        return embed_tokens(self.params, tokens, self.config)
+
+    def stage_layers(self, x: torch.Tensor, cache: KVCache, pos,
+                     sp_mode: str | None = None) -> torch.Tensor:
+        """This rank's layers over the activation ``x [b, T, hidden]``
+        (embedded on stage 0, handed on by :meth:`shift` elsewhere) at
+        ``pos``, with no hand-off: one cycle of a stage in the interleaved
+        schedules, over a microbatch's rows of the cache
+        (:meth:`KVCache.rows <cake_tpu_torch.ops.kvcache.KVCache.rows>`)
+        or a prompt chunk."""
+        cos, sin = self.rope(cache.max_seq * self.plan.sp)
+        x, _ = forward_layers(self.layers, x, cache, cos, sin, pos,
+                              self.layer_config, self._reduce,
+                              self._seq_shard(sp_mode), self._ep)
+        return x
+
+    def shift(self, x: torch.Tensor | None, recv: tuple | None):
+        """A cycle's hand-off: ``x`` (None: this stage ran nothing) to the
+        next stage, and from the previous one the activation of shape
+        ``recv`` (None: it ran nothing), posted together
+        (:meth:`Collectives.stage_shift
+        <cake_tpu_torch.parallel.collectives.Collectives.stage_shift>`)."""
+        return self.coll.stage_shift(
+            x if not self.last_stage else None,
+            recv if self.stage > 0 else None, self.config.torch_dtype)
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         if self.coll is None:

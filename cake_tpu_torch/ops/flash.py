@@ -499,7 +499,8 @@ def _decode(name: str, argtypes, q: torch.Tensor, kv_ptrs: tuple, s: int,
     b, h, t, d = q.shape
     pos_t = _row_positions(pos, b, q.device)
     tiles = decode_tiles(h, kvh, t)
-    nsplit = num_splits(b, kvh, s, q.device, tiles)
+    # a microbatch splits its keys as its batch does (build.pinned_rows)
+    nsplit = num_splits(b * build.rows_factor(), kvh, s, q.device, tiles)
     part_o = part_ml = counters = None
     if nsplit > 1:
         # per (b, kv head, split, row): unnormalized output, max, sum

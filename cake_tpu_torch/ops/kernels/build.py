@@ -81,6 +81,29 @@ def reset_launches() -> None:
         _LAUNCHES[name] = 0
 
 
+# a launch's work split is a function of its shapes; the interleaved
+# schedules run a 1/factor share of a batch's rows in each call, and pin
+# the split to the whole batch's so the rows get the serialized call's
+# bits (the quantized matmuls' regime, the decodes' KV splits)
+_PIN = threading.local()
+
+
+@contextlib.contextmanager
+def pinned_rows(factor: int):
+    """Within the block, the matmul plans and decode splits are those of
+    ``factor`` times the rows of each call."""
+    prev = rows_factor()
+    _PIN.factor = factor
+    try:
+        yield
+    finally:
+        _PIN.factor = prev
+
+
+def rows_factor() -> int:
+    return getattr(_PIN, "factor", 1)
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:

@@ -71,6 +71,12 @@ class KVCache:
         their rows of this cache (codes and scales alike)."""
         return KVCache(k=self.k[lo:hi], v=self.v[lo:hi])
 
+    def rows(self, lo: int, hi: int) -> "KVCache":
+        """Batch rows ``lo..hi-1`` of every layer as views (a microbatch of
+        the interleaved schedules): a forward over them writes only those
+        rows of this cache."""
+        return KVCache(k=self.k[:, lo:hi], v=self.v[:, lo:hi])
+
 
 def init_cache(config: LlamaConfig, batch: int = 1,
                max_seq: int | None = None, device=None,

@@ -1,6 +1,5 @@
 """Mixture-of-Experts SwiGLU (port of ``cake_tpu/ops/moe.py``, with its
-``tp`` mesh argument and without ``ep``: expert parallelism is not ported
-yet).
+``tp`` and ``ep`` mesh arguments).
 
 Mixtral routing: the router scores every expert in f32, keeps the top-k
 logits per token and takes the softmax over those k only. Two strategies of
@@ -17,6 +16,14 @@ chooses (so both packages take the same path at the same shape):
 The routing never reaches the host: no expert id is read back, and the
 number of products (and of kernel launches) is a function of the shapes.
 
+Expert parallelism (``ep > 1``, :class:`ExpertShard`): a rank holds the
+contiguous run of ``E/ep`` experts ``[index * E_local, (index + 1) *
+E_local)``, the router still scores every expert, and the rank runs the
+dense path over its local experts at any N, decode included (the JAX
+package's choice: a decode step reads every local expert's bytes), with
+the combine weights sliced to its run. The partial outputs are summed
+over ``(ep, tp)`` in one all-reduce, as JAX fuses its psum.
+
 The bf16 expert products are plain ``torch.matmul`` (the JAX package
 leaves MoE to XLA). Int8 expert stacks (:class:`QuantizedLinear` with
 ``q [E, in, out]`` and ``scale [E, out]``) go through the hand-written
@@ -29,6 +36,9 @@ fusing the JAX package's trace-level dequantization into the einsum.
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable
+
 import torch
 import torch.nn.functional as F
 
@@ -37,6 +47,16 @@ from cake_tpu_torch.ops.quant import QuantizedLinear, dense
 # Strategy crossover: gather copies N * k experts' weights, which pays only
 # while N * k is well under E.
 GATHER_MAX_ROWS = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpertShard:
+    """A rank's place on the ep axis: ``index`` (its run of experts) and
+    ``reduce``, the all-reduce over the ``(ep, tp)`` plane that sums the
+    routed MLP's partial outputs."""
+
+    index: int
+    reduce: Callable[[torch.Tensor], torch.Tensor]
 
 
 def router_topk(x2d: torch.Tensor, router_w: torch.Tensor, top_k: int):
@@ -112,16 +132,32 @@ def _moe_gather(x2d: torch.Tensor, w_topk: torch.Tensor, idx: torch.Tensor,
 
 
 def moe_swiglu(x: torch.Tensor, router_w: torch.Tensor, w_gate, w_up,
-               w_down, top_k: int, reduce=None) -> torch.Tensor:
+               w_down, top_k: int, reduce=None,
+               ep: ExpertShard | None = None) -> torch.Tensor:
     """Routed SwiGLU MLP of ``x [B, T, H]`` (residual not added):
-    ``router_w [H, E]``, expert stacks ``w_gate/w_up [E, H, F]`` and
-    ``w_down [E, F, H]``, plain or int8. Under tensor parallelism the
-    stacks hold this rank's slice of every expert's intermediate (the
-    router is replicated: every rank routes every token), and ``reduce``
-    (the all-reduce over tp) sums the combined partial outputs."""
+    ``router_w [H, E]`` (every expert), expert stacks ``w_gate/w_up
+    [E_local, H, F]`` and ``w_down [E_local, F, H]``, plain or int8. Under
+    tensor parallelism the stacks hold this rank's slice of every expert's
+    intermediate (the router is replicated: every rank routes every
+    token), and ``reduce`` (the all-reduce over tp) sums the combined
+    partial outputs. Under expert parallelism (``ep``; the ep width is
+    read off the shapes, ``E / E_local``, as the JAX package reads it) the
+    stacks hold the rank's run of experts, the dense path runs over them,
+    and ``ep.reduce`` sums over ``(ep, tp)`` in place of ``reduce``."""
     b, t, h = x.shape
     x2d = x.reshape(b * t, h)
     combine, w_topk, idx = router_topk(x2d, router_w, top_k)
+    e_local = (w_gate.q if isinstance(w_gate, QuantizedLinear)
+               else w_gate).shape[0]
+    if combine.shape[1] // e_local > 1:
+        if ep is None:
+            raise ValueError(
+                f"expert stacks of {e_local} of {combine.shape[1]} experts "
+                "need the rank's ExpertShard (ep)")
+        lo = ep.index * e_local
+        out = _moe_dense(x2d, combine[:, lo:lo + e_local], w_gate, w_up,
+                         w_down)
+        return ep.reduce(out).reshape(b, t, h)
     if x2d.shape[0] * top_k <= GATHER_MAX_ROWS:
         out = _moe_gather(x2d, w_topk, idx, w_gate, w_up, w_down)
     else:

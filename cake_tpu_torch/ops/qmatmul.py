@@ -86,18 +86,20 @@ class Plan:
 
 
 def plan(m: int, n: int, k: int, sms: int, bits: int = 8,
-         group: int | None = None) -> Plan:
+         group: int | None = None, regime_m: int | None = None) -> Plan:
     """The plan of a call with ``M = m`` rows, out-dim ``n``, in-dim ``k``
     (> 0, a multiple of 64) on a card of ``sms`` SMs: a pure function of
     its arguments. ``bits`` 8 or 4; ``group`` the int4 group size (None:
-    per channel)."""
+    per channel). ``regime_m`` (at least ``m``): the rows the regime and
+    the tile are chosen for (a microbatch pinned to its batch's)."""
     strips = -(-n // BLOCK_N)
-    if m > DECODE_M:
+    rm = max(m, regime_m or m)
+    if rm > DECODE_M:
         # BM 256 pays the conversion of each code once for 256 rows; a
         # grouped partial beside the sum fits only BM 192; BM 128 where the
         # larger tiles would leave SMs idle
         big = 192 if group else 256
-        bm = big if -(-m // big) * strips >= sms else 128
+        bm = big if -(-rm // big) * strips >= sms else 128
         return Plan("prefill", bm, BLOCK_K, 1, k // BLOCK_K,
                     (-(-m // bm) * strips, 1))
     bk = decode_block_k(bits)
@@ -164,7 +166,7 @@ def _launch(name: str, x2, w, scale, n: int, extra: tuple) -> torch.Tensor:
         return y.zero_()
     group = extra[0] if extra else 0
     p = plan(m, n, k, sm_count(x2.device), 8 if not extra else 4,
-             group or None)
+             group or None, regime_m=m * build.rows_factor())
     part = counters = None
     if p.splits > 1:
         part = torch.empty(p.splits * m * n, dtype=torch.float32,

@@ -3,27 +3,35 @@ JAX package's collectives are ``psum``/``all_gather``/``ppermute`` inside
 one compiled program).
 
 One :class:`Collectives` per rank holds the rank's process group on each
-mesh axis above 1 (``dp``, ``stage``, ``sp``, ``tp``) and a gloo control
+mesh axis above 1 (``dp``, ``stage``, ``sp``, ``ep``, ``tp``), at ``ep >
+1`` one over the ``(ep, tp)`` plane (:data:`EP_TP`), and a gloo control
 group over every rank. Its operations are the only collectives of the port:
 
 - ``all_reduce(t, TP)``: the row-parallel linears' partial sums; over
   ``sp``, the last prompt token's activation from its owner shard and the
   sequence-sharded decode's softmax statistics (``op="max"`` for the row
   max, then the packed sums: :func:`cake_tpu_torch.ops.ring.combine_axis`);
+  over :data:`EP_TP` (or ``ep`` at tp 1) the routed MLP's combine, its
+  local experts' partial sums (one all-reduce, as JAX's fused psum);
 - ``all_gather(t, axis, dim)``: the vocab-sharded head's logits over tp,
   the batch rows' logits over dp, and a ring prefill's roped K/V over sp
   (the chunk layout into the cache's range layout);
 - ``ring_shift(t, SP)``: ring attention's rotation of a K/V block to the
   next sp rank, the previous one's back (an ``isend``/``irecv`` pair
   posted together, so no rank waits on a send first);
-- ``send_next``/``recv_prev``: the stage hand-off of the activation;
+- ``send_next``/``recv_prev``: the stage hand-off of the activation in
+  the serialized schedule; ``stage_shift``: the interleaved schedules'
+  hand-off, each stage's send to the next and receive from the previous
+  posted together (``batch_isend_irecv``), so two stages never both
+  block on a send;
 - ``broadcast(t, STAGE, src)``: the last stage's logits to the others;
 - ``broadcast_object``: the controller's engine calls, over the control
   group;
 - ``gather_to_root``/``scatter_from_root``: a stream snapshot's pages
   (:meth:`~cake_tpu_torch.runtime.batch_generator.BatchGenerator.
   export_stream` and ``import_begin``), from every rank to rank 0 and
-  back, over every rank of the mesh (the ``snapshot`` key of the stats).
+  back (the ``snapshot`` key of the stats); at ``ep > 1`` the gather
+  takes the ep-0 ranks' parts only (the cache is replicated over ep).
 
 Under NCCL, card tensors go straight to the collective. Under gloo they go
 through pinned host buffers, on purpose and every time: gloo's own CUDA
@@ -42,10 +50,12 @@ from collections import defaultdict
 import torch
 import torch.distributed as dist
 
-from cake_tpu_torch.parallel.mesh import DP, SP, STAGE, TP, MeshPlan
+from cake_tpu_torch.parallel.mesh import DP, EP, SP, STAGE, TP, MeshPlan
 
 CONTROL = "control"
 SNAPSHOT = "snapshot"
+# the (ep, tp) plane: the routed MLP's combine at ep > 1
+EP_TP = "ep_tp"
 # seconds a follower waits for rank 0's next engine call (a week)
 CONTROL_TIMEOUT_S = 7 * 24 * 3600.0
 # timed operations kept as CUDA event pairs before they are summed
@@ -68,14 +78,24 @@ class Collectives:
         self.device = torch.device(device)
         self.coords = plan.coords(rank)
         self._groups: dict[str, tuple] = {}
-        for axis in (DP, STAGE, SP, TP):
-            if plan.shape()[axis] == 1:
-                continue
+        axes = [(a, a) for a in (DP, STAGE, SP, EP, TP)
+                if plan.shape()[a] > 1]
+        if plan.ep > 1 and plan.tp > 1:
+            axes.append((EP_TP, (EP, TP)))
+        for key, axis in axes:
             for line in plan.lines(axis):
                 group = dist.new_group(
                     line, timeout=datetime.timedelta(seconds=timeout_s))
                 if rank in line:
-                    self._groups[axis] = (group, line)
+                    self._groups[key] = (group, line)
+        # a snapshot's pages come from the ep-0 ranks (the cache is
+        # replicated over ep); every rank makes the group, in rank order
+        self._ep0 = None
+        if plan.ep > 1:
+            ep0 = [r for r in range(plan.size)
+                   if plan.coords(r)[EP] == 0]
+            self._ep0 = (dist.new_group(
+                ep0, timeout=datetime.timedelta(seconds=timeout_s)), ep0)
         # an idle server's followers wait on the control group between
         # requests: it waits as long as it must (a rank that dies still
         # breaks its connections at once)
@@ -217,20 +237,62 @@ class Collectives:
                 dist.recv(like, self._stage_peer(-1))
         return like
 
+    def stage_shift(self, t: torch.Tensor | None, recv_shape,
+                    dtype) -> torch.Tensor | None:
+        """The interleaved schedules' hand-off: ``t`` (None: nothing this
+        cycle) to the next stage and, where ``recv_shape`` is given, the
+        previous stage's tensor of that shape back, on this rank's device
+        (None otherwise). The send and the receive are posted together
+        (``batch_isend_irecv``), so no two stages both wait on a send."""
+        if t is None and recv_shape is None:
+            return None
+        group, line = self._groups[STAGE]
+        i = line.index(self.rank)
+        ops, src, dst = [], None, None
+        like = (torch.empty(recv_shape, dtype=dtype, device=self.device)
+                if recv_shape is not None else None)
+        probe = t if t is not None else like
+        with self._timed(STAGE, 0 if t is None
+                         else t.numel() * t.element_size(),
+                         probe.device.type):
+            if t is not None:
+                t = t.contiguous()
+                src = self._to_host("sh", t) if self._staged(t) else t
+                ops.append(dist.P2POp(dist.isend, src, line[i + 1], group))
+            if like is not None:
+                dst = (self._buffer("sh.in", like) if self._staged(like)
+                       else like)
+                ops.append(dist.P2POp(dist.irecv, dst, line[i - 1], group))
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+            if like is not None and dst is not like:
+                like.copy_(dst)
+        return like
+
     # -- snapshots (every rank of the mesh) ----------------------------------
-    def gather_to_root(self, t: torch.Tensor) -> list[torch.Tensor] | None:
+    def gather_to_root(self, t: torch.Tensor) -> list | None:
         """Every rank's ``t`` (one shape and dtype on every rank) on rank 0,
-        as host tensors in rank order; None on the other ranks."""
+        as host tensors indexed by global rank; None on the other ranks.
+        At ``ep > 1`` only the ep-0 ranks send (the others hold the same
+        bytes): their entries are None, and the other ranks make no
+        call."""
         t = t.contiguous()
         root = self.rank == 0
+        group, senders = (self._ep0 if self._ep0 is not None
+                          else (None, list(range(self.plan.size))))
+        if self.rank not in senders:
+            return None
         with self._timed(SNAPSHOT, t.numel() * t.element_size(),
                          t.device.type):
             src = t.cpu() if self._staged(t) else t
-            parts = ([torch.empty_like(src) for _ in range(self.plan.size)]
-                     if root else None)
-            dist.gather(src, parts, dst=0)
-            if root:
-                parts = [p.cpu() for p in parts]
+            got = ([torch.empty_like(src) for _ in senders]
+                   if root else None)
+            dist.gather(src, got, dst=0, group=group)
+            if not root:
+                return None
+            parts: list = [None] * self.plan.size
+            for r, p in zip(senders, got):
+                parts[r] = p.cpu()
         return parts
 
     def scatter_from_root(self, parts: list[torch.Tensor] | None, shape,

@@ -83,10 +83,11 @@ def mesh_generate(ctx, config: LlamaConfig, plan: MeshPlan,
                   quantize: str | None = None,
                   settings: SamplerSettings | None = None,
                   block_size: int = 1, kv_quant: str | None = None,
-                  max_seq: int | None = None,
+                  max_seq: int | None = None, prefill_chunks: int = 1,
                   want_logits: bool = False) -> dict:
     """``n`` tokens of ``prompt`` through
-    :class:`~cake_tpu_torch.runtime.mesh_generator.MeshGenerator`. With
+    :class:`~cake_tpu_torch.runtime.mesh_generator.MeshGenerator` (with
+    ``prefill_chunks`` the pipelined prefill). With
     ``want_logits``, first the prompt pass's f32 logits at the last
     prompt position, on a cache of its own (rank 0 returns them). The
     launch and collective counts cover the generation alone; ``ttft_s``
@@ -98,7 +99,7 @@ def mesh_generate(ctx, config: LlamaConfig, plan: MeshPlan,
     shard = _shard(ctx, config, plan, params, model_dir, quantize)
     gen = MeshGenerator(config, shard, coll, settings=settings,
                         max_seq=max_seq, block_size=block_size,
-                        kv_quant=kv_quant)
+                        prefill_chunks=prefill_chunks, kv_quant=kv_quant)
     logits = None
     if want_logits:
         cache = init_cache_on_mesh(config, plan, 1, gen.max_seq,
@@ -214,29 +215,41 @@ def mesh_batch(ctx, config: LlamaConfig, plan: MeshPlan,
     BatchGenerator` over the mesh, ``n`` tokens each (``generate``); with
     ``arrivals`` (``(prompt, stream_id)`` pairs) the batch starts from
     ``prompts`` and the arrivals are enqueued as slots free, and every
-    stream's ids are returned by stream id."""
+    stream's ids are returned by stream id. ``schedule`` counts the
+    dispatches of each schedule, and the ``il_*`` counts the model calls
+    of the interleaved ones. Without arrivals ``prefill_ms`` and
+    ``prefill_coll`` are the batched prefill's share of ``ms`` and of the
+    collectives."""
     from cake_tpu_torch.runtime.batch_generator import BatchGenerator
 
     coll = ctx.collectives(plan)
     shard = _shard(ctx, config, plan, params, model_dir, quantize)
     gen = BatchGenerator(config, shard, settings=settings, coll=coll,
                          device=ctx.device, num_stages=plan.num_stages,
-                         tp=plan.tp, dp=plan.dp, sp=plan.sp, **engine_kw)
+                         tp=plan.tp, dp=plan.dp, sp=plan.sp, ep=plan.ep,
+                         **engine_kw)
     _sync(ctx.device)
     coll.barrier()
     build.reset_launches()
     coll.reset_stats()
     t0 = time.perf_counter()
     timer = _Timer(ctx.device)
+    prefill = {}
     if not arrivals:
         gen.set_prompts(prompts)
+        prefill = {"prefill_ms": timer.stop(), "prefill_coll": coll.stats()}
         streams = gen.generate(n)
     else:
         streams = _continuous(gen, prompts, arrivals, n)
     out = _report(ctx, coll, t0)
     out["ms"] = timer.stop()
+    out.update(prefill)
     out.update(streams=streams, prefill_calls=gen.prefill_calls,
-               decode_steps=gen.decode_steps, verify_calls=gen.verify_calls)
+               decode_steps=gen.decode_steps, verify_calls=gen.verify_calls,
+               il_prefill_calls=gen.il_prefill_calls,
+               il_decode_steps=gen.il_decode_steps,
+               il_verify_calls=gen.il_verify_calls,
+               schedule=gen.stats()["schedule"])
     return out
 
 

@@ -207,7 +207,9 @@ class RankPool:
         backend = distributed.choose_backend(backend, device_type, world)
         prebuild(device_type)
         key = secrets.token_bytes(16)
-        self._listener = Listener(("127.0.0.1", 0), authkey=key)
+        # every rank connects at once: a backlog of one refuses some
+        self._listener = Listener(("127.0.0.1", 0), backlog=world,
+                                  authkey=key)
         host, port = self._listener.address
         coordinator = f"127.0.0.1:{free_port()}"
         env = _child_env({"CAKE_POOL_KEY": key.hex()})

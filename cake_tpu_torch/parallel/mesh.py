@@ -22,7 +22,13 @@ rank's place in the same grid is its coordinates: the global rank is
   runs ring attention over ``T/sp``-token chunks and a decode step
   attends each range and merges the softmax statistics
   (:mod:`cake_tpu_torch.ops.ring`). The weights are replicated over sp.
-- ``ep`` is refused: expert parallelism is not ported yet.
+- ``ep``: a Mixtral layer's expert stacks ``[E, in, out]`` split their
+  expert axis into equal runs, rank ``i`` holding experts ``[i * E/ep,
+  (i + 1) * E/ep)``; the router is replicated (every rank routes every
+  token) and each rank runs the dense path over its experts, the combine
+  summed over ``(ep, tp)`` in one all-reduce
+  (:func:`cake_tpu_torch.ops.moe.moe_swiglu`). Everything else, the KV
+  cache among it, is replicated over ep.
 
 The KV cache of a rank is ``[L/S, B/dp, KVH/tp, max_seq/sp, D]``, as
 ``CACHE_SPEC``.
@@ -45,19 +51,14 @@ from cake_tpu_torch.ops.quant import Quantized4Linear, QuantizedLinear
 DP, STAGE, SP, EP, TP = "dp", "stage", "sp", "ep", "tp"
 AXES = (DP, STAGE, SP, EP, TP)
 
-# what a later slice ports
-NEXT_SLICE = "not ported yet (the next slice of the port)"
 
 
 def check_axes(sp: int = 1, ep: int = 1) -> None:
-    """Refuse the axis that is not ported: ``ep`` (expert parallelism).
-    ``sp`` is checked by :func:`validate_shardable`."""
-    if sp < 1:
-        raise ValueError(f"sp={sp}: the sequence axis needs sp >= 1")
-    if ep != 1:
-        raise ValueError(
-            f"ep={ep}: expert parallelism is {NEXT_SLICE}; the port's mesh "
-            "runs dp, stages, sp and tp")
+    """Refuse an axis size under 1 (the divisibility rules are
+    :func:`validate_shardable`'s)."""
+    for name, n in (("sp", sp), ("ep", ep)):
+        if n < 1:
+            raise ValueError(f"{name}={n}: a mesh axis needs a size >= 1")
 
 
 def make_mesh(num_stages: int = 1, tp: int = 1, dp: int = 1, sp: int = 1,
@@ -233,16 +234,22 @@ class MeshPlan:
         idx = tuple(coords.get(a, 0) for a in AXES)
         return int(np.ravel_multi_index(idx, tuple(self.shape().values())))
 
-    def line(self, rank: int, axis: str) -> list[int]:
+    def line(self, rank: int, axis) -> list[int]:
         """The global ranks of ``rank``'s line along ``axis`` (its process
-        group on that axis), in axis order."""
+        group on that axis), in axis order. ``axis`` may be a tuple of
+        axes: the ranks that differ from ``rank`` on those axes alone
+        (the ``(ep, tp)`` plane of the routed MLP's combine), in rank
+        order."""
         c = self.coords(rank)
-        return [self.rank_of(**{**c, axis: i})
-                for i in range(self.shape()[axis])]
+        axes = (axis,) if isinstance(axis, str) else tuple(axis)
+        sizes = [self.shape()[a] for a in axes]
+        return sorted(self.rank_of(**{**c, **dict(zip(axes, idx))})
+                      for idx in np.ndindex(*sizes))
 
-    def lines(self, axis: str) -> list[list[int]]:
-        """Every line along ``axis``, each once, in rank order: the order
-        every rank creates the axis' process groups in."""
+    def lines(self, axis) -> list[list[int]]:
+        """Every line along ``axis`` (an axis or a tuple of them), each
+        once, in rank order: the order every rank creates the axis'
+        process groups in."""
         seen, out = set(), []
         for r in range(self.size):
             line = self.line(r, axis)
@@ -342,13 +349,21 @@ def shard_params(params: dict, plan: MeshPlan, rank: int,
 
 def is_rank_shard(params: dict, config: LlamaConfig, plan: MeshPlan) -> bool:
     """Whether ``params`` is one rank's shard of ``plan`` rather than the
-    full tree (read off ``wq``'s layer count and out-features; a plan of
-    one rank's shard is the full tree)."""
-    wq = params["layers"]["wq"]
-    w = getattr(wq, "q", None)
-    w = getattr(wq, "qp", None) if w is None else w
-    w = wq if w is None else w
+    full tree (read off ``wq``'s layer count and out-features, and a
+    Mixtral tree's expert count; a plan of one rank's shard is the full
+    tree)."""
+    def codes(t):
+        for field in ("q", "qp"):
+            if hasattr(t, field):
+                return getattr(t, field)
+        return t
+
+    w = codes(params["layers"]["wq"])
     full_out = config.num_attention_heads * config.head_dim
+    if "router" in params["layers"]:  # and the expert axis over ep
+        experts = codes(params["layers"]["w_gate"]).shape[1]
+        if experts != config.num_local_experts // plan.ep:
+            return False
     return (w.shape[0] == config.num_hidden_layers // plan.num_stages
             and w.shape[-1] == full_out // plan.tp)
 
@@ -399,8 +414,9 @@ def shard_pages(halves: list[torch.Tensor], plan: MeshPlan,
 def assemble_pages(parts: list[list[torch.Tensor]],
                    plan: MeshPlan) -> list[torch.Tensor]:
     """The full model's page halves from every rank's part (``parts[r]``,
-    rank order; dp 1): the kv heads in tp order within a stage, then the
-    layers in stage order, the single device's layout."""
+    by global rank; dp 1; only the ep-0 ranks' parts are read): the kv
+    heads in tp order within a stage, then the layers in stage order, the
+    single device's layout."""
     out = []
     for i in range(len(parts[0])):
         stages = [torch.cat([parts[plan.rank_of(stage=s, tp=t)][i]

@@ -73,24 +73,24 @@ update) with one host copy at the end. Greedy streams are identical to the
 plain engine's; sampled streams are distribution-identical through
 rejection sampling, with draws keyed by (seed, stream id, position).
 
-Over a ``(dp, stage, sp, tp)`` rank mesh (``coll=``) every rank runs the
-same engine calls: the batch's rows split over dp, each rank holds its
-layers, KV heads, rows and (at ``sp > 1``) range of the window of the
-cache, and every rank gets the gathered logits and samples the same
-tokens. At ``sp > 1`` the batched prefill is a ring pass (its bucket
-rounded up to a multiple of sp), an offset prefill and every admission
-chunk run replicated over sp against the sequence-sharded cache, and each
-decode step merges the shards' statistics (:mod:`cake_tpu_torch.ops.ring`).
+Over a ``(dp, stage, sp, ep, tp)`` rank mesh (``coll=``) every rank runs
+the same engine calls: the batch's rows split over dp, each rank holds its
+layers, KV heads, rows, (at ``sp > 1``) range of the window of the cache
+and (at ``ep > 1``) run of a Mixtral layer's experts, and every rank gets
+the gathered logits and samples the same tokens. At ``sp > 1`` the
+batched prefill is a ring pass (its bucket rounded up to a multiple of
+sp), an offset prefill, every admission chunk and every verify run
+replicated over sp against the sequence-sharded cache, and each decode
+step merges the shards' statistics (:mod:`cake_tpu_torch.ops.ring`). At
+stages > 1 the steps, verifies and prefills take the interleaved
+schedules where the batch divides by the stage count (``interleave``).
 The paged layout runs at dp 1 and sp 1. A snapshot
 over the mesh is the single device's: its export gathers the stream's
 pages to rank 0 (each rank holds its stage's layers and its tp shard's
 kv heads), which assembles and encodes them, and an import scatters them
 back, each rank pinning and writing its own part
-(:func:`~cake_tpu_torch.parallel.mesh.shard_pages`).
-
-Not ported yet, and refused with an error in the constructor: the
-interleaved pipeline schedules, the ep axis and speculation (``spec_k``)
-at ``sp > 1``.
+(:func:`~cake_tpu_torch.parallel.mesh.shard_pages`); at ``ep > 1`` the
+ep-0 ranks' parts, the cache being replicated over ep.
 """
 
 from __future__ import annotations
@@ -123,6 +123,8 @@ from cake_tpu_torch.ops.kvcache import KVCache, init_cache
 from cake_tpu_torch.ops.sampling import SamplerSettings
 from cake_tpu_torch.parallel.pipeline import (
     build_admit_prefill,
+    build_interleaved_decode,
+    build_interleaved_verify_rows,
     build_sharded_decode,
     build_sharded_prefill,
     build_sharded_verify_rows,
@@ -261,11 +263,18 @@ class BatchGenerator:
         (``params`` are the rank's shard) and its cache, ``[L/S, B/dp,
         KVH/tp, max_seq/sp, D]``; the batch's logits are gathered on every
         rank, so every rank samples every row the same way and keeps the
-        same host state. ``num_stages``, ``tp``, ``dp`` and ``sp`` above 1
-        need it and must be its plan's. At stages > 1 the steps run the serialized
-        schedule (stage after stage), as the JAX engine does whenever the
-        batch does not divide by the stage count; ``interleave=True`` is
-        not ported yet."""
+        same host state. ``num_stages``, ``tp``, ``dp``, ``sp`` and ``ep``
+        above 1 need it and must be its plan's.
+
+        ``interleave`` (None: on at stages > 1, as in JAX): the decode
+        steps, the verifies and a batched prefill from position 0 run the
+        interleaved schedules (:func:`~cake_tpu_torch.parallel.pipeline.
+        build_interleaved_decode`, ``build_interleaved_verify_rows``, the
+        pipelined prefill at sp 1) whenever the dp-local batch (the
+        bucket, for the prefill) divides by the stage count, and the
+        serialized schedule (stage after stage) otherwise; off with
+        logprobs or the paged layout. Both give the same streams.
+        ``stats()["schedule"]`` counts the dispatches of each."""
         if kv_layout not in ("slot", "paged"):
             raise ValueError(
                 f"kv_layout must be 'slot' or 'paged', got {kv_layout!r}")
@@ -279,20 +288,20 @@ class BatchGenerator:
                 "kv_layout='paged' requires dp == 1 and sp == 1 (the "
                 "page axis is unsharded; batch/sequence sharding of "
                 "pooled pages is future work)")
-        if spec_k and sp != 1:
-            raise ValueError(
-                f"batched speculation (spec_k) at sp={sp} (the verify over "
-                "a sequence-sharded window) is not ported yet (the next "
-                "slice of the port); run it at sp 1")
         plan = coll.plan if coll is not None else MeshPlan()
-        asked = {"dp": dp, "tp": tp, "num_stages": num_stages, "sp": sp}
+        ep = plan.ep if coll is not None and ep == 1 else ep
+        # JAX's plan validation comes first (ep on a dense config)
+        validate_shardable(config, num_stages, tp, sp=sp, ep=ep)
+        asked = {"dp": dp, "tp": tp, "num_stages": num_stages, "sp": sp,
+                 "ep": ep}
         if any(v not in (1, getattr(plan, k)) for k, v in asked.items()):
             wide = ", ".join(f"{k}={v}" for k, v in asked.items() if v != 1)
             raise ValueError(
                 f"{wide} run over a rank mesh: pass the rank's collectives "
                 "(coll=; cake_tpu_torch.parallel.launch starts the ranks)"
                 if coll is None else f"{wide} differ from the plan {plan}")
-        validate_shardable(config, plan.num_stages, plan.tp, sp=plan.sp)
+        validate_shardable(config, plan.num_stages, plan.tp, sp=plan.sp,
+                           ep=plan.ep)
         dp = plan.dp
         if self._paged and dp != 1:
             raise ValueError(
@@ -311,10 +320,6 @@ class BatchGenerator:
         if lookahead and spec_k:
             raise ValueError("lookahead dispatch does not compose with "
                              "batched speculation (spec_k)")
-        if interleave:
-            raise ValueError("the interleaved pipeline schedule "
-                             "(interleave=True) is not ported yet; stages "
-                             "run the serialized schedule")
         self.max_seq = max_seq or config.max_seq_len
         if plan.sp > 1 and self.max_seq % plan.sp:
             raise ValueError(
@@ -383,6 +388,26 @@ class BatchGenerator:
         self._spec_ngram = int(spec_ngram)
         self._spec_rounds = max(1, int(spec_rounds))
         self._verify_rows = build_sharded_verify_rows(self.model)
+        # the interleaved schedules: every stage busy on its own
+        # microbatch (or prompt chunk) each cycle; the serialized programs
+        # stay for a batch that does not divide by the stage count
+        n_st = plan.num_stages
+        self._interleave = (n_st > 1 if interleave is None
+                            else bool(interleave) and n_st > 1)
+        if self.logprobs_k or self._paged:
+            # no logprob outputs, no paged twin (as in JAX): the
+            # serialized programs give the same streams
+            self._interleave = False
+        if self._interleave:
+            self._decode_il = build_interleaved_decode(self.model,
+                                                       self.settings)
+            self._verify_rows_il = build_interleaved_verify_rows(self.model)
+            self._prefill_il = (build_sharded_prefill(self.model,
+                                                      microbatch=n_st)
+                                if plan.sp == 1 else None)
+        # dispatches (decode blocks, verifies, batched prefills) of each
+        # schedule at stages > 1
+        self._n_schedule = {"interleaved": 0, "serialized": 0}
         self._spec_bank: list[list[int]] = []
         self._spec_ctx: torch.Tensor | None = None  # [B, max_seq] context
         self._spec_ctx_pos: np.ndarray | None = None  # host pos at sync
@@ -433,6 +458,28 @@ class BatchGenerator:
         self.prefill_calls = 0
         self.decode_steps = 0
         self.verify_calls = 0
+        # of which run the interleaved schedules (a microbatch's or a
+        # prompt chunk's pass a stage each: S passes a call)
+        self.il_prefill_calls = 0
+        self.il_decode_steps = 0
+        self.il_verify_calls = 0
+
+    def _schedule(self, rows: int, what: str) -> bool:
+        """Whether a dispatch over ``rows`` (the batch, or the prompt
+        bucket for a prefill) runs the interleaved schedule, counted in
+        ``stats()["schedule"]`` at stages > 1."""
+        plan = self.model.plan
+        n_st = plan.num_stages
+        if n_st == 1:
+            return False
+        if not self._interleave or what == "masked":
+            ok = False
+        elif what == "prefill":
+            ok = self._prefill_il is not None and rows % n_st == 0
+        else:
+            ok = rows % plan.dp == 0 and (rows // plan.dp) % n_st == 0
+        self._n_schedule["interleaved" if ok else "serialized"] += 1
+        return ok
 
     @property
     def eos_ids(self) -> frozenset:
@@ -717,6 +764,7 @@ class BatchGenerator:
 
         self._n_decode_dispatches = 0
         self._n_admit_dispatches = 0
+        self._n_schedule = {"interleaved": 0, "serialized": 0}
         self._n_emitted = 0
         self._busy_s = 0.0
         self._t_start = time.perf_counter()
@@ -725,8 +773,13 @@ class BatchGenerator:
             self.cache = self._prefill_shared_prefix(first[:lcp], b)
         else:
             self.cache = self._new_cache(b)
-        logits = self._prefill(self._ids(tokens), self.cache, self._ids(last),
-                               lcp)
+        if not lcp and self._schedule(t_pad, "prefill"):
+            logits = self._prefill_il(self._ids(tokens), self.cache,
+                                      self._ids(last))
+            self.il_prefill_calls += 1
+        else:
+            logits = self._prefill(self._ids(tokens), self.cache,
+                                   self._ids(last), lcp)
         self.prefill_calls += 1
         # first token per stream: index 0 of its own schedule
         index0 = torch.zeros(b, dtype=torch.int64, device=self.device)
@@ -1050,8 +1103,8 @@ class BatchGenerator:
         if parts is None:
             return None
         likes = [(tuple(t.shape), t.dtype) for t in local]
-        return assemble_pages([_unpack(p, likes) for p in parts],
-                              coll.plan)
+        return assemble_pages([None if p is None else _unpack(p, likes)
+                               for p in parts], coll.plan)
 
     def _scatter_pages(self, snap) -> list[list[torch.Tensor]]:
         """This rank's part of an import's pages, ``[page][half]`` host
@@ -1857,9 +1910,13 @@ class BatchGenerator:
                     self._sids, self._history, self._hist_slot,
                     self._ids(self._index))
             if masked:
+                self._schedule(len(self.streams), "masked")
                 toks, lp = self._decode_masked(
                     *args, self._mask_table, self._ids(self._mask_rows_np()),
                     *self._paged_args(1))
+            elif self._schedule(len(self.streams), "decode"):
+                toks, lp = self._decode_il(*args, size)
+                self.il_decode_steps += size
             else:
                 toks, lp = self._decode(*args, size,
                                         *self._paged_args(size))
@@ -1949,8 +2006,7 @@ class BatchGenerator:
         with span("spec.verify", rounds=1, batch=b), \
                 self._prof.phase("spec_verify"), \
                 self._sentinel.decode_phase():
-            logits = self._verify_rows(self._ids(fed), self.cache, pos)
-            self.verify_calls += 1
+            logits = self._verify(self._ids(fed), pos)
         with self._prof.phase("spec_accept"), self._sentinel.decode_phase():
             toks, count = self._spec_accept(logits, self._ids(props), pos)
             host = torch.cat([count[:, None], toks], 1).cpu().numpy()
@@ -1972,6 +2028,15 @@ class BatchGenerator:
         self._index = self._index + n
         last = toks[np.arange(b), n - 1]
         self._last_tokens = self._ids(np.where(live_mask, last, fed[:, 0]))
+
+    def _verify(self, fed: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+        """One verify call of the fed blocks at ``pos``, in the schedule
+        this batch takes."""
+        self.verify_calls += 1
+        if self._schedule(fed.shape[0], "verify"):
+            self.il_verify_calls += 1
+            return self._verify_rows_il(fed, self.cache, pos)
+        return self._verify_rows(fed, self.cache, pos)
 
     def _spec_propose(self, ctx, pos, last):
         """The device proposer over the context rows, and the fed block
@@ -2004,8 +2069,7 @@ class BatchGenerator:
                 self._sentinel.decode_phase():
             for _ in range(self._spec_rounds):
                 props, fed = self._spec_propose(ctx, pos, last)
-                logits = self._verify_rows(fed, self.cache, pos)
-                self.verify_calls += 1
+                logits = self._verify(fed, pos)
                 # rows frozen by done emit and push nothing; a frozen row
                 # near the window's end may clamp-write inside its own dead
                 # context row, which is never proposed from again
@@ -2110,6 +2174,7 @@ class BatchGenerator:
             "decode_dispatches": self._n_decode_dispatches,
             "admit_dispatches": self._n_admit_dispatches,
             "spec_dispatches": self._n_spec_dispatches,
+            "schedule": dict(self._n_schedule),
             "spec_chains": self._n_spec_chains,
             "prefix_hits": self._prefix_hits,
             "prefix_entries": (len(self._prefix_tree) if self._paged

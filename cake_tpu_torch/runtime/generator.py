@@ -103,8 +103,8 @@ def _bucket(n: int, max_seq: int, floor: int = 16) -> int:
 def prompt_bucket(n: int, max_seq: int, sp: int = 1) -> int:
     """The padded length of an ``n``-token prompt pass: the power-of-two
     bucket, rounded up to a multiple of ``sp`` (a ring pass splits it into
-    equal chunks; ``max_seq`` divides by sp, so the bucket stays inside
-    the window)."""
+    equal chunks, the pipelined prefill into its chunks; ``max_seq``
+    divides by it, so the bucket stays inside the window)."""
     t_pad = _bucket(n, max_seq)
     return -(-t_pad // sp) * sp
 
@@ -396,10 +396,10 @@ class LlamaGenerator(GeneratorBase):
         n = len(self._prompt_tokens)
         t0 = time.perf_counter()
         with span("prefill", tokens=n):
-            t_pad = prompt_bucket(n, self.max_seq, self.model.plan.sp)
+            t_pad = prompt_bucket(n, self.max_seq, self._bucket_multiple)
             tokens = torch.tensor([self._prompt_tokens + [0] * (t_pad - n)],
                                   device=self.device)
-            logits = self.model.prompt_logits(tokens, self.cache, n - 1)
+            logits = self._prompt_logits(tokens, n - 1)
             tok = int(self._sample(logits[0], 0))
             self._pos = n
             self.prefill_calls += 1
@@ -410,6 +410,18 @@ class LlamaGenerator(GeneratorBase):
             rec.record(index=0, kind="prefill", total_ms=round(dt_ms, 3),
                        tokens=n)
         return tok
+
+    @property
+    def _bucket_multiple(self) -> int:
+        """What the prompt bucket rounds up to a multiple of: sp (a ring
+        pass splits it into equal chunks)."""
+        return self.model.plan.sp
+
+    def _prompt_logits(self, tokens: torch.Tensor,
+                       last: int) -> torch.Tensor:
+        """The prompt pass over the padded ``tokens [1, T]``: logits at
+        ``last``."""
+        return self.model.prompt_logits(tokens, self.cache, last)
 
     def _launch(self, token: torch.Tensor, index0: int,
                 steps: int) -> torch.Tensor:

@@ -551,7 +551,10 @@ class MeshSpeculativeGenerator(SpeculativeMixin, MeshGenerator):
     host proposes between rounds. Greedy streams equal plain decode;
     sampled streams are distribution-identical. ``verify_calls`` counts
     the verify's model calls on this rank (one multi-query decode a layer
-    of the rank's each)."""
+    of the rank's each; at ``sp > 1`` its statistics form, the K + 1
+    rows replicated over sp against the sharded cache).
+    ``prefill_chunks`` runs the pipelined prefill, as
+    :class:`~cake_tpu_torch.runtime.mesh_generator.MeshGenerator` does."""
 
     def __init__(self, config: LlamaConfig, params, coll, tokenizer=None,
                  settings: SamplerSettings | None = None,
@@ -559,11 +562,6 @@ class MeshSpeculativeGenerator(SpeculativeMixin, MeshGenerator):
                  spec_k: int = 8, spec_ngram: int = 3,
                  prefill_chunks: int = 1):
         settings = settings or SamplerSettings(temperature=0.0)
-        if coll.plan.sp > 1:
-            raise ValueError(
-                f"speculation at sp={coll.plan.sp} (the verify over a "
-                "sequence-sharded cache) is not ported yet (the next "
-                "slice of the port); run it at sp 1")
         super().__init__(config, params, coll, tokenizer=tokenizer,
                          settings=settings, max_seq=max_seq, block_size=1,
                          prefill_chunks=prefill_chunks, kv_quant=kv_quant)

@@ -5,7 +5,8 @@
 layout :func:`~cake_tpu_torch.parallel.mesh.shard_params` gives, straight
 from the memory-mapped safetensors files (:class:`CheckpointReader`): a
 rank of stage ``s`` reads only its stage's layers, a tp rank only its
-slice of each sharded linear. There is never a full-model copy, on the
+slice of each sharded linear, an ep rank only its run of a Mixtral
+layer's experts (codes and scales alike, ``.q8`` checkpoints too). There is never a full-model copy, on the
 host or on the card. It is byte for byte the JAX loader's addressable
 shard of the same rank's device.
 
@@ -242,18 +243,21 @@ def load_llama_params_on_mesh(model_dir: str | Path, config: LlamaConfig,
 
         if num_experts:
             # router [L, H, E]: replicated (every rank routes every
-            # token); expert stacks [L, E, in, out]: every expert's
-            # features over tp, like the dense MLP (ep is 1)
+            # token); expert stacks [L, E, in, out]: the rank's run of
+            # experts over ep, every expert's features over tp like the
+            # dense MLP
             layers["router"] = put(stack(lambda i: reader.read2d(
                 f"model.layers.{i}.{_MOE_ROUTER}", _ALL, _ALL, True)))
             fdim = config.intermediate_size
+            experts = shard_slice(num_experts, plan.ep, coords["ep"])
             for ours, (kdim, ndim) in {"w_gate": (h, fdim),
                                        "w_up": (h, fdim),
                                        "w_down": (fdim, h)}.items():
                 pattern = _MOE_EXPERT_MAP[ours]
                 row = ours == "w_down"
                 names = [[f"model.layers.{i}.{pattern.format(e=e)}"
-                          for e in range(num_experts)] for i in layer_ids]
+                          for e in range(experts.start, experts.stop)]
+                         for i in layer_ids]
                 if tier is not None:
                     per = [quant_stack(n, True, kdim, ndim, row)
                            for n in names]

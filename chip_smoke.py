@@ -24,6 +24,8 @@
     python3 chip_smoke.py --phase 17      # phase 1, the statistics forms'
                                           # checks and times and phase 17
                                           # only; no result line
+    python3 chip_smoke.py --phase 18      # phases 1 and 18 only; no
+                                          # result line
 
 Phases, each fatal on failure:
 
@@ -160,8 +162,8 @@ Phases, each fatal on failure:
    the card, phase 5's prompt and 64 tokens through ``LlamaGenerator`` at
    blocks 8 and 1 (equal ids, launches exact, one profiled decode block):
    (q) Qwen2-7B, 8 of its 28 layers, bf16; (g) Gemma-7B, 8 of 28, bf16
-   and with the int8 cache; (m) Mixtral-8x7B, 8 of 32, int8 experts (the
-   bf16 cache); (m16) Mixtral-8x7B at 12 layers with bf16 experts (32 do
+   and with the int8 cache; (m) Mixtral-8x7B, 4 of 32, int8 experts (the
+   bf16 cache); (m16) Mixtral-8x7B at 8 layers with bf16 experts (32 do
    not fit the card). On (g) and (m) the batch engine at 8 slots on phase
    7's scenario, slot and paged layouts (equal streams, launches exact), each
    stream equal to its single stream up to its first near-tie and each
@@ -227,22 +229,30 @@ Phases, each fatal on failure:
    also at the verify's T = 5 and 9 and the matmuls at M = 5, planted
    faults failing, and phase 3 times them there): Llama-3-8B at full
    width and 4 layers (``MESH_LAYERS``; 8 before phase 17 came) written
-   by the port's writer and read shard by shard (``utils/sharded_load.py``); stages 2 x tp 2 in bf16 and with
-   int8 weights quantized on load plus the int8 cache (phase 5's prompt,
-   32 greedy tokens): every rank's ids equal, equal to one card's up to
-   the first near-tie (MARGIN_TIE), step 0's f32 logits within
-   MESH_LOGITS_REL_L2; the batch engine at dp 2 x tp 2, 8 slots, every
-   stream one card's up to a near-tie; each rank's launches exact; the
-   command line ``--tp 2 --stages 2 --dist-backend gloo`` as a process
-   printing the first run's ids. (s) ``MeshSpeculativeGenerator`` at
-   stages 2 x tp 2, K = 4, one round a dispatch, in bf16 and with int8
-   on load plus the int8 cache: every rank's ids equal, equal to one
+   by the port's writer and read shard by shard
+   (``utils/sharded_load.py``); stages 2 x tp 2 in bf16 (the pipelined
+   prefill in MESH_CHUNKS chunks) and with int8 weights (the checkpoint
+   quantized on the card by ``tools.quantize_model``) plus the int8
+   cache (phase 5's prompt, 32 greedy tokens): every
+   rank's ids equal, equal to one card's up to the first near-tie
+   (MARGIN_TIE), step 0's f32 logits within MESH_LOGITS_REL_L2; the batch
+   engine at dp 2 x tp 2, 8 slots, every stream one card's up to a
+   near-tie; the batch engine at stages 2 x tp 2, 8 slots, in the
+   interleaved and the serialized schedule in turns (each must take the
+   one asked for; card ms a decode dispatch and the stage hand-offs' ms,
+   the idle time, of each) and speculating (K = 4, rounds chained)
+   through the interleaved verify; each rank's launches exact (an
+   interleaved call a launch a layer for each microbatch or prompt
+   chunk). (s) ``MeshSpeculativeGenerator`` at
+   stages 2 x tp 2, K = 4, one round a dispatch, in bf16 (the pipelined
+   prefill) and with int8 weights plus the int8 cache: every rank's ids
+   equal, equal to one
    card's ``SpeculativeGenerator`` at the same rounds up to a near-tie,
    launches exact with the verifies counted, more than one token a
    dispatch of the mesh's verify over the corpus replay (random weights
    accept almost nothing live); a verify's card ms a rank beside a plain
-   step's; and
-   ``--speculate 4`` on the command line printing (s)'s ids. (x) The
+   step's; and ``--tp 2 --stages 2 --dist-backend gloo --speculate 4
+   --prefill-chunks 2`` as a process printing (s)'s ids. (x) The
    paged batch engine at stages 2 x tp 2: the 2,000-id stream exported
    after 8 tokens (its pages gathered to rank 0), finished and imported
    into the freed slot (scattered back) continues with the uninterrupted
@@ -252,7 +262,8 @@ Phases, each fatal on failure:
    a decode step, collective calls, ms and bytes a step per axis (and the
    snapshot's gather and scatter), TTFT and tokens/s, labelled "one
    card, 4 ranks, gloo" (no multi-card speed).
-17. sequence parallelism over phase 16's 4 ranks, at 8 layers (phase
+17. sequence parallelism over phase 16's 4 ranks and checkpoint, at 4
+   layers (8 before phase 18 came; phase
    2 first holds the three statistics forms of the flash kernels,
    ``flash_prefill_stats``, ``flash_decode_stats`` and
    ``flash_decode_q8_stats``, against their plain versions at
@@ -272,11 +283,27 @@ Phases, each fatal on failure:
    within MESH_LOGITS_REL_L2, each rank's launches exact (its visible
    ring visits a layer a prompt pass, one decode statistics launch a
    layer a step); the batch engine at sp 2 x tp 2, 8 slots (SP_BATCH_LENS,
-   one ring pass), every stream one card's up to a near-tie; ``--sp 2 --tp
-   2 --dist-backend gloo`` as a process printing the sp 2 x tp 2 run's
-   ids. Per rank: TTFT, card ms a decode step, collective calls, ms and
-   bytes a step per axis (``sp``: the ring's rotations and the decode's
-   statistics merge).
+   one ring pass), every stream one card's up to a near-tie, and with
+   ``spec_k`` 4 at rounds 1 and 4 on periodic prompts (the verify's K +
+   1 rows replicated over sp: one decode statistics launch a layer a
+   verify); ``MeshSpeculativeGenerator`` at sp 2 x tp 2 on a periodic
+   2,030-id prompt, its verify's card ms beside a plain step's; ``--sp 2
+   --tp 2 --dist-backend gloo`` as a process printing the sp 2 x tp 2
+   run's ids. Per rank: TTFT, card ms a decode step, collective calls, ms
+   and bytes a step per axis (``sp``: the ring's rotations and the
+   decode's statistics merge).
+18. expert parallelism over phase 16's 4 ranks: Mixtral-8x7B at full
+   width and MOE_LAYERS (2) layers, seed 0, written by the port's writer
+   and quantized on the card by ``tools.quantize_model``; at ep 2 x tp 2
+   with int8 experts (each rank its run of 4 experts, tp-local; the dense
+   path at every N; one ``(ep, tp)`` all-reduce a routed MLP) and at
+   stages 2 x ep 2 in bf16, on phase 5's prompt, 16 greedy tokens: every
+   rank's ids equal, equal to one card's up to the first logit or router
+   near-tie, step 0's logits within MESH_LOGITS_REL_L2, each rank's
+   launches exact (every local expert's three products a layer a call);
+   ``--ep 2 --tp 2 --quantize int8`` as a process printing the ep 2 x tp
+   2 run's ids. Per rank: TTFT, card ms a decode step, the ``ep_tp`` and
+   ``ep`` axes' calls, ms and bytes.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the ``cake_tpu_torch`` package beside this file, it exits with
@@ -4014,6 +4041,32 @@ def spill_over_http(torch, cfg, params) -> dict:
         commit(claim, payload)
 
     sched._spill.spill_commit = record
+    # the engine thread waits for all eight batch requests before its
+    # first step, and once all eight run with two tokens each, waits for
+    # the interactive request to be queued: otherwise on a slow host a
+    # batch stream can finish first, and the arrival takes the freed slot
+    # with no preemption to test
+    step, gate_open = engine.step, threading.Event()
+
+    def wait_for(pred):
+        t_end = time.monotonic() + 300
+        while time.monotonic() < t_end:
+            with sched._cond:
+                if pred():
+                    return
+            time.sleep(0.002)
+
+    def gated_step():
+        if not gate_open.is_set():
+            wait_for(lambda: len(sched._by_sid) + len(sched._queue) >= 8)
+            with sched._cond:
+                live = list(sched._by_sid.values())
+            if len(live) == 8 and all(len(s.generated) >= 2 for s in live):
+                wait_for(lambda: sched._queue)
+                gate_open.set()
+        return step()
+
+    engine.step = gated_step
     sched.start(max_concurrent=8, warm_prompt_len=64)
     server = start_api_server(sched, bind="127.0.0.1", port=0)
     port = server.port
@@ -4565,18 +4618,19 @@ def phase_spec_only(torch, build) -> list:
 
 # (label, preset, layers, weight tier, KV caches of the single stream,
 # batch engine?, speculation?) of phase 13's paths; Mixtral's bf16 experts
-# (93 GB at 32 layers) do not fit the card: 12 layers. Qwen2-7B, Gemma-7B
-# and the int8 experts run 8 of their 28, 28 and 32 layers, so the script
-# stays well inside its 1,200 s as phase 16 grows (on an H100 the whole
-# script took 1,062.6 s with them at 28, 28 and 16 layers, and 1,087.2 s
-# at 16, 16 and 12 on a slower host)
+# (93 GB at 32 layers) do not fit the card: 8 layers (12 before phase 18
+# came). Qwen2-7B and Gemma-7B run 8 of their 28 layers and the int8
+# experts 4 of 32 (8 before phase 18), so the script stays inside its
+# 1,200 s as the mesh phases grow (on an H100 the whole script took
+# 1,062.6 s with them at 28, 28 and 16 layers, and 1,087.2 s at 16, 16
+# and 12 on a slower host)
 FAMILY_PATHS = (
     ("(q) qwen2_7b bf16", "qwen2_7b", 8, "bf16", (None,), False, False),
     ("(g) gemma_7b bf16", "gemma_7b", 8, "bf16", (None, "int8"), True,
      True),
-    ("(m) mixtral_8x7b int8 experts", "mixtral_8x7b", 8, "int8", (None,),
+    ("(m) mixtral_8x7b int8 experts", "mixtral_8x7b", 4, "int8", (None,),
      True, False),
-    ("(m16) mixtral_8x7b bf16 experts, 12 layers", "mixtral_8x7b", 12,
+    ("(m16) mixtral_8x7b bf16 experts, 8 layers", "mixtral_8x7b", 8,
      "bf16", (None,), False, False),
 )
 # speculation on (g): the command line's --speculate 4, rounds chained
@@ -6247,7 +6301,8 @@ def tp_local_timing(torch, flash, qmatmul, quant, kvcache, build,
 # Llama-3-8B at full width and 4 of its 32 layers over 4 ranks on this
 # card (gloo): stages 2 x tp 2 for one stream, dp 2 x tp 2 for the batch
 # (8 layers before phase 17 came: with it the script ran 1,257 s of its
-# 1,200 on a slow H100 host, PERF.md); phase 17 runs SP_LAYERS
+# 1,200 on a slow H100 host, PERF.md); phase 17 reads the same checkpoint
+# (8 layers of its own before phase 18 came)
 MESH_LAYERS = 4
 MESH_NEW = 32
 MESH_SLOTS = 8
@@ -6272,6 +6327,9 @@ MESH_REPLAY_ROUNDS = 32
 # its continuations run to
 MESH_EXPORT_AT = 8
 MESH_EXPORT_QUOTA = 24
+# the bf16 stream's prompt pass: the pipelined prefill in this many chunks
+# (the command line's --prefill-chunks)
+MESH_CHUNKS = 2
 
 
 def mesh_expected(cfg, coords, weights: str, kv_quant, prefill_calls: int,
@@ -6316,7 +6374,7 @@ def mesh_rank_lines(label: str, out: list, steps: int,
                        "calls_per_step": v["calls"] / steps}
                 for axis, v in r["coll"].items()}
         row = {"rank": r["rank"], "coords": {
-            a: r["coords"][a] for a in ("dp", "stage", "sp", "tp")},
+            a: r["coords"][a] for a in ("dp", "stage", "sp", "ep", "tp")},
             "collectives": coll}
         for key in ("decode_ms_per_step", "ttft_s", "tok_s", "ms",
                     "verify_ms", "step_ms"):
@@ -6361,10 +6419,12 @@ def prefill_logits(torch, cfg, params, prompt, kv_quant):
 
 
 def mesh_stream(torch, pool, cfg, params, d, prompt, settings, label,
-                weights, kv_quant) -> dict:
-    """One stream over stages 2 x tp 2, read shard by shard from ``d``:
-    every rank's ids equal, equal to one card's up to the first near-tie,
-    step 0's logits within MESH_LOGITS_REL_L2, launches exact."""
+                weights, kv_quant, prefill_chunks: int = 1) -> dict:
+    """One stream over stages 2 x tp 2, read shard by shard from ``d``
+    (with ``prefill_chunks`` the pipelined prefill): every rank's ids
+    equal, equal to one card's up to the first near-tie, step 0's logits
+    within MESH_LOGITS_REL_L2, launches exact (a pipelined prefill one
+    prefill launch a layer a chunk)."""
     from cake_tpu_torch.parallel.mesh import MeshPlan
 
     plan = MeshPlan(num_stages=2, tp=2)
@@ -6376,12 +6436,19 @@ def mesh_stream(torch, pool, cfg, params, d, prompt, settings, label,
                    prompt, MESH_NEW, model_dir=str(d),
                    quantize=None if weights == "bf16" else "int8",
                    settings=settings, block_size=8, kv_quant=kv_quant,
-                   want_logits=True)
+                   prefill_chunks=prefill_chunks, want_logits=True)
     seconds = time.perf_counter() - t0
     ids = out[0]["ids"]
     if any(r["ids"] != ids for r in out):
         fail(f"{label}: the ranks' ids differ: {[r['ids'] for r in out]}")
     say(f"[16] {label}: the 4 ranks sampled the same {len(ids)} tokens")
+    steps = out[0]["decode_steps"] + out[0]["prefill_calls"]
+    if prefill_chunks > 1:
+        if weights != "bf16":
+            fail(f"{label}: the launch check counts a pipelined prefill's "
+                 "chunks in bf16 only")
+        for r in out:  # one prompt pass a chunk, one head
+            r["prefill_calls"] *= prefill_chunks
     tie = check_until_tie(torch, cfg, params, label, prompt, ids, ref,
                           settings, kv_quant, tag="[16]")
     err = rel_l2(torch, out[0]["logits"], ref_logits)
@@ -6393,18 +6460,15 @@ def mesh_stream(torch, pool, cfg, params, d, prompt, settings, label,
     check_rank_launches(label, out, cfg, weights, kv_quant, plan)
     return {"label": label, "plan": "stages 2 x tp 2", "ids": ids,
             "tie": tie, "logits_rel_l2": err, "seconds": seconds,
-            "ranks": mesh_rank_lines(label, out, out[0]["decode_steps"]
-                                     + out[0]["prefill_calls"]),
+            "prefill_chunks": prefill_chunks,
+            "ranks": mesh_rank_lines(label, out, steps),
             "launches": {k: sum(r["launches"][k] for r in out)
                          for k in out[0]["launches"]}}
 
 
-def mesh_batch_run(torch, pool, cfg, params, d, settings) -> dict:
-    """The batch engine at dp 2 x tp 2, 8 slots: every stream equals one
-    card's engine's up to its first near-tie, and each of its steps
-    outside a near-tie is the greedy choice of its own teacher-forced
-    logits on one card (``family_until_tie``); launches exact."""
-    from cake_tpu_torch.parallel.mesh import MeshPlan
+def mesh_batch_prompts(torch, cfg, params, settings) -> tuple:
+    """The mesh batch's 8 prompts (MESH_BATCH_LENS) and one card's
+    engine's streams of them."""
     from cake_tpu_torch.runtime.batch_generator import BatchGenerator
 
     g = torch.Generator().manual_seed(SEED + 16)
@@ -6415,6 +6479,18 @@ def mesh_batch_run(torch, pool, cfg, params, d, settings) -> dict:
     ref = eng.generate(MESH_BATCH_NEW)
     del eng
     torch.cuda.empty_cache()
+    return prompts, ref
+
+
+def mesh_batch_run(torch, pool, cfg, params, d, settings, prompts,
+                   ref) -> dict:
+    """The batch engine at dp 2 x tp 2, 8 slots: every stream equals one
+    card's engine's (``ref``) up to its first near-tie, and each of its
+    steps outside a near-tie is the greedy choice of its own
+    teacher-forced logits on one card (``family_until_tie``); launches
+    exact."""
+    from cake_tpu_torch.parallel.mesh import MeshPlan
+
     plan = MeshPlan(dp=2, tp=2)
     t0 = time.perf_counter()
     out = pool.run("cake_tpu_torch.parallel.jobs:mesh_batch", cfg, plan,
@@ -6443,13 +6519,139 @@ def mesh_batch_run(torch, pool, cfg, params, d, settings) -> dict:
                          for k in out[0]["launches"]}}
 
 
+def schedule_expected(cfg, plan, r) -> dict:
+    """A rank's launches in bf16 over a batch run that took either
+    schedule: a serialized call one attention launch a layer, an
+    interleaved one a launch a layer for each of its S microbatches (or
+    prompt chunks), every decode and verify through the decode kernel."""
+    from cake_tpu_torch.ops.kernels import build
+
+    L = cfg.num_hidden_layers // plan.num_stages
+    n_st = plan.num_stages
+    want = dict.fromkeys(build.SOURCES, 0)
+    passes = {k: r[k] - r[f"il_{k}"] + n_st * r[f"il_{k}"]
+              for k in ("prefill_calls", "decode_steps", "verify_calls")}
+    want["flash_prefill"] = L * passes["prefill_calls"]
+    want["flash_decode"] = L * (passes["decode_steps"]
+                                + passes["verify_calls"])
+    return want
+
+
+def mesh_schedule_run(torch, pool, cfg, params, d, settings, prompts, ref,
+                      label, **engine_kw) -> dict:
+    """The batch engine at stages 2 x tp 2, 8 slots, in the schedule
+    ``engine_kw`` asks for (interleaved by default; ``interleave=False``;
+    ``spec_k``): every stream equal to one card's engine's (``ref``) up to
+    its first near-tie, each step outside one its teacher-forced greedy
+    choice; launches exact for the schedule each dispatch took; each
+    rank's card ms a decode dispatch (a block, or a verify round; the
+    batched prefill apart) and its stage collectives' ms a decode
+    dispatch (the time it waits on the other stage: its idle time)."""
+    from cake_tpu_torch.parallel.mesh import MeshPlan
+
+    plan = MeshPlan(num_stages=2, tp=2)
+    t0 = time.perf_counter()
+    out = pool.run("cake_tpu_torch.parallel.jobs:mesh_batch", cfg, plan,
+                   prompts, MESH_BATCH_NEW, model_dir=str(d),
+                   settings=settings, block_size=8, **engine_kw)
+    seconds = time.perf_counter() - t0
+    streams = out[0]["streams"]
+    if any(r["streams"] != streams for r in out):
+        fail(f"{label}: the ranks' streams differ")
+    ties = [family_until_tie(torch, cfg, params, f"{label} slot {i}", p, s,
+                             r, settings, tag="[16]")
+            for i, (p, s, r) in enumerate(zip(prompts, streams, ref))]
+    equal = sum(s == r for s, r in zip(streams, ref))
+    for r in out:
+        want = schedule_expected(cfg, plan, r)
+        if r["launches"] != want:
+            fail(f"{label}: rank {r['rank']} launched {r['launches']}, "
+                 f"expected {want} (schedule {r['schedule']})")
+    r0 = out[0]
+    dispatches = sum(r0["schedule"].values()) - r0["prefill_calls"]
+    idle = [(r["coll"]["stage"]["ms"] - r["prefill_coll"]["stage"]["ms"])
+            / dispatches for r in out]
+    busy = [(r["ms"] - r["prefill_ms"]) / dispatches for r in out]
+    prefill_ms = [r["prefill_ms"] for r in out]
+    say(f"[16] {label}: {equal} of {len(ref)} streams equal one card's "
+        f"engine's whole, the rest up to a near-tie; schedule "
+        f"{r0['schedule']} ({r0['il_decode_steps']} of "
+        f"{r0['decode_steps']} steps, {r0['il_verify_calls']} of "
+        f"{r0['verify_calls']} verifies, {r0['il_prefill_calls']} of "
+        f"{r0['prefill_calls']} prefills interleaved); every rank's "
+        f"launches exact; card ms a decode dispatch "
+        f"{[round(x, 3) for x in busy]}, of it the stage hand-offs (idle) "
+        f"{[round(x, 3) for x in idle]}; the prefill "
+        f"{[round(x, 3) for x in prefill_ms]} ms ({MESH_LABEL})")
+    return {"label": label, "streams": streams, "streams_equal": equal,
+            "ties": ties, "seconds": seconds, "schedule": r0["schedule"],
+            "il_decode_steps": r0["il_decode_steps"],
+            "il_verify_calls": r0["il_verify_calls"],
+            "il_prefill_calls": r0["il_prefill_calls"],
+            "ms_per_dispatch": busy, "stage_idle_ms_per_dispatch": idle,
+            "prefill_ms": prefill_ms,
+            "ranks": mesh_rank_lines(label, out, dispatches),
+            "launches": {k: sum(r["launches"][k] for r in out)
+                         for k in r0["launches"]}}
+
+
+def mesh_schedules(torch, pool, cfg, params, d, settings, prompts,
+                   ref) -> dict:
+    """Phase 16's schedules at stages 2 x tp 2: the batch engine
+    interleaved (its choice at 8 slots) and serialized on the same
+    prompts, in turns (interleaved, serialized, interleaved, serialized:
+    the first pair also warms the ranks' shapes, the second is compared),
+    and speculation (K = 4, rounds chained) through the interleaved
+    verify. Each must take the schedule asked for."""
+    def run(which, turn):
+        kw = {} if which == "interleaved" else {"interleave": False}
+        return mesh_schedule_run(
+            torch, pool, cfg, params, d, settings, prompts, ref,
+            f"batch stages 2 x tp 2 {which} ({turn})", **kw)
+
+    first = {k: run(k, "first") for k in ("interleaved", "serialized")}
+    out = {k: run(k, "second") for k in ("interleaved", "serialized")}
+    out.update({
+        "first_turn": {k: {f: v[f] for f in (
+            "ms_per_dispatch", "stage_idle_ms_per_dispatch", "prefill_ms",
+            "seconds")} for k, v in first.items()},
+        "spec": mesh_schedule_run(
+            torch, pool, cfg, params, d, settings, prompts, ref,
+            f"batch stages 2 x tp 2 --speculate {MESH_SPEC_K} interleaved",
+            spec_k=MESH_SPEC_K),
+    })
+    for k in ("interleaved", "serialized"):
+        out[k]["launches"] = {n: c + first[k]["launches"][n]
+                              for n, c in out[k]["launches"].items()}
+        out[k]["seconds"] += first[k]["seconds"]
+    il, se, sp = out["interleaved"], out["serialized"], out["spec"]
+    if not (il["schedule"]["serialized"] == 0 and il["il_decode_steps"] > 0
+            and il["il_prefill_calls"] == 1):
+        fail(f"the interleaved batch took {il['schedule']}")
+    if se["schedule"]["interleaved"] != 0:
+        fail(f"the serialized batch took {se['schedule']}")
+    if not sp["il_verify_calls"] > 0:
+        fail("speculation at stages 2 x tp 2 ran no interleaved verify")
+    same = sum(a == b for a, b in zip(il["streams"], se["streams"]))
+    say(f"[16] the two schedules: {same} of {len(prompts)} streams equal "
+        "each other whole; second turn: card ms a decode dispatch "
+        f"interleaved {[round(x, 3) for x in il['ms_per_dispatch']]} "
+        f"against serialized {[round(x, 3) for x in se['ms_per_dispatch']]}"
+        "; stage idle ms a decode dispatch interleaved "
+        f"{[round(x, 3) for x in il['stage_idle_ms_per_dispatch']]} "
+        f"against serialized "
+        f"{[round(x, 3) for x in se['stage_idle_ms_per_dispatch']]}")
+    out["streams_equal_across_schedules"] = same
+    return out
+
+
 def mesh_cli(d, prompt, want: list, extra=(), what="the first mesh run",
              axes=("--tp", "2", "--stages", "2"), tag="[16]") -> dict:
     """``axes`` (``--tp 2 --stages 2``) with ``--dist-backend gloo`` (and
     ``extra``) as a process: its ids equal ``want``, ``what``'s."""
     cmd = [sys.executable, "-m", "cake_tpu_torch.cli", "--model", str(d),
            *axes, "--dist-backend", "gloo",
-           "--prompt-ids", ",".join(map(str, prompt)), "-n", str(MESH_NEW),
+           "--prompt-ids", ",".join(map(str, prompt)), "-n", str(len(want)),
            "--temperature", "0", "--max-seq", "4096", *extra]
     t0 = time.perf_counter()
     r = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
@@ -6468,7 +6670,7 @@ def mesh_cli(d, prompt, want: list, extra=(), what="the first mesh run",
 
 
 def mesh_spec_run(torch, pool, cfg, params, d, prompt, settings, label,
-                  weights, kv_quant) -> dict:
+                  weights, kv_quant, prefill_chunks: int = 1) -> dict:
     """(s) ``MeshSpeculativeGenerator`` at stages 2 x tp 2, K =
     MESH_SPEC_K, read shard by shard from ``d``: every rank's ids equal,
     equal to one card's ``SpeculativeGenerator`` at the same rounds up to
@@ -6495,12 +6697,19 @@ def mesh_spec_run(torch, pool, cfg, params, d, prompt, settings, label,
                    plan, prompt, MESH_NEW, model_dir=str(d),
                    quantize=None if weights == "bf16" else "int8",
                    settings=settings, kv_quant=kv_quant,
-                   spec_k=MESH_SPEC_K, time_calls=MESH_SPEC_TIMED,
+                   spec_k=MESH_SPEC_K, prefill_chunks=prefill_chunks,
+                   time_calls=MESH_SPEC_TIMED,
                    replay_rounds=MESH_REPLAY_ROUNDS)
     seconds = time.perf_counter() - t0
     ids = out[0]["ids"]
     if any(r["ids"] != ids for r in out):
         fail(f"{label}: the ranks' ids differ: {[r['ids'] for r in out]}")
+    if prefill_chunks > 1:
+        if weights != "bf16":
+            fail(f"{label}: the launch check counts a pipelined prefill's "
+                 "chunks in bf16 only")
+        for r in out:  # one prompt pass a chunk, one head
+            r["prefill_calls"] *= prefill_chunks
     r0 = out[0]
     per = r0["emitted"] / r0["dispatches"]
     replay = r0["replay"]
@@ -6649,18 +6858,22 @@ def mesh_snapshot_run(torch, pool, cfg, params, d, prompt, settings) -> dict:
                          for k in r0["launches"]}}
 
 
-def phase_mesh(torch, build, run16: bool = True,
-               run17: bool = True) -> dict:
+def phase_mesh(torch, build, run16: bool = True, run17: bool = True,
+               run18: bool = True) -> dict:
     """Phase 16: the (dp, stage, tp) mesh on this card, 4 ranks over
     gloo: Llama-3-8B at full width and MESH_LAYERS layers written by the
-    port's writer, read shard by shard; stages 2 x tp 2 in bf16 and with int8
-    weights quantized on load plus the int8 KV cache, the batch engine at
-    dp 2 x tp 2, (s) speculation and (x) snapshots at stages 2 x tp 2, the
-    command line as a process, plain and with --speculate. Then phase 17
-    (``run17``, under ``sp``) over the same ranks and a checkpoint of
-    SP_LAYERS layers (and its int8 form), and ``--sp 2 --tp 2`` beside
-    the other command lines. The checkpoints live in a temporary
-    directory removed at the end, whatever happens."""
+    port's writer, read shard by shard, and its int8 form quantized on
+    the card; stages 2 x tp 2 in bf16 (the pipelined prefill in
+    MESH_CHUNKS chunks) and with int8 weights plus the int8 KV cache, the
+    batch engine at dp 2 x tp 2 and at stages 2 x tp 2 in both schedules
+    and speculating through the interleaved verify, (s) speculation and
+    (x) snapshots at stages 2 x tp 2, the command line as a process with
+    --speculate and --prefill-chunks. Then phase 17 (``run17``, under
+    ``sp``) over the same ranks and checkpoints, and ``--sp 2 --tp 2``
+    beside the other command lines; then phase 18 (``run18``, under
+    ``moe``): Mixtral-8x7B over the ep axis, and ``--ep 2 --tp 2``. The
+    checkpoints live in a temporary directory removed at the end,
+    whatever happens."""
     import shutil
 
     from cake_tpu_torch.models import llama
@@ -6681,23 +6894,20 @@ def phase_mesh(torch, build, run16: bool = True,
     out: dict = {"label": MESH_LABEL}
     try:
         settings = SamplerSettings(temperature=0)
-        # phase 16's checkpoint (MESH_LAYERS) and phase 17's (SP_LAYERS,
-        # and its int8 form quantized on the card by tools.quantize_model)
+        # phases 16's and 17's checkpoint (MESH_LAYERS) and its int8 form
+        # quantized on the card by tools.quantize_model
         ckpts = {}
-        for on, key, layers in ((run16, "16", MESH_LAYERS),
-                                (run17, "17", SP_LAYERS)):
-            if not on:
-                continue
-            cfg = llama3_8b(num_hidden_layers=layers, max_seq_len=4096)
-            d = root / f"ckpt{key}"
-            ckpts[key] = (cfg, llama.init_params(cfg, seed=SEED), d)
-            save_llama_params(ckpts[key][1], d)
-            (d / "config.json").write_text(json.dumps(cfg.to_hf_dict()))
-        if run17:
+        d8 = root / "ckpt16_q8"
+        if run16 or run17:
             from cake_tpu_torch.tools import quantize_model
 
-            quantize_model.quantize_checkpoint(ckpts["17"][2],
-                                               root / "ckpt17_q8")
+            cfg = llama3_8b(num_hidden_layers=MESH_LAYERS, max_seq_len=4096)
+            d = root / "ckpt16"
+            both = (cfg, llama.init_params(cfg, seed=SEED), d)
+            save_llama_params(both[1], d)
+            (d / "config.json").write_text(json.dumps(cfg.to_hf_dict()))
+            ckpts = {"16": both, "17": both}
+            quantize_model.quantize_checkpoint(d, d8)
         prompt = main_path_prompt(torch, llama3_8b())
         t_pool = time.perf_counter()
         out["checkpoint_s"] = t_pool - t0
@@ -6705,26 +6915,35 @@ def phase_mesh(torch, build, run16: bool = True,
                       timeout_s=300.0, job_timeout_s=600.0) as pool:
             out["pool_start_s"] = time.perf_counter() - t_pool
             if run16:
-                mesh_runs(torch, pool, *ckpts["16"], prompt, settings, out)
+                mesh_runs(torch, pool, *ckpts["16"], d8, prompt, settings,
+                          out)
             if run17:
-                out["sp"] = phase_sp(torch, pool, *ckpts["17"],
-                                     root / "ckpt17_q8", settings)
-        ckpts = {k: (c, None, d) for k, (c, _, d) in ckpts.items()}
+                out["sp"] = phase_sp(torch, pool, *ckpts["17"], d8,
+                                     settings)
+            ckpts = {k: (c, None, d) for k, (c, _, d) in ckpts.items()}
+            both = None
+            if run18:
+                out["moe"] = phase_moe(torch, pool, root, settings)
         torch.cuda.empty_cache()
         with ThreadPoolExecutor(3) as ex:
             jobs = {}
             if run16:
-                d = ckpts["16"][2]
-                jobs["cli"] = ex.submit(mesh_cli, d, prompt,
-                                        out["bf16"]["ids"])
-                jobs["cli_spec"] = ex.submit(
-                    mesh_cli, d, prompt, out["spec"]["ids"],
-                    ("--speculate", str(MESH_SPEC_K)), "(s)")
+                jobs["cli"] = ex.submit(
+                    mesh_cli, ckpts["16"][2], prompt, out["spec"]["ids"],
+                    ("--speculate", str(MESH_SPEC_K), "--prefill-chunks",
+                     str(MESH_CHUNKS)), "(s)")
             if run17:
                 jobs["sp_cli"] = ex.submit(
                     mesh_cli, ckpts["17"][2], out["sp"]["prompt"],
                     out["sp"]["sp2_tp2"]["ids"], (), "the sp 2 x tp 2 run",
                     ("--sp", "2", "--tp", "2"), "[17]")
+            if run18:
+                moe = out["moe"]
+                jobs["moe_cli"] = ex.submit(
+                    mesh_cli, moe["ckpt_q8"], moe["prompt"],
+                    moe["ep2_tp2_int8"]["ids"], ("--quantize", "int8"),
+                    "the ep 2 x tp 2 int8 run", ("--ep", "2", "--tp", "2"),
+                    "[18]")
             for key, job in jobs.items():
                 out[key] = job.result()
     finally:
@@ -6733,48 +6952,63 @@ def phase_mesh(torch, build, run16: bool = True,
     if run17:
         out["sp"]["cli"] = out.pop("sp_cli")
         out["sp"].pop("prompt")
+    if run18:
+        out["moe"]["cli"] = out.pop("moe_cli")
+        for key in ("prompt", "ckpt_q8"):
+            out["moe"].pop(key)
     if not run16:
         return out
     runs = ("bf16", "spec", "snapshot", "int8", "spec_int8", "batch")
-    out["launches"] = {k: sum(out[p]["launches"][k] for p in runs)
-                       for k in out["bf16"]["launches"]}
-    say(f"[16] phase 16 took {out['seconds']:.1f} s ({MESH_LABEL}), phase "
-        f"17 included: checkpoint {out['checkpoint_s']:.1f} s, 4 ranks up "
-        f"in {out['pool_start_s']:.1f} s, " + ", ".join(
+    schedules = ("interleaved", "serialized", "spec")
+    out["launches"] = {
+        k: sum(out[p]["launches"][k] for p in runs)
+        + sum(out["schedules"][p]["launches"][k] for p in schedules)
+        for k in out["bf16"]["launches"]}
+    say(f"[16] phase 16 took {out['seconds']:.1f} s ({MESH_LABEL}), phases "
+        f"17 and 18 included: checkpoint {out['checkpoint_s']:.1f} s, 4 "
+        f"ranks up in {out['pool_start_s']:.1f} s, " + ", ".join(
             f"{k} {out[k]['seconds']:.1f} s"
-            for k in (*runs, "cli", "cli_spec")) + " (the command lines "
-        "side by side)")
+            for k in (*runs, "cli")) + ", " + ", ".join(
+            f"schedule {k} {out['schedules'][k]['seconds']:.1f} s"
+            for k in schedules) + " (the command lines side by side)")
     return out
 
 
-def mesh_runs(torch, pool, cfg, params, d, prompt, settings, out) -> None:
-    """Phase 16's runs over the pool, into ``out``."""
+def mesh_runs(torch, pool, cfg, params, d, d8, prompt, settings,
+              out) -> None:
+    """Phase 16's runs over the pool, into ``out``: bf16 from ``d``, int8
+    from ``d8`` (``d`` quantized on the card)."""
     from cake_tpu_torch.ops import quant
 
     # the runs over one shard follow each other: a rank keeps the
     # shard it read for the next job (parallel/jobs.py _shard)
     out["bf16"] = mesh_stream(torch, pool, cfg, params, d, prompt,
-                              settings, "stages 2 x tp 2 bf16",
-                              "bf16", None)
+                              settings, "stages 2 x tp 2 bf16 "
+                              f"--prefill-chunks {MESH_CHUNKS}", "bf16",
+                              None, prefill_chunks=MESH_CHUNKS)
     out["spec"] = mesh_spec_run(
         torch, pool, cfg, params, d, prompt, settings,
-        "(s) stages 2 x tp 2 bf16 --speculate 4", "bf16", None)
+        f"(s) stages 2 x tp 2 bf16 --speculate 4 --prefill-chunks "
+        f"{MESH_CHUNKS}", "bf16", None, prefill_chunks=MESH_CHUNKS)
     out["snapshot"] = mesh_snapshot_run(torch, pool, cfg, params, d,
                                         prompt, settings)
-    # quantized on the card: the codes the ranks' loader makes
+    # quantized on the card: the codes tools.quantize_model wrote
     params8 = quant.quantize_params(params, 8)
     out["int8"] = mesh_stream(
-        torch, pool, cfg, params8, d, prompt, settings,
-        "stages 2 x tp 2 int8 on load + int8 KV", "quant_matmul",
+        torch, pool, cfg, params8, d8, prompt, settings,
+        "stages 2 x tp 2 int8 pre-quantized + int8 KV", "quant_matmul",
         "int8")
     out["spec_int8"] = mesh_spec_run(
-        torch, pool, cfg, params8, d, prompt, settings,
-        "(s) stages 2 x tp 2 int8 on load + int8 KV --speculate 4",
+        torch, pool, cfg, params8, d8, prompt, settings,
+        "(s) stages 2 x tp 2 int8 pre-quantized + int8 KV --speculate 4",
         "quant_matmul", "int8")
     del params8
     torch.cuda.empty_cache()
-    out["batch"] = mesh_batch_run(torch, pool, cfg, params, d,
-                                  settings)
+    prompts, ref = mesh_batch_prompts(torch, cfg, params, settings)
+    out["batch"] = mesh_batch_run(torch, pool, cfg, params, d, settings,
+                                  prompts, ref)
+    out["schedules"] = mesh_schedules(torch, pool, cfg, params, d,
+                                      settings, prompts, ref)
 
 
 # --------------------------------------------------------------------------
@@ -6784,7 +7018,6 @@ def mesh_runs(torch, pool, cfg, params, d, prompt, settings, out) -> None:
 # a 2,030-id prompt: a 2,048-token bucket, so the ring runs 1,024-token
 # chunks at sp 2 and 512 at sp 4; its 32 decoded tokens cross position
 # 2,048, the first of sp 2's second shard (4,096 / 2)
-SP_LAYERS = 8
 SP_PROMPT = 2030
 SP_NEW = 32
 SP_BATCH_NEW = 16
@@ -6911,9 +7144,112 @@ def sp_batch_run(torch, pool, cfg, params, d, settings) -> dict:
                          for k in out[0]["launches"]}}
 
 
+def periodic_prompts(torch, cfg, lens, seed: int) -> list:
+    """Prompts of ``lens`` ids repeating a random 7-id pattern each: the
+    n-gram proposer finds their tails earlier in them, so speculation
+    verifies from its first round on random weights."""
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for n in lens:
+        pattern = torch.randint(0, cfg.vocab_size, (7,), generator=g)
+        out.append(pattern.repeat(-(-n // 7))[:n].tolist())
+    return out
+
+
+def sp_spec_runs(torch, pool, cfg, params, d, settings) -> dict:
+    """Phase 17's speculation at sp 2 x tp 2 (the verify's K + 1 rows at
+    per-row frontiers, replicated over sp, through the decode statistics
+    form): the batch engine at K = 4 with rounds 1 (host rounds) and 4
+    (the fused chain) on SP_BATCH_LENS periodic prompts, and
+    MeshSpeculativeGenerator on a periodic SP_PROMPT-id prompt whose
+    tokens cross the shard boundary; each against one card's plain
+    engine or stream up to its first near-tie, launches exact on every
+    rank (one decode statistics launch a layer a verify), each rank's
+    card ms a verify and a plain step."""
+    from cake_tpu_torch.parallel.mesh import MeshPlan
+    from cake_tpu_torch.runtime.batch_generator import BatchGenerator
+
+    plan = MeshPlan(sp=2, tp=2)
+    prompts = periodic_prompts(torch, cfg, SP_BATCH_LENS, SEED + 170)
+    eng = BatchGenerator(cfg, params, settings=settings, block_size=8)
+    eng.set_prompts(prompts)
+    ref = eng.generate(SP_BATCH_NEW)
+    del eng
+    torch.cuda.empty_cache()
+    out: dict = {}
+    for rounds in (1, 4):
+        label = (f"batch sp 2 x tp 2 --speculate {MESH_SPEC_K}, rounds "
+                 f"{rounds}")
+        t0 = time.perf_counter()
+        got = pool.run("cake_tpu_torch.parallel.jobs:mesh_batch", cfg, plan,
+                       prompts, SP_BATCH_NEW, model_dir=str(d),
+                       settings=settings, spec_k=MESH_SPEC_K,
+                       spec_rounds=rounds)
+        seconds = time.perf_counter() - t0
+        streams = got[0]["streams"]
+        if any(r["streams"] != streams for r in got):
+            fail(f"{label}: the ranks' streams differ")
+        if not got[0]["verify_calls"]:
+            fail(f"{label}: no verify ran")
+        ties = [family_until_tie(torch, cfg, params, f"{label} slot {i}", p,
+                                 st, r, settings, tag="[17]")
+                for i, (p, st, r) in enumerate(zip(prompts, streams, ref))]
+        for r in got:
+            r["decode_steps"] += r["verify_calls"]
+        sp_check_launches(label, got, cfg, plan, "bf16", None)
+        equal = sum(a == b for a, b in zip(streams, ref))
+        say(f"[17] {label}: {got[0]['verify_calls']} verifies, "
+            f"{got[0]['decode_steps'] - got[0]['verify_calls']} plain "
+            f"steps; {equal} of {len(ref)} streams equal one card's plain "
+            "engine's whole, the rest up to a near-tie")
+        out[f"batch_rounds{rounds}"] = {
+            "label": label, "streams_equal": equal, "ties": ties,
+            "verify_calls": got[0]["verify_calls"], "seconds": seconds,
+            "ranks": mesh_rank_lines(label, got, got[0]["decode_steps"]
+                                     + got[0]["prefill_calls"], "[17]"),
+            "launches": {k: sum(r["launches"][k] for r in got)
+                         for k in got[0]["launches"]}}
+    prompt = periodic_prompts(torch, cfg, (SP_PROMPT,), SEED + 171)[0]
+    ref = single_stream(torch, cfg, params, prompt, SP_NEW, settings, None)
+    label = f"MeshSpeculativeGenerator sp 2 x tp 2 K = {MESH_SPEC_K}"
+    t0 = time.perf_counter()
+    got = pool.run("cake_tpu_torch.parallel.jobs:mesh_speculate", cfg,
+                   plan, prompt, SP_NEW, model_dir=str(d),
+                   settings=settings, spec_k=MESH_SPEC_K,
+                   time_calls=MESH_SPEC_TIMED)
+    seconds = time.perf_counter() - t0
+    ids = got[0]["ids"]
+    if any(r["ids"] != ids for r in got):
+        fail(f"{label}: the ranks' ids differ")
+    if not got[0]["verify_calls"]:
+        fail(f"{label}: no verify ran")
+    tie = family_until_tie(torch, cfg, params, label, prompt, ids, ref,
+                           settings, tag="[17]")
+    for r in got:
+        r["decode_steps"] += r["verify_calls"]
+    sp_check_launches(label, got, cfg, plan, "bf16", None)
+    r0 = got[0]
+    say(f"[17] {label}: {r0['verify_calls']} verifies, "
+        f"{r0['decode_steps'] - r0['verify_calls']} plain steps over "
+        f"positions {len(prompt)}..{len(prompt) + len(ids) - 1}; card ms a "
+        f"verify of {MESH_SPEC_K + 1} tokens "
+        f"{[round(r['verify_ms'], 3) for r in got]} against a plain step's "
+        f"{[round(r['step_ms'], 3) for r in got]} ({MESH_LABEL})")
+    out["mesh_spec"] = {
+        "label": label, "ids": ids, "tie": tie, "seconds": seconds,
+        "verify_calls": r0["verify_calls"],
+        "verify_ms": [r["verify_ms"] for r in got],
+        "step_ms": [r["step_ms"] for r in got],
+        "ranks": mesh_rank_lines(label, got, r0["decode_steps"]
+                                 + r0["prefill_calls"], "[17]"),
+        "launches": {k: sum(r["launches"][k] for r in got)
+                     for k in r0["launches"]}}
+    return out
+
+
 def phase_sp(torch, pool, cfg, params, d, d8, settings) -> dict:
     """Phase 17: sequence parallelism on this card over phase 16's 4 gloo
-    ranks (Llama-3-8B at full width, SP_LAYERS layers, seed 0, max_seq
+    ranks (Llama-3-8B at full width, MESH_LAYERS layers, seed 0, max_seq
     4096, read from ``d``, and its int8 form from ``d8``): MeshGenerator at
     sp 2 x tp 2 and sp 4 in bf16 and at sp 2 x tp 2 with int8 weights and
     the int8 cache, on a 2,030-id prompt decoding across the shard
@@ -6935,6 +7271,7 @@ def phase_sp(torch, pool, cfg, params, d, d8, settings) -> dict:
                                "sp 2 x tp 2 bf16", MeshPlan(sp=2, tp=2),
                                "bf16", None, ref, ref_logits, params)
     out["batch"] = sp_batch_run(torch, pool, cfg, params, d, settings)
+    out.update(sp_spec_runs(torch, pool, cfg, params, d, settings))
     out["sp4"] = sp_stream(torch, pool, cfg, d, prompt, settings,
                            "sp 4 bf16", MeshPlan(sp=4), "bf16", None, ref,
                            ref_logits, params)
@@ -6948,12 +7285,136 @@ def phase_sp(torch, pool, cfg, params, d, d8, settings) -> dict:
         "quant_matmul", "int8", ref8, ref8_logits, params8)
     del params8
     torch.cuda.empty_cache()
-    runs = ("sp2_tp2", "batch", "sp4", "sp2_tp2_int8")
+    runs = ("sp2_tp2", "batch", "batch_rounds1", "batch_rounds4",
+            "mesh_spec", "sp4", "sp2_tp2_int8")
     out["launches"] = {k: sum(out[r]["launches"][k] for r in runs)
                        for k in out["sp2_tp2"]["launches"]}
     out["seconds"] = time.perf_counter() - t0
     say(f"[17] phase 17's runs over the pool took {out['seconds']:.1f} s: "
         + ", ".join(f"{k} {out[k]['seconds']:.1f} s" for k in runs))
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 18: expert parallelism over the rank mesh
+# --------------------------------------------------------------------------
+
+# Mixtral-8x7B at full width and its smallest depth over two stages: one
+# layer a stage; 16 tokens of phase 5's 2,000-id prompt
+MOE_LAYERS = 2
+MOE_NEW = 16
+
+
+def moe_expected(cfg, coords, plan, weights: str, calls: int,
+                 prefill_calls: int) -> dict:
+    """A rank's launches at ep > 1 over ``calls`` model calls (the first
+    ``prefill_calls`` of them prompt passes): an attention kernel a layer
+    a call; with int8 weights 4 linears a layer and the head on the last
+    stage a call, and every local expert's three products a layer a call
+    (the dense path: at ep > 1 a decode step runs every local expert)."""
+    import dataclasses
+
+    L = cfg.num_hidden_layers // plan.num_stages
+    want = expected_launches(
+        dataclasses.replace(cfg, num_hidden_layers=L), "bf16", None,
+        prefill_calls, calls - prefill_calls)
+    if weights == "int8":
+        last = coords["stage"] == plan.num_stages - 1
+        e_local = cfg.num_local_experts // plan.ep
+        want["quant_matmul"] = (4 * L + int(last) + 3 * e_local * L) * calls
+    return want
+
+
+def moe_stream(torch, pool, cfg, params, d, prompt, settings, label, plan,
+               weights: str) -> dict:
+    """Mixtral over ``plan``, read shard by shard from ``d`` (int8: a
+    checkpoint quantized on the card): every rank's ids equal, equal to
+    one card's (``params``) up to the first near-tie (a router near-tie
+    included), step 0's logits within MESH_LOGITS_REL_L2 of one card's,
+    launches exact; TTFT and each rank's card ms a decode step."""
+    ref = single_stream(torch, cfg, params, prompt, MOE_NEW, settings, None)
+    ref_logits = prefill_logits(torch, cfg, params, prompt, None)
+    t0 = time.perf_counter()
+    out = pool.run("cake_tpu_torch.parallel.jobs:mesh_generate", cfg, plan,
+                   prompt, MOE_NEW, model_dir=str(d),
+                   quantize=None if weights == "bf16" else "int8",
+                   settings=settings, block_size=8, want_logits=True)
+    seconds = time.perf_counter() - t0
+    ids = out[0]["ids"]
+    if any(r["ids"] != ids for r in out):
+        fail(f"{label}: the ranks' ids differ: {[r['ids'] for r in out]}")
+    tie = family_until_tie(torch, cfg, params, label, prompt, ids, ref,
+                           settings, tag="[18]")
+    err = rel_l2(torch, out[0]["logits"], ref_logits)
+    say(f"[18] {label}: the {plan.size} ranks sampled the same {len(ids)} "
+        f"tokens; step 0's f32 logits against one card: relative L2 "
+        f"{err:.3e} (limit {MESH_LOGITS_REL_L2})")
+    if not err < MESH_LOGITS_REL_L2:
+        fail(f"{label}: step 0's logits relative L2 {err} >= "
+             f"{MESH_LOGITS_REL_L2}")
+    for r in out:
+        calls = r["prefill_calls"] + r["decode_steps"]
+        want = moe_expected(cfg, r["coords"], plan, weights, calls,
+                            r["prefill_calls"])
+        if r["launches"] != want:
+            fail(f"{label}: rank {r['rank']} launched {r['launches']}, "
+                 f"expected {want}")
+    say(f"[18] {label}: every rank's launches exact (its layers' attention, "
+        "its experts' products and linears, the head on the last stage)")
+    steps = out[0]["decode_steps"] + out[0]["prefill_calls"]
+    return {"label": label, "ids": ids, "tie": tie, "logits_rel_l2": err,
+            "seconds": seconds,
+            "ranks": mesh_rank_lines(label, out, steps, "[18]"),
+            "launches": {k: sum(r["launches"][k] for r in out)
+                         for k in out[0]["launches"]}}
+
+
+def phase_moe(torch, pool, root: Path, settings) -> dict:
+    """Phase 18: expert parallelism on this card over the 4 gloo ranks:
+    Mixtral-8x7B at full width, MOE_LAYERS layers, seed 0, written by the
+    port's writer and quantized on the card by tools.quantize_model; at
+    ep 2 x tp 2 with int8 experts (one (ep, tp) all-reduce a routed MLP)
+    and at stages 2 x ep 2 in bf16. (The command line, ``--ep 2 --tp
+    2``, runs after the pool, in :func:`phase_mesh`.)"""
+    from cake_tpu_torch.models import llama
+    from cake_tpu_torch.models.config import mixtral_8x7b
+    from cake_tpu_torch.ops import quant
+    from cake_tpu_torch.parallel.mesh import MeshPlan
+    from cake_tpu_torch.tools import quantize_model
+    from cake_tpu_torch.utils.weights import save_llama_params
+
+    gc.collect()
+    torch.cuda.empty_cache()  # phases 16's and 17's weights are gone
+    t0 = time.perf_counter()
+    cfg = mixtral_8x7b(num_hidden_layers=MOE_LAYERS, max_seq_len=4096)
+    params = llama.init_params(cfg, seed=SEED)
+    d, d8 = root / "ckpt18", root / "ckpt18_q8"
+    save_llama_params(params, d)
+    (d / "config.json").write_text(json.dumps(cfg.to_hf_dict()))
+    quantize_model.quantize_checkpoint(d, d8)
+    out: dict = {"checkpoint_s": time.perf_counter() - t0}
+    prompt = main_path_prompt(torch, cfg)
+    params8 = quant.quantize_params(params, 8)
+    out["ep2_tp2_int8"] = moe_stream(
+        torch, pool, cfg, params8, d8, prompt, settings,
+        "Mixtral-8x7B ep 2 x tp 2 int8 experts", MeshPlan(ep=2, tp=2),
+        "int8")
+    del params8
+    torch.cuda.empty_cache()
+    out["stages2_ep2"] = moe_stream(
+        torch, pool, cfg, params, d, prompt, settings,
+        "Mixtral-8x7B stages 2 x ep 2 bf16", MeshPlan(num_stages=2, ep=2),
+        "bf16")
+    del params
+    torch.cuda.empty_cache()
+    runs = ("ep2_tp2_int8", "stages2_ep2")
+    out["launches"] = {k: sum(out[r]["launches"][k] for r in runs)
+                       for k in out["ep2_tp2_int8"]["launches"]}
+    out["prompt"], out["ckpt_q8"] = prompt, d8
+    out["seconds"] = time.perf_counter() - t0
+    say(f"[18] phase 18 took {out['seconds']:.1f} s before its command "
+        f"line: checkpoint {out['checkpoint_s']:.1f} s, " + ", ".join(
+            f"{k} {out[k]['seconds']:.1f} s" for k in runs))
     return out
 
 
@@ -7234,14 +7695,16 @@ def main() -> int:
     only_tools = sys.argv[1:] == ["--phase", "15"]
     only_mesh = sys.argv[1:] == ["--phase", "16"]
     only_sp = sys.argv[1:] == ["--phase", "17"]
+    only_moe = sys.argv[1:] == ["--phase", "18"]
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels":
         other = Path(sys.argv[2]).resolve()
     elif len(sys.argv) > 1 and not (only_guided or only_paged or only_spec
                                     or only_families or only_disagg
-                                    or only_tools or only_mesh or only_sp):
+                                    or only_tools or only_mesh or only_sp
+                                    or only_moe):
         fail(f"usage: {sys.argv[0]} [--kernels DIR | --phase 10 | "
              "--phase 11 | --phase 12 | --phase 13 | --phase 14 | "
-             "--phase 15 | --phase 16 | --phase 17]")
+             "--phase 15 | --phase 16 | --phase 17 | --phase 18]")
     sys.path.insert(0, str(other or REPO))
     try:
         from cake_tpu_torch.ops import flash, kvcache, qmatmul, quant
@@ -7291,19 +7754,24 @@ def main() -> int:
         return 0
     if only_mesh:
         phase_tp_kernels(torch, flash, qmatmul, quant, kvcache)
-        say(json.dumps({"card": card, "mesh": phase_mesh(torch, build,
-                                                         run17=False)}))
+        say(json.dumps({"card": card, "mesh": phase_mesh(
+            torch, build, run17=False, run18=False)}))
         say(card)
         return 0
     if only_sp:
         errs = phase_sp_kernels(torch, flash, kvcache)
         rows: list = []
         sp_kernel_timing(torch, flash, kvcache, build, errs, rows)
-        mesh = phase_mesh(torch, build, run16=False)
+        mesh = phase_mesh(torch, build, run16=False, run18=False)
         for r in rows:
             r["launches"] = mesh["sp"]["launches"][r["name"]]
         say(json.dumps({"card": card, "sp": mesh["sp"]}))
         say(json.dumps({"kernels": rows}))
+        say(card)
+        return 0
+    if only_moe:
+        mesh = phase_mesh(torch, build, run16=False, run17=False)
+        say(json.dumps({"card": card, "moe": mesh["moe"]}))
         say(card)
         return 0
     t_run = time.perf_counter()
@@ -7367,18 +7835,18 @@ def main() -> int:
     tools = phase_tools(torch, build, cli)
     lap("15")
     mesh = phase_mesh(torch, build)
-    lap("16, 17")
+    lap("16, 17, 18")
     # over the paths (a), (b), (c), the batch runs, the cross-host runs,
     # phase 10's guided and lookahead runs, phase 11's paged runs, phase
     # 12's speculative runs, phase 13's family runs, phase 14's
     # disaggregated runs (both replicas), phase 15's clean run over the
-    # bundles (master and workers) and phase 16's and 17's mesh runs
+    # bundles (master and workers) and phase 16's, 17's and 18's mesh runs
     # (every rank)
     for r in rows:
         r["launches"] = sum(p["launches"][r["name"]]
                             for p in main_path + batch + cross_host + guided
                             + paged + spec + families + disagg
-                            + [tools, mesh, mesh["sp"]])
+                            + [tools, mesh, mesh["sp"], mesh["moe"]])
     say(json.dumps({"card": card, "main_path": main_path, "batch": batch,
                     "serve": serve, "cross_host": cross_host,
                     "cross_host_cli": cross_host_cli, "guided": guided,

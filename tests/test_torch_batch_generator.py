@@ -227,20 +227,33 @@ def test_warm_admission_leaves_the_batch_alone(tiers):
     (dict(spec_k=4, logprobs=2),
      "logprobs do not compose with batched speculation"),
     (dict(kv_layout="ring"), "must be 'slot' or 'paged'"),
-    (dict(interleave=True), "interleaved.*not ported"),
     (dict(dp=2), "dp=2 run over a rank mesh: pass the rank's collectives"),
     (dict(tp=2), "tp=2 run over a rank mesh"),
     (dict(num_stages=2), "stages=2 run over a rank mesh"),
     (dict(sp=2, kv_layout="paged"),
      r"kv_layout='paged' requires dp == 1 and sp == 1 \(the page axis is "
      "unsharded"),
-    (dict(sp=2, spec_k=4), r"batched speculation \(spec_k\) at sp=2 .* is "
-     "not ported yet"),
-    (dict(ep=2), "ep=2.*not ported"),
+    (dict(sp=2, spec_k=4), "sp=2 run over a rank mesh: pass the rank's "
+     "collectives"),
+    (dict(ep=2), r"ep > 1 requires an MoE config \(num_local_experts > 0\)"),
 ])
 def test_unported_options_are_refused(tiers, kwargs, match):
     with pytest.raises(ValueError, match=match):
         BatchGenerator(tiny(), tiers["f32"][1], device="cpu", **kwargs)
+
+
+def test_interleave_on_one_device_runs_the_serialized_schedule(tiers):
+    """``interleave=True`` is the JAX engine's request for the interleaved
+    schedules where stages > 1; on one device there is one schedule, and
+    the streams are the default engine's."""
+    params = tiers["f32"][1]
+    settings = SamplerSettings(**GREEDY)
+    _, want = _port(params, [[5, 9, 2], [3, 1, 4]], 4, settings)
+    g = BatchGenerator(tiny(), params, device="cpu", settings=settings,
+                       interleave=True)
+    g.set_prompts([[5, 9, 2], [3, 1, 4]])
+    assert g.generate(4) == want
+    assert g.stats()["schedule"] == {"interleaved": 0, "serialized": 0}
 
 
 def test_guides_are_refused(tiers):

@@ -354,8 +354,8 @@ def test_cli_obs_flags_write_the_jax_names(checkpoint, tmp_path):
     (["--logit-bias", "7=3"], "--logit-bias wants ID:BIAS"),
     (["--lookahead", "--decode-block", "1"], "requires --decode-block > 1"),
     (["--lookahead", "--speculate", "2"], "does not compose with --speculate"),
-    (["--prefill-chunks", "2"], r"--prefill-chunks 2 \(the pipelined "
-     r"prefill across stages\) is not ported yet"),
+    (["--prefill-chunks", "2"], r"--prefill-chunks pipelines the prompt "
+     r"across mesh stages; it requires --stages > 1"),
     (["--lookahead", "--tp", "2"], "not supported with --stages"),
     (["--kv-layout", "paged"], "--kv-layout paged applies to the batched "
      "serving engine"),

@@ -249,10 +249,10 @@ RUN = ["--prompt-ids", "3,5,7,9,11,13", "-n", "10", "--temperature", "0",
      r"--sp 1 \(ring attention is the sequence-parallel prefill plane\)"),
     (["--sp", "2", "--window", "8"], r"sliding-window attention \(this "
      r"checkpoint's family\) does not compose with --sp; run with --sp 1"),
-    (["--ep", "2"], r"ep=2: expert parallelism is not ported yet"),
-    (["--prefill-chunks", "2", "--stages", "2"],
-     r"--prefill-chunks 2 \(the pipelined prefill across stages\) is not "
-     r"ported yet"),
+    (["--ep", "2"], r"--ep requires an MoE checkpoint \(num_local_experts > "
+     r"0 in config.json\)"),
+    (["--prefill-chunks", "2"], r"--prefill-chunks pipelines the prompt "
+     r"across mesh stages; it requires --stages > 1"),
     (["--tp", "2", "--quantize", "int4:g64"],
      r"int4 group size 64 does not divide wq's tp-local in-dim|"
      r"does not divide wo's tp-local in-dim 32"),

@@ -8,8 +8,9 @@ dispatches than tokens (``tests/test_speculative.py``'s mesh case). Held
 to the port's single-device ``SpeculativeGenerator``: the int8 KV cache
 (as the JAX test holds its mesh to its single chip), and sampled streams
 at one round a dispatch, the same on every rank. ``prefill_chunks=2`` is
-refused. The command line's three entry points at ``--stages 2 --tp 2
---speculate 4`` print (or answer) the JAX command line's ids.
+refused at one stage, as in JAX. The command line's three entry points at
+``--stages 2 --tp 2 --speculate 4`` print (or answer) the JAX command
+line's ids.
 """
 
 import json
@@ -126,9 +127,13 @@ def test_sampled_streams_equal_the_single_devices_on_every_rank(pools,
 
 
 def test_the_pipelined_prefill_is_refused(pools, weights):
+    """At one stage, in the JAX package's words: nothing to overlap (the
+    pipelined prefill itself runs at stages > 1,
+    tests/test_torch_interleave.py)."""
     _, tparams = weights
-    with pytest.raises(RuntimeError, match="prefill_chunks=2"):
-        _mesh(pools, MeshPlan(num_stages=2), tparams,
+    with pytest.raises(RuntimeError, match="pipelined .microbatch. prefill "
+                                           "requires num_stages > 1"):
+        _mesh(pools, MeshPlan(tp=2), tparams,
               SamplerSettings(temperature=0.0), prefill_chunks=2)
 
 

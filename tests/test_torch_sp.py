@@ -208,14 +208,17 @@ def _rank_of(plan):
 
 
 @pytest.mark.parametrize("build,match", [
-    (lambda cfg, p, c: MeshSpeculativeGenerator(cfg, p, c),
-     r"speculation at sp=2 .* is not ported yet"),
+    (lambda cfg, p, c: MeshSpeculativeGenerator(cfg, p, c,
+                                                prefill_chunks=2),
+     r"prefill_chunks \(pipelined prefill\) requires sp == 1"),
     (lambda cfg, p, c: MeshGenerator(cfg, p, c, prefill_chunks=2),
      r"prefill_chunks \(pipelined prefill\) requires sp == 1"),
 ], ids=["speculation", "prefill-chunks"])
 def test_sp_refusals_of_the_single_stream(weights, build, match):
-    """The JAX refusals that stay at sp > 1 (speculation is queued as
-    ROADMAP item 9.3b), raised before any collective."""
+    """The JAX refusal that stays at sp > 1, the pipelined prefill (of
+    the plain and of the speculative generator: speculation itself runs
+    at sp > 1, tests/test_torch_sp_spec.py), raised before any
+    collective."""
     with pytest.raises(ValueError, match=match):
         build(tiny(**CFG), weights[1], _rank_of(MeshPlan(sp=2)))
 
