@@ -14,12 +14,15 @@ test:
 # ownership, _GUARDED_BY lock discipline, jit trace purity, wire
 # safety, claim lifecycles (acquire/release pairing), and thread
 # domains. Fails on any finding not grandfathered (with a justification)
-# in analysis-baseline.json. See README "Static analysis".
+# in analysis-baseline.json. See README "Static analysis". The PyTorch
+# port (cake_tpu_torch/analysis, the same checkers with CK-JIT in its
+# CUDA-graph/torch.compile form) runs against analysis-baseline-torch.json.
 lint:
 	$(PY) -m compileall -q cake_tpu tests bench.py __graft_entry__.py
 	@if $(PY) -c 'import pyflakes' 2>/dev/null; then \
 	  $(PY) -m pyflakes cake_tpu tests bench.py __graft_entry__.py; fi
 	$(PY) -m cake_tpu.analysis --baseline analysis-baseline.json
+	$(PY) -m cake_tpu_torch.analysis --baseline analysis-baseline-torch.json
 
 native: native/libcakewire.so native/libcakeembed.so native/cake_host_demo
 

@@ -92,6 +92,10 @@ interleaved schedules itself at stages > 1.
 ``--log-level debug|info|warning|error`` (default info; ``-v`` forces
 debug) sets the root log level; a mesh's other ranks log warnings only,
 unless ``-v`` is given.
+
+``--fetch SRC`` populates ``--model`` first from ``hf://org/name[@rev]``
+or a local directory (:mod:`cake_tpu_torch.utils.fetch`: idempotent,
+``--refetch`` re-copies); a gateway refuses it, as in JAX.
 """
 
 from __future__ import annotations
@@ -128,6 +132,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint directory (config.json + safetensors); "
                         "required in every mode except gateway (a gateway "
                         "holds no model)")
+    p.add_argument("--fetch", default=None, metavar="SRC",
+                   help="populate --model first from hf://org/name[@rev] or "
+                        "a local dir (idempotent: files already there are "
+                        "kept)")
+    p.add_argument("--refetch", action="store_true",
+                   help="with --fetch: re-copy/re-download even if --model "
+                        "already holds a complete checkpoint")
     p.add_argument("--mode", choices=["master", "worker", "serve",
                                       "gateway"], default="master",
                    help="master: one-shot generation (default; with "
@@ -1646,6 +1657,9 @@ def _main(args) -> int:
     if args.mode != "gateway" and not args.model:
         sys.exit("error: --model is required (only --mode gateway runs "
                  "without a checkpoint)")
+    if args.mode == "gateway" and args.fetch:
+        sys.exit("error: --fetch populates --model, and a gateway holds "
+                 "no model; fetch on the --mode serve replicas instead")
     if args.mode != "gateway" and _gateway_flags(args):
         sys.exit(f"error: {'/'.join(_gateway_flags(args))} configure the "
                  "routing gateway; they require --mode gateway (they "
@@ -1676,6 +1690,15 @@ def _main(args) -> int:
                  "segment-scaled default)")
     if args.recover_deadline is not None and args.recover_deadline <= 0:
         sys.exit("error: --recover-deadline must exceed 0")
+    if args.fetch and args.rank_ctx is None:
+        # the process the user started fetches; the mesh's ranks it
+        # starts find the files there
+        from cake_tpu_torch.utils.fetch import fetch_checkpoint
+
+        try:
+            fetch_checkpoint(args.fetch, args.model, force=args.refetch)
+        except Exception as e:
+            sys.exit(f"error: fetch from {args.fetch} failed: {e}")
     if args.mode == "worker":
         return run_worker(args)
     topology = _load_topology(args) if args.topology else None

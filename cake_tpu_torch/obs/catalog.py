@@ -8,13 +8,18 @@ would both exist, each half-populated, and every dashboard built on the
 real name goes quietly wrong. This catalog is the fix: one declaration
 per series (name, kind, meaning), enforced two ways —
 
+- statically, by the ``metrics-catalog`` checker in
+  :mod:`cake_tpu_torch.analysis` (``make lint``): every series-name
+  literal at a ``counter()``/``gauge()``/``histogram()``/instrument-
+  constructor call site must appear here;
 - at runtime, optionally: ``CAKE_OBS_STRICT=1`` (or
   ``registry().strict = True``) makes the registry refuse to create an
   undeclared series, for test rigs that want the invariant hot.
 
 Dynamic families (per-segment, per-worker) are declared as patterns with
 ``*`` standing for exactly the formatted field an f-string
-interpolates.
+interpolates; the checker derives the same pattern from the f-string AST
+and requires an exact match.
 
 Adding a series is a two-line change: the call site and one entry here.
 The entry shows the new name, its kind, and what it means, in one

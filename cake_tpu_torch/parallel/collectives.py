@@ -212,29 +212,33 @@ class Collectives:
                 dist.broadcast(t, src, group=group)
         return t
 
-    def _stage_peer(self, step: int) -> int:
+    def _stage_peer(self, step: int, wrap: bool = False) -> int:
         s = self.coords[STAGE] + step
+        if wrap:  # around the stage ring: the last stage's next is the first
+            s %= self.plan.num_stages
         return self.plan.rank_of(**{**self.coords, STAGE: s})
 
-    def send_next(self, t: torch.Tensor) -> None:
-        """The activation to the next stage (same dp, tp place)."""
+    def send_next(self, t: torch.Tensor, wrap: bool = False) -> None:
+        """The activation to the next stage (same dp, tp place).
+        ``wrap``: the last stage sends to the first (a ring, as the
+        stage-hop probe runs); a pipeline never wraps."""
         t = t.contiguous()
         with self._timed(STAGE, t.numel() * t.element_size(),
                          t.device.type):
             src = self._to_host("send", t) if self._staged(t) else t
-            dist.send(src, self._stage_peer(1))
+            dist.send(src, self._stage_peer(1, wrap))
 
-    def recv_prev(self, shape, dtype) -> torch.Tensor:
+    def recv_prev(self, shape, dtype, wrap: bool = False) -> torch.Tensor:
         """The activation from the previous stage, on this rank's
-        device."""
+        device (``wrap``: the first stage receives from the last)."""
         like = torch.empty(shape, dtype=dtype, device=self.device)
         with self._timed(STAGE, 0, like.device.type):
             if self._staged(like):
                 buf = self._buffer("recv", like)
-                dist.recv(buf, self._stage_peer(-1))
+                dist.recv(buf, self._stage_peer(-1, wrap))
                 like.copy_(buf)
             else:
-                dist.recv(like, self._stage_peer(-1))
+                dist.recv(like, self._stage_peer(-1, wrap))
         return like
 
     def stage_shift(self, t: torch.Tensor | None, recv_shape,

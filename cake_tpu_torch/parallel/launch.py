@@ -233,7 +233,16 @@ class RankPool:
                 conn = self._listener.accept()
             except (socket.timeout, TimeoutError):
                 continue
-            rank = conn.recv()
+            try:
+                # a rank sends its number first; one that connects and
+                # says nothing fails the start at the deadline
+                if not conn.poll(max(deadline - time.monotonic(), 0.0)):
+                    raise TimeoutError("a rank sent no number")
+                rank = conn.recv()
+            except (EOFError, OSError):
+                conn.close()
+                self.close()
+                raise RuntimeError("rank pool failed to start") from None
             self._conns[rank] = conn
             got += 1
 

@@ -26,6 +26,8 @@
                                           # only; no result line
     python3 chip_smoke.py --phase 18      # phases 1 and 18 only; no
                                           # result line
+    python3 chip_smoke.py --phase 19      # phases 1 and 19 only; no
+                                          # result line
 
 Phases, each fatal on failure:
 
@@ -304,6 +306,23 @@ Phases, each fatal on failure:
    ``--ep 2 --tp 2 --quantize int8`` as a process printing the ep 2 x tp
    2 run's ids. Per rank: TTFT, card ms a decode step, the ``ep_tp`` and
    ``ep`` axes' calls, ms and bytes.
+19. the tools on the card (``phase_card_tools``): ``tools.ici_probe``
+   over 2 gloo ranks on this card (the payload intact after 64 hops, the
+   hop host-staged); ``tools.stage_slice`` at 5 of Llama-3-70B's layers
+   (hidden 8192, 64/8 heads, intermediate 28672), int8 then bf16, with
+   that hop: both rows measured, the card's memory after init within 3%
+   of ``utils/memory.py hbm_budget``'s layers and cache, layer 0's
+   decode output at mid-window against the CPU plain path on the same
+   weights (an end-to-end witness), its launches counted in the kernels
+   line; the stage's kernels at its own shapes (``stage_slice
+   check_stage_kernels``: the prefill at T = 2048 and the decode at
+   mid-window over a random 8,192-slot cache, bf16 and int8, and the int8
+   linears at M = 1 and 2048 up to K or N = 28672) against their plain
+   versions within phase 2's tolerance, a planted fault refused beside
+   each; ``tools.kernel_check`` as a process (exit 0, the nine
+   kernels' lines, a bf16 end-to-end check); ``tools.flash_sweep`` and
+   ``tools.int4_sweep`` on short grids, each row's kernel within phase
+   2's tolerance of its plain version.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the ``cake_tpu_torch`` package beside this file, it exits with
@@ -351,9 +370,10 @@ ATOL = RTOL = 2e-2
 ROW_REL_L2 = 1e-2
 # a bf16 chain through two full-width layers and the head, on two devices
 MODEL_REL_L2 = 2e-2
-# H100 SXM data sheet: HBM3 bandwidth, dense bf16 tensor-core rate
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_BF16_FLOPS = 989e12
+# the card's timing, bounds, costs and verdict: those of
+# cake_tpu_torch/tools/kernel_check.py (its bounds read utils/chips.py's
+# H100 row), taken in main() once the package is found
+time_ms = bound = verdict = decode_cost = prefill_cost = matmul_cost = None
 H, KVH, D, S = 32, 8, 128, 4096
 MAIN = (H, KVH, D)
 # Gemma-7B's attention (gemma_7b): 16 query heads and 16 kv heads of 256,
@@ -433,18 +453,8 @@ def phase_toolchain(torch, build) -> str:
 # --------------------------------------------------------------------------
 
 
-def verdict(torch, out, ref):
-    """(max abs error, worst row's relative L2 error, within both)"""
-    torch.cuda.synchronize()
-    o, r = out.float(), ref.float()
-    err = (o - r).abs().max().item()
-    rel = ((o - r).norm(dim=-1) / r.norm(dim=-1)).max().item()
-    close = torch.isclose(o, r, atol=ATOL, rtol=RTOL).all().item()
-    return err, rel, close and rel < ROW_REL_L2
-
-
 def compare(torch, label, out, ref):
-    err, rel, ok = verdict(torch, out, ref)
+    err, rel, ok = verdict(out, ref)
     say(f"[2] {label}: max_abs_err {err:.3e}, worst row rel L2 "
         f"{rel:.3e}")
     torch.testing.assert_close(out, ref, atol=ATOL, rtol=RTOL)
@@ -455,7 +465,7 @@ def compare(torch, label, out, ref):
 
 def planted(torch, label, bad, ref):
     """A planted fault: the check must refuse ``bad``."""
-    err, rel, ok = verdict(torch, bad, ref)
+    err, rel, ok = verdict(bad, ref)
     say(f"[2] planted fault, {label}: max_abs_err {err:.3e}, worst row rel "
         f"L2 {rel:.3e}")
     if ok:
@@ -931,38 +941,6 @@ def phase_fine_groups(torch, qmatmul, quant) -> dict:
 # --------------------------------------------------------------------------
 
 
-def time_ms(torch, fn, n: int = 20, warm: int = 3) -> float:
-    """Median card ms of ``fn`` over ``n`` calls, each after a 256 MB read
-    has evicted the 50 MB L2 (the main path reaches each layer's attention
-    and linears with a cold cache). A spin kernel keeps the card busy while the host
-    enqueues the start event and ``fn``, so the events bracket the card's
-    work and not the host's launch time."""
-    flush = torch.ones(64 << 20, dtype=torch.float32, device="cuda")
-    for _ in range(warm):
-        fn()
-    pairs = []
-    for _ in range(n):
-        # read, not written: a write would leave ~50 MB of dirty lines
-        # whose write-back the timed call would pay
-        flush.sum()
-        torch.cuda._sleep(2_000_000)  # ~1 ms of cycles
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        pairs.append((s, e))
-    torch.cuda.synchronize()
-    times = sorted(s.elapsed_time(e) for s, e in pairs)
-    return times[len(times) // 2]
-
-
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 # (B, frontier of each row) of the timed decode calls: the headline (one
 # stream at 2,048 keys), the buffer's end, and four streams at per-row
 # frontiers
@@ -997,10 +975,8 @@ def decode_case(torch, flash, kvcache, name, b, pos, rnd, t=1,
     q = rnd(b, h, t, d)
     p = torch.tensor(pos, dtype=torch.int32, device="cuda")
     live = [x + t for x in pos]
-    per_key = 2 * d * 2 if name == "flash_decode" else 2 * (d + 4)
-    nbytes = 2 * q.numel() * 2 + kvh * sum(live) * per_key
-    b_ms, b_by = bound(nbytes, 4 * h * d * sum(
-        x + i + 1 for x in pos for i in range(t)))
+    b_ms, b_by = bound(*decode_cost(b, h, kvh, d, t, pos,
+                                    q8=name != "flash_decode"))
     n = max(live)
     lk, lv = (c[:, :, :n] for c in lib_kv)
     mask = None
@@ -1012,9 +988,9 @@ def decode_case(torch, flash, kvcache, name, b, pos, rnd, t=1,
     case = {"shape": f"q [{b},{h},{t},{d}] "
                      f"{'bf16' if name == 'flash_decode' else 'int8'} k/v "
                      f"[{b},{kvh},{S},{d}] pos {list(pos)}",
-            "ms": time_ms(torch, lambda: kernel(q, *kv, p)),
-            "plain_ms": time_ms(torch, lambda: plain(q, *kv, p)),
-            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            "ms": time_ms(lambda: kernel(q, *kv, p)),
+            "plain_ms": time_ms(lambda: plain(q, *kv, p)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 q, lk, lv, attn_mask=mask, enable_gqa=True)),
             "bound_ms": b_ms, "bound_by": b_by}
     case["pct_of_bound"] = 100 * b_ms / case["ms"]
@@ -1055,8 +1031,7 @@ def phase_timing(torch, flash, kvcache, build, errs) -> list:
     t = 2048
     q = rnd(1, H, t, D)
     live = t  # keys 0..T-1 at pos 0
-    nbytes = 2 * q.numel() * 2 + 2 * KVH * live * D * 2
-    flops = 4 * H * D * (t * (t + 1) // 2)  # causal (q, k) pairs
+    nbytes, flops = prefill_cost(H, KVH, D, t, live, t * (t + 1) // 2)
     b_ms, b_by = bound(nbytes, flops)
     rows.append({
         "name": "flash_prefill", "route": "cuda",
@@ -1065,10 +1040,10 @@ def phase_timing(torch, flash, kvcache, build, errs) -> list:
         "shape": f"q [1,{H},{t},{D}] k/v [1,{KVH},{S},{D}] bf16 pos 0",
         "flops": flops,
         "max_abs_err": errs[("prefill", t, 0, None)],
-        "ms": time_ms(torch, lambda: flash.flash_attention(q, k, v, 0)),
-        "plain_ms": time_ms(torch,
+        "ms": time_ms(lambda: flash.flash_attention(q, k, v, 0)),
+        "plain_ms": time_ms(
                             lambda: flash.flash_attention_ref(q, k, v, 0)),
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             q, k[:, :, :live], v[:, :, :live], is_causal=True,
             enable_gqa=True)),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -1102,12 +1077,11 @@ def matmul_case(torch, quant, qmatmul, build, tier, m, k, n, gen) -> dict:
     x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
     kernel = getattr(qmatmul, name)
     # each input read once, the output written once
-    nbytes = (x.numel() * 2 + wq.numel() + scale.numel() * 4 + m * n * 2)
-    b_ms, b_by = bound(nbytes, 2 * m * k * n)
+    b_ms, b_by = bound(*matmul_cost(m, k, n, wq.numel(), scale.numel()))
     case = {"tier": tier_label(tier), "shape": f"x [{m},{k}] w [{k},{n}]",
-            "ms": time_ms(torch, lambda: kernel(x, wq, scale)),
-            "plain_ms": time_ms(torch, lambda: plain(x, wq, scale), n=5),
-            "library_ms": time_ms(torch, lambda: x @ w_bf16),
+            "ms": time_ms(lambda: kernel(x, wq, scale)),
+            "plain_ms": time_ms(lambda: plain(x, wq, scale), n=5),
+            "library_ms": time_ms(lambda: x @ w_bf16),
             "bound_ms": b_ms, "bound_by": b_by}
     case["pct_of_bound"] = 100 * b_ms / case["ms"]
     case["tflops"] = 2 * m * k * n / case["ms"] / 1e9
@@ -1163,8 +1137,8 @@ def phase_quant_timing(torch, flash, qmatmul, quant, kvcache, build,
     k_live, v_live = (kvcache.dequant_kv(kvcache.QuantizedKV(
         c.q[:, :, :live], c.scale[:, :, :live]), torch.bfloat16)
         for c in (kq, vq))
-    nbytes = 2 * q.numel() * 2 + 2 * KVH * live * (D + 4)
-    flops = 4 * H * D * (t * (t + 1) // 2)
+    nbytes, flops = prefill_cost(H, KVH, D, t, live, t * (t + 1) // 2,
+                                 q8=True)
     b_ms, b_by = bound(nbytes, flops)
     args = (q, kq.q, kq.scale, vq.q, vq.scale, 0)
     rows.append({
@@ -1174,11 +1148,11 @@ def phase_quant_timing(torch, flash, qmatmul, quant, kvcache, build,
         "shape": f"q [1,{H},{t},{D}] int8 k/v [1,{KVH},{S},{D}] pos 0",
         "flops": flops,
         "max_abs_err": errs[("prefill_q8", t, 0, None)],
-        "ms": time_ms(torch, lambda: flash.flash_attention_q8(*args)),
-        "plain_ms": time_ms(torch,
+        "ms": time_ms(lambda: flash.flash_attention_q8(*args)),
+        "plain_ms": time_ms(
                             lambda: flash.flash_attention_q8_ref(*args)),
         # over K/V dequantized beforehand: SDPA reads 2x the cache bytes
-        "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             q, k_live, v_live, is_causal=True, enable_gqa=True)),
         "bound_ms": b_ms, "bound_by": b_by,
     })
@@ -1353,7 +1327,7 @@ def prefill_case(torch, flash, kvcache, build, name, shape, t, rnd) -> dict:
     if name == "flash_prefill":
         args, fn, ref = (q, k, v, 0), flash.flash_attention, \
             flash.flash_attention_ref
-        lk, lv, per_key = k[:, :, :t], v[:, :, :t], 2 * d * 2
+        lk, lv = k[:, :, :t], v[:, :, :t]
     else:
         kq, vq = kvcache.quant_kv(k), kvcache.quant_kv(v)
         args = (q, kq.q, kq.scale, vq.q, vq.scale, 0)
@@ -1361,15 +1335,15 @@ def prefill_case(torch, flash, kvcache, build, name, shape, t, rnd) -> dict:
         lk, lv = (kvcache.dequant_kv(kvcache.QuantizedKV(
             c.q[:, :, :t], c.scale[:, :, :t]), torch.bfloat16)
             for c in (kq, vq))
-        per_key = 2 * (d + 4)
-    flops = 4 * h * d * (t * (t + 1) // 2)
-    b_ms, b_by = bound(2 * q.numel() * 2 + kvh * t * per_key, flops)
+    nbytes, flops = prefill_cost(h, kvh, d, t, t, t * (t + 1) // 2,
+                                 q8=name != "flash_prefill")
+    b_ms, b_by = bound(nbytes, flops)
     case = {"shape": f"q [1,{h},{t},{d}] "
                      f"{'bf16' if name == 'flash_prefill' else 'int8'} k/v "
                      f"[1,{kvh},{S},{d}] pos 0",
-            "ms": time_ms(torch, lambda: fn(*args)),
-            "plain_ms": time_ms(torch, lambda: ref(*args), n=5),
-            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            "ms": time_ms(lambda: fn(*args)),
+            "plain_ms": time_ms(lambda: ref(*args), n=5),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 q, lk, lv, is_causal=True, enable_gqa=True)),
             "bound_ms": b_ms, "bound_by": b_by}
     case["pct_of_bound"] = 100 * b_ms / case["ms"]
@@ -2659,10 +2633,12 @@ def phase_serve(torch) -> dict:
     refused = None
     while refused is None and time.time() < deadline:
         try:
-            urllib.request.urlopen(urllib.request.Request(
-                f"http://127.0.0.1:{port}/v1/completions",
-                data=json.dumps({"prompt_ids": [1, 2],
-                                 "max_tokens": 2}).encode()), timeout=30)
+            with urllib.request.urlopen(urllib.request.Request(
+                    f"http://127.0.0.1:{port}/v1/completions",
+                    data=json.dumps({"prompt_ids": [1, 2],
+                                     "max_tokens": 2}).encode()),
+                    timeout=30):
+                pass
         except urllib.error.HTTPError as e:
             refused = e.code
         except urllib.error.URLError as e:  # the listener already closed
@@ -3697,7 +3673,7 @@ def kernel_times(torch, flash, qmatmul, quant) -> dict:
                 torch.bfloat16)
             fn = getattr(qmatmul, name)
             times[f"{tier_label(tier)} x [{m},{k}] w [{k},{n}]"] = time_ms(
-                torch, lambda: fn(x, wq, scale))
+                lambda: fn(x, wq, scale))
             del w, wq, scale
         torch.cuda.empty_cache()
 
@@ -3710,7 +3686,7 @@ def kernel_times(torch, flash, qmatmul, quant) -> dict:
         k, v, q = rnd(b, KVH, S, D), rnd(b, KVH, S, D), rnd(b, H, 1, D)
         p = torch.tensor(pos, dtype=torch.int32, device="cuda")
         decode[f"q [{b},{H},1,{D}] pos {list(pos)}"] = time_ms(
-            torch, lambda: flash.flash_decode(q, k, v, p))
+            lambda: flash.flash_decode(q, k, v, p))
     return {"matmul_ms": times, "flash_decode_ms": decode}
 
 
@@ -3812,15 +3788,15 @@ def page_moves_ms(torch, g) -> dict:
         ids = g._ids(g._scatter_ids_np(8))
         first = torch.clamp(g._ids(g._pos).long() // PAGE, max=g._ppp - w)
         view = kvpool.gather_view(g.cache, page_map)
-        gather = time_ms(torch, lambda: kvpool.gather_view(g.cache,
+        gather = time_ms(lambda: kvpool.gather_view(g.cache,
                                                            page_map), n=10)
-        scatter = time_ms(torch, lambda: kvpool.scatter_back(
+        scatter = time_ms(lambda: kvpool.scatter_back(
             g.cache, view, first, ids), n=10)
     nbytes = sum(t.numel() * t.element_size() for t in kvpool.halves(view))
     del view
     return {"gather_ms": gather, "scatter_ms": scatter,
             "view_gb": nbytes / 1e9,
-            "gather_bound_ms": 2 * nbytes / PEAK_BYTES_PER_S * 1e3}
+            "gather_bound_ms": bound(2 * nbytes, 0)[0]}
 
 
 def plant_page_shift(g) -> None:
@@ -6256,22 +6232,22 @@ def tp_local_timing(torch, flash, qmatmul, quant, kvcache, build,
         kq, vq = kvcache.quant_kv(k), kvcache.quant_kv(v)
         t = 2000
         q = rnd(1, h, t, D)
-        for name, ops, fn, ref, per_key in (
+        for name, ops, fn, ref in (
                 ("flash_prefill", (k, v), flash.flash_attention,
-                 flash.flash_attention_ref, 2 * D * 2),
+                 flash.flash_attention_ref),
                 ("flash_prefill_q8", (kq.q, kq.scale, vq.q, vq.scale),
-                 flash.flash_attention_q8, flash.flash_attention_q8_ref,
-                 2 * (D + 4))):
-            b_ms, b_by = bound(2 * q.numel() * 2 + kvh * t * per_key,
-                               4 * h * D * (t * (t + 1) // 2))
+                 flash.flash_attention_q8, flash.flash_attention_q8_ref)):
+            b_ms, b_by = bound(*prefill_cost(
+                h, kvh, D, t, t, t * (t + 1) // 2,
+                q8=name == "flash_prefill_q8"))
             lk, lv = ((k, v) if name == "flash_prefill" else tuple(
                 kvcache.dequant_kv(c, torch.bfloat16) for c in (kq, vq)))
             c = {"tp": tp, "shape": f"q [1,{h},{t},{D}] k/v "
                                      f"[1,{kvh},{S},{D}] pos 0",
-                 "ms": time_ms(torch, lambda: fn(q, *ops, 0)),
-                 "plain_ms": time_ms(torch, lambda: ref(q, *ops, 0)),
+                 "ms": time_ms(lambda: fn(q, *ops, 0)),
+                 "plain_ms": time_ms(lambda: ref(q, *ops, 0)),
                  "library_ms": time_ms(
-                     torch, lambda: F.scaled_dot_product_attention(
+                     lambda: F.scaled_dot_product_attention(
                          q, lk[:, :, :t], lv[:, :, :t], is_causal=True,
                          enable_gqa=True)),
                  "bound_ms": b_ms, "bound_by": b_by}
@@ -7463,7 +7439,7 @@ def compare_stats(torch, label, got, ref) -> float:
     if live.any():
         err = compare(torch, f"{label} o / l", o[live] / l[live][:, None],
                       ro[live] / rl[live][:, None])
-        _, rel, _ = verdict(torch, o[live], ro[live])
+        _, rel, _ = verdict(o[live], ro[live])
         say(f"[2] {label} o: worst row rel L2 {rel:.3e}")
         if not rel < ROW_REL_L2:
             fail(f"{label}: o's worst row relative L2 {rel} >= "
@@ -7585,11 +7561,11 @@ def sp_prefill_case(torch, flash, h, kvh, pos, rnd) -> dict:
     lib = torch.ops.aten._scaled_dot_product_flash_attention
     case = {"shape": f"q [1,{h},{t},{D}] block [1,{kvh},{s},{D}] offset "
                      f"{pos}",
-            "ms": time_ms(torch, lambda: flash.flash_attention_stats(
+            "ms": time_ms(lambda: flash.flash_attention_stats(
                 q, k, v, pos)),
-            "plain_ms": time_ms(torch, lambda: flash.flash_attention_stats_ref(
+            "plain_ms": time_ms(lambda: flash.flash_attention_stats_ref(
                 q, k, v, pos)),
-            "library_ms": time_ms(torch, lambda: lib(q, kx, vx, 0.0,
+            "library_ms": time_ms(lambda: lib(q, kx, vx, 0.0,
                                                      pos == 0)),
             "bound_ms": b_ms, "bound_by": b_by}
     case["pct_of_bound"] = 100 * b_ms / case["ms"]
@@ -7629,9 +7605,9 @@ def sp_decode_case(torch, flash, kvcache, name, b, t, pos, h, kvh,
     case = {"shape": f"q [{b},{h},{t},{D}] "
                      f"{'int8' if 'q8' in name else 'bf16'} shard "
                      f"[{b},{kvh},{SP_SHARD},{D}] pos {list(pos)}",
-            "ms": time_ms(torch, lambda: kernel(q, *ops, p)),
-            "plain_ms": time_ms(torch, lambda: plain(q, *ops, p)),
-            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
+            "ms": time_ms(lambda: kernel(q, *ops, p)),
+            "plain_ms": time_ms(lambda: plain(q, *ops, p)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 q, lk, lv, attn_mask=mask, enable_gqa=True)),
             "bound_ms": b_ms, "bound_by": b_by}
     case["pct_of_bound"] = 100 * b_ms / case["ms"]
@@ -7680,6 +7656,140 @@ def sp_kernel_timing(torch, flash, kvcache, build, errs, rows) -> None:
                 f"{c['library_ms']:.4f})")
     torch.cuda.empty_cache()
 
+# --------------------------------------------------------------------------
+# phase 19: the tools on the card
+# --------------------------------------------------------------------------
+
+# stage_slice here: 5 of Llama-3-70B's layers (a 16-stage pipeline's
+# stage), 8 timed decode steps
+TOOL_STAGE_LAYERS = 5
+TOOL_STAGE_STEPS = 8
+# memory after the stage's weights and cache against hbm_budget's
+TOOL_BUDGET_REL = 0.03
+# the sweeps' short grids (the command lines run the full ones)
+TOOL_PREFILL_GRID = ((512, 2048),)
+TOOL_DECODE_GRID = ((1, 1, (2047,)), (8, 9, (4095, 2047, 1100, 517, 260,
+                                             64, 33, 5)))
+TOOL_INT4_SHAPES = (("down", 14336, 4096),)
+TOOL_INT4_MS = (1, 72)
+
+
+def phase_card_tools(torch, build) -> dict:
+    """(i) ``tools.ici_probe`` over 2 gloo ranks on this card: the payload
+    back intact after its hops, the per-hop us host-staged; (ii)
+    ``tools.stage_slice`` at TOOL_STAGE_LAYERS of Llama-3-70B, int8 and
+    bf16, with (i)'s hop: both rows measured, memory after init within
+    TOOL_BUDGET_REL of ``hbm_budget``'s ``layers + kv_cache``, layer 0's
+    decode output at mid-window within MODEL_REL_L2 of the CPU plain path
+    on the same weights (an end-to-end witness: the residual dominates
+    it), and the stage's kernels at its own shapes each within phase 2's
+    tolerance of its plain version, a planted fault refused beside each
+    (``stage_slice.check_stage_kernels``); (iii)
+    ``tools.kernel_check`` as a process: exit 0 with the nine kernels'
+    lines; (iv) ``tools.flash_sweep`` and ``tools.int4_sweep`` on short
+    grids: every row's kernel output within phase 2's tolerance of its
+    plain version. The stage runs are this phase's path: their launches
+    count; the comparison runs' do not."""
+    from cake_tpu_torch.tools import (
+        flash_sweep,
+        ici_probe,
+        int4_sweep,
+        kernel_check,
+        stage_slice,
+    )
+
+    t0 = time.perf_counter()
+    recs = ici_probe.probe(2, reps=64, device_type="cuda", backend="gloo",
+                           payloads=(stage_slice.HOP_BYTES, 1 << 20))
+    if len(recs) != 2 or not all(r["host_staged"] for r in recs):
+        fail(f"[19] (i) ici_probe records {recs}")
+    for r in recs:
+        say(f"[19] (i) ici_probe {r['payload_bytes']} B over 2 gloo ranks on "
+            f"one card (host-staged): {r['per_hop_us']:.2f} us a hop, "
+            f"{r['gbps']:.3f} GB/s, {r['hops']} hops")
+    hop = {"per_hop_us": recs[0]["per_hop_us"], "backend": "gloo",
+           "host_staged": True, "source": "measured"}
+    t_ici = time.perf_counter() - t0
+
+    rows, launches = [], {}
+    for quant in ("int8", None):
+        row = stage_slice.measure_slice(quant, TOOL_STAGE_LAYERS, 8192,
+                                        TOOL_STAGE_STEPS, device="cuda",
+                                        hop=hop, check=True)
+        rows.append(row)
+        for k, n in row["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        want = row["budget_layers_bytes"] + row["budget_kv_cache_bytes"]
+        off = abs(row["allocated_after_init_bytes"] - want) / want
+        say(f"[19] (ii) stage_slice {row['quant']} {TOOL_STAGE_LAYERS} "
+            f"layers of Llama-3-70B, window 8192: decode step "
+            f"{row['decode_step_ms_wall']:.3f} ms wall, "
+            f"{row['decode_step_ms_card']:.3f} card (roofline "
+            f"{row['decode_step_ms_roofline']:.3f}); prefill "
+            f"{row['prefill_t']} {row['prefill_ms_wall']:.3f} wall, "
+            f"{row['prefill_ms_card']:.3f} card; allocated "
+            f"{row['allocated_after_init_bytes']} B against the budget's "
+            f"{want} ({100 * off:.2f}%), peak {row['peak_bytes']} B; layer "
+            f"0 against the CPU: rel L2 {row['layer0_rel_l2']:.3e}, max "
+            f"{row['layer0_max_abs_err']:.3e}; launches {row['launches']}")
+        if off > TOOL_BUDGET_REL:
+            fail(f"[19] (ii) {row['quant']} memory after init "
+                 f"{row['allocated_after_init_bytes']} B is {100 * off:.2f}% "
+                 f"off hbm_budget's {want}")
+        if not row["layer0_rel_l2"] < MODEL_REL_L2:
+            fail(f"[19] (ii) {row['quant']} layer 0 relative L2 "
+                 f"{row['layer0_rel_l2']} >= {MODEL_REL_L2}")
+    for k in ("flash_prefill", "flash_decode", "quant_matmul"):
+        if not launches.get(k):
+            fail(f"[19] (ii) the stage launched no {k}: {launches}")
+    stage_kernels = stage_slice.check_stage_kernels(
+        stage_slice.slice_config(TOOL_STAGE_LAYERS, 8192, False), 8192,
+        stage_slice.prefill_len(8192), device="cuda")
+    for rec in stage_kernels:
+        say(f"[19] (ii) {rec['kernel']} {rec['shape']}: max_abs_err "
+            f"{rec['max_abs_err']:.3e}, worst row rel L2 "
+            f"{rec['rel_l2']:.3e}; planted fault {rec['planted_rel_l2']:.3e}")
+        if not rec["ok"]:
+            fail(f"[19] (ii) {rec['kernel']} {rec['shape']} outside phase "
+                 f"2's tolerance: {rec}")
+        if not rec["planted_refused"]:
+            fail(f"[19] (ii) the check passes a planted fault of "
+                 f"{rec['kernel']} {rec['shape']}: {rec}")
+    t_stage = time.perf_counter() - t0 - t_ici
+
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-m",
+                        "cake_tpu_torch.tools.kernel_check", "--e2e",
+                        "bf16"], capture_output=True, text=True, cwd=REPO,
+                       env=env, timeout=300)
+    lines = [json.loads(ln) for ln in r.stdout.splitlines()
+             if ln.startswith("{")]
+    checked = [ln for ln in lines if ln["kernel"] in kernel_check.KERNELS]
+    if r.returncode != 0 or [ln["kernel"] for ln in checked] != list(
+            kernel_check.KERNELS):
+        fail(f"[19] (iii) kernel_check exited {r.returncode} with "
+             f"{[ln['kernel'] for ln in checked]}: {r.stderr[-2000:]}")
+    for ln in lines:
+        say(f"[19] (iii) kernel_check {json.dumps(ln)}")
+    t_check = time.perf_counter() - t0 - t_ici - t_stage
+
+    flash_rows = flash_sweep.sweep(prefill_grid=TOOL_PREFILL_GRID,
+                                   decode_grid=TOOL_DECODE_GRID)
+    int4_rows = int4_sweep.sweep(shapes=TOOL_INT4_SHAPES, ms=TOOL_INT4_MS)
+    bad = [x for x in flash_rows + int4_rows if x.get("ok") is False]
+    if bad:
+        fail(f"[19] (iv) sweep rows outside the tolerance: {bad}")
+    seconds = time.perf_counter() - t0
+    say(f"[19] (iv) flash_sweep {len(flash_rows)} rows, int4_sweep "
+        f"{len(int4_rows)} rows, each kernel within tolerance of its plain "
+        f"version; phase 19 {seconds:.1f} s (ici {t_ici:.1f}, stage "
+        f"{t_stage:.1f}, kernel_check {t_check:.1f})")
+    return {"ici_probe": recs, "stage_slice": rows,
+            "stage_kernels": stage_kernels, "kernel_check": lines,
+            "flash_sweep": flash_rows, "int4_sweep": int4_rows,
+            "launches": {k: launches.get(k, 0) for k in build.SOURCES},
+            "seconds": seconds}
+
 
 def main() -> int:
     import torch
@@ -7696,19 +7806,30 @@ def main() -> int:
     only_mesh = sys.argv[1:] == ["--phase", "16"]
     only_sp = sys.argv[1:] == ["--phase", "17"]
     only_moe = sys.argv[1:] == ["--phase", "18"]
+    only_card_tools = sys.argv[1:] == ["--phase", "19"]
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels":
         other = Path(sys.argv[2]).resolve()
     elif len(sys.argv) > 1 and not (only_guided or only_paged or only_spec
                                     or only_families or only_disagg
                                     or only_tools or only_mesh or only_sp
-                                    or only_moe):
+                                    or only_moe or only_card_tools):
         fail(f"usage: {sys.argv[0]} [--kernels DIR | --phase 10 | "
              "--phase 11 | --phase 12 | --phase 13 | --phase 14 | "
-             "--phase 15 | --phase 16 | --phase 17 | --phase 18]")
+             "--phase 15 | --phase 16 | --phase 17 | --phase 18 | "
+             "--phase 19]")
     sys.path.insert(0, str(other or REPO))
+    global time_ms, bound, verdict, decode_cost, prefill_cost, matmul_cost
     try:
         from cake_tpu_torch.ops import flash, kvcache, qmatmul, quant
         from cake_tpu_torch.ops.kernels import build
+        from cake_tpu_torch.tools.kernel_check import (
+            bound,
+            decode_cost,
+            matmul_cost,
+            prefill_cost,
+            time_ms,
+            verdict,
+        )
     except ImportError as e:
         fail(f"the cake_tpu_torch package is not beside this script ({e})")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -7719,6 +7840,7 @@ def main() -> int:
         say(json.dumps({"package": str(other),
                         **kernel_times(torch, flash, qmatmul, quant)}))
         return 0
+
     card = phase_toolchain(torch, build)
     if only_guided:
         guided, guided_cli_ids = phase_guided(torch, build,
@@ -7772,6 +7894,11 @@ def main() -> int:
     if only_moe:
         mesh = phase_mesh(torch, build, run16=False, run17=False)
         say(json.dumps({"card": card, "moe": mesh["moe"]}))
+        say(card)
+        return 0
+    if only_card_tools:
+        say(json.dumps({"card": card, "card_tools": phase_card_tools(
+            torch, build)}))
         say(card)
         return 0
     t_run = time.perf_counter()
@@ -7836,17 +7963,22 @@ def main() -> int:
     lap("15")
     mesh = phase_mesh(torch, build)
     lap("16, 17, 18")
+    # last: its stage runs profile the card, and a profiler session slows
+    # the host for the rest of the process
+    card_tools = phase_card_tools(torch, build)
+    lap("19")
     # over the paths (a), (b), (c), the batch runs, the cross-host runs,
     # phase 10's guided and lookahead runs, phase 11's paged runs, phase
     # 12's speculative runs, phase 13's family runs, phase 14's
     # disaggregated runs (both replicas), phase 15's clean run over the
-    # bundles (master and workers) and phase 16's, 17's and 18's mesh runs
-    # (every rank)
+    # bundles (master and workers), phase 16's, 17's and 18's mesh runs
+    # (every rank) and phase 19's stage runs
     for r in rows:
         r["launches"] = sum(p["launches"][r["name"]]
                             for p in main_path + batch + cross_host + guided
                             + paged + spec + families + disagg
-                            + [tools, mesh, mesh["sp"], mesh["moe"]])
+                            + [tools, mesh, mesh["sp"], mesh["moe"],
+                               card_tools])
     say(json.dumps({"card": card, "main_path": main_path, "batch": batch,
                     "serve": serve, "cross_host": cross_host,
                     "cross_host_cli": cross_host_cli, "guided": guided,
@@ -7854,7 +7986,7 @@ def main() -> int:
                     "spec": spec, "families_model": families_model,
                     "families": families, "disagg": disagg,
                     "disagg_cli": disagg_cli_run, "tools": tools,
-                    "mesh": mesh}))
+                    "mesh": mesh, "card_tools": card_tools}))
     say(json.dumps({"kernels": rows}))
     say(card)
     say(json.dumps({"ok": True, "device": {

@@ -73,7 +73,14 @@ def test_import_leaves_jax_and_triton_out():
             "cake_tpu_torch.parallel.distributed, "
             "cake_tpu_torch.parallel.launch, cake_tpu_torch.parallel.jobs, "
             "cake_tpu_torch.runtime.mesh_generator, "
-            "cake_tpu_torch.utils.sharded_load, cake_tpu_torch.serve.mesh\n"
+            "cake_tpu_torch.utils.sharded_load, cake_tpu_torch.serve.mesh, "
+            "cake_tpu_torch.utils.chips, cake_tpu_torch.utils.fetch, "
+            "cake_tpu_torch.analysis, cake_tpu_torch.analysis.__main__, "
+            "cake_tpu_torch.tools.ici_probe, "
+            "cake_tpu_torch.tools.stage_slice, "
+            "cake_tpu_torch.tools.kernel_check, "
+            "cake_tpu_torch.tools.flash_sweep, "
+            "cake_tpu_torch.tools.int4_sweep\n"
             "print(sorted(m for m in ('jax', 'triton', 'cake_tpu', "
             "'ml_dtypes') if m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(REPO))

@@ -373,9 +373,9 @@ def test_cli_refusals(checkpoint, extra, match):
     assert re.search(match, str(exc.value.code)), exc.value.code
 
 
-# the JAX command line's options the port leaves out on purpose: they
-# fetch a checkpoint over the network
-LEFT_OUT = ("--fetch", "--refetch")
+# the JAX command line's options the port leaves out on purpose (none:
+# --fetch and --refetch parse since the port has utils/fetch.py)
+LEFT_OUT = ()
 # a value each option takes where its JAX default or type gives none
 VALUES = {"--quantize": "int8"}
 
@@ -383,7 +383,7 @@ VALUES = {"--quantize": "int8"}
 def test_every_jax_option_parses_in_the_ports_parser():
     """Each option string of the JAX ``build_parser()`` (``-v`` and
     ``--log-level`` among them), with a value of its type, parses in the
-    port's parser; ``--fetch`` and ``--refetch`` are refused."""
+    port's parser, ``--fetch`` and ``--refetch`` among them."""
     import argparse
 
     from cake_tpu import cli as jcli
@@ -413,7 +413,8 @@ def test_every_jax_option_parses_in_the_ports_parser():
             else:
                 port.parse_args(argv)
             seen.add(opt)
-    assert {"-v", "--verbose", "--log-level", *LEFT_OUT} <= seen
+    assert {"-v", "--verbose", "--log-level", "--fetch", "--refetch",
+            *LEFT_OUT} <= seen
 
 
 @pytest.mark.parametrize("argv,level", [
