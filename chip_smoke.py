@@ -28,6 +28,8 @@
                                           # result line
     python3 chip_smoke.py --phase 19      # phases 1 and 19 only; no
                                           # result line
+    python3 chip_smoke.py --phase 20      # phases 1 and 20 only; no
+                                          # result line
 
 Phases, each fatal on failure:
 
@@ -323,6 +325,30 @@ Phases, each fatal on failure:
    kernels' lines, a bf16 end-to-end check); ``tools.flash_sweep`` and
    ``tools.int4_sweep`` on short grids, each row's kernel within phase
    2's tolerance of its plain version.
+20. the serving plane under the load generator (``tools/loadgen.py``),
+   run before phase 19 (whose stage runs profile the card): Llama-3-8B at
+   SERVE_LAYERS behind phase 8's in-process server, 8 slots, bf16. (a)
+   ``run_load`` closed loop, 16 requests from 4 clients, 32 tokens, prompt
+   lengths 8, 128, 512 and 2,000 cycled: every request completes, each
+   stream equals its prompt's single-stream greedy run up to its first
+   near-tie (MARGIN_TIE) and each served id is within CHOSEN_STEPS bf16
+   steps of the best of its own history's teacher-forced logits, the
+   launches equal the engine's model calls';
+   (b) the churn workload over the paged engine, 24 requests at 8 req/s,
+   every 4th client walking away after 2 tokens: no error, 6 disconnects,
+   and once it drains every page is free, the prefix tree's, or an idle
+   slot's, as before the run; (c) the mixed-class workload over the paged
+   engine with phase 11's spill (no request is preempted there: phase 11
+   drives the spill), 16 requests at 8 req/s with TTFT and
+   TPOT targets: no error, both classes reported, goodput and
+   ``serve.preemptions`` printed; (d) ``python -m
+   cake_tpu_torch.tools.loadgen --spawn-backends 2`` as two processes on
+   this card (a tiered prefill/decode fleet; the elastic fleet grown to 3
+   and drained back), each exiting 0 with no error; (e) ``python -m
+   cake_tpu_torch.tools.benchdiff`` over the repo's bench ledger and
+   (a)'s rows twice under this card's name exits 0, and 1 with REGRESSED
+   after a planted tokens/s row at 10%. TTFT, TPOT and tokens/s are the
+   host's clock.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card,
 or without the ``cake_tpu_torch`` package beside this file, it exits with
@@ -7791,6 +7817,400 @@ def phase_card_tools(torch, build) -> dict:
             "seconds": seconds}
 
 
+# --------------------------------------------------------------------------
+# phase 20
+# --------------------------------------------------------------------------
+
+# Phase 20 drives the serving plane with the load generator
+# (tools/loadgen.py) over Llama-3-8B at SERVE_LAYERS, 8 slots, block 8 (the
+# serve default). (a) closed loop: 16 requests from 4 clients, 32 tokens
+# each, the prompt lengths cycled from a chat turn to phase 5's 2,000-id
+# document; (b) churn and (c) mixed-class: Poisson arrivals at 8 req/s over
+# a short and a long prompt, every 4th churn client walking away after 2
+# tokens.
+LOAD_SLOTS = 8
+LOAD_N, LOAD_C, LOAD_NEW = 16, 4, 32
+LOAD_LENS = [8, 128, 512, 2000]
+# (a)'s served ids against their own history's teacher-forced logits: a
+# decode step and the teacher-forced pass each round a logit by up to two
+# bf16 steps of its size (MARGIN_TIE is two steps in [4, 8)), so a served
+# id may sit up to four steps of its step's best logit below it (on an
+# H100 one sat two steps below); an id from a wrong history sits near the
+# rest of the vocabulary, logits below the best
+CHOSEN_STEPS = 4
+CHURN_N, CLASS_N, OPEN_RATE = 24, 16, 8.0
+OPEN_LENS = [8, 512]
+# (c)'s per-request targets: a TTFT a chat user waits for, and a mean gap
+# between tokens (block 8 sends a block's tokens together, so the mean
+# is the step time)
+SLO_TTFT_MS, SLO_TPOT_MS = 1000.0, 100.0
+# (d) the command line's spawned loopback fleets as processes: a tiered
+# prefill/decode pair, and the elastic fleet grown to 3 and drained back
+LOAD_PROCS = {
+    "tiered": ["--spawn-backends", "2", "--spawn-roles", "prefill,decode",
+               "-n", "6", "-c", "2", "--max-tokens", "4", "--prompt-len",
+               "4", "--retry-429"],
+    "elastic": ["--spawn-backends", "2", "--resize-to", "3", "-n", "24",
+                "--rate", "12", "--max-tokens", "8", "--retry-429"],
+}
+# (e) the gate's rows of (a): (metric, report key, percentile or None, unit)
+LOAD_ROWS = (("tok_s", None, "tok/s"), ("ttft_ms", "p50", "ms"),
+             ("ttft_ms", "p95", "ms"), ("tpot_ms", "p50", "ms"),
+             ("tpot_ms", "p95", "ms"))
+
+
+def load_server(torch, cfg, params, paged: bool, **sched_kw):
+    """The in-process server of phase 8 over a new engine (the slot
+    layout, or the paged one at page 16), 8 slots."""
+    from cake_tpu_torch.ops.sampling import SamplerSettings
+    from cake_tpu_torch.runtime.batch_generator import BatchGenerator
+    from cake_tpu_torch.serve.api import start_api_server
+    from cake_tpu_torch.serve.scheduler import Scheduler
+
+    kw = {"kv_layout": "paged", "kv_page_size": PAGE} if paged else {}
+    engine = BatchGenerator(cfg, params,
+                            settings=SamplerSettings(temperature=0),
+                            block_size=8, **kw)
+    sched = Scheduler(engine, queue_depth=32, request_timeout_s=300,
+                      **sched_kw)
+    sched.start(max_concurrent=LOAD_SLOTS, warm_prompt_len=64)
+    server = start_api_server(sched, bind="127.0.0.1", port=0)
+    return engine, sched, server
+
+
+def load_drained(sched, what: str) -> None:
+    """Wait until the scheduler holds no session: every stream finished
+    or, for a client that walked away, reaped."""
+    deadline = time.time() + 120
+    while True:
+        st = sched.stats()
+        if st["running"] == 0 and st["queued"] == 0:
+            return
+        if time.time() > deadline:
+            fail(f"[20] {what}: sessions left after 120 s: {st}")
+        time.sleep(0.05)
+
+
+def pool_state(engine) -> dict:
+    """The paged pool's pages by holder, counted as distinct page ids: the
+    free list, the prefix tree's nodes and the tables of idle slots (a
+    primed slot keeps its page until its next admission). ``held`` is
+    their union, so a page both in the tree and in an idle table counts
+    once and a leaked page is missing from it."""
+    from cake_tpu_torch.kvpool.table import SINK
+
+    free = set(engine._pagepool._free)
+    tree, nodes = set(), [engine._prefix_tree._root]
+    while nodes:
+        node = nodes.pop()
+        nodes.extend(node.children.values())
+        tree.add(node.page)
+    idle = {pid for i, s in enumerate(engine.streams) if s.done
+            for pid in engine._tables[i]}
+    st = engine.stats()
+    return {"pages": engine._pagepool.num_pages - 1,
+            "held": len((free | tree | idle) - {SINK, -1}),
+            "free": len(free), "tree": len(tree - {-1}),
+            "idle": len(idle - {SINK}), "live": st["streams_live"],
+            "pinned": st["kvpool"]["pages_pinned"]}
+
+
+def served_load(torch, build, loadgen, cfg, params, what: str, paged: bool,
+                run_kw: dict, sched_kw: dict | None = None):
+    """One ``run_load`` against a new engine behind phase 8's server: the
+    report, the kernel launches over the run, and the engine's state
+    (model calls made, the paged pool before and after, ``/healthz``
+    once the run drained). The server and the engine thread are stopped
+    before the counts are read, so they are final."""
+    import urllib.request
+
+    engine, sched, server = load_server(torch, cfg, params, paged,
+                                        **(sched_kw or {}))
+    url = f"http://127.0.0.1:{server.port}"
+    state = {"pool_before": pool_state(engine) if paged else None}
+    p0, d0 = engine.prefill_calls, engine.decode_steps
+    torch.cuda.synchronize()
+    build.reset_launches()
+    rep = loadgen.run_load(url, seed=SEED, vocab=cfg.vocab_size, **run_kw)
+    load_drained(sched, what)
+    state["pool_after"] = pool_state(engine) if paged else None
+    with urllib.request.urlopen(f"{url}/healthz", timeout=30) as r:
+        state["health"] = json.loads(r.read())
+    server.close()
+    sched.close()
+    torch.cuda.synchronize()
+    counts = build.launches()
+    state["calls"] = (engine.prefill_calls - p0, engine.decode_steps - d0)
+    del engine, sched, server
+    gc.collect()  # the server's threads leave reference cycles behind
+    torch.cuda.empty_cache()
+    return rep, counts, state
+
+
+def bf16_step(torch, x):
+    """One bf16 step (unit in the last place) at each value of ``x``:
+    bf16 keeps 8 significant bits, so a value m * 2**e with m in
+    [0.5, 1) has steps of 2**(e - 8)."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def load_line(rep: dict) -> str:
+    return (f"{rep['completed']}/{rep['requests']} requests, "
+            f"{rep['tokens']} tokens in {rep['wall_s']} s, {rep['tok_s']} "
+            f"tokens/s aggregate (host clock); TTFT ms p50 "
+            f"{rep['ttft_ms']['p50']} p95 {rep['ttft_ms']['p95']}; TPOT ms "
+            f"p50 {rep['tpot_ms']['p50']} p95 {rep['tpot_ms']['p95']}; "
+            f"{rep['errors']} errors, {rep['disconnected']} disconnected")
+
+
+def load_closed(torch, build, loadgen, cfg, params, settings) -> dict:
+    """(a): the closed loop over the slot engine; every stream against its
+    prompt's single-stream greedy run up to its first near-tie; the
+    launches against the engine's model calls."""
+    rep, counts, state = served_load(
+        torch, build, loadgen, cfg, params, "(a)", False,
+        {"n": LOAD_N, "concurrency": LOAD_C, "max_tokens": LOAD_NEW,
+         "prompt_lens": LOAD_LENS})
+    calls = state["calls"]
+    want = expected_launches(cfg, "bf16", None, *calls)
+    say(f"[20] (a) closed loop, slot, {LOAD_C} clients: "
+        f"{load_line(rep)}; {calls[0]} prompt passes, {calls[1]} "
+        f"decode steps; launches {counts}")
+    if rep["completed"] != LOAD_N or rep["errors"] or rep["rejected_429"]:
+        fail(f"[20] (a): {rep['completed']} of {LOAD_N} requests completed, "
+             f"{rep['errors']} errors, {rep['rejected_429']} refused")
+    if counts != want:
+        fail(f"[20] (a): kernels launched {counts}, want {want} (the "
+             f"engine's {calls[0]} prompt passes and {calls[1]} decode "
+             "steps)")
+    frags = loadgen._make_prompts(LOAD_N, LOAD_LENS, cfg.vocab_size, SEED,
+                                  [])
+    vs = []
+    for i, r in enumerate(rep["results"]):
+        prompt, ids = frags[i]["prompt_ids"], r["ids"]
+        if len(ids) != LOAD_NEW and not (ids and ids[-1] in cfg.eos_ids()):
+            fail(f"[20] (a) request {i}: {len(ids)} ids, quota {LOAD_NEW}")
+        ref = single_stream(torch, cfg, params, prompt, len(ids), settings,
+                            None)
+        pen = penalized_logits(torch, stream_logits(
+            torch, cfg, params, prompt, ids, None), prompt, ids, settings)
+        m = top2_gaps(pen)
+        tie = next((j for j, x in enumerate(m) if x < MARGIN_TIE), len(ids))
+        diff = next((j for j, (a, b) in enumerate(zip(ids, ref)) if a != b),
+                    None)
+        if diff is not None and diff < tie:
+            fail(f"[20] (a) request {i} ({len(prompt)} ids) differs from its "
+                 f"single-stream run at step {diff}, before any near-tie "
+                 f"(margin {m[diff]:.4f} there)")
+        # past a near-tie the ids of the two runs say nothing, so each
+        # served id is also held to its own history's teacher-forced
+        # logits: it is the best of them, or within rounding of it
+        best = pen.max(dim=1).values
+        chosen = pen.gather(1, torch.tensor(ids, device=pen.device)[:, None])
+        steps = (best - chosen[:, 0]) / bf16_step(torch, best)
+        worst = steps.max().item()
+        if worst > CHOSEN_STEPS:
+            j = int(steps.argmax())
+            fail(f"[20] (a) request {i}: the id served at step {j} is "
+                 f"{worst:.2f} bf16 steps ({(best - chosen[:, 0])[j]:.4f}) "
+                 f"below its step's best teacher-forced logit "
+                 f"{best[j]:.4f} (bound {CHOSEN_STEPS} steps)")
+        vs.append({"request": i, "prompt_len": len(prompt),
+                   "first_difference": diff, "first_near_tie": tie,
+                   "min_margin": min(m), "chosen_steps": worst,
+                   "best_logit": [best.min().item(), best.max().item()]})
+    lo = min(v["best_logit"][0] for v in vs)
+    hi = max(v["best_logit"][1] for v in vs)
+    say(f"[20] (a) every stream equals its single-stream greedy run up to "
+        f"its first near-tie (margin < {MARGIN_TIE}): first differences "
+        f"{[v['first_difference'] for v in vs]}, first near-ties "
+        f"{[v['first_near_tie'] for v in vs]}; every served id within "
+        f"{max(v['chosen_steps'] for v in vs):.2f} bf16 steps of its "
+        f"step's best teacher-forced logit (bound {CHOSEN_STEPS}); best "
+        f"logits from {lo:.4f} to {hi:.4f}")
+    rep.pop("results")
+    return {"report": rep, "launches": counts, "prompt_passes": calls[0],
+            "decode_steps": calls[1], "vs_single_stream": vs}
+
+
+def load_churn(torch, build, loadgen, cfg, params) -> dict:
+    """(b): the churn workload over the paged engine; once it drains, every
+    page is back: free, the prefix tree's, or an idle slot's."""
+    rep, counts, state = served_load(
+        torch, build, loadgen, cfg, params, "(b)", True,
+        {"n": CHURN_N, "max_tokens": LOAD_NEW, "prompt_lens": OPEN_LENS,
+         "rate": OPEN_RATE, "workload": "churn"})
+    before, after = state["pool_before"], state["pool_after"]
+    say(f"[20] (b) churn, paged (page {PAGE}), {OPEN_RATE} req/s: "
+        f"{load_line(rep)}; pool before {before}, after {after}; "
+        f"launches {counts}")
+    if (rep["errors"] or rep["rejected_429"] or rep["completed"] != CHURN_N
+            or rep["disconnected"] != CHURN_N // 4):
+        fail(f"[20] (b): {rep['completed']} completed, {rep['errors']} "
+             f"errors, {rep['rejected_429']} refused, {rep['disconnected']} "
+             f"disconnected (want {CHURN_N}, 0, 0, {CHURN_N // 4})")
+    if (after["live"] or after["pinned"]
+            or not before["held"] == after["held"] == after["pages"]):
+        fail(f"[20] (b): pages not back after the run drained: before "
+             f"{before}, after {after}")
+    rep.pop("results")
+    return {"report": rep, "pool_before": before, "pool_after": after,
+            "launches": counts}
+
+
+def load_classes(torch, build, loadgen, cfg, params) -> dict:
+    """(c): the mixed-class workload over the paged engine with spill
+    (phase 11's --spill-mb) and SLO targets."""
+    rep, counts, state = served_load(
+        torch, build, loadgen, cfg, params, "(c)", True,
+        {"n": CLASS_N, "max_tokens": LOAD_NEW, "prompt_lens": OPEN_LENS,
+         "rate": OPEN_RATE, "workload": "mixed-class",
+         "slo_ttft_ms": SLO_TTFT_MS, "slo_tpot_ms": SLO_TPOT_MS},
+        {"spill_mb": SPILL_MB})
+    health = state["health"]
+    by_class = rep.get("ttft_ms_by_class", {})
+    say(f"[20] (c) mixed-class, paged, --spill-mb {SPILL_MB}, {OPEN_RATE} "
+        f"req/s: {load_line(rep)}; TTFT ms by class {by_class}; "
+        f"goodput {rep['slo']['goodput']} (TTFT <= {SLO_TTFT_MS} ms, TPOT "
+        f"<= {SLO_TPOT_MS} ms); serve.preemptions {health['preemptions']}; "
+        f"launches {counts}")
+    if rep["errors"] or rep["rejected_429"] or rep["completed"] != CLASS_N:
+        fail(f"[20] (c): {rep['completed']} of {CLASS_N} completed, "
+             f"{rep['errors']} errors, {rep['rejected_429']} refused")
+    if set(by_class) != {"batch", "interactive"}:
+        fail(f"[20] (c): classes reported {sorted(by_class)}, want batch "
+             "and interactive")
+    rep.pop("results")
+    return {"report": rep, "preemptions": health["preemptions"],
+            "launches": counts}
+
+
+def load_processes(build) -> dict:
+    """(d): ``python -m cake_tpu_torch.tools.loadgen --spawn-backends 2``
+    as two processes side by side on this card, each exiting 0 with no
+    error in its report; the elastic one's events hold a grow and a
+    drain."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out, procs = {}, {}
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as d:
+        try:
+            for name, args in LOAD_PROCS.items():
+                with open(Path(d) / f"{name}.out", "w") as o, \
+                        open(Path(d) / f"{name}.err", "w") as e:
+                    procs[name] = subprocess.Popen(
+                        [sys.executable, "-m", "cake_tpu_torch.tools.loadgen",
+                         *args], stdout=o, stderr=e, env=env, cwd=REPO)
+            t0 = time.perf_counter()
+            codes, secs = {}, {}
+            for n, p in procs.items():
+                codes[n] = p.wait(timeout=600)
+                secs[n] = time.perf_counter() - t0
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for name in LOAD_PROCS:
+            text = (Path(d) / f"{name}.out").read_text()
+            err = (Path(d) / f"{name}.err").read_text()
+            try:
+                rep = json.loads(text)
+            except ValueError:
+                fail(f"[20] (d) {name}: exit {codes[name]}, no JSON report: "
+                     f"{text[-1000:]} {err[-2000:]}")
+            say(f"[20] (d) {name} ({' '.join(LOAD_PROCS[name])}): exit "
+                f"{codes[name]} after {secs[name]:.1f} s; "
+                f"{load_line(rep)}; fleet events "
+                f"{rep.get('fleet_events')}")
+            if codes[name] != 0 or rep["errors"] or rep["json_invalid"]:
+                fail(f"[20] (d) {name} exited {codes[name]} with "
+                     f"{rep['errors']} errors: {err[-2000:]}")
+            out[name] = rep
+    events = out["elastic"].get("fleet_events") or []
+    if not (any(e.startswith("grow") for e in events)
+            and any(e.startswith("drain") for e in events)):
+        fail(f"[20] (d) elastic: no grow and drain among {events}")
+    return out
+
+
+def load_gate(card: str, closed: dict) -> dict:
+    """(e): ``python -m cake_tpu_torch.tools.benchdiff`` over a temporary
+    ledger: the repo's ``bench_results.jsonl`` (TPU and CPU rows), then
+    (a)'s rows twice under this card's name: exit 0; then a planted (a)
+    tokens/s row at 10% of the measured one: exit 1, REGRESSED."""
+    device = card.split(",")[0].strip()
+    repo_ledger = REPO / "bench_results.jsonl"
+    text = repo_ledger.read_text()
+    rep = closed["report"]
+    rows = [{"metric": f"loadgen_closed_{key}"
+                       f"{'_' + q if q else ''}_llama3_8b_"
+                       f"{SERVE_LAYERS}l_bf16_c{LOAD_C}",
+             "value": rep[key][q] if q else rep[key], "unit": unit,
+             "device": device} for key, q, unit in LOAD_ROWS]
+    runs = []
+    with tempfile.TemporaryDirectory() as d:
+        ledger = Path(d) / "ledger.jsonl"
+        ledger.write_text(text + "".join(json.dumps(r) + "\n"
+                                         for r in rows + rows))
+        for planted in (False, True):
+            if planted:
+                with open(ledger, "a") as f:
+                    f.write(json.dumps(dict(
+                        rows[0], value=round(rows[0]["value"] * 0.1, 2)))
+                        + "\n")
+            r = subprocess.run(
+                [sys.executable, "-m", "cake_tpu_torch.tools.benchdiff",
+                 "--ledger", str(ledger), "--baseline",
+                 str(Path(d) / "missing.json")],
+                capture_output=True, text=True, timeout=120, cwd=REPO,
+                env=dict(os.environ, PYTHONPATH=str(REPO)))
+            regressed = [ln for ln in r.stdout.splitlines()
+                         if "REGRESSED" in ln]
+            say(f"[20] (e) benchdiff over {len(text.splitlines())} ledger "
+                f"rows + (a)'s {len(rows)} rows twice as {device!r}"
+                f"{' + a planted tokens/s row at 10%' if planted else ''}: "
+                f"exit {r.returncode}; {r.stdout.strip().splitlines()[-1]}"
+                f"{'; ' + regressed[0].strip() if regressed else ''}")
+            want = 1 if planted else 0
+            if r.returncode != want or bool(regressed) != planted or (
+                    planted and not regressed[0].startswith(rows[0]["metric"])):
+                fail(f"[20] (e) benchdiff exited {r.returncode} (want {want})"
+                     f": {r.stdout[-3000:]} {r.stderr[-1000:]}")
+            runs.append({"exit": r.returncode, "regressed": regressed})
+    if repo_ledger.read_text() != text:
+        fail("[20] (e) the repo's bench_results.jsonl changed")
+    return {"rows": rows, "runs": runs}
+
+
+def phase_load(torch, build, card: str) -> dict:
+    """Phase 20: the serving plane under the load generator, (a)-(e)."""
+    from cake_tpu_torch.models import llama
+    from cake_tpu_torch.models.config import llama3_8b
+    from cake_tpu_torch.ops.sampling import SamplerSettings
+    from cake_tpu_torch.tools import loadgen
+
+    t0 = time.perf_counter()
+    cfg = llama3_8b(num_hidden_layers=SERVE_LAYERS, max_seq_len=4096)
+    params = llama.init_params(cfg, seed=SEED)
+    settings = SamplerSettings(temperature=0)
+    closed = load_closed(torch, build, loadgen, cfg, params, settings)
+    churn = load_churn(torch, build, loadgen, cfg, params)
+    classes = load_classes(torch, build, loadgen, cfg, params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    procs = load_processes(build)
+    gate = load_gate(card, closed)
+    launches = {k: closed["launches"][k] + churn["launches"][k]
+                + classes["launches"][k] for k in build.SOURCES}
+    seconds = time.perf_counter() - t0
+    say(f"[20] phase 20 {seconds:.1f} s; launches {launches}")
+    return {"closed": closed, "churn": churn, "classes": classes,
+            "processes": procs, "gate": gate, "launches": launches,
+            "seconds": seconds}
+
+
 def main() -> int:
     import torch
 
@@ -7807,16 +8227,18 @@ def main() -> int:
     only_sp = sys.argv[1:] == ["--phase", "17"]
     only_moe = sys.argv[1:] == ["--phase", "18"]
     only_card_tools = sys.argv[1:] == ["--phase", "19"]
+    only_load = sys.argv[1:] == ["--phase", "20"]
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels":
         other = Path(sys.argv[2]).resolve()
     elif len(sys.argv) > 1 and not (only_guided or only_paged or only_spec
                                     or only_families or only_disagg
                                     or only_tools or only_mesh or only_sp
-                                    or only_moe or only_card_tools):
+                                    or only_moe or only_card_tools
+                                    or only_load):
         fail(f"usage: {sys.argv[0]} [--kernels DIR | --phase 10 | "
              "--phase 11 | --phase 12 | --phase 13 | --phase 14 | "
              "--phase 15 | --phase 16 | --phase 17 | --phase 18 | "
-             "--phase 19]")
+             "--phase 19 | --phase 20]")
     sys.path.insert(0, str(other or REPO))
     global time_ms, bound, verdict, decode_cost, prefill_cost, matmul_cost
     try:
@@ -7901,6 +8323,11 @@ def main() -> int:
             torch, build)}))
         say(card)
         return 0
+    if only_load:
+        say(json.dumps({"card": card, "load": phase_load(torch, build,
+                                                         card)}))
+        say(card)
+        return 0
     t_run = time.perf_counter()
 
     def lap(phases: str) -> None:
@@ -7963,6 +8390,8 @@ def main() -> int:
     lap("15")
     mesh = phase_mesh(torch, build)
     lap("16, 17, 18")
+    load = phase_load(torch, build, card)
+    lap("20")
     # last: its stage runs profile the card, and a profiler session slows
     # the host for the rest of the process
     card_tools = phase_card_tools(torch, build)
@@ -7972,12 +8401,12 @@ def main() -> int:
     # 12's speculative runs, phase 13's family runs, phase 14's
     # disaggregated runs (both replicas), phase 15's clean run over the
     # bundles (master and workers), phase 16's, 17's and 18's mesh runs
-    # (every rank) and phase 19's stage runs
+    # (every rank), phase 20's served loads and phase 19's stage runs
     for r in rows:
         r["launches"] = sum(p["launches"][r["name"]]
                             for p in main_path + batch + cross_host + guided
                             + paged + spec + families + disagg
-                            + [tools, mesh, mesh["sp"], mesh["moe"],
+                            + [tools, mesh, mesh["sp"], mesh["moe"], load,
                                card_tools])
     say(json.dumps({"card": card, "main_path": main_path, "batch": batch,
                     "serve": serve, "cross_host": cross_host,
@@ -7986,7 +8415,7 @@ def main() -> int:
                     "spec": spec, "families_model": families_model,
                     "families": families, "disagg": disagg,
                     "disagg_cli": disagg_cli_run, "tools": tools,
-                    "mesh": mesh, "card_tools": card_tools}))
+                    "mesh": mesh, "load": load, "card_tools": card_tools}))
     say(json.dumps({"kernels": rows}))
     say(card)
     say(json.dumps({"ok": True, "device": {

@@ -6,11 +6,14 @@ package's.
   health state machine, the proxy over scripted stub replicas, drain) and
   of ``tests/test_fleet.py`` (leases, registration, the admission queue)
   run unchanged against the port's modules: their source is loaded with
-  the ``cake_tpu.gateway``/``serve.register``/``obs``/``runtime.retry``
-  imports pointed at ``cake_tpu_torch`` (:func:`_rehome`), so each case
-  holds the port to the very assertions the reference is held to. The
-  cases that need a JAX engine, the JAX load generator or the
-  control-plane chaos tool are left to those files.
+  the ``cake_tpu.gateway``/``serve.register``/``obs``/``runtime.retry``/
+  ``tools`` imports pointed at ``cake_tpu_torch`` (:func:`_rehome`), so
+  each case holds the port to the very assertions the reference is held
+  to. Among them are the load generator's two 429 cases over stub
+  replicas. The cases that need a JAX engine or the control-plane chaos
+  tool are left to those files.
+- ``tests/test_prof.py``'s four bench-gate cases run the same way against
+  the port's ``tools/benchdiff.py``.
 - The policies make the JAX policies' choices on the same inputs: equal
   ``prefix_key`` bytes, equal rendezvous order, the same round-robin,
   p2c (from the same seeded ``random.Random``), prefill-tier and
@@ -41,14 +44,15 @@ SUBS = (("from cake_tpu.gateway", "from cake_tpu_torch.gateway"),
         ("from cake_tpu.serve.register", "from cake_tpu_torch.serve.register"),
         ("from cake_tpu.obs", "from cake_tpu_torch.obs"),
         ("from cake_tpu.runtime.retry", "from cake_tpu_torch.runtime.retry"),
+        ("from cake_tpu.tools", "from cake_tpu_torch.tools"),
         ("from test_gateway import", "from _port_test_gateway import"))
 
 
-def _rehome(name: str) -> types.ModuleType:
-    """``tests/<name>.py`` executed with SUBS applied, registered as
+def _rehome(name: str, subs=SUBS) -> types.ModuleType:
+    """``tests/<name>.py`` executed with ``subs`` applied, registered as
     ``_port_<name>``."""
     src = (TESTS / f"{name}.py").read_text()
-    for old, new in SUBS:
+    for old, new in subs:
         src = src.replace(old, new)
     mod = types.ModuleType(f"_port_{name}")
     mod.__file__ = str(TESTS / f"{name}.py")
@@ -60,6 +64,9 @@ def _rehome(name: str) -> types.ModuleType:
 
 _GATEWAY = _rehome("test_gateway")
 _FLEET = _rehome("test_fleet")
+# the benchdiff gate's cases; the rest of that file profiles JAX engines
+_PROF = _rehome("test_prof", subs=(("from cake_tpu.tools",
+                                    "from cake_tpu_torch.tools"),))
 assert _GATEWAY.Backend is thealth.Backend
 assert _FLEET.HealthMonitor is thealth.HealthMonitor
 
@@ -86,6 +93,8 @@ GATEWAY_CASES = (
     "test_added_ms_excludes_backend_generation_time",
     "test_gateway_healthz_503_when_no_backend_up",
     "test_gateway_drain_finishes_inflight_and_refuses_new",
+    "test_loadgen_retry_429_resubmits",
+    "test_loadgen_counts_429_without_retry",
 )
 FLEET_CASES = (
     "test_lease_lifecycle_unit",
@@ -100,7 +109,14 @@ FLEET_CASES = (
 )
 stub_gateway = _GATEWAY.stub_gateway
 empty_gateway = _FLEET.empty_gateway
-for _mod, _names in ((_GATEWAY, GATEWAY_CASES), (_FLEET, FLEET_CASES)):
+PROF_CASES = (
+    "test_benchdiff_passes_steady_ledger",
+    "test_benchdiff_fails_on_regression",
+    "test_benchdiff_overhead_rows_gate_on_points",
+    "test_benchdiff_ignores_cross_device_history",
+)
+for _mod, _names in ((_GATEWAY, GATEWAY_CASES), (_FLEET, FLEET_CASES),
+                     (_PROF, PROF_CASES)):
     for _n in _names:
         globals()[_n] = getattr(_mod, _n)
 

@@ -80,7 +80,8 @@ def test_import_leaves_jax_and_triton_out():
             "cake_tpu_torch.tools.stage_slice, "
             "cake_tpu_torch.tools.kernel_check, "
             "cake_tpu_torch.tools.flash_sweep, "
-            "cake_tpu_torch.tools.int4_sweep\n"
+            "cake_tpu_torch.tools.int4_sweep, "
+            "cake_tpu_torch.tools.loadgen, cake_tpu_torch.tools.benchdiff\n"
             "print(sorted(m for m in ('jax', 'triton', 'cake_tpu', "
             "'ml_dtypes') if m in sys.modules))")
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -127,6 +128,68 @@ def test_a_gateway_process_loads_no_torch():
                        text=True, timeout=120, env=env, cwd=REPO)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "[]"
+
+
+def test_a_loadgen_process_loads_no_torch():
+    """``loadgen URL`` drives a server with the standard library alone:
+    the process that runs it against a stub replica loads no torch (the
+    spawned fleets' imports live in the functions that spawn)."""
+    import http.server
+    import json
+    import threading
+
+    class Stub(http.server.BaseHTTPRequestHandler):
+        def log_message(self, fmt, *args):
+            pass
+
+        def do_POST(self):  # noqa: N802
+            self.rfile.read(int(self.headers["Content-Length"]))
+            data = json.dumps({"token_ids": [5, 6], "text": "", "usage": {
+                "completion_tokens": 2, "ttft_ms": 1.0}}).encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Stub)
+    threading.Thread(target=srv.serve_forever, args=(0.02,),
+                     daemon=True).start()
+    code = ("import sys\n"
+            "from cake_tpu_torch.tools import benchdiff, loadgen\n"
+            f"rc = loadgen.main(['http://127.0.0.1:{srv.server_address[1]}',"
+            " '-n', '3', '-c', '1', '--max-tokens', '2', '--no-stream'])\n"
+            "print(rc, sorted(m for m in ('torch', 'jax', 'cake_tpu') "
+            "if m in sys.modules))")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    try:
+        r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                           text=True, timeout=120, env=env, cwd=REPO)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    assert r.returncode == 0, r.stderr
+    assert '"completed": 3' in r.stdout
+    assert r.stdout.strip().splitlines()[-1] == "0 []"
+
+
+def test_spawned_fleets_raise_without_a_card():
+    """``--spawn-backends`` builds its replicas on the card unless
+    ``--cpu`` is given: without a card each spawn raises before it starts
+    a gateway."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device exists")
+    from cake_tpu_torch.tools import loadgen
+
+    for argv in (["--spawn-backends", "2", "-n", "1"],
+                 ["--spawn-backends", "2", "--spawn-roles",
+                  "prefill,decode", "-n", "1"],
+                 ["--spawn-backends", "2", "--resize-to", "3", "-n", "1"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            loadgen.main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loadgen.spawn_fleet(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loadgen.spawn_elastic_fleet(2)
 
 
 def test_entry_points_raise_without_a_card():

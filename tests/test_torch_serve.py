@@ -4,8 +4,9 @@
 A port server and a JAX server run side by side on the same tiny f32
 weights (``tiny(max_seq_len=64)``, EOS disabled so stream lengths are
 exact), each with 4 slots and a 2-deep queue. Given the same request
-bodies they must stream the same token ids over SSE, expose the same
-``/healthz`` load fields and the same ``serve.*`` metric series. The
+bodies they must stream the same token ids over SSE (also under the
+two packages' load generators), expose the same ``/healthz`` load fields
+and the same ``serve.*`` metric series. The
 port's server alone answers 429 on saturation, frees a disconnected
 client's slot, refuses the unported and malformed request fields with 400,
 and its
@@ -201,6 +202,25 @@ def test_sse_ids_match_the_jax_server(servers):
     assert unary["token_ids"] == _post(jax_, {"prompt_ids": [3, 5, 7],
                                               "max_tokens": 5})["token_ids"]
     assert unary["usage"]["completion_tokens"] == 5
+
+
+def test_loadgen_gets_the_jax_servers_ids(servers):
+    """The port's load generator against the port's server and the JAX
+    one against the JAX server, the same closed-loop load at concurrency
+    1: the same ids, request by request."""
+    from cake_tpu.tools import loadgen as jloadgen
+    from cake_tpu_torch.tools import loadgen
+
+    port, jax_ = servers
+    kw = dict(concurrency=1, max_tokens=6, prompt_lens=[4, 9, 2],
+              vocab=200, seed=5, timeout=120.0)
+    got = loadgen.run_load(_url(port), 6, **kw)
+    want = jloadgen.run_load(_url(jax_), 6, **kw)
+    assert got["errors"] == want["errors"] == 0
+    assert got["completed"] == want["completed"] == 6
+    ids = [r["ids"] for r in got["results"]]
+    assert ids == [r["ids"] for r in want["results"]]
+    assert [len(x) for x in ids] == [6] * 6
 
 
 def test_healthz_and_metrics_match_the_jax_server(servers):
