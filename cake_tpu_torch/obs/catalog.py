@@ -112,8 +112,8 @@ SERIES: dict[str, tuple[str, str]] = {
                  "(429 with a fleet-derived Retry-After)"),
     # -- engine profiling plane (obs/prof) ----------------------
     "prof.compiles": (
-        COUNTER, "program compiles observed process-wide (the port "
-                 "compiles no programs: always 0)"),
+        COUNTER, "program compiles observed process-wide (the port's "
+                 "programs: CUDA graph captures of the decode)"),
     "prof.mem_device_bytes": (
         GAUGE, "device memory live bytes (backends exposing "
                "memory_stats; absent elsewhere)"),
@@ -124,8 +124,8 @@ SERIES: dict[str, tuple[str, str]] = {
     "prof.mem_host_rss_bytes": (
         GAUGE, "host process resident set size (VmRSS)"),
     "prof.retraces": (
-        COUNTER, "steady-state decode-phase compiles — retrace findings "
-                 "(the port compiles no programs: always 0)"),
+        COUNTER, "steady-state decode-phase compiles (CUDA graph "
+                 "captures) — retrace findings"),
     "prof.sampled_steps": (
         COUNTER, "engine steps that recorded a sampled phase breakdown"),
     # -- speculative decoding acceptance (runtime/speculative) -----------

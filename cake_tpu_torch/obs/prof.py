@@ -25,10 +25,11 @@ pay, churn vs steady, SLO scheduling) hinges on. Three arms:
 
 - :class:`RetraceSentinel` — in the JAX package, a listener that counts
   XLA compiles and flags one inside a steady-state decode dispatch. The
-  port runs eager PyTorch and its CUDA kernels are built before serving:
-  nothing retraces, so the sentinel keeps the same interface
-  (``decode_phase``, ``mark_steady``, ``prof.compiles``,
-  ``prof.retraces``) and counts nothing; its counters read 0.
+  port's compiled programs are its CUDA graphs (``runtime/graphs.py``):
+  the sentinel counts their captures in ``prof.compiles`` and flags one
+  inside a steady-state decode dispatch in ``prof.retraces`` and
+  ``findings()``, with the same interface (``decode_phase``,
+  ``mark_steady``).
 
 - :func:`memory_watermarks` — the card's live/peak bytes from
   ``torch.cuda.memory_stats`` (nothing without a card), host RSS/peak
@@ -227,30 +228,38 @@ class StepProfiler:
 
 
 class RetraceSentinel:
-    """The JAX package's retrace sentinel, as the port has it: eager
-    PyTorch compiles no programs and the CUDA kernels are built before
-    serving, so there is nothing to listen to. The interface stays (the
-    engine marks its decode dispatches, the scheduler marks the steady
-    state, the report reads the counters), and the counters read 0."""
+    """The port's twin of the JAX package's retrace sentinel: where JAX
+    counts XLA compiles, the port counts CUDA graph captures
+    (``runtime/graphs.py`` reports each one through
+    :meth:`observe_capture`), and flags one inside a steady-state decode
+    dispatch as a retrace: a capture key (batch, steps, layout, ...) or a
+    bound buffer changed after warmup."""
+
+    _GUARDED_BY = {"_findings": "_lock"}
 
     def __init__(self):
         self.compiles = obs_metrics.counter("prof.compiles")
         self.retraces = obs_metrics.counter("prof.retraces")
+        self._lock = threading.Lock()
+        self._findings: deque = deque(maxlen=32)
         self._steady = False
         self._tl = threading.local()  # .depth: inside a decode dispatch
 
     def install(self) -> None:
-        """Nothing to register: no program compiles in the port."""
+        """Nothing to register: captures report themselves."""
 
     # -- engine-side markers --------------------------------------------------
     def decode_phase(self):
         """Context manager marking 'this thread is inside a decode
-        dispatch' (kept for the engine's call sites; nothing reads it)."""
+        dispatch': captures observed in here after ``mark_steady`` are
+        retraces. (A capture runs on the dispatching thread, so a
+        thread-local depth is the correct scope.)"""
         return _DecodeRegion(self._tl)
 
     def mark_steady(self) -> None:
-        """Warmup is over. The serve scheduler calls this after its warmup
-        step budget (``CAKE_PROF_WARM_STEPS``)."""
+        """Warmup is over: from now on a decode-phase capture is a
+        finding. The serve scheduler calls this after its warmup step
+        budget (``CAKE_PROF_WARM_STEPS``); tests call it directly."""
         self._steady = True
 
     @property
@@ -258,13 +267,30 @@ class RetraceSentinel:
         return self._steady
 
     def reset(self) -> None:
-        """Back to warmup (tests): clears steady and the counters."""
+        """Back to warmup (tests): clears steady, findings, counters."""
         self._steady = False
+        with self._lock:
+            self._findings.clear()
         self.compiles.reset()
         self.retraces.reset()
 
     def findings(self) -> list[dict]:
-        return []
+        with self._lock:
+            return list(self._findings)
+
+    def observe_capture(self, key: str, ms: float) -> None:
+        """One CUDA graph capture of ``key`` that took ``ms``."""
+        self.compiles.inc()
+        if not self._steady or not getattr(self._tl, "depth", 0):
+            return
+        self.retraces.inc()
+        finding = {"event": "cuda_graph_capture", "key": key,
+                   "compile_ms": round(ms, 3), "ts": time.time()}
+        with self._lock:
+            self._findings.append(finding)
+        log.warning("prof.retraces: steady-state decode dispatch captured "
+                    "a graph again (%s, %.1f ms): a capture key or a bound "
+                    "buffer changed after warmup", key, ms)
 
 
 class _DecodeRegion:

@@ -485,6 +485,7 @@ _COUNTERS: dict[torch.device, torch.Tensor] = {}
 def _counters(device, n: int) -> torch.Tensor:
     have = _COUNTERS.get(device)
     if have is None or have.numel() < n:
+        build.refuse_growth_in_capture(device, "the split-K counters")
         have = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
         _COUNTERS[device] = have
     return have

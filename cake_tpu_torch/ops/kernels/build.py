@@ -18,7 +18,8 @@ to build, a plain C one seconds.
 
 Each kernel has one launch counter. A wrapper adds one where it launches
 its kernel and nowhere else, so a run can show that its path went through
-the kernels (:func:`launches`, :func:`reset_launches`).
+the kernels (:func:`launches`, :func:`reset_launches`); a CUDA graph's
+replay adds the launches its capture recorded (:func:`add_launches`).
 
 :func:`build_shim` builds the embedding shim ``native/cake_embed.cc`` the
 same way, with ``g++`` and Python's include and link flags (from
@@ -38,6 +39,8 @@ import subprocess
 import sysconfig
 import threading
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -66,10 +69,39 @@ NVCC_FLAGS = (
 _LAUNCHES = {name: 0 for name in SOURCES}
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+# .counts, .launched: a recording of this thread's launches (recording())
+_REC = threading.local()
 
 
 def count_launch(name: str) -> None:
+    counts = getattr(_REC, "counts", None)
+    if counts is not None:
+        counts[name] = counts.get(name, 0) + 1
+        if not _REC.launched:
+            return
     _LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def recording(launched: bool = True):
+    """Yields a dict of the launches this thread's wrappers count inside
+    the block (another thread's launches stay out of it). ``launched``
+    False: a CUDA graph's capture (``runtime/graphs.py``), whose wrappers
+    count launches that it records and does not make: they go into the
+    dict only, and each replay adds them (:func:`add_launches`)."""
+    counts: dict[str, int] = {}
+    _REC.counts, _REC.launched = counts, launched
+    try:
+        yield counts
+    finally:
+        _REC.counts = None
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` at once: a CUDA graph's replay launches the kernels
+    its capture recorded."""
+    for name, n in counts.items():
+        _LAUNCHES[name] += n
 
 
 def launches() -> dict[str, int]:
@@ -79,6 +111,17 @@ def launches() -> dict[str, int]:
 def reset_launches() -> None:
     for name in _LAUNCHES:
         _LAUNCHES[name] = 0
+
+
+def refuse_growth_in_capture(device, what: str) -> None:
+    """Raise where a module cache (``what``) would grow on ``device``
+    inside a CUDA graph capture: the new tensor would come from the
+    graph's private pool and outlive it in the cache. A capture's warm-up
+    run (``runtime/graphs.py``) sizes every cache first."""
+    if torch.device(device).type == "cuda" \
+            and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{what} must be sized before a CUDA graph "
+                           "capture (run the body once first)")
 
 
 # a launch's work split is a function of its shapes; the interleaved

@@ -121,6 +121,7 @@ _COUNTERS: dict[torch.device, torch.Tensor] = {}
 def _counters(device, strips: int) -> torch.Tensor:
     have = _COUNTERS.get(device)
     if have is None or have.numel() < strips:
+        build.refuse_growth_in_capture(device, "the split-K counters")
         have = torch.zeros(max(strips, 1024), dtype=torch.int32,
                            device=device)
         _COUNTERS[device] = have

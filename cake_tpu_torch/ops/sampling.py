@@ -9,14 +9,15 @@ place.
 The JAX package draws with ``jax.random.categorical``, whose Gumbel noise no
 torch generator reproduces. So :func:`sample_token` takes its noise as an
 argument and returns ``argmax(processed_logits + noise)``, the same rule
-``categorical`` applies to the noise it draws; :func:`gumbel_noise` draws
-the port's own noise from a generator the caller seeds.
+``categorical`` applies to the noise it draws.
 
 The batched sampler of the serving engine (:func:`sample_tokens_keyed`)
 takes one noise row per stream, and :func:`keyed_gumbel_noise` draws all
 of them in one pass of tensor ops from a counter hash of ``(seed,
 stream_id, index, token id)``: no host generator, nothing reseeded, and a
-stream's noise independent of its companions in the batch. Speculation's
+stream's noise independent of its companions in the batch. The single
+stream draws the same at stream id 0, from an index that may lie on the
+device (a decode graph's). Speculation's
 rejection sampling draws each round's uniforms and Gumbel rows from the
 same hash in a domain of their own (:func:`spec_round_draws`).
 """
@@ -24,6 +25,7 @@ same hash in a domain of their own (:func:`spec_round_draws`).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -94,6 +96,19 @@ def _mask_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
     return torch.where(logits < threshold, NEG_INF, logits)
 
 
+@functools.lru_cache(maxsize=64)
+def _bias_tensors(bias: tuple, device: torch.device, dtype: torch.dtype
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ids and values of a logit bias on ``device``, built once per
+    settings: an upload per call would be a host-to-device copy in every
+    step (illegal inside a CUDA graph capture). Normal tensors even when
+    first made under inference mode, as ``quant._scalar``."""
+    with torch.inference_mode(False):
+        return (torch.tensor([int(i) for i, _ in bias], device=device),
+                torch.tensor([float(b) for _, b in bias], dtype=dtype,
+                             device=device))
+
+
 def _bias_and_mask(logits: torch.Tensor, settings: SamplerSettings,
                    mask: torch.Tensor | None) -> torch.Tensor:
     """Logit bias, then the constraint mask (``mask [..., vocab]`` bool,
@@ -102,10 +117,8 @@ def _bias_and_mask(logits: torch.Tensor, settings: SamplerSettings,
     Unset, each is a no-op, and an all-true mask leaves the logits
     bit-identical."""
     if settings.logit_bias:
-        ids = torch.tensor([int(i) for i, _ in settings.logit_bias],
-                           device=logits.device)
-        vals = torch.tensor([float(b) for _, b in settings.logit_bias],
-                            dtype=logits.dtype, device=logits.device)
+        ids, vals = _bias_tensors(settings.logit_bias, logits.device,
+                                  logits.dtype)
         logits = logits.index_add(logits.dim() - 1, ids,
                                   vals.expand(logits.shape[:-1] + vals.shape))
     if mask is not None:
@@ -322,13 +335,6 @@ def stream_id_for_key(seed: int, key_word: int) -> int:
     the key it was exported with by decoding under this id."""
     x = _unfmix32_int(int(key_word) & _M32) ^ _seed_state(seed)
     return (x * pow(0x9E3779B9, -1, 1 << 32)) & _M32
-
-
-def gumbel_noise(vocab: int, generator: torch.Generator) -> torch.Tensor:
-    """Standard Gumbel noise ``[vocab]`` f32 on the generator's device."""
-    u = torch.rand(vocab, generator=generator, device=generator.device)
-    tiny = torch.finfo(torch.float32).tiny
-    return -torch.log(-torch.log(u.clamp_(min=tiny)))
 
 
 def push_history(history: torch.Tensor, slot: int, token) -> int:

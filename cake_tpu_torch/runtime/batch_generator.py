@@ -141,6 +141,12 @@ from cake_tpu_torch.parallel.mesh import (
 from cake_tpu_torch.runtime import speculative as spec
 from cake_tpu_torch.runtime import threadcheck
 from cake_tpu_torch.runtime.generator import Token, _bucket, encode_prompt
+from cake_tpu_torch.runtime.graphs import (
+    CaptureKey,
+    DecodeGraphs,
+    use_graphs,
+    weight_kind,
+)
 from cake_tpu_torch.utils.device import HostCopy, resolve_device
 from cake_tpu_torch.utils.token_stream import TokenOutputStream
 
@@ -208,6 +214,16 @@ _ARR_IMPORT = "import"  # (xfer_id, None, None, _ARR_IMPORT)
 _ARR_ATTACH = "attach"  # (xfer_id, sid, None, _ARR_ATTACH)
 
 
+def _zeroed(reuse: KVCache | None, shape: tuple) -> KVCache | None:
+    """``reuse`` zeroed in place where its k half has ``shape`` (a cache,
+    or a pool's pages), else None."""
+    if reuse is None or tuple(halves(reuse)[0].shape) != shape:
+        return None
+    for t in halves(reuse):
+        t.zero_()
+    return reuse
+
+
 class BatchGenerator:
     """Serve N prompts concurrently over one model on one device (the
     card unless ``device="cpu"`` is asked for; ``params`` must already lie
@@ -255,6 +271,7 @@ class BatchGenerator:
         kv_page_size: int = 16,
         kv_pool_pages: int | None = None,
         coll=None,
+        graphs: bool | None = None,
     ):
         """``coll`` (a rank's
         :class:`~cake_tpu_torch.parallel.collectives.Collectives`) runs the
@@ -274,7 +291,14 @@ class BatchGenerator:
         bucket, for the prefill) divides by the stage count, and the
         serialized schedule (stage after stage) otherwise; off with
         logprobs or the paged layout. Both give the same streams.
-        ``stats()["schedule"]`` counts the dispatches of each."""
+        ``stats()["schedule"]`` counts the dispatches of each.
+
+        ``graphs`` (None: on the card, without ``coll`` and ``spec_k``)
+        runs the unmasked decode block, slot or paged, as a CUDA graph
+        (``runtime/graphs.py``; the JAX package's jitted
+        ``build_sharded_decode``), one for each batch and block size;
+        False runs it as a loop of launches, the eager twin. The prefill,
+        the admission, the masked step and the verify stay eager."""
         if kv_layout not in ("slot", "paged"):
             raise ValueError(
                 f"kv_layout must be 'slot' or 'paged', got {kv_layout!r}")
@@ -350,6 +374,7 @@ class BatchGenerator:
         self._attach_failures: list[int] = []  # sids whose attach missed
         self._page_map_dev = None  # the page map on the device, until a
         #                            table changes
+        self._old_pool = None  # the previous batch's pool, to reuse
         self._staged_prefix = None  # set_prompts' staged prefix row
         self._admit_deferred = False  # last tick deferred on pool pressure
         self.config = config
@@ -463,6 +488,13 @@ class BatchGenerator:
         self.il_prefill_calls = 0
         self.il_decode_steps = 0
         self.il_verify_calls = 0
+        eager = ("a rank mesh (coll)" if coll is not None
+                 else "speculation (spec_k)" if self._spec_k else None)
+        self.graphs = (DecodeGraphs(self.device)
+                       if use_graphs(graphs, self.device, eager) else None)
+        self._weights = weight_kind(params)
+        # the sampler's device state (set_prompts), refilled in place
+        self._sids = self._history = self._hist_slot = None
 
     def _schedule(self, rows: int, what: str) -> bool:
         """Whether a dispatch over ``rows`` (the batch, or the prompt
@@ -486,14 +518,20 @@ class BatchGenerator:
         """The EOS ids the serve scheduler maps finish reasons with."""
         return frozenset(self._eos_ids)
 
-    def _new_cache(self, batch: int) -> KVCache:
+    def _new_cache(self, batch: int, reuse: KVCache | None = None
+                   ) -> KVCache:
         """A zeroed cache of ``batch`` rows: this rank's rows of them over
         dp (a batch-1 staging cache is whole on every dp rank) and its
-        layers and KV heads."""
-        return init_cache(self.model.layer_config,
-                          batch=local_batch(batch, self.model.plan),
-                          max_seq=local_seq(self.max_seq, self.model.plan),
-                          device=self.device, quant=self.kv_quant)
+        layers and KV heads. ``reuse`` (the previous batch's) is zeroed
+        and kept where it has that shape: a decode graph reads the cache
+        where it lies."""
+        cfg = self.model.layer_config
+        shape = (cfg.num_hidden_layers, local_batch(batch, self.model.plan),
+                 cfg.num_key_value_heads,
+                 local_seq(self.max_seq, self.model.plan), cfg.head_dim)
+        return _zeroed(reuse, shape) or init_cache(
+            cfg, batch=shape[1], max_seq=shape[3], device=self.device,
+            quant=self.kv_quant)
 
     def _local_row(self, slot: int) -> int | None:
         """Slot ``slot``'s row in this rank's share of the batch cache, or
@@ -510,6 +548,17 @@ class BatchGenerator:
         if self.device.type != "cuda":
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _refill(self, old: torch.Tensor | None, ids) -> torch.Tensor:
+        """:meth:`_ids` into ``old`` where it has the array's shape and
+        dtype (a decode graph reads it where it lies), else a new
+        tensor."""
+        t = torch.as_tensor(np.asarray(ids))
+        if old is None or old.shape != t.shape or old.dtype != t.dtype:
+            return self._ids(t)
+        old.copy_(t.pin_memory() if self.device.type == "cuda" else t,
+                  non_blocking=True)
+        return old
 
     # -- constrained decoding -----------------------------------------------
     def _check_guide_ok(self, guide) -> None:
@@ -758,9 +807,10 @@ class BatchGenerator:
             tail = s.prompt[-n_hist:] if n_hist else []
             hist[i, :len(tail)] = tail
             slots[i] = len(tail)
-        self._sids = self._ids([s.noise_id for s in self.streams])
-        self._history = self._ids(hist)
-        self._hist_slot = self._ids(slots)
+        self._sids = self._refill(self._sids,
+                                  [s.noise_id for s in self.streams])
+        self._history = self._refill(self._history, hist)
+        self._hist_slot = self._refill(self._hist_slot, slots)
 
         self._n_decode_dispatches = 0
         self._n_admit_dispatches = 0
@@ -768,11 +818,17 @@ class BatchGenerator:
         self._n_emitted = 0
         self._busy_s = 0.0
         self._t_start = time.perf_counter()
-        self.cache = None  # the old batch's cache goes before the new one
+        # the old batch's cache goes before the new one, or is reused
+        old, self.cache = self.cache, None
+        if self._paged:  # the pool is rebuilt at pageification
+            fits = old is not None and halves(old)[0].shape[1] == \
+                self._pool_size(b)
+            self._old_pool, old = (old if fits else None), None
         if lcp:
-            self.cache = self._prefill_shared_prefix(first[:lcp], b)
+            self.cache = self._prefill_shared_prefix(first[:lcp], b, old)
         else:
-            self.cache = self._new_cache(b)
+            self.cache = self._new_cache(b, old)
+        del old
         if not lcp and self._schedule(t_pad, "prefill"):
             logits = self._prefill_il(self._ids(tokens), self.cache,
                                       self._ids(last))
@@ -817,10 +873,12 @@ class BatchGenerator:
         return sampling.keyed_gumbel_noise(self.settings.seed, sids, index,
                                            self.config.vocab_size)
 
-    def _prefill_shared_prefix(self, prefix: list[int], b: int) -> KVCache:
+    def _prefill_shared_prefix(self, prefix: list[int], b: int,
+                               reuse: KVCache | None = None) -> KVCache:
         """Prefill the common prefix once as one row (the admission
         prefill, chunked), keep the row in the prefix store, and return a
-        ``b``-row batch cache with it in every row."""
+        ``b``-row batch cache with it in every row (``reuse``: as
+        :meth:`_new_cache`)."""
         staging = self._new_cache(1)
         self._prefill_rows(prefix, staging)
         self._n_admit_dispatches += -(-len(prefix)
@@ -832,7 +890,7 @@ class BatchGenerator:
             self._staged_prefix = (list(prefix), staging)
         else:
             self._store_prefix(list(prefix), staging)
-        cache = self._new_cache(b)
+        cache = self._new_cache(b, reuse)
         for dst, src in zip(halves(cache), halves(staging)):
             dst.copy_(src.expand_as(dst))
         return cache
@@ -902,9 +960,13 @@ class BatchGenerator:
         self._prefix_tree = PrefixTree(self._pagepool)
         self._tables = [[] for _ in range(b)]
         self._page_map_dev = None
-        self.cache = kvpool_pool.init_pool(
-            self.model.layer_config, pages, self._page_size, self.kv_quant,
-            device=self.device)
+        cfg = self.model.layer_config
+        old, self._old_pool = self._old_pool, None
+        self.cache = _zeroed(old, (
+            cfg.num_hidden_layers, pages, cfg.num_key_value_heads,
+            self._page_size, cfg.head_dim)) or kvpool_pool.init_pool(
+                cfg, pages, self._page_size, self.kv_quant,
+                device=self.device)
 
     def _alloc_page(self) -> int:
         """One free page, evicting prefix-tree claims under pressure (the
@@ -1906,28 +1968,56 @@ class BatchGenerator:
         None)``."""
         with span("decode.dispatch", steps=size, batch=len(self.streams)), \
                 self._prof.phase("dispatch"), self._sentinel.decode_phase():
-            args = (self._last_tokens, self.cache, self._ids(self._pos),
-                    self._sids, self._history, self._hist_slot,
-                    self._ids(self._index))
+            def args():
+                return (self._last_tokens, self.cache, self._ids(self._pos),
+                        self._sids, self._history, self._hist_slot,
+                        self._ids(self._index))
             if masked:
                 self._schedule(len(self.streams), "masked")
                 toks, lp = self._decode_masked(
-                    *args, self._mask_table, self._ids(self._mask_rows_np()),
-                    *self._paged_args(1))
+                    *args(), self._mask_table,
+                    self._ids(self._mask_rows_np()), *self._paged_args(1))
             elif self._schedule(len(self.streams), "decode"):
-                toks, lp = self._decode_il(*args, size)
+                toks, lp = self._decode_il(*args(), size)
                 self.il_decode_steps += size
+            elif self.graphs is not None:
+                toks, lp = self._replay(size)
             else:
-                toks, lp = self._decode(*args, size,
+                toks, lp = self._decode(*args(), size,
                                         *self._paged_args(size))
+            # queued before the next dispatch, which may overwrite a
+            # graph's outputs
             host = HostCopy(toks)
             lp_host = (HostCopy(lp[0]), HostCopy(lp[1])) if lp else None
         self._n_decode_dispatches += 1
         self.decode_steps += size
         self._pos = self._pos + size
         self._index = self._index + size
-        self._last_tokens = toks[-1]
+        self._last_tokens = toks[-1].clone()
         return size, host, lp_host
+
+    def _replay(self, size: int) -> tuple:
+        """The unmasked decode block of ``size`` steps as one replay of its
+        graph: the positions, indices and page operands copied into its
+        static buffers; the cache, the weights and the sampler's rings
+        read and written where they lie."""
+        key = CaptureKey("paged" if self._paged else "slot",
+                         len(self.streams), size, self.logprobs_k,
+                         self.kv_quant, self._weights)
+
+        def block(token, pos, sids, index0, *pages):
+            return self._decode(token, self.cache, pos, sids, self._history,
+                                self._hist_slot, index0, size, *pages)
+
+        out, captured = self.graphs.run(
+            key, block,
+            (self._last_tokens, torch.as_tensor(self._pos), self._sids,
+             torch.as_tensor(self._index), *self._paged_args(size)),
+            bound=(self.cache, self.model.params["embed"]),
+            state=(self._history, self._hist_slot))
+        if captured:  # the capture's warm-up ran the steps once more
+            self.decode_steps += size
+        return out
 
     def _buffer(self, block: tuple) -> None:
         """Wait for a launched block's host copy and buffer its rows."""
@@ -2189,6 +2279,8 @@ class BatchGenerator:
                 else None),
             "dispatch_p50_ms": round(self._dispatch_hist.percentile(0.5), 3),
             "dispatch_p99_ms": round(self._dispatch_hist.percentile(0.99), 3),
+            "graphs": (self.graphs.stats() if self.graphs is not None
+                       else None),
             "busy_s": round(self._busy_s, 3),
             "wall_s": round(wall, 3),
             "aggregate_tok_s": (round(self._n_emitted / wall, 2)

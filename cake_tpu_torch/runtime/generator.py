@@ -10,13 +10,20 @@ prompt, every later index one decode step, or pops from a fused block of
   prompt, which stays invisible under the causal mask and is overwritten by
   the decode steps before it enters the frontier; logits are read at the
   last real position, not at ``T - 1``.
-- **Fused blocks.** A block is a Python loop of decode steps that keeps
-  the fed-back token, the position and the sampler's history on the
-  device; the block's tokens reach the host in one copy at its end.
+- **Fused blocks.** A block is ``block_size`` decode steps that keep the
+  fed-back token, the position and the sampler's history on the device;
+  the block's tokens reach the host in one copy at its end. On the card
+  the block and the single step are CUDA graphs (``runtime/graphs.py``,
+  the counterparts of the JAX package's jitted ``decode_scan_fn`` and
+  ``decode_step_fn``), captured once and replayed once a dispatch; a
+  guided step, a mesh rank and ``graphs=False`` run the steps as a Python
+  loop of launches.
 - **Sampling noise.** The Gumbel noise of token ``index`` depends only on
-  ``(seed, index)``: a device ``torch.Generator`` is reseeded from both for
-  every token, so a seed gives the same stream at every block size (the
-  JAX package's contract; its bits differ from the port's).
+  ``(seed, index)``: it is the batch engine's keyed draw at stream id 0
+  (``ops/sampling.keyed_gumbel_noise``), computed on the device from an
+  index that may lie there, so a seed gives the same stream at every
+  block size and in both forms (the JAX package's contract; its bits
+  differ from the port's).
 - **Lookahead.** Block N+1 is launched from the device-side last token of
   block N before block N's ids reach the host. Block N's copy to the host
   is queued, with an event, before block N+1's launches, and only that
@@ -48,10 +55,14 @@ from cake_tpu_torch.ops import sampling
 from cake_tpu_torch.ops.kvcache import init_cache
 from cake_tpu_torch.ops.sampling import SamplerSettings
 from cake_tpu_torch.parallel.mesh import local_seq
+from cake_tpu_torch.runtime.graphs import (
+    CaptureKey,
+    DecodeGraphs,
+    use_graphs,
+    weight_kind,
+)
 from cake_tpu_torch.utils.device import HostCopy, resolve_device
 from cake_tpu_torch.utils.token_stream import TokenOutputStream
-
-_MASK64 = (1 << 64) - 1
 
 
 @dataclasses.dataclass
@@ -109,14 +120,6 @@ def prompt_bucket(n: int, max_seq: int, sp: int = 1) -> int:
     return -(-t_pad // sp) * sp
 
 
-def noise_seed(seed: int, index: int) -> int:
-    """The generator seed of token ``index``'s noise: a fixed 64-bit mix of
-    ``(seed, index)``."""
-    x = ((seed & _MASK64) * 6364136223846793005
-         + index * 1442695040888963407 + 1) & _MASK64
-    return x ^ (x >> 29)
-
-
 class GeneratorBase:
     """The single-stream generators' shared state machine (the JAX
     package's ``GeneratorBase``): prompt intake and per-stream reset, the
@@ -143,7 +146,9 @@ class GeneratorBase:
         self.tokenizer = tokenizer
         self.stream = (TokenOutputStream(tokenizer)
                        if tokenizer is not None else None)
-        self._noise_gen = torch.Generator(device=self.device)
+        # the single stream's id in the keyed noise
+        self._noise_sid = torch.zeros(1, dtype=torch.int64,
+                                      device=self.device)
         self._history, self._hist_slot = sampling.init_history(
             self.settings.repeat_last_n, self.device)
         self._prompt_tokens: list[int] = []
@@ -168,10 +173,11 @@ class GeneratorBase:
         self._last_token = None
         if self.stream is not None:
             self.stream.clear()
-        # the repeat-penalty window starts with the prompt's tail
+        # the repeat-penalty window starts with the prompt's tail; the
+        # ring is refilled where it lies (a decode graph reads it there)
         n = self.settings.repeat_last_n
-        self._history, self._hist_slot = sampling.init_history(
-            n, self.device)
+        self._history.fill_(-1)
+        self._hist_slot = 0
         tail = ids[-n:] if n else []
         if tail:
             self._history[:len(tail)] = torch.tensor(tail, dtype=torch.int32)
@@ -267,11 +273,17 @@ class GeneratorBase:
         """Hook: the tokens of a lookahead block already launched."""
         return None
 
-    def _noise(self, index: int) -> torch.Tensor | None:
+    def _noise(self, index) -> torch.Tensor | None:
+        """Token ``index``'s Gumbel noise ``[vocab]``: ``index`` an int or
+        a ``[1]`` int64 tensor on the device (a decode graph's)."""
         if self.settings.greedy:
             return None
-        self._noise_gen.manual_seed(noise_seed(self.settings.seed, index))
-        return sampling.gumbel_noise(self.config.vocab_size, self._noise_gen)
+        if isinstance(index, int):
+            index = torch.full((1,), index, dtype=torch.int64,
+                               device=self.device)
+        return sampling.keyed_gumbel_noise(
+            self.settings.seed, self._noise_sid, index,
+            self.config.vocab_size)[0]
 
     def _sample(self, logits: torch.Tensor, index: int) -> torch.Tensor:
         mask = self._guide_mask() if self.guide is not None else None
@@ -316,7 +328,8 @@ class LlamaGenerator(GeneratorBase):
                  settings: SamplerSettings | None = None,
                  max_seq: int | None = None, block_size: int = 1,
                  device=None, kv_quant: str | None = None,
-                 lookahead: bool = False, coll=None):
+                 lookahead: bool = False, coll=None,
+                 graphs: bool | None = None):
         """``block_size > 1`` runs that many decode steps per block with the
         tokens kept on the device, and streams them one at a time.
 
@@ -334,7 +347,12 @@ class LlamaGenerator(GeneratorBase):
         the model as that rank's shard of a mesh: ``params`` are the
         rank's shard and the cache holds its layers and KV heads, and at
         ``sp > 1`` its range of the window
-        (:class:`~cake_tpu_torch.runtime.mesh_generator.MeshGenerator`)."""
+        (:class:`~cake_tpu_torch.runtime.mesh_generator.MeshGenerator`).
+
+        ``graphs`` (None: on the card, without ``coll``) runs the decode
+        block and the single step as CUDA graphs (``runtime/graphs.py``);
+        False runs them as a loop of launches, the eager twin. A guided
+        step is eager in either form."""
         dev = resolve_device(device)
         if params["embed"].device.type != dev.type:
             raise ValueError(
@@ -356,9 +374,16 @@ class LlamaGenerator(GeneratorBase):
         self._decode_hist = obs_metrics.Histogram("generator.decode_ms")
         self._prefill_hist = obs_metrics.Histogram("generator.prefill_ms")
         obs_metrics.registry().publish(self._decode_hist, self._prefill_hist)
-        # counts of model calls, for callers that check kernel launches
+        # counts of model calls (a graph capture's warm-up included), for
+        # callers that check kernel launches
         self.prefill_calls = 0
         self.decode_steps = 0
+        self.decode_dispatches = 0  # each one replay in the graph form
+        self.graphs = (DecodeGraphs(self.device) if use_graphs(
+            graphs, self.device, "a rank mesh (coll)" if coll is not None
+            else None) else None)
+        self._kv_quant = kv_quant
+        self._weights = weight_kind(params)
 
     def _on_new_prompt(self) -> None:
         # a block in flight belongs to the previous stream; the new
@@ -423,12 +448,64 @@ class LlamaGenerator(GeneratorBase):
         ``last``."""
         return self.model.prompt_logits(tokens, self.cache, last)
 
-    def _launch(self, token: torch.Tensor, index0: int,
-                steps: int) -> torch.Tensor:
-        """Launch ``steps`` decode steps from ``token [1, 1]`` on the
-        device; the fed-back token, the position and the history stay
-        there. Returns the ``[steps]`` ids on the device, not yet copied,
-        and moves ``_pos`` past them."""
+    def _launch(self, token, index0: int, steps: int) -> torch.Tensor:
+        """Launch ``steps`` decode steps from ``token`` (an id, or a
+        ``[1, 1]`` tensor on the device) as one replay of the graph of
+        ``steps`` steps, or eagerly; the fed-back token, the position and
+        the history stay on the device. Returns the ``[steps]`` ids on
+        the device, not yet copied (a graph's, overwritten by its next
+        replay), and moves ``_pos`` past them."""
+        if self.graphs is not None and self.guide is None:
+            key = CaptureKey("single", 1, steps, 0, self._kv_quant,
+                             self._weights)
+            if not isinstance(token, torch.Tensor):
+                token = torch.tensor([[token]])
+            ints = torch.tensor([self._pos, index0, self._hist_slot])
+            toks, captured = self.graphs.run(
+                key, self._block_body(steps), (token, ints),
+                bound=(self.cache, self.model.params["embed"]),
+                state=(self._history,))
+            # a capture's warm-up ran the steps once more
+            self.decode_steps += steps if captured else 0
+            self._hist_slot += steps
+        else:
+            toks = self._eager_steps(token, index0, steps)
+        self._pos += steps
+        self.decode_steps += steps
+        self.decode_dispatches += 1
+        return toks
+
+    def _block_body(self, steps: int):
+        """The captured program of ``steps`` decode steps (the JAX
+        package's ``decode_scan_fn``; ``decode_step_fn`` at one step):
+        ``(token [1, 1], ints [3] = (pos, index, ring slot)) -> ids
+        [steps]``, sampling with the device-side index and ring slot."""
+        hist = self._history[None]
+
+        def block(token: torch.Tensor, ints: torch.Tensor) -> torch.Tensor:
+            pos = ints[0:1].to(torch.int32)
+            index = ints[1:2].clone()
+            slot = ints[2:3].clone()
+            toks = []
+            for _ in range(steps):
+                logits = self.model(token, self.cache, pos)[0]
+                tok = sampling.sample_token(logits, self._history,
+                                            self.settings, self._noise(index))
+                sampling.push_history_batched(hist, slot, tok[None])
+                toks.append(tok)
+                token = tok.view(1, 1)
+                # in place: the kernels queued above read the old values
+                pos += 1
+                index += 1
+            return torch.stack(toks)
+
+        return block
+
+    def _eager_steps(self, token, index0: int, steps: int) -> torch.Tensor:
+        """The same steps as a loop of launches, sampling through
+        ``_sample`` (a guide's mask, and callers that wrap it)."""
+        if not isinstance(token, torch.Tensor):
+            token = torch.tensor([[token]], device=self.device)
         pos = torch.full((1,), self._pos, dtype=torch.int32,
                          device=self.device)
         toks = []
@@ -439,12 +516,7 @@ class LlamaGenerator(GeneratorBase):
             token = tok.view(1, 1)
             # in place: the kernels queued above read the old value first
             pos += 1
-        self._pos += steps
-        self.decode_steps += steps
         return torch.stack(toks)
-
-    def _last_token_tensor(self) -> torch.Tensor:
-        return torch.tensor([[self._last_token]], device=self.device)
 
     @torch.inference_mode()
     def _run_block(self, index: int) -> list[int]:
@@ -454,7 +526,7 @@ class LlamaGenerator(GeneratorBase):
                 toks, host = self._inflight
                 self._inflight = None
             else:
-                toks = self._launch(self._last_token_tensor(), index,
+                toks = self._launch(self._last_token, index,
                                     self.block_size)
                 host = HostCopy(toks)
             if self._lookahead and self._pos + self.block_size <= self.max_seq:
@@ -482,7 +554,7 @@ class LlamaGenerator(GeneratorBase):
         """One step; a live guide's mask row is gathered on the device."""
         t0 = time.perf_counter()
         with span("decode.step", index=index):
-            tok = int(self._launch(self._last_token_tensor(), index, 1)[0])
+            tok = int(self._launch(self._last_token, index, 1)[0])
         dt_ms = (time.perf_counter() - t0) * 1e3
         self._decode_hist.observe(dt_ms)
         rec = obs_flight.recorder()

@@ -531,9 +531,10 @@ class SpeculativeGenerator(SpeculativeMixin, LlamaGenerator):
                  kv_quant: str | None = None, spec_k: int = 8,
                  spec_ngram: int = 3, spec_rounds: int = 8):
         settings = settings or SamplerSettings(temperature=0.0)
+        # speculation's rounds and plain steps stay eager (a later capture)
         super().__init__(config, params, tokenizer=tokenizer,
                          settings=settings, max_seq=max_seq, block_size=1,
-                         device=device, kv_quant=kv_quant)
+                         device=device, kv_quant=kv_quant, graphs=False)
         self._spec_init(spec_k, spec_ngram, spec_rounds)
         self._verify = build_sharded_verify(self.model)
 

@@ -42,7 +42,8 @@ class HostCopy:
     when made and waited for on its own event. ``tensor.cpu()`` (or
     ``tolist()``) waits for everything queued on the stream, so a block
     dispatched after the copy would hold it up; this one waits only for
-    the work queued before it. A CPU tensor is its own copy."""
+    the work queued before it. A CPU tensor is copied at once (it may be a
+    decode graph's static output, which the next dispatch overwrites)."""
 
     def __init__(self, tensor: torch.Tensor):
         self._event = None
@@ -53,7 +54,7 @@ class HostCopy:
             self._event = torch.cuda.Event()
             self._event.record()
         else:
-            self._host = tensor
+            self._host = tensor.clone()
 
     def numpy(self):
         if self._event is not None:

@@ -6,6 +6,10 @@
                                           # times of DIR's package only (a
                                           # same-call comparison with
                                           # another tree)
+    python3 chip_smoke.py --phase 5       # phases 1 and 5 only; no
+                                          # result line
+    python3 chip_smoke.py --phase 7       # phases 1 and 7 only; no
+                                          # result line
     python3 chip_smoke.py --phase 10      # phases 1, 6 and 10 only; no
                                           # result line
     python3 chip_smoke.py --phase 11      # phases 1 and 11 only; no
@@ -75,10 +79,20 @@ Phases, each fatal on failure:
    bf16, greedy and sampled; (b) int8 weights with the int8 KV cache; (c)
    int4 g128 weights; each with the kernels' launch counts checked against
    the model calls, then a profiler trace of one prefill and one decode
-   block for the card's kernel time and launches a decode step (and, over
-   the int8 cache, no dequantizing kernel); a trace of one call of each
-   decode wrapper shows one kernel launch; (d) int4 g32 weights at 4
-   layers, 16 greedy tokens, launches exact;
+   block (the second: the first captures its graph) for the card's kernel
+   time and launches a decode step (and, over the int8 cache, no
+   dequantizing kernel); a trace of one call of each decode wrapper shows
+   one kernel launch; (d) int4 g32 weights at 4 layers, 16 greedy tokens,
+   launches exact. The decode block and the single step run as CUDA
+   graphs (``runtime/graphs.py``): every run has one capture a key, no
+   recapture and one replay a decode dispatch; each of (a), (b), (c) has
+   an eager twin (``graphs=False``) of 32 tokens at block 1 and at block
+   8 with lookahead, greedy and on (a) sampled, whose ids must be the
+   graphs' ids, and both forms print counted launches a step (equal),
+   card ms, kernels and host ms a step, the busy share, event ms a step,
+   peak memory and the bytes of the graph's memory pool; four engines in
+   four threads (phase 6's widths) capture at once and give their eager
+   runs' ids, eight times;
 6. the command line (``python -m cake_tpu_torch.cli``) on a tiny
    checkpoint written by the port's own writer: bf16, ``--quantize int8
    --kv-quant int8``, ``--quantize int4:g64`` and ``--quantize int4:g32``;
@@ -95,7 +109,10 @@ Phases, each fatal on failure:
    1,024-slot window whose longest stream runs to the edge; phases 2 and
    3 also hold and time the kernels at these shapes (decode at B = 8 with
    ragged ``pos``, a row at S - 1 and one past it; ``flash_prefill`` at
-   B = 8; the matmuls at M = 8);
+   B = 8; the matmuls at M = 8). The unmasked decode block runs as a CUDA
+   graph; an eager twin of 32 steps of the 8 slots at block 1 and at
+   block 8 with lookahead gives identical rows, and both forms print
+   phase 5's numbers at block 8;
 8. the HTTP server (``cake_tpu_torch.serve``) in this process over (a):
    four concurrent SSE requests and an arrival while they run, whose ids
    must equal the engine's own; then a drain with a stream in flight;
@@ -134,7 +151,8 @@ Phases, each fatal on failure:
    observability flags with ``--profile``;
 11. the paged KV layout (``BatchGenerator(kv_layout="paged")``, page size
    16), run at the end of each of phase 7's paths over its weights once
-   its engines are freed: phase 7's scenario on the slot engine and on the
+   its engines are freed: phase 7's eager twin over the paged engine;
+   phase 7's scenario on the slot engine and on the
    paged one, (a) three timed runs of each, (b) one, every stream of every
    run equal to phase 7's ids, at blocks 8 and 1, launches exact, pages
    shared under the prefix and all back at retirement but the prefix
@@ -1729,18 +1747,21 @@ def run_path(torch, build, cfg, params, prompt, label, runs, weights,
         t2 = time.perf_counter()
         prefill_calls += gen.prefill_calls
         decode_steps += gen.decode_steps
+        graphs = check_graphs(gen.graphs.stats(), gen.decode_dispatches,
+                              f"{label} {name}")
         if len(ids) != n_new or not all(0 <= i < cfg.vocab_size
                                         for i in ids):
             fail(f"{label} {name} stream is not {n_new} ids in the "
                  "vocabulary")
         run = {"label": name, "prefill_ms": (t1 - t0) * 1e3,
                "decode_tokens_per_s": (n_new - 1) / (t2 - t1),
-               "first_ids": ids[:8], "ids": ids}
+               "first_ids": ids[:8], "ids": ids, "graphs": graphs}
         result["runs"].append(run)
         say(f"[5] {label} {name}: prefill_ms {run['prefill_ms']:.2f} "
             f"(2000 tokens, bucket 2048), decode tokens_per_s "
             f"{run['decode_tokens_per_s']:.2f} ({n_new - 1} tokens, "
-            f"block 8), ids {ids[:8]}...")
+            f"block 8, the first block's capture included), ids "
+            f"{ids[:8]}...; graphs {graphs}")
         del gen
     counts = build.launches()
     result["launches"] = counts
@@ -1859,10 +1880,12 @@ def main_path_runs(torch, build, flash, kvcache, cfg, prompt, paths) -> list:
     # for the rest of the process (and the one-call traces first: after
     # several profiler runs a trace of one ctypes launch came back empty)
     phase_one_launch(torch, flash, kvcache)
-    for result, (label, init, _, _, kv_quant) in zip(results, paths):
+    for result, (label, init, runs, _, kv_quant) in zip(results, paths):
         params = init()
         result["profile"] = profile_main_path(torch, cfg, params, prompt,
                                               label, kv_quant)
+        result["twin"] = single_twin(torch, build, cfg, params, prompt,
+                                     label, kv_quant, runs)
         del params
         torch.cuda.empty_cache()
     return results
@@ -1932,8 +1955,10 @@ def profile_main_path(torch, cfg, params, prompt, label, kv_quant) -> dict:
         temperature=0), block_size=8, kv_quant=kv_quant)
     gen.set_prompt(prompt)
     out = {"prefill": device_profile(torch, lambda: gen.next_token(0))}
+    for i in range(1, 9):  # the first block, with the graph's capture
+        gen.next_token(i)
     steps = gen.decode_steps
-    out["decode_block_8"] = device_profile(torch, lambda: gen.next_token(1))
+    out["decode_block_8"] = device_profile(torch, lambda: gen.next_token(9))
     steps = gen.decode_steps - steps
     for name, prof in out.items():
         say(f"[5] {label} profile {name}: card kernel time "
@@ -1952,6 +1977,253 @@ def profile_main_path(torch, cfg, params, prompt, label, kv_quant) -> dict:
         f"kernel time and {dec['kernel_launches_per_step']:.1f} kernel "
         f"launches a step ({steps} steps profiled)")
     return out
+
+
+# --------------------------------------------------------------------------
+# the decode graphs and their eager twins (phases 5, 7 and 11)
+# --------------------------------------------------------------------------
+
+# tokens of a twin run: of the stream, or of each slot of the batch engine
+TWIN_TOKENS = 32
+# (block size, lookahead) of the twins' id checks
+TWIN_FORMS = ((1, False), (8, True))
+
+
+def check_graphs(st: dict, dispatches: int, label: str) -> dict:
+    """A graphed run's counters (``DecodeGraphs.stats``): one capture a
+    distinct key, no recapture, one replay a decode dispatch."""
+    if st["recaptures"] or st["captures"] != len(st["keys"]):
+        fail(f"{label}: {st['captures']} captures and {st['recaptures']} "
+             f"recaptures of the keys {st['keys']}")
+    if st["replays"] != dispatches:
+        fail(f"{label}: {st['replays']} graph replays for {dispatches} "
+             "decode dispatches")
+    return st
+
+
+def form_numbers(torch, build, start, block, steps_done, dispatches,
+                 graphs, tag) -> dict:
+    """One form's decode: ``start()`` runs up to the first decode
+    dispatch, ``block()`` runs one dispatch of 8 steps (the first a
+    graph's capture). Launches (counted) and host ms a step over two
+    blocks, card ms a step and kernels a step from a profiler trace of a
+    third, and the event ms of a fourth (the card's time a step plus the
+    host's gaps between launches), peak memory, and the bytes of the
+    graphs' private pool (``graphs()``: the form's ``DecodeGraphs`` or
+    None)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start()
+    torch.cuda.synchronize()
+    block()
+    torch.cuda.synchronize()
+    build.reset_launches()
+    d0 = steps_done()
+    t0 = time.perf_counter()
+    block()
+    block()
+    torch.cuda.synchronize()
+    steps = steps_done() - d0
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    launches = sum(build.launches().values()) / steps
+    d1 = steps_done()
+    prof = device_profile(torch, block)
+    psteps = steps_done() - d1
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    d2 = steps_done()
+    ev[0].record()
+    block()
+    ev[1].record()
+    torch.cuda.synchronize()
+    out = {"launches_per_step": launches, "host_ms_per_step": host_ms,
+           "card_ms_per_step": prof["device_ms"] / psteps,
+           "kernels_per_step": prof["kernel_launches"] / psteps,
+           "event_ms_per_step": ev[0].elapsed_time(ev[1])
+           / (steps_done() - d2),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "pool_mb": (graphs().pool_bytes() / 2**20 if graphs()
+                       else 0.0),
+           "dispatches": dispatches(),
+           "graphs": graphs().stats() if graphs() else None}
+    out["busy_share"] = out["card_ms_per_step"] / host_ms
+    say(f"{tag}: {launches:.1f} counted launches a step, card "
+        f"{out['card_ms_per_step']:.3f} ms a step over "
+        f"{out['kernels_per_step']:.1f} kernels, host {host_ms:.3f} ms a "
+        f"step (busy {100 * out['busy_share']:.1f}%), events "
+        f"{out['event_ms_per_step']:.3f} ms a step, peak "
+        f"{out['peak_gb']:.2f} GB, graph pool {out['pool_mb']:.1f} MB; "
+        f"graphs {out['graphs']}")
+    return out
+
+
+def compare_forms(forms: dict, label: str) -> None:
+    """The graph and its eager twin launch the same kernels a step."""
+    g, e = forms["graph"], forms["eager"]
+    if g["launches_per_step"] != e["launches_per_step"]:
+        fail(f"{label}: {g['launches_per_step']} counted launches a step "
+             f"graphed, {e['launches_per_step']} eager")
+
+
+def single_twin(torch, build, cfg, params, prompt, label, kv_quant,
+                samplers) -> dict:
+    """Phase 5's eager twin: TWIN_TOKENS tokens through the graphs and
+    through ``graphs=False`` at block 1 and at block 8 with lookahead,
+    each sampler of the path: identical ids; then each form's numbers at
+    block 8 (greedy)."""
+    from cake_tpu_torch.runtime.generator import LlamaGenerator
+
+    def new(graphs, block, look, settings):
+        return LlamaGenerator(cfg, params, settings=settings,
+                              block_size=block, lookahead=look,
+                              kv_quant=kv_quant, graphs=graphs)
+
+    for name, settings in samplers:
+        for block, look in TWIN_FORMS:
+            ids = {}
+            for graphs in (True, False):
+                gen = new(graphs, block, look, settings)
+                gen.set_prompt(prompt)
+                ids[graphs] = [gen.next_token(i).id
+                               for i in range(TWIN_TOKENS)]
+                if graphs:
+                    check_graphs(gen.graphs.stats(), gen.decode_dispatches,
+                                 f"[5] {label} {name} twin block {block}")
+                del gen
+            if ids[True] != ids[False]:
+                fail(f"[5] {label} {name} block {block}: graphed ids "
+                     f"{ids[True]} differ from the eager twin's "
+                     f"{ids[False]}")
+        say(f"[5] {label} {name}: graphed and eager ids identical over "
+            f"{TWIN_TOKENS} tokens at block 1 and at block 8 with "
+            "lookahead")
+    forms = {}
+    for graphs in (True, False):
+        gen = new(graphs, 8, False, samplers[0][1])
+        index = itertools.count(1)
+        forms["graph" if graphs else "eager"] = form_numbers(
+            torch, build, lambda: (gen.set_prompt(prompt),
+                                   gen.next_token(0)),
+            lambda: [gen.next_token(next(index)) for _ in range(8)],
+            lambda: gen.decode_steps, lambda: gen.decode_dispatches,
+            lambda: gen.graphs,
+            f"[5] {label} {'graphed' if graphs else 'eager'}, block 8")
+        del gen
+    compare_forms(forms, f"[5] {label}")
+    return forms
+
+
+def concurrent_captures(torch, trials: int = 8) -> dict:
+    """Four engines in four threads of one process (two batch engines,
+    two single streams, phase 6's widths) decode at once from a barrier,
+    so their first dispatches capture together, as a server's replicas
+    may: every thread's ids equal its eager run's, in every trial."""
+    from cake_tpu_torch.models.config import tiny
+    from cake_tpu_torch.models.llama import init_params
+    from cake_tpu_torch.ops.sampling import SamplerSettings
+    from cake_tpu_torch.runtime.batch_generator import BatchGenerator
+    from cake_tpu_torch.runtime.generator import LlamaGenerator
+
+    cfg = tiny(**CLI_CFG, max_seq_len=128, eos_token_id=-1)
+    params = init_params(cfg, seed=SEED)
+    settings = SamplerSettings(temperature=0)
+    prompts = [[3, 5, 7, 9], [2, 4, 6], [8, 1]]
+
+    def batch(graphs):
+        g = BatchGenerator(cfg, params, settings=settings, block_size=4,
+                           graphs=graphs)
+        return lambda: (g.set_prompts(prompts), [
+            [None if t is None else t.id for t in g.step()]
+            for _ in range(10)])[1]
+
+    def single(graphs):
+        g = LlamaGenerator(cfg, params, settings=settings, block_size=4,
+                           graphs=graphs)
+        return lambda: (g.set_prompt(prompts[0]),
+                        [g.next_token(i).id for i in range(10)])[1]
+
+    makers = (batch, batch, single, single)
+    want = [make(False)() for make in makers]
+    for trial in range(trials):
+        runs = [make(True) for make in makers]
+        out, errors = [None] * len(runs), []
+        bar = threading.Barrier(len(runs))
+
+        def go(i):
+            try:
+                bar.wait()
+                out[i] = runs[i]()
+            except Exception as e:  # every thread's fault is reported
+                errors.append(f"thread {i}: {e!r}"[:400])
+
+        threads = [threading.Thread(target=go, args=(i,))
+                   for i in range(len(runs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        if errors or out != want:
+            fail(f"[5] concurrent captures, trial {trial}: {errors or out}")
+    say(f"[5] concurrent captures: {len(makers)} engines in {len(makers)} "
+        f"threads, {trials} trials, every thread's ids its eager run's")
+    return {"engines": len(makers), "trials": trials}
+
+
+def batch_twin(torch, build, cfg, params, prompts, kv_quant, label,
+               layout) -> dict:
+    """The batch engine's eager twin at 8 slots (phase 7's prompts, slot
+    layout in phase 7, paged in phase 11): TWIN_TOKENS tokens a slot
+    through the graph and through ``graphs=False`` at block 1 and at
+    block 8 with lookahead: identical rows; then each form's numbers at
+    block 8."""
+    from cake_tpu_torch.ops.sampling import SamplerSettings
+    from cake_tpu_torch.runtime.batch_generator import BatchGenerator
+
+    tag = "[7]" if layout == "slot" else "[11]"
+    settings = SamplerSettings(temperature=0)
+
+    def new(graphs, block, look):
+        return BatchGenerator(cfg, params, settings=settings,
+                              block_size=block, lookahead=look,
+                              kv_quant=kv_quant, kv_layout=layout,
+                              graphs=graphs)
+
+    for block, look in TWIN_FORMS:
+        rows = {}
+        for graphs in (True, False):
+            g = new(graphs, block, look)
+            g.set_prompts(prompts)
+            rows[graphs] = [[None if t is None else t.id for t in g.step()]
+                            for _ in range(TWIN_TOKENS)]
+            if graphs:
+                check_graphs(g.graphs.stats(),
+                             g.stats()["decode_dispatches"],
+                             f"{tag} {label} {layout} twin block {block}")
+            del g
+            torch.cuda.empty_cache()
+        if rows[True] != rows[False]:
+            at = next(i for i, (a, b) in enumerate(zip(rows[True],
+                                                       rows[False]))
+                      if a != b)
+            fail(f"{tag} {label} {layout} block {block}: graphed row {at} "
+                 f"{rows[True][at]} differs from the eager twin's "
+                 f"{rows[False][at]}")
+    say(f"{tag} {label} {layout}: graphed and eager rows identical over "
+        f"{TWIN_TOKENS} steps of 8 slots at block 1 and at block 8 with "
+        "lookahead")
+    forms = {}
+    for graphs in (True, False):
+        g = new(graphs, 8, False)
+        forms["graph" if graphs else "eager"] = form_numbers(
+            torch, build, lambda: (g.set_prompts(prompts), g.step()),
+            lambda: [g.step() for _ in range(8)], lambda: g.decode_steps,
+            lambda: g.stats()["decode_dispatches"], lambda: g.graphs,
+            f"{tag} {label} {layout} {'graphed' if graphs else 'eager'}, "
+            "8 slots, block 8")
+        del g
+        torch.cuda.empty_cache()
+    compare_forms(forms, f"{tag} {label} {layout}")
+    return forms
 
 
 # --------------------------------------------------------------------------
@@ -2473,6 +2745,8 @@ def phase_batch(torch, build, after=None) -> list:
                                           prompts, label)
         for r in runs.values():
             r.pop("generator")
+        result["twin"] = batch_twin(torch, build, cfg, params, prompts,
+                                    kv_quant, label, "slot")
         if weights == "bf16":
             result["window_edge"] = window_edge_run(torch, cfg, params,
                                                     settings)
@@ -2766,7 +3040,10 @@ def start_workers(cfg, params, nodes: dict, kv_quant):
 
 def keep_logits(gen) -> list:
     """Every step's f32 logits of ``gen`` (both generators sample through
-    ``_sample``), copied to the host."""
+    ``_sample``), copied to the host. A decode graph's replay runs no
+    Python, so a ``LlamaGenerator`` is switched to its eager form."""
+    if getattr(gen, "graphs", None) is not None:
+        gen.graphs = None
     out, real = [], gen._sample
 
     def keep(logits, index):
@@ -4129,6 +4406,8 @@ def phase_paged(torch, build, label, cfg, params, weights, kv_quant,
 
     settings = SamplerSettings(temperature=0)
     n_runs = 3 if weights == "bf16" else 1
+    twin = batch_twin(torch, build, cfg, params, prompts, kv_quant, label,
+                      "paged")
     t_phase = time.perf_counter()
     slot = timed_runs(
         torch, build, lambda: BatchGenerator(
@@ -4212,7 +4491,7 @@ def phase_paged(torch, build, label, cfg, params, weights, kv_quant,
                     if k not in ("streams", "stats")},
            "paged": {k: v for k, v in paged.items()
                      if k not in ("streams", "stats")},
-           "export_import": xfer,
+           "export_import": xfer, "twin": twin,
            "pressure": pressure_run(torch, cfg, params, kv_quant, label)}
     if weights == "bf16":
         out["spill"] = spill_over_http(torch, cfg, params)
@@ -4648,17 +4927,23 @@ FAMILY_TIE_STEPS = 3
 
 class MoeRows:
     """Records, while active, the rows N (B x T) of every routed MLP call
-    of the model: the experts' products are 3 E a layer when N k >
-    GATHER_MAX_ROWS (dense), else 3 N k (gather)."""
+    the model runs in Python: the experts' products are 3 E a layer when
+    N k > GATHER_MAX_ROWS (dense), else 3 N k (gather). A decode graph's
+    capture launches nothing and its replays run no Python: calls inside
+    a capture are not recorded, and the model calls the recording does
+    not see are decode steps (:meth:`expert_products`)."""
 
     def __init__(self, llama):
         self.llama, self.rows = llama, []
 
     def __enter__(self):
+        import torch
+
         real = self.real = self.llama.moe_swiglu
 
         def recording(x, *args, **kw):
-            self.rows.append(x.shape[0] * x.shape[1])
+            if not torch.cuda.is_current_stream_capturing():
+                self.rows.append(x.shape[0] * x.shape[1])
             return real(x, *args, **kw)
 
         self.llama.moe_swiglu = recording
@@ -4667,27 +4952,32 @@ class MoeRows:
     def __exit__(self, *exc):
         self.llama.moe_swiglu = self.real
 
-    def expert_products(self, cfg) -> int:
+    def expert_products(self, cfg, calls: int, rows: int) -> int:
+        """The expert products of ``calls`` model calls: those recorded,
+        and the replayed decode steps, ``rows`` rows a layer each."""
         from cake_tpu_torch.ops.moe import GATHER_MAX_ROWS
 
         k, e = cfg.num_experts_per_tok, cfg.num_local_experts
+        unseen = calls * cfg.num_hidden_layers - len(self.rows)
         return sum(3 * e if n * k > GATHER_MAX_ROWS else 3 * n * k
-                   for n in self.rows)
+                   for n in self.rows + [rows] * unseen)
 
 
 def family_launches(cfg, weights, kv_quant, calls: int, prefill_calls: int,
-                    moe_rows: MoeRows) -> dict:
+                    moe_rows: MoeRows, rows: int = 1) -> dict:
     """Each kernel's launches over ``calls`` model calls (``prefill_calls``
     of them prompt passes, the rest decode steps or verifies): one
     attention kernel a layer a call; with quantized weights 7 linears a
     layer and the head a call, or with routed experts 4 linears a layer,
-    the head, and the expert products ``moe_rows`` counted."""
+    the head, and the expert products ``moe_rows`` counted (a replayed
+    decode step: ``rows`` rows)."""
     L = cfg.num_hidden_layers
     counts = expected_launches(cfg, "bf16", kv_quant, prefill_calls,
                                calls - prefill_calls)
     if weights == "int8":
         counts["quant_matmul"] = (
-            (4 * L + 1) * calls + moe_rows.expert_products(cfg)
+            (4 * L + 1) * calls + moe_rows.expert_products(cfg, calls,
+                                                           rows)
             if cfg.num_local_experts else (7 * L + 1) * calls)
     elif weights == "int4g128":
         counts["quant4_matmul"] = (7 * L + 1) * calls
@@ -4874,7 +5164,8 @@ def family_batch(torch, build, cfg, params, label, weights,
             torch.cuda.synchronize()
         counts = build.launches()
         pc, dc = g.prefill_calls - p0, g.decode_steps - d0
-        expect = family_launches(cfg, weights, None, pc + dc, pc, rows)
+        expect = family_launches(cfg, weights, None, pc + dc, pc, rows,
+                                 len(prompts))
         say(f"[13] {label} batch {layout} block 8: {tokens} tokens in "
             f"{wall:.3f} s, {tokens / wall:.2f} tokens/s aggregate (host "
             f"clock, 8 slots); arrivals' TTFT ms "
@@ -8217,6 +8508,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device is available")
     other = None
+    only_main = sys.argv[1:] == ["--phase", "5"]
+    only_batch = sys.argv[1:] == ["--phase", "7"]
     only_guided = sys.argv[1:] == ["--phase", "10"]
     only_paged = sys.argv[1:] == ["--phase", "11"]
     only_spec = sys.argv[1:] == ["--phase", "12"]
@@ -8230,12 +8523,14 @@ def main() -> int:
     only_load = sys.argv[1:] == ["--phase", "20"]
     if len(sys.argv) == 3 and sys.argv[1] == "--kernels":
         other = Path(sys.argv[2]).resolve()
-    elif len(sys.argv) > 1 and not (only_guided or only_paged or only_spec
+    elif len(sys.argv) > 1 and not (only_main or only_batch
+                                    or only_guided or only_paged or only_spec
                                     or only_families or only_disagg
                                     or only_tools or only_mesh or only_sp
                                     or only_moe or only_card_tools
                                     or only_load):
-        fail(f"usage: {sys.argv[0]} [--kernels DIR | --phase 10 | "
+        fail(f"usage: {sys.argv[0]} [--kernels DIR | --phase 5 | "
+             "--phase 7 | --phase 10 | "
              "--phase 11 | --phase 12 | --phase 13 | --phase 14 | "
              "--phase 15 | --phase 16 | --phase 17 | --phase 18 | "
              "--phase 19 | --phase 20]")
@@ -8264,6 +8559,16 @@ def main() -> int:
         return 0
 
     card = phase_toolchain(torch, build)
+    if only_main:
+        say(json.dumps({"card": card, "main_path": phase_main_path(
+            torch, build, flash, kvcache),
+            "concurrent_captures": concurrent_captures(torch)}))
+        say(card)
+        return 0
+    if only_batch:
+        say(json.dumps({"card": card, "batch": phase_batch(torch, build)}))
+        say(card)
+        return 0
     if only_guided:
         guided, guided_cli_ids = phase_guided(torch, build,
                                               phase_cli(torch, build))
@@ -8361,6 +8666,7 @@ def main() -> int:
     lap("4")
     main_path = phase_main_path(torch, build, flash, kvcache)
     main_path.append(fine_group_path(torch, build))
+    concurrent = concurrent_captures(torch)
     lap("5")
     cli = phase_cli(torch, build)
     lap("6")
@@ -8408,7 +8714,8 @@ def main() -> int:
                             + paged + spec + families + disagg
                             + [tools, mesh, mesh["sp"], mesh["moe"], load,
                                card_tools])
-    say(json.dumps({"card": card, "main_path": main_path, "batch": batch,
+    say(json.dumps({"card": card, "main_path": main_path,
+                    "concurrent_captures": concurrent, "batch": batch,
                     "serve": serve, "cross_host": cross_host,
                     "cross_host_cli": cross_host_cli, "guided": guided,
                     "guided_cli": guided_cli_ids, "paged": paged,

@@ -314,8 +314,8 @@ def test_the_default_surface_is_the_port():
 
 def test_the_ports_tree_is_clean_against_its_baseline():
     """What ``make lint`` enforces: no new finding, no stale entry, no
-    unused suppression; CK-JIT finds nothing (the port captures no CUDA
-    graph and compiles nothing yet)."""
+    unused suppression; CK-JIT finds nothing (the decode graphs' capture
+    bodies are host-pure)."""
     mods, parse_findings = core.load_modules()
     unused: list = []
     findings = core.check_modules(mods, analysis.default_checkers(), True,

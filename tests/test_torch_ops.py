@@ -205,8 +205,12 @@ def test_push_and_init_history():
 
 
 def test_gumbel_noise_depends_only_on_the_seed():
-    g = torch.Generator().manual_seed(3)
-    a = tsamp.gumbel_noise(1000, g)
-    b = tsamp.gumbel_noise(1000, g.manual_seed(3))
-    assert torch.equal(a, b) and torch.isfinite(a).all()
+    """The single stream's noise: the keyed draw at stream id 0."""
+    def noise(seed, index):
+        return tsamp.keyed_gumbel_noise(seed, torch.tensor([0]),
+                                        torch.tensor([index]), 1000)[0]
+
+    a = noise(3, 7)
+    assert torch.equal(a, noise(3, 7)) and torch.isfinite(a).all()
+    assert not torch.equal(a, noise(4, 7))
     assert abs(a.mean().item() - 0.5772) < 0.1  # Euler-Mascheroni
